@@ -4,9 +4,12 @@
 Phases (each raises on failure; nothing is caught):
 1. kernel:   builds the Jacobi eigensolver kernel from csrc/, compares it
              with its plain torch version and with torch.linalg.eigh at
-             (B, N) = (512, 16), (128, 64), (7, 13), (20, 11), (5985, 32)
-             in float32 and float64, and times all three at the first two
-             shapes;
+             the main path's shapes (B, N) = (20, 11), (190, 16), (512, 16),
+             (5985, 32), at (128, 64), at an odd N (7, 13) and at (6000, 16)
+             (more matrices than the card holds at once), in float32 and
+             float64, and times all three at all but the last two, beside
+             the kernel's bound (FLOP or bytes, whichever is larger) and its
+             share of it;
 2. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with the kernel in the SCC
              loop, against the exact-eigh route on the card and against
@@ -16,7 +19,13 @@ Phases (each raises on failure; nothing is caught):
              fragment list against the golden weighted total;
 4. driver:   run_calculation on tests/data/port_prism.mqc and
              port_w20_mbe4.mqc (MBE(4), 6195 fragments) with the kernel in
-             the SCC loop, and prism through `python -m metalquicha_tpu_torch`.
+             the SCC loop, and prism through `python -m metalquicha_tpu_torch`;
+             then no module of jax or of the JAX package may be loaded.
+
+`--baseline SRC` builds a second version of the kernel source (an
+earlier commit's `csrc/jacobi_eigh.cu`, same C interface) with the same
+nvcc flags into a temporary directory and times it beside this one in
+phase 1, in the order baseline, this, this, baseline.
 
 The kernel's launch counter is reset before phases 2-4 and must grow in
 each. Diagnostics go to stdout; the line before the last but one is the
@@ -27,6 +36,8 @@ with no result, when CUDA is absent.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -42,11 +53,30 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_gfn1.json")
 TOL_F32 = 5e-5          # tests/test_pallas_eigh.py's tolerance
 TOL_F64_REL = 1e-10     # times ||A||
 DEVICE = "cuda"
-TIMED_SHAPES = ((512, 16), (128, 64))
-# (B, N) of the kernel phase: the timed shapes, an odd N, and the main
-# path's own launches at w20 monomers (20, 11) and the w20 MBE(4) chunk
-# (5985, 32)
-KERNEL_SHAPES = TIMED_SHAPES + ((7, 13), (20, 11), (5985, 32))
+# (B, N) the main path launches: w20 monomers and dimers (executor), the
+# bench dimer slice, the w20 MBE(4) chunk; then the N > 32 path
+TIMED_SHAPES = ((20, 11), (190, 16), (512, 16), (5985, 32), (128, 64))
+# checked only: an odd N, and more N <= 16 matrices than the card holds
+# at once
+KERNEL_SHAPES = TIMED_SHAPES + ((7, 13), (6000, 16))
+SWEEPS = 10             # jacobi_eigh's fixed sweep count
+# H100 SXM peaks (NVIDIA data sheet): FP64 through the tensor cores (34
+# TFLOP/s outside them), FP32 outside the tensor cores, and HBM3
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def jacobi_bound(bsz: int, n: int, dtype):
+    """(bound_ms, bound_by) of SWEEPS sweeps on (bsz, n, n): per rotation
+    12N FLOP (6 per updated pair of elements: the N-2 off-diagonal pairs
+    of rows p, q of A, whose mirrors are copies, and the N pairs of V's
+    columns p, q) plus 20 for (c, s) and the 2x2 diagonal block, N(N-1)/2
+    rotations per sweep; A read once, w and V written once."""
+    flop = bsz * SWEEPS * (n * (n - 1) // 2) * (12 * n + 20)
+    nbytes = bsz * (2 * n * n + n) * torch.finfo(dtype).bits // 8
+    t_flop, t_bytes = flop / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_flop, t_bytes), ("operations" if t_flop >= t_bytes
+                                        else "bytes")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -86,7 +116,35 @@ def wall(fn, reps: int = 1):
     return out, (time.perf_counter() - t0) / reps
 
 
-def kernel_phase(jac, rng):
+def build_baseline(jac, source: str, out_dir: str) -> ctypes.CDLL:
+    """Compile another version of the kernel source with the port's nvcc
+    flags into out_dir and load it."""
+    so = os.path.join(out_dir, "baseline.so")
+    subprocess.run([jac._nvcc(), *jac._NVCC_FLAGS, "-o", so, source],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    for name in ("mqc_jacobi_eigh_f32", "mqc_jacobi_eigh_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def baseline_eigh(lib, a: torch.Tensor):
+    """SWEEPS sweeps of the baseline kernel on a: (w, v)."""
+    bsz, n, _ = a.shape
+    w = torch.empty((bsz, n), dtype=a.dtype, device=a.device)
+    v = torch.empty((bsz, n, n), dtype=a.dtype, device=a.device)
+    fn = (lib.mqc_jacobi_eigh_f64 if a.dtype == torch.float64
+          else lib.mqc_jacobi_eigh_f32)
+    err = fn(a.data_ptr(), w.data_ptr(), v.data_ptr(), bsz, n, SWEEPS,
+             a.device.index, torch.cuda.current_stream(a.device).cuda_stream)
+    check(err == 0, f"baseline kernel launch failed ({err})")
+    return w, v
+
+
+def kernel_phase(jac, rng, base_lib=None):
     """Kernel vs plain version vs torch.linalg.eigh: sorted eigenvalues
     (against the plain version, and against float64 eigh of the same
     input), max |AV - VL| and max |V^T V - I|. Eigenvectors are compared
@@ -119,16 +177,24 @@ def kernel_phase(jac, rng):
                     f"vs_eigh={d_eigh:.2e} resid={resid:.2e} "
                     f"orth={orth:.2e}")
             if (bsz, n) in TIMED_SHAPES:
-                t_p = cuda_ms(lambda: jac.jacobi_eigh_reference(a, 10), 3)
+                if base_lib:
+                    t_b = cuda_ms(lambda: baseline_eigh(base_lib, a), 20)
+                t_p = cuda_ms(lambda: jac.jacobi_eigh_reference(a, 10), 2)
                 t_k = cuda_ms(lambda: jac.jacobi_eigh(a), 20)
-                t_e = cuda_ms(lambda: torch.linalg.eigh(a), 20)
+                t_e = cuda_ms(lambda: torch.linalg.eigh(a), 10)
                 t_k2 = cuda_ms(lambda: jac.jacobi_eigh(a), 20)
-                t_p2 = cuda_ms(lambda: jac.jacobi_eigh_reference(a, 10), 3)
+                t_p2 = cuda_ms(lambda: jac.jacobi_eigh_reference(a, 10), 2)
                 t_k, t_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
+                bound, bound_by = jacobi_bound(bsz, n, dtype)
                 line += (f" | ms: kernel={t_k:.4f} plain={t_p:.4f} "
-                         f"eigh={t_e:.4f}")
-                if dtype == torch.float64 and n == 16:
-                    entry = {"ms": t_k, "plain_ms": t_p}
+                         f"eigh={t_e:.4f} bound={bound:.4f} ({bound_by}) "
+                         f"share={bound / t_k:.3f}")
+                if base_lib:
+                    t_b2 = cuda_ms(lambda: baseline_eigh(base_lib, a), 20)
+                    line += f" baseline={0.5 * (t_b + t_b2):.4f}"
+                if dtype == torch.float64 and (bsz, n) == (512, 16):
+                    entry = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                             "bound_by": bound_by, "library_ms": t_e}
             print(line, flush=True)
             for what, val in (("vs plain", d_plain), ("vs eigh", d_eigh),
                               ("residual", resid), ("orthogonality", orth)):
@@ -276,6 +342,10 @@ def driver_phase(jac, golden):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", metavar="SRC",
+                    help="another kernel source to time beside this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -292,9 +362,13 @@ def main() -> int:
     t0 = time.perf_counter()
     jac.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
-
     rng = np.random.default_rng(0)
-    entry = kernel_phase(jac, rng)
+    if args.baseline:
+        with tempfile.TemporaryDirectory() as tmp:
+            entry = kernel_phase(jac, rng, build_baseline(jac, args.baseline,
+                                                          tmp))
+    else:
+        entry = kernel_phase(jac, rng)
 
     jac.launches = 0
     phases = {}
@@ -305,6 +379,9 @@ def main() -> int:
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
     launches = jac.launches
     check(launches > 0, "the main path launched no Jacobi kernel")
+    jax_side = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "metalquicha_tpu"))
+    check(not jax_side, f"the port loaded {jax_side}")
 
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh",
@@ -315,6 +392,9 @@ def main() -> int:
         "max_abs_err": entry["max_abs_err"],
         "ms": entry["ms"],
         "plain_ms": entry["plain_ms"],
+        "bound_ms": entry["bound_ms"],
+        "bound_by": entry["bound_by"],
+        "library_ms": entry["library_ms"],
     }]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

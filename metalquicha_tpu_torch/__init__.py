@@ -1,10 +1,12 @@
 """metalquicha-tpu on PyTorch: the batched GFN1-xTB MBE single point.
 
 A port of the JAX package `metalquicha_tpu`, which stays beside it as the
-reference. The port imports torch, NumPy and the framework-free modules of
-`metalquicha_tpu` (input parsing, fragmentation, the driver, the basis
-tables), never jax. Its one hand-written kernel, the in-loop batched
-Jacobi eigensolver, is CUDA C++ in `csrc/` (`ops/jacobi_eigh.py`).
+reference. The port imports torch and NumPy, never jax and nothing of
+`metalquicha_tpu`: its host layer (input parsing, fragmentation, the
+driver, the basis and parameter tables) is its own copy, at the same
+relative paths. Its entry points run on the CUDA card unless the caller
+asks for the CPU. Its one hand-written kernel, the in-loop batched Jacobi
+eigensolver, is CUDA C++ in `csrc/` (`ops/jacobi_eigh.py`).
 """
 
 __version__ = "0.1.0"

@@ -24,9 +24,8 @@ def main(argv=None) -> int:
                     help="device to run on (default cuda; fails without one)")
     args = ap.parse_args(argv)
 
-    from metalquicha_tpu.io.json_writer import output_filename_for
-
     from .driver import run_file
+    from .io.json_writer import output_filename_for
 
     overrides = {"force_dtype": "f32"} if args.f32 else {}
     t0 = time.time()

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from metalquicha_tpu.io.adapter import DriverConfig, MethodType
+from ..io.adapter import DriverConfig, MethodType
 
 from .xtb.calculator import XtbCalculator
 from .xtb.engine import settings_from_params

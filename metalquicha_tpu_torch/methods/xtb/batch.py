@@ -1,10 +1,10 @@
 """Padded, batched fragment representation for the xTB engine (GFN1).
 
-Jax-free copy of metalquicha_tpu's `batch.py`, built on the port's own
-`params_gfn1` (the JAX package's cannot be imported without jax). The
-NumPy arrays it builds are held equal to the JAX package's by
-`tests/test_torch_host_tables.py`; `calculator.fragment_data_from_batch`
-turns them into batch-first tensors on the device.
+The port's copy of metalquicha_tpu's `batch.py`, built on the port's own
+`params_gfn1` and `basis`. The NumPy arrays it builds are held equal to
+the JAX package's by `tests/test_torch_host_tables.py`;
+`calculator.fragment_data_from_batch` turns them into batch-first tensors
+on the device.
 
 Padding conventions:
 - atoms: mask=0, numbers=0, coords placed far away on a diagonal line to
@@ -20,8 +20,8 @@ from functools import lru_cache
 
 import numpy as np
 
-from metalquicha_tpu.constants import ANGSTROM_TO_BOHR
-from metalquicha_tpu.methods.xtb.basis import (
+from ...constants import ANGSTROM_TO_BOHR
+from .basis import (
     CARTESIAN_COMPONENTS,
     D_SPHERICAL_FROM_CART,
     orthogonalize_against,

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from metalquicha_tpu.constants import KB_HARTREE
+from ...constants import KB_HARTREE
 
 from .batch import XtbBatch, build_batch
 from .dispersion_d3 import atm_energy, build_d3_tables, d3_energy, full_pair_table
@@ -210,11 +210,23 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings):
     return energy, aux
 
 
+def check_device(device) -> torch.device:
+    """The device to run on; a CUDA device must be present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' (--device cpu on the "
+            "command line) to run on the CPU"
+        )
+    return device
+
+
 class XtbCalculator:
-    """High-level batched GFN1 calculator on one device.
+    """High-level batched GFN1 calculator on one device (the card unless
+    the caller asks for the CPU).
 
     Usage:
-        calc = XtbCalculator(settings, device="cuda")
+        calc = XtbCalculator(settings)              # device="cuda"
         frag = calc.make_batch(fragments)           # host-side padding
         energies, aux = calc.energies(frag)         # (B,)
         energies, grads, aux = calc.gradients(frag)
@@ -224,10 +236,10 @@ class XtbCalculator:
     variant = "gfn1"
 
     def __init__(self, settings: EngineSettings = None, dtype=torch.float64,
-                 device="cpu"):
+                 device="cuda"):
         self.settings = settings or settings_from_params(self.variant)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = check_device(device)
 
     def make_batch(self, fragments, pad_to=None) -> FragmentData:
         batch = build_batch(fragments, variant=self.variant, pad_to=pad_to)

@@ -2,9 +2,8 @@
 
 Counterpart of metalquicha_tpu's `dispersion_d3.py`. Its NumPy half (the
 reference tables, the ext-element merge, `build_d3_tables` and
-`full_pair_table`) is copied here because the JAX module imports
-`jax.numpy` at module level; `params_gfn1.load_overlay` writes the fitted
-overlay into THESE tables. Only the GFN1 (fitted) tables exist: GFN2's
+`full_pair_table`) is the port's own copy; `params_gfn1.load_overlay`
+writes the fitted overlay into THESE tables. Only the GFN1 (fitted) tables exist: GFN2's
 pristine snapshots are not ported.
 
 CN-interpolated reference C6 coefficients with Becke-Johnson rational
@@ -22,7 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from metalquicha_tpu.methods.xtb.params_elements_ext import (
+from .params_elements_ext import (
     EXT_C6_REFS as _EXT_C6,
     EXT_R4R2 as _EXT_R4R2,
 )

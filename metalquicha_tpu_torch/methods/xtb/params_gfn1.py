@@ -1,13 +1,10 @@
-"""GFN1-xTB parameter set (jax-free copy of metalquicha_tpu's).
+"""GFN1-xTB parameter set (the port's copy of metalquicha_tpu's).
 
-The JAX package's `params_gfn1` cannot be imported without jax: its
-overlay autoload pulls in `dispersion_d3`, which imports `jax.numpy` at
-module level. This copy keeps the same records and the same overlay
-logic, writes the D3 overlay into the port's own `dispersion_d3` tables,
-and reads the fitted overlay from the JAX package's
-`metalquicha_tpu/methods/xtb/data/gfn1_fitted.json`, so the fitted digits
-live in one file. `tests/test_torch_host_tables.py` holds every derived
-batch and D3 array equal to the JAX package's.
+Same records and overlay logic as the JAX package's `params_gfn1`; the D3
+overlay goes into the port's own `dispersion_d3` tables, and the fitted
+overlay is the port's own `data/gfn1_fitted.json`, a byte-for-byte copy
+of the JAX package's (`tests/test_torch_host_copies.py` holds them equal,
+and `tests/test_torch_host_tables.py` every derived batch and D3 array).
 
 Functional form follows Grimme, Bannwarth, Shushkov, JCTC 13, 1989 (2017).
 All numeric values live in this module (and can be overlaid from JSON via
@@ -522,7 +519,7 @@ def get_element(z: int) -> ElementRecord:
 # (tblite GFN1, Z <= 86) at least runs here.  Done BEFORE the fitted
 # overlay autoload below so overlays can refine these records too.
 # ---------------------------------------------------------------------------
-from metalquicha_tpu.methods.xtb import params_elements_ext as _ext
+from . import params_elements_ext as _ext
 
 for _z, (_sh, _ng, _lv, _sl, _oc, _sp, _gm, _lg, _g3, _al, _zf, _en,
          _xb) in _ext.EXT_ELEMENTS.items():
@@ -608,15 +605,13 @@ def load_overlay(path: str) -> None:
         _batch.element_basis.cache_clear()
 
 
-# Auto-load the JAX package's fitted parameter overlay if present.
-# MQC_NO_OVERLAY=1 skips it (raw published-base evaluation), as there.
+# Load the fitted parameter overlay; a missing file raises (it is the
+# physics, not an option). MQC_NO_OVERLAY=1 skips it (raw published-base
+# evaluation), as in the JAX package.
 import os as _os
 
-import metalquicha_tpu as _mqc
-
 _OVERLAY_PATH = _os.path.join(
-    _os.path.dirname(_os.path.abspath(_mqc.__file__)),
-    "methods", "xtb", "data", "gfn1_fitted.json",
+    _os.path.dirname(_os.path.abspath(__file__)), "data", "gfn1_fitted.json"
 )
-if _os.path.exists(_OVERLAY_PATH) and not _os.environ.get("MQC_NO_OVERLAY"):
+if not _os.environ.get("MQC_NO_OVERLAY"):
     load_overlay(_OVERLAY_PATH)

@@ -16,7 +16,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from metalquicha_tpu.logging_ import global_logger as logger
+from ..logging_ import global_logger as logger
 
 from ..methods.xtb.batch import element_basis
 from ..methods.xtb.calculator import XtbCalculator
@@ -56,7 +56,8 @@ def _sizes(numbers, variant):
 
 
 class FragmentExecutor:
-    """Evaluates lists of fragments on the calculator's device.
+    """Evaluates lists of fragments on the calculator's device (by default
+    a GFN1 `XtbCalculator` on the card).
 
     what='energy'  -> (energies, aux)
     what='gradient'-> (energies, gradients, aux); gradients are returned

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from metalquicha_tpu.constants import ANGSTROM_TO_BOHR
+from .constants import ANGSTROM_TO_BOHR
 
 WATER_BOHR = (
     np.array([[0.0, 0.0, 0.117], [0.0, 0.757, -0.471], [0.0, -0.757, -0.471]])

@@ -68,7 +68,8 @@ GLY3_FRAG = _gly3_fragment()
 
 
 def restore_jax_overlay():
-    """Re-apply the JAX package's fitted overlay.
+    """Re-apply the JAX package's fitted overlay, for the JAX side of a
+    comparison (the port loads its own copy into its own tables).
 
     Another test file in the same worker (test_param_overlay.py) restores
     most of the JAX tables after its run but clears the fitted D3 pair

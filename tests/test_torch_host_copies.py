@@ -1,0 +1,161 @@
+"""The port's own host layer against the JAX package's, on the same inputs.
+
+The port carries its own copies of the JAX package's framework-free
+modules (input parsing, fragmentation, numerics, results, JSON output, the
+fitted overlay). Each case below runs the same function of both packages
+on the same inputs, made with NumPy from a seed, and the outputs must be
+exactly equal: the copies are the same code.
+"""
+
+import dataclasses
+import enum
+import importlib
+import os
+
+import numpy as np
+import pytest
+from _torch_port_common import REPO
+
+MQC_FILES = ("port_prism.mqc", "port_w20_mbe4.mqc")
+
+
+def _mod(pkg, name):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def _plain(x):
+    """A structure of builtins and arrays that compares equal across the
+    two packages (their dataclasses and enums are distinct classes)."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                {f.name: _plain(getattr(x, f.name))
+                 for f in dataclasses.fields(x)})
+    if isinstance(x, enum.Enum):
+        return (type(x).__name__, x.name, x.value)
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return ("ndarray", x.dtype.str, x.shape, x.tolist())
+    return x
+
+
+def _read_config(pkg, name):
+    config = _mod(pkg, "io.config")
+    adapter = _mod(pkg, "io.adapter")
+    cfg = config.read_mqc_file(os.path.join(REPO, "tests", "data", name))
+    return {"config": cfg, "driver": adapter.config_to_driver(cfg),
+            "systems": adapter.config_to_system_geometries(cfg)}
+
+
+def _prism(pkg):
+    return _read_config(pkg, MQC_FILES[0])["systems"][0][1]
+
+
+def _mbe_weights(pkg):
+    comb = _mod(pkg, "frag.combinatorics")
+    mbe = _mod(pkg, "frag.mbe")
+    polymers = comb.enumerate_polymers(7, 4)
+    return {"polymers": polymers, "weights": mbe.mbe_weights(polymers),
+            "levels": comb.polymer_levels(polymers)}
+
+
+def _gmbe_pie(pkg):
+    """GMBE(2) of the prism hexamer: the dimers overlap in their monomers."""
+    comb = _mod(pkg, "frag.combinatorics")
+    gmbe = _mod(pkg, "frag.gmbe")
+    geometry = _mod(pkg, "geometry")
+    sys_geom = _prism(pkg)
+    dimers = comb.enumerate_polymers(sys_geom.n_monomers, 2)
+    dimers = dimers[(dimers >= 0).sum(axis=1) == 2]
+    atom_sets, coeffs = gmbe.enumerate_pie_terms(
+        gmbe.primary_atom_sets(sys_geom, dimers)
+    )
+    frags = [geometry.build_fragment_from_atom_list(sys_geom, s)
+             for s in atom_sets]
+    rng = np.random.default_rng(3)
+    energies = rng.normal(size=len(frags))
+    gradients = [rng.normal(size=(f.n_total, 3)) for f in frags]
+    dipoles = rng.normal(size=(len(frags), 3))
+    result = gmbe.compute_gmbe_pie(sys_geom, frags, coeffs, energies,
+                                   gradients=gradients, dipoles=dipoles)
+    return {"atom_sets": atom_sets, "coeffs": coeffs, "result": result}
+
+
+def _water_hessian():
+    """A symmetric, positive definite Hessian of a water (seeded)."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(9, 9))
+    numbers = np.array([8, 1, 1])
+    coords = np.array([[0.0, 0.0, 0.221], [0.0, 1.43, -0.89],
+                       [0.0, -1.43, -0.89]])
+    dipder = rng.normal(size=(3, 9))
+    return 0.1 * (x @ x.T) / 9.0, numbers, coords, dipder
+
+
+def _vibrational(pkg):
+    vib = _mod(pkg, "numerics.vibrational")
+    thermo = _mod(pkg, "numerics.thermochemistry")
+    hess, numbers, coords, dipder = _water_hessian()
+    v = vib.compute_vibrational_analysis(hess, numbers, coords,
+                                         dipole_derivatives=dipder)
+    t = thermo.compute_thermochemistry(v.frequencies, numbers, coords,
+                                       temperature=350.0, pressure_atm=2.0)
+    return {"vibrational": v, "thermo": t}
+
+
+def _json_output(pkg, tmp_path):
+    writer = _mod(pkg, "io.json_writer")
+    results = _mod(pkg, "results")
+    out = _gmbe_pie(pkg)
+    vib = _vibrational(pkg)
+    path = tmp_path / f"{pkg}.json"
+    writer.write_json_output(
+        str(path), "prism", out["result"], pie_atom_sets=out["atom_sets"],
+        vibrational=vib["vibrational"], thermo=vib["thermo"],
+    )
+    mbe = _mbe_weights(pkg)
+    rng = np.random.default_rng(5)
+    energies = rng.normal(size=len(mbe["polymers"]))
+    sum_by_level = np.array([energies[mbe["levels"] == k].sum()
+                             for k in range(1, 5)])
+    res = results.MbeResult(
+        total_energy=float(mbe["weights"] @ energies),
+        fragment_energies=energies,
+        delta_energies=_mod(pkg, "frag.mbe").mbe_deltas(mbe["polymers"],
+                                                        energies),
+        sum_by_level=sum_by_level,
+    )
+    multi = tmp_path / f"{pkg}_multi.json"
+    writer.merge_multi_molecule_json(str(multi), "w7", {
+        "a": writer.build_output_object(res, polymers=mbe["polymers"],
+                                        max_level=4),
+    })
+    return {"single": path.read_bytes(), "multi": multi.read_bytes(),
+            "name": writer.output_filename_for("dir/in.mqc", "x")}
+
+
+CASES = {
+    **{f"read_mqc_file[{name}]": (lambda pkg, tmp, n=name: _read_config(pkg, n))
+       for name in MQC_FILES},
+    "enumerate_polymers_and_mbe_weights": lambda pkg, tmp: _mbe_weights(pkg),
+    "enumerate_pie_terms_and_compute_gmbe_pie": lambda pkg, tmp: _gmbe_pie(pkg),
+    "vibrational_and_thermochemistry": lambda pkg, tmp: _vibrational(pkg),
+    "json_writer": _json_output,
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_host_copy_matches_jax_package(case, tmp_path):
+    ref = _plain(CASES[case]("metalquicha_tpu", tmp_path))
+    port = _plain(CASES[case]("metalquicha_tpu_torch", tmp_path))
+    assert port == ref
+
+
+def test_fitted_overlay_is_the_jax_package_file():
+    rel = os.path.join("methods", "xtb", "data", "gfn1_fitted.json")
+    with open(os.path.join(REPO, "metalquicha_tpu", rel), "rb") as fh:
+        ref = fh.read()
+    with open(os.path.join(REPO, "metalquicha_tpu_torch", rel), "rb") as fh:
+        assert fh.read() == ref

@@ -1,11 +1,11 @@
-"""The torch port's jax-free host layer against the JAX package's.
+"""The torch port's own host layer against the JAX package's.
 
 The port carries its own copies of `params_gfn1`, `batch` and the NumPy
-half of `dispersion_d3` (the JAX package's cannot be imported without
-jax). Every derived array must be exactly equal: all XtbBatch fields, the
-D3 tables, the FragmentData the calculator builds, and the engine
-settings. The package must import and run one CPU energy with jax made
-unimportable, and no module of it may import jax.
+half of `dispersion_d3`. Every derived array must be exactly equal: all
+XtbBatch fields, the D3 tables, the FragmentData the calculator builds,
+and the engine settings. The package must import and run one CPU energy
+with jax and the JAX package made unimportable, and no module of it, nor
+chip_smoke.py, may import either.
 """
 
 import ast
@@ -104,33 +104,40 @@ def test_settings_equal():
     assert ts._asdict() == js._asdict()
 
 
-def test_no_module_imports_jax():
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
     for root, _dirs, files in os.walk(PKG):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            tree = ast.parse(open(os.path.join(root, f)).read())
-            for node in ast.walk(tree):
-                names = []
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names = [node.module]
-                for name in names:
-                    assert name.split(".")[0] != "jax", (f, name)
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+
+
+def test_no_module_imports_jax():
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif (isinstance(node, ast.ImportFrom) and node.module
+                  and node.level == 0):
+                names = [node.module]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "metalquicha_tpu"), (
+                    path, name)
 
 
 def test_imports_and_runs_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['metalquicha_tpu'] = None\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "import metalquicha_tpu_torch.__main__, metalquicha_tpu_torch.driver\n"
         "from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator\n"
         "from metalquicha_tpu_torch.workloads import WATER_BOHR\n"
         "import numpy as np\n"
-        "calc = XtbCalculator()\n"
+        "calc = XtbCalculator(device='cpu')\n"
         "e, aux = calc.energies(calc.make_batch(\n"
         "    [(np.array([8, 1, 1]), WATER_BOHR, 0, 1)]))\n"
         "print(repr(float(e[0])))\n"
@@ -143,6 +150,6 @@ def test_imports_and_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
 
-    calc = XtbCalculator()
+    calc = XtbCalculator(device="cpu")
     e, _ = calc.energies(calc.make_batch([WATER]))
     assert float(proc.stdout.strip().splitlines()[-1]) == float(e[0])

@@ -129,7 +129,9 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize(
-    "shape", [(512, 16), (128, 64), (7, 13), (3, 1), (20, 11), (5985, 32)]
+    "shape",
+    [(512, 16), (128, 64), (7, 13), (3, 1), (20, 11), (190, 16), (5985, 32),
+     (5, 33), (6000, 16)],
 )
 def test_kernel_matches_plain_version(cuda, dtype, shape):
     b, n = shape

@@ -159,7 +159,7 @@ def test_degenerate_dimer_gradient_finite():
     finite and translation-invariant."""
     numbers, coords, _, _ = WATER
     far = np.vstack([coords, coords + np.array([30.0, 0.0, 0.0])])
-    calc = XtbCalculator()
+    calc = XtbCalculator(device="cpu")
     frag = calc.make_batch([(np.concatenate([numbers, numbers]), far, 0, 1)])
     S = overlap_matrix(frag.coords, frag.ao_atom, frag.ao_lxyz,
                        frag.prim_alpha, frag.prim_coeff)

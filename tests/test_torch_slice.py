@@ -31,12 +31,12 @@ from _torch_port_common import (
     restore_jax_overlay,
 )
 
-from metalquicha_tpu.io.adapter import config_to_driver
-from metalquicha_tpu.io.config import read_mqc_file
-from metalquicha_tpu.logging_ import global_logger
-from metalquicha_tpu_torch.driver import check_device, make_executor, run_calculation
+from metalquicha_tpu_torch.driver import make_executor, run_calculation
+from metalquicha_tpu_torch.io.adapter import MethodType, config_to_driver
+from metalquicha_tpu_torch.io.config import read_mqc_file
+from metalquicha_tpu_torch.logging_ import global_logger
 from metalquicha_tpu_torch.methods.factory import create_calculator
-from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator, check_device
 from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
 from metalquicha_tpu_torch.workloads import bench_dimers
 
@@ -67,7 +67,7 @@ def jax_mixed():
 def test_calculator_matches_live_jax(jax_mixed, use_pallas_eigh):
     calc = XtbCalculator(settings_from_params(
         "gfn1", use_pallas_eigh=use_pallas_eigh
-    ))
+    ), device="cpu")
     frag = calc.make_batch(MIXED)
     e_j, g_j, q_j = jax_mixed
     e, g, aux = calc.gradients(frag)
@@ -80,7 +80,7 @@ def test_calculator_matches_live_jax(jax_mixed, use_pallas_eigh):
 
 
 def test_gradient_matches_central_differences():
-    calc = XtbCalculator()
+    calc = XtbCalculator(device="cpu")
     numbers, coords, charge, mult = WATER
     _, g, _ = calc.gradients(calc.make_batch([WATER]))
     h = 1e-5
@@ -102,7 +102,7 @@ def test_bench_dimers_match_golden(golden, use_pallas_eigh):
     calc = XtbCalculator(settings_from_params(
         "gfn1", max_scf_iter=gd["max_scf_iter"],
         use_pallas_eigh=use_pallas_eigh,
-    ))
+    ), device="cpu")
     e, g, aux = calc.gradients(calc.make_batch(bench_dimers(gd["n"])))
     assert max_abs_diff(e, gd["energies"]) <= 1e-10
     assert max_abs_diff(g, gd["gradients"]) <= 1e-9
@@ -153,8 +153,6 @@ def test_factory_settings_and_refusals():
     assert calc.settings.scf_tol == pytest.approx(1e-7)
     drv.force_dtype = "f32"
     assert create_calculator(drv, device="cpu").dtype == torch.float32
-
-    from metalquicha_tpu.io.adapter import MethodType
 
     drv.method.method_type = MethodType.GFN2
     with pytest.raises(NotImplementedError, match="A10"):
