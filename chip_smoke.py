@@ -10,16 +10,37 @@ Phases (each raises on failure; nothing is caught):
              float64, and times all three at all but the last two, beside
              the kernel's bound (FLOP or bytes, whichever is larger) and its
              share of it;
-2. slice:    the bench dimer batch (B = 512, seed 0) through
+2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
+             hand-written kernel, as in the JAX package) against the T = 0
+             density built from torch.linalg.eigh on seeded, gapped
+             symmetric matrices with padded states, closed and open shell,
+             at (B, N) = (64, 256) and (128, 96) in float64 (1e-8) and
+             float32 (1e-3); times both routes beside SP2's FLOP bound
+             (48 products of 2 N^3 FLOP per matrix and spin channel);
+3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with the kernel in the SCC
              loop, against the exact-eigh route on the card and against
              the JAX package's float64 goldens (first 8 dimers); energies/s
              and gradients/s; the same batch in float32 for information;
-3. executor: FragmentExecutor.run(what="gradient") on bench's w20 MBE(2)
+4. executor: FragmentExecutor.run(what="gradient") on bench's w20 MBE(2)
              fragment list against the golden weighted total;
-4. driver:   run_calculation on tests/data/port_prism.mqc and
+5. driver:   run_calculation on tests/data/port_prism.mqc and
              port_w20_mbe4.mqc (MBE(4), 6195 fragments) with the kernel in
              the SCC loop, and prism through `python -m metalquicha_tpu_torch`;
+6. solvation: the w20 MBE(2) list through FragmentExecutor with ALPB
+             water (gradients) and CPCM water (energies), the kernel in the
+             SCC loop, against the JAX package's goldens (totals 1e-8 Ha,
+             ALPB |g| 1e-6); wall time and peak device memory;
+7. validation: run_calculation with the factory's settings on every .mqc
+             of tests/data/port_golden_gfn1_full.json (the GFN1 cases of
+             validation/expected.json: unfragmented, MBE, GMBE, charged,
+             multi-molecule, Hessian, solvated) within
+             `validation.GOLDEN_TOLERANCES` of the JAX package's results;
+             unfrag_gly3 (228 AOs in one fragment) and gly10_mbe again on
+             the fast route, where the first must go through SP2 and the
+             second through the Jacobi kernel; one solvated case from its
+             JSON through `python -m metalquicha_tpu_torch.io.prep` and
+             `python -m metalquicha_tpu_torch`;
              then no module of jax or of the JAX package may be loaded.
 
 `--baseline SRC` builds a second version of the kernel source (an
@@ -27,8 +48,9 @@ earlier commit's `csrc/jacobi_eigh.cu`, same C interface) with the same
 nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
-The kernel's launch counter is reset before phases 2-4 and must grow in
-each. Diagnostics go to stdout; the line before the last but one is the
+The kernel's launch counter and SP2's call counter are reset before
+phases 3-7; the first must grow in phases 3-6 and both in phase 7.
+Diagnostics go to stdout; the line before the last but one is the
 kernel JSON line, the line before the last the card's name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Exits non-zero,
 with no result, when CUDA is absent.
@@ -40,6 +62,7 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -50,6 +73,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_gfn1.json")
+GOLDEN_FULL = os.path.join(ROOT, "tests", "data", "port_golden_gfn1_full.json")
 TOL_F32 = 5e-5          # tests/test_pallas_eigh.py's tolerance
 TOL_F64_REL = 1e-10     # times ||A||
 DEVICE = "cuda"
@@ -64,6 +88,11 @@ SWEEPS = 10             # jacobi_eigh's fixed sweep count
 # TFLOP/s outside them), FP32 outside the tensor cores, and HBM3
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# SP2: (B, N, real states), the first the shape bench.py times, and the
+# tolerance of tests/test_sp2.py's class per dtype
+SP2_SHAPES = ((64, 256, 240), (128, 96, 81))
+SP2_ITERS = 48
+SP2_TOL = {torch.float64: 1e-8, torch.float32: 1e-3}
 
 
 def jacobi_bound(bsz: int, n: int, dtype):
@@ -205,6 +234,82 @@ def kernel_phase(jac, rng, base_lib=None):
     return entry
 
 
+def sp2_inputs(rng, bsz, n, n_real, gap=0.5):
+    """(bsz, n, n) symmetric matrices: a random real block of n_real
+    states, the lowest third occupied, with a gap below and above the
+    highest occupied one (so that the closed shell and the doublet with
+    one electron less are both gapped); the other states padding at
+    +100 Ha; and the (bsz, n) mask."""
+    a = np.zeros((bsz, n, n))
+    pad = np.arange(n_real, n)
+    a[:, pad, pad] = 100.0
+    nocc = n_real // 3
+    for b in range(bsz):
+        q, _ = np.linalg.qr(rng.normal(size=(n_real, n_real)))
+        w = np.concatenate([rng.uniform(-2.5, -1.0 - gap, size=nocc - 1),
+                            [-1.0],
+                            rng.uniform(-1.0 + gap, 1.0, size=n_real - nocc)])
+        a[b, :n_real, :n_real] = (q * w[None, :]) @ q.T
+    mask = np.zeros((bsz, n))
+    mask[:, :n_real] = 1.0
+    return a, mask, nocc
+
+
+def eigh_density(a, n_alpha: int, n_beta: int):
+    """T = 0 spin-summed density from torch.linalg.eigh: the n_alpha and
+    n_beta lowest eigenvectors (padding sits at the top)."""
+    _, v = torch.linalg.eigh(a)
+    va, vb = v[..., :n_alpha], v[..., :n_beta]
+    return va @ va.mT + vb @ vb.mT
+
+
+def sp2_phase(rng):
+    """`sp2_density` vs the eigh route: max |P_sp2 - P_eigh|, trace and
+    padding; device ms of both and SP2's FLOP bound."""
+    from metalquicha_tpu_torch.ops.sp2 import sp2_density
+
+    for bsz, n, n_real in SP2_SHAPES:
+        a_np, mask_np, nocc = sp2_inputs(rng, bsz, n, n_real)
+        for dtype in (torch.float64, torch.float32):
+            a = torch.tensor(a_np, dtype=dtype, device=DEVICE)
+            mask = torch.tensor(mask_np, dtype=dtype, device=DEVICE)
+            for shell, nuhf_val in (("closed", 0.0), ("open", 1.0)):
+                n_a = nocc
+                n_b = nocc - int(nuhf_val)
+                nelec = torch.full((bsz,), float(n_a + n_b), dtype=dtype,
+                                   device=DEVICE)
+                nuhf = torch.full((bsz,), nuhf_val, dtype=dtype,
+                                  device=DEVICE)
+                closed = nuhf_val == 0.0
+
+                def run_sp2():
+                    return sp2_density(a, nelec, nuhf, mask,
+                                       iters=SP2_ITERS, closed_shell=closed)
+
+                p_s = run_sp2()
+                p_e = eigh_density(a, n_a, n_b)
+                torch.cuda.synchronize()
+                err = float((p_s - p_e).abs().max())
+                tr = float((torch.diagonal(p_s, dim1=-2, dim2=-1).sum(-1)
+                            - nelec).abs().max())
+                pad = float(p_s[:, n_real:, :].abs().max())
+                t_s = cuda_ms(run_sp2, 5)
+                t_e = cuda_ms(lambda: eigh_density(a, n_a, n_b), 3)
+                flop = bsz * (1 if closed else 2) * SP2_ITERS * 2 * n**3
+                bound = 1e3 * flop / PEAK_FLOPS[dtype]
+                tol = SP2_TOL[dtype]
+                print(f"sp2 {str(dtype)[6:]} B={bsz} N={n} real={n_real} "
+                      f"{shell} shell: vs_eigh={err:.2e} (tol {tol:.0e}) "
+                      f"trace={tr:.2e} padding={pad:.2e} | ms: "
+                      f"sp2={t_s:.3f} eigh_route={t_e:.3f} "
+                      f"bound={bound:.4f} (operations) "
+                      f"share={bound / t_s:.3f}", flush=True)
+                check(err <= tol, f"sp2 vs eigh {err:.3e} > {tol:.0e} at "
+                                  f"B={bsz} N={n} {dtype} {shell}")
+                check(tr <= tol * n, f"sp2 trace off by {tr:.3e}")
+                check(pad <= tol, f"sp2 fills padding ({pad:.3e})")
+
+
 def slice_phase(jac, golden):
     from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
     from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
@@ -341,6 +446,136 @@ def driver_phase(jac, golden):
     return launches
 
 
+def solvation_phase(jac, golden_full):
+    """The solvated w20 MBE(2) list: ALPB gradients and CPCM energies on
+    the Jacobi route against the JAX package's goldens."""
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.methods.xtb.solvation.born import BornSolvation
+    from metalquicha_tpu_torch.methods.xtb.solvation.cpcm import CpcmSolvation
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+    from metalquicha_tpu_torch.workloads import (
+        w20_mbe2_assemble,
+        w20_mbe2_fragments,
+    )
+
+    gold = golden_full["w20_mbe2_solvated"]
+    eps = gold["dielectric"]
+    settings = settings_from_params(
+        "gfn1", max_scf_iter=gold["max_scf_iter"], use_pallas_eigh=True)
+    frags = w20_mbe2_fragments()
+    launches = 0
+    for name, model, what in (
+        ("alpb", BornSolvation(eps, alpb=True), "gradient"),
+        ("cpcm", CpcmSolvation(eps, nang=gold["cpcm"]["nang"]), "energy"),
+    ):
+        ex = FragmentExecutor(XtbCalculator(
+            settings, dtype=torch.float64, device=DEVICE, solvation=model))
+        n0 = jac.launches
+        torch.cuda.reset_peak_memory_stats()
+        out, t = wall(lambda: ex.run(frags, what=what))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_l = jac.launches - n0
+        e, aux = out[0], out[-1]
+        g = out[1] if what == "gradient" else [
+            np.zeros((len(f[0]), 3)) for f in frags]
+        total, gnorm = w20_mbe2_assemble(e, g)
+        d_t = abs(total - gold[name]["total"])
+        d_e = float(np.abs(e - np.asarray(gold[name]["energies"])).max())
+        line = (f"solvation w20 MBE(2) {name} {what}: wall={t:.3f} s "
+                f"peak={peak:.2f} GiB total={total:.10f} d_total={d_t:.2e} "
+                f"max d_fragment={d_e:.2e} "
+                f"resid={aux['scf_residual'].max():.2e} launches={n_l}")
+        check(d_t <= 1e-8, f"{name} w20 MBE(2) total off the golden by "
+                           f"{d_t:.3e}")
+        if what == "gradient":
+            d_n = abs(gnorm - gold[name]["gradient_norm"])
+            line += f" d|g|={d_n:.2e}"
+            check(d_n <= 1e-6, f"{name} w20 MBE(2) |g| off the golden by "
+                               f"{d_n:.3e}")
+        print(line, flush=True)
+        check(n_l > 0, f"solvation {name} launched no Jacobi kernel")
+        launches += n_l
+    return launches
+
+
+def validation_phase(jac, golden_full):
+    """Every GFN1 validation case through `run_calculation` with the factory's
+    settings; two of them again on the fast route; one through prep and
+    the command line."""
+    from metalquicha_tpu_torch.driver import (
+        make_executor,
+        read_mqc_file,
+        run_calculation,
+    )
+    from metalquicha_tpu_torch.ops import sp2
+    from metalquicha_tpu_torch.validation import (
+        checks,
+        golden_failures,
+        observables,
+    )
+
+    def report(tag, name, gold, outputs, t, extra=""):
+        obs = observables(outputs)
+        deltas = " ".join(f"d_{label}={abs(got - exp):.2e}"
+                          for label, got, exp in checks(obs, gold))
+        print(f"validation {tag} {name}: wall={t:.3f} s max_nao="
+              f"{gold['max_nao']} {deltas}{extra}", flush=True)
+        bad = golden_failures(obs, gold)
+        check(not bad, f"{name} ({tag}) off the JAX package's result: {bad}")
+
+    for name, gold in golden_full["driver"].items():
+        cfg = read_mqc_file(os.path.join(ROOT, gold["mqc"]))
+        outputs, t = wall(lambda: run_calculation(cfg, write_json=False,
+                                                  device=DEVICE))
+        report("factory", name, gold, outputs, t)
+
+    launches = 0
+    for name, counter in (("unfrag_gly3", "sp2"), ("gly10_mbe", "jacobi")):
+        gold = golden_full["driver"][name]
+        cfg = read_mqc_file(os.path.join(ROOT, gold["mqc"]))
+        ex = make_executor(cfg, DEVICE)
+        ex.calc.settings = ex.calc.settings._replace(use_pallas_eigh=True)
+        n_j, n_s = jac.launches, sp2.calls
+        outputs, t = wall(lambda: run_calculation(cfg, write_json=False,
+                                                  executor=ex))
+        n_j, n_s = jac.launches - n_j, sp2.calls - n_s
+        report("fast", name, gold, outputs, t,
+               f" jacobi_launches={n_j} sp2_calls={n_s}")
+        check((n_s if counter == "sp2" else n_j) > 0,
+              f"{name} on the fast route did not go through {counter}")
+        if counter == "sp2":
+            check(n_j == 0, f"{name} launched the Jacobi kernel at "
+                            f"{gold['max_nao']} AOs")
+        launches += n_j
+
+    # a solvated case from its JSON: prep, then the command line
+    gold = golden_full["driver"]["alpb_water"]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    inputs = os.path.join(ROOT, "validation", "inputs")
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(os.path.join(inputs, "w1_water.json"), tmp)
+        shutil.copytree(os.path.join(inputs, "sample_inputs"),
+                        os.path.join(tmp, "sample_inputs"))
+        t0 = time.perf_counter()
+        for cmd in (["metalquicha_tpu_torch.io.prep", "w1_water.json"],
+                    ["metalquicha_tpu_torch", "w1_water.mqc"]):
+            proc = subprocess.run([sys.executable, "-m", *cmd], cwd=tmp,
+                                  env=env, capture_output=True, text=True,
+                                  check=False)
+            check(proc.returncode == 0,
+                  f"python -m {' '.join(cmd)} failed:\n{proc.stderr[-4000:]}")
+        t_cli = time.perf_counter() - t0
+    line = [s for s in proc.stdout.splitlines() if "total_energy" in s][-1]
+    total = float(line.split("=")[1].split()[0])
+    d = abs(total - gold["total_energy"])
+    print(f"validation prep+cli alpb_water: wall={t_cli:.3f} s (two "
+          f"processes) total={total:.10f} d_golden={d:.2e}", flush=True)
+    check(d <= 1e-7, f"prep+cli alpb_water total off the golden by {d:.3e}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="SRC",
@@ -350,6 +585,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
+    from metalquicha_tpu_torch.ops import sp2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -358,6 +594,8 @@ def main() -> int:
           flush=True)
     with open(GOLDEN) as fh:
         golden = json.load(fh)
+    with open(GOLDEN_FULL) as fh:
+        golden_full = json.load(fh)
 
     t0 = time.perf_counter()
     jac.build()
@@ -370,15 +608,26 @@ def main() -> int:
     else:
         entry = kernel_phase(jac, rng)
 
+    t0 = time.perf_counter()
+    sp2_phase(rng)
+    print(f"phase sp2: {time.perf_counter() - t0:.2f} s", flush=True)
+
     jac.launches = 0
+    sp2.calls = 0
     phases = {}
-    for name, fn in (("slice", slice_phase), ("executor", executor_phase),
-                     ("driver", driver_phase)):
+    for name, fn, gold in (("slice", slice_phase, golden),
+                           ("executor", executor_phase, golden),
+                           ("driver", driver_phase, golden),
+                           ("solvation", solvation_phase, golden_full),
+                           ("validation", validation_phase, golden_full)):
         t0 = time.perf_counter()
-        phases[name] = fn(jac, golden)
+        phases[name] = fn(jac, gold)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
     launches = jac.launches
     check(launches > 0, "the main path launched no Jacobi kernel")
+    check(sp2.calls > 0, "the main path never went through SP2")
+    print(f"main path: jacobi launches={launches} {phases} "
+          f"sp2 calls={sp2.calls}", flush=True)
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "metalquicha_tpu"))
     check(not jax_side, f"the port loaded {jax_side}")

@@ -39,6 +39,9 @@ def main(argv=None) -> int:
         if out.result.gradient is not None:
             gn = float((out.result.gradient**2).sum() ** 0.5)
             print(f" {label}: gradient_norm = {gn:.9f}")
+        if out.result.hessian is not None:
+            hn = float((out.result.hessian**2).sum() ** 0.5)
+            print(f" {label}: hessian_frobenius_norm = {hn:.9f}")
     print(f"\n output written to {output_filename_for(args.input)}")
     print(f" Total processing time: {elapsed:.2f} s")
     return 0

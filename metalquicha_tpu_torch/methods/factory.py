@@ -1,11 +1,11 @@
-"""Method factory: GFN1-xTB without solvation.
+"""Method factory: GFN1-xTB, with or without implicit solvation.
 
 Counterpart of metalquicha_tpu's `methods/factory.py`. It copies the
 driver's method configuration into the calculator as the JAX factory does
 (SCC budget clamped to [32, 256], early exit at a tenth of the user
-tolerance, electronic temperature) and keeps `use_pallas_eigh=False`. The
-working dtype is float64 (the card has native FP64) unless the driver pins
-"f32".
+tolerance, electronic temperature, solvation model) and keeps
+`use_pallas_eigh=False`. The working dtype is float64 (the card has native
+FP64) unless the driver pins "f32".
 """
 
 from __future__ import annotations
@@ -26,8 +26,6 @@ def create_calculator(drv: DriverConfig, device="cuda") -> XtbCalculator:
         raise NotImplementedError(
             f"method {mt.name} is not ported to torch (GFN1 only)"
         )
-    if drv.method.xtb.has_solvation():
-        raise NotImplementedError("solvation is not ported yet (ROADMAP A11)")
     settings = settings_from_params(
         "gfn1",
         max_scf_iter=max(32, min(drv.method.scf.maxiter, 256)),
@@ -36,6 +34,13 @@ def create_calculator(drv: DriverConfig, device="cuda") -> XtbCalculator:
         scf_tol=0.1 * drv.method.scf.tolerance,
         electronic_temp=drv.method.xtb.electronic_temp,
     )
+    xtb = drv.method.xtb
+    solvation = None
+    if xtb.has_solvation():
+        from .xtb.solvation import make_solvation_model
+
+        solvation = make_solvation_model(xtb, "gfn1")
     fd = getattr(drv, "force_dtype", None)
     dtype = torch.float32 if fd == "f32" else torch.float64
-    return XtbCalculator(settings=settings, dtype=dtype, device=device)
+    return XtbCalculator(settings=settings, dtype=dtype, device=device,
+                         solvation=solvation)

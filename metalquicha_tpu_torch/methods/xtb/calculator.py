@@ -1,7 +1,7 @@
 """Batched GFN1-xTB single-point calculator: energies and autograd gradients.
 
-Counterpart of metalquicha_tpu's `calculator.py` on its GFN1,
-no-solvation path. A whole list of fragments is one padded batch of
+Counterpart of metalquicha_tpu's `calculator.py` on its GFN1 path, with
+or without implicit solvation. A whole list of fragments is one padded batch of
 tensors with a leading fragment axis; gradients are `torch.autograd.grad`
 of the summed variational energies with the SCC charges detached.
 """
@@ -17,6 +17,7 @@ from ...constants import KB_HARTREE
 
 from .batch import XtbBatch, build_batch
 from .dispersion_d3 import atm_energy, build_d3_tables, d3_energy, full_pair_table
+from . import engine as _engine
 from .engine import (
     EngineSettings,
     _atom_charges,
@@ -34,7 +35,8 @@ from .xbond import halogen_bond_energy
 
 class FragmentData(NamedTuple):
     """Per-fragment tensors, each with a leading fragment axis B (the JAX
-    package's field names; the solvation fields stay zero)."""
+    package's field names; the solvation fields are zero without a
+    solvation model)."""
 
     numbers: torch.Tensor
     coords: torch.Tensor
@@ -96,10 +98,25 @@ def fragment_data_from_arrays(arrays, device, dtype=torch.float64):
     )
 
 
-def fragment_data_from_batch(batch: XtbBatch, device, dtype=torch.float64):
-    """FragmentData for a GFN1 batch without solvation."""
+def fragment_data_from_batch(batch: XtbBatch, device, dtype=torch.float64,
+                             solvation=None):
+    """FragmentData for a GFN1 batch; `solvation` (a model of
+    `solvation/`) fills the per-atom solvation tables and scalars."""
     nfrag = batch.n_fragments
     d3 = [build_d3_tables(batch.numbers[b]) for b in range(nfrag)]
+    if solvation is not None:
+        solv = [solvation.host_tables(batch.numbers[b]) for b in range(nfrag)]
+        solv_rvdw = np.stack([t["solv_rvdw"] for t in solv])
+        solv_sx = np.stack([t["solv_sx"] for t in solv])
+        solv_tension = np.stack(
+            [t.get("solv_tension", np.zeros_like(t["solv_rvdw"])) for t in solv]
+        )
+        solv_scalars = np.tile(solvation.default_scalars(), (nfrag, 1))
+    else:
+        solv_rvdw = np.zeros_like(batch.at_rcov)
+        solv_sx = np.zeros_like(batch.at_rcov)
+        solv_tension = np.zeros_like(batch.at_rcov)
+        solv_scalars = np.zeros((nfrag, 4))
     arrays = {
         k: getattr(batch, k)
         for k in FragmentData._fields
@@ -110,10 +127,10 @@ def fragment_data_from_batch(batch: XtbBatch, device, dtype=torch.float64):
         d3_zidx=np.stack([t["zidx"] for t in d3]),
         d3_sqrtc6=np.stack([t["sqrtc6"] for t in d3]),
         d3_r4r2=np.stack([t["r4r2"] for t in d3]),
-        solv_rvdw=np.zeros_like(batch.at_rcov),
-        solv_sx=np.zeros_like(batch.at_rcov),
-        solv_tension=np.zeros_like(batch.at_rcov),
-        solv_scalars=np.zeros((nfrag, 4)),
+        solv_rvdw=solv_rvdw,
+        solv_sx=solv_sx,
+        solv_tension=solv_tension,
+        solv_scalars=solv_scalars,
     )
     tensors = {k: _to_tensor(v, device, dtype) for k, v in arrays.items()}
     # every fragment shares the one pair table: a broadcast view, not B
@@ -133,8 +150,18 @@ def _d3_tables(frag: FragmentData):
     }
 
 
+def _solv_gamma(coords, frag: FragmentData, solvation):
+    """The solvation model's atom-level kernel (B, nat, nat), or None."""
+    if solvation is None:
+        return None
+    return solvation.gamma_atoms(
+        coords, frag.solv_rvdw, frag.solv_sx, frag.atom_mask,
+        scalars=frag.solv_scalars,
+    )
+
+
 def _converge_charges(coords, frag: FragmentData, kt,
-                      settings: EngineSettings):
+                      settings: EngineSettings, solvation=None):
     """Run the SCC on detached inputs: converged shell charges q* (B, nsh)
     and residuals (B,), neither of which carries a gradient. The
     variational functional downstream carries the exact derivatives."""
@@ -144,22 +171,29 @@ def _converge_charges(coords, frag: FragmentData, kt,
             c, frag.at_rcov, frag.atom_mask, frag.glb[:, 11], settings.cn_type
         )
         gamma = gamma_matrix(c, frag, settings)
+        gamma_at = _solv_gamma(c, frag, solvation)
         S = overlap_matrix(
             c, frag.ao_atom, frag.ao_lxyz, frag.prim_alpha, frag.prim_coeff
         )
         H0 = h0_matrix(S, c, frag, cn, settings)
-        return scf_solve(H0, S, gamma, frag, kt, settings)
+        return scf_solve(H0, S, gamma, frag, kt, settings, gamma_at)
 
 
-def single_point_energy(coords, frag: FragmentData, settings: EngineSettings):
+def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
+                        solvation=None):
     """Total GFN1 energies (B,) of a padded batch; differentiable in coords.
+
+    solvation: optional model (ALPB/GBSA/CPCM); its kernel enters the SCC
+    detached and the variational functional differentiably, and its
+    surface term (CDS + shift, ALPB/GBSA) is added to the total.
 
     Returns (energy, aux) with aux = {charges, shell_charges, scf_residual,
     dipole, e_el, e_rep, e_disp}, each with a leading fragment axis."""
     if settings.multipoles:
         raise NotImplementedError("GFN2 multipoles are ROADMAP A10")
     kt = settings.electronic_temp * KB_HARTREE
-    q_star, resid = _converge_charges(coords, frag, kt, settings)
+    q_star, resid = _converge_charges(coords, frag, kt, settings, solvation)
+    gamma_at = _solv_gamma(coords, frag, solvation)
 
     # dispersion rides its OWN coordination number (tblite's d3 container
     # uses the classic single-exponential D3 CN)
@@ -168,7 +202,7 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings):
         settings.cn_type_d3,
     )
     e_el, _eps, _f, _entropy = electronic_energy(
-        coords, q_star, frag, kt, settings
+        coords, q_star, frag, kt, settings, gamma_at
     )
     d3tab = _d3_tables(frag)
     glb = frag.glb
@@ -198,6 +232,10 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings):
     )
 
     energy = e_el + e_rep + e_disp + e_atomic + e_xb
+    # CDS surface + solution-state shift terms (ALPB/GBSA; the reference
+    # wires them via tblite and defaults them ON)
+    if solvation is not None and hasattr(solvation, "surface_energy"):
+        energy = energy + solvation.surface_energy(coords, frag)
     aux = {
         "charges": q_at,
         "shell_charges": q_star,
@@ -236,22 +274,52 @@ class XtbCalculator:
     variant = "gfn1"
 
     def __init__(self, settings: EngineSettings = None, dtype=torch.float64,
-                 device="cuda"):
+                 device="cuda", solvation=None):
         self.settings = settings or settings_from_params(self.variant)
         self.dtype = dtype
         self.device = check_device(device)
+        self.solvation = solvation
+
+    def _settings_for(self, frag: FragmentData):
+        """Per-batch settings: keep SP2 off batches where it is unsafe.
+
+        SP2 builds a T=0 integer-occupation projector; it agrees with the
+        production 300 K Fermi-smeared fixed point only for closed-shell
+        fragments with a clear HOMO-LUMO gap. Open-shell batches (nuhf > 0)
+        and d/f-block elements (near-degenerate partially filled d levels)
+        above the Jacobi kernel's ceiling get the exact in-loop eigensolver
+        instead. One host check per batch, in either dtype."""
+        s = self.settings
+        if not s.use_pallas_eigh:
+            return s
+        if frag.ao_mask.shape[-1] <= _engine.PALLAS_EIGH_MAX_N:
+            return s  # Jacobi kernel: a true eigh, smearing intact
+        nums = frag.numbers
+        d_block = (
+            ((nums >= 21) & (nums <= 30))
+            | ((nums >= 39) & (nums <= 48))
+            | ((nums >= 57) & (nums <= 80))
+            | (nums >= 89)
+        )
+        if bool(d_block.any() | (frag.nuhf != 0).any()):
+            return s._replace(use_pallas_eigh=False)
+        return s
 
     def make_batch(self, fragments, pad_to=None) -> FragmentData:
         batch = build_batch(fragments, variant=self.variant, pad_to=pad_to)
-        return fragment_data_from_batch(batch, self.device, self.dtype)
+        return fragment_data_from_batch(batch, self.device, self.dtype,
+                                        solvation=self.solvation)
 
     def energies(self, frag: FragmentData):
         with torch.no_grad():
-            return single_point_energy(frag.coords, frag, self.settings)
+            return single_point_energy(frag.coords, frag,
+                                       self._settings_for(frag),
+                                       self.solvation)
 
     def gradients(self, frag: FragmentData):
         coords = frag.coords.detach().requires_grad_(True)
-        e, aux = single_point_energy(coords, frag, self.settings)
+        e, aux = single_point_energy(coords, frag, self._settings_for(frag),
+                                     self.solvation)
         (g,) = torch.autograd.grad(e.sum(), coords)
         aux = {k: v.detach() for k, v in aux.items()}
         return e.detach(), g, aux

@@ -25,6 +25,7 @@ import torch
 
 from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
 from ...ops.jacobi_eigh import jacobi_eigh
+from ...ops.sp2 import sp2_density
 from .batch import PAD_LEVEL
 from .overlap import overlap_matrix
 
@@ -71,9 +72,10 @@ class EngineSettings(NamedTuple):
     cn_type: str = "exp"
     #: CN counting function for D3 dispersion C6 interpolation
     cn_type_d3: str = "exp"
-    #: in-loop SCC eigensolve through the hand-written Jacobi kernel
-    #: (ops/jacobi_eigh.py) for AO dims <= PALLAS_EIGH_MAX_N, in either
-    #: dtype. The final variational energy always uses `eigh_safe`.
+    #: fast in-loop SCC solve, in either dtype: the hand-written Jacobi
+    #: kernel (ops/jacobi_eigh.py) for AO dims <= PALLAS_EIGH_MAX_N, SP2
+    #: purification (ops/sp2.py) above. The final variational energy
+    #: always uses `eigh_safe`.
     use_pallas_eigh: bool = False
     #: GFN2 mode (not ported: ROADMAP A10)
     multipoles: bool = False
@@ -422,25 +424,38 @@ def _atom_charges(q_sh, batch):
     return _scatter_sum(q_sh * batch.sh_mask, batch.sh_atom, nat)
 
 
-def _coulomb_potential(q_sh, gamma, batch, settings):
-    """v_sh = dE_coul/dq_sh (shell), with the third-order atom term."""
-    v = (gamma @ q_sh[..., None])[..., 0]
-    if settings.third_order:
+def _matvec(m, x):
+    return (m @ x[..., None])[..., 0]
+
+
+def _coulomb_potential(q_sh, gamma, batch, settings, gamma_at=None):
+    """v_sh = dE_coul/dq_sh (shell); third-order + atom-level (solvation,
+    gamma_at (B, nat, nat))."""
+    v = _matvec(gamma, q_sh)
+    if settings.third_order or gamma_at is not None:
         q_at = _atom_charges(q_sh, batch)
-        v = v + _take(batch.at_gam3 * q_at**2, batch.sh_atom)
+        v_at = torch.zeros_like(q_at)
+        if settings.third_order:
+            v_at = v_at + batch.at_gam3 * q_at**2
+        if gamma_at is not None:
+            v_at = v_at + _matvec(gamma_at, q_at)
+        v = v + _take(v_at, batch.sh_atom)
     return v
 
 
-def _coulomb_energy(q_sh, gamma, batch, settings):
-    e2 = 0.5 * (q_sh * (gamma @ q_sh[..., None])[..., 0]).sum(-1)
-    if settings.third_order:
+def _coulomb_energy(q_sh, gamma, batch, settings, gamma_at=None):
+    e2 = 0.5 * (q_sh * _matvec(gamma, q_sh)).sum(-1)
+    if settings.third_order or gamma_at is not None:
         q_at = _atom_charges(q_sh, batch)
-        e2 = e2 + (batch.at_gam3 * q_at**3).sum(-1) / 3.0
+        if settings.third_order:
+            e2 = e2 + (batch.at_gam3 * q_at**3).sum(-1) / 3.0
+        if gamma_at is not None:
+            e2 = e2 + 0.5 * (q_at * _matvec(gamma_at, q_at)).sum(-1)
     return e2
 
 
-def _fock(H0, S, q_sh, gamma, batch, settings):
-    v_sh = _coulomb_potential(q_sh, gamma, batch, settings)
+def _fock(H0, S, q_sh, gamma, batch, settings, gamma_at=None):
+    v_sh = _coulomb_potential(q_sh, gamma, batch, settings, gamma_at)
     v_ao = _take(v_sh, batch.ao_shell)
     # population derivative: dE/dn = -dE/dq
     return H0 - 0.5 * (v_ao[:, :, None] + v_ao[:, None, :]) * S
@@ -453,9 +468,11 @@ def _shell_populations(P, S, batch):
 
 
 def _jacobi_route(S):
-    """Orthogonalizer for the in-loop Jacobi eigensolver: canonical S^-1/2
-    with linear dependence removed below 1e-5 (the JAX in-loop route's
-    threshold) and the removed combos pinned at +PAD_LEVEL."""
+    """Orthogonalizer for the fast in-loop solvers (Jacobi kernel, SP2):
+    canonical S^-1/2 with linear dependence removed below 1e-5 (the JAX
+    in-loop route's threshold) and the removed combos pinned at +PAD_LEVEL,
+    so they are never occupied by the eigensolver's filling nor by SP2's
+    trace projection."""
     s_eig, U = torch.linalg.eigh(S)
     lindep = 1e-5
     s_keep = (s_eig > lindep).to(S.dtype)
@@ -476,7 +493,8 @@ def _jacobi_route(S):
 _DONE_CHECK_EVERY = 4
 
 
-def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings):
+def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
+              gamma_at=None):
     """Bounded SCC loop (not differentiated) with Anderson mixing.
 
     Returns converged shell charges q* (B, nsh) and the final charge
@@ -487,35 +505,46 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings):
     broyden_memory with Tikhonov-regularized normal equations, a c_lim
     safeguard and damped steps as fallback.
 
-    With settings.use_pallas_eigh the in-loop eigensolve goes through the
-    Jacobi kernel for nao <= PALLAS_EIGH_MAX_N.
-    """
-    nao = S.shape[-1]
-    if settings.use_pallas_eigh:
-        if nao > PALLAS_EIGH_MAX_N:
-            raise NotImplementedError(
-                f"use_pallas_eigh with nao = {nao} > {PALLAS_EIGH_MAX_N}: "
-                "the JAX package switches to SP2 purification here, which "
-                "is not ported yet (ROADMAP A9)"
-            )
-        Xs, shift_out = _jacobi_route(S)
+    gamma_at: optional atom-level kernel addition (solvation), (B, nat,
+    nat).
 
-        def solve_eigh(F):
-            eps, Cp = jacobi_eigh(Xs @ F @ Xs + shift_out)
-            return eps, Xs @ Cp
+    With settings.use_pallas_eigh the in-loop solve is the fast route, in
+    either dtype: the Jacobi kernel for nao <= PALLAS_EIGH_MAX_N, and above
+    it SP2 density purification (ops/sp2.py): 48 batched (N, N) products
+    replace the eigensolver, valid inside the fixed-point loop because only
+    the density is needed there.
+    """
+    use_sp2 = settings.use_pallas_eigh and S.shape[-1] > PALLAS_EIGH_MAX_N
+    if settings.use_pallas_eigh:
+        Xs, shift_out = _jacobi_route(S)
     else:
         ortho = _ortho_factors(S)
 
-        def solve_eigh(F):
-            return _general_eigh(F, ortho)
+    if use_sp2:
+        # one device-to-host sync per solve, not one per iteration
+        closed_shell = bool((batch.nuhf == 0).all())
+
+        def make_density(F):
+            Po = sp2_density(
+                Xs @ F @ Xs + shift_out, batch.nelec, batch.nuhf,
+                batch.ao_mask, closed_shell=closed_shell,
+            )
+            return Xs @ Po @ Xs
+    else:
+        def make_density(F):
+            if settings.use_pallas_eigh:
+                eps, Cp = jacobi_eigh(Xs @ F @ Xs + shift_out)
+                C = Xs @ Cp
+            else:
+                eps, C = _general_eigh(F, ortho)
+            f, _ = occupations(
+                eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
+                settings.fixed_occupations,
+            )
+            return (C * f[:, None, :]) @ C.transpose(-1, -2)
 
     def fixed_point(q):
-        eps, C = solve_eigh(_fock(H0, S, q, gamma, batch, settings))
-        f, _ = occupations(
-            eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
-            settings.fixed_occupations,
-        )
-        P = (C * f[:, None, :]) @ C.transpose(-1, -2)
+        P = make_density(_fock(H0, S, q, gamma, batch, settings, gamma_at))
         n_sh = _shell_populations(P, S, batch)
         return (batch.sh_refocc - n_sh) * batch.sh_mask
 
@@ -575,10 +604,13 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings):
     return q, resid
 
 
-def electronic_energy(coords, q_star, batch, kt, settings: EngineSettings):
+def electronic_energy(coords, q_star, batch, kt, settings: EngineSettings,
+                      gamma_at=None):
     """Variational total electronic energy at converged charges q*, (B,).
 
-    Differentiable in `coords`; q* must be detached by the caller. Returns
+    Differentiable in `coords`; q* must be detached by the caller.
+    gamma_at: optional atom-level kernel addition (solvation), a function
+    of coords upstream so its geometric derivatives flow. Returns
     (E_el, eps, f, entropy)."""
     S = overlap_matrix(
         coords, batch.ao_atom, batch.ao_lxyz, batch.prim_alpha,
@@ -591,7 +623,7 @@ def electronic_energy(coords, q_star, batch, kt, settings: EngineSettings):
     H0 = h0_matrix(S, coords, batch, cn, settings)
     gamma = gamma_matrix(coords, batch, settings)
 
-    F = _fock(H0, S, q_star, gamma, batch, settings)
+    F = _fock(H0, S, q_star, gamma, batch, settings, gamma_at)
     eps, C = _general_eigh(F, _ortho_factors(S))
     f, entropy = occupations(
         eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
@@ -600,12 +632,12 @@ def electronic_energy(coords, q_star, batch, kt, settings: EngineSettings):
     f = f.detach()
     e_band = (f * eps).sum(-1)
 
-    v_sh = _coulomb_potential(q_star, gamma, batch, settings)
+    v_sh = _coulomb_potential(q_star, gamma, batch, settings, gamma_at)
     n_star = (batch.sh_refocc - q_star) * batch.sh_mask
     # E_band = tr(P H0) - sum_sh v_sh n_sh, so adding back sum v n* recovers
     # tr(P H0); E_coul then adds the charge-fluctuation energy once.
     e_el = e_band + (v_sh * n_star).sum(-1) + _coulomb_energy(
-        q_star, gamma, batch, settings
+        q_star, gamma, batch, settings, gamma_at
     )
     if settings.include_entropy and not settings.fixed_occupations:
         e_el = e_el - kt * entropy.detach()

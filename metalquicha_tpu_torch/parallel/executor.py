@@ -4,9 +4,11 @@ Counterpart of metalquicha_tpu's `parallel/executor.py`: fragments are
 grouped into atom-count buckets with common padded shapes, each bucket is
 evaluated in chunks of at most 2e8 / nao^2 fragments (the engine holds
 several (B, nao, nao) and the overlap matrix (B, nao, nao, nprim, nprim)
-intermediates), and the results are scattered back per fragment, truncated
-to each fragment's real size. The mesh, the f64 host polisher and rescue,
-and the TPU batch quantum are not ported.
+intermediates; a solvation model adds its own largest intermediate to
+nao^2: CPCM's (nat nang)^2 point-point matrix, the (nat, nang, nat) SASA
+integrand of ALPB/GBSA), and the results are scattered back per fragment,
+truncated to each fragment's real size. The mesh, the f64 host polisher and
+rescue, and the TPU batch quantum are not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from ..methods.xtb.calculator import XtbCalculator
 #: atom-count bucket ladder; shells/AOs scale with atoms per bucket
 ATOM_BUCKETS = (2, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 
-#: cap on B * nao^2 per dispatched chunk
+#: cap on B * (nao^2 + the solvation model's work elements) per
+#: dispatched chunk
 MAX_CHUNK_ELEMENTS = 2.0e8
 
 
@@ -85,6 +88,14 @@ class FragmentExecutor:
         nao = max(max_nao, int(2.5 * bucket_atoms) + 1)
         return bucket_atoms, nsh, nao
 
+    def _max_chunk(self, pad_to) -> int:
+        """Most fragments of padded shape (nat, nsh, nao) per chunk."""
+        nat, _nsh, nao = pad_to
+        per_fragment = nao * nao
+        if self.calc.solvation is not None:
+            per_fragment += self.calc.solvation.work_elements(nat)
+        return max(1, int(MAX_CHUNK_ELEMENTS // per_fragment))
+
     def run(self, fragments, what: str = "energy"):
         n = len(fragments)
         t0 = time.time()
@@ -99,8 +110,7 @@ class FragmentExecutor:
 
         for bucket_atoms, members in sorted(self._buckets(fragments).items()):
             pad_to = self._pad_shapes_for(bucket_atoms, members)
-            nao_pad = pad_to[2]
-            max_b = max(1, int(MAX_CHUNK_ELEMENTS // (nao_pad * nao_pad)))
+            max_b = self._max_chunk(pad_to)
             for start in range(0, len(members), max_b):
                 chunk = members[start : start + max_b]
                 self._run_chunk(chunk, pad_to, what, energies, gradients,

@@ -1,8 +1,8 @@
 """The port's own host layer against the JAX package's, on the same inputs.
 
 The port carries its own copies of the JAX package's framework-free
-modules (input parsing, fragmentation, numerics, results, JSON output, the
-fitted overlay). Each case below runs the same function of both packages
+modules (input parsing, the JSON preprocessor, fragmentation, numerics,
+results, JSON output, the angular grids, the fitted overlays). Each case below runs the same function of both packages
 on the same inputs, made with NumPy from a seed, and the outputs must be
 exactly equal: the copies are the same code.
 """
@@ -10,6 +10,7 @@ exactly equal: the copies are the same code.
 import dataclasses
 import enum
 import importlib
+import json
 import os
 
 import numpy as np
@@ -136,9 +137,56 @@ def _json_output(pkg, tmp_path):
             "name": writer.output_filename_for("dir/in.mqc", "x")}
 
 
+def _validation_inputs():
+    with open(os.path.join(REPO, "validation", "expected.json")) as fh:
+        return sorted({t["input"] for t in json.load(fh)["tests"]})
+
+
+def _emit_mqc(pkg, name):
+    """The .mqc text of a validation input, and what the package's own
+    parser makes of it."""
+    prep = _mod(pkg, "io.prep")
+    config = _mod(pkg, "io.config")
+    path = os.path.join(REPO, "validation", "inputs", name)
+    with open(path) as fh:
+        text = prep.emit_mqc(json.load(fh), base_dir=os.path.dirname(path))
+    return {"text": text, "config": config.parse_mqc_string(text),
+            "solvents": sorted(prep.KNOWN_SOLVENTS)}
+
+
+def _angular_grids(pkg):
+    grids = _mod(pkg, "methods.xtb.solvation.grids")
+    return {n: grids.angular_grid(n) for n in (50, 110, 194, 1000)}
+
+
+def _solvation_tables(pkg):
+    """Parameter sets after the overlay, per-atom tables and scalars."""
+    solv = _mod(pkg, "methods.xtb.solvation")
+    born = _mod(pkg, "methods.xtb.solvation.born")
+    cpcm = _mod(pkg, "methods.xtb.solvation.cpcm")
+    numbers = np.array([8, 1, 1, 6, 7, 16, 0])
+    models = {"alpb": born.BornSolvation(78.4, alpb=True),
+              "gbsa": born.BornSolvation(78.4, alpb=False, use_cds=False,
+                                         solvent="dmso"),
+              "cpcm": cpcm.CpcmSolvation(78.4, rscale=1.1)}
+    return {
+        "dielectrics": solv.SOLVENT_DIELECTRICS,
+        "param_sets": born.PARAM_SETS,
+        "constants": [born.RHO_OFFSET, born.ALPB_ALPHA, born.PROBE_RADIUS,
+                      born.SASA_SWITCH, born.SURFACE_TENSION, born.GSHIFT,
+                      cpcm.COSMO_X, cpcm.SELF_INTERACTION, cpcm.SWITCH_WIDTH],
+        "tables": {k: m.host_tables(numbers) for k, m in models.items()},
+        "scalars": {k: m.default_scalars() for k, m in models.items()},
+    }
+
+
 CASES = {
     **{f"read_mqc_file[{name}]": (lambda pkg, tmp, n=name: _read_config(pkg, n))
        for name in MQC_FILES},
+    **{f"emit_mqc[{name}]": (lambda pkg, tmp, n=name: _emit_mqc(pkg, n))
+       for name in _validation_inputs()},
+    "angular_grid": lambda pkg, tmp: _angular_grids(pkg),
+    "solvation_tables": lambda pkg, tmp: _solvation_tables(pkg),
     "enumerate_polymers_and_mbe_weights": lambda pkg, tmp: _mbe_weights(pkg),
     "enumerate_pie_terms_and_compute_gmbe_pie": lambda pkg, tmp: _gmbe_pie(pkg),
     "vibrational_and_thermochemistry": lambda pkg, tmp: _vibrational(pkg),
@@ -153,9 +201,19 @@ def test_host_copy_matches_jax_package(case, tmp_path):
     assert port == ref
 
 
-def test_fitted_overlay_is_the_jax_package_file():
-    rel = os.path.join("methods", "xtb", "data", "gfn1_fitted.json")
+def _same_bytes(rel):
     with open(os.path.join(REPO, "metalquicha_tpu", rel), "rb") as fh:
         ref = fh.read()
     with open(os.path.join(REPO, "metalquicha_tpu_torch", rel), "rb") as fh:
-        assert fh.read() == ref
+        return fh.read() == ref
+
+
+def test_fitted_overlay_is_the_jax_package_file():
+    assert _same_bytes(os.path.join("methods", "xtb", "data",
+                                    "gfn1_fitted.json"))
+
+
+@pytest.mark.parametrize("rel", ["data/solv_fitted.json",
+                                 "solvation/data/lebedev.json"])
+def test_solvation_data_file_is_the_jax_package_file(rel):
+    assert _same_bytes(os.path.join("methods", "xtb", *rel.split("/")))

@@ -106,6 +106,7 @@ def test_settings_equal():
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "run_validation_torch.py")
     for root, _dirs, files in os.walk(PKG):
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
 

@@ -1,7 +1,8 @@
 """Torch port vs JAX package: the SCC and the eigen-machinery.
 
 - q* from the exact in-loop eigh and from the Jacobi route against the JAX
-  package's `scf_solve` (float64, exact eigh) at 1e-9;
+  package's `scf_solve` (float64, exact eigh) at 1e-9; above the kernel's
+  ceiling the fast route is SP2 (more in test_torch_sp2.py);
 - the per-fragment freeze with scf_tol > 0: a batch whose members stop at
   different iterations matches JAX's vmapped while_loop and the port's own
   one-fragment runs;
@@ -112,14 +113,26 @@ def test_scf_per_fragment_freeze(batch):
         assert max_abs_diff(resid_b[0], resid[b]) <= 1e-13
 
 
-def test_jacobi_route_raises_above_kernel_size(batch):
-    _, tf = batch
-    settings = tsp("gfn1", use_pallas_eigh=True)
-    H0, S, gamma = _scc_inputs(tf, settings)
+def test_jacobi_route_raises_above_kernel_size():
+    """The kernel's wrapper refuses N above its ceiling; the SCC's fast
+    route does not reach it there: it takes SP2, and lands on the exact
+    route's charges (1e-8: T = 0 against 300 K filling of a gapped water)."""
+    from metalquicha_tpu_torch.ops import jacobi_eigh, sp2
+
     n = te.PALLAS_EIGH_MAX_N + 1
-    big = torch.eye(n, dtype=S.dtype).expand(S.shape[0], n, n)
-    with pytest.raises(NotImplementedError, match="A9"):
-        te.scf_solve(big, big, gamma, tf, KT, settings)
+    with pytest.raises(ValueError, match="exceeds MAX_N"):
+        jacobi_eigh.batched_jacobi_eigh(torch.eye(n, dtype=torch.float64)[None])
+    tf = port_from_jax(jax_fragment_data([WATER], pad_to=(3, 6, n)))
+    settings = tsp("gfn1", use_pallas_eigh=True, max_scf_iter=64,
+                   scf_tol=1e-10)
+    inputs = _scc_inputs(tf, settings)
+    n0 = sp2.calls
+    q_fast, resid = te.scf_solve(*inputs, tf, KT, settings)
+    assert sp2.calls > n0
+    assert float(resid.max()) < 1e-9
+    q_exact, _ = te.scf_solve(*inputs, tf, KT,
+                              settings._replace(use_pallas_eigh=False))
+    assert max_abs_diff(q_fast, q_exact) <= 1e-8
 
 
 def test_eigh_safe_backward_degenerate_matches_jax():

@@ -160,7 +160,11 @@ def test_factory_settings_and_refusals():
     drv.method.method_type = MethodType.GFN1
     drv.method.xtb.solvent = "water"
     drv.method.xtb.solvation_model = "alpb"
-    with pytest.raises(NotImplementedError, match="A11"):
+    solvated = create_calculator(drv, device="cpu")
+    assert solvated.solvation.kind == "born" and solvated.solvation.alpb
+    assert solvated.solvation.dielectric == 78.4
+    drv.method.xtb.solvation_model = "pcm"
+    with pytest.raises(NotImplementedError, match="pcm"):
         create_calculator(drv, device="cpu")
 
 

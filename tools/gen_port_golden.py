@@ -10,14 +10,24 @@ Writes, from the repository root:
 - tests/data/port_golden_gfn1.json: the first 8 dimers of bench.py's batch
   (energies, gradients, converged shell charges, e_el/e_rep/e_disp), the
   w20 MBE(2) total and assembled-gradient norm of bench.py's executor
-  pass, and the driver totals of prism_mbe and w20_mbe, with the commit.
+  pass, and the driver totals of prism_mbe and w20_mbe, with the commit;
+- tests/data/port_golden_gfn1_full.json and tests/data/port_full_<case>.mqc:
+  the other GFN1 cases of validation/expected.json through `run_calculation`
+  (totals, and where the case has them gradient norm, Hessian Frobenius
+  norm, frequencies, ZPE, Gibbs correction; the padded (nat, nsh, nao) and
+  size of every executor chunk, which shows the cases whose AO count
+  exceeds the Jacobi kernel's 64 and so reach SP2 on the fast route); a
+  single water with ALPB, GBSA and CPCM (energy, gamma_at, Born radii,
+  surface energy, gradient); and bench.py's w20 MBE(2) list with ALPB
+  water (energies, gradients, total, |g|) and CPCM water (energies).
 
-Usage: python tools/gen_port_golden.py   (a few minutes on a CPU)
+Usage: python tools/gen_port_golden.py   (about five minutes on a CPU)
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,14 +45,18 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from metalquicha_tpu.driver import run_calculation  # noqa: E402
+from metalquicha_tpu.driver import _make_executor, run_calculation  # noqa: E402
+from metalquicha_tpu.io.adapter import config_to_driver  # noqa: E402
 from metalquicha_tpu.io.config import read_mqc_file  # noqa: E402
 from metalquicha_tpu.io.prep import emit_mqc  # noqa: E402
 from metalquicha_tpu.logging_ import global_logger  # noqa: E402
 from metalquicha_tpu.methods.xtb.calculator import XtbCalculator  # noqa: E402
 from metalquicha_tpu.methods.xtb.engine import settings_from_params  # noqa: E402
+from metalquicha_tpu.methods.xtb.solvation.born import BornSolvation  # noqa: E402
+from metalquicha_tpu.methods.xtb.solvation.cpcm import CpcmSolvation  # noqa: E402
 from metalquicha_tpu.parallel.executor import FragmentExecutor  # noqa: E402
 from metalquicha_tpu_torch.workloads import (  # noqa: E402
+    WATER_BOHR,
     bench_dimers,
     w20_mbe2_assemble,
     w20_mbe2_fragments,
@@ -60,8 +74,176 @@ def _commit() -> str:
     return proc.stdout.strip() or "unknown"
 
 
+#: validation/expected.json name -> validation/inputs file, for the GFN1
+#: cases beyond prism_mbe and w20_mbe
+FULL_CASES = {
+    "h3o_unfrag": "h3o.json",
+    "unfrag_gly3": "no_frag.json",
+    "gly10_mbe": "gly10.json",
+    "multi_frag": "multi_frag.json",
+    "multi_structure": "multi_structure.json",
+    "charged_cluster_mbe": "charged_cluster.json",
+    "prism_mbe_groups1": "prism_global_groups1.json",
+    "gmbe1_gly3": "overlapping_gly3.json",
+    "gmbe3_decane": "nlevel_3_ov_decane.json",
+    "hess_h3o": "hess_h3o.json",
+    "prism_hessian": "prism_hessian.json",
+    "hess_gly3_ov": "hess_gly3_ov.json",
+    "hess_gly3_serial": "hess_gly3_serial.json",
+    "alpb_water": "w1_water.json",
+    "gbsa_water": "w1_water_gbsa.json",
+    "cpcm_water": "w1_water_cpcm.json",
+}
+FULL_PATH = os.path.join(DATA, "port_golden_gfn1_full.json")
+WATER_DIELECTRIC = 78.4
+
+
+def _emit(src: str, dst: str) -> str:
+    """validation/inputs/<src> as tests/data/<dst> (.mqc, geometry inlined)."""
+    json_path = os.path.join(ROOT, "validation", "inputs", src)
+    with open(json_path) as fh:
+        text = emit_mqc(json.load(fh), base_dir=os.path.dirname(json_path))
+    mqc_path = os.path.join(DATA, dst)
+    with open(mqc_path, "w") as fh:
+        fh.write(text)
+    return mqc_path
+
+
+def _norm(x) -> float:
+    return float(math.sqrt(float((np.asarray(x) ** 2).sum())))
+
+
+def _driver_case(name: str, src: str) -> dict:
+    """One validation case through the JAX driver, factory settings."""
+    dst = f"port_full_{name}.mqc"
+    cfg = read_mqc_file(_emit(src, dst))
+    ex = _make_executor(config_to_driver(cfg))
+    chunks = []
+    run_chunk = ex._run_chunk
+
+    def recording(members, pad_to, *args):
+        chunks.append({"pad_to": [int(x) for x in pad_to],
+                       "n": len(members)})
+        return run_chunk(members, pad_to, *args)
+
+    ex._run_chunk = recording
+    t0 = time.time()
+    outputs = run_calculation(cfg, write_json=False, executor=ex)
+    entry = {"mqc": f"tests/data/{dst}", "seconds": round(time.time() - t0, 1),
+             "chunks": chunks,
+             "max_nao": max(c["pad_to"][2] for c in chunks)}
+    if "" in outputs:
+        out = outputs[""]
+        entry["total_energy"] = float(out.result.total_energy)
+        if out.result.gradient is not None:
+            entry["gradient_norm"] = _norm(out.result.gradient)
+        if out.result.hessian is not None:
+            entry["hessian_frobenius_norm"] = _norm(out.result.hessian)
+        if out.vibrational is not None:
+            entry["frequencies"] = [float(f)
+                                    for f in out.vibrational.frequencies]
+        if out.thermo is not None:
+            entry["zpe"] = float(out.thermo.zpe_hartree)
+            entry["gibbs_correction"] = float(
+                out.thermo.thermal_correction_gibbs)
+    else:
+        entry["energies"] = {mol: float(out.result.total_energy)
+                             for mol, out in outputs.items()}
+    return entry
+
+
+def _solvation_models():
+    return {
+        "alpb": BornSolvation(WATER_DIELECTRIC, alpb=True),
+        "gbsa": BornSolvation(WATER_DIELECTRIC, alpb=False),
+        "cpcm": CpcmSolvation(WATER_DIELECTRIC),
+    }
+
+
+def _water_solvated() -> dict:
+    """A single water (workloads.WATER_BOHR) with each model."""
+    water = (np.array([8, 1, 1]), WATER_BOHR, 0, 1)
+    out = {"dielectric": WATER_DIELECTRIC}
+    for name, model in _solvation_models().items():
+        calc = XtbCalculator(variant="gfn1", solvation=model)
+        frag = calc.make_batch([water])
+        one = jax.tree.map(lambda x: x[0], frag)
+        entry = {
+            "gamma_at": np.asarray(model.gamma_atoms(
+                one.coords, one.solv_rvdw, one.solv_sx, one.atom_mask,
+                scalars=one.solv_scalars)).tolist(),
+        }
+        if name == "cpcm":
+            e, _aux = calc.energies(frag)
+        else:
+            # the JAX package's CPCM gradient is NaN, so none is frozen
+            e, g, _aux = calc.gradients(frag)
+            entry["gradient"] = np.asarray(g)[0].tolist()
+            entry["born_radii"] = np.asarray(model.born_radii(
+                one.coords, one.solv_rvdw, one.solv_sx, one.atom_mask,
+                one.solv_scalars[0])).tolist()
+            entry["surface_energy"] = float(
+                model.surface_energy(one.coords, one))
+        entry["energy"] = float(np.asarray(e)[0])
+        out[name] = entry
+    return out
+
+
+def _w20_solvated() -> dict:
+    """bench.py's w20 MBE(2) list with ALPB water (gradients) and CPCM
+    water (energies, 110 angular points), bench's 32-iteration settings."""
+    settings = settings_from_params("gfn1", max_scf_iter=32,
+                                    use_pallas_eigh=True)
+    models = _solvation_models()
+    frags = w20_mbe2_fragments()
+    out = {"dielectric": WATER_DIELECTRIC, "max_scf_iter": 32}
+
+    calc = XtbCalculator(settings, dtype=jnp.float64, solvation=models["alpb"])
+    e, g, aux = FragmentExecutor(calc).run(frags, what="gradient")
+    total, gnorm = w20_mbe2_assemble(e, g)
+    out["alpb"] = {
+        "total": total, "gradient_norm": gnorm,
+        "energies": np.asarray(e).tolist(),
+        "gradients": [np.asarray(x).tolist() for x in g],
+        "scf_residual_max": float(aux["scf_residual"].max()),
+    }
+    calc = XtbCalculator(settings, dtype=jnp.float64, solvation=models["cpcm"])
+    e, aux = FragmentExecutor(calc).run(frags, what="energy")
+    total, _ = w20_mbe2_assemble(e, [np.zeros((len(f[0]), 3)) for f in frags])
+    out["cpcm"] = {
+        "total": total, "nang": models["cpcm"].nang,
+        "energies": np.asarray(e).tolist(),
+        "scf_residual_max": float(aux["scf_residual"].max()),
+    }
+    return out
+
+
+def gen_full() -> None:
+    """Write port_golden_gfn1_full.json and its .mqc files."""
+    golden = {"commit": _commit(), "dtype": "float64", "platform": "cpu",
+              "driver": {}}
+    for name, src in FULL_CASES.items():
+        t0 = time.time()
+        golden["driver"][name] = _driver_case(name, src)
+        print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+    for name, fn in (("water_solvated", _water_solvated),
+                     ("w20_mbe2_solvated", _w20_solvated)):
+        t0 = time.time()
+        golden[name] = fn()
+        print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+    with open(FULL_PATH, "w") as fh:
+        json.dump(golden, fh, indent=1)
+        fh.write("\n")
+
+
 def main() -> int:
     global_logger.set_level("warning")
+    gen_gfn1()
+    gen_full()
+    return 0
+
+
+def gen_gfn1() -> None:
     golden = {"commit": _commit(), "dtype": "float64", "platform": "cpu"}
 
     # bench.py's production calculator (32 SCC iterations, scf_tol = 0);
@@ -95,12 +277,7 @@ def main() -> int:
 
     golden["driver"] = {}
     for name, (src, dst) in MQC.items():
-        json_path = os.path.join(ROOT, "validation", "inputs", src)
-        with open(json_path) as fh:
-            text = emit_mqc(json.load(fh), base_dir=os.path.dirname(json_path))
-        mqc_path = os.path.join(DATA, dst)
-        with open(mqc_path, "w") as fh:
-            fh.write(text)
+        mqc_path = _emit(src, dst)
         t0 = time.time()
         out = run_calculation(read_mqc_file(mqc_path), write_json=False)
         golden["driver"][name] = {
@@ -112,7 +289,6 @@ def main() -> int:
     with open(os.path.join(DATA, "port_golden_gfn1.json"), "w") as fh:
         json.dump(golden, fh, indent=1)
         fh.write("\n")
-    return 0
 
 
 if __name__ == "__main__":
