@@ -41,6 +41,25 @@ Phases (each raises on failure; nothing is caught):
              second through the Jacobi kernel; one solvated case from its
              JSON through `python -m metalquicha_tpu_torch.io.prep` and
              `python -m metalquicha_tpu_torch`;
+8. gfn2:     GFN2 (multipole SCC, charge-scaled dispersion; it runs no
+             hand-written kernel, as in the JAX package, whose multipole
+             SCC always diagonalizes with the library's eigh) in float64
+             against tests/data/port_golden_gfn2.json: the bench dimer batch
+             (B = 512; the first 8 against the goldens; energies/s and
+             gradients/s); the w20 MBE(2) list through FragmentExecutor with
+             gradients and with ALPB water (totals 1e-8 Ha; wall, peak
+             memory); the five molecules of tests/data/gfn2_fixtures.json,
+             cold and warm-started from the JAX package's converged state;
+             the largest dimer chunk the executor's cap allows,
+             with gradients (its peak must stay under 80% of the card's
+             memory); run_calculation on `w1_vib_therm` (Hessian,
+             frequencies, thermochemistry), prism MBE(2) and w20 MBE(3)
+             with the method switched to GFN2, and on w20 MBE(4) for its
+             wall and peak memory (the SCC of one tetramer does not
+             converge in either package: the driver raises ConvergenceError
+             after every fragment has been evaluated); the device
+             time of one multipole SCC iteration beside one GFN1 iteration
+             at (512, 16), from CUDA events;
              then no module of jax or of the JAX package may be loaded.
 
 `--baseline SRC` builds a second version of the kernel source (an
@@ -49,7 +68,8 @@ nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
 The kernel's launch counter and SP2's call counter are reset before
-phases 3-7; the first must grow in phases 3-6 and both in phase 7.
+phases 3-8; the first must grow in phases 3-6 and both in phase 7, and
+phase 8 must leave both as they are.
 Diagnostics go to stdout; the line before the last but one is the
 kernel JSON line, the line before the last the card's name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -74,6 +94,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_gfn1.json")
 GOLDEN_FULL = os.path.join(ROOT, "tests", "data", "port_golden_gfn1_full.json")
+GOLDEN_GFN2 = os.path.join(ROOT, "tests", "data", "port_golden_gfn2.json")
+GFN2_MBE4 = os.path.join(ROOT, "tests", "data", "port_gfn2_w20_mbe4.mqc")
+GFN2_FIXTURES = os.path.join(ROOT, "tests", "data", "gfn2_fixtures.json")
 TOL_F32 = 5e-5          # tests/test_pallas_eigh.py's tolerance
 TOL_F64_REL = 1e-10     # times ||A||
 DEVICE = "cuda"
@@ -576,6 +599,240 @@ def validation_phase(jac, golden_full):
     return launches
 
 
+def scc_iteration_ms():
+    """Device ms of one SCC iteration at (512, 16), GFN1 (exact in-loop
+    eigh, the multipole route's eigensolver) and GFN2, from CUDA events
+    around whole 32-iteration solves on prebuilt operands; and the device
+    kernels one multipole iteration launches, from torch.profiler (None
+    where the profiler shows no device activity)."""
+    from metalquicha_tpu_torch.constants import KB_HARTREE
+    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
+    from metalquicha_tpu_torch.methods.xtb import engine
+    from metalquicha_tpu_torch.workloads import bench_dimers
+
+    kt = 300.0 * KB_HARTREE
+    iters = 32
+    out = {}
+    for variant in ("gfn1", "gfn2"):
+        settings = engine.settings_from_params(variant, max_scf_iter=iters)
+        calc = tcalc.XtbCalculator(settings, variant=variant, device=DEVICE)
+        frag = calc.make_batch(bench_dimers(512))
+        with torch.no_grad():
+            S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag, settings)
+
+            def solve(st=settings):
+                if mp is None:
+                    return engine.scf_solve(H0, S, gamma, frag, kt, st)
+                return engine.scf_solve_multipole(
+                    H0, S, frag.coords, gamma, frag, kt, st, None, mp)
+
+            out[variant] = cuda_ms(solve, 3) / iters
+            if mp is not None:
+                from torch.profiler import ProfilerActivity, profile
+
+                few = settings._replace(max_scf_iter=4)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    solve(few)
+                    torch.cuda.synchronize()
+                n4 = sum(ev.count for ev in prof.key_averages()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    solve(few._replace(max_scf_iter=8))
+                    torch.cuda.synchronize()
+                n8 = sum(ev.count for ev in prof.key_averages()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
+                out["launches_per_iteration"] = (
+                    (n8 - n4) / 4.0 if n8 > n4 > 0 else None)
+    return out
+
+
+def gfn2_phase(jac, golden):
+    """GFN2 against the JAX package's frozen float64 results, on the card.
+    It launches no Jacobi kernel and makes no SP2 call."""
+    from metalquicha_tpu_torch.driver import read_mqc_file, run_calculation
+    from metalquicha_tpu_torch.errors import ConvergenceError
+    from metalquicha_tpu_torch.constants import BOHR_TO_ANGSTROM
+    from metalquicha_tpu_torch.methods.xtb.calculator import (
+        XtbCalculator,
+        single_point_energy,
+    )
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.methods.xtb.solvation.born import BornSolvation
+    from metalquicha_tpu_torch.ops import sp2
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+    from metalquicha_tpu_torch.validation import (
+        checks,
+        golden_failures,
+        observables,
+    )
+    from metalquicha_tpu_torch.workloads import (
+        bench_dimers,
+        w20_mbe2_assemble,
+        w20_mbe2_fragments,
+    )
+
+    n_j, n_s = jac.launches, sp2.calls
+    gd = golden["bench_dimers"]
+    settings = settings_from_params("gfn2", max_scf_iter=gd["max_scf_iter"])
+    calc = XtbCalculator(settings, variant="gfn2", dtype=torch.float64,
+                         device=DEVICE)
+    frag = calc.make_batch(bench_dimers(512))
+    calc.gradients(frag)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (e, aux), t_e = wall(lambda: calc.energies(frag), 3)
+    (e_g, g, aux_g), t_g = wall(lambda: calc.gradients(frag), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = gd["n"]
+    d_e = float(np.abs(e[:n].cpu().numpy() - gd["energies"]).max())
+    d_g = float(np.abs(g[:n].cpu().numpy() - gd["gradients"]).max())
+    d_mu = float(np.abs(aux_g["dipole"][:n].cpu().numpy()
+                        - gd["dipole"]).max())
+    resid = float(max(aux["scf_residual"].max(), aux_g["scf_residual"].max()))
+    print(f"gfn2 slice f64 B=512: energies/s={512 / t_e:.1f} "
+          f"gradients/s={512 / t_g:.1f} (energies {t_e:.4f} s, gradients "
+          f"{t_g:.4f} s per call) peak={peak:.2f} GiB resid={resid:.2e} "
+          f"golden dE={d_e:.2e} dG={d_g:.2e} d_dipole={d_mu:.2e}", flush=True)
+    check(d_e <= 1e-9, f"gfn2 energies vs golden {d_e:.3e} > 1e-9")
+    check(d_g <= 1e-8, f"gfn2 gradients vs golden {d_g:.3e} > 1e-8")
+    check(d_mu <= 1e-8, f"gfn2 dipoles vs golden {d_mu:.3e} > 1e-8")
+    check(float((e - e_g).abs().max()) <= 1e-12,
+          "gfn2 energies differ between the energy and the gradient call")
+    check(resid < 1e-5, f"gfn2 SCC residual {resid:.3e} >= 1e-5")
+    check(bool(torch.isfinite(e).all() and torch.isfinite(g).all()),
+          "gfn2: non-finite energies or gradients")
+
+    frags = w20_mbe2_fragments()
+    for name, what, solvation in (
+        ("w20_mbe2", "gradient", None),
+        ("w20_mbe2_alpb", "energy",
+         BornSolvation(golden["w20_mbe2_alpb"]["dielectric"], alpb=True)),
+    ):
+        gold = golden[name]
+        ex = FragmentExecutor(XtbCalculator(
+            settings_from_params("gfn2", max_scf_iter=gold["max_scf_iter"]),
+            variant="gfn2", dtype=torch.float64, device=DEVICE,
+            solvation=solvation))
+        torch.cuda.reset_peak_memory_stats()
+        out, t = wall(lambda: ex.run(frags, what=what))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        grads = out[1] if what == "gradient" else [
+            np.zeros((len(f[0]), 3)) for f in frags]
+        total, gnorm = w20_mbe2_assemble(out[0], grads)
+        d_t = abs(total - gold["total"])
+        d_f = float(np.abs(out[0] - np.asarray(gold["energies"])).max())
+        line = (f"gfn2 executor {name} {what}: wall={t:.3f} s "
+                f"peak={peak:.2f} GiB total={total:.10f} d_total={d_t:.2e} "
+                f"max d_fragment={d_f:.2e} "
+                f"resid={out[-1]['scf_residual'].max():.2e}")
+        if what == "gradient":
+            # printed, not held: the w20 waters are exact translates (see
+            # executor_phase)
+            line += f" d|g|={abs(gnorm - gold['gradient_norm']):.2e}"
+        print(line, flush=True)
+        check(d_t <= 1e-8, f"gfn2 {name} total off the golden by {d_t:.3e}")
+
+    # the JAX package's own GFN2 pins (tests/data/gfn2_fixtures.json) at
+    # the tolerances of tests/test_gfn2_fixtures.py, from a cold start and
+    # warm-started from the JAX package's converged state. CH4's cold
+    # start is printed, not held: its SCC map has a second fixed point and
+    # its cold-start trajectory is chaotic, so rounding decides
+    with open(GFN2_FIXTURES) as fh:
+        fixtures = json.load(fh)
+    pins = settings_from_params("gfn2", max_scf_iter=256, scf_tol=1e-11)
+    pin_calc = XtbCalculator(pins, variant="gfn2", dtype=torch.float64,
+                             device=DEVICE)
+    for name, state in golden["fixture_states"].items():
+        case = fixtures[name]
+        z = np.array(case["numbers"])
+        c = np.array(case["coords_angstrom"]) / BOHR_TO_ANGSTROM
+        pin = pin_calc.make_batch([(z, c, 0, 1)])
+        q_init = torch.tensor([state], dtype=torch.float64, device=DEVICE)
+        for start, q0 in (("cold", None), ("warm", q_init)):
+            with torch.no_grad():
+                e_p, aux_p = single_point_energy(pin.coords, pin, pins, None,
+                                                 q_init=q0)
+            d_e = abs(float(e_p[0]) - case["energy_ha"])
+            d_q = float(np.abs(aux_p["charges"][0][: len(z)].cpu().numpy()
+                               - case["charges"]).max())
+            d_mu = float(np.abs(aux_p["dipole"][0].cpu().numpy()
+                                - case["dipole_au"]).max())
+            r_p = float(aux_p["scf_residual"][0])
+            held = not (name == "ch4" and start == "cold")
+            print(f"gfn2 fixture {name} {start} start: dE={d_e:.2e} "
+                  f"d_charges={d_q:.2e} d_dipole={d_mu:.2e} resid={r_p:.2e}"
+                  f"{'' if held else ' (printed, not held)'}", flush=True)
+            check(r_p < 1e-9, f"gfn2 fixture {name} residual {r_p:.3e}")
+            if held:
+                check(d_e <= 1e-9 and d_q <= 1e-8 and d_mu <= 1e-8,
+                      f"gfn2 fixture {name} ({start} start) off: dE={d_e:.3e} "
+                      f"d_charges={d_q:.3e} d_dipole={d_mu:.3e}")
+
+    # the executor's chunk cap counts the moment integrals' tables: the
+    # largest dimer chunk it would dispatch, with gradients, must fit
+    ex = FragmentExecutor(calc)
+    pad_to = ex._pad_shapes_for(6, [(0, bench_dimers(1)[0])])
+    max_b = ex._max_chunk(pad_to, frag.prim_alpha.shape[-1])
+    torch.cuda.reset_peak_memory_stats()
+    out, t = wall(lambda: ex.run(bench_dimers(max_b), what="gradient"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    card = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"gfn2 executor chunk at the cap: {max_b} dimers padded to "
+          f"{pad_to} in one chunk, gradients: wall={t:.3f} s "
+          f"peak={peak:.2f} GiB of {card:.1f} GiB "
+          f"resid={out[-1]['scf_residual'].max():.2e}", flush=True)
+    check(peak <= 0.8 * card, f"a GFN2 chunk at the cap peaks at {peak:.1f} "
+                              f"GiB of {card:.1f}")
+
+    for name, gold in golden["driver"].items():
+        cfg = read_mqc_file(os.path.join(ROOT, gold["mqc"]))
+        torch.cuda.reset_peak_memory_stats()
+        outputs, t = wall(lambda: run_calculation(cfg, write_json=False,
+                                                  device=DEVICE))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        obs = observables(outputs)
+        deltas = " ".join(f"d_{label}={abs(got - exp):.2e}"
+                          for label, got, exp in checks(obs, gold))
+        print(f"gfn2 driver {name}: wall={t:.3f} s peak={peak:.2f} GiB "
+              f"{deltas}", flush=True)
+        bad = golden_failures(obs, gold)
+        check(not bad, f"gfn2 {name} off the JAX package's result: {bad}")
+
+    # w20 MBE(4), 6195 fragments, for its wall time and peak memory. No
+    # total is frozen: the JAX package's driver raises ConvergenceError
+    # here (one tetramer's multipole SCC stalls far from convergence), after
+    # every fragment has been evaluated. Where the SCC does not converge
+    # rounding decides the trajectory, so either outcome is reported; a
+    # total must be finite
+    cfg = read_mqc_file(GFN2_MBE4)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        total = float(run_calculation(cfg, write_json=False, device=DEVICE)
+                      [""].result.total_energy)
+        check(np.isfinite(total), "gfn2 w20 MBE(4) total is not finite")
+        outcome = (f"total={total:.10f} (the JAX package raises "
+                   f"ConvergenceError)")
+    except ConvergenceError as exc:
+        outcome = f"ConvergenceError as in the JAX package: {exc}"
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"gfn2 driver w20_mbe4 (6195 fragments): wall={t:.3f} s "
+          f"peak={peak:.2f} GiB {outcome}", flush=True)
+
+    it = scc_iteration_ms()
+    per = it["launches_per_iteration"]
+    print(f"gfn2 SCC iteration at (512, 16), device ms: multipole="
+          f"{it['gfn2']:.3f} gfn1={it['gfn1']:.3f} ratio="
+          f"{it['gfn2'] / it['gfn1']:.2f}; device kernels per multipole "
+          f"iteration: {'not measured' if per is None else f'{per:.0f}'}",
+          flush=True)
+    check(jac.launches == n_j and sp2.calls == n_s,
+          "the GFN2 path launched the Jacobi kernel or called SP2")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="SRC",
@@ -596,6 +853,8 @@ def main() -> int:
         golden = json.load(fh)
     with open(GOLDEN_FULL) as fh:
         golden_full = json.load(fh)
+    with open(GOLDEN_GFN2) as fh:
+        golden_gfn2 = json.load(fh)
 
     t0 = time.perf_counter()
     jac.build()
@@ -619,7 +878,8 @@ def main() -> int:
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
                            ("solvation", solvation_phase, golden_full),
-                           ("validation", validation_phase, golden_full)):
+                           ("validation", validation_phase, golden_full),
+                           ("gfn2", gfn2_phase, golden_gfn2)):
         t0 = time.perf_counter()
         phases[name] = fn(jac, gold)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)

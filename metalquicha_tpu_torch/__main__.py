@@ -15,7 +15,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="mqc-torch",
-        description="fragmented GFN1-xTB on PyTorch (CUDA or CPU)",
+        description="fragmented GFN1/GFN2-xTB on PyTorch (CUDA or CPU)",
     )
     ap.add_argument("input", help="input .mqc file")
     ap.add_argument("--f32", action="store_true",

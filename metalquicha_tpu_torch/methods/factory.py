@@ -1,4 +1,5 @@
-"""Method factory: GFN1-xTB, with or without implicit solvation.
+"""Method factory: GFN1/GFN2-xTB with or without implicit solvation, and
+the placeholder HF/DFT/MCSCF methods.
 
 Counterpart of metalquicha_tpu's `methods/factory.py`. It copies the
 driver's method configuration into the calculator as the JAX factory does
@@ -13,34 +14,38 @@ from __future__ import annotations
 import torch
 
 from ..io.adapter import DriverConfig, MethodType
-
+from .stubs import DFTMethod, HFMethod, MCSCFMethod
 from .xtb.calculator import XtbCalculator
 from .xtb.engine import settings_from_params
 
 
-def create_calculator(drv: DriverConfig, device="cuda") -> XtbCalculator:
+def create_calculator(drv: DriverConfig, device="cuda"):
     mt = drv.method.method_type
-    if mt == MethodType.GFN2:
-        raise NotImplementedError("GFN2-xTB is not ported yet (ROADMAP A10)")
-    if mt != MethodType.GFN1:
-        raise NotImplementedError(
-            f"method {mt.name} is not ported to torch (GFN1 only)"
+    if mt in (MethodType.GFN1, MethodType.GFN2):
+        variant = "gfn1" if mt == MethodType.GFN1 else "gfn2"
+        settings = settings_from_params(
+            variant,
+            max_scf_iter=max(32, min(drv.method.scf.maxiter, 256)),
+            # early-exit at a tenth of the user tolerance: well inside the
+            # driver's convergence gate (10x tol)
+            scf_tol=0.1 * drv.method.scf.tolerance,
+            electronic_temp=drv.method.xtb.electronic_temp,
         )
-    settings = settings_from_params(
-        "gfn1",
-        max_scf_iter=max(32, min(drv.method.scf.maxiter, 256)),
-        # early-exit at a tenth of the user tolerance: well inside the
-        # driver's convergence gate (10x tol)
-        scf_tol=0.1 * drv.method.scf.tolerance,
-        electronic_temp=drv.method.xtb.electronic_temp,
-    )
-    xtb = drv.method.xtb
-    solvation = None
-    if xtb.has_solvation():
-        from .xtb.solvation import make_solvation_model
+        xtb = drv.method.xtb
+        solvation = None
+        if xtb.has_solvation():
+            from .xtb.solvation import make_solvation_model
 
-        solvation = make_solvation_model(xtb, "gfn1")
-    fd = getattr(drv, "force_dtype", None)
-    dtype = torch.float32 if fd == "f32" else torch.float64
-    return XtbCalculator(settings=settings, dtype=dtype, device=device,
-                         solvation=solvation)
+            solvation = make_solvation_model(xtb, variant)
+        fd = getattr(drv, "force_dtype", None)
+        dtype = torch.float32 if fd == "f32" else torch.float64
+        return XtbCalculator(settings=settings, variant=variant, dtype=dtype,
+                             device=device, solvation=solvation)
+    # the placeholders compute on the host and take no device
+    if mt == MethodType.HF:
+        return HFMethod()
+    if mt == MethodType.DFT:
+        return DFTMethod()
+    if mt == MethodType.MCSCF:
+        return MCSCFMethod()
+    raise NotImplementedError(f"method {mt.name} is not implemented")

@@ -1,8 +1,8 @@
-"""Padded, batched fragment representation for the xTB engine (GFN1).
+"""Padded, batched fragment representation for the xTB engine.
 
 The port's copy of metalquicha_tpu's `batch.py`, built on the port's own
-`params_gfn1` and `basis`. The NumPy arrays it builds are held equal to
-the JAX package's by `tests/test_torch_host_tables.py`;
+`params_gfn1`, `params_gfn2` and `basis`. The NumPy arrays it builds are
+held equal to the JAX package's by `tests/test_torch_host_tables.py`;
 `calculator.fragment_data_from_batch` turns them into batch-first tensors
 on the device.
 
@@ -41,17 +41,16 @@ GLB_FIELDS = ("kss", "ksp", "ksd", "kpp", "kpd", "kdd", "kpol", "ken",
               "disp_s9", "disp_rs9")
 
 
-def _check_variant(variant: str) -> None:
-    if variant != "gfn1":
-        raise NotImplementedError(
-            f"variant {variant!r}: the torch port covers GFN1 only "
-            "(GFN2 is ROADMAP A10)"
-        )
+def _params_module(variant: str):
+    if variant == "gfn2":
+        from . import params_gfn2 as params  # lazy; gfn2 table
+    else:
+        params = params_gfn1
+    return params
 
 
 def global_vector(variant: str = "gfn1") -> np.ndarray:
-    _check_variant(variant)
-    g = params_gfn1.GLOBALS
+    g = _params_module(variant).GLOBALS
     return np.array([getattr(g, f) for f in GLB_FIELDS], dtype=np.float64)
 
 
@@ -84,8 +83,7 @@ class ElementBasis:
 
 @lru_cache(maxsize=None)
 def element_basis(z: int, variant: str = "gfn1") -> ElementBasis:
-    _check_variant(variant)
-    params = params_gfn1
+    params = _params_module(variant)
 
     rec = params.get_element(z)
     nsh = len(rec.shells)
@@ -293,8 +291,9 @@ def build_batch(
             out.coords[b, pad_i] = (pad_i + 1) * PAD_COORD_STEP
         out.charge[b] = charge
         out.nuhf[b] = mult - 1
-        if params_gfn1.KPAIR:  # all-1.0 default already allocated
-            kv = params_gfn1.kpair_value
+        _kp = _params_module(variant)
+        if _kp.KPAIR:  # all-1.0 default already allocated; fill only if set
+            kv = _kp.kpair_value
             for ia, zi in enumerate(numbers):
                 for ja, zj in enumerate(numbers):
                     out.at_kpair[b, ia, ja] = kv(zi, zj)

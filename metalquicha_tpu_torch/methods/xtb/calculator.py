@@ -1,9 +1,10 @@
-"""Batched GFN1-xTB single-point calculator: energies and autograd gradients.
+"""Batched xTB single-point calculator (GFN1 and GFN2): energies and
+autograd gradients.
 
-Counterpart of metalquicha_tpu's `calculator.py` on its GFN1 path, with
-or without implicit solvation. A whole list of fragments is one padded batch of
-tensors with a leading fragment axis; gradients are `torch.autograd.grad`
-of the summed variational energies with the SCC charges detached.
+Counterpart of metalquicha_tpu's `calculator.py`, with or without implicit
+solvation. A whole list of fragments is one padded batch of tensors with a
+leading fragment axis; gradients are `torch.autograd.grad` of the summed
+variational energies with the SCC state detached.
 """
 
 from __future__ import annotations
@@ -20,15 +21,21 @@ from .dispersion_d3 import atm_energy, build_d3_tables, d3_energy, full_pair_tab
 from . import engine as _engine
 from .engine import (
     EngineSettings,
+    _aes_unpack,
     _atom_charges,
     coordination_numbers,
     electronic_energy,
+    electronic_energy_multipole,
     gamma_matrix,
     h0_matrix,
     repulsion_energy,
+    scf_refine,
+    scf_refine_multipole,
     scf_solve,
+    scf_solve_multipole,
     settings_from_params,
 )
+from .multipole import moment_matrices
 from .overlap import overlap_matrix
 from .xbond import halogen_bond_energy
 
@@ -99,11 +106,16 @@ def fragment_data_from_arrays(arrays, device, dtype=torch.float64):
 
 
 def fragment_data_from_batch(batch: XtbBatch, device, dtype=torch.float64,
-                             solvation=None):
-    """FragmentData for a GFN1 batch; `solvation` (a model of
-    `solvation/`) fills the per-atom solvation tables and scalars."""
+                             solvation=None, variant="gfn1"):
+    """FragmentData for a batch; `solvation` (a model of `solvation/`)
+    fills the per-atom solvation tables and scalars.
+
+    GFN2 keeps the pristine dispersion state (diagonal C6, r4r2 and the
+    geometric-mean pair table): the fitted values are GFN1 state."""
     nfrag = batch.n_fragments
-    d3 = [build_d3_tables(batch.numbers[b]) for b in range(nfrag)]
+    fitted = variant != "gfn2"
+    d3 = [build_d3_tables(batch.numbers[b], fitted=fitted)
+          for b in range(nfrag)]
     if solvation is not None:
         solv = [solvation.host_tables(batch.numbers[b]) for b in range(nfrag)]
         solv_rvdw = np.stack([t["solv_rvdw"] for t in solv])
@@ -135,7 +147,7 @@ def fragment_data_from_batch(batch: XtbBatch, device, dtype=torch.float64,
     tensors = {k: _to_tensor(v, device, dtype) for k, v in arrays.items()}
     # every fragment shares the one pair table: a broadcast view, not B
     # copies (the JAX package materializes the copies)
-    table = _to_tensor(full_pair_table(), device, dtype)
+    table = _to_tensor(full_pair_table(fitted=fitted), device, dtype)
     tensors["d3_c6_pair"] = table.expand(nfrag, *table.shape)
     return FragmentData(**tensors)
 
@@ -160,40 +172,114 @@ def _solv_gamma(coords, frag: FragmentData, solvation):
     )
 
 
+def _mp_tables(frag: FragmentData, cn):
+    """Static AES/D4 inputs for the GFN2 multipole SCC."""
+    return {"at_aes": frag.at_aes, "d4": True, "cn": cn,
+            "d3tab": _d3_tables(frag)}
+
+
+def _scc_operands(coords, frag: FragmentData, settings: EngineSettings):
+    """What the SCC map is built from at `coords`: (S, H0, gamma, mp), with
+    mp None for GFN1 and the AES/D4 tables (own D3 coordination number,
+    moment integrals) for GFN2."""
+    cn = coordination_numbers(
+        coords, frag.at_rcov, frag.atom_mask, frag.glb[:, 11], settings.cn_type
+    )
+    gamma = gamma_matrix(coords, frag, settings)
+    S = overlap_matrix(
+        coords, frag.ao_atom, frag.ao_lxyz, frag.prim_alpha, frag.prim_coeff
+    )
+    H0 = h0_matrix(S, coords, frag, cn, settings)
+    mp = None
+    if settings.multipoles:
+        _S_mm, D, Q = moment_matrices(
+            coords, frag.ao_atom, frag.ao_lxyz, frag.prim_alpha,
+            frag.prim_coeff,
+        )
+        cn_d3 = coordination_numbers(
+            coords, frag.at_rcov, frag.atom_mask, frag.glb[:, 11],
+            settings.cn_type_d3,
+        )
+        mp = _mp_tables(frag, cn_d3)
+        mp["D"], mp["Q"] = D, Q
+    return S, H0, gamma, mp
+
+
 def _converge_charges(coords, frag: FragmentData, kt,
-                      settings: EngineSettings, solvation=None):
-    """Run the SCC on detached inputs: converged shell charges q* (B, nsh)
+                      settings: EngineSettings, solvation=None, q0=None):
+    """Run the SCC on detached inputs: the converged state (GFN1: shell
+    charges q* (B, nsh); GFN2: the packed AES state z* (B, nsh + 9 nat))
     and residuals (B,), neither of which carries a gradient. The
-    variational functional downstream carries the exact derivatives."""
+    variational functional downstream carries the exact derivatives.
+
+    q0: optional warm start of the same layout."""
     with torch.no_grad():
         c = coords.detach()
-        cn = coordination_numbers(
-            c, frag.at_rcov, frag.atom_mask, frag.glb[:, 11], settings.cn_type
-        )
-        gamma = gamma_matrix(c, frag, settings)
+        if q0 is not None:
+            q0 = q0.detach()
+        S, H0, gamma, mp = _scc_operands(c, frag, settings)
         gamma_at = _solv_gamma(c, frag, solvation)
-        S = overlap_matrix(
-            c, frag.ao_atom, frag.ao_lxyz, frag.prim_alpha, frag.prim_coeff
-        )
-        H0 = h0_matrix(S, c, frag, cn, settings)
-        return scf_solve(H0, S, gamma, frag, kt, settings, gamma_at)
+        if settings.multipoles:
+            return scf_solve_multipole(
+                H0, S, c, gamma, frag, kt, settings, gamma_at, mp, z0=q0
+            )
+        return scf_solve(H0, S, gamma, frag, kt, settings, gamma_at, q0=q0)
+
+
+def _refiner(coords, frag, kt, settings, gamma_at):
+    """refine(q, n_iter): n_iter differentiable damped SCC steps from q,
+    on operands built once at `coords` (so their derivatives flow)."""
+    S, H0, gamma, mp = _scc_operands(coords, frag, settings)
+
+    def refine(q, n_iter):
+        if settings.multipoles:
+            return scf_refine_multipole(
+                H0, S, coords, gamma, frag, kt, settings, gamma_at, mp, q,
+                n_iter,
+            )
+        return scf_refine(H0, S, gamma, frag, kt, settings, q, n_iter,
+                          gamma_at)
+
+    return refine
 
 
 def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
-                        solvation=None):
-    """Total GFN1 energies (B,) of a padded batch; differentiable in coords.
+                        solvation=None, diff_scf_iters: int = 0,
+                        q_init=None):
+    """Total energies (B,) of a padded batch; differentiable in coords.
 
     solvation: optional model (ALPB/GBSA/CPCM); its kernel enters the SCC
     detached and the variational functional differentiably, and its
     surface term (CDS + shift, ALPB/GBSA) is added to the total.
 
+    diff_scf_iters > 0 re-refines the converged state with that many
+    damped fixed-point iterations that autograd records, making the state
+    itself differentiable (first derivatives are already exact through the
+    variational functional).
+
+    q_init: warm-start the (non-differentiated) SCC solve from the
+    supplied state (GFN1: shell charges; GFN2: the packed AES state, i.e.
+    an earlier aux["shell_charges"]), then refine with
+    max(diff_scf_iters, 2) recorded steps; the reported scf_residual is
+    then the post-refine fixed-point residual. The entry for sequential
+    geometries (finite-difference sweeps, dynamics).
+
     Returns (energy, aux) with aux = {charges, shell_charges, scf_residual,
     dipole, e_el, e_rep, e_disp}, each with a leading fragment axis."""
-    if settings.multipoles:
-        raise NotImplementedError("GFN2 multipoles are ROADMAP A10")
     kt = settings.electronic_temp * KB_HARTREE
-    q_star, resid = _converge_charges(coords, frag, kt, settings, solvation)
+    q_star, resid = _converge_charges(coords, frag, kt, settings, solvation,
+                                      q0=q_init)
     gamma_at = _solv_gamma(coords, frag, solvation)
+    if q_init is not None:
+        # the warm-started solve has reached this calculator's tolerance;
+        # the last refine step alone gives the residual that is reported
+        refine = _refiner(coords, frag, kt, settings, gamma_at)
+        q_prev = refine(q_star, max(diff_scf_iters, 2) - 1)
+        q_star = refine(q_prev, 1)
+        resid = (q_star - q_prev).abs().amax(-1)
+    elif diff_scf_iters:
+        q_star = _refiner(coords, frag, kt, settings, gamma_at)(
+            q_star, diff_scf_iters)
 
     # dispersion rides its OWN coordination number (tblite's d3 container
     # uses the classic single-exponential D3 CN)
@@ -201,23 +287,46 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
         coords, frag.at_rcov, frag.atom_mask, frag.glb[:, 11],
         settings.cn_type_d3,
     )
-    e_el, _eps, _f, _entropy = electronic_energy(
-        coords, q_star, frag, kt, settings, gamma_at
-    )
     d3tab = _d3_tables(frag)
     glb = frag.glb
-    e_disp = d3_energy(
-        coords, cn, d3tab, frag.atom_mask,
-        glb[:, 12], glb[:, 13], glb[:, 14], glb[:, 15],
-    )
-    if settings.disp_s9:
-        # ATM triple-dipole term (static gate; s9/rs9 ride glb)
-        e_disp = e_disp + atm_energy(
-            coords, cn, d3tab, frag.atom_mask,
-            glb[:, 16], glb[:, 17], glb[:, 14], glb[:, 15],
+    if settings.multipoles:
+        # GFN2: AES + charge-scaled dispersion live INSIDE the interaction
+        # functional (self-consistent); no separate two-body e_disp
+        e_el, _eps, _f, _entropy = electronic_energy_multipole(
+            coords, q_star, frag, kt, settings, gamma_at, _mp_tables(frag, cn)
         )
-    q_at = _atom_charges(q_star, frag)
-    dipole = ((frag.atom_mask * q_at)[:, :, None] * coords).sum(1)
+        q_sh, mu_at, _th_at = _aes_unpack(
+            q_star, frag.sh_mask.shape[1], frag.atom_mask.shape[1]
+        )
+        q_at = _atom_charges(q_sh, frag)
+        # dipole = sum q R + sum mu (atomic dipoles added)
+        dipole = ((frag.atom_mask * q_at)[:, :, None] * coords).sum(1) + (
+            mu_at * frag.atom_mask[:, :, None]
+        ).sum(1)
+        e_disp = torch.zeros_like(e_el)
+        if settings.disp_s9:
+            # ATM term: charge-INdependent (D4 keeps the three-body term
+            # unscaled), so it sits outside the SCC
+            e_disp = atm_energy(
+                coords, cn, d3tab, frag.atom_mask,
+                glb[:, 16], glb[:, 17], glb[:, 14], glb[:, 15],
+            )
+    else:
+        e_el, _eps, _f, _entropy = electronic_energy(
+            coords, q_star, frag, kt, settings, gamma_at
+        )
+        e_disp = d3_energy(
+            coords, cn, d3tab, frag.atom_mask,
+            glb[:, 12], glb[:, 13], glb[:, 14], glb[:, 15],
+        )
+        if settings.disp_s9:
+            # ATM triple-dipole term (static gate; s9/rs9 ride glb)
+            e_disp = e_disp + atm_energy(
+                coords, cn, d3tab, frag.atom_mask,
+                glb[:, 16], glb[:, 17], glb[:, 14], glb[:, 15],
+            )
+        q_at = _atom_charges(q_star, frag)
+        dipole = ((frag.atom_mask * q_at)[:, :, None] * coords).sum(1)
 
     light_mask = ((frag.numbers > 0) & (frag.numbers <= 2)).to(coords.dtype)
     e_rep = repulsion_energy(
@@ -227,17 +336,21 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
     )
     # per-element atomic reference constants (zero geometric derivatives)
     e_atomic = (frag.at_e0 * frag.atom_mask).sum(-1)
-    e_xb = halogen_bond_energy(
-        coords, frag.numbers, frag.at_xbond, frag.at_rcov, frag.atom_mask
-    )
 
-    energy = e_el + e_rep + e_disp + e_atomic + e_xb
+    energy = e_el + e_rep + e_disp + e_atomic
+    if not settings.multipoles:
+        # halogen-bond correction: GFN1 only (tblite's GFN2 calculator has
+        # no halogen container)
+        energy = energy + halogen_bond_energy(
+            coords, frag.numbers, frag.at_xbond, frag.at_rcov, frag.atom_mask
+        )
     # CDS surface + solution-state shift terms (ALPB/GBSA; the reference
     # wires them via tblite and defaults them ON)
     if solvation is not None and hasattr(solvation, "surface_energy"):
         energy = energy + solvation.surface_energy(coords, frag)
     aux = {
         "charges": q_at,
+        # GFN2: the packed AES state, the hand-off point for a warm start
         "shell_charges": q_star,
         "scf_residual": resid,
         "dipole": dipole,
@@ -260,22 +373,23 @@ def check_device(device) -> torch.device:
 
 
 class XtbCalculator:
-    """High-level batched GFN1 calculator on one device (the card unless
-    the caller asks for the CPU).
+    """High-level batched GFN1/GFN2 calculator on one device (the card
+    unless the caller asks for the CPU).
 
     Usage:
-        calc = XtbCalculator(settings)              # device="cuda"
+        calc = XtbCalculator(settings, variant="gfn2")   # device="cuda"
         frag = calc.make_batch(fragments)           # host-side padding
         energies, aux = calc.energies(frag)         # (B,)
         energies, grads, aux = calc.gradients(frag)
     """
 
-    #: the one parameterization the port covers (GFN2 is ROADMAP A10)
-    variant = "gfn1"
-
-    def __init__(self, settings: EngineSettings = None, dtype=torch.float64,
-                 device="cuda", solvation=None):
-        self.settings = settings or settings_from_params(self.variant)
+    def __init__(self, settings: EngineSettings = None,
+                 variant: str = "gfn1", dtype=torch.float64, device="cuda",
+                 solvation=None):
+        # derived from the variant's GLOBALS when not given (form flags
+        # such as eta_average and multipoles live there)
+        self.settings = settings or settings_from_params(variant)
+        self.variant = variant
         self.dtype = dtype
         self.device = check_device(device)
         self.solvation = solvation
@@ -308,7 +422,8 @@ class XtbCalculator:
     def make_batch(self, fragments, pad_to=None) -> FragmentData:
         batch = build_batch(fragments, variant=self.variant, pad_to=pad_to)
         return fragment_data_from_batch(batch, self.device, self.dtype,
-                                        solvation=self.solvation)
+                                        solvation=self.solvation,
+                                        variant=self.variant)
 
     def energies(self, frag: FragmentData):
         with torch.no_grad():

@@ -1,10 +1,11 @@
-"""D3(BJ) two-body and ATM three-body dispersion for GFN1-xTB, in torch.
+"""D3(BJ) two-body and ATM three-body dispersion for xTB, in torch.
 
 Counterpart of metalquicha_tpu's `dispersion_d3.py`. Its NumPy half (the
 reference tables, the ext-element merge, `build_d3_tables` and
 `full_pair_table`) is the port's own copy; `params_gfn1.load_overlay`
-writes the fitted overlay into THESE tables. Only the GFN1 (fitted) tables exist: GFN2's
-pristine snapshots are not ported.
+writes the fitted overlay into THESE tables; GFN2 reads the pristine
+snapshots taken before it (`fitted=False`) and scales the pair C6 by its
+charge functions (`d3_energy(c6_scale=)`).
 
 CN-interpolated reference C6 coefficients with Becke-Johnson rational
 damping (Grimme et al., JCP 132, 154104 (2010); JCC 32, 1456 (2011)):
@@ -114,6 +115,13 @@ for _z, _refs in _EXT_C6.items():
 R4R2.update({_z: _v for _z, _v in _EXT_R4R2.items() if _z not in R4R2})
 del _z
 
+# Pristine (pre-overlay) snapshots. params_gfn1.load_overlay mutates
+# REF_C6_DIAG / R4R2 in place with GFN1-fitted values; the GFN2 path reads
+# THESE instead (fitted=False below) so a GFN1 refit can never move GFN2
+# dispersion.
+PRISTINE_REF_C6_DIAG = {z: list(v) for z, v in REF_C6_DIAG.items()}
+PRISTINE_R4R2 = dict(R4R2)
+
 K1 = 16.0  # CN counting steepness
 K3 = 4.0   # gaussian weighting exponent
 
@@ -143,11 +151,11 @@ def invalidate_caches() -> None:
 
 
 @lru_cache(maxsize=None)
-def _element_ref_arrays(z: int):
+def _element_ref_arrays(z: int, fitted: bool = True):
     cns = REF_CN.get(z)
     if cns is None:
         raise NotImplementedError(f"D3 reference data for Z={z} not tabulated")
-    c6 = REF_C6_DIAG[z]
+    c6 = (REF_C6_DIAG if fitted else PRISTINE_REF_C6_DIAG)[z]
     n = len(cns)
     cn_pad = np.full(MAX_REFS, 1.0e6)  # huge CN -> zero weight
     c6_pad = np.zeros(MAX_REFS)
@@ -157,20 +165,25 @@ def _element_ref_arrays(z: int):
 
 
 @lru_cache(maxsize=None)
-def full_pair_table():
+def full_pair_table(fitted: bool = True):
     """(NZ, NZ, MAX_REFS, MAX_REFS) reference pair C6 table.
 
-    Geometric-mean seed from the diagonal values, overridden per pair by
-    the fitted grids. Symmetric: T[i,j,a,b] == T[j,i,b,a]."""
+    Geometric-mean seed from the diagonal values; with fitted=True (GFN1)
+    overridden per pair by the fitted grids. fitted=False (GFN2) keeps the
+    pure geometric-mean factorization of the pristine diagonal: the pair
+    grids are refined against GFN1 energies and must not reach GFN2's
+    in-loop charge-scaled dispersion. Symmetric: T[i,j,a,b] == T[j,i,b,a]."""
     nz = len(D3_ELEMENTS)
     table = np.zeros((nz, nz, MAX_REFS, MAX_REFS))
     sqrt_diag = {}
     for z in D3_ELEMENTS:
-        _cn, c6, n = _element_ref_arrays(z)
+        _cn, c6, n = _element_ref_arrays(z, fitted)
         sqrt_diag[z] = np.sqrt(c6)
     for i, zi in enumerate(D3_ELEMENTS):
         for j, zj in enumerate(D3_ELEMENTS):
             table[i, j] = np.outer(sqrt_diag[zi], sqrt_diag[zj])
+    if not fitted:
+        return table
     for (zlo, zhi), grid in _PAIR_OVERRIDES.items():
         if zlo not in _Z_TO_IDX or zhi not in _Z_TO_IDX:
             continue
@@ -181,14 +194,15 @@ def full_pair_table():
     return table
 
 
-def build_d3_tables(numbers: np.ndarray):
+def build_d3_tables(numbers: np.ndarray, fitted: bool = True):
     """Host-side per-atom D3 data for a (padded) fragment.
 
     Returns dict of arrays: ref_cn (nat, R), zidx (nat,) index into
     D3_ELEMENTS (-1 for extended elements outside the core pair table),
     sqrtc6 (nat, R) sqrt of the diagonal reference C6 (the geometric-mean
     fallback factor), r4r2 (nat,). Padded atoms (z=0) get zero tables and
-    zidx=0 (masked downstream by atom_mask and their huge ref_cn)."""
+    zidx=0 (masked downstream by atom_mask and their huge ref_cn).
+    fitted=False (GFN2) reads the pristine diagonal C6 / r4r2 snapshots."""
     nat = len(numbers)
     ref_cn = np.full((nat, MAX_REFS), 1.0e6)
     zidx = np.zeros(nat, dtype=np.int64)
@@ -198,11 +212,11 @@ def build_d3_tables(numbers: np.ndarray):
         z = int(z)
         if z == 0:
             continue
-        cn_pad, c6_pad, _n = _element_ref_arrays(z)
+        cn_pad, c6_pad, _n = _element_ref_arrays(z, fitted)
         ref_cn[i] = cn_pad
         zidx[i] = _Z_TO_IDX.get(z, -1)
         sqrtc6[i] = np.sqrt(np.maximum(c6_pad, 0.0))
-        r4r2[i] = R4R2[z]
+        r4r2[i] = (R4R2 if fitted else PRISTINE_R4R2)[z]
     return {"ref_cn": ref_cn, "zidx": zidx, "sqrtc6": sqrtc6, "r4r2": r4r2}
 
 
@@ -325,8 +339,11 @@ def atm_energy(coords, cn, d3tab, atom_mask, s9, rs9, a1, a2, alp=16.0):
     return s9 * e3
 
 
-def d3_energy(coords, cn, d3tab, atom_mask, s6, s8, a1, a2):
-    """Two-body D3(BJ) energy (B,). s6, s8, a1, a2 are (B,) globals."""
+def d3_energy(coords, cn, d3tab, atom_mask, s6, s8, a1, a2, c6_scale=None):
+    """Two-body D3(BJ) energy (B,). s6, s8, a1, a2 are (B,) globals.
+
+    c6_scale: optional (B, nat, nat) factor on the pair C6 (GFN2's
+    D4-style charge scaling zeta_A zeta_B)."""
     nat = coords.shape[1]
     eye = _eye(nat, coords)
     diff = coords[:, :, None, :] - coords[:, None, :, :]
@@ -338,6 +355,8 @@ def d3_energy(coords, cn, d3tab, atom_mask, s6, s8, a1, a2):
         cn, d3tab["ref_cn"], d3tab["zidx"], d3tab["pair_table"],
         d3tab["sqrtc6"],
     )
+    if c6_scale is not None:
+        c6 = c6 * c6_scale
     qq = 3.0 * d3tab["r4r2"][:, :, None] * d3tab["r4r2"][:, None, :]
     c8 = c6 * qq
 

@@ -1,6 +1,6 @@
-"""Batched GFN1-xTB engine: H0 + SCC in torch, batch-first.
+"""Batched xTB engine (GFN1 and GFN2): H0 + SCC in torch, batch-first.
 
-Counterpart of metalquicha_tpu's `engine.py` (GFN1 path). Every function
+Counterpart of metalquicha_tpu's `engine.py`. Every function
 takes tensors with an explicit leading fragment axis B where the JAX
 version is written for one fragment under `vmap`; `batch` is a
 `calculator.FragmentData` of such tensors.
@@ -14,6 +14,13 @@ evaluated through a variational functional
 which is stationary in the converged shell charges q* and occupations f*,
 so autograd w.r.t. R with q*/f* detached is the exact analytic gradient,
 and only eigenvalue derivatives of `eigh_safe` are exercised.
+
+GFN2 generalizes the SCC state from shell charges to the packed vector
+z = (q_sh, mu_A, theta_A) of shell charges, atomic dipoles and traceless
+quadrupoles. Its interaction energy is a function of these moments, the
+SCC potentials are its derivatives with respect to them (taken by
+autograd, inside the loop and inside the variational functional), and the
+Fock contribution follows from the moments being linear maps of P.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
 from ...ops.jacobi_eigh import jacobi_eigh
 from ...ops.sp2 import sp2_density
 from .batch import PAD_LEVEL
+from .multipole import moment_matrices
 from .overlap import overlap_matrix
 
 
@@ -77,24 +85,22 @@ class EngineSettings(NamedTuple):
     #: purification (ops/sp2.py) above. The final variational energy
     #: always uses `eigh_safe`.
     use_pallas_eigh: bool = False
-    #: GFN2 mode (not ported: ROADMAP A10)
+    #: GFN2 mode: self-consistent atomic dipoles/quadrupoles (AES) and
+    #: charge-scaled (D4-style) dispersion inside the SCC
     multipoles: bool = False
 
 
 def settings_from_params(variant: str = "gfn1", **overrides) -> EngineSettings:
-    """Build EngineSettings from the port's GFN1 GlobalParams."""
-    if variant != "gfn1":
-        raise NotImplementedError(
-            f"variant {variant!r}: the torch port covers GFN1 only "
-            "(GFN2 is ROADMAP A10)"
-        )
+    """Build EngineSettings from a parameter module's GlobalParams."""
     if os.environ.get("MQC_FORM_VARIANT"):
         raise NotImplementedError(
             "MQC_FORM_VARIANT (the fitting tools' form override) is not "
             "ported; unset it (ROADMAP A15)"
         )
-    from . import params_gfn1 as params
-
+    if variant == "gfn2":
+        from . import params_gfn2 as params
+    else:
+        from . import params_gfn1 as params
     g = params.GLOBALS
     base = dict(
         kpol=g.kpol,
@@ -147,10 +153,14 @@ def _take2(m, idx):
 
 
 def _scatter_sum(values, idx, size):
-    """out[b, s] = sum_k values[b, k] over idx[b, k] == s."""
+    """out[b, s] = sum_k values[b, k] over idx[b, k] == s, for values
+    (B, n) or (B, n, c) and idx (B, n)."""
     out = torch.zeros(
-        values.shape[0], size, dtype=values.dtype, device=values.device
+        values.shape[0], size, *values.shape[2:],
+        dtype=values.dtype, device=values.device,
     )
+    if values.dim() > 2:
+        idx = idx[:, :, None].expand(-1, -1, values.shape[2])
     return out.scatter_add(1, idx, values)
 
 
@@ -493,20 +503,90 @@ def _jacobi_route(S):
 _DONE_CHECK_EVERY = 4
 
 
+def _anderson_solve(fixed_point, x0, settings: EngineSettings):
+    """Anderson-mixed fixed-point iteration x <- g(x) on a batch of state
+    vectors x0 (B, nx); returns the states and the final residuals (B,).
+
+    Each fragment iterates until its residual max|g(x) - x| drops below
+    settings.scf_tol or max_scf_iter is reached; a fragment that stops
+    keeps its state while the others iterate, as the JAX package's vmapped
+    while_loop does. Window of broyden_memory with Tikhonov-regularized
+    normal equations, a c_lim safeguard and damped steps as fallback.
+    """
+    bsz, nx = x0.shape
+    m = settings.broyden_memory
+    beta = settings.mixer_damping
+    dtype, dev = x0.dtype, x0.device
+    f32 = dtype == torch.float32
+    reg = 1e-4 if f32 else 1e-12
+    c_lim = 2.0 if f32 else 1e3
+    eye_m = torch.eye(m, dtype=dtype, device=dev)
+    slots = torch.arange(m, device=dev)
+
+    x = x0
+    resid = torch.ones(bsz, dtype=dtype, device=dev)
+    active = torch.ones(bsz, dtype=torch.bool, device=dev)
+    hist_x = torch.zeros(bsz, m, nx, dtype=dtype, device=dev)
+    hist_f = torch.zeros(bsz, m, nx, dtype=dtype, device=dev)
+
+    # every active fragment has done exactly `it` iterations
+    for it in range(settings.max_scf_iter):
+        if (settings.scf_tol > 0 and it and it % _DONE_CHECK_EVERY == 0
+                and not bool(active.any())):
+            break
+        f_res = fixed_point(x) - x
+        it_resid = f_res.abs().amax(-1)
+
+        slot = it % m
+        hist_x[:, slot] = x
+        hist_f[:, slot] = f_res
+
+        # Anderson: minimize ||f + dF c|| over window differences
+        prev = (it - 1) % m
+        valid = ((slots <= it) & (slots != prev))[None, :, None]
+        dX = torch.where(valid, hist_x - hist_x[:, prev, None], 0.0)
+        dF = torch.where(valid, hist_f - hist_f[:, prev, None], 0.0)
+        G = dF @ dF.transpose(-1, -2)
+        trace = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+        G = G + (reg * trace / m + 1e-30)[:, None, None] * eye_m
+        rhs = (dF @ f_res[..., None])[..., 0]
+        c, _ = torch.linalg.solve_ex(G, rhs)
+        step = (c[:, None, :] @ (dX + beta * dF))[:, 0]
+        x_and = x + beta * f_res - step
+        x_damped = x + beta * f_res
+        # reject wild extrapolations, non-finite steps, the first step
+        bad = (
+            (it < 1)
+            | ~torch.isfinite(x_and).all(-1)
+            | (c.abs().amax(-1) > c_lim)
+        )
+        x_next = torch.where(bad[:, None], x_damped, x_and)
+
+        # fragments already below scf_tol keep their state and residual
+        x = torch.where(active[:, None], x_next, x)
+        resid = torch.where(active, it_resid, resid)
+        active = active & (resid > settings.scf_tol)
+    return x, resid
+
+
+def _warm_start(x0, shape, like):
+    if x0 is None:
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+    return x0.to(dtype=like.dtype, device=like.device)
+
+
 def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
-              gamma_at=None):
-    """Bounded SCC loop (not differentiated) with Anderson mixing.
+              gamma_at=None, q0=None):
+    """Bounded SCC loop (not differentiated) with Anderson mixing
+    (`_anderson_solve`).
 
     Returns converged shell charges q* (B, nsh) and the final charge
-    residual (B,). Each fragment iterates until its residual drops below
-    settings.scf_tol or max_scf_iter is reached; a fragment that stops
-    keeps its charges while the others iterate, as the JAX package's
-    vmapped while_loop does. Anderson acceleration uses a window of
-    broyden_memory with Tikhonov-regularized normal equations, a c_lim
-    safeguard and damped steps as fallback.
+    residual (B,).
 
     gamma_at: optional atom-level kernel addition (solvation), (B, nat,
-    nat).
+    nat). q0: optional warm-start shell charges (B, nsh); the fixed point
+    is unique, so the warm start only changes how fast the tolerance is
+    reached.
 
     With settings.use_pallas_eigh the in-loop solve is the fast route, in
     either dtype: the Jacobi kernel for nao <= PALLAS_EIGH_MAX_N, and above
@@ -548,60 +628,258 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
         n_sh = _shell_populations(P, S, batch)
         return (batch.sh_refocc - n_sh) * batch.sh_mask
 
-    bsz, nsh = batch.sh_mask.shape
-    m = settings.broyden_memory
-    beta = settings.mixer_damping
-    dtype, dev = S.dtype, S.device
-    f32 = dtype == torch.float32
-    reg = 1e-4 if f32 else 1e-12
-    c_lim = 2.0 if f32 else 1e3
-    eye_m = torch.eye(m, dtype=dtype, device=dev)
-    slots = torch.arange(m, device=dev)
+    return _anderson_solve(
+        fixed_point, _warm_start(q0, batch.sh_mask.shape, S), settings
+    )
 
-    q = torch.zeros(bsz, nsh, dtype=dtype, device=dev)
-    resid = torch.ones(bsz, dtype=dtype, device=dev)
-    active = torch.ones(bsz, dtype=torch.bool, device=dev)
-    hist_x = torch.zeros(bsz, m, nsh, dtype=dtype, device=dev)
-    hist_f = torch.zeros(bsz, m, nsh, dtype=dtype, device=dev)
 
-    # every active fragment has done exactly `it` iterations
-    for it in range(settings.max_scf_iter):
-        if (settings.scf_tol > 0 and it and it % _DONE_CHECK_EVERY == 0
-                and not bool(active.any())):
-            break
-        f_res = fixed_point(q) - q
-        it_resid = f_res.abs().amax(-1)
+def scf_refine(H0, S, gamma, batch, kt, settings: EngineSettings, q0,
+               n_iter: int, gamma_at=None):
+    """Differentiable fixed-point refinement from a converged warm start.
 
-        slot = it % m
-        hist_x[:, slot] = q
-        hist_f[:, slot] = f_res
-
-        # Anderson: minimize ||f + dF c|| over window differences
-        prev = (it - 1) % m
-        valid = ((slots <= it) & (slots != prev))[None, :, None]
-        dX = torch.where(valid, hist_x - hist_x[:, prev, None], 0.0)
-        dF = torch.where(valid, hist_f - hist_f[:, prev, None], 0.0)
-        G = dF @ dF.transpose(-1, -2)
-        trace = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
-        G = G + (reg * trace / m + 1e-30)[:, None, None] * eye_m
-        rhs = (dF @ f_res[..., None])[..., 0]
-        c, _ = torch.linalg.solve_ex(G, rhs)
-        step = (c[:, None, :] @ (dX + beta * dF))[:, 0]
-        q_and = q + beta * f_res - step
-        q_damped = q + beta * f_res
-        # reject wild extrapolations, non-finite steps, the first step
-        bad = (
-            (it < 1)
-            | ~torch.isfinite(q_and).all(-1)
-            | (c.abs().amax(-1) > c_lim)
+    n_iter plain half-damped iterations that autograd records, so q*(R)
+    carries derivatives by truncated backpropagation, which converges
+    geometrically since |q0 - q*| is already at solver tolerance. The
+    occupations are detached (exact for gapped systems)."""
+    ortho = _ortho_factors(S)
+    q = q0
+    for _ in range(n_iter):
+        F = _fock(H0, S, q, gamma, batch, settings, gamma_at)
+        eps, C = _general_eigh(F, ortho)
+        f, _ = occupations(
+            eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
+            settings.fixed_occupations,
         )
-        q_next = torch.where(bad[:, None], q_damped, q_and)
+        f = f.detach()
+        P = (C * f[:, None, :]) @ C.transpose(-1, -2)
+        n_sh = _shell_populations(P, S, batch)
+        q_new = (batch.sh_refocc - n_sh) * batch.sh_mask
+        q = q + 0.5 * (q_new - q)
+    return q
 
-        # fragments already below scf_tol keep their charges and residual
-        q = torch.where(active[:, None], q_next, q)
-        resid = torch.where(active, it_resid, resid)
-        active = active & (resid > settings.scf_tol)
-    return q, resid
+
+# ---------------------------------------------------------------------------
+# GFN2 multipole (AES) machinery on the packed state z = (q_sh, mu, theta)
+# ---------------------------------------------------------------------------
+
+
+def _aes_pack(q, mu, th):
+    return torch.cat([q, mu.flatten(1), th.flatten(1)], -1)
+
+
+def _aes_unpack(z, nsh, nat):
+    q = z[:, :nsh]
+    mu = z[:, nsh : nsh + 3 * nat].reshape(-1, nat, 3)
+    th = z[:, nsh + 3 * nat :].reshape(-1, nat, 6)
+    return q, mu, th
+
+
+def _aes_interaction(q_sh, mu, th, coords, gamma, batch, settings,
+                     gamma_at, mp):
+    """Moment-dependent interaction energy for GFN2, (B,): isotropic second
+    + third order + AES + charge-scaled dispersion."""
+    from .dispersion_d3 import d3_energy
+    from .gfn2 import aes_energy, d4_zeta
+
+    e = _coulomb_energy(q_sh, gamma, batch, settings, gamma_at)
+    q_at = _atom_charges(q_sh, batch)
+    aes_p = mp["at_aes"]
+    e = e + aes_energy(
+        coords, q_at, mu, th,
+        aes_p[..., 0], aes_p[..., 1], aes_p[..., 2], batch.atom_mask,
+    )
+    if mp.get("d4", False):
+        zeta = d4_zeta(q_at, aes_p[..., 3], aes_p[..., 4], batch.atom_mask)
+        glb = batch.glb
+        # scale the pair C6 table by zeta_A zeta_B (charge-dependent C6)
+        e = e + d3_energy(
+            coords, mp["cn"], mp["d3tab"], batch.atom_mask,
+            glb[:, 12], glb[:, 13], glb[:, 14], glb[:, 15],
+            c6_scale=zeta[:, :, None] * zeta[:, None, :],
+        )
+    return e
+
+
+def _aes_potentials(q, mu, th, coords, gamma, batch, settings, gamma_at, mp):
+    """(vq, vmu, vth) = d E_int / d (q, mu, th), by autograd.
+
+    Called with autograd off (the SCC loop, an energy-only evaluation) the
+    derivative is taken on detached copies of the moments and carries no
+    graph. Called with autograd on (the variational functional, the
+    differentiable refinement) it is built with create_graph=True, so the
+    outer derivative with respect to the coordinates, and to a
+    differentiable state, flows through the potentials."""
+    outer = torch.is_grad_enabled()
+    with torch.enable_grad():
+        leaves = [
+            t if outer and t.requires_grad else t.detach().requires_grad_(True)
+            for t in (q, mu, th)
+        ]
+        e = _aes_interaction(
+            *leaves, coords, gamma, batch, settings, gamma_at, mp
+        ).sum()
+        return torch.autograd.grad(e, leaves, create_graph=outer)
+
+
+def _aes_fock(H0, S, z, coords, gamma, batch, settings, gamma_at, mp):
+    """Fock matrix for the multipole SCC state z = (q_sh, mu, theta), and
+    the potentials (vq, vmu, vth_eff) it was built from."""
+    nsh = batch.sh_mask.shape[1]
+    nat = batch.atom_mask.shape[1]
+    q, mu, th = _aes_unpack(z, nsh, nat)
+    vq, vmu, vth = _aes_potentials(
+        q, mu, th, coords, gamma, batch, settings, gamma_at, mp
+    )
+    # charge part: dE/dn = -dE/dq, standard shift
+    v_ao = _take(vq, batch.ao_shell)
+    F = H0 - 0.5 * (v_ao[:, :, None] + v_ao[:, None, :]) * S
+    # multipole part: mu_A = -sum_{k in A, l} P_kl D_kl  (linear in P).
+    # theta is stored TRACELESS (camm_moments subtracts tr/3 from the
+    # diagonal); the adjoint of that projection must be applied to the
+    # theta-potential before contracting with the RAW quadrupole integrals,
+    # or the variational trace identity (and the stationarity the gradient
+    # path relies on) breaks.
+    tr_v = (vth[..., 0] + vth[..., 1] + vth[..., 2]) / 3.0
+    vth_eff = torch.cat([vth[..., :3] - tr_v[..., None], vth[..., 3:]], -1)
+    G = -torch.einsum(
+        "bkd,bdkl->bkl", _take(vmu, batch.ao_atom), mp["D"]
+    ) - torch.einsum(
+        "bkd,bdkl->bkl", _take(vth_eff, batch.ao_atom), mp["Q"]
+    )
+    return F + 0.5 * (G + G.transpose(-1, -2)), (vq, vmu, vth_eff)
+
+
+def _aes_moments_of_P(P, S, batch, mp):
+    from .gfn2 import camm_moments
+
+    n_sh = _shell_populations(P, S, batch)
+    q = (batch.sh_refocc - n_sh) * batch.sh_mask
+    mu, th = camm_moments(
+        P, S, mp["D"], mp["Q"], batch.ao_atom, batch.atom_mask.shape[1]
+    )
+    mu = mu * batch.atom_mask[:, :, None]
+    th = th * batch.atom_mask[:, :, None]
+    return q, mu, th
+
+
+def _aes_fixed_point(H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
+                     ortho, detach_occupations=False):
+    """The multipole SCC map z -> z' (Fock, generalized eigh, filling,
+    moments of the new density). It always diagonalizes through
+    `_general_eigh`, whatever use_pallas_eigh says, as the JAX package."""
+
+    def fixed_point(z):
+        F, _ = _aes_fock(H0, S, z, coords, gamma, batch, settings,
+                         gamma_at, mp)
+        eps, C = _general_eigh(F, ortho)
+        f, _ = occupations(
+            eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
+            settings.fixed_occupations,
+        )
+        if detach_occupations:
+            f = f.detach()  # exact for gapped systems
+        P = (C * f[:, None, :]) @ C.transpose(-1, -2)
+        return _aes_pack(*_aes_moments_of_P(P, S, batch, mp))
+
+    return fixed_point
+
+
+def scf_solve_multipole(H0, S, coords, gamma, batch, kt,
+                        settings: EngineSettings, gamma_at, mp, z0=None):
+    """Anderson-mixed SCC over the extended moment state (GFN2/AES):
+    `_anderson_solve` on z (B, nsh + 9 nat). Not differentiated.
+
+    z0: optional warm start (packed AES state); the fixed point is unique,
+    so it only changes how fast the tolerance is reached."""
+    bsz, nsh = batch.sh_mask.shape
+    nat = batch.atom_mask.shape[1]
+    fixed_point = _aes_fixed_point(
+        H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
+        _ortho_factors(S),
+    )
+    return _anderson_solve(
+        fixed_point, _warm_start(z0, (bsz, nsh + 9 * nat), S), settings
+    )
+
+
+def scf_refine_multipole(H0, S, coords, gamma, batch, kt,
+                         settings: EngineSettings, gamma_at, mp, z0,
+                         n_iter: int):
+    """Differentiable damped refinement of the packed AES state (GFN2): the
+    multipole analog of `scf_refine`, n_iter damped fixed-point steps that
+    autograd records, occupations detached."""
+    fixed_point = _aes_fixed_point(
+        H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
+        _ortho_factors(S), detach_occupations=True,
+    )
+    beta = settings.mixer_damping
+    z = z0
+    for _ in range(n_iter):
+        z = z + beta * (fixed_point(z) - z)
+    return z
+
+
+def electronic_energy_multipole(coords, z_star, batch, kt,
+                                settings: EngineSettings, gamma_at, mp):
+    """Variational energy at the converged moment state (GFN2/AES), (B,).
+
+    mp: the static AES/D4 tables (`calculator._mp_tables`); its
+    coordination number and moment integrals are rebuilt here from
+    `coords`, so their geometric derivatives flow."""
+    # S from overlap_matrix (padded-diagonal identity handling);
+    # moment_matrices supplies the dipole/quadrupole integrals
+    S = overlap_matrix(
+        coords, batch.ao_atom, batch.ao_lxyz, batch.prim_alpha,
+        batch.prim_coeff,
+    )
+    _S_mm, D, Q = moment_matrices(
+        coords, batch.ao_atom, batch.ao_lxyz, batch.prim_alpha,
+        batch.prim_coeff,
+    )
+    cn = coordination_numbers(
+        coords, batch.at_rcov, batch.atom_mask, batch.glb[:, 11],
+        settings.cn_type,
+    )
+    H0 = h0_matrix(S, coords, batch, cn, settings)
+    gamma = gamma_matrix(coords, batch, settings)
+    mp = dict(mp)
+    # D4-style dispersion uses the D3 counting function, not the H0 one
+    mp["cn"] = coordination_numbers(
+        coords, batch.at_rcov, batch.atom_mask, batch.glb[:, 11],
+        settings.cn_type_d3,
+    )
+    mp["D"], mp["Q"] = D, Q
+
+    F, (vq, vmu, vth) = _aes_fock(
+        H0, S, z_star, coords, gamma, batch, settings, gamma_at, mp
+    )
+    eps, C = _general_eigh(F, _ortho_factors(S))
+    f, entropy = occupations(
+        eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
+        settings.fixed_occupations,
+    )
+    f = f.detach()
+    e_band = (f * eps).sum(-1)
+
+    nsh = batch.sh_mask.shape[1]
+    nat = batch.atom_mask.shape[1]
+    q, mu, th = _aes_unpack(z_star, nsh, nat)
+    n_star = (batch.sh_refocc - q) * batch.sh_mask
+    # Tr(P(F-H0)) = -sum v_q n + v_mu.mu + v_th.th  (moments linear in P);
+    # the potentials are NOT detached: their coordinate derivative is part
+    # of the gradient
+    e_el = (
+        e_band
+        + (vq * n_star).sum(-1)
+        - (vmu * mu).sum((1, 2))
+        - (vth * th).sum((1, 2))
+        + _aes_interaction(
+            q, mu, th, coords, gamma, batch, settings, gamma_at, mp
+        )
+    )
+    if settings.include_entropy and not settings.fixed_occupations:
+        e_el = e_el - kt * entropy.detach()
+    return e_el, eps, f, entropy
 
 
 def electronic_energy(coords, q_star, batch, kt, settings: EngineSettings,

@@ -22,24 +22,37 @@ import torch
 MAX_L = 2  # up to d functions
 
 
-def _s1d(i, j, xpa, xpb, inv2p):
-    """Recursive closed form of the 1D OS overlap factor (unrolled)."""
+def _s1d(i, j, xpa, xpb, inv2p, cache=None):
+    """Recursive closed form of the 1D OS overlap factor (unrolled).
+
+    cache: optional dict (i, j) -> factor for one (xpa, xpb, inv2p); a
+    caller that needs many (i, j) of one dimension passes one, so that
+    each factor is built, and kept for the backward pass, once. The values
+    are the same with and without it."""
     if i < 0 or j < 0:
         return torch.zeros_like(xpa)
     if i == 0 and j == 0:
         return torch.ones_like(xpa)
+    if cache is not None and (i, j) in cache:
+        return cache[(i, j)]
     if i >= j:
-        term = xpa * _s1d(i - 1, j, xpa, xpb, inv2p)
+        term = xpa * _s1d(i - 1, j, xpa, xpb, inv2p, cache)
         if i - 1 > 0:
-            term = term + (i - 1) * inv2p * _s1d(i - 2, j, xpa, xpb, inv2p)
+            term = term + (i - 1) * inv2p * _s1d(i - 2, j, xpa, xpb, inv2p,
+                                                 cache)
         if j > 0:
-            term = term + j * inv2p * _s1d(i - 1, j - 1, xpa, xpb, inv2p)
-        return term
-    term = xpb * _s1d(i, j - 1, xpa, xpb, inv2p)
-    if j - 1 > 0:
-        term = term + (j - 1) * inv2p * _s1d(i, j - 2, xpa, xpb, inv2p)
-    if i > 0:
-        term = term + i * inv2p * _s1d(i - 1, j - 1, xpa, xpb, inv2p)
+            term = term + j * inv2p * _s1d(i - 1, j - 1, xpa, xpb, inv2p,
+                                           cache)
+    else:
+        term = xpb * _s1d(i, j - 1, xpa, xpb, inv2p, cache)
+        if j - 1 > 0:
+            term = term + (j - 1) * inv2p * _s1d(i, j - 2, xpa, xpb, inv2p,
+                                                 cache)
+        if i > 0:
+            term = term + i * inv2p * _s1d(i - 1, j - 1, xpa, xpb, inv2p,
+                                           cache)
+    if cache is not None:
+        cache[(i, j)] = term
     return term
 
 

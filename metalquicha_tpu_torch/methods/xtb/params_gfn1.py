@@ -605,6 +605,15 @@ def load_overlay(path: str) -> None:
         _batch.element_basis.cache_clear()
 
 
+# Pristine (pre-overlay) snapshots: params_gfn2 seeds its independent
+# tables from THESE, not the fit-overlaid rows, so a GFN1 refit never
+# leaks into GFN2 physics.
+import copy as _copy
+
+PRISTINE_ELEMENTS = _copy.deepcopy(ELEMENTS)
+PRISTINE_ATOMIC_RADII_A = ATOMIC_RADII_A.copy()
+PRISTINE_COVALENT_RADII_A = COVALENT_RADII_A.copy()
+
 # Load the fitted parameter overlay; a missing file raises (it is the
 # physics, not an option). MQC_NO_OVERLAY=1 skips it (raw published-base
 # evaluation), as in the JAX package.

@@ -6,7 +6,8 @@ evaluated in chunks of at most 2e8 / nao^2 fragments (the engine holds
 several (B, nao, nao) and the overlap matrix (B, nao, nao, nprim, nprim)
 intermediates; a solvation model adds its own largest intermediate to
 nao^2: CPCM's (nat nang)^2 point-point matrix, the (nat, nang, nat) SASA
-integrand of ALPB/GBSA), and the results are scattered back per fragment,
+integrand of ALPB/GBSA; GFN2 adds the nine raised 1D tables of its moment
+integrals), and the results are scattered back per fragment,
 truncated to each fragment's real size. The mesh, the f64 host polisher and
 rescue, and the TPU batch quantum are not ported.
 """
@@ -20,14 +21,15 @@ import numpy as np
 
 from ..logging_ import global_logger as logger
 
-from ..methods.xtb.batch import element_basis
+from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
+from ..methods.xtb.multipole import work_elements as multipole_work_elements
 
 #: atom-count bucket ladder; shells/AOs scale with atoms per bucket
 ATOM_BUCKETS = (2, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 
-#: cap on B * (nao^2 + the solvation model's work elements) per
-#: dispatched chunk
+#: cap on B * (nao^2 + the solvation model's work elements + the GFN2
+#: moment integrals') per dispatched chunk
 MAX_CHUNK_ELEMENTS = 2.0e8
 
 
@@ -49,6 +51,12 @@ def _frag_tuple(frag):
     return frag
 
 
+def _host(x) -> np.ndarray:
+    """A calculator's result on the host (the placeholder methods return
+    NumPy arrays already)."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
 def _sizes(numbers, variant):
     nsh = nao = 0
     for z in numbers:
@@ -60,7 +68,7 @@ def _sizes(numbers, variant):
 
 class FragmentExecutor:
     """Evaluates lists of fragments on the calculator's device (by default
-    a GFN1 `XtbCalculator` on the card).
+    a GFN1 `XtbCalculator` on the card; any calculator of the factory).
 
     what='energy'  -> (energies, aux)
     what='gradient'-> (energies, gradients, aux); gradients are returned
@@ -88,12 +96,19 @@ class FragmentExecutor:
         nao = max(max_nao, int(2.5 * bucket_atoms) + 1)
         return bucket_atoms, nsh, nao
 
-    def _max_chunk(self, pad_to) -> int:
-        """Most fragments of padded shape (nat, nsh, nao) per chunk."""
+    def _multipoles(self) -> bool:
+        settings = getattr(self.calc, "settings", None)
+        return settings is not None and settings.multipoles
+
+    def _max_chunk(self, pad_to, nprim: int = 0) -> int:
+        """Most fragments of padded shape (nat, nsh, nao) per chunk; nprim
+        is the primitive axis of a GFN2 bucket (its moment tables)."""
         nat, _nsh, nao = pad_to
         per_fragment = nao * nao
-        if self.calc.solvation is not None:
+        if getattr(self.calc, "solvation", None) is not None:
             per_fragment += self.calc.solvation.work_elements(nat)
+        if nprim:
+            per_fragment += multipole_work_elements(nao, nprim)
         return max(1, int(MAX_CHUNK_ELEMENTS // per_fragment))
 
     def run(self, fragments, what: str = "energy"):
@@ -110,7 +125,12 @@ class FragmentExecutor:
 
         for bucket_atoms, members in sorted(self._buckets(fragments).items()):
             pad_to = self._pad_shapes_for(bucket_atoms, members)
-            max_b = self._max_chunk(pad_to)
+            if self._multipoles():
+                nprim = _sizes_for([t[0] for _, t in members],
+                                   self.calc.variant)[3]
+                max_b = self._max_chunk(pad_to, nprim)
+            else:
+                max_b = self._max_chunk(pad_to)
             for start in range(0, len(members), max_b):
                 chunk = members[start : start + max_b]
                 self._run_chunk(chunk, pad_to, what, energies, gradients,
@@ -132,14 +152,14 @@ class FragmentExecutor:
         frag_data = self.calc.make_batch(tuples, pad_to=pad_to)
         if what == "gradient":
             e, g, aux = self.calc.gradients(frag_data)
-            g = g.cpu().numpy()
+            g = _host(g)
         else:
             e, aux = self.calc.energies(frag_data)
             g = None
-        e = e.cpu().numpy()
-        dip = aux["dipole"].cpu().numpy()
-        chg = aux["charges"].cpu().numpy()
-        res = aux["scf_residual"].cpu().numpy()
+        e = _host(e)
+        dip = _host(aux["dipole"])
+        chg = _host(aux["charges"])
+        res = _host(aux["scf_residual"])
 
         for slot, i in enumerate(idxs):
             n_at = len(tuples[slot][0])

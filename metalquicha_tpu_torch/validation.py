@@ -12,7 +12,7 @@ from __future__ import annotations
 import math
 
 #: how close the port must come to the JAX package's float64 results
-#: (tests/data/port_golden_gfn1*.json), by label: Ha, Ha/Bohr, Ha/Bohr^2,
+#: (tests/data/port_golden_gfn*.json), by label: Ha, Ha/Bohr, Ha/Bohr^2,
 #: cm^-1, Ha, Ha
 GOLDEN_TOLERANCES = {
     "energy": 1e-7,

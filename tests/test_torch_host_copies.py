@@ -180,6 +180,63 @@ def _solvation_tables(pkg):
     }
 
 
+def _placeholder_methods(pkg):
+    """HF, DFT and MCSCF placeholders on two fragments of unlike size."""
+    stubs = _mod(pkg, "methods.stubs")
+    base = _mod(pkg, "methods.base")
+    frags = [(np.array([8, 1, 1]), np.zeros((3, 3)), 0, 1),
+             (np.array([6, 1, 1, 1, 1]), np.ones((5, 3)), 0, 1)]
+    out = {}
+    for cls in (stubs.HFMethod, stubs.DFTMethod, stubs.MCSCFMethod):
+        calc = cls()
+        assert isinstance(calc, base.QCMethod)
+        batch = calc.make_batch(frags)
+        out[calc.variant] = {"energies": calc.energies(batch),
+                             "gradients": calc.gradients(batch)}
+    return out
+
+
+_BASIS_TEXT = """\
+****
+H     0
+S   3   1.00
+      3.42525091             0.15432897
+      0.62391373             0.53532814
+      0.16885540             0.44463454
+****
+O     0
+S   3   1.00
+    130.7093200              0.15432897
+     23.8088610              0.53532814
+      6.4436083              0.44463454
+SP   3   1.00
+      5.0331513             -0.09996723             0.15591627
+      1.1695961              0.39951283             0.60768372
+      0.3803890              0.70011547             0.39195739
+****
+"""
+
+
+def _basis_sets(pkg):
+    bs = _mod(pkg, "methods.basis_sets")
+    mb = bs.build_molecular_basis(["O", "H", "H"], _BASIS_TEXT)
+    return {"parsed": bs.parse_basis_text(_BASIS_TEXT), "molecular": mb,
+            "name": bs.normalize_basis_name(" 6-31G* ")}
+
+
+def _cli_parser(pkg):
+    cli = _mod(pkg, "io.cli_parser")
+    errors = _mod(pkg, "errors")
+    out = {"parsed": cli.parse_command_line(["w1.xyz", "cc-pVDZ"])}
+    for argv in ([], ["only.xyz"], ["a.xyz", "b", "c"]):
+        try:
+            cli.parse_command_line(argv)
+            out[str(argv)] = "no error"
+        except errors.ParseError as exc:
+            out[str(argv)] = str(exc)
+    return out
+
+
 CASES = {
     **{f"read_mqc_file[{name}]": (lambda pkg, tmp, n=name: _read_config(pkg, n))
        for name in MQC_FILES},
@@ -191,6 +248,9 @@ CASES = {
     "enumerate_pie_terms_and_compute_gmbe_pie": lambda pkg, tmp: _gmbe_pie(pkg),
     "vibrational_and_thermochemistry": lambda pkg, tmp: _vibrational(pkg),
     "json_writer": _json_output,
+    "placeholder_methods": lambda pkg, tmp: _placeholder_methods(pkg),
+    "basis_sets": lambda pkg, tmp: _basis_sets(pkg),
+    "cli_parser": lambda pkg, tmp: _cli_parser(pkg),
 }
 
 
@@ -211,6 +271,11 @@ def _same_bytes(rel):
 def test_fitted_overlay_is_the_jax_package_file():
     assert _same_bytes(os.path.join("methods", "xtb", "data",
                                     "gfn1_fitted.json"))
+
+
+def test_gfn2_fitted_overlay_is_the_jax_package_file():
+    assert _same_bytes(os.path.join("methods", "xtb", "data",
+                                    "gfn2_fitted.json"))
 
 
 @pytest.mark.parametrize("rel", ["data/solv_fitted.json",

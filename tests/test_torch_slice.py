@@ -8,7 +8,7 @@
 - the port against the frozen goldens (tests/data/port_golden_gfn1.json,
   written by tools/gen_port_golden.py): bench's first 8 dimers and the
   prism MBE(2) driver total, through run_calculation and the CLI;
-- the factory's refusals and the CUDA check.
+- the factory's settings, dispatch and refusals, and the CUDA check.
 """
 
 import json
@@ -155,7 +155,16 @@ def test_factory_settings_and_refusals():
     assert create_calculator(drv, device="cpu").dtype == torch.float32
 
     drv.method.method_type = MethodType.GFN2
-    with pytest.raises(NotImplementedError, match="A10"):
+    gfn2 = create_calculator(drv, device="cpu")
+    assert gfn2.variant == "gfn2" and gfn2.settings.multipoles
+    assert gfn2.settings.max_scf_iter == 256
+    assert calc.variant == "gfn1" and not calc.settings.multipoles
+    for mt, variant in ((MethodType.HF, "hf"), (MethodType.DFT, "dft"),
+                        (MethodType.MCSCF, "mcscf")):
+        drv.method.method_type = mt
+        assert create_calculator(drv).variant == variant  # no device taken
+    drv.method.method_type = MethodType.MP2
+    with pytest.raises(NotImplementedError, match="MP2"):
         create_calculator(drv, device="cpu")
     drv.method.method_type = MethodType.GFN1
     drv.method.xtb.solvent = "water"

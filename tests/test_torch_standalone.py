@@ -25,6 +25,9 @@ from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
 from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
 
 PRISM = os.path.join(REPO, "tests", "data", "port_prism.mqc")
+GFN2_W1 = os.path.join(REPO, "tests", "data", "port_gfn2_w1_vib_therm.mqc")
+GFN2_PRISM = os.path.join(REPO, "tests", "data", "port_gfn2_prism.mqc")
+GOLDEN_GFN2 = os.path.join(REPO, "tests", "data", "port_golden_gfn2.json")
 
 _STANDALONE = """
 import importlib, json, os, pkgutil, sys
@@ -64,6 +67,20 @@ def test_port_runs_prism_without_jax_package():
     assert abs(res["total"] - gold) <= 1e-9
 
 
+def test_port_runs_gfn2_prism_without_jax_package():
+    with open(GOLDEN_GFN2) as fh:
+        gold = json.load(fh)["driver"]["prism_mbe"]["total_energy"]
+    proc = subprocess.run(
+        [sys.executable, "-c", _STANDALONE, GFN2_PRISM], cwd=REPO,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["modules"] >= 37 and res["loaded"] == []
+    assert abs(res["total"] - gold) <= 1e-9
+
+
 def _cfg():
     return read_mqc_file(PRISM)
 
@@ -76,6 +93,9 @@ ENTRY_POINTS = {
     "run_calculation": lambda: run_calculation(_cfg(), write_json=False),
     "run_file": lambda: run_file(PRISM, write_json=False),
     "cli": lambda: cli_main([PRISM]),
+    "XtbCalculator[gfn2]": lambda: XtbCalculator(variant="gfn2"),
+    "run_file[gfn2]": lambda: run_file(GFN2_W1, write_json=False),
+    "cli[gfn2]": lambda: cli_main([GFN2_W1]),
 }
 
 
