@@ -60,6 +60,34 @@ Phases (each raises on failure; nothing is caught):
              after every fragment has been evaluated); the device
              time of one multipole SCC iteration beside one GFN1 iteration
              at (512, 16), from CUDA events;
+9. polish:   the mixed-precision route (methods/xtb/polish.py). The w20
+             MBE(2) list with gradients through (a) the float64 executor,
+             (b) raw float32, (c) float32 + f64 polish with the exact
+             in-loop solve, (d) float32 on the Jacobi route + polish: (c)
+             and (d) within 1e-9 of (a) in total (|g| 1e-6: the list's
+             waters are exact translates), (b)'s distance printed; wall
+             time and peak memory of all four; the water-trimer MBE(2) set
+             polished within 1e-9 of float64 in total and |g|; the 512-dimer
+             slice in float32 + polish beside float64 (energies 1e-9,
+             gradients 1e-8); the rescue path
+             (rescue_tol = 1e-30) on three waters equal to float64 (1e-12);
+             run_calculation with force_dtype="f32" on prism MBE(2) and on
+             `w1_vib_therm` (GFN2 Hessian) within `GOLDEN_TOLERANCES` of
+             the JAX package's float64 goldens, beside their float64 times;
+10. mesh:    the water-trimer MBE(2) set through a mesh of every visible
+             card and through a two-slot 2D mesh (the one card listed
+             twice where only one is present: pad, cut and join all run):
+             float64 totals equal the one-device run's (1e-12), gradients
+             too once every atom is moved by a seeded jitter (the rigid
+             set's degenerate dimers hold theirs to 1e-8); the w20 MBE(2)
+             total through the two-slot mesh within 1e-10 of the one-slot
+             total;
+11. fit:     the differentiable parameterization (methods/xtb/param_fit.py):
+             rebuild(theta_init) equal to the host batch (1e-12) in GFN1
+             and GFN2; dE/dtheta of a water against a central difference on
+             one level (rel 1e-4); the time of one value-and-gradient over
+             theta of the summed energy and of the force-matching loss
+             sum |grad_R E|^2 for 64 bench dimers;
              then no module of jax or of the JAX package may be loaded.
 
 `--baseline SRC` builds a second version of the kernel source (an
@@ -68,8 +96,8 @@ nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
 The kernel's launch counter and SP2's call counter are reset before
-phases 3-8; the first must grow in phases 3-6 and both in phase 7, and
-phase 8 must leave both as they are.
+phases 3-11; the first must grow in phases 3-6 and 9 and both in phase 7,
+and phase 8 must leave both as they are.
 Diagnostics go to stdout; the line before the last but one is the
 kernel JSON line, the line before the last the card's name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -833,6 +861,325 @@ def gfn2_phase(jac, golden):
     return 0
 
 
+def polish_phase(jac, goldens):
+    """f32 + f64 polish against the all-f64 path, on the card."""
+    from metalquicha_tpu_torch.driver import read_mqc_file, run_calculation
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.methods.xtb.polish import HostPolisher
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+    from metalquicha_tpu_torch.validation import (
+        checks,
+        golden_failures,
+        observables,
+    )
+    from metalquicha_tpu_torch.workloads import (
+        bench_dimers,
+        trimer_mbe2_assemble,
+        trimer_mbe2_fragments,
+        w20_mbe2_assemble,
+        w20_mbe2_fragments,
+        water_fragments,
+    )
+
+    golden, golden_gfn2 = goldens
+    base = settings_from_params("gfn1", max_scf_iter=32)
+
+    def executor(dtype, fast=False, polish=False, rescue_tol=None):
+        calc = XtbCalculator(base._replace(use_pallas_eigh=fast), dtype=dtype,
+                             device=DEVICE)
+        return FragmentExecutor(calc, rescue_tol=rescue_tol,
+                                polisher=HostPolisher(calc) if polish else None)
+
+    frags = w20_mbe2_fragments()
+    n0 = jac.launches
+    ref = None
+    for name, ex in (
+        ("(a) f64", executor(torch.float64)),
+        ("(b) f32 raw", executor(torch.float32)),
+        ("(c) f32 + polish, exact in-loop solve",
+         executor(torch.float32, polish=True)),
+        ("(d) f32 on the Jacobi route + polish",
+         executor(torch.float32, fast=True, polish=True)),
+    ):
+        ex.run(frags, what="gradient")  # warm-up
+        n_l = jac.launches
+        torch.cuda.reset_peak_memory_stats()
+        (e, g, aux), t = wall(lambda: ex.run(frags, what="gradient"), 2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_l = (jac.launches - n_l) // 2
+        total, gnorm = w20_mbe2_assemble(e, g)
+        if ref is None:
+            ref = (total, gnorm)
+            d_gold = abs(total - golden["w20_mbe2"]["total"])
+            check(d_gold <= 1e-8, f"f64 w20 MBE(2) total off the golden by "
+                                  f"{d_gold:.3e}")
+        d_t, d_n = abs(total - ref[0]), abs(gnorm - ref[1])
+        print(f"polish w20 MBE(2) gradient {name}: wall={t:.3f} s "
+              f"peak={peak:.2f} GiB total={total:.10f} d_total={d_t:.2e} "
+              f"d|g|={d_n:.2e} resid={aux['scf_residual'].max():.2e} "
+              f"jacobi_launches={n_l}", flush=True)
+        if "polish" in name:
+            # |g| to 1e-6 only: the w20 waters are exact translates (see
+            # executor_phase), and the polished gradient also runs through
+            # the recorded refine steps, where gaps of S just above
+            # eigh_safe's cut amplify the last bits of the state by up to
+            # 1/sqrt(eps); the trimer and the dimer slice below hold the
+            # gradient to 1e-9 and 1e-8
+            check(d_t <= 1e-9, f"{name}: total off f64 by {d_t:.3e}")
+            check(d_n <= 1e-6, f"{name}: |g| off f64 by {d_n:.3e}")
+        if name.startswith("(d)"):
+            check(n_l > 0, "the f32 Jacobi leg launched no kernel")
+
+    # the multi-device dry run's oracle: the water-trimer MBE(2) set, f32 +
+    # polish within 1e-9 of f64 in total and gradient norm
+    trimer = trimer_mbe2_fragments()
+    e_x, g_x, _ = executor(torch.float64).run(trimer, what="gradient")
+    total_x, gs_x = trimer_mbe2_assemble(e_x, g_x)
+    for name, fast in (("exact in-loop solve", False), ("Jacobi route", True)):
+        e_p, g_p, _ = executor(torch.float32, fast=fast, polish=True).run(
+            trimer, what="gradient")
+        total_p, gs_p = trimer_mbe2_assemble(e_p, g_p)
+        d_t = abs(total_p - total_x)
+        d_n = abs(float(np.sqrt((gs_p**2).sum()) - np.sqrt((gs_x**2).sum())))
+        print(f"polish trimer MBE(2) f32 + polish, {name}: d_total={d_t:.2e} "
+              f"d|g|={d_n:.2e} max|dG|={np.abs(gs_p - gs_x).max():.2e}",
+              flush=True)
+        check(d_t <= 1e-9 and d_n <= 1e-9,
+              f"polished trimer ({name}) off f64: {d_t:.3e} / {d_n:.3e}")
+
+    # the 512-dimer slice: one f64 gradient call beside f32 + polish
+    dimers = bench_dimers(512)
+    kern = base._replace(use_pallas_eigh=True)
+    calc64 = XtbCalculator(kern, dtype=torch.float64, device=DEVICE)
+    calc32 = XtbCalculator(kern, dtype=torch.float32, device=DEVICE)
+    pol = HostPolisher(calc32)
+    frag64, frag32 = calc64.make_batch(dimers), calc32.make_batch(dimers)
+
+    def polished():
+        _e, _g, aux = calc32.gradients(frag32)
+        return pol.polish(dimers, None, aux["shell_charges"], "gradient")
+
+    calc64.gradients(frag64)
+    polished()
+    torch.cuda.reset_peak_memory_stats()
+    (e64, g64, _aux), t64 = wall(lambda: calc64.gradients(frag64), 3)
+    peak64 = torch.cuda.max_memory_allocated() / 2**30
+    (_e, _g, aux32), t32 = wall(lambda: calc32.gradients(frag32), 3)
+    torch.cuda.reset_peak_memory_stats()
+    (e_p, g_p, _aux), t_p = wall(polished, 3)
+    peak_p = torch.cuda.max_memory_allocated() / 2**30
+    d_e = float((e_p - e64).abs().max())
+    d_g = float((g_p - g64).abs().max())
+    print(f"polish slice B=512 gradients: f64={t64:.4f} s (peak "
+          f"{peak64:.2f} GiB) f32 raw={t32:.4f} s f32+polish={t_p:.4f} s "
+          f"(peak {peak_p:.2f} GiB; the polish's batch build on the host "
+          f"included) max|dE|={d_e:.2e} max|dG|={d_g:.2e} "
+          f"f32 resid={aux32['scf_residual'].max():.2e}", flush=True)
+    check(d_e <= 1e-9, f"polished slice energies off f64 by {d_e:.3e}")
+    check(d_g <= 1e-8, f"polished slice gradients off f64 by {d_g:.3e}")
+
+    # rescue: an impossible gate sends every fragment to the f64 re-solve
+    waters = water_fragments(3)
+    e_r, g_r, aux_r = executor(torch.float32, polish=True,
+                               rescue_tol=1e-30).run(waters, what="gradient")
+    e_x, g_x, _ = executor(torch.float64).run(waters, what="gradient")
+    d_e = float(np.abs(e_r - e_x).max())
+    d_g = max(float(np.abs(a - b).max()) for a, b in zip(g_r, g_x))
+    print(f"polish rescue (rescue_tol=1e-30) on three waters: max|dE|="
+          f"{d_e:.2e} max|dG|={d_g:.2e} "
+          f"resid={aux_r['scf_residual'].max():.2e}", flush=True)
+    check(d_e <= 1e-12 and d_g <= 1e-12,
+          f"rescue is not the f64 path: dE={d_e:.3e} dG={d_g:.3e}")
+
+    # the driver with force_dtype="f32" (factory settings, polisher wired
+    # by _make_executor) against the JAX package's f64 goldens
+    for name, gold in (("prism_mbe", golden["driver"]["prism_mbe"]),
+                       ("w1_vib_therm",
+                        golden_gfn2["driver"]["w1_vib_therm"])):
+        cfg = read_mqc_file(os.path.join(ROOT, gold["mqc"]))
+        times = {}
+        for dtype in ("f64", "f32"):
+            outputs, times[dtype] = wall(lambda: run_calculation(
+                cfg, write_json=False, device=DEVICE,
+                driver_overrides={"force_dtype": dtype}))
+        obs = observables(outputs)
+        deltas = " ".join(f"d_{label}={abs(got - exp):.2e}"
+                          for label, got, exp in checks(obs, gold))
+        print(f"polish driver {name} force_dtype=f32: wall={times['f32']:.3f}"
+              f" s (f64 {times['f64']:.3f} s) {deltas}", flush=True)
+        bad = golden_failures(obs, gold)
+        check(not bad, f"{name} with force_dtype=f32 off the JAX package's "
+                       f"f64 result: {bad}")
+    return jac.launches - n0
+
+
+def mesh_phase(jac, golden):
+    """The sharded executor: pad, cut, evaluate per slot, join."""
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+    from metalquicha_tpu_torch.parallel.mesh import fragment_mesh
+    from metalquicha_tpu_torch.workloads import (
+        trimer_mbe2_assemble,
+        trimer_mbe2_fragments,
+        w20_mbe2_assemble,
+        w20_mbe2_fragments,
+    )
+
+    n0 = jac.launches
+    calc = XtbCalculator(dtype=torch.float64, device=DEVICE)
+    cards = fragment_mesh()
+    two = fragment_mesh((cards.flat * 2)[:2], nodes_per_group=1)
+    check(two.shape == {"group": 2, "frag": 1}, f"two-slot mesh is {two}")
+    # the dry run's rigid trimer: its dimers have exactly degenerate
+    # cross-monomer spectra, where the gradient depends on the eigenvector
+    # gauge (and so on the batch the library's eigh was handed) at the
+    # 1e-7 level, so its gradient is held to 1e-8; with every atom moved
+    # by a seeded 0.02 Bohr the gradient is held like the total
+    for label, frags, g_tol in (
+        ("rigid", trimer_mbe2_fragments(), 1e-8),
+        ("atoms jittered", trimer_mbe2_fragments(atom_jitter=0.02), 1e-12),
+    ):
+        e1, g1, _ = FragmentExecutor(calc).run(frags, what="gradient")
+        total1, gs1 = trimer_mbe2_assemble(e1, g1)
+        for name, mesh in (("every visible card", cards), ("two slots", two)):
+            (e, g, aux), t = wall(lambda: FragmentExecutor(
+                calc, mesh=mesh).run(frags, what="gradient"))
+            total, gs = trimer_mbe2_assemble(e, g)
+            d_t = abs(total - total1)
+            d_g = float(np.abs(gs - gs1).max())
+            print(f"mesh trimer MBE(2) gradient ({label}), {name} {mesh}: "
+                  f"wall={t:.3f} s total={total:.10f} d_total={d_t:.2e} "
+                  f"max|dG|={d_g:.2e} (held to {g_tol:.0e}) "
+                  f"resid={aux['scf_residual'].max():.2e}", flush=True)
+            check(d_t <= 1e-12 and d_g <= g_tol,
+                  f"{name} ({label}): off the one-device run by {d_t:.3e} / "
+                  f"{d_g:.3e}")
+
+    settings = settings_from_params("gfn1", max_scf_iter=32,
+                                    use_pallas_eigh=True)
+    calc = XtbCalculator(settings, dtype=torch.float64, device=DEVICE)
+    frags = w20_mbe2_fragments()
+    totals = {}
+    for name, mesh in (("one slot", None), ("two slots", two)):
+        ex = FragmentExecutor(calc, mesh=mesh)
+        ex.run(frags, what="gradient")  # warm-up
+        (e, g, _aux), t = wall(lambda: ex.run(frags, what="gradient"), 2)
+        totals[name] = w20_mbe2_assemble(e, g)
+        print(f"mesh w20 MBE(2) gradient, {name}: wall={t:.3f} s "
+              f"total={totals[name][0]:.10f} |g|={totals[name][1]:.10f}",
+              flush=True)
+    d_t = abs(totals["two slots"][0] - totals["one slot"][0])
+    d_gold = abs(totals["two slots"][0] - golden["w20_mbe2"]["total"])
+    print(f"mesh w20 MBE(2): two slots vs one d_total={d_t:.2e} "
+          f"d|g|={abs(totals['two slots'][1] - totals['one slot'][1]):.2e} "
+          f"d_golden={d_gold:.2e}", flush=True)
+    check(d_t <= 1e-10, f"two-slot w20 MBE(2) total off by {d_t:.3e}")
+    check(d_gold <= 1e-8, f"two-slot w20 MBE(2) off the golden by "
+                          f"{d_gold:.3e}")
+    return jac.launches - n0
+
+
+def fit_phase(jac, _golden):
+    """The differentiable parameterization on the card."""
+    from metalquicha_tpu_torch.methods.xtb.calculator import (
+        single_point_energy,
+    )
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.methods.xtb.param_fit import (
+        FragmentSpec,
+        theta_init,
+        theta_leaves,
+        theta_map,
+    )
+    from metalquicha_tpu_torch.workloads import bench_dimers
+
+    n0 = jac.launches
+    numbers = np.array([8, 1, 1, 6, 7, 1])
+    coords = np.array([[0.0, 0.0, 0.2], [0.0, 1.4, -0.9], [0.0, -1.4, -0.9],
+                       [4.0, 0.0, 0.0], [6.5, 0.5, 0.0], [8.2, 0.0, 0.5]])
+    for variant in ("gfn1", "gfn2"):
+        spec = FragmentSpec(numbers, coords, 0, 1, variant=variant,
+                            device=DEVICE)
+        frag = spec.rebuild(theta_init(variant, DEVICE))
+        worst = max(float((a.double() - b.double()).abs().max())
+                    for a, b in zip(frag, spec.base))
+        on_card = all(x.device.type == DEVICE for x in frag)
+        print(f"fit rebuild(theta_init) {variant}: max field difference from "
+              f"the host batch {worst:.2e}", flush=True)
+        check(worst <= 1e-12 and on_card,
+              f"rebuild(theta_init) differs from the host batch ({worst:.3e})"
+              f" or left the card")
+
+    settings = settings_from_params("gfn1")
+    water = FragmentSpec(numbers[:3], coords[:3], 0, 1, device=DEVICE)
+
+    def leafy():
+        return theta_map(lambda t: t.clone().requires_grad_(True),
+                         theta_init("gfn1", DEVICE))
+
+    def energy(spec, theta, c=None, k=0):
+        fr = spec.rebuild(theta, c)
+        return single_point_energy(fr.coords, fr, settings,
+                                   diff_scf_iters=k)[0]
+
+    theta = leafy()
+    (g_lev,) = torch.autograd.grad(energy(water, theta).sum(),
+                                   theta["elements"][8]["levels"])
+    h = 1e-4
+
+    def shifted(d):
+        th = theta_init("gfn1", DEVICE)
+        th["elements"][8]["levels"][0] += d
+        with torch.no_grad():
+            return float(energy(water, th))
+
+    fd = (shifted(h) - shifted(-h)) / (2 * h)
+    rel = abs(fd - float(g_lev[0])) / abs(fd)
+    print(f"fit dE/dtheta water, O level 0: autograd={float(g_lev[0]):.10f} "
+          f"central difference={fd:.10f} rel={rel:.2e}", flush=True)
+    check(rel <= 1e-4, f"dE/dtheta off its central difference by {rel:.3e}")
+
+    dimers = bench_dimers(64)
+    spec = FragmentSpec(*dimers[0], device=DEVICE)
+    cb = torch.tensor(np.stack([d[1] for d in dimers]), device=DEVICE)
+
+    def energy_loss():
+        theta = leafy()
+        leaves = theta_leaves(theta)
+        val = energy(spec, theta, cb).sum()
+        return val.detach(), torch.autograd.grad(val, leaves,
+                                                 allow_unused=True)
+
+    def force_loss():
+        theta = leafy()
+        leaves = theta_leaves(theta)
+        c = cb.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(energy(spec, theta, c, 8).sum(), c,
+                                   create_graph=True)
+        val = (g**2).sum()
+        return val.detach(), torch.autograd.grad(val, leaves,
+                                                 allow_unused=True)
+
+    for name, fn in (("sum E", energy_loss),
+                     ("sum |grad_R E|^2, 8 recorded refine steps",
+                      force_loss)):
+        fn()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        (val, grads), t = wall(fn, 2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        used = [g for g in grads if g is not None]
+        finite = all(bool(torch.isfinite(g).all()) for g in used)
+        print(f"fit value-and-gradient over theta, 64 bench dimers, {name}: "
+              f"wall={t:.3f} s peak={peak:.2f} GiB value={float(val):.10f} "
+              f"leaves with a gradient={len(used)} of {len(grads)}",
+              flush=True)
+        check(finite and len(used) >= 33,
+              f"{name}: gradient over theta not finite or too sparse")
+    return jac.launches - n0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="SRC",
@@ -879,12 +1226,16 @@ def main() -> int:
                            ("driver", driver_phase, golden),
                            ("solvation", solvation_phase, golden_full),
                            ("validation", validation_phase, golden_full),
-                           ("gfn2", gfn2_phase, golden_gfn2)):
+                           ("gfn2", gfn2_phase, golden_gfn2),
+                           ("polish", polish_phase, (golden, golden_gfn2)),
+                           ("mesh", mesh_phase, golden),
+                           ("fit", fit_phase, golden)):
         t0 = time.perf_counter()
         phases[name] = fn(jac, gold)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
     launches = jac.launches
     check(launches > 0, "the main path launched no Jacobi kernel")
+    check(phases["polish"] > 0, "the polish phase launched no Jacobi kernel")
     check(sp2.calls > 0, "the main path never went through SP2")
     print(f"main path: jacobi launches={launches} {phases} "
           f"sp2 calls={sp2.calls}", flush=True)

@@ -4,8 +4,9 @@
 The port's copy of metalquicha_tpu's `driver.py`: the same plan,
 enumeration, assembly, Hessian sweep and JSON output, on the port's own
 host modules. Only executor construction differs: `_make_executor` builds
-the port's `FragmentExecutor` through the port's factory on the requested
-device (CUDA unless the caller asks for the CPU).
+the port's `FragmentExecutor` through the port's factory on a mesh of the
+requested devices (every visible CUDA card unless the caller asks for one
+device or for the CPU), with the f64 polisher behind an f32 calculator.
 
 Workflow parity with upstream metalquicha src/mqc_driver.f90:
 - nlevel = 0 -> unfragmented path (:147-156)
@@ -22,6 +23,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .errors import ConvergenceError, InputError, with_context
 from .frag.combinatorics import enumerate_polymers
@@ -60,17 +62,70 @@ from .numerics.finite_differences import (
 from .numerics.thermochemistry import compute_thermochemistry
 from .numerics.vibrational import compute_vibrational_analysis
 from .parallel.executor import FragmentExecutor
+from .parallel.mesh import fragment_mesh
 from .results import MbeResult
 
 
-def _make_executor(drv: DriverConfig, device="cuda"):
-    """The factory's calculator for `drv` on `device`, in an executor.
+def _mesh_devices(device):
+    """The mesh's devices for an entry point's `device` argument: a bare
+    "cuda" means every visible card (None, `fragment_mesh`'s default),
+    anything else that one device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return None
+    return [device]
 
-    The JAX package's version also builds a device mesh and an f32 host
-    polisher; the port runs on one device in the working dtype (the card
-    has native FP64), so it has neither (ROADMAP A13, A14). The calculator
-    raises if `device` is CUDA and no card is present."""
-    return FragmentExecutor(create_calculator(drv, device=device))
+
+def _make_executor(drv: DriverConfig, device="cuda"):
+    """The factory's calculator for `drv` in an executor on `device`'s
+    mesh ("cuda": every visible card, laid out by `global_groups` /
+    `nodes_per_group`); an f32 calculator gets the f64 polisher unless
+    `host_polish` is "off". The calculator raises if `device` is CUDA and
+    no card is present; a placeholder method computes on the host."""
+    calc = create_calculator(drv, device=device)
+    mesh = fragment_mesh(
+        devices=_mesh_devices(device) if hasattr(calc, "device") else ["cpu"],
+        global_groups=drv.global_groups,
+        nodes_per_group=drv.nodes_per_group,
+    )
+    polisher = None
+    if (
+        getattr(calc, "dtype", None) == torch.float32
+        and getattr(drv, "host_polish", "auto") != "off"
+    ):
+        from .logging_ import global_logger as logger
+        from .methods.xtb.polish import HostPolisher, host_polish_available
+
+        if host_polish_available():
+            cand = HostPolisher(calc)
+            if cand.supports():
+                polisher = cand
+                logger.info(
+                    " mixed precision: f32 device SCC + f64 host polish "
+                    "(results match the f64 parity path; host_polish=off "
+                    "disables)"
+                )
+            else:
+                logger.info(
+                    " host polish unavailable for this method variant; "
+                    "results are raw f32"
+                )
+        else:
+            logger.info(
+                " no host CPU backend for the f64 polish; results are "
+                "raw f32"
+            )
+    # rescue gate == the driver's own convergence gate
+    # (_check_scf_convergence): any fragment that would hard-error the run
+    # is first re-solved in f64.
+    rescue_tol = (
+        max(10.0 * drv.method.scf.tolerance, 1e-8)
+        if polisher is not None
+        else None
+    )
+    return FragmentExecutor(
+        calc, mesh=mesh, polisher=polisher, rescue_tol=rescue_tol
+    )
 
 
 def make_executor(cfg: MqcConfig, device="cuda",

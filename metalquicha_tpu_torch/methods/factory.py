@@ -5,8 +5,16 @@ Counterpart of metalquicha_tpu's `methods/factory.py`. It copies the
 driver's method configuration into the calculator as the JAX factory does
 (SCC budget clamped to [32, 256], early exit at a tenth of the user
 tolerance, electronic temperature, solvation model) and keeps
-`use_pallas_eigh=False`. The working dtype is float64 (the card has native
-FP64) unless the driver pins "f32".
+`use_pallas_eigh=False`.
+
+The working dtype is EXPLICIT: float64 on every device unless the driver
+pins it (`force_dtype`, the CLI's --f32). This is the one deliberate
+difference from the JAX factory, which runs f32 on any backend but the
+CPU because its TPU has no f64 solve and leaves accuracy to the f64 polish
+(methods/xtb/polish.py). A CUDA card has FP64, and the SCC is bound by
+kernel launches, not by FP64 arithmetic, so f32 + polish buys nothing
+there (PERF.md has the measurement); an f32 calculator still gets the
+polisher from the driver, so either dtype lands on the f64 result.
 """
 
 from __future__ import annotations

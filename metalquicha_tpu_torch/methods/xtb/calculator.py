@@ -374,7 +374,8 @@ def check_device(device) -> torch.device:
 
 class XtbCalculator:
     """High-level batched GFN1/GFN2 calculator on one device (the card
-    unless the caller asks for the CPU).
+    unless the caller asks for the CPU; `on(device)` gives the same
+    calculator on another).
 
     Usage:
         calc = XtbCalculator(settings, variant="gfn2")   # device="cuda"
@@ -393,6 +394,17 @@ class XtbCalculator:
         self.dtype = dtype
         self.device = check_device(device)
         self.solvation = solvation
+
+    def on(self, device) -> "XtbCalculator":
+        """This calculator bound to `device`: itself if that is its own
+        device, else a copy that shares settings and solvation model (a
+        mesh of several devices evaluates each piece of a batch with the
+        copy for its device)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return XtbCalculator(self.settings, self.variant, self.dtype, device,
+                             self.solvation)
 
     def _settings_for(self, frag: FragmentData):
         """Per-batch settings: keep SP2 off batches where it is unsafe.

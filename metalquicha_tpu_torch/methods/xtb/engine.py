@@ -25,7 +25,9 @@ Fock contribution follows from the moments being linear maps of P.
 
 from __future__ import annotations
 
+import json
 import os
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -92,11 +94,6 @@ class EngineSettings(NamedTuple):
 
 def settings_from_params(variant: str = "gfn1", **overrides) -> EngineSettings:
     """Build EngineSettings from a parameter module's GlobalParams."""
-    if os.environ.get("MQC_FORM_VARIANT"):
-        raise NotImplementedError(
-            "MQC_FORM_VARIANT (the fitting tools' form override) is not "
-            "ported; unset it (ROADMAP A15)"
-        )
     if variant == "gfn2":
         from . import params_gfn2 as params
     else:
@@ -128,6 +125,16 @@ def settings_from_params(variant: str = "gfn1", **overrides) -> EngineSettings:
         kpol_mode=getattr(g, "kpol_mode", "flat"),
     )
     base.update(overrides)
+    env = os.environ.get("MQC_FORM_VARIANT")
+    if env:
+        # fitting-tool escape hatch: overrides functional-form selection for
+        # every engine in this process. Warn loudly so a stale env var can
+        # never silently change production energies.
+        warnings.warn(
+            f"MQC_FORM_VARIANT active — engine form overridden by {env}",
+            stacklevel=2,
+        )
+        base.update(json.loads(env))
     return EngineSettings(**base)
 
 

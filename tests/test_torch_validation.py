@@ -331,3 +331,84 @@ def test_prep_then_cli_from_json(golden, tmp_path):
     assert abs(got["hessian_frobenius_norm"]
                - gold["hessian_frobenius_norm"]) <= 1e-5
     assert (tmp_path / "output_hess_h3o.json").exists()
+
+
+POLISH_FIT_PATH = os.path.join(REPO, "tests", "data",
+                               "port_golden_polish_fit.json")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["gfn1", "gfn2"])
+@pytest.mark.parametrize("fast", [False, True])
+def test_polished_f32_matches_f64_on_the_card(variant, fast):
+    """f32 SCC (exact or Jacobi in-loop route) + f64 polish on the card
+    against the JAX package's frozen all-f64 results on three waters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from metalquicha_tpu_torch.methods.xtb.polish import HostPolisher
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+
+    with open(POLISH_FIT_PATH) as fh:
+        gold = json.load(fh)["polish"][variant]["f64"]
+    rng = np.random.default_rng(7)
+    frags = [(np.array([8, 1, 1]),
+              WATER_BOHR + rng.normal(0, 0.05, (1, 3))
+              + np.array([[6.0 * i, 0, 0]]), 0, 1) for i in range(3)]
+    calc32 = XtbCalculator(
+        settings_from_params(variant, use_pallas_eigh=fast), variant=variant,
+        dtype=torch.float32, device="cuda")
+    global_logger.set_level("warning")
+    ex = FragmentExecutor(calc32, polisher=HostPolisher(calc32))
+    e, g, aux = ex.run(frags, what="gradient")
+    assert max_abs_diff(e, gold["energies"]) <= 1e-9
+    assert max_abs_diff(np.stack(g), gold["gradients"]) <= 1e-8
+    raw, _ = FragmentExecutor(calc32).run(frags, what="energy")
+    assert max_abs_diff(raw, gold["energies"]) > 1e-6
+
+
+@pytest.mark.gpu
+def test_two_slot_mesh_matches_one_device_on_the_card():
+    """The card listed twice: pad, cut and join, results as on one slot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+    from metalquicha_tpu_torch.parallel.mesh import fragment_mesh
+    from metalquicha_tpu_torch.workloads import trimer_mbe2_fragments
+
+    global_logger.set_level("warning")
+    frags = trimer_mbe2_fragments(atom_jitter=0.02)
+    calc = XtbCalculator(device="cuda")
+    card = torch.device("cuda", 0)
+    e1, g1, _ = FragmentExecutor(calc).run(frags, what="gradient")
+    mesh = fragment_mesh([card, card], nodes_per_group=1)
+    e2, g2, _ = FragmentExecutor(calc, mesh=mesh).run(frags, what="gradient")
+    assert max_abs_diff(e2, e1) <= 1e-12
+    assert max(max_abs_diff(a, b) for a, b in zip(g2, g1)) <= 1e-12
+    assert fragment_mesh().size == torch.cuda.device_count()
+
+
+@pytest.mark.gpu
+def test_theta_gradient_matches_golden_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from metalquicha_tpu_torch.methods.xtb.calculator import (
+        single_point_energy,
+    )
+    from metalquicha_tpu_torch.methods.xtb.param_fit import (
+        FragmentSpec,
+        theta_init,
+    )
+
+    with open(POLISH_FIT_PATH) as fh:
+        gold = json.load(fh)["fit"]["gfn1"]["water"]
+    theta = theta_init("gfn1", "cuda")
+    levels = theta["elements"][8]["levels"].requires_grad_(True)
+    spec = FragmentSpec(
+        np.array([8, 1, 1]),
+        np.array([[0.0, 0.0, 0.2], [0.0, 1.4, -0.9], [0.0, -1.4, -0.9]]),
+        0, 1, device="cuda")
+    frag = spec.rebuild(theta)
+    e, _ = single_point_energy(frag.coords, frag, settings_from_params("gfn1"))
+    (g,) = torch.autograd.grad(e.sum(), levels)
+    assert abs(float(e.detach()) - gold["energy"]) <= 1e-10
+    assert max_abs_diff(g, gold["grad"]["elements"]["8"]["levels"]) <= 1e-9

@@ -33,8 +33,20 @@ Writes, from the repository root:
   the method switched to XTB-GFN2 (w20 MBE(4) raises ConvergenceError in
   the JAX package; its .mqc is written for the port's timing run).
 
-Usage: python tools/gen_port_golden.py [--only gfn1|full|gfn2]
-(about five minutes on a CPU for gfn1 and full; gfn2 see its `seconds`)
+- tests/data/port_golden_polish_fit.json: the mixed-precision route and
+  the differentiable parameterization. `HostPolisher.polish` and `rescue`
+  on three jittered waters (seed 7) in GFN1 and GFN2, with the float32
+  leg's state they started from and the all-float64 results; the cases of
+  tests/test_polish.py through the driver in float64 (two waters: energy,
+  gradient, GFN2 gradient, Hessian at level 1 with its top frequencies),
+  with the input they ran; `theta_init` and every field of
+  `FragmentSpec.rebuild(theta_init)` on a six-atom fragment, dE/dtheta of
+  a water and the mixed derivative d/dtheta |grad_R E|^2 of two jittered
+  waters with three recorded refine steps, in GFN1 and GFN2.
+
+Usage: python tools/gen_port_golden.py [--only gfn1|full|gfn2|polish_fit]
+(about five minutes on a CPU for gfn1 and full; gfn2 see its `seconds`;
+polish_fit about six minutes)
 """
 
 from __future__ import annotations
@@ -431,12 +443,165 @@ def gen_gfn2(skip_w20: bool = False) -> None:
         save()
 
 
+POLISH_FIT_PATH = os.path.join(DATA, "port_golden_polish_fit.json")
+#: the fragment of tests/test_native_and_fit.py's rebuild case
+FIT_NUMBERS = [8, 1, 1, 6, 7, 1]
+FIT_COORDS = [[0.0, 0.0, 0.2], [0.0, 1.4, -0.9], [0.0, -1.4, -0.9],
+              [4.0, 0.0, 0.0], [6.5, 0.5, 0.0], [8.2, 0.0, 0.5]]
+FIT_WATER = [[0.0, 0.0, 0.2], [0.0, 1.4, -0.9], [0.0, -1.4, -0.9]]
+#: seed and size of the jitter of the two waters of the mixed derivative,
+#: and the recorded refine steps
+FIT_SEED, FIT_JITTER, FIT_REFINE = 3, 0.03, 3
+
+
+def polish_waters(n: int = 3) -> list:
+    """tests/test_polish.py's jittered waters (seed 7), 6 Bohr apart."""
+    rng = np.random.default_rng(7)
+    return [(np.array([8, 1, 1]),
+             WATER_BOHR + rng.normal(0, 0.05, (1, 3))
+             + np.array([[6.0 * i, 0, 0]]), 0, 1) for i in range(n)]
+
+
+def _theta_lists(theta) -> dict:
+    """A theta pytree as nested dicts of lists (element keys as strings)."""
+    if isinstance(theta, dict):
+        return {str(k): _theta_lists(v) for k, v in theta.items()}
+    return np.asarray(theta).tolist()
+
+
+def _polish_entries(variant: str) -> dict:
+    from metalquicha_tpu.methods.xtb.polish import HostPolisher
+
+    frags = polish_waters()
+    calc32 = XtbCalculator(variant=variant, dtype=jnp.float32)
+    fd32 = calc32.make_batch(frags)
+    _e32, _g32, aux32 = calc32.gradients(fd32)
+    pol = HostPolisher(calc32)
+    e_p, g_p, aux_p = pol.polish(frags, None, aux32["shell_charges"],
+                                 "gradient")
+    e_r, g_r, aux_r = pol.rescue(frags, None, "gradient")
+    calc64 = XtbCalculator(variant=variant, dtype=jnp.float64)
+    e64, g64, _aux = calc64.gradients(calc64.make_batch(frags))
+    return {
+        "state_f32": np.asarray(aux32["shell_charges"]).tolist(),
+        "polish": {"energies": np.asarray(e_p).tolist(),
+                   "gradients": np.asarray(g_p).tolist(),
+                   "dipole": np.asarray(aux_p["dipole"]).tolist(),
+                   "scf_residual": np.asarray(aux_p["scf_residual"]).tolist()},
+        "rescue": {"energies": np.asarray(e_r).tolist(),
+                   "gradients": np.asarray(g_r).tolist(),
+                   "scf_residual": np.asarray(aux_r["scf_residual"]).tolist()},
+        "f64": {"energies": np.asarray(e64).tolist(),
+                "gradients": np.asarray(g64).tolist()},
+    }
+
+
+def _two_waters_cases() -> dict:
+    """tests/test_polish.py's driver cases in float64."""
+    from metalquicha_tpu.io.config import parse_mqc_string
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_driver import TWO_WATERS_MQC
+
+    out = {"mqc": TWO_WATERS_MQC}
+    for name, driver, gfn2, level1 in (
+        ("energy", "Energy", False, False),
+        ("gradient", "Gradient", False, False),
+        ("gradient_gfn2", "Gradient", True, False),
+        ("hessian_level1", "Hessian", False, True),
+    ):
+        mqc = TWO_WATERS_MQC.format(driver=driver)
+        if gfn2:
+            mqc = mqc.replace("XTB-GFN1", "XTB-GFN2")
+        if level1:
+            mqc = mqc.replace("level = 2", "level = 1")
+        res = run_calculation(parse_mqc_string(mqc), write_json=False,
+                              driver_overrides={"force_dtype": "f64"})[""]
+        entry = {"total_energy": float(res.result.total_energy)}
+        if res.result.gradient is not None:
+            entry["gradient"] = np.asarray(res.result.gradient).tolist()
+        if res.result.hessian is not None:
+            entry["hessian_frobenius_norm"] = _norm(res.result.hessian)
+        if res.vibrational is not None:
+            entry["frequencies"] = [float(f)
+                                    for f in res.vibrational.frequencies]
+        out[name] = entry
+    return out
+
+
+def _fit_entries(variant: str) -> dict:
+    from metalquicha_tpu.methods.xtb.calculator import single_point_energy
+    from metalquicha_tpu.methods.xtb.param_fit import FragmentSpec, theta_init
+
+    theta = theta_init(variant)
+    settings = settings_from_params(variant)
+    spec = FragmentSpec(np.array(FIT_NUMBERS), np.array(FIT_COORDS), 0, 1,
+                        variant=variant)
+    frag = spec.rebuild(theta)
+    out = {
+        "theta_init": _theta_lists(theta),
+        "rebuild": {k: np.asarray(v).tolist()
+                    for k, v in frag._asdict().items()},
+    }
+    water = FragmentSpec(np.array([8, 1, 1]), np.array(FIT_WATER), 0, 1,
+                         variant=variant)
+
+    def e_of(th):
+        fr = water.rebuild(th)
+        return single_point_energy(fr.coords, fr, settings)[0]
+
+    e, grad = jax.value_and_grad(e_of)(theta)
+    out["water"] = {"energy": float(e), "grad": _theta_lists(grad)}
+
+    rng = np.random.default_rng(FIT_SEED)
+    coords_b = jnp.asarray(
+        np.array(FIT_WATER)[None] + rng.normal(0, FIT_JITTER, (2, 3, 3)))
+
+    def loss(th):
+        fr = water.rebuild(th)
+
+        def e_c(c):
+            return single_point_energy(c, fr._replace(coords=c), settings,
+                                       diff_scf_iters=FIT_REFINE)[0]
+
+        g = jax.vmap(jax.grad(e_c))(coords_b)
+        return (g**2).sum()
+
+    val, grad = jax.jit(jax.value_and_grad(loss))(theta)
+    out["force_loss"] = {"seed": FIT_SEED, "jitter": FIT_JITTER,
+                         "diff_scf_iters": FIT_REFINE,
+                         "coords": np.asarray(coords_b).tolist(),
+                         "value": float(val), "grad": _theta_lists(grad)}
+    return out
+
+
+def gen_polish_fit() -> None:
+    """Write port_golden_polish_fit.json."""
+    golden = {"commit": _commit(), "dtype": "float64", "platform": "cpu",
+              "polish": {}, "fit": {}}
+    for variant in ("gfn1", "gfn2"):
+        t0 = time.time()
+        golden["polish"][variant] = _polish_entries(variant)
+        print(f"polish {variant}: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    golden["two_waters"] = _two_waters_cases()
+    print(f"two waters driver cases: {time.time() - t0:.1f} s", flush=True)
+    for variant in ("gfn1", "gfn2"):
+        t0 = time.time()
+        golden["fit"][variant] = _fit_entries(variant)
+        print(f"fit {variant}: {time.time() - t0:.1f} s", flush=True)
+    with open(POLISH_FIT_PATH, "w") as fh:
+        json.dump(golden, fh, indent=1)
+        fh.write("\n")
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("gfn1", "full", "gfn2"), default=None,
-                    help="regenerate one golden file instead of all three")
+    ap.add_argument("--only", choices=("gfn1", "full", "gfn2", "polish_fit"),
+                    default=None,
+                    help="regenerate one golden file instead of all four")
     ap.add_argument("--skip-w20", action="store_true",
                     help="gfn2: keep the stored w20 MBE(3) driver total")
     args = ap.parse_args(argv)
@@ -447,6 +612,8 @@ def main(argv=None) -> int:
         gen_full()
     if args.only in (None, "gfn2"):
         gen_gfn2(skip_w20=args.skip_w20)
+    if args.only in (None, "polish_fit"):
+        gen_polish_fit()
     return 0
 
 
