@@ -88,6 +88,26 @@ Phases (each raises on failure; nothing is caught):
              one level (rel 1e-4); the time of one value-and-gradient over
              theta of the summed energy and of the force-matching loss
              sum |grad_R E|^2 for 64 bench dimers;
+12. fit_tools: the training programs (tools/fit_gfn1_torch.py,
+             fit_gfn2_w1_torch.py, fit_solvation_torch.py), each from the
+             shipped overlay. `fit_gfn1_torch.main --iters 1` over every
+             default target in GFN1 (16: energies, w20 MBE(4) among them,
+             assembled gradient norms, FD-Hessian norms) and in GFN2 (2);
+             its evaluation at theta_0 timed per target, with the peak
+             memory, and checked: the value against the JAX driver's result of
+             the same observable (tests/data/port_golden_gfn1*.json,
+             port_golden_gfn2.json: energies 1e-7 Ha, |g| 1e-6, |H|_F
+             1e-5) and, where tests/data/port_golden_fit_tools.json holds
+             the target, value (1e-9) and gradient (relative 1e-6) against
+             the JAX script's; each energy target's gradient against a
+             central difference along a seeded random direction in theta
+             (relative 1e-5); its GFN1 output read back through
+             `theta_from_overlay`. The w1 observables and the solvation
+             energies at two parameter vectors against the JAX scripts'
+             frozen values, then `main --iters 1` of fit_gfn2_w1_torch and
+             of fit_solvation_torch (warm-started from the shipped
+             solvation overlay). The fits launch no Jacobi kernel, as
+             the JAX fits run none (`use_pallas_eigh=False`);
              then no module of jax or of the JAX package may be loaded.
 
 `--baseline SRC` builds a second version of the kernel source (an
@@ -96,8 +116,8 @@ nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
 The kernel's launch counter and SP2's call counter are reset before
-phases 3-11; the first must grow in phases 3-6 and 9 and both in phase 7,
-and phase 8 must leave both as they are.
+phases 3-12; the first must grow in phases 3-6 and 9 and both in phase 7,
+phase 8 must leave both as they are, and phase 12 the first.
 Diagnostics go to stdout; the line before the last but one is the
 kernel JSON line, the line before the last the card's name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -125,6 +145,10 @@ GOLDEN_FULL = os.path.join(ROOT, "tests", "data", "port_golden_gfn1_full.json")
 GOLDEN_GFN2 = os.path.join(ROOT, "tests", "data", "port_golden_gfn2.json")
 GFN2_MBE4 = os.path.join(ROOT, "tests", "data", "port_gfn2_w20_mbe4.mqc")
 GFN2_FIXTURES = os.path.join(ROOT, "tests", "data", "gfn2_fixtures.json")
+GOLDEN_FIT_TOOLS = os.path.join(ROOT, "tests", "data",
+                                "port_golden_fit_tools.json")
+SOLV_OVERLAY = os.path.join(ROOT, "metalquicha_tpu_torch", "methods", "xtb",
+                            "data", "solv_fitted.json")
 TOL_F32 = 5e-5          # tests/test_pallas_eigh.py's tolerance
 TOL_F64_REL = 1e-10     # times ||A||
 DEVICE = "cuda"
@@ -905,9 +929,9 @@ def polish_phase(jac, goldens):
         ex.run(frags, what="gradient")  # warm-up
         n_l = jac.launches
         torch.cuda.reset_peak_memory_stats()
-        (e, g, aux), t = wall(lambda: ex.run(frags, what="gradient"), 2)
+        (e, g, aux), t = wall(lambda: ex.run(frags, what="gradient"))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        n_l = (jac.launches - n_l) // 2
+        n_l = jac.launches - n_l
         total, gnorm = w20_mbe2_assemble(e, g)
         if ref is None:
             ref = (total, gnorm)
@@ -1065,7 +1089,7 @@ def mesh_phase(jac, golden):
     for name, mesh in (("one slot", None), ("two slots", two)):
         ex = FragmentExecutor(calc, mesh=mesh)
         ex.run(frags, what="gradient")  # warm-up
-        (e, g, _aux), t = wall(lambda: ex.run(frags, what="gradient"), 2)
+        (e, g, _aux), t = wall(lambda: ex.run(frags, what="gradient"))
         totals[name] = w20_mbe2_assemble(e, g)
         print(f"mesh w20 MBE(2) gradient, {name}: wall={t:.3f} s "
               f"total={totals[name][0]:.10f} |g|={totals[name][1]:.10f}",
@@ -1180,6 +1204,217 @@ def fit_phase(jac, _golden):
     return jac.launches - n0
 
 
+#: fit target -> (driver golden file, case, observable) of the JAX package's
+#: driver result that holds the same observable
+FIT_DRIVER_GOLDEN = {
+    "h3o": ("full", "h3o_unfrag", "total_energy"),
+    "prism_unfrag": ("full", "multi_structure", "molecule_1"),
+    "prism_mbe": ("gfn1", "prism_mbe", "total_energy"),
+    "charged_cluster": ("full", "charged_cluster_mbe", "total_energy"),
+    "gly10_unfrag": ("full", "unfrag_gly3", "total_energy"),
+    "gly10_mbe": ("full", "gly10_mbe", "total_energy"),
+    "gmbe_gly3": ("full", "gmbe1_gly3", "total_energy"),
+    "gmbe_decane": ("full", "gmbe3_decane", "total_energy"),
+    "gly3_unfrag": ("full", "hess_gly3_serial", "total_energy"),
+    "w20_mbe": ("gfn1", "w20_mbe", "total_energy"),
+    "h3o_gnorm": ("full", "hess_h3o", "gradient_norm"),
+    "prism_gnorm": ("full", "prism_hessian", "gradient_norm"),
+    "gly3ov_gnorm": ("full", "hess_gly3_ov", "gradient_norm"),
+    "h3o_hnorm": ("full", "hess_h3o", "hessian_frobenius_norm"),
+    "prism_hnorm": ("full", "prism_hessian", "hessian_frobenius_norm"),
+    "gly3ov_hnorm": ("full", "hess_gly3_ov", "hessian_frobenius_norm"),
+    "w1_energy": ("gfn2", "w1_vib_therm", "total_energy"),
+    "w1_gnorm": ("gfn2", "w1_vib_therm", "gradient_norm"),
+}
+#: PERF.md's driver tolerances, by observable
+FIT_DRIVER_TOL = {"total_energy": 1e-7, "molecule_1": 1e-7,
+                  "gradient_norm": 1e-6, "hessian_frobenius_norm": 1e-5}
+
+
+def _driver_value(goldens, target):
+    which, case, key = FIT_DRIVER_GOLDEN[target]
+    entry = goldens[which]["driver"][case]
+    return entry["energies"][key] if key == "molecule_1" else entry[key]
+
+
+def _timed_targets(fit1, records):
+    """Wrap `value_and_grad` of the fit script's target classes so that the
+    first call of each target (the fit's evaluation at theta_0) is timed
+    and its peak memory read, and its object, value and gradient kept in
+    `records`; returns the originals, to be put back."""
+    originals = {}
+    for cls in (fit1.TargetEval, fit1.GradNormTarget, fit1.HessNormTarget,
+                fit1.MbeHessNormTarget):
+        def timed(self, theta, orig=cls.value_and_grad):
+            if self.name in records:
+                return orig(self, theta)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            val, grad = orig(self, theta)
+            torch.cuda.synchronize()
+            records[self.name] = (self, val, grad, time.perf_counter() - t0,
+                                  torch.cuda.max_memory_allocated() / 2**30)
+            return val, grad
+
+        originals[cls] = cls.value_and_grad
+        cls.value_and_grad = timed
+    return originals
+
+
+def _fit_run(fit1, argv):
+    """fit_gfn1_torch.main(argv) with each target's first evaluation
+    recorded: (records, wall seconds)."""
+    records = {}
+    originals = _timed_targets(fit1, records)
+    try:
+        _, t = wall(lambda: fit1.main(argv))
+    finally:
+        for cls, orig in originals.items():
+            cls.value_and_grad = orig
+    return records, t
+
+
+def _check_fit_targets(fit1, records, goldens, fit_gold, variant):
+    """Every default target of a variant at theta_0, as the fit evaluated
+    it: its time and peak; the value against the JAX driver's result of
+    the same observable and, where frozen, value and gradient against the
+    JAX script's; an energy target's gradient against a central difference
+    along a seeded random direction in theta (relative 1e-5)."""
+    from metalquicha_tpu_torch.methods.xtb.param_fit import theta_init
+
+    flat, unravel = fit1.ravel_theta(theta_init(variant, DEVICE))
+    names = [n for tbl in fit1.variant_targets(variant) for n in tbl]
+    check(sorted(records) == sorted(names),
+          f"the {variant} fit evaluated {sorted(records)}, not {names}")
+    for name in names:
+        tgt, val, grad, t, peak = records[name]
+        ref = _driver_value(goldens, name)
+        tol = FIT_DRIVER_TOL[FIT_DRIVER_GOLDEN[name][2]]
+        d_ref = abs(val - ref)
+        note = ""
+        if name in fit_gold["targets"]:
+            gold = fit_gold["targets"][name]
+            g_ref = np.array(gold["grad_flat"], dtype=float)
+            known = np.isfinite(g_ref)
+            d_g = float(np.abs(grad - g_ref)[known].max()
+                        / np.abs(g_ref[known]).max())
+            d_v = abs(val - gold["value"])
+            note = (f" JAX fit script: d_value={d_v:.2e} "
+                    f"grad rel={d_g:.2e}")
+            check(d_v <= 1e-9 and d_g <= 1e-6,
+                  f"fit target {name} off the JAX script ({d_v:.3e}, "
+                  f"{d_g:.3e})")
+        if isinstance(tgt, fit1.TargetEval):
+            d = np.random.default_rng(0).normal(size=flat.shape) * 1e-4 * (
+                np.abs(flat) + 1e-2)
+            fd = (tgt.value(unravel(flat + d))
+                  - tgt.value(unravel(flat - d))) / 2
+            rel = abs(fd - grad @ d) / abs(grad @ d)
+            note += (f" dE along d: autograd={grad @ d:.10e} fd={fd:.10e} "
+                     f"rel={rel:.2e}")
+            check(rel <= 1e-5, f"fit target {name}: Jacobian off its "
+                               f"central difference by {rel:.3e}")
+        print(f"fit_tools {variant} target {name} ({type(tgt).__name__}): "
+              f"value={val:.10f} residual={val - tgt.expected:+.3e} "
+              f"value_and_grad={t:.3f} s peak={peak:.2f} GiB; JAX driver "
+              f"{FIT_DRIVER_GOLDEN[name][1]} d={d_ref:.2e} (held to "
+              f"{tol:.0e});{note}", flush=True)
+        check(np.isfinite(grad).all(), f"fit target {name}: gradient not "
+                                       "finite")
+        check(d_ref <= tol, f"fit target {name} off the JAX driver's "
+                            f"{FIT_DRIVER_GOLDEN[name][1]} by {d_ref:.3e}")
+
+
+def fit_tools_phase(jac, goldens):
+    """The training programs (tools/fit_*_torch.py) on the card."""
+    from metalquicha_tpu_torch.methods.xtb.param_fit import (
+        theta_from_overlay,
+        theta_init,
+    )
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import fit_gfn1_torch as fit1
+    import fit_gfn2_w1_torch as fitw1
+    import fit_solvation_torch as fits
+
+    n0 = jac.launches
+    with open(GOLDEN_FIT_TOOLS) as fh:
+        fit_gold = json.load(fh)
+    with tempfile.TemporaryDirectory() as tmp:
+        # one evaluation of residuals and Jacobian at theta_0 (the shipped
+        # overlay), one LM step, the final residuals
+        out = os.path.join(tmp, "fit_gfn1.json")
+        records, t = _fit_run(fit1, ["--iters", "1", "--out", out])
+        with open(out) as fh:
+            res = json.load(fh)
+        back = theta_from_overlay(out, "gfn1", DEVICE)
+        same = all(
+            np.array_equal(back["elements"][int(z)][k].cpu().numpy(), v)
+            for z, el in res["elements"].items() for k, v in el.items())
+        same &= np.array_equal(back["d3_pairs"].cpu().numpy(),
+                               res["d3_pairs"])
+        print(f"fit_tools fit_gfn1_torch --iters 1, all "
+              f"{len(res['residuals'])} default targets: wall={t:.1f} s; "
+              f"final residuals {res['residuals']}; reads back through "
+              f"theta_from_overlay: {same}", flush=True)
+        check(len(res["residuals"]) == 16 and same,
+              "fit_gfn1_torch's output is not the 16-target fit or does "
+              "not read back")
+        _check_fit_targets(fit1, records, goldens, fit_gold, "gfn1")
+
+        out = os.path.join(tmp, "fit_gfn1_gfn2.json")
+        records, t = _fit_run(fit1, ["--variant", "gfn2", "--iters", "1",
+                                     "--out", out])
+        with open(out) as fh:
+            res = json.load(fh)["residuals"]
+        print(f"fit_tools fit_gfn1_torch --variant gfn2 --iters 1: "
+              f"wall={t:.1f} s final residuals {res}", flush=True)
+        _check_fit_targets(fit1, records, goldens, fit_gold, "gfn2")
+
+        obs = fitw1.build_eval(DEVICE)(theta_init("gfn2", DEVICE))
+        ref = fit_gold["fit_gfn2_w1"]["observables"]
+        for key, tol in (("energy", 1e-10), ("grad_norm", 1e-9),
+                         ("hess_norm", 1e-7), ("freqs", 1e-3),
+                         ("zpe", 1e-9), ("gibbs", 1e-9)):
+            d = float(np.abs(np.subtract(obs[key], ref[key])).max())
+            print(f"fit_tools w1 observable {key} at theta_0: {obs[key]} "
+                  f"d_JAX={d:.2e} (held to {tol:.0e})", flush=True)
+            check(d <= tol, f"w1 {key} off the JAX script by {d:.3e}")
+        out = os.path.join(tmp, "fit_gfn2.json")
+        _, t = wall(lambda: fitw1.main(["--iters", "1", "--out", out]))
+        with open(out) as fh:
+            res = json.load(fh)["final_observables"]
+        print(f"fit_tools fit_gfn2_w1_torch --iters 1 (from the shipped "
+              f"overlay): wall={t:.1f} s final {res}", flush=True)
+
+        energies = fits.build_eval(DEVICE)
+        gold = fit_gold["fit_solvation"]
+        for point in ("x0", "x1"):
+            got = energies(np.array(gold[point]))
+            d = max(abs(got[m] - e) for m, e in
+                    gold["energies_" + point].items())
+            print(f"fit_tools solvation energies at {point}: {got} "
+                  f"d_JAX={d:.2e} (held to 1e-10)", flush=True)
+            check(d <= 1e-10, f"solvation energies off the JAX script by "
+                              f"{d:.3e}")
+        # warm-started, as the JAX script is from its own output, from the
+        # shipped solvation overlay (a file in the script's output format)
+        out = os.path.join(tmp, "fit_solv.json")
+        shutil.copy(SOLV_OVERLAY, out)
+        _, t = wall(lambda: fits.main(["--iters", "1", "--out", out]))
+        with open(out) as fh:
+            res = json.load(fh)["residuals"]
+        print(f"fit_tools fit_solvation_torch --iters 1 (from the shipped "
+              f"overlay): wall={t:.1f} s final residuals {res}", flush=True)
+    launched = jac.launches - n0
+    print(f"fit_tools: {launched} Jacobi launches (the fits run the exact "
+          "in-loop solve, use_pallas_eigh=False, as the JAX fits do)",
+          flush=True)
+    check(launched == 0, "the fit tools launched the Jacobi kernel")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="SRC",
@@ -1229,7 +1464,10 @@ def main() -> int:
                            ("gfn2", gfn2_phase, golden_gfn2),
                            ("polish", polish_phase, (golden, golden_gfn2)),
                            ("mesh", mesh_phase, golden),
-                           ("fit", fit_phase, golden)):
+                           ("fit", fit_phase, golden),
+                           ("fit_tools", fit_tools_phase,
+                            {"gfn1": golden, "full": golden_full,
+                             "gfn2": golden_gfn2})):
         t0 = time.perf_counter()
         phases[name] = fn(jac, gold)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)

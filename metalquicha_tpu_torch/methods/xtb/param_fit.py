@@ -11,10 +11,10 @@ generally useful for refitting xTB to new data.
 theta is a nested dict of float64 tensors on one explicit device:
 `elements[z]` (per fitted element: levels (eV), slater, kcn (eV), shpoly,
 gam, lgam, gam3, alpha, zeff, en, e0, aes, rad, rcov, r4r2), `d3_pairs`,
-`kpair` and `globals`. `theta_leaves` lists its tensors in a fixed order
-and `theta_map` applies a function to each, which is all of a pytree that
-a fit needs: mark the leaves `requires_grad_`, build the loss and take
-`torch.autograd.grad(loss, theta_leaves(theta))`.
+`kpair` and `globals`. `theta_leaves` lists its tensors in
+`ravel_pytree`'s order and `theta_map` applies a function to each, which
+is all of a pytree that a fit needs: mark the leaves `requires_grad_`,
+build the loss and take `torch.autograd.grad(loss, theta_leaves(theta))`.
 
 Structure arrays (masks, indices, refocc, D3 reference grids) stay fixed
 from the host-side batch (`batch.build_batch`); theta-dependent arrays are
@@ -67,9 +67,11 @@ def theta_map(fn, theta: dict, *rest) -> dict:
 
 
 def theta_leaves(theta: dict) -> list:
-    """The tensors of theta, depth first in sorted key order."""
+    """The tensors of theta, depth first in sorted key order (element keys
+    by ascending Z): the order of `jax.flatten_util.ravel_pytree` on the
+    JAX package's theta."""
     if isinstance(theta, dict):
-        return [leaf for k in sorted(theta, key=str)
+        return [leaf for k in sorted(theta)
                 for leaf in theta_leaves(theta[k])]
     return [theta]
 

@@ -106,7 +106,9 @@ def test_settings_equal():
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "tools", "run_validation_torch.py")
+    for tool in ("run_validation_torch", "fit_gfn1_torch",
+                 "fit_gfn2_w1_torch", "fit_solvation_torch", "h100_accuracy"):
+        yield os.path.join(REPO, "tools", tool + ".py")
     for root, _dirs, files in os.walk(PKG):
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
 

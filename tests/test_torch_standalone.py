@@ -162,6 +162,42 @@ def test_new_modules_run_without_jax_package(tmp_path):
     assert res["grad_finite"] and res["build_dir"] == cache
 
 
+_TRAINING = """
+import json, os, sys
+sys.modules["jax"] = None
+sys.modules["metalquicha_tpu"] = None
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, os.path.join(os.getcwd(), "tools"))
+import fit_gfn1_torch, fit_gfn2_w1_torch, fit_solvation_torch, h100_accuracy
+fit_gfn1_torch.main(["--targets", "h3o", "--iters", "0", "--device", "cpu",
+                     "--out", sys.argv[1]])
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and m.split(".")[0] in ("jax", "metalquicha_tpu"))
+with open(sys.argv[1]) as fh:
+    print(json.dumps({"loaded": loaded,
+                      "residual": json.load(fh)["residuals"]["h3o"]}))
+"""
+
+
+def test_training_programs_run_without_jax_package(tmp_path):
+    """The fit and accuracy scripts import with jax and the JAX package
+    unimportable, and the GFN1 fit evaluates its h3o target (against the
+    JAX script's frozen value, tests/data/port_golden_fit_tools.json)."""
+    with open(os.path.join(REPO, "tests", "data",
+                           "port_golden_fit_tools.json")) as fh:
+        gold = json.load(fh)["targets"]["h3o"]["value"]
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAINING, str(tmp_path / "fit.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert abs(res["residual"] - (gold + 5.773131213617977)) <= 1e-10
+
+
 def _cfg():
     return read_mqc_file(PRISM)
 

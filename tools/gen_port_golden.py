@@ -44,9 +44,23 @@ Writes, from the repository root:
   a water and the mixed derivative d/dtheta |grad_R E|^2 of two jittered
   waters with three recorded refine steps, in GFN1 and GFN2.
 
-Usage: python tools/gen_port_golden.py [--only gfn1|full|gfn2|polish_fit]
+- tests/data/port_golden_fit_tools.json: the training programs
+  (tools/fit_gfn1.py, fit_gfn2_w1.py, fit_solvation.py) from the shipped
+  overlay: the value and per-leaf theta-gradient of `TargetEval` for h3o
+  and prism_mbe, `GradNormTarget` h3o_gnorm, `HessNormTarget` h3o_hnorm
+  and `MbeHessNormTarget` prism_hnorm; the output JSON of `fit_gfn1.py
+  --targets h3o,h3o_gnorm --iters 1`; `fit_gfn2_w1.build_eval()` at
+  `theta_init("gfn2")`; `fit_solvation.build_eval()` at X0 and at one
+  perturbed x; each with its JAX wall time in `seconds`.
+
+- tests/data/port_golden_decane_gap.json: the decane GMBE(1) and
+  unfragmented totals through the driver and their gap (the pair of
+  tests/test_gmbe_tail_sentinel.py, at the JAX package's HEAD).
+
+Usage: python tools/gen_port_golden.py
+           [--only gfn1|full|gfn2|polish_fit|fit_tools|decane_gap]
 (about five minutes on a CPU for gfn1 and full; gfn2 see its `seconds`;
-polish_fit about six minutes)
+polish_fit about six minutes; fit_tools see its `seconds`)
 """
 
 from __future__ import annotations
@@ -595,13 +609,144 @@ def gen_polish_fit() -> None:
         fh.write("\n")
 
 
+FIT_TOOLS_PATH = os.path.join(DATA, "port_golden_fit_tools.json")
+#: the fit_gfn1.py targets whose value and theta-gradient are frozen, by
+#: class; and the fit_gfn1.py run whose output JSON is frozen
+FIT_TOOLS_TARGETS = (("TargetEval", "h3o"), ("TargetEval", "prism_mbe"),
+                     ("GradNormTarget", "h3o_gnorm"),
+                     ("HessNormTarget", "h3o_hnorm"),
+                     ("MbeHessNormTarget", "prism_hnorm"))
+FIT_TOOLS_RUN = ["--targets", "h3o,h3o_gnorm", "--iters", "1"]
+#: seed and relative size of the perturbation of fit_solvation's X0
+SOLV_SEED, SOLV_SCALE = 5, 0.02
+
+
+def gen_fit_tools() -> None:
+    """Write port_golden_fit_tools.json, saving after every entry."""
+    import tempfile
+
+    from jax.flatten_util import ravel_pytree
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import fit_gfn1
+    import fit_gfn2_w1
+    import fit_solvation
+    from metalquicha_tpu.methods.xtb.param_fit import theta_init
+
+    golden = {"commit": _commit(), "dtype": "float64", "platform": "cpu"}
+
+    def save():
+        with open(FIT_TOOLS_PATH, "w") as fh:
+            json.dump(golden, fh, indent=1)
+            fh.write("\n")
+
+    theta = theta_init("gfn1")
+    flat, unravel = ravel_pytree(theta)
+    golden["theta_flat"] = np.asarray(flat).tolist()
+    golden["prior_weight_vector"] = fit_gfn1.prior_weight_vector(
+        theta).tolist()
+    settings = settings_from_params("gfn1", max_scf_iter=256, scf_tol=1e-10)
+    golden["targets"] = {}
+
+    def target(cls, name):
+        t0 = time.time()
+        val, grad = getattr(fit_gfn1, cls)(name, settings).value_and_grad(
+            theta)
+        golden["targets"][name] = {
+            "class": cls, "value": val, "grad_flat": np.asarray(grad).tolist(),
+            "grad": _theta_lists(unravel(jnp.asarray(grad))),
+            "seconds": round(time.time() - t0, 1)}
+        print(f"fit_tools {name}: {time.time() - t0:.1f} s", flush=True)
+        save()
+
+    # the MBE Hessian norm, the slowest to compile, last
+    for cls, name in FIT_TOOLS_TARGETS[:-1]:
+        target(cls, name)
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fit.json")
+        subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                     "fit_gfn1.py"),
+                        *FIT_TOOLS_RUN, "--out", out], cwd=ROOT, check=True)
+        with open(out) as fh:
+            golden["fit_gfn1_run"] = {"argv": FIT_TOOLS_RUN,
+                                      "out": json.load(fh)}
+    golden["fit_gfn1_run"]["seconds"] = round(time.time() - t0, 1)
+    print(f"fit_tools fit_gfn1 run: {time.time() - t0:.1f} s", flush=True)
+    save()
+
+    t0 = time.time()
+    golden["fit_gfn2_w1"] = {
+        "observables": fit_gfn2_w1.build_eval()(theta_init("gfn2")),
+        "seconds": round(time.time() - t0, 1)}
+    print(f"fit_tools fit_gfn2_w1: {time.time() - t0:.1f} s", flush=True)
+    save()
+
+    t0 = time.time()
+    energies = fit_solvation.build_eval()
+    x0 = np.array(fit_solvation.X0)
+    rng = np.random.default_rng(SOLV_SEED)
+    x1 = np.clip(x0 * (1.0 + SOLV_SCALE * rng.standard_normal(x0.shape)),
+                 fit_solvation.LB, fit_solvation.UB)
+    golden["fit_solvation"] = {
+        "x0": x0.tolist(), "energies_x0": energies(x0),
+        "x1": x1.tolist(), "energies_x1": energies(x1),
+        "seconds": round(time.time() - t0, 1)}
+    print(f"fit_tools fit_solvation: {time.time() - t0:.1f} s", flush=True)
+    save()
+    target(*FIT_TOOLS_TARGETS[-1])
+
+
+DECANE_GAP_PATH = os.path.join(DATA, "port_golden_decane_gap.json")
+
+
+def decane_inputs() -> dict:
+    """validation/inputs/overlapping_decane.json at GMBE(1) and as one
+    unfragmented molecule (tests/test_gmbe_tail_sentinel.py's pair)."""
+    with open(os.path.join(ROOT, "validation", "inputs",
+                           "overlapping_decane.json")) as fh:
+        data = json.load(fh)
+    unfrag = json.loads(json.dumps(data))
+    mol = unfrag["molecules"][0]
+    for key in ("fragments", "connectivity", "fragment_charges",
+                "fragment_multiplicities"):
+        mol.pop(key, None)
+    unfrag["keywords"].pop("fragmentation", None)
+    return {"gmbe1": data, "unfrag": unfrag}
+
+
+def gen_decane_gap() -> None:
+    """Write port_golden_decane_gap.json: the JAX package's decane GMBE(1)
+    and unfragmented totals through its driver, and their gap."""
+    from metalquicha_tpu.io.config import parse_mqc_string
+
+    inputs = os.path.join(ROOT, "validation", "inputs")
+    t0 = time.time()
+    totals = {}
+    for name, data in decane_inputs().items():
+        cfg = parse_mqc_string(emit_mqc(data, base_dir=inputs))
+        out = run_calculation(cfg, write_json=False)[""]
+        totals[name] = float(out.result.total_energy)
+    golden = {"commit": _commit(), "dtype": "float64", "platform": "cpu",
+              "e_gmbe1_ha": totals["gmbe1"], "e_unfrag_ha": totals["unfrag"],
+              "gap_ha": totals["gmbe1"] - totals["unfrag"],
+              "seconds": round(time.time() - t0, 1)}
+    with open(DECANE_GAP_PATH, "w") as fh:
+        json.dump(golden, fh, indent=1)
+        fh.write("\n")
+    print(f"decane gap: {golden['gap_ha']:+.12f} Ha "
+          f"({golden['seconds']} s)", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("gfn1", "full", "gfn2", "polish_fit"),
+    ap.add_argument("--only", choices=("gfn1", "full", "gfn2", "polish_fit",
+                                       "fit_tools", "decane_gap"),
                     default=None,
-                    help="regenerate one golden file instead of all four")
+                    help="regenerate one golden file instead of all six")
     ap.add_argument("--skip-w20", action="store_true",
                     help="gfn2: keep the stored w20 MBE(3) driver total")
     args = ap.parse_args(argv)
@@ -614,6 +759,10 @@ def main(argv=None) -> int:
         gen_gfn2(skip_w20=args.skip_w20)
     if args.only in (None, "polish_fit"):
         gen_polish_fit()
+    if args.only in (None, "fit_tools"):
+        gen_fit_tools()
+    if args.only in (None, "decane_gap"):
+        gen_decane_gap()
     return 0
 
 

@@ -16,8 +16,13 @@ none is off the JAX package's results. A case that raises reports ERROR
 with the reason. The cases that the JAX package itself misses upstream's
 value by more than --tol report FAIL here as there.
 
+`--polish off` turns the f64 polish of an `--f32` run off (the driver's
+`host_polish="off"`, as the command line's `--no-polish`): the raw
+float32 results. `auto`, the default, polishes every float32 run.
+
 Usage: python tools/run_validation_torch.py [--device cuda|cpu]
-           [--filter NAME] [--skip-slow] [--tol T] [--f32] [--json-out FILE]
+           [--filter NAME] [--skip-slow] [--tol T] [--f32]
+           [--polish auto|off] [--json-out FILE]
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ def _jax_goldens() -> dict:
     return cases
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--filter", default=None)
     ap.add_argument("--tol", type=float, default=None)
@@ -57,11 +62,14 @@ def main() -> int:
                     help="device to run on (default cuda; fails without one)")
     ap.add_argument("--f32", action="store_true",
                     help="float32 working dtype (default float64)")
+    ap.add_argument("--polish", default="auto", choices=("auto", "off"),
+                    help="f64 polish of float32 results (auto = on for "
+                         "every --f32 run; off = raw float32)")
     ap.add_argument("--json-out", default=None,
                     help="write per-case results/deltas to this JSON file")
     ap.add_argument("--skip-slow", action="store_true",
                     help="skip w20/gly10-scale tests")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     from metalquicha_tpu_torch.driver import run_calculation
     from metalquicha_tpu_torch.io.config import parse_mqc_string
@@ -98,7 +106,9 @@ def main() -> int:
                 data = json.load(fh)
             mqc_text = emit_mqc(data, base_dir=os.path.dirname(json_path))
             cfg = parse_mqc_string(mqc_text)
-            overrides = {"force_dtype": "f32"} if args.f32 else {}
+            overrides = {"host_polish": args.polish}
+            if args.f32:
+                overrides["force_dtype"] = "f32"
             outputs = run_calculation(cfg, input_path=test["input"],
                                       write_json=False,
                                       driver_overrides=overrides,
@@ -179,6 +189,7 @@ def main() -> int:
                     "device": (torch.cuda.get_device_name(0)
                                if args.device == "cuda" else "cpu"),
                     "precision": "f32" if args.f32 else "f64",
+                    "polish": args.polish,
                     "tolerance": tol,
                     "passed": passed,
                     "failed": failed,
