@@ -76,12 +76,15 @@ Phases (each raises on failure; nothing is caught):
              the JAX package's float64 goldens, beside their float64 times;
 10. mesh:    the water-trimer MBE(2) set through a mesh of every visible
              card and through a two-slot 2D mesh (the one card listed
-             twice where only one is present: pad, cut and join all run):
-             float64 totals equal the one-device run's (1e-12), gradients
-             too once every atom is moved by a seeded jitter (the rigid
-             set's degenerate dimers hold theirs to 1e-8); the w20 MBE(2)
-             total through the two-slot mesh within 1e-10 of the one-slot
-             total;
+             twice where only one is present: pad, cut and join all run,
+             and the two slots evaluate their pieces at once, each in its
+             own host thread on its own CUDA stream): float64 totals equal
+             the one-device run's (1e-12), gradients too once every atom is
+             moved by a seeded jitter (the rigid set's degenerate dimers
+             hold theirs to 1e-8); the w20 MBE(2) total through the
+             two-slot mesh within 1e-10 of the one-slot total and 1e-8 of
+             the golden, the wall of one slot and of two printed, and the
+             Jacobi kernel launched on both slots' streams;
 11. fit:     the differentiable parameterization (methods/xtb/param_fit.py):
              rebuild(theta_init) equal to the host batch (1e-12) in GFN1
              and GFN2; dE/dtheta of a water against a central difference on
@@ -108,7 +111,14 @@ Phases (each raises on failure; nothing is caught):
              of fit_solvation_torch (warm-started from the shipped
              solvation overlay). The fits launch no Jacobi kernel, as
              the JAX fits run none (`use_pallas_eigh=False`);
-             then no module of jax or of the JAX package may be loaded.
+             then no module of jax or of the JAX package may be loaded;
+13. bench:   `bench_torch.py` (the port's counterpart of bench.py) at its
+             defaults, in this process: its JSON line has bench.py's keys
+             and `platform` "cuda", both SCC residuals are below 1e-5, the
+             Jacobi kernel launched, and `mbe2_w20_total_ha` is within 1e-6
+             of the golden w20 MBE(2) total (its printed rounding; the
+             timed passes' 1e-5 Bohr jitter is a rigid shift); the line is
+             printed on a line of its own.
 
 `--baseline SRC` builds a second version of the kernel source (an
 earlier commit's `csrc/jacobi_eigh.cu`, same C interface) with the same
@@ -116,8 +126,8 @@ nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
 The kernel's launch counter and SP2's call counter are reset before
-phases 3-12; the first must grow in phases 3-6 and 9 and both in phase 7,
-phase 8 must leave both as they are, and phase 12 the first.
+phases 3-13; the first must grow in phases 3-6, 9, 10 and 13 and both in
+phase 7, phase 8 must leave both as they are, and phase 12 the first.
 Diagnostics go to stdout; the line before the last but one is the
 kernel JSON line, the line before the last the card's name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -1085,15 +1095,31 @@ def mesh_phase(jac, golden):
                                     use_pallas_eigh=True)
     calc = XtbCalculator(settings, dtype=torch.float64, device=DEVICE)
     frags = w20_mbe2_fragments()
-    totals = {}
+    totals, walls = {}, {}
     for name, mesh in (("one slot", None), ("two slots", two)):
         ex = FragmentExecutor(calc, mesh=mesh)
         ex.run(frags, what="gradient")  # warm-up
-        (e, g, _aux), t = wall(lambda: ex.run(frags, what="gradient"))
+        jac.launches_by_stream.clear()
+        (e, g, _aux), walls[name] = wall(lambda: ex.run(frags,
+                                                        what="gradient"))
         totals[name] = w20_mbe2_assemble(e, g)
-        print(f"mesh w20 MBE(2) gradient, {name}: wall={t:.3f} s "
+        print(f"mesh w20 MBE(2) gradient, {name}: wall={walls[name]:.3f} s "
               f"total={totals[name][0]:.10f} |g|={totals[name][1]:.10f}",
               flush=True)
+    # the timed two-slot pass: each slot's stream ran the kernel
+    streams = {stream.cuda_stream for _pool, stream in ex._slots}
+    per_slot = [jac.launches_by_stream.get(stream.cuda_stream, 0)
+                for _pool, stream in ex._slots]
+    ex.close()
+    print(f"mesh w20 MBE(2): two slots at once {walls['two slots']:.3f} s "
+          f"against one slot {walls['one slot']:.3f} s "
+          f"({walls['two slots'] / walls['one slot']:.2f}x; serial dispatch "
+          f"of the two pieces took 1.55x, PERF.md); Jacobi launches per "
+          f"slot stream "
+          f"{per_slot}", flush=True)
+    check(len(per_slot) == 2 and min(per_slot) > 0,
+          f"a slot's stream launched no Jacobi kernel: {per_slot}")
+    check(len(streams) == 2, "the two slots share a stream")
     d_t = abs(totals["two slots"][0] - totals["one slot"][0])
     d_gold = abs(totals["two slots"][0] - golden["w20_mbe2"]["total"])
     print(f"mesh w20 MBE(2): two slots vs one d_total={d_t:.2e} "
@@ -1415,6 +1441,47 @@ def fit_tools_phase(jac, goldens):
     return launched
 
 
+#: bench.py:322-347, the keys of its JSON line in order
+BENCH_PY_KEYS = [
+    "metric", "value", "unit", "vs_baseline", "platform", "batch_size",
+    "scf_residual", "gfn1_fragment_gradients_per_sec", "grad_scf_residual",
+    "mbe2_w20_grad_wall_s", "mbe2_w20_total_ha", "eigh_tflops_b512_n16",
+    "eigh_tflops_b64_n256", "sp2_density_speedup_b64_n256",
+    "sp2_tflops_b64_n256", "jacobi_tflops_b512_n16",
+    "jacobi_speedup_b512_n16", "jacobi_tflops_b128_n64",
+    "jacobi_speedup_b128_n64",
+]
+
+
+def bench_phase(jac, golden):
+    """bench_torch.py at its defaults, in this process; its line parsed."""
+    import contextlib
+    import io
+
+    import bench_torch
+
+    n0 = jac.launches
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_torch.main([])
+    text = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(text) == 1, f"bench_torch.py: rc {rc}, {text}")
+    line = json.loads(text[0])
+    launched = jac.launches - n0
+    print(text[0], flush=True)
+    d_gold = abs(line["mbe2_w20_total_ha"] - golden["w20_mbe2"]["total"])
+    print(f"bench: {launched} Jacobi launches, mbe2_w20_total_ha "
+          f"{d_gold:.2e} off the golden", flush=True)
+    check(list(line) == BENCH_PY_KEYS, f"bench keys {list(line)}")
+    check(line["platform"] == "cuda", f"bench platform {line['platform']}")
+    check(line["scf_residual"] < 1e-5 and line["grad_scf_residual"] < 1e-5,
+          "bench SCC residual at or above 1e-5")
+    check(launched > 0 and line["jacobi_speedup_b512_n16"] > 0,
+          "bench launched no Jacobi kernel")
+    check(d_gold <= 1e-6, f"bench w20 MBE(2) total off by {d_gold:.3e}")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="SRC",
@@ -1423,6 +1490,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
     from metalquicha_tpu_torch.ops import sp2
 
@@ -1467,19 +1535,23 @@ def main() -> int:
                            ("fit", fit_phase, golden),
                            ("fit_tools", fit_tools_phase,
                             {"gfn1": golden, "full": golden_full,
-                             "gfn2": golden_gfn2})):
+                             "gfn2": golden_gfn2}),
+                           ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
         phases[name] = fn(jac, gold)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
     launches = jac.launches
     check(launches > 0, "the main path launched no Jacobi kernel")
     check(phases["polish"] > 0, "the polish phase launched no Jacobi kernel")
+    check(phases["mesh"] > 0, "the mesh phase launched no Jacobi kernel")
     check(sp2.calls > 0, "the main path never went through SP2")
     print(f"main path: jacobi launches={launches} {phases} "
           f"sp2 calls={sp2.calls}", flush=True)
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "metalquicha_tpu"))
     check(not jax_side, f"the port loaded {jax_side}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh",

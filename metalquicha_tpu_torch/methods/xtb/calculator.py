@@ -444,9 +444,13 @@ class XtbCalculator:
                                        self.solvation)
 
     def gradients(self, frag: FragmentData):
-        coords = frag.coords.detach().requires_grad_(True)
-        e, aux = single_point_energy(coords, frag, self._settings_for(frag),
-                                     self.solvation)
-        (g,) = torch.autograd.grad(e.sum(), coords)
+        # grad mode is per thread: on whatever the caller's (a mesh slot
+        # evaluates in a thread of its own)
+        with torch.enable_grad():
+            coords = frag.coords.detach().requires_grad_(True)
+            e, aux = single_point_energy(coords, frag,
+                                         self._settings_for(frag),
+                                         self.solvation)
+            (g,) = torch.autograd.grad(e.sum(), coords)
         aux = {k: v.detach() for k, v in aux.items()}
         return e.detach(), g, aux

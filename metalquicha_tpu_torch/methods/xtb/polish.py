@@ -127,10 +127,11 @@ class HostPolisher:
                     diff_scf_iters=self.k, q_init=q0,
                 )
             return e, None, aux
-        coords = frag.coords.detach().requires_grad_(True)
-        e, aux = single_point_energy(
-            coords, frag, settings, calc.solvation,
-            diff_scf_iters=self.k, q_init=q0,
-        )
-        (g,) = torch.autograd.grad(e.sum(), coords)
+        with torch.enable_grad():  # per thread, as in `gradients`
+            coords = frag.coords.detach().requires_grad_(True)
+            e, aux = single_point_energy(
+                coords, frag, settings, calc.solvation,
+                diff_scf_iters=self.k, q_init=q0,
+            )
+            (g,) = torch.autograd.grad(e.sum(), coords)
         return e.detach(), g, {k: v.detach() for k, v in aux.items()}

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,9 @@ MAX_N = 64
 
 #: kernel launches so far (a caller may reset it to 0)
 launches = 0
+#: the same launches per CUDA stream handle (a caller may clear it): shows
+#: which streams of a mesh's slots ran the kernel
+launches_by_stream: dict = {}
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "jacobi_eigh.cu"
@@ -42,6 +46,10 @@ _NVCC_FLAGS = (
 )
 
 _lib = None
+#: guards the build (one nvcc run and one load however many threads make
+#: the first call) and the launch counts
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def round_robin_pairs(n: int) -> list:
@@ -115,10 +123,18 @@ def _nvcc() -> str:
 
 
 def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source hash) and load it."""
-    global _lib
+    """Compile the kernel (once per source hash) and load it; safe to call
+    from several threads at once."""
     if _lib is not None:
         return _lib
+    with _build_lock:
+        if _lib is None:
+            _build_and_load()
+    return _lib
+
+
+def _build_and_load() -> None:
+    global _lib
     src = _SOURCE.read_bytes()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
     so = _BUILD_DIR / f"jacobi_eigh-{key[:16]}.so"
@@ -150,11 +166,16 @@ def build() -> ctypes.CDLL:
     lib.mqc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mqc_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
-    return lib
+
+
+def _count(stream: int) -> None:
+    global launches
+    with _count_lock:
+        launches += 1
+        launches_by_stream[stream] = launches_by_stream.get(stream, 0) + 1
 
 
 def _launch(a: torch.Tensor, sweeps: int):
-    global launches
     if a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"Jacobi kernel takes float32/float64, not {a.dtype}")
     if not a.is_contiguous():
@@ -171,7 +192,7 @@ def _launch(a: torch.Tensor, sweeps: int):
     if err != 0:
         msg = lib.mqc_cuda_error_string(err).decode()
         raise RuntimeError(f"Jacobi kernel launch failed: {msg} ({err})")
-    launches += 1
+    _count(stream)
     return w, v
 
 

@@ -27,11 +27,14 @@ d-block batches off it (`XtbCalculator._settings_for`).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 #: `sp2_density` calls so far (a caller may reset it to 0): shows that a run
 #: went through this route
 calls = 0
+_calls_lock = threading.Lock()
 
 
 def sp2_projector(Fo, nocc, ao_mask, iters: int = 48):
@@ -88,7 +91,8 @@ def sp2_density(Fo, nelec, nuhf, ao_mask, iters: int = 48, closed_shell=None):
     decides once and passes it.
     """
     global calls
-    calls += 1
+    with _calls_lock:
+        calls += 1
     if closed_shell is None:
         closed_shell = bool((nuhf == 0).all())
     na = (nelec + nuhf) * 0.5

@@ -10,31 +10,50 @@ integrand of ALPB/GBSA; GFN2 adds the nine raised 1D tables of its moment
 integrals), and the results are scattered back per fragment,
 truncated to each fragment's real size.
 
-A chunk is padded with dummy fragments to a multiple of the mesh's device
-count, built into one batch, cut into one piece per device
-(`mesh.shard_leading_axis`) and each piece is evaluated on its device by
-the calculator bound to it (`XtbCalculator.on`), one device after the
-other from the calling thread; the results are joined in mesh order. On a
-one-device mesh, the default, nothing is padded, cut or copied. With a
-polisher (`methods/xtb/polish.py`) every piece's f32 results are
-re-evaluated in f64 on the same device, and fragments whose f32 SCC
-missed `rescue_tol` are re-solved from scratch in f64. The JAX package's
-TPU batch quantum is not ported: it changes no result.
+A chunk is padded with dummy fragments to a multiple of the mesh's slot
+count, built into one batch on the calling thread, cut into one piece per
+slot and every piece is evaluated at the same time, as XLA runs the JAX
+package's shards: slot k has a host thread of its own (made at the first
+chunk and kept) and, on a card, a CUDA stream of its own on its device
+(two slots on one card get two streams). In its thread, under its device
+and stream, slot k copies its piece to its device, evaluates it with the
+calculator bound there (`XtbCalculator.on`), polishes it and reads the
+results back to the host; the caller joins the results in mesh order. A
+slot's exception is raised in the caller with the slot's index and
+device; nothing is retried or moved elsewhere. On a one-slot mesh, the
+default, there is no thread and no new stream: nothing is padded, cut or
+copied. With a polisher (`methods/xtb/polish.py`) every piece's f32
+results are re-evaluated in f64 on the same device, and fragments whose
+f32 SCC missed `rescue_tol` are re-solved from scratch in f64 (on the
+calling thread, after the join). The JAX package's TPU batch quantum is
+not ported: it changes no result.
+
+What the slots share: the calculator's settings and solvation model
+(read only); the host tables behind `make_batch` (`batch.element_basis`,
+`dispersion_d3`'s `_element_ref_arrays` and `full_pair_table`, filled for
+the chunk's elements by the caller's `make_batch` before any slot starts,
+so a polisher's batch in a slot only reads them; `load_overlay`, which
+clears them, must not run during a `run`); the kernel's build and launch
+counts (`ops/jacobi_eigh.py`, `ops/sp2.py`, under locks). Slots do not
+log. Grad mode is per thread: `energies` and `gradients` set their own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from ..logging_ import global_logger as logger
 
 from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
 from ..methods.xtb.multipole import work_elements as multipole_work_elements
-from .mesh import fragment_mesh, shard_leading_axis
+from .mesh import cut_leading_axis, fragment_mesh, place, shard_leading_axis
 
 #: atom-count bucket ladder; shells/AOs scale with atoms per bucket
 ATOM_BUCKETS = (2, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
@@ -108,6 +127,9 @@ class FragmentExecutor:
         #: (polisher.rescue). None disables; the driver sets it to its own
         #: convergence gate so no fragment the rescue could save errors out.
         self.rescue_tol = rescue_tol
+        #: per mesh slot, a one-thread pool and (on a card) a CUDA stream,
+        #: made at the first chunk of a mesh of more than one slot
+        self._slots = None
 
     def _buckets(self, fragments):
         groups = defaultdict(list)
@@ -195,24 +217,85 @@ class FragmentExecutor:
                 _host(aux["dipole"]), _host(aux["charges"]),
                 _host(aux["scf_residual"]))
 
+    def _slot_pools(self):
+        """[(one-thread pool, CUDA stream or None)] per mesh slot."""
+        if self._slots is None:
+            self._slots = [
+                (ThreadPoolExecutor(1, thread_name_prefix=f"mqc-slot{k}"),
+                 torch.cuda.Stream(device) if device.type == "cuda"
+                 else None)
+                for k, device in enumerate(self.mesh.flat)
+            ]
+        return self._slots
+
+    def close(self) -> None:
+        """Stop the slots' threads; a later run makes them again."""
+        if self._slots is not None:
+            for pool, _stream in self._slots:
+                pool.shutdown()
+            self._slots = None
+
+    def _run_slot(self, device, stream, source, piece, tuples, pad_to, what):
+        """One slot's piece, in its thread: copied to its device and
+        evaluated on its stream (`source`: the stream that made the batch,
+        which the slot's stream waits for), the results on the host."""
+        with contextlib.ExitStack() as ctx:
+            if stream is not None:
+                ctx.enter_context(torch.cuda.device(device))
+                ctx.enter_context(torch.cuda.stream(stream))
+                if source is not None:
+                    stream.wait_stream(source)
+            try:
+                return self._evaluate(self.calc.on(device),
+                                      place(piece, device), tuples, pad_to,
+                                      what)
+            finally:
+                if stream is not None:
+                    # nothing of this slot still reads the caller's batch
+                    # when the caller frees it, on success or failure
+                    stream.synchronize()
+
+    def _run_pieces(self, frag_data, tuples, pad_to, what):
+        """Every slot's piece at once; the results in mesh order."""
+        n = self.n_devices
+        per = len(tuples) // n
+        on = frag_data.coords.device
+        source = (torch.cuda.current_stream(on) if on.type == "cuda"
+                  else None)
+        futures = [
+            pool.submit(self._run_slot, device, stream, source, piece,
+                        tuples[k * per : (k + 1) * per], pad_to, what)
+            for k, (device, (pool, stream), piece) in enumerate(zip(
+                self.mesh.flat, self._slot_pools(),
+                cut_leading_axis(frag_data, n)))
+        ]
+        parts = []
+        for k, (device, fut) in enumerate(zip(self.mesh.flat, futures)):
+            try:
+                parts.append(fut.result())
+            except Exception as exc:
+                for other in futures[k + 1:]:  # let every slot finish
+                    other.exception()
+                raise RuntimeError(
+                    f"mesh slot {k} ({device}) failed: "
+                    f"{type(exc).__name__}: {exc}") from exc
+        return parts
+
     def _run_chunk(self, members, pad_to, what, energies, gradients, aux_out):
         idxs = [i for i, _ in members]
         tuples = [t for _, t in members]
         # pad the batch to a device-count multiple with dummy fragments
         tuples = tuples + [_DUMMY] * ((-len(tuples)) % self.n_devices)
         frag_data = self.calc.make_batch(tuples, pad_to=pad_to)
-        if hasattr(self.calc, "on"):
-            pieces = shard_leading_axis(frag_data, self.mesh)
-            per = len(tuples) // self.n_devices
-            parts = [
-                self._evaluate(self.calc.on(device), piece,
-                               tuples[k * per : (k + 1) * per], pad_to, what)
-                for k, (device, piece) in enumerate(zip(self.mesh.flat,
-                                                        pieces))
-            ]
-        else:  # a host method: the whole chunk in one piece
+        if not hasattr(self.calc, "on"):  # a host method: one piece
             parts = [self._evaluate(self.calc, frag_data, tuples, pad_to,
                                     what)]
+        elif self.n_devices == 1:
+            (piece,) = shard_leading_axis(frag_data, self.mesh)
+            parts = [self._evaluate(self.calc.on(self.mesh.flat[0]), piece,
+                                    tuples, pad_to, what)]
+        else:
+            parts = self._run_pieces(frag_data, tuples, pad_to, what)
         if len(parts) == 1:
             e, g, dip, chg, res = parts[0]
         else:

@@ -117,29 +117,37 @@ def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.to(device)
 
 
-def shard_leading_axis(frag, mesh: FragmentMesh) -> list:
-    """Cut a FragmentData (any NamedTuple of batch-first tensors) along its
-    leading axis into one piece per mesh device, in mesh order, each piece
-    on its device. The batch size must be a multiple of the mesh size. On
-    a one-device mesh the batch itself is the piece: nothing is sliced."""
-    n = mesh.size
+def cut_leading_axis(frag, n: int) -> list:
+    """A FragmentData (any NamedTuple of batch-first tensors) cut along its
+    leading axis into n pieces, views where the batch lies; the batch size
+    must be a multiple of n. For n = 1 the batch itself is the piece."""
     bsz = frag[0].shape[0]
     if bsz % n:
         raise ValueError(
             f"batch of {bsz} is not a multiple of the mesh's {n} devices"
         )
+    if n == 1:
+        return [frag]
     per = bsz // n
-    pieces = []
-    for k, device in enumerate(mesh.flat):
-        pieces.append(type(frag)(*(
-            _to_device(x if n == 1 else x[k * per : (k + 1) * per], device)
-            for x in frag
-        )))
-    return pieces
+    return [type(frag)(*(x[k * per : (k + 1) * per] for x in frag))
+            for k in range(n)]
+
+
+def place(piece, device: torch.device):
+    """A NamedTuple of tensors on `device` (see `_to_device`)."""
+    return type(piece)(*(_to_device(x, device) for x in piece))
+
+
+def shard_leading_axis(frag, mesh: FragmentMesh) -> list:
+    """Cut a FragmentData along its leading axis into one piece per mesh
+    device, in mesh order, each piece on its device. The batch size must be
+    a multiple of the mesh size. On a one-device mesh the batch itself is
+    the piece: nothing is sliced."""
+    return [place(piece, device) for piece, device in
+            zip(cut_leading_axis(frag, mesh.size), mesh.flat)]
 
 
 def replicate(tree, mesh: FragmentMesh) -> list:
     """A copy of a NamedTuple of tensors on every mesh device, in mesh
     order."""
-    return [type(tree)(*(_to_device(x, device) for x in tree))
-            for device in mesh.flat]
+    return [place(tree, device) for device in mesh.flat]

@@ -25,7 +25,13 @@ WATER_BOHR = (
 
 def bench_dimers(n: int, seed: int = 0) -> list:
     """The first n dimers of bench.py's batch (same generator and draws)."""
-    rng = np.random.default_rng(seed)
+    return dimers_from(np.random.default_rng(seed), n)
+
+
+def dimers_from(rng, n: int) -> list:
+    """n dimers of bench.py's `dimer(i)`, drawn from `rng` in its order
+    (bench.py draws its gradient batch from the generator its energy
+    batch and eigensolver inputs advanced)."""
     out = []
     for _ in range(n):
         sep = 5.5 + 0.3 * rng.random()

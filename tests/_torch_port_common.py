@@ -108,3 +108,114 @@ def to_np(x):
 
 def max_abs_diff(a, b):
     return float(np.abs(to_np(a) - to_np(b)).max())
+
+
+#: tests/test_elements_spd.py's single points (Angstrom; multiplicity None
+#: is that file's rule: singlet for an even electron count, else doublet):
+#: name -> (numbers, coords, charge, multiplicity)
+SPD_CASES = {
+    "sih4": ([14, 1, 1, 1, 1],
+             [[0, 0, 0], [0.87, 0.87, 0.87], [-0.87, -0.87, 0.87],
+              [0.87, -0.87, -0.87], [-0.87, 0.87, -0.87]], 0, None),
+    "si": ([14], [[0, 0, 0]], 0, 3),
+    "h": ([1], [[0, 0, 0]], 0, None),
+    "nacl": ([11, 17], [[0, 0, 0], [0, 0, 2.36]], 0, None),
+    "na": ([11], [[0, 0, 0]], 0, 2),
+    "cl": ([17], [[0, 0, 0]], 0, 2),
+    "kbr": ([19, 35], [[0, 0, 0], [0, 0, 2.82]], 0, None),
+    "ch3i": ([6, 1, 1, 1, 53],
+             [[0, 0, 0], [1.03, 0, -0.36], [-0.51, 0.89, -0.36],
+              [-0.51, -0.89, -0.36], [0, 0, 2.14]], 0, None),
+}
+
+#: tests/test_elements_ext.py::test_heavy_element_single_point_runs:
+#: name -> numbers (charge 0, singlet; geometry from `heavy_coords`)
+HEAVY_CASES = {
+    "fe_co2": [26, 6, 8, 6, 8],
+    "zn_water": [30, 8, 1, 1],
+    "pt_nh3": [78, 7, 1, 1, 1],
+}
+
+
+def spd_fragment(geometry, name):
+    """SPD_CASES[name] as the fragment tests/test_elements_spd.py builds,
+    through `geometry` (the JAX package's module or the port's)."""
+    nums, coords, charge, mult = SPD_CASES[name]
+    if mult is None:
+        mult = 1 if (sum(nums) - charge) % 2 == 0 else 2
+    s = geometry.SystemGeometry(
+        numbers=nums,
+        coords=np.array(coords, dtype=float) * ANGSTROM_TO_BOHR,
+        charge=charge,
+        fragment_atoms=[np.arange(len(nums))],
+        fragment_charges=[charge],
+        fragment_multiplicities=[mult],
+    )
+    return geometry.build_fragment_from_indices(s, [0])
+
+
+def heavy_coords(n):
+    """The loose geometry (Bohr) of test_heavy_element_single_point_runs:
+    seed 7, the first atom at the origin."""
+    coords = 3.5 * np.random.default_rng(7).standard_normal((n, 3))
+    coords[0] = 0.0
+    return coords
+
+
+#: tests/test_elements_spd.py::test_nacl_water_driver_input's input
+NACL_WATER_MQC = """
+%schema
+name = mqc-frag
+version = 1.0
+index_base = 0
+units = angstrom
+end
+
+%model
+method = XTB-GFN1
+end
+
+%driver
+type = Energy
+end
+
+%structure
+charge = 0
+multiplicity = 1
+end
+
+%geometry
+5
+
+Na 0.0 0.0 0.0
+Cl 0.0 0.0 2.36
+O  4.0 0.0 0.0
+H  4.0 0.76 0.59
+H  4.0 -0.76 0.59
+end
+
+%fragments
+nfrag = 2
+
+%fragment
+charge = 0
+multiplicity = 1
+%indices
+0 1
+end
+end
+
+%fragment
+charge = 0
+multiplicity = 1
+%indices
+2 3 4
+end
+end
+
+end  ! fragments
+
+%fragmentation
+level = 2
+end
+"""

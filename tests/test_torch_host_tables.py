@@ -106,6 +106,7 @@ def test_settings_equal():
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_torch.py")
     for tool in ("run_validation_torch", "fit_gfn1_torch",
                  "fit_gfn2_w1_torch", "fit_solvation_torch", "h100_accuracy"):
         yield os.path.join(REPO, "tools", tool + ".py")

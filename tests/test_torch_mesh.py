@@ -9,7 +9,21 @@ converges to the digit, 1e-10 in GFN2); the water-trimer MBE(2) set of
 `__graft_entry__.py` (workloads.py) through a 2D mesh with the f64 polish
 lands on the float64 result (1e-9, that file's third oracle); and
 `workloads.entry` gives the live JAX `entry()` value (1e-10 Ha).
+
+Concurrent dispatch: on a mesh of several slots every piece runs in a
+thread of its own, all at once (a barrier that only opens when every slot
+has arrived); a one-slot mesh takes no thread; results do not depend on
+the caller's grad mode; a slot's exception reaches the caller with the
+slot's index and device; the Jacobi kernel's build runs nvcc and loads the
+library once when four threads make the first call together, and its
+launch counts are exact under four threads.
 """
+
+import subprocess
+import sys
+import threading
+import time
+import types
 
 import numpy as np
 import pytest
@@ -22,6 +36,7 @@ from metalquicha_tpu_torch.logging_ import global_logger
 from metalquicha_tpu_torch.methods.stubs import DFTMethod
 from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
 from metalquicha_tpu_torch.methods.xtb.polish import HostPolisher
+from metalquicha_tpu_torch.ops import jacobi_eigh as jac
 from metalquicha_tpu_torch.parallel import executor as executor_mod
 from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
 from metalquicha_tpu_torch.parallel.mesh import (
@@ -29,6 +44,7 @@ from metalquicha_tpu_torch.parallel.mesh import (
     GROUP_AXIS,
     FragmentMesh,
     _resolve_groups,
+    cut_leading_axis,
     fragment_mesh,
     replicate,
     shard_leading_axis,
@@ -120,6 +136,10 @@ def test_shard_leading_axis_cuts_in_mesh_order():
         assert piece.d3_c6_pair.stride(0) == 0
     with pytest.raises(ValueError, match="not a multiple"):
         shard_leading_axis(frag, fragment_mesh(["cpu"] * 4))
+    views = cut_leading_axis(frag, 3)
+    assert all(v.coords.data_ptr() == p.coords.data_ptr()
+               for v, p in zip(views, pieces))
+    assert cut_leading_axis(frag, 1)[0] is frag
     copies = replicate(frag, mesh)
     assert len(copies) == 3
     assert all(torch.equal(a, b) for c in copies for a, b in zip(c, frag))
@@ -313,3 +333,171 @@ def test_make_executor_builds_the_mesh_from_the_driver_knobs(monkeypatch):
         assert ex.n_devices == 4
     one = make_executor(cfg, "cuda:2", {"global_groups": 2})
     assert one.mesh.flat == [torch.device("cuda", 2)]
+
+
+def _record_slots(monkeypatch, ex, n, fail_slot=None):
+    """Wrap ex._evaluate: record each call's thread, hold every slot at a
+    barrier that opens only when all n are inside (serial dispatch would
+    time out there), and raise in slot `fail_slot`."""
+    seen = []
+    barrier = threading.Barrier(n, timeout=60)
+    evaluate = ex._evaluate
+
+    def wrapped(calc, frag, tuples, pad_to, what):
+        me = threading.current_thread()
+        seen.append((me.ident, me.name))
+        if n > 1:
+            barrier.wait()
+        if fail_slot is not None and me.name.startswith(f"mqc-slot{fail_slot}"):
+            raise ValueError("boom in this slot")
+        return evaluate(calc, frag, tuples, pad_to, what)
+
+    monkeypatch.setattr(ex, "_evaluate", wrapped)
+    return seen
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_slots_run_at_once_on_threads_of_their_own(monkeypatch, n):
+    frags = water_fragments(2 * n)
+    calc = XtbCalculator(device="cpu")
+    e1, aux1 = FragmentExecutor(calc).run(frags, what="energy")
+    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu"] * n))
+    seen = _record_slots(monkeypatch, ex, n)
+    e, aux = ex.run(frags, what="energy")
+    idents = {ident for ident, _ in seen}
+    assert len(seen) == n and len(idents) == n
+    assert threading.get_ident() not in idents
+    assert sorted(name.split("_")[0] for _, name in seen) == [
+        f"mqc-slot{k}" for k in range(n)]
+    assert np.abs(e - e1).max() <= 1e-12
+    assert np.abs(aux["dipole"] - aux1["dipole"]).max() <= 1e-11
+    # slot k keeps its thread from chunk to chunk
+    seen.clear()
+    ex.run(frags, what="energy")
+    assert {ident for ident, _ in seen} == idents
+    assert [s is None for _pool, s in ex._slots] == [True] * n
+
+
+def test_one_slot_takes_no_thread(monkeypatch):
+    calc = XtbCalculator(device="cpu")
+    ex = FragmentExecutor(calc)
+    seen = _record_slots(monkeypatch, ex, 1)
+    ex.run(water_fragments(3), what="energy")
+    assert {ident for ident, _ in seen} == {threading.get_ident()}
+    assert ex._slots is None
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_gradients_do_not_depend_on_the_callers_grad_mode(n):
+    frags = water_fragments(2)
+    calc = XtbCalculator(device="cpu")
+    e1, g1, _ = _run(FragmentExecutor(calc), frags)
+    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu"] * n))
+    with torch.no_grad():
+        e, g, _ = _run(ex, frags)
+    assert np.abs(e - e1).max() <= 1e-12
+    for a, b in zip(g, g1):
+        assert np.abs(a - b).max() <= 1e-12
+
+
+def test_a_slots_exception_reaches_the_caller(monkeypatch):
+    calc = XtbCalculator(device="cpu")
+    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu"] * 2))
+    seen = _record_slots(monkeypatch, ex, 2, fail_slot=1)
+    with pytest.raises(RuntimeError, match=r"mesh slot 1 \(cpu\) failed: "
+                                           r"ValueError: boom") as info:
+        ex.run(water_fragments(4), what="gradient")
+    assert isinstance(info.value.__cause__, ValueError)
+    assert len(seen) == 2
+
+
+def test_kernel_build_runs_once_from_four_threads(monkeypatch, tmp_path):
+    calls = {"nvcc": 0, "load": 0}
+    real_run = subprocess.run
+
+    def fake_run(argv, **kwargs):
+        if argv[0] != "fake-nvcc":
+            return real_run(argv, **kwargs)
+        calls["nvcc"] += 1
+        threading.Event().wait(0.05)  # let the other threads arrive
+        with open(argv[argv.index("-o") + 1], "wb") as fh:
+            fh.write(b"so")
+        return subprocess.CompletedProcess(argv, 0, "", "")
+
+    class FakeLib:
+        def __init__(self, path):
+            calls["load"] += 1
+            self.path = path
+            for name in ("mqc_jacobi_eigh_f32", "mqc_jacobi_eigh_f64",
+                         "mqc_cuda_error_string"):
+                setattr(self, name, types.SimpleNamespace())
+
+    monkeypatch.setattr(jac, "_lib", None)
+    monkeypatch.setattr(jac, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(jac, "_nvcc", lambda: "fake-nvcc")
+    monkeypatch.setattr(jac.subprocess, "run", fake_run)
+    monkeypatch.setattr(jac.ctypes, "CDLL", FakeLib)
+    barrier = threading.Barrier(4)
+    libs = []
+
+    def first_call():
+        barrier.wait()
+        libs.append(jac.build())
+
+    threads = [threading.Thread(target=first_call) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert calls == {"nvcc": 1, "load": 1}
+    assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
+    assert jac.build() is libs[0] and calls == {"nvcc": 1, "load": 1}
+    assert [p.name for p in tmp_path.iterdir()] == [
+        libs[0].path.rsplit("/", 1)[1]]
+
+
+def test_launch_counts_are_exact_under_four_threads(monkeypatch):
+    """Four threads, two to a stream, launch at once; the count's read and
+    write are pulled apart by a thread switch, so an update made without
+    the lock would be lost."""
+
+    class SwitchingDict(dict):
+        def get(self, key, default=None):
+            value = super().get(key, default)
+            time.sleep(0)  # let another thread in between read and write
+            return value
+
+    lib = types.SimpleNamespace(mqc_jacobi_eigh_f64=lambda *args: 0)
+    slot = threading.local()
+    monkeypatch.setattr(jac, "build", lambda: lib)
+    monkeypatch.setattr(jac, "launches", 0)
+    monkeypatch.setattr(jac, "launches_by_stream", SwitchingDict())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream",
+        lambda device=None: types.SimpleNamespace(cuda_stream=slot.stream))
+    a = torch.eye(2, dtype=torch.float64)[None]
+    per_thread = 500
+    barrier = threading.Barrier(4)
+
+    def launch_many(k):
+        slot.stream = 100 + k % 2
+        barrier.wait()
+        for _ in range(per_thread):
+            jac._launch(a, 1)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as possible
+    try:
+        threads = [threading.Thread(target=launch_many, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert jac.launches == 4 * per_thread
+    assert dict(jac.launches_by_stream) == {100: 2 * per_thread,
+                                            101: 2 * per_thread}

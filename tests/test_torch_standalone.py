@@ -22,6 +22,8 @@ import pytest
 import torch
 from _torch_port_common import GOLDEN_PATH, REPO
 
+import bench_torch
+
 from metalquicha_tpu_torch import compile_cache
 
 from metalquicha_tpu_torch.__main__ import main as cli_main
@@ -169,7 +171,9 @@ sys.modules["metalquicha_tpu"] = None
 import torch
 torch.set_num_threads(1)
 sys.path.insert(0, os.path.join(os.getcwd(), "tools"))
+sys.path.insert(0, os.getcwd())
 import fit_gfn1_torch, fit_gfn2_w1_torch, fit_solvation_torch, h100_accuracy
+import bench_torch
 fit_gfn1_torch.main(["--targets", "h3o", "--iters", "0", "--device", "cpu",
                      "--out", sys.argv[1]])
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
@@ -181,8 +185,8 @@ with open(sys.argv[1]) as fh:
 
 
 def test_training_programs_run_without_jax_package(tmp_path):
-    """The fit and accuracy scripts import with jax and the JAX package
-    unimportable, and the GFN1 fit evaluates its h3o target (against the
+    """The fit and accuracy scripts and bench_torch.py import with jax and
+    the JAX package unimportable, and the GFN1 fit evaluates its h3o target (against the
     JAX script's frozen value, tests/data/port_golden_fit_tools.json)."""
     with open(os.path.join(REPO, "tests", "data",
                            "port_golden_fit_tools.json")) as fh:
@@ -219,6 +223,7 @@ ENTRY_POINTS = {
     "XtbCalculator[gfn2]": lambda: XtbCalculator(variant="gfn2"),
     "run_file[gfn2]": lambda: run_file(GFN2_W1, write_json=False),
     "cli[gfn2]": lambda: cli_main([GFN2_W1]),
+    "bench_torch": lambda: bench_torch.main([]),
 }
 
 
