@@ -77,14 +77,22 @@ Phases (each raises on failure; nothing is caught):
 10. mesh:    the water-trimer MBE(2) set through a mesh of every visible
              card and through a two-slot 2D mesh (the one card listed
              twice where only one is present: pad, cut and join all run,
-             and the two slots evaluate their pieces at once, each in its
-             own host thread on its own CUDA stream): float64 totals equal
-             the one-device run's (1e-12), gradients too once every atom is
-             moved by a seeded jitter (the rigid set's degenerate dimers
-             hold theirs to 1e-8); the w20 MBE(2) total through the
-             two-slot mesh within 1e-10 of the one-slot total and 1e-8 of
-             the golden, the wall of one slot and of two printed, and the
-             Jacobi kernel launched on both slots' streams;
+             and each slot's piece is evaluated in a worker process of its
+             own): float64 totals equal the one-device run's (1e-12),
+             gradients too once every atom is moved by a seeded jitter
+             (the rigid set's degenerate dimers hold theirs to 1e-8); the
+             w20 MBE(2) gradient on one slot, on two worker processes and
+             on two slots dispatched one after the other from this process
+             (a warm-up pass each, the workers' start in theirs, then two
+             timed passes each in turns; the walls, their ratios and each
+             worker's pid, device, start-up seconds and Jacobi launches
+             printed): the two-process total within 1e-10 of one slot's
+             and 1e-8 of the golden, each worker launched the kernel and
+             loaded nothing of jax or the JAX package; then run_calculation
+             on port_w20_mbe4.mqc through the same two workers within 1e-7
+             of the golden, its wall beside the driver phase's one-slot
+             wall and each process's peak device memory printed; no worker
+             alive after `close()`;
 11. fit:     the differentiable parameterization (methods/xtb/param_fit.py):
              rebuild(theta_init) equal to the host batch (1e-12) in GFN1
              and GFN2; dE/dtheta of a water against a central difference on
@@ -178,6 +186,8 @@ PEAK_BYTES = 3.35e12
 SP2_SHAPES = ((64, 256, 240), (128, 96, 81))
 SP2_ITERS = 48
 SP2_TOL = {torch.float64: 1e-8, torch.float32: 1e-3}
+#: walls an earlier phase took, for a later one to print beside its own
+WALLS = {}
 
 
 def jacobi_bound(bsz: int, n: int, dtype):
@@ -500,6 +510,7 @@ def driver_phase(jac, golden):
         out, t = wall(lambda: run_calculation(cfg, write_json=False,
                                               executor=ex))
         n_l = jac.launches - n0
+        WALLS[f"driver {name}"] = t
         total = float(out[""].result.total_energy)
         d = abs(total - gold["total_energy"])
         print(f"driver {name}: wall={t:.3f} s total={total:.10f} "
@@ -1049,11 +1060,18 @@ def polish_phase(jac, goldens):
 
 
 def mesh_phase(jac, golden):
-    """The sharded executor: pad, cut, evaluate per slot, join."""
+    """The sharded executor: pad, cut, evaluate per slot (a worker process
+    each on a mesh of several slots), join."""
+    from metalquicha_tpu_torch.driver import (
+        make_executor,
+        read_mqc_file,
+        run_calculation,
+    )
     from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
     from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
     from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
     from metalquicha_tpu_torch.parallel.mesh import fragment_mesh
+    from metalquicha_tpu_torch.parallel.slot_worker import evaluate_piece
     from metalquicha_tpu_torch.workloads import (
         trimer_mbe2_assemble,
         trimer_mbe2_fragments,
@@ -1061,11 +1079,40 @@ def mesh_phase(jac, golden):
         w20_mbe2_fragments,
     )
 
+    class SerialSlots(FragmentExecutor):
+        """For comparison: the pieces one after the other from this
+        process."""
+
+        def _run_pieces(self, tuples, pad_to, what):
+            per = len(tuples) // self.n_devices
+            parts = []
+            for k, device in enumerate(self.mesh.flat):
+                calc = self.calc.on(device)
+                piece = tuples[k * per : (k + 1) * per]
+                parts.append(evaluate_piece(
+                    calc, None, calc.make_batch(piece, pad_to=pad_to), piece,
+                    pad_to, what))
+            return parts
+
+    def gone(workers):
+        """Whether every worker process has exited and been reaped."""
+        for w in workers:
+            if w.proc.poll() is None:
+                return False
+            try:
+                os.kill(w.pid, 0)
+            except ProcessLookupError:
+                continue
+            return False
+        return True
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
     n0 = jac.launches
     calc = XtbCalculator(dtype=torch.float64, device=DEVICE)
     cards = fragment_mesh()
     two = fragment_mesh((cards.flat * 2)[:2], nodes_per_group=1)
     check(two.shape == {"group": 2, "frag": 1}, f"two-slot mesh is {two}")
+    two_ex = FragmentExecutor(calc, mesh=two, timeout=600)
     # the dry run's rigid trimer: its dimers have exactly degenerate
     # cross-monomer spectra, where the gradient depends on the eigenvector
     # gauge (and so on the batch the library's eigh was handed) at the
@@ -1077,57 +1124,108 @@ def mesh_phase(jac, golden):
     ):
         e1, g1, _ = FragmentExecutor(calc).run(frags, what="gradient")
         total1, gs1 = trimer_mbe2_assemble(e1, g1)
-        for name, mesh in (("every visible card", cards), ("two slots", two)):
-            (e, g, aux), t = wall(lambda: FragmentExecutor(
-                calc, mesh=mesh).run(frags, what="gradient"))
+        for name, ex in (("every visible card",
+                          FragmentExecutor(calc, mesh=cards, timeout=600)),
+                         ("two worker slots", two_ex)):
+            (e, g, aux), t = wall(lambda: ex.run(frags, what="gradient"))
             total, gs = trimer_mbe2_assemble(e, g)
             d_t = abs(total - total1)
             d_g = float(np.abs(gs - gs1).max())
-            print(f"mesh trimer MBE(2) gradient ({label}), {name} {mesh}: "
-                  f"wall={t:.3f} s total={total:.10f} d_total={d_t:.2e} "
-                  f"max|dG|={d_g:.2e} (held to {g_tol:.0e}) "
-                  f"resid={aux['scf_residual'].max():.2e}", flush=True)
+            print(f"mesh trimer MBE(2) gradient ({label}), {name} "
+                  f"{ex.mesh}: wall={t:.3f} s total={total:.10f} "
+                  f"d_total={d_t:.2e} max|dG|={d_g:.2e} (held to "
+                  f"{g_tol:.0e}) resid={aux['scf_residual'].max():.2e}",
+                  flush=True)
             check(d_t <= 1e-12 and d_g <= g_tol,
                   f"{name} ({label}): off the one-device run by {d_t:.3e} / "
                   f"{d_g:.3e}")
+            if ex is not two_ex:
+                ex.close()
+    two_ex.close()
 
+    # w20 MBE(2) gradient: one slot, two worker processes, two slots
+    # dispatched serially from this process; a warm-up pass each (the
+    # workers start in theirs), then two timed passes each, in turns
     settings = settings_from_params("gfn1", max_scf_iter=32,
                                     use_pallas_eigh=True)
     calc = XtbCalculator(settings, dtype=torch.float64, device=DEVICE)
     frags = w20_mbe2_fragments()
-    totals, walls = {}, {}
-    for name, mesh in (("one slot", None), ("two slots", two)):
-        ex = FragmentExecutor(calc, mesh=mesh)
-        ex.run(frags, what="gradient")  # warm-up
-        jac.launches_by_stream.clear()
-        (e, g, _aux), walls[name] = wall(lambda: ex.run(frags,
-                                                        what="gradient"))
-        totals[name] = w20_mbe2_assemble(e, g)
-        print(f"mesh w20 MBE(2) gradient, {name}: wall={walls[name]:.3f} s "
+    runs = {"one slot": FragmentExecutor(calc),
+            "two worker processes": FragmentExecutor(calc, mesh=two,
+                                                     timeout=900),
+            "two slots serial": SerialSlots(calc, mesh=two)}
+    procs = runs["two worker processes"]
+    totals, walls = {}, {name: [] for name in runs}
+    for name, ex in runs.items():
+        _, t = wall(lambda: ex.run(frags, what="gradient"))
+        print(f"mesh w20 MBE(2) gradient, {name}: warm-up {t:.3f} s",
+              flush=True)
+    workers = list(procs.workers)
+    check(len(workers) == 2, f"{len(workers)} workers for two slots")
+    before = [w.launches for w in workers]
+    for _rep in range(2):
+        for name, ex in runs.items():
+            (e, g, _aux), t = wall(lambda: ex.run(frags, what="gradient"))
+            walls[name].append(t)
+            totals[name] = w20_mbe2_assemble(e, g)
+    per_worker = [w.launches - b for w, b in zip(workers, before)]
+    one = min(walls["one slot"])
+    for name in runs:
+        print(f"mesh w20 MBE(2) gradient, {name}: walls "
+              f"{' '.join(f'{t:.3f}' for t in walls[name])} s "
+              f"({min(walls[name]) / one:.2f}x one slot) "
               f"total={totals[name][0]:.10f} |g|={totals[name][1]:.10f}",
               flush=True)
-    # the timed two-slot pass: each slot's stream ran the kernel
-    streams = {stream.cuda_stream for _pool, stream in ex._slots}
-    per_slot = [jac.launches_by_stream.get(stream.cuda_stream, 0)
-                for _pool, stream in ex._slots]
-    ex.close()
-    print(f"mesh w20 MBE(2): two slots at once {walls['two slots']:.3f} s "
-          f"against one slot {walls['one slot']:.3f} s "
-          f"({walls['two slots'] / walls['one slot']:.2f}x; serial dispatch "
-          f"of the two pieces took 1.55x, PERF.md); Jacobi launches per "
-          f"slot stream "
-          f"{per_slot}", flush=True)
-    check(len(per_slot) == 2 and min(per_slot) > 0,
-          f"a slot's stream launched no Jacobi kernel: {per_slot}")
-    check(len(streams) == 2, "the two slots share a stream")
-    d_t = abs(totals["two slots"][0] - totals["one slot"][0])
-    d_gold = abs(totals["two slots"][0] - golden["w20_mbe2"]["total"])
-    print(f"mesh w20 MBE(2): two slots vs one d_total={d_t:.2e} "
-          f"d|g|={abs(totals['two slots'][1] - totals['one slot'][1]):.2e} "
-          f"d_golden={d_gold:.2e}", flush=True)
-    check(d_t <= 1e-10, f"two-slot w20 MBE(2) total off by {d_t:.3e}")
-    check(d_gold <= 1e-8, f"two-slot w20 MBE(2) off the golden by "
+    for w, n_l in zip(workers, per_worker):
+        print(f"mesh worker slot {w.index}: pid {w.pid} on {w.device}, "
+              f"start-up {w.startup_s:.2f} s, {n_l} Jacobi launches in the "
+              f"timed passes, {w.launches} in all", flush=True)
+    check(min(per_worker) > 0,
+          f"a worker launched no Jacobi kernel: {per_worker}")
+    for w in workers:
+        loaded = {"jax", "metalquicha_tpu"} & set(w.modules)
+        check(not loaded, f"worker slot {w.index} loaded {sorted(loaded)}")
+    d_t = abs(totals["two worker processes"][0] - totals["one slot"][0])
+    d_g = abs(totals["two worker processes"][1] - totals["one slot"][1])
+    d_gold = abs(totals["two worker processes"][0]
+                 - golden["w20_mbe2"]["total"])
+    print(f"mesh w20 MBE(2): two worker processes vs one slot "
+          f"d_total={d_t:.2e} d|g|={d_g:.2e} d_golden={d_gold:.2e}",
+          flush=True)
+    check(d_t <= 1e-10, f"two-process w20 MBE(2) total off by {d_t:.3e}")
+    check(d_gold <= 1e-8, f"two-process w20 MBE(2) off the golden by "
                           f"{d_gold:.3e}")
+
+    # the w20 MBE(4) driver run through the same two worker processes
+    gold = golden["driver"]["w20_mbe"]
+    cfg = read_mqc_file(os.path.join(ROOT, gold["mqc"]))
+    factory = make_executor(cfg, DEVICE)
+    procs.calc = factory.calc
+    procs.calc.settings = procs.calc.settings._replace(use_pallas_eigh=True)
+    procs.polisher, procs.rescue_tol = factory.polisher, factory.rescue_tol
+    torch.cuda.reset_peak_memory_stats()
+    l0 = [w.launches for w in workers]
+    out, t = wall(lambda: run_calculation(cfg, write_json=False,
+                                          executor=procs))
+    total = float(out[""].result.total_energy)
+    d = abs(total - gold["total_energy"])
+    peaks = " ".join(f"slot {w.index} {w.peak_bytes / 2**30:.2f}"
+                     for w in workers)
+    print(f"mesh driver w20_mbe4 (6195 fragments), two worker processes: "
+          f"wall={t:.3f} s (one slot in the driver phase: "
+          f"{WALLS.get('driver w20_mbe', float('nan')):.3f} s) "
+          f"total={total:.10f} d_golden={d:.2e}; peak GiB: this process "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}, {peaks}; "
+          f"Jacobi launches "
+          f"{[w.launches - b for w, b in zip(workers, l0)]}", flush=True)
+    check(d <= 1e-7, f"two-process w20_mbe4 total off the golden by "
+                     f"{d:.3e}")
+    check([w.pid for w in procs.workers] == [w.pid for w in workers],
+          "the workers did not live across runs")
+    procs.close()
+    check(gone(workers), "a worker is alive after close()")
+    print(f"mesh workers {[w.pid for w in workers]} exited with "
+          f"{[w.proc.returncode for w in workers]}", flush=True)
     return jac.launches - n0
 
 

@@ -6,7 +6,9 @@ enumeration, assembly, Hessian sweep and JSON output, on the port's own
 host modules. Only executor construction differs: `_make_executor` builds
 the port's `FragmentExecutor` through the port's factory on a mesh of the
 requested devices (every visible CUDA card unless the caller asks for one
-device or for the CPU), with the f64 polisher behind an f32 calculator.
+device or for the CPU), with the f64 polisher behind an f32 calculator;
+an entry point closes the executor it built (a mesh of several slots
+stops its worker processes there).
 
 Workflow parity with upstream metalquicha src/mqc_driver.f90:
 - nlevel = 0 -> unfragmented path (:147-156)
@@ -17,6 +19,7 @@ Workflow parity with upstream metalquicha src/mqc_driver.f90:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass
@@ -126,6 +129,20 @@ def _make_executor(drv: DriverConfig, device="cuda"):
     return FragmentExecutor(
         calc, mesh=mesh, polisher=polisher, rescue_tol=rescue_tol
     )
+
+
+@contextlib.contextmanager
+def _executor_for(executor, drv: DriverConfig, device):
+    """The caller's executor, or `_make_executor`'s, closed on the way out
+    (a mesh of several slots stops its worker processes)."""
+    if executor is not None:
+        yield executor
+        return
+    built = _make_executor(drv, device)
+    try:
+        yield built
+    finally:
+        built.close()
 
 
 def make_executor(cfg: MqcConfig, device="cuda",
@@ -424,10 +441,9 @@ def run_calculation(
     is built on `device`.
     """
     drv = _driver_config(cfg, driver_overrides)
-    executor = executor or _make_executor(drv, device)
     systems = config_to_system_geometries(cfg)
-
-    outputs = _run_expansions(systems, drv, executor)
+    with _executor_for(executor, drv, device) as ex:
+        outputs = _run_expansions(systems, drv, ex)
 
     if write_json and not drv.skip_json_output:
         base = os.path.splitext(os.path.basename(input_path))[0]
@@ -495,6 +511,6 @@ def compute_energy_and_forces(
         if want_hessian
         else (CalcType.GRADIENT if want_gradient else CalcType.ENERGY)
     )
-    executor = executor or _make_executor(drv2, device)
-    out = _run_expansion(sys_geom, drv2, executor)
+    with _executor_for(executor, drv2, device) as ex:
+        out = _run_expansion(sys_geom, drv2, ex)
     return out.result.total_energy, out.result.gradient, out.result.hessian

@@ -34,7 +34,7 @@ MAX_N = 64
 #: kernel launches so far (a caller may reset it to 0)
 launches = 0
 #: the same launches per CUDA stream handle (a caller may clear it): shows
-#: which streams of a mesh's slots ran the kernel
+#: which streams of this process ran the kernel
 launches_by_stream: dict = {}
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -173,6 +173,14 @@ def _count(stream: int) -> None:
     with _count_lock:
         launches += 1
         launches_by_stream[stream] = launches_by_stream.get(stream, 0) + 1
+
+
+def add_launches(n: int) -> None:
+    """Add launches made in another process (a mesh slot's worker) to the
+    count."""
+    global launches
+    with _count_lock:
+        launches += n
 
 
 def _launch(a: torch.Tensor, sweeps: int):

@@ -37,6 +37,14 @@ calls = 0
 _calls_lock = threading.Lock()
 
 
+def add_calls(n: int) -> None:
+    """Add calls made in another process (a mesh slot's worker) to the
+    count."""
+    global calls
+    with _calls_lock:
+        calls += n
+
+
 def sp2_projector(Fo, nocc, ao_mask, iters: int = 48):
     """T=0 density projector of symmetric (orthogonalized) Fock matrices.
 

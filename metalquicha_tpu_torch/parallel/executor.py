@@ -2,7 +2,8 @@
 
 Counterpart of metalquicha_tpu's `parallel/executor.py`: fragments are
 grouped into atom-count buckets with common padded shapes, each bucket is
-evaluated in chunks of at most 2e8 / nao^2 fragments (the engine holds
+evaluated in chunks of at most 2e8 / nao^2 fragments per mesh slot (the
+engine holds
 several (B, nao, nao) and the overlap matrix (B, nao, nao, nprim, nprim)
 intermediates; a solvation model adds its own largest intermediate to
 nao^2: CPCM's (nat nang)^2 point-point matrix, the (nat, nang, nat) SASA
@@ -11,55 +12,67 @@ integrals), and the results are scattered back per fragment,
 truncated to each fragment's real size.
 
 A chunk is padded with dummy fragments to a multiple of the mesh's slot
-count, built into one batch on the calling thread, cut into one piece per
-slot and every piece is evaluated at the same time, as XLA runs the JAX
-package's shards: slot k has a host thread of its own (made at the first
-chunk and kept) and, on a card, a CUDA stream of its own on its device
-(two slots on one card get two streams). In its thread, under its device
-and stream, slot k copies its piece to its device, evaluates it with the
-calculator bound there (`XtbCalculator.on`), polishes it and reads the
-results back to the host; the caller joins the results in mesh order. A
-slot's exception is raised in the caller with the slot's index and
-device; nothing is retried or moved elsewhere. On a one-slot mesh, the
-default, there is no thread and no new stream: nothing is padded, cut or
-copied. With a polisher (`methods/xtb/polish.py`) every piece's f32
-results are re-evaluated in f64 on the same device, and fragments whose
-f32 SCC missed `rescue_tol` are re-solved from scratch in f64 (on the
-calling thread, after the join). The JAX package's TPU batch quantum is
-not ported: it changes no result.
+count and cut, in mesh order, into one piece of fragment tuples per slot
+(slot k takes tuples[k * per : (k + 1) * per]); every piece is evaluated
+at the same time, as XLA runs the JAX package's shards: on a mesh of more
+than one slot each slot has a worker process of its own
+(`parallel/slot_worker.py`: its own interpreter, and on a card its own
+CUDA context on the slot's device), which builds its piece's batch with
+`make_batch`, evaluates it with its own copy of the calculator, polishes
+it and sends the results back as host arrays; the caller joins them in
+mesh order. The workers start at the first chunk of such a mesh, after
+the caller has built the Jacobi kernel where they will launch it (each
+loads that build), live as long as the executor, across chunks and `run`
+calls, and stop in `close()` (or when the executor is collected, or the
+process exits). Their Jacobi launches and SP2 calls are added to the
+caller's counts (`ops/jacobi_eigh.launches`, `ops/sp2.calls`).
 
-What the slots share: the calculator's settings and solvation model
-(read only); the host tables behind `make_batch` (`batch.element_basis`,
-`dispersion_d3`'s `_element_ref_arrays` and `full_pair_table`, filled for
-the chunk's elements by the caller's `make_batch` before any slot starts,
-so a polisher's batch in a slot only reads them; `load_overlay`, which
-clears them, must not run during a `run`); the kernel's build and launch
-counts (`ops/jacobi_eigh.py`, `ops/sp2.py`, under locks). Slots do not
-log. Grad mode is per thread: `energies` and `gradients` set their own.
+What a worker computes with is sent, not shared: the calculator's
+variant, settings, dtype and solvation model, the polisher's k, the
+kernel's build directory and the host parameter tables (the GFN1/GFN2
+and solvation overlays, one loaded at run time with `load_overlay`, a
+fit's tables, the D3 pair overrides). They are sent at the start, and
+the executor compares them with the caller's before every chunk and
+sends them again where they differ, so a worker never computes with
+tables other than the caller's.
+
+A slot that fails (an exception in its worker, a worker that dies or
+does not start) raises in the caller with the slot's index and device,
+once the other slots have answered, died, or had `slot_worker.GRACE`
+seconds more; every worker is then stopped, and the next chunk starts
+new ones. Nothing is retried or moved elsewhere. `timeout` (seconds, None
+by default) bounds the wait for a chunk's answers too. On a one-slot mesh,
+the default, there is no process: the batch is built on the calling
+thread and nothing is padded, cut or copied. With a polisher
+(`methods/xtb/polish.py`) every piece's f32 results are re-evaluated in
+f64 on the same device, and fragments whose f32 SCC missed `rescue_tol`
+are re-solved from scratch in f64 (in the caller, after the join). The
+JAX package's TPU batch quantum is not ported: it changes no result.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
+import weakref
 from collections import defaultdict
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from ..logging_ import global_logger as logger
 
 from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
 from ..methods.xtb.multipole import work_elements as multipole_work_elements
-from .mesh import cut_leading_axis, fragment_mesh, place, shard_leading_axis
+from ..ops import jacobi_eigh
+from . import slot_worker
+from .mesh import fragment_mesh, shard_leading_axis
+from .slot_worker import evaluate_piece
 
 #: atom-count bucket ladder; shells/AOs scale with atoms per bucket
 ATOM_BUCKETS = (2, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 
 #: cap on B * (nao^2 + the solvation model's work elements + the GFN2
-#: moment integrals') per dispatched chunk
+#: moment integrals') per slot's piece of a chunk
 MAX_CHUNK_ELEMENTS = 2.0e8
 
 _DUMMY = (np.array([1]), np.zeros((1, 3)), 0, 2)  # lone H (doublet) filler
@@ -83,12 +96,6 @@ def _frag_tuple(frag):
     return frag
 
 
-def _host(x) -> np.ndarray:
-    """A calculator's result on the host (the placeholder methods return
-    NumPy arrays already)."""
-    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
-
-
 def _sizes(numbers, variant):
     nsh = nao = 0
     for z in numbers:
@@ -109,7 +116,7 @@ class FragmentExecutor:
     """
 
     def __init__(self, calculator: XtbCalculator = None, mesh=None,
-                 polisher=None, rescue_tol=None):
+                 polisher=None, rescue_tol=None, timeout=None):
         self.calc = calculator or XtbCalculator()
         #: the calculator's own device unless a mesh is given (the driver
         #: builds one over every visible card); a method that computes on
@@ -127,9 +134,15 @@ class FragmentExecutor:
         #: (polisher.rescue). None disables; the driver sets it to its own
         #: convergence gate so no fragment the rescue could save errors out.
         self.rescue_tol = rescue_tol
-        #: per mesh slot, a one-thread pool and (on a card) a CUDA stream,
-        #: made at the first chunk of a mesh of more than one slot
-        self._slots = None
+        #: seconds to wait for the slots' answers to a chunk (or to their
+        #: start); None waits as long as the workers live
+        self.timeout = timeout
+        #: the `slot_worker.SlotWorker` of every mesh slot, started at the
+        #: first chunk of a mesh of more than one slot
+        self.workers = []
+        #: the configuration the workers hold (`slot_worker.configuration`)
+        self._config = None
+        weakref.finalize(self, slot_worker.stop_all, self.workers)
 
     def _buckets(self, fragments):
         groups = defaultdict(list)
@@ -154,17 +167,18 @@ class FragmentExecutor:
         return settings is not None and settings.multipoles
 
     def _max_chunk(self, pad_to, nprim: int = 0) -> int:
-        """Most fragments of padded shape (nat, nsh, nao) per chunk, a
-        multiple of the device count; nprim is the primitive axis of a
-        GFN2 bucket (its moment tables)."""
+        """Most fragments of padded shape (nat, nsh, nao) per chunk: the
+        cap holds for each slot's piece, so a chunk is the slot count
+        times the most fragments one piece may hold; nprim is the
+        primitive axis of a GFN2 bucket (its moment tables)."""
         nat, _nsh, nao = pad_to
         per_fragment = nao * nao
         if getattr(self.calc, "solvation", None) is not None:
             per_fragment += self.calc.solvation.work_elements(nat)
         if nprim:
             per_fragment += multipole_work_elements(nao, nprim)
-        max_b = int(MAX_CHUNK_ELEMENTS // per_fragment)
-        return max(self.n_devices, max_b - max_b % self.n_devices)
+        return self.n_devices * max(1, int(MAX_CHUNK_ELEMENTS
+                                           // per_fragment))
 
     def run(self, fragments, what: str = "energy"):
         n = len(fragments)
@@ -201,84 +215,62 @@ class FragmentExecutor:
             return energies, gradients, aux_out
         return energies, aux_out
 
-    def _evaluate(self, calc, frag_data, tuples, pad_to, what):
-        """One piece on its device: host (e, g or None, dipole, charges,
-        residual), polished when a polisher is set."""
-        if what == "gradient":
-            e, g, aux = calc.gradients(frag_data)
-        else:
-            e, aux = calc.energies(frag_data)
-            g = None
-        if self.polisher is not None:
-            e, g, aux = self.polisher.polish(
-                tuples, pad_to, aux["shell_charges"], what
-            )
-        return (_host(e), None if g is None else _host(g),
-                _host(aux["dipole"]), _host(aux["charges"]),
-                _host(aux["scf_residual"]))
-
-    def _slot_pools(self):
-        """[(one-thread pool, CUDA stream or None)] per mesh slot."""
-        if self._slots is None:
-            self._slots = [
-                (ThreadPoolExecutor(1, thread_name_prefix=f"mqc-slot{k}"),
-                 torch.cuda.Stream(device) if device.type == "cuda"
-                 else None)
-                for k, device in enumerate(self.mesh.flat)
-            ]
-        return self._slots
-
     def close(self) -> None:
-        """Stop the slots' threads; a later run makes them again."""
-        if self._slots is not None:
-            for pool, _stream in self._slots:
-                pool.shutdown()
-            self._slots = None
+        """Stop the slots' workers; a later run starts them again."""
+        slot_worker.stop_all(self.workers)
+        self._config = None
 
-    def _run_slot(self, device, stream, source, piece, tuples, pad_to, what):
-        """One slot's piece, in its thread: copied to its device and
-        evaluated on its stream (`source`: the stream that made the batch,
-        which the slot's stream waits for), the results on the host."""
-        with contextlib.ExitStack() as ctx:
-            if stream is not None:
-                ctx.enter_context(torch.cuda.device(device))
-                ctx.enter_context(torch.cuda.stream(stream))
-                if source is not None:
-                    stream.wait_stream(source)
-            try:
-                return self._evaluate(self.calc.on(device),
-                                      place(piece, device), tuples, pad_to,
-                                      what)
-            finally:
-                if stream is not None:
-                    # nothing of this slot still reads the caller's batch
-                    # when the caller frees it, on success or failure
-                    stream.synchronize()
+    def _fail(self, k, exc):
+        """Stop every worker and raise slot k's failure."""
+        slot_worker.stop_all(self.workers, kill=True)
+        self._config = None
+        raise RuntimeError(
+            f"mesh slot {k} ({self.mesh.flat[k]}) failed: "
+            f"{type(exc).__name__}: {exc}") from exc
 
-    def _run_pieces(self, frag_data, tuples, pad_to, what):
-        """Every slot's piece at once; the results in mesh order."""
-        n = self.n_devices
-        per = len(tuples) // n
-        on = frag_data.coords.device
-        source = (torch.cuda.current_stream(on) if on.type == "cuda"
-                  else None)
-        futures = [
-            pool.submit(self._run_slot, device, stream, source, piece,
-                        tuples[k * per : (k + 1) * per], pad_to, what)
-            for k, (device, (pool, stream), piece) in enumerate(zip(
-                self.mesh.flat, self._slot_pools(),
-                cut_leading_axis(frag_data, n)))
-        ]
-        parts = []
-        for k, (device, fut) in enumerate(zip(self.mesh.flat, futures)):
+    def _answers(self, messages):
+        """Every worker's answer to its message, in mesh order; the first
+        slot's failure raised."""
+        results = slot_worker.exchange(self.workers, messages, self.timeout)
+        for k, (_answer, exc) in enumerate(results):
+            if exc is not None:
+                self._fail(k, exc)
+        return [answer for answer, _exc in results]
+
+    def _start_workers(self, config: bytes) -> None:
+        """One worker per mesh slot, started together."""
+        self.workers.extend(slot_worker.SlotWorker(k, device)
+                            for k, device in enumerate(self.mesh.flat))
+        messages = []
+        for k, worker in enumerate(self.workers):
             try:
-                parts.append(fut.result())
+                messages.append(worker.start(config))
             except Exception as exc:
-                for other in futures[k + 1:]:  # let every slot finish
-                    other.exception()
-                raise RuntimeError(
-                    f"mesh slot {k} ({device}) failed: "
-                    f"{type(exc).__name__}: {exc}") from exc
+                self._fail(k, exc)
+        for worker, answer in zip(self.workers, self._answers(messages)):
+            worker.started(answer)
+        self._config = config
+
+    def _run_pieces(self, tuples, pad_to, what):
+        """Every slot's piece at once, each in its worker; the results in
+        mesh order."""
+        config = slot_worker.configuration(self.calc, self.polisher)
+        if (self.calc.settings.use_pallas_eigh
+                and any(d.type == "cuda" for d in self.mesh.flat)):
+            jacobi_eigh.build()  # here, before any worker loads it
+        if [w.device for w in self.workers] != self.mesh.flat:
+            self.close()
+            self._start_workers(config)
+        send = None if config == self._config else config
+        per = len(tuples) // self.n_devices
+        answers = self._answers([
+            ("piece", send, tuples[k * per : (k + 1) * per], pad_to, what)
+            for k in range(self.n_devices)])
+        self._config = config
+        parts = []
+        for worker, (part, stats) in zip(self.workers, answers):
+            worker.record(stats)
+            parts.append(part)
         return parts
 
     def _run_chunk(self, members, pad_to, what, energies, gradients, aux_out):
@@ -286,16 +278,18 @@ class FragmentExecutor:
         tuples = [t for _, t in members]
         # pad the batch to a device-count multiple with dummy fragments
         tuples = tuples + [_DUMMY] * ((-len(tuples)) % self.n_devices)
-        frag_data = self.calc.make_batch(tuples, pad_to=pad_to)
         if not hasattr(self.calc, "on"):  # a host method: one piece
-            parts = [self._evaluate(self.calc, frag_data, tuples, pad_to,
-                                    what)]
-        elif self.n_devices == 1:
-            (piece,) = shard_leading_axis(frag_data, self.mesh)
-            parts = [self._evaluate(self.calc.on(self.mesh.flat[0]), piece,
+            frag_data = self.calc.make_batch(tuples, pad_to=pad_to)
+            parts = [evaluate_piece(self.calc, self.polisher, frag_data,
                                     tuples, pad_to, what)]
+        elif self.n_devices == 1:
+            frag_data = self.calc.make_batch(tuples, pad_to=pad_to)
+            (piece,) = shard_leading_axis(frag_data, self.mesh)
+            parts = [evaluate_piece(self.calc.on(self.mesh.flat[0]),
+                                    self.polisher, piece, tuples, pad_to,
+                                    what)]
         else:
-            parts = self._run_pieces(frag_data, tuples, pad_to, what)
+            parts = self._run_pieces(tuples, pad_to, what)
         if len(parts) == 1:
             e, g, dip, chg, res = parts[0]
         else:

@@ -5,9 +5,12 @@ distributes fragments through a 3-tier MPI request/reply hierarchy (global
 coordinator / group coordinators / node workers). The JAX package
 collapses that into a batch axis sharded over a `jax.sharding.Mesh`; the
 port does the same by hand: a `FragmentMesh` is an array of
-`torch.device`, a padded fragment batch is cut along its leading axis into
-one piece per device in mesh order (`shard_leading_axis`), and the
-executor joins the per-piece results in the same order. Fragments are
+`torch.device` (a device may fill several slots), the executor cuts a
+padded chunk's fragment tuples into one piece per slot in mesh order and
+each slot's worker process builds and evaluates its piece
+(`parallel/slot_worker.py`), and the executor joins the per-piece
+results in the same order. `shard_leading_axis` cuts a built batch the
+same way (the one-slot path takes its one piece from it). Fragments are
 independent, so there is nothing to reduce across devices and no
 collective to write.
 

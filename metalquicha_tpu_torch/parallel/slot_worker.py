@@ -1,0 +1,439 @@
+"""One mesh slot's worker process.
+
+On a mesh of more than one slot the executor evaluates each slot's piece
+of a chunk in a process of its own, as XLA runs each shard of the JAX
+package's sharded batch on its own device: every worker has its own
+interpreter (the slots' kernel launches do not take turns under one
+interpreter lock), its own CUDA context on its slot's device and the
+kernel its parent built.
+
+A worker is `python -m metalquicha_tpu_torch.parallel.slot_worker FD`,
+started by `SlotWorker.start` (a new interpreter, never a `fork` of a
+parent that may hold a CUDA context; nothing of the parent's `__main__`
+is imported again), with FD its end of a socket pair over which the two
+exchange pickled messages (`multiprocessing.connection.Connection`), one
+answer per message:
+
+- ("start", device, threads, config): the worker sets its torch thread
+  count, installs the configuration (`configuration`: the calculator's
+  variant, settings, dtype and solvation model's class and fields, the
+  polisher's k or None, the kernel's build directory and the host
+  parameter tables of `parameter_state`), builds its own `XtbCalculator`
+  on its device and its own `HostPolisher` from them and, on a card on
+  the kernel's route, loads the kernel the parent built. No tensor or
+  object of the parent crosses. Answers with its statistics (peak device
+  memory, loaded packages, build directory).
+- ("piece", config or None, tuples, pad_to, what): installs the
+  configuration if the parent sent a new one (a run-time `load_overlay`,
+  a fit that moved a table, new settings), builds the piece's batch from
+  the fragment tuples with `make_batch` on its device, evaluates and
+  polishes it (`evaluate_piece`) and answers with host arrays (e,
+  g or None, dipole, charges, residual), its statistics and the Jacobi
+  launches and SP2 calls the piece made.
+- None, or the parent's end closing: the worker exits.
+
+An exception in the worker answers with the exception, its traceback
+added as a note, and the worker lives on. Only host arrays cross a process
+boundary, never device memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+import traceback
+from multiprocessing.connection import Connection, wait
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_MODULE = "metalquicha_tpu_torch.parallel.slot_worker"
+#: the directory that holds the package: the worker imports the same copy
+_ROOT = str(Path(__file__).resolve().parents[2])
+#: seconds the other slots get to answer once one has failed
+GRACE = 10.0
+#: seconds a stopped worker gets to exit before it is killed
+_STOP_WAIT = 10.0
+
+
+def _host(x) -> np.ndarray:
+    """A calculator's result on the host (the placeholder methods return
+    NumPy arrays already)."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def evaluate_piece(calc, polisher, frag_data, tuples, pad_to, what):
+    """One piece on its device: host (e, g or None, dipole, charges,
+    residual), polished when a polisher is given."""
+    if what == "gradient":
+        e, g, aux = calc.gradients(frag_data)
+    else:
+        e, aux = calc.energies(frag_data)
+        g = None
+    if polisher is not None:
+        e, g, aux = polisher.polish(tuples, pad_to, aux["shell_charges"],
+                                    what)
+    return (_host(e), None if g is None else _host(g),
+            _host(aux["dipole"]), _host(aux["charges"]),
+            _host(aux["scf_residual"]))
+
+
+# ---------------------------------------------------------------------------
+# What a worker must share with its parent
+# ---------------------------------------------------------------------------
+
+def _state_tables():
+    """(module, attribute names) of every host table a parameter overlay,
+    a fit or the solvation overlay changes."""
+    from ..methods.xtb import dispersion_d3, params_gfn1, params_gfn2
+    from ..methods.xtb.solvation import born, cpcm
+
+    params = ("ELEMENTS", "GLOBALS", "KPAIR", "ATOMIC_RADII_A",
+              "COVALENT_RADII_A")
+    return (
+        (params_gfn1, params),
+        (params_gfn2, params),
+        (dispersion_d3, ("REF_CN", "REF_C6_DIAG", "R4R2",
+                         "_PAIR_OVERRIDES")),
+        (born, ("PARAM_SETS",)),
+        (cpcm, ("COSMO_X", "SELF_INTERACTION")),
+    )
+
+
+def parameter_state() -> dict:
+    """The host parameter tables as they stand in this process:
+    {module name: {attribute: value}} (values, not copies; pickle them)."""
+    return {mod.__name__: {name: getattr(mod, name) for name in names}
+            for mod, names in _state_tables()}
+
+
+def install_parameter_state(state: dict) -> None:
+    """Make this process's tables equal to `state` (of `parameter_state`),
+    in place, so every module that holds a table sees the new values, and
+    clear the caches built from them."""
+    from ..methods.xtb import batch, dispersion_d3
+
+    for mod, names in _state_tables():
+        for name in names:
+            value, current = state[mod.__name__][name], getattr(mod, name)
+            if isinstance(current, dict):
+                current.clear()
+                current.update(value)
+            elif isinstance(current, np.ndarray):
+                current[...] = value
+            elif hasattr(current, "__dict__"):
+                vars(current).clear()
+                vars(current).update(vars(value))
+            else:
+                setattr(mod, name, value)
+    dispersion_d3.invalidate_caches()
+    batch.element_basis.cache_clear()
+
+
+def _solvation_spec(solvation):
+    """A solvation model (a dataclass) as its class and fields."""
+    if solvation is None:
+        return None
+    return type(solvation), {f.name: getattr(solvation, f.name)
+                             for f in dataclasses.fields(solvation)
+                             if f.init}
+
+
+def configuration(calc, polisher) -> bytes:
+    """Everything a worker builds its calculator and polisher from,
+    pickled: equal bytes mean an equal configuration."""
+    from ..ops import jacobi_eigh
+
+    return pickle.dumps({
+        "variant": calc.variant,
+        "settings": calc.settings,
+        "dtype": calc.dtype,
+        "solvation": _solvation_spec(calc.solvation),
+        "polish_k": None if polisher is None else polisher.k,
+        "build_dir": str(jacobi_eigh._BUILD_DIR),
+        "state": parameter_state(),
+    })
+
+
+# ---------------------------------------------------------------------------
+# The parent's side
+# ---------------------------------------------------------------------------
+
+class WorkerExited(RuntimeError):
+    """A slot's worker process ended without answering."""
+
+
+class SlotWorker:
+    """The parent's handle on one slot's worker process.
+
+    `launches` and `sp2_calls` count the Jacobi launches and SP2 calls the
+    worker has made, `peak_bytes` is its peak device memory (0 on the
+    CPU), `modules` the top-level packages loaded in it, `build_dir` the
+    directory it loads the kernel from, `startup_s` the seconds from its
+    start to its first answer."""
+
+    def __init__(self, index: int, device):
+        self.index = index
+        self.device = torch.device(device)
+        self.proc = None
+        self.conn = None
+        #: whether it was asked to exit
+        self.asked = False
+        self._t0 = None
+        self.startup_s = None
+        self.answered_at = None
+        self.launches = 0
+        self.sp2_calls = 0
+        self.peak_bytes = 0
+        self.modules = ()
+        self.build_dir = None
+
+    @property
+    def pid(self):
+        return None if self.proc is None else self.proc.pid
+
+    def start(self, config: bytes) -> tuple:
+        """Start the process; returns its start message, for `exchange`
+        to send and read the answer to."""
+        self._t0 = time.perf_counter()
+        parent, child = socket.socketpair()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+        try:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", _MODULE, str(child.fileno())],
+                pass_fds=(child.fileno(),), cwd=_ROOT, env=env,
+            )
+        except BaseException:
+            parent.close()
+            raise
+        finally:
+            child.close()
+        self.conn = Connection(parent.detach())
+        return ("start", str(self.device), torch.get_num_threads(), config)
+
+    def started(self, answer: dict) -> None:
+        """Take the answer to the start message."""
+        self.startup_s = self.answered_at - self._t0
+        self.modules, self.build_dir = answer["modules"], answer["build_dir"]
+
+    def record(self, stats: dict) -> None:
+        """Take a piece's statistics: its counts into this handle's and
+        this process's counters."""
+        from ..ops import jacobi_eigh, sp2
+
+        self.launches += stats["launches"]
+        self.sp2_calls += stats["sp2_calls"]
+        self.peak_bytes = max(self.peak_bytes, stats["peak_bytes"])
+        self.modules, self.build_dir = stats["modules"], stats["build_dir"]
+        jacobi_eigh.add_launches(stats["launches"])
+        sp2.add_calls(stats["sp2_calls"])
+
+    def exited(self) -> WorkerExited:
+        """The exception for a worker whose end of the pipe closed."""
+        try:
+            code = self.proc.wait(timeout=_STOP_WAIT)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            code = self.proc.wait()
+        return WorkerExited(f"the worker (pid {self.proc.pid}) exited with "
+                            f"code {code}")
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def ask_to_exit(self) -> None:
+        if self.proc is not None and not self.conn.closed and not self.asked:
+            self.asked = True
+            try:
+                self.conn.send(None)
+            except OSError:
+                pass
+
+    def stop(self, kill: bool = False) -> None:
+        """End the process (asked to exit, killed if it has not after
+        `_STOP_WAIT` s, or at once with `kill`) and close the pipe."""
+        if self.proc is None or self.conn.closed:
+            return
+        if not kill:
+            self.ask_to_exit()
+        try:
+            self.proc.wait(timeout=0 if kill else _STOP_WAIT)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.conn.close()
+
+
+def stop_all(workers: list, kill: bool = False) -> None:
+    """Stop every worker of the list (all asked at once) and empty it."""
+    if not kill:
+        for worker in workers:
+            worker.ask_to_exit()
+    for worker in workers:
+        worker.stop(kill)
+    workers.clear()
+
+
+def _remote_error(exc_bytes, name, message, trace):
+    """The exception a worker answered with (a stand-in if it does not
+    unpickle), its traceback in the worker as a note."""
+    try:
+        exc = pickle.loads(exc_bytes)
+    except Exception:
+        exc = RuntimeError(f"{name}: {message}")
+    exc.add_note(f"in the slot's worker:\n{trace}")
+    return exc
+
+
+def exchange(workers: list, messages: list, timeout=None) -> list:
+    """Send each worker its message, then wait for every answer:
+    [(answer, None) or (None, exception)] in worker order.
+
+    A worker that dies answers `WorkerExited`; one that has not answered
+    `timeout` seconds after the sends (None: as long as it lives), or
+    `GRACE` seconds after another slot failed, `TimeoutError`. So this
+    returns however the workers fail."""
+    results = [None] * len(workers)
+    pending = {}
+    deadline = None if timeout is None else time.monotonic() + timeout
+    for k, (worker, msg) in enumerate(zip(workers, messages)):
+        try:
+            worker.conn.send(msg)
+            pending[worker.conn] = k
+        except OSError:
+            results[k] = (None, worker.exited())
+    graced = False
+    while pending:
+        if not graced and any(r and r[1] is not None for r in results):
+            graced = True
+            grace = time.monotonic() + GRACE
+            deadline = grace if deadline is None else min(deadline, grace)
+        left = (None if deadline is None
+                else max(0.0, deadline - time.monotonic()))
+        ready = wait(list(pending), left)
+        if not ready:
+            for k in pending.values():
+                results[k] = (None, TimeoutError(
+                    f"no answer from the worker (pid {workers[k].pid}) in "
+                    f"time"))
+            break
+        for conn in ready:
+            k = pending.pop(conn)
+            workers[k].answered_at = time.perf_counter()
+            try:
+                kind, *body = conn.recv()
+            except (EOFError, OSError):
+                results[k] = (None, workers[k].exited())
+                continue
+            results[k] = ((body[0], None) if kind == "ok"
+                          else (None, _remote_error(*body)))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# The worker's side
+# ---------------------------------------------------------------------------
+
+class _Slot:
+    """A worker's calculator and polisher on its device."""
+
+    def __init__(self, device: str, threads: int):
+        from ..methods.xtb.calculator import check_device
+
+        self.device = check_device(device)
+        torch.set_num_threads(threads)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+        self.calc = self.polisher = None
+
+    def configure(self, config: bytes) -> None:
+        from ..methods.xtb.calculator import XtbCalculator
+        from ..methods.xtb.polish import HostPolisher
+        from ..ops import jacobi_eigh
+
+        cfg = pickle.loads(config)
+        install_parameter_state(cfg["state"])
+        jacobi_eigh._BUILD_DIR = Path(cfg["build_dir"])
+        solvation = cfg["solvation"]
+        if solvation is not None:
+            cls, fields = solvation
+            solvation = cls(**fields)
+        self.calc = XtbCalculator(cfg["settings"], cfg["variant"],
+                                  cfg["dtype"], self.device, solvation)
+        self.polisher = (None if cfg["polish_k"] is None
+                         else HostPolisher(self.calc, cfg["polish_k"]))
+        if self.device.type == "cuda" and cfg["settings"].use_pallas_eigh:
+            jacobi_eigh.build()  # the parent's build: loaded, not compiled
+
+    def evaluate(self, config, tuples, pad_to, what):
+        from ..ops import jacobi_eigh, sp2
+
+        if config is not None:
+            self.configure(config)
+        n0, s0 = jacobi_eigh.launches, sp2.calls
+        frag = self.calc.make_batch(tuples, pad_to=pad_to)
+        parts = evaluate_piece(self.calc, self.polisher, frag, tuples,
+                               pad_to, what)
+        return parts, dict(self.stats(), launches=jacobi_eigh.launches - n0,
+                           sp2_calls=sp2.calls - s0)
+
+    def stats(self) -> dict:
+        from ..ops import jacobi_eigh
+
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
+        return {"peak_bytes": int(peak),
+                "modules": sorted({m.split(".")[0] for m in sys.modules}),
+                "build_dir": str(jacobi_eigh._BUILD_DIR)}
+
+
+def _answer(slot, msg):
+    """(the slot, the answer) for a "start" or a "piece" message."""
+    if msg[0] == "start":
+        _kind, device, threads, config = msg
+        slot = _Slot(device, threads)
+        slot.configure(config)
+        return slot, slot.stats()
+    return slot, slot.evaluate(*msg[1:])
+
+
+def _pickled(exc):
+    try:
+        return pickle.dumps(exc)
+    except Exception:
+        return None
+
+
+def main(argv=None) -> int:
+    fd = int((sys.argv[1:] if argv is None else argv)[0])
+    conn = Connection(fd)
+    slot = None
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            return 0
+        if msg is None:
+            return 0
+        try:
+            slot, answer = _answer(slot, msg)
+            reply = ("ok", answer)
+        except Exception as exc:
+            reply = ("error", _pickled(exc), type(exc).__name__, str(exc),
+                     traceback.format_exc())
+        try:
+            conn.send(reply)
+        except OSError:
+            return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

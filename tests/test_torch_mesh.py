@@ -10,15 +10,25 @@ converges to the digit, 1e-10 in GFN2); the water-trimer MBE(2) set of
 lands on the float64 result (1e-9, that file's third oracle); and
 `workloads.entry` gives the live JAX `entry()` value (1e-10 Ha).
 
-Concurrent dispatch: on a mesh of several slots every piece runs in a
-thread of its own, all at once (a barrier that only opens when every slot
-has arrived); a one-slot mesh takes no thread; results do not depend on
-the caller's grad mode; a slot's exception reaches the caller with the
-slot's index and device; the Jacobi kernel's build runs nvcc and loads the
-library once when four threads make the first call together, and its
-launch counts are exact under four threads.
+Worker processes: on a mesh of several slots every piece is evaluated in
+a worker process of its own (`parallel/slot_worker.py`), here on "cpu"
+slots: one executor per mesh size is shared by the file's tests, and
+every wait on a worker is bounded by the executor's `timeout`. The
+workers' energies equal the JAX executor's on a two-device JAX mesh
+(1e-10 Ha); they live across `run` calls and are gone after `close()`; a
+one-slot mesh starts no process and no thread; results do not depend on
+the caller's grad mode; a worker's exception (at its start, or in a
+piece) and a killed worker raise in the caller with the slot's index and
+device; a parameter overlay loaded at run time reaches workers started
+before and after it (1e-12); the workers' SP2 calls reach the caller's
+count. The Jacobi kernel's build runs nvcc and loads the library once
+when four threads make the first call together, and its launch counts
+are exact under four threads.
 """
 
+import json
+import os
+import signal
 import subprocess
 import sys
 import threading
@@ -34,10 +44,14 @@ from metalquicha_tpu_torch.driver import _mesh_devices, make_executor
 from metalquicha_tpu_torch.io.config import parse_mqc_string
 from metalquicha_tpu_torch.logging_ import global_logger
 from metalquicha_tpu_torch.methods.stubs import DFTMethod
+from metalquicha_tpu_torch.methods.xtb import params_gfn1
 from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
 from metalquicha_tpu_torch.methods.xtb.polish import HostPolisher
 from metalquicha_tpu_torch.ops import jacobi_eigh as jac
+from metalquicha_tpu_torch.ops import sp2
 from metalquicha_tpu_torch.parallel import executor as executor_mod
+from metalquicha_tpu_torch.parallel import slot_worker
 from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
 from metalquicha_tpu_torch.parallel.mesh import (
     FRAG_AXIS,
@@ -60,11 +74,35 @@ from metalquicha_tpu_torch.workloads import (
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
+#: seconds any wait on a worker may take here (its start included)
+TIMEOUT = 300
 
 
 @pytest.fixture(autouse=True)
 def _quiet():
     global_logger.set_level("warning")
+
+
+@pytest.fixture(scope="module")
+def slots():
+    """slots(n, calc, polisher=None): the file's executor over n "cpu"
+    worker slots (laid out with nodes_per_group=2), set to evaluate with
+    `calc`; one per mesh size, since a worker's start costs seconds, all
+    closed after the file."""
+    made = {}
+
+    def get(n, calc, polisher=None):
+        if n not in made:
+            made[n] = FragmentExecutor(
+                calc, mesh=fragment_mesh(["cpu"] * n, nodes_per_group=2),
+                timeout=TIMEOUT)
+        ex = made[n]
+        ex.calc, ex.polisher = calc, polisher
+        return ex
+
+    yield get
+    for ex in made.values():
+        ex.close()
 
 
 @pytest.mark.parametrize("n_devices", [1, 2, 3, 4, 6, 8, 12])
@@ -151,15 +189,15 @@ def _run(ex, frags):
 
 
 @pytest.mark.parametrize("variant,tol", [("gfn1", 1e-12), ("gfn2", 1e-10)])
-def test_results_do_not_depend_on_the_device_count(variant, tol):
-    """5 waters and 2 dimers (two buckets) over 1, 2, 3 and 4 slots."""
+def test_results_do_not_depend_on_the_device_count(slots, variant, tol):
+    """5 waters and 2 dimers (two buckets) over 1 slot and 2, 3 and 4
+    worker slots."""
     frags = water_fragments(5) + bench_dimers(2)
     calc = XtbCalculator(variant=variant, device="cpu")
     e1, g1, aux1 = _run(FragmentExecutor(calc), frags)
     assert FragmentExecutor(calc).mesh.flat == [CPU]
     for n in (2, 3, 4):
-        mesh = fragment_mesh(["cpu"] * n, nodes_per_group=2)
-        ex = FragmentExecutor(calc, mesh=mesh)
+        ex = slots(n, calc)
         assert ex.n_devices == n
         e, g, aux = _run(ex, frags)
         assert np.abs(e - e1).max() <= tol, n
@@ -168,19 +206,26 @@ def test_results_do_not_depend_on_the_device_count(variant, tol):
         assert np.abs(aux["dipole"] - aux1["dipole"]).max() <= 10 * tol
         for a, b in zip(aux["charges"], aux1["charges"]):
             assert a.shape == b.shape and np.abs(a - b).max() <= 10 * tol
+        assert [w.index for w in ex.workers] == list(range(n))
+        assert len({w.pid for w in ex.workers}) == n
 
 
-def test_energy_path_and_chunk_cap_on_a_mesh(monkeypatch):
-    """Chunks are cut to a multiple of the device count and padded with
-    the dummy fragment; neither shows in the results."""
+def test_energy_path_and_chunk_cap_on_a_mesh(slots, monkeypatch):
+    """The cap holds per slot's piece, so a chunk is the slot count times
+    a piece's cap; chunks are padded with the dummy fragment to a multiple
+    of the slot count; neither shows in the results."""
     frags = water_fragments(7)
     calc = XtbCalculator(device="cpu")
     e1, _ = FragmentExecutor(calc).run(frags, what="energy")
-    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu"] * 3))
-    # room for 4 fragments of the bucket's 11 AOs: chunks of 3
+    ex = slots(3, calc)
+    # room for 4 fragments of the bucket's 11 AOs in a piece: chunks of 12
     monkeypatch.setattr(executor_mod, "MAX_CHUNK_ELEMENTS", 4 * 11 * 11 + 1)
-    assert ex._max_chunk((4, 8, 11)) == 3
+    assert ex._max_chunk((4, 8, 11)) == 12
     assert FragmentExecutor(calc)._max_chunk((4, 8, 11)) == 4
+    # room for one: chunks of 3, one fragment per piece
+    monkeypatch.setattr(executor_mod, "MAX_CHUNK_ELEMENTS", 11 * 11 + 1)
+    assert ex._max_chunk((4, 8, 11)) == 3
+    assert FragmentExecutor(calc)._max_chunk((4, 8, 11)) == 1
     sizes = []
     run_chunk = ex._run_chunk
     monkeypatch.setattr(
@@ -204,11 +249,13 @@ def test_calculator_on_another_device_shares_its_state():
 
 
 def test_host_method_runs_on_any_mesh():
-    """The placeholder methods compute on the host and take no device."""
+    """The placeholder methods compute on the host and take no device (and
+    no worker)."""
     frags = water_fragments(3)
-    e, g, _ = FragmentExecutor(
-        DFTMethod(), mesh=fragment_mesh(["cpu"] * 2)).run(frags, "gradient")
+    ex = FragmentExecutor(DFTMethod(), mesh=fragment_mesh(["cpu"] * 2))
+    e, g, _ = ex.run(frags, "gradient")
     assert e.tolist() == [-3.0, -3.0, -3.0] and g[0].shape == (3, 3)
+    assert ex.workers == []
     assert FragmentExecutor(DFTMethod()).mesh.flat == [CPU]
 
 
@@ -233,29 +280,27 @@ def test_trimer_set_matches_the_dry_run_workload():
     assert np.allclose(g_sys[8], -2.0 + 4.0 + 5.0)
 
 
-def test_trimer_on_a_2d_mesh_with_the_polish_matches_f64():
-    """`__graft_entry__.dryrun_multichip`'s oracles on four slots: device
-    count invariance in f64 (1e-12), raw f32 within 5e-3, f32 + polish
-    within 1e-9 of the float64 total and gradient norm."""
+def test_trimer_on_a_2d_mesh_with_the_polish_matches_f64(slots):
+    """`__graft_entry__.dryrun_multichip`'s oracles on four worker slots:
+    device count invariance in f64 (1e-12), raw f32 within 5e-3, f32 +
+    polish within 1e-9 of the float64 total and gradient norm."""
     frags = trimer_mbe2_fragments()
-    mesh = fragment_mesh(["cpu"] * 4, nodes_per_group=2)
-    assert mesh.shape == {GROUP_AXIS: 2, FRAG_AXIS: 2}
     calc64 = XtbCalculator(device="cpu")
+    mesh = slots(4, calc64).mesh
+    assert mesh.shape == {GROUP_AXIS: 2, FRAG_AXIS: 2}
     e64, g64, _ = _run(FragmentExecutor(calc64), frags)
     total64, gs64 = trimer_mbe2_assemble(e64, g64)
-    em, gm, _ = _run(FragmentExecutor(calc64, mesh=mesh), frags)
+    em, gm, _ = _run(slots(4, calc64), frags)
     total_m, gs_m = trimer_mbe2_assemble(em, gm)
     assert abs(total_m - total64) <= 1e-12
     assert np.abs(gs_m - gs64).max() <= 1e-12
 
     calc32 = XtbCalculator(dtype=torch.float32, device="cpu")
-    e32, g32, aux32 = _run(FragmentExecutor(calc32, mesh=mesh), frags)
+    e32, g32, aux32 = _run(slots(4, calc32), frags)
     total32, gs32 = trimer_mbe2_assemble(e32, g32)
     assert float(aux32["scf_residual"].max()) < 1e-4
     assert abs(total32 - total64) < 5e-3
-    ep, gp, _ = _run(
-        FragmentExecutor(calc32, mesh=mesh, polisher=HostPolisher(calc32)),
-        frags)
+    ep, gp, _ = _run(slots(4, calc32, HostPolisher(calc32)), frags)
     total_p, gs_p = trimer_mbe2_assemble(ep, gp)
     assert abs(total_p - total64) < 1e-9
     assert abs(np.sqrt((gs_p**2).sum()) - np.sqrt((gs64**2).sum())) < 1e-9
@@ -335,64 +380,74 @@ def test_make_executor_builds_the_mesh_from_the_driver_knobs(monkeypatch):
     assert one.mesh.flat == [torch.device("cuda", 2)]
 
 
-def _record_slots(monkeypatch, ex, n, fail_slot=None):
-    """Wrap ex._evaluate: record each call's thread, hold every slot at a
-    barrier that opens only when all n are inside (serial dispatch would
-    time out there), and raise in slot `fail_slot`."""
-    seen = []
-    barrier = threading.Barrier(n, timeout=60)
-    evaluate = ex._evaluate
+def test_worker_slots_match_the_jax_executor_on_two_devices(slots):
+    """The same fragments through the JAX executor on a two-device JAX CPU
+    mesh and through two worker slots: energies 1e-10 Ha."""
+    import jax
 
-    def wrapped(calc, frag, tuples, pad_to, what):
-        me = threading.current_thread()
-        seen.append((me.ident, me.name))
-        if n > 1:
-            barrier.wait()
-        if fail_slot is not None and me.name.startswith(f"mqc-slot{fail_slot}"):
-            raise ValueError("boom in this slot")
-        return evaluate(calc, frag, tuples, pad_to, what)
+    from metalquicha_tpu.methods.xtb.calculator import (
+        XtbCalculator as JaxCalculator,
+    )
+    from metalquicha_tpu.parallel.executor import (
+        FragmentExecutor as JaxExecutor,
+    )
+    from metalquicha_tpu.parallel.mesh import fragment_mesh as jax_mesh
 
-    monkeypatch.setattr(ex, "_evaluate", wrapped)
-    return seen
+    restore_jax_overlay()
+    frags = water_fragments(3)
+    jex = JaxExecutor(JaxCalculator(), mesh=jax_mesh(jax.devices()[:2]))
+    assert jex.n_devices == 2
+    ref, _ = jex.run(frags, what="energy")
+    e, _ = slots(2, XtbCalculator(device="cpu")).run(frags, what="energy")
+    assert np.abs(e - np.asarray(ref)).max() <= 1e-10
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_slots_run_at_once_on_threads_of_their_own(monkeypatch, n):
-    frags = water_fragments(2 * n)
-    calc = XtbCalculator(device="cpu")
-    e1, aux1 = FragmentExecutor(calc).run(frags, what="energy")
-    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu"] * n))
-    seen = _record_slots(monkeypatch, ex, n)
-    e, aux = ex.run(frags, what="energy")
-    idents = {ident for ident, _ in seen}
-    assert len(seen) == n and len(idents) == n
-    assert threading.get_ident() not in idents
-    assert sorted(name.split("_")[0] for _, name in seen) == [
-        f"mqc-slot{k}" for k in range(n)]
-    assert np.abs(e - e1).max() <= 1e-12
-    assert np.abs(aux["dipole"] - aux1["dipole"]).max() <= 1e-11
-    # slot k keeps its thread from chunk to chunk
-    seen.clear()
-    ex.run(frags, what="energy")
-    assert {ident for ident, _ in seen} == idents
-    assert [s is None for _pool, s in ex._slots] == [True] * n
+def test_workers_persist_across_runs_and_stop_on_close(slots):
+    frags = water_fragments(4)
+    ex = slots(2, XtbCalculator(device="cpu"))
+    e1, _ = ex.run(frags, what="energy")
+    workers = list(ex.workers)
+    pids = [w.pid for w in workers]
+    assert len(set(pids)) == 2 and os.getpid() not in pids
+    assert [w.device for w in workers] == [CPU, CPU]
+    assert all(w.startup_s > 0 and w.alive() for w in workers)
+    for w in workers:  # nothing of jax or of the JAX package in a worker
+        assert {"torch", "metalquicha_tpu_torch"} <= set(w.modules)
+        assert not {"jax", "metalquicha_tpu"} & set(w.modules)
+    e2, _ = ex.run(frags, what="energy")
+    assert [w.pid for w in ex.workers] == pids and np.all(e2 == e1)
+    ex.close()
+    assert ex.workers == []
+    for w in workers:
+        assert not w.alive() and w.proc.returncode == 0
+        with pytest.raises(ProcessLookupError):
+            os.kill(w.pid, 0)
+    # a later run starts new ones
+    e3, _ = ex.run(frags, what="energy")
+    assert not set(pids) & {w.pid for w in ex.workers}
+    assert np.all(e3 == e1)
 
 
 def test_one_slot_takes_no_thread(monkeypatch):
-    calc = XtbCalculator(device="cpu")
-    ex = FragmentExecutor(calc)
-    seen = _record_slots(monkeypatch, ex, 1)
-    ex.run(water_fragments(3), what="energy")
-    assert {ident for ident, _ in seen} == {threading.get_ident()}
-    assert ex._slots is None
+    """A one-slot mesh starts no process and no thread."""
+
+    def no_process(*args, **kwargs):
+        raise AssertionError("a one-slot mesh started a process")
+
+    monkeypatch.setattr(slot_worker.subprocess, "Popen", no_process)
+    threads = set(threading.enumerate())
+    ex = FragmentExecutor(XtbCalculator(device="cpu"))
+    e, g, _ = _run(ex, water_fragments(3))
+    assert ex.workers == [] and set(threading.enumerate()) == threads
+    assert e.shape == (3,) and g[0].shape == (3, 3)
 
 
 @pytest.mark.parametrize("n", [1, 2])
-def test_gradients_do_not_depend_on_the_callers_grad_mode(n):
+def test_gradients_do_not_depend_on_the_callers_grad_mode(slots, n):
     frags = water_fragments(2)
     calc = XtbCalculator(device="cpu")
     e1, g1, _ = _run(FragmentExecutor(calc), frags)
-    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu"] * n))
+    ex = FragmentExecutor(calc) if n == 1 else slots(n, calc)
     with torch.no_grad():
         e, g, _ = _run(ex, frags)
     assert np.abs(e - e1).max() <= 1e-12
@@ -400,15 +455,154 @@ def test_gradients_do_not_depend_on_the_callers_grad_mode(n):
         assert np.abs(a - b).max() <= 1e-12
 
 
-def test_a_slots_exception_reaches_the_caller(monkeypatch):
-    calc = XtbCalculator(device="cpu")
-    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu"] * 2))
-    seen = _record_slots(monkeypatch, ex, 2, fail_slot=1)
+def test_a_slots_exception_reaches_the_caller():
+    """A device only the worker refuses (the CPU has no card; a card has
+    no device of the next index): the worker's start fails, and the
+    caller raises with the slot's index and device."""
+    card = torch.device("cuda", torch.cuda.device_count())
+    ex = FragmentExecutor(XtbCalculator(device="cpu"),
+                          mesh=fragment_mesh(["cpu", card]), timeout=TIMEOUT)
+    with pytest.raises(RuntimeError, match=rf"mesh slot 1 \({card}\) "
+                                           r"failed: ") as info:
+        ex.run(water_fragments(2), what="energy")
+    cause = info.value.__cause__
+    assert isinstance(cause, Exception)
+    assert "in the slot's worker" in cause.__notes__[0]
+    if not torch.cuda.is_available():
+        assert "CUDA is not available" in str(info.value)
+    assert ex.workers == []
+
+
+def test_a_workers_exception_in_a_piece_reaches_the_caller(slots):
+    """A malformed fragment fails where its piece's batch is built, in
+    slot 1's worker; every worker stops, and the next run starts anew."""
+    ex = slots(2, XtbCalculator(device="cpu"))
+    ex.run(water_fragments(2), what="energy")
+    frags = water_fragments(4)
+    frags[3] = (frags[3][0], frags[3][1][:, :2], 0, 1)
     with pytest.raises(RuntimeError, match=r"mesh slot 1 \(cpu\) failed: "
-                                           r"ValueError: boom") as info:
-        ex.run(water_fragments(4), what="gradient")
+                                           r"ValueError: could not broadcast"
+                       ) as info:
+        ex.run(frags, what="gradient")
     assert isinstance(info.value.__cause__, ValueError)
-    assert len(seen) == 2
+    assert ex.workers == []
+    e, _ = ex.run(water_fragments(2), what="energy")
+    assert np.isfinite(e).all() and len(ex.workers) == 2
+
+
+@pytest.mark.parametrize("when", ["between runs", "during a piece"])
+def test_a_killed_worker_raises_in_the_caller(slots, when):
+    """Slot 1's worker is killed before a run, or while it evaluates its
+    piece (200 dimers take it seconds); the caller raises at once."""
+    ex = slots(2, XtbCalculator(device="cpu"))
+    ex.run(water_fragments(2), what="energy")
+    victim = ex.workers[1]
+    frags = water_fragments(2)
+    if when == "between runs":
+        os.kill(victim.pid, signal.SIGKILL)
+        victim.proc.wait(timeout=TIMEOUT)
+    else:
+        frags = bench_dimers(200)
+        threading.Timer(0.5, os.kill, (victim.pid, signal.SIGKILL)).start()
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"mesh slot 1 \(cpu\) failed: "
+                                           r"WorkerExited: .* code -9"):
+        ex.run(frags, what="energy")
+    assert time.monotonic() - t0 < slot_worker.GRACE + 30
+    assert ex.workers == [] and not victim.alive()
+
+
+@pytest.mark.parametrize("started", ["before", "after"])
+def test_a_run_time_overlay_reaches_the_workers(slots, tmp_path, started):
+    """The caller loads an overlay at run time (the shipped GFN1 overlay
+    with one global and one element changed); workers started before it
+    and after it compute with it: the one-slot energies to 1e-12."""
+    with open(params_gfn1._OVERLAY_PATH) as fh:
+        overlay = json.load(fh)
+    overlay["globals"]["kpol"] = overlay["globals"].get("kpol", 2.85) + 0.1
+    overlay["elements"]["8"]["gam"] = overlay["elements"]["8"]["gam"] * 1.01
+    path = tmp_path / "overlay.json"
+    path.write_text(json.dumps(overlay))
+    frags = water_fragments(2) + bench_dimers(2)
+    calc = XtbCalculator(device="cpu")
+    ex = slots(2, calc)
+    if started == "after":
+        ex.close()
+    else:
+        ex.run(frags, what="energy")
+    e_shipped, _ = FragmentExecutor(calc).run(frags, what="energy")
+    try:
+        params_gfn1.load_overlay(str(path))
+        e1, _ = FragmentExecutor(calc).run(frags, what="energy")
+        e2, _ = ex.run(frags, what="energy")
+    finally:
+        params_gfn1.load_overlay(params_gfn1._OVERLAY_PATH)
+    assert np.abs(e1 - e_shipped).min() > 1e-6
+    assert np.abs(e2 - e1).max() <= 1e-12
+    # and back: the shipped tables reach the same workers again
+    e3, _ = ex.run(frags, what="energy")
+    assert np.abs(e3 - e_shipped).max() <= 1e-12
+
+
+def test_worker_counts_reach_the_caller(slots):
+    """Two 11-water clusters (66 AOs) on the fast route go through SP2 in
+    each worker; the workers' calls are added to the caller's count."""
+    waters = water_fragments(11)
+    cluster = (np.concatenate([w[0] for w in waters]),
+               np.concatenate([w[1] for w in waters]), 0, 1)
+    shifted = (cluster[0], cluster[1] + 0.01, 0, 1)
+    calc = XtbCalculator(settings_from_params("gfn1", max_scf_iter=8,
+                                              use_pallas_eigh=True),
+                         device="cpu")
+    e1, _ = FragmentExecutor(calc).run([cluster, shifted], what="energy")
+    ex = slots(2, calc)
+    before = [w.sp2_calls for w in ex.workers] or [0, 0]
+    n0 = sp2.calls
+    e, _ = ex.run([cluster, shifted], what="energy")
+    made = [w.sp2_calls - b for w, b in zip(ex.workers, before)]
+    assert min(made) > 0 and sp2.calls - n0 == sum(made)
+    assert np.abs(e - e1).max() <= 1e-10
+
+
+def test_workers_load_the_callers_kernel_build(slots, monkeypatch,
+                                              tmp_path):
+    """A worker takes the caller's build directory (that of
+    `compile_cache.enable`, a fresh temporary one with
+    MQC_COMPILE_CACHE=0), and a later change reaches it too."""
+    calc = XtbCalculator(device="cpu")
+    ex = slots(2, calc)
+    ex.close()
+    monkeypatch.setattr(jac, "_BUILD_DIR", tmp_path)
+    ex.run(water_fragments(2), what="energy")
+    assert [w.build_dir for w in ex.workers] == [str(tmp_path)] * 2
+    monkeypatch.setattr(jac, "_BUILD_DIR", tmp_path / "later")
+    ex.run(water_fragments(2), what="energy")
+    assert [w.build_dir for w in ex.workers] == [str(tmp_path / "later")] * 2
+
+
+def test_the_kernel_is_built_before_any_worker_starts(monkeypatch):
+    """With a card among the slots and the kernel's route on, the caller
+    builds the kernel before it starts a worker, so the workers only load
+    it (here the card's slot then fails to start: the CPU has no card,
+    and a card no device of the next index)."""
+    events = []
+    monkeypatch.setattr(jac, "build", lambda: events.append("build"))
+    popen = slot_worker.subprocess.Popen
+
+    def record(*args, **kwargs):
+        events.append("start")
+        return popen(*args, **kwargs)
+
+    monkeypatch.setattr(slot_worker.subprocess, "Popen", record)
+    card = torch.device("cuda", torch.cuda.device_count())
+    calc = XtbCalculator(settings_from_params("gfn1", use_pallas_eigh=True),
+                         device="cpu")
+    ex = FragmentExecutor(calc, mesh=fragment_mesh(["cpu", card]),
+                          timeout=TIMEOUT)
+    with pytest.raises(RuntimeError, match=rf"mesh slot 1 \({card}\)"):
+        ex.run(water_fragments(2), what="energy")
+    assert events == ["build", "start", "start"]
+    assert ex.workers == []
 
 
 def test_kernel_build_runs_once_from_four_threads(monkeypatch, tmp_path):

@@ -3,8 +3,9 @@
 - With `jax` and `metalquicha_tpu` both unimportable, every module of the
   port imports, and the prism MBE(2) driver runs on the CPU within 1e-9 Ha
   of its golden (tests/data/port_golden_gfn1.json, from the JAX package);
-- the same for the mixed-precision route, a two-slot mesh, the
-  differentiable parameterization and the build cache;
+- the same for the mixed-precision route, a two-slot mesh (whose worker
+  processes load neither), the differentiable parameterization and the
+  build cache;
 - every entry point asks for CUDA by default: with no card it raises
   instead of falling back to the CPU;
 - the default path (one device, float64, no polisher) still reproduces the
@@ -137,7 +138,11 @@ e, _ = single_point_energy(frag.coords, frag, settings_from_params("gfn1"))
 (g,) = torch.autograd.grad(e.sum(), theta["globals"])
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and m.split(".")[0] in ("jax", "metalquicha_tpu"))
+workers = [sorted(set(w.modules) & {"jax", "metalquicha_tpu"})
+           for w in ex.workers]
+ex.close()
 print(json.dumps({"loaded": loaded, "polisher": type(ex.polisher).__name__,
+                  "workers": workers,
                   "polished": polished[""].result.total_energy,
                   "raw": raw[""].result.total_energy,
                   "grad_finite": bool(torch.isfinite(g).all()),
@@ -146,8 +151,10 @@ print(json.dumps({"loaded": loaded, "polisher": type(ex.polisher).__name__,
 
 
 def test_new_modules_run_without_jax_package(tmp_path):
-    """The f32 + polish route on a two-slot mesh, the parameter rebuild
-    and the build cache, with jax and the JAX package unimportable."""
+    """The f32 + polish route on a two-slot mesh (two worker processes,
+    which load nothing of jax or the JAX package either), the parameter
+    rebuild and the build cache, with jax and the JAX package
+    unimportable."""
     with open(GOLDEN_PATH) as fh:
         gold = json.load(fh)["driver"]["prism_mbe"]["total_energy"]
     cache = str(tmp_path / "cache")
@@ -159,6 +166,7 @@ def test_new_modules_run_without_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["loaded"] == [] and res["polisher"] == "HostPolisher"
+    assert res["workers"] == [[], []]
     assert abs(res["polished"] - gold) <= 1e-8
     assert abs(res["raw"] - gold) > abs(res["polished"] - gold)
     assert res["grad_finite"] and res["build_dir"] == cache

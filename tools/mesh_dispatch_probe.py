@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of a mesh of several slots goes: concurrent slot
-threads against serial dispatch, on one CUDA card.
+"""Where the time of a mesh of several slots goes: worker processes
+against serial dispatch, on one CUDA card.
 
 Times bench.py's w20 MBE(2) list with gradients (the Jacobi route, 32 SCC
 iterations, float64) through `FragmentExecutor` on
 - one slot;
-- two slots on the card, each piece in its own thread on its own stream
-  (the executor's dispatch);
-- two slots whose pieces run one after the other from the calling thread
-  (the dispatch before the threads: `--serial` emulation);
-- two slot threads that take one lock around each piece (threads, but no
-  overlap at all);
+- two slots on the card, each piece in a worker process of its own (the
+  executor's dispatch; the warm-up pass starts the workers);
+- two slots whose pieces run one after the other from the calling
+  process;
+- two slot threads of the calling process that take one lock around each
+  piece (threads, but no overlap at all);
 and, as a probe of the host side, `OPS` tiny in-place additions on the
 card from one thread (2 x OPS) and from two threads (OPS each), with and
 without a host sync every 64 additions. Each configuration is timed
 `--reps` times after a warm-up, in turns; the totals are held equal to the
-one-slot run (1e-10 Ha). Prints one line per configuration and the card's
-name and power limit.
+one-slot run (1e-10 Ha). Prints one line per configuration, each worker's
+pid, start-up seconds and Jacobi launches, and the card's name and power
+limit.
 
 Usage: python3 tools/mesh_dispatch_probe.py [--reps 3] [--ops 20000]
 """
@@ -46,6 +47,9 @@ from metalquicha_tpu_torch.parallel.executor import (  # noqa: E402
     FragmentExecutor,
 )
 from metalquicha_tpu_torch.parallel.mesh import fragment_mesh  # noqa: E402
+from metalquicha_tpu_torch.parallel.slot_worker import (  # noqa: E402
+    evaluate_piece,
+)
 from metalquicha_tpu_torch.workloads import (  # noqa: E402
     w20_mbe2_assemble,
     w20_mbe2_fragments,
@@ -53,30 +57,43 @@ from metalquicha_tpu_torch.workloads import (  # noqa: E402
 
 
 class SerialExecutor(FragmentExecutor):
-    """The pieces one after the other from the calling thread."""
+    """The pieces one after the other from the calling process."""
 
-    def _run_pieces(self, frag_data, tuples, pad_to, what):
-        from metalquicha_tpu_torch.parallel.mesh import shard_leading_axis
-
+    def _run_pieces(self, tuples, pad_to, what):
         per = len(tuples) // self.n_devices
-        return [
-            self._evaluate(self.calc.on(device), piece,
-                           tuples[k * per : (k + 1) * per], pad_to, what)
-            for k, (device, piece) in enumerate(zip(
-                self.mesh.flat, shard_leading_axis(frag_data, self.mesh)))
-        ]
+        return [_piece(self.calc.on(device), tuples[k * per : (k + 1) * per],
+                       pad_to, what)
+                for k, device in enumerate(self.mesh.flat)]
 
 
 class LockedExecutor(FragmentExecutor):
-    """Slot threads that take one lock around each piece."""
+    """A thread of the calling process per slot, each on a CUDA stream of
+    its own, that takes one lock around its piece."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self._lock = threading.Lock()
+    def _run_pieces(self, tuples, pad_to, what):
+        per = len(tuples) // self.n_devices
+        lock = threading.Lock()
+        parts = [None] * self.n_devices
 
-    def _evaluate(self, *args):
-        with self._lock:
-            return super()._evaluate(*args)
+        def slot(k, device):
+            with lock, torch.cuda.stream(torch.cuda.Stream(device)):
+                parts[k] = _piece(self.calc.on(device),
+                                  tuples[k * per : (k + 1) * per], pad_to,
+                                  what)
+                torch.cuda.current_stream(device).synchronize()
+
+        threads = [threading.Thread(target=slot, args=(k, device))
+                   for k, device in enumerate(self.mesh.flat)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return parts
+
+
+def _piece(calc, piece, pad_to, what):
+    return evaluate_piece(calc, None, calc.make_batch(piece, pad_to=pad_to),
+                          piece, pad_to, what)
 
 
 def _timed(fn, device, reps):
@@ -133,7 +150,7 @@ def main(argv=None) -> int:
     two = fragment_mesh([device, device])
     configs = {
         "one slot": FragmentExecutor(calc),
-        "two slots, threads": FragmentExecutor(calc, mesh=two),
+        "two slots, worker processes": FragmentExecutor(calc, mesh=two),
         "two slots, serial": SerialExecutor(calc, mesh=two),
         "two slots, threads under one lock": LockedExecutor(calc, mesh=two),
     }
@@ -145,6 +162,11 @@ def main(argv=None) -> int:
         print(f"w20 MBE(2) gradient, {name}: "
               f"{' '.join(f'{t:.3f}' for t in secs)} s "
               f"total={totals[name]:.10f}", flush=True)
+        for w in ex.workers:
+            print(f"  worker slot {w.index}: pid {w.pid} on {w.device}, "
+                  f"start-up {w.startup_s:.2f} s, {w.launches} Jacobi "
+                  f"launches", flush=True)
+        ex.close()
     for name, total in totals.items():
         if abs(total - totals["one slot"]) > 1e-10:
             raise RuntimeError(f"{name}: total off by "
