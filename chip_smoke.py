@@ -27,6 +27,23 @@ Phases (each raises on failure; nothing is caught):
 5. driver:   run_calculation on tests/data/port_prism.mqc and
              port_w20_mbe4.mqc (MBE(4), 6195 fragments) with the kernel in
              the SCC loop, and prism through `python -m metalquicha_tpu_torch`;
+5b. memory: the executor's byte guard (parallel/executor.py
+             `fragment_bytes`, `device_budget`). The byte model against
+             the measured peak per fragment at the shapes of
+             tools/memory_probe_torch.py --calibrate (GFN1 nao 16 and 32
+             on both in-loop routes, nao 241, ALPB, CPCM, GFN2; energy and
+             gradient; the table printed, every ratio within [1, 2]); the
+             FD Hessian of validation/inputs/no_frag.json (73 atoms, 438
+             displaced gradients at nao 241 on the exact route) through
+             run_calculation: its unsymmetrized rows of atoms 0 and 40
+             within 1e-6 of tests/data/port_golden_memory.json's central
+             differences, the Hessian symmetric (1e-6) and every row's sum
+             over the atoms per direction below 1e-5; then the w20 MBE(4)
+             gradient through run_calculation with the executor on the
+             Jacobi route: 48 tetramers' energies and gradients within
+             1e-8 of the golden, the total within 1e-8 of the MBE(4)
+             golden, the net force below 1e-7. Each run's chunks, wall,
+             peak and budget printed; the peak must stay under the budget;
 6. solvation: the w20 MBE(2) list through FragmentExecutor with ALPB
              water (gradients) and CPCM water (energies), the kernel in the
              SCC loop, against the JAX package's goldens (totals 1e-8 Ha,
@@ -91,8 +108,11 @@ Phases (each raises on failure; nothing is caught):
              loaded nothing of jax or the JAX package; then run_calculation
              on port_w20_mbe4.mqc through the same two workers within 1e-7
              of the golden, its wall beside the driver phase's one-slot
-             wall and each process's peak device memory printed; no worker
-             alive after `close()`;
+             wall and each process's peak device memory printed; its
+             gradient (port_memory_w20_mbe4_grad.mqc) through the same
+             workers, each planning for half the card and cutting its
+             piece into parts (total 1e-7, net force 1e-7, every worker's
+             peak under its budget); no worker alive after `close()`;
 11. fit:     the differentiable parameterization (methods/xtb/param_fit.py):
              rebuild(theta_init) equal to the host batch (1e-12) in GFN1
              and GFN2; dE/dtheta of a water against a central difference on
@@ -134,7 +154,7 @@ nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
 The kernel's launch counter and SP2's call counter are reset before
-phases 3-13; the first must grow in phases 3-6, 9, 10 and 13 and both in
+phases 3-13; the first must grow in phases 3-6 (5b too), 9, 10 and 13 and both in
 phase 7, phase 8 must leave both as they are, and phase 12 the first.
 Diagnostics go to stdout; the line before the last but one is the
 kernel JSON line, the line before the last the card's name and power
@@ -161,6 +181,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_gfn1.json")
 GOLDEN_FULL = os.path.join(ROOT, "tests", "data", "port_golden_gfn1_full.json")
 GOLDEN_GFN2 = os.path.join(ROOT, "tests", "data", "port_golden_gfn2.json")
+GOLDEN_MEMORY = os.path.join(ROOT, "tests", "data", "port_golden_memory.json")
 GFN2_MBE4 = os.path.join(ROOT, "tests", "data", "port_gfn2_w20_mbe4.mqc")
 GFN2_FIXTURES = os.path.join(ROOT, "tests", "data", "gfn2_fixtures.json")
 GOLDEN_FIT_TOOLS = os.path.join(ROOT, "tests", "data",
@@ -540,6 +561,80 @@ def driver_phase(jac, golden):
           f"total={total:.10f} d_golden={d:.2e}", flush=True)
     check(d <= 1e-7, f"cli prism total off the golden by {d:.3e}")
     return launches
+
+
+def memory_phase(jac, golden):
+    """The executor's byte guard: the byte model against the measured
+    peak at the calibrated shapes, the 73-atom FD Hessian and the w20
+    MBE(4) gradient through run_calculation."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import memory_probe_torch as probe
+
+    device = torch.device(DEVICE)
+    with open(GOLDEN_MEMORY) as fh:
+        gold = json.load(fh)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    for row in probe.calibrate(device):
+        check(1.0 <= row["ratio"] <= 2.0,
+              f"byte model of {row['shape']} {row['what']} is "
+              f"{row['ratio']}x the measured peak")
+
+    runs = {}
+
+    def capture(jobs, out):
+        runs[len(jobs)] = out
+
+    gh = gold["hessian"]
+    rec = probe.workflow("hessian", device, capture)
+    print(f"memory hessian: ok={rec['ok']} wall={rec['wall_s']:.3f} s "
+          f"peak={rec['peak_gib']} GiB budget={rec['budget_gib']} GiB "
+          f"chunks={rec['chunks']} sizes={rec['chunk_sizes']}", flush=True)
+    check(rec["ok"], f"the 73-atom Hessian failed: {rec.get('error')}")
+    check(rec["peak_gib"] < rec["budget_gib"],
+          "the Hessian's peak is above the executor's budget")
+    _e, grads, _aux = runs[gh["n_jobs"]]
+    g = np.stack([np.asarray(grads[i]) for i in gh["jobs"]]).reshape(
+        len(gh["jobs"]), -1)
+    rows = (g[0::2] - g[1::2]) / (2.0 * gh["displacement"])
+    d_rows = float(np.abs(rows - np.asarray(gh["rows"])).max())
+    hess = np.asarray(rec["output"].result.hessian)
+    d_sym = float(np.abs(hess - hess.T).max())
+    drift = float(np.abs(hess.reshape(len(hess), -1, 3).sum(1)).max())
+    print(f"memory hessian: rows of atoms {gh['atoms']} d_golden="
+          f"{d_rows:.2e} asymmetry={d_sym:.2e} translation={drift:.2e}",
+          flush=True)
+    check(d_rows <= 1e-6, f"Hessian rows off the golden by {d_rows:.3e}")
+    check(d_sym <= 1e-6, f"Hessian asymmetric by {d_sym:.3e}")
+    check(drift <= 1e-5, f"Hessian rows sum to {drift:.3e} over atoms")
+
+    runs.clear()
+    gw = gold["w20_mbe4_gradient"]
+    rec = probe.workflow("w20_grad", device, capture)
+    print(f"memory w20 MBE(4) gradient: ok={rec['ok']} wall="
+          f"{rec['wall_s']:.3f} s peak={rec['peak_gib']} GiB budget="
+          f"{rec['budget_gib']} GiB chunks={rec['chunks']} "
+          f"sizes={rec['chunk_sizes']} launches={rec['jacobi_launches']}",
+          flush=True)
+    check(rec["ok"], f"the w20 MBE(4) gradient failed: {rec.get('error')}")
+    check(rec["peak_gib"] < rec["budget_gib"],
+          "the w20 MBE(4) gradient's peak is above the executor's budget")
+    check(rec["jacobi_launches"] > 0,
+          "the w20 MBE(4) gradient launched no Jacobi kernel")
+    e, grads, _aux = runs[gw["n_jobs"]]
+    d_e = max(abs(e[i] - x) for i, x in zip(gw["jobs"], gw["energies"]))
+    d_g = max(float(np.abs(np.asarray(grads[i]) - np.asarray(x)).max())
+              for i, x in zip(gw["jobs"], gw["gradients"]))
+    d_t = abs(rec["total_energy"] - golden["driver"]["w20_mbe"]
+              ["total_energy"])
+    net = float(np.abs(rec["output"].result.gradient.sum(0)).max())
+    print(f"memory w20 MBE(4) gradient: {len(gw['jobs'])} tetramers "
+          f"d_energy={d_e:.2e} d_gradient={d_g:.2e} d_total={d_t:.2e} "
+          f"net force={net:.2e}", flush=True)
+    check(d_e <= 1e-8, f"tetramer energies off the golden by {d_e:.3e}")
+    check(d_g <= 1e-8, f"tetramer gradients off the golden by {d_g:.3e}")
+    check(d_t <= 1e-8, f"w20 MBE(4) total off the golden by {d_t:.3e}")
+    check(net <= 1e-7, f"w20 MBE(4) net force {net:.3e}")
+    return rec["jacobi_launches"]
 
 
 def solvation_phase(jac, golden_full):
@@ -1220,6 +1315,30 @@ def mesh_phase(jac, golden):
           f"{[w.launches - b for w, b in zip(workers, l0)]}", flush=True)
     check(d <= 1e-7, f"two-process w20_mbe4 total off the golden by "
                      f"{d:.3e}")
+
+    # its gradient: each worker plans for half the card (the two share
+    # it) and evaluates its piece of the tetramer chunk in parts
+    cfg = read_mqc_file(os.path.join(ROOT, "tests", "data",
+                                     "port_memory_w20_mbe4_grad.mqc"))
+    out, t = wall(lambda: run_calculation(cfg, write_json=False,
+                                          executor=procs))
+    total = float(out[""].result.total_energy)
+    d = abs(total - gold["total_energy"])
+    net = float(np.abs(out[""].result.gradient.sum(0)).max())
+    print(f"mesh driver w20_mbe4 gradient, two worker processes: "
+          f"wall={t:.3f} s total={total:.10f} d_golden={d:.2e} net force="
+          f"{net:.2e}; " + "; ".join(
+              f"slot {w.index} budget {w.budget_bytes / 2**30:.2f} GiB "
+              f"peak {w.peak_bytes / 2**30:.2f} GiB parts of its last "
+              f"piece {w.parts}" for w in workers), flush=True)
+    check(d <= 1e-7, f"two-process w20_mbe4 gradient total off the golden "
+                     f"by {d:.3e}")
+    check(net <= 1e-7, f"two-process w20_mbe4 net force {net:.3e}")
+    for w in workers:
+        check(w.peak_bytes < w.budget_bytes,
+              f"slot {w.index} peaked above its budget")
+    check(any(w.parts > 1 for w in workers),
+          "no worker cut its piece of the tetramer chunk")
     check([w.pid for w in procs.workers] == [w.pid for w in workers],
           "the workers did not live across runs")
     procs.close()
@@ -1625,6 +1744,7 @@ def main() -> int:
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
+                           ("memory", memory_phase, golden),
                            ("solvation", solvation_phase, golden_full),
                            ("validation", validation_phase, golden_full),
                            ("gfn2", gfn2_phase, golden_gfn2),

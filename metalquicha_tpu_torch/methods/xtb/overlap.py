@@ -6,7 +6,8 @@ Obara-Saika 1D factors and reduced, so the whole batch is a fixed sequence
 of tensor ops and autograd differentiates it directly.
 
 The intermediates are (B, nao, nao, nprim, nprim); the executor's chunk cap
-(B * nao^2 <= 2e8) bounds them.
+(B * nao^2 <= 2e8, and on a card its byte model `fragment_bytes`) bounds
+them.
 
 The 1D overlap factors S_ij follow the standard recursion
     S_{i+1,j} = XPA S_ij + (i S_{i-1,j} + j S_{i,j-1}) / (2p)
@@ -85,6 +86,7 @@ def overlap_matrix(coords, ao_atom, ao_lxyz, prim_alpha, prim_coeff):
 
     # Gaussian product prefactor
     pref = (math.pi / p) ** 1.5 * torch.exp(-mu * rab2[..., None, None])
+    del mu
 
     # Gaussian product center offsets per dimension:
     # XPA = P - A = aj*(B-A)/p; XPB = P - B = ai*(A-B)/p
@@ -96,12 +98,21 @@ def overlap_matrix(coords, ao_atom, ao_lxyz, prim_alpha, prim_coeff):
         xpa = -aj * ab_d / p
         xpb = ai * ab_d / p
         s_d = torch.zeros_like(pref)
+        # each (i, j) factor of this dimension is built once (and kept
+        # once for the backward pass), as in multipole._sdim_tables
+        cache = {}
         for i in range(MAX_L + 1):
             for j in range(MAX_L + 1):
                 mask = (li == i) & (lj == j)
-                s_ij = _s1d(i, j, xpa, xpb, inv2p)
+                s_ij = _s1d(i, j, xpa, xpb, inv2p, cache)
                 s_d = torch.where(mask, s_ij, s_d)
+                if i == MAX_L:
+                    # no later (i, j) reads a factor of the last row: an
+                    # energy (no graph) need not hold it
+                    del cache[(i, j)], s_ij
+        del xpa, xpb, cache
         sdim = s_d if sdim is None else sdim * s_d
+        del s_d
 
     prim_s = pref * sdim                               # (B,nao,nao,np,np)
     cc = prim_coeff[:, :, None, :, None] * prim_coeff[:, None, :, None, :]

@@ -48,6 +48,23 @@ thread and nothing is padded, cut or copied. With a polisher
 f64 on the same device, and fragments whose f32 SCC missed `rescue_tol`
 are re-solved from scratch in f64 (in the caller, after the join). The
 JAX package's TPU batch quantum is not ported: it changes no result.
+
+Device memory. The element cap above is the JAX package's guard; the
+port's eager tensors hold far more bytes per counted element than XLA's
+fused programs, so on a card a chunk is also held to the device's bytes:
+`fragment_bytes` models the peak device memory one fragment of a padded
+shape takes in an energy or a gradient evaluation (the overlap's
+(nao, nao, nprim, nprim) tables, (nao, nao) matrices, ATM's
+(nat, nat, nat) triples, the solvation model's and GFN2's moment
+intermediates), and `device_budget` is what a slot may plan for:
+BUDGET_SHARE of the device's free bytes, taken once per `run`, split
+evenly between the mesh slots that share the device. A one-slot mesh cuts
+its chunks to min(element cap, budget / model bytes); on a mesh of
+several slots every worker applies the same rule on its own device and
+evaluates its piece in parts of at most that many fragments. A fragment
+the budget cannot hold raises `DeviceMemoryError`, naming its shape;
+nothing moves to the CPU. On the CPU no budget is taken and chunks are
+cut as the JAX package cuts them.
 """
 
 from __future__ import annotations
@@ -57,6 +74,7 @@ import weakref
 from collections import defaultdict
 
 import numpy as np
+import torch
 
 from ..logging_ import global_logger as logger
 
@@ -76,6 +94,83 @@ ATOM_BUCKETS = (2, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 MAX_CHUNK_ELEMENTS = 2.0e8
 
 _DUMMY = (np.array([1]), np.zeros((1, 3)), 0, 2)  # lone H (doublet) filler
+
+#: share of a device's free bytes that one `run` plans for
+BUDGET_SHARE = 0.85
+
+#: `fragment_bytes`' coefficients: the peak elements one fragment holds
+#: per element of the overlap's (nao, nao, nprim, nprim) table ("table"),
+#: an (nao, nao) matrix ("matrix"), ATM's (nat, nat, nat) triple tensor
+#: ("triple", where disp_s9 != 0), the solvation model's `work_elements`
+#: and GFN2's moment `work_elements`. Fit to
+#: `torch.cuda.max_memory_allocated` on an NVIDIA H100 80GB HBM3 (700 W)
+#: by tools/memory_probe_torch.py --calibrate; the model lies between 1x
+#: and 2x the measured peak at every calibrated shape.
+BYTE_MODEL = {
+    "energy": {"table": 18.0, "matrix": 32.0, "triple": 10.5,
+               "solvation": 7.0, "moments": 3.8},
+    "gradient": {"table": 66.0, "matrix": 96.0, "triple": 24.0,
+                 "solvation": 12.5, "moments": 16.5},
+}
+
+
+class DeviceMemoryError(RuntimeError):
+    """One fragment of a bucket needs more device memory than the slot's
+    budget holds."""
+
+
+def fragment_bytes(calc, pad_to, nprim: int, what: str,
+                   polished: bool = False) -> float:
+    """Modelled peak device bytes of one fragment of padded shape
+    (nat, nsh, nao) with nprim primitives per AO, in `calc.energies`
+    (what="energy") or `calc.gradients` (what="gradient"). The energy
+    holds one phase's intermediates at a time (the overlap, GFN2's moment
+    tables, ATM or the solvation model, whichever is largest); a gradient
+    keeps every phase's graph until its backward pass. Elements are of
+    the calculator's dtype, or float64 where a polisher re-evaluates
+    (`polished`)."""
+    nat, _nsh, nao = pad_to
+    c = BYTE_MODEL[what]
+    settings = calc.settings
+    parts = [c["table"] * nao * nao * nprim * nprim]
+    if settings.multipoles:
+        parts.append(c["moments"] * multipole_work_elements(nao, nprim))
+    if settings.disp_s9:
+        parts.append(c["triple"] * nat ** 3)
+    if getattr(calc, "solvation", None) is not None:
+        parts.append(c["solvation"] * calc.solvation.work_elements(nat))
+    held = max(parts) if what == "energy" else sum(parts)
+    size = 8 if polished else torch.finfo(calc.dtype).bits // 8
+    return size * (held + c["matrix"] * nao * nao)
+
+
+def device_budget(device, sharing: int = 1):
+    """Bytes one mesh slot may plan for on `device`: BUDGET_SHARE of the
+    device's free bytes (and of the blocks this process's allocator holds
+    unused), split between the `sharing` slots on the device; None on a
+    device that is not a card (no byte cap there)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _total = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return int(BUDGET_SHARE * (free + cached) / sharing)
+
+
+def byte_cap(budget: int, per_fragment: float, pad_to, nprim: int,
+             what: str) -> int:
+    """Most fragments of one piece that `budget` bytes hold; raises
+    DeviceMemoryError where not even one does."""
+    fit = int(budget // per_fragment)
+    if fit < 1:
+        nat, nsh, nao = pad_to
+        raise DeviceMemoryError(
+            f"one fragment of padded shape (nat, nsh, nao, nprim) = "
+            f"({nat}, {nsh}, {nao}, {nprim}) needs {per_fragment:.4g} "
+            f"bytes of device memory for its {what}, more than the "
+            f"slot's budget of {budget} bytes")
+    return fit
 
 
 def _bucket_of(n_atoms: int) -> int:
@@ -142,6 +237,11 @@ class FragmentExecutor:
         self.workers = []
         #: the configuration the workers hold (`slot_worker.configuration`)
         self._config = None
+        #: `run` calls so far; a worker takes its budget once per run
+        self.runs = 0
+        #: the byte budget of the last run on a one-slot card mesh (None
+        #: elsewhere; each worker reports its own in `stats`)
+        self.last_budget = None
         weakref.finalize(self, slot_worker.stop_all, self.workers)
 
     def _buckets(self, fragments):
@@ -180,9 +280,26 @@ class FragmentExecutor:
         return self.n_devices * max(1, int(MAX_CHUNK_ELEMENTS
                                            // per_fragment))
 
+    def fragment_bytes(self, pad_to, members, what: str) -> float:
+        """`fragment_bytes` for a bucket's members ((index, tuple) pairs)
+        with this executor's calculator."""
+        nprim = _sizes_for([t[0] for _, t in members], self.calc.variant)[3]
+        return fragment_bytes(self.calc, pad_to, nprim, what,
+                              self.polisher is not None)
+
+    def _budget(self):
+        """The byte budget of this run's one piece per chunk, or None:
+        a mesh of several slots leaves it to each worker, a host method
+        and a CPU slot have none."""
+        if self.n_devices != 1 or not hasattr(self.calc, "on"):
+            return None
+        return device_budget(self.mesh.flat[0])
+
     def run(self, fragments, what: str = "energy"):
         n = len(fragments)
         t0 = time.time()
+        self.runs += 1
+        budget = self.last_budget = self._budget()
         n_done = 0
         energies = np.zeros(n)
         gradients = [None] * n if what == "gradient" else None
@@ -194,12 +311,18 @@ class FragmentExecutor:
 
         for bucket_atoms, members in sorted(self._buckets(fragments).items()):
             pad_to = self._pad_shapes_for(bucket_atoms, members)
-            if self._multipoles():
+            if self._multipoles() or budget is not None:
                 nprim = _sizes_for([t[0] for _, t in members],
                                    self.calc.variant)[3]
+            if self._multipoles():
                 max_b = self._max_chunk(pad_to, nprim)
             else:
                 max_b = self._max_chunk(pad_to)
+            if budget is not None:
+                per = fragment_bytes(self.calc, pad_to, nprim, what,
+                                     self.polisher is not None)
+                max_b = min(max_b, byte_cap(budget, per, pad_to, nprim,
+                                            what))
             for start in range(0, len(members), max_b):
                 chunk = members[start : start + max_b]
                 self._run_chunk(chunk, pad_to, what, energies, gradients,
@@ -263,8 +386,10 @@ class FragmentExecutor:
             self._start_workers(config)
         send = None if config == self._config else config
         per = len(tuples) // self.n_devices
+        flat = self.mesh.flat
         answers = self._answers([
-            ("piece", send, tuples[k * per : (k + 1) * per], pad_to, what)
+            ("piece", send, tuples[k * per : (k + 1) * per], pad_to, what,
+             self.runs, flat.count(flat[k]))
             for k in range(self.n_devices)])
         self._config = config
         parts = []

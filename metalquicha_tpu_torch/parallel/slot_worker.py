@@ -23,13 +23,17 @@ answer per message:
   the kernel's route, loads the kernel the parent built. No tensor or
   object of the parent crosses. Answers with its statistics (peak device
   memory, loaded packages, build directory).
-- ("piece", config or None, tuples, pad_to, what): installs the
-  configuration if the parent sent a new one (a run-time `load_overlay`,
-  a fit that moved a table, new settings), builds the piece's batch from
-  the fragment tuples with `make_batch` on its device, evaluates and
-  polishes it (`evaluate_piece`) and answers with host arrays (e,
-  g or None, dipole, charges, residual), its statistics and the Jacobi
-  launches and SP2 calls the piece made.
+- ("piece", config or None, tuples, pad_to, what, run, sharing):
+  installs the configuration if the parent sent a new one (a run-time
+  `load_overlay`, a fit that moved a table, new settings), builds the
+  piece's batch from the fragment tuples with `make_batch` on its device,
+  evaluates and polishes it (`evaluate_piece`) and answers with host
+  arrays (e, g or None, dipole, charges, residual), its statistics and
+  the Jacobi launches and SP2 calls the piece made. On a card the piece
+  is evaluated in parts of at most as many fragments as the device's
+  byte budget holds (`executor.device_budget`, taken once per parent's
+  `run` number and split between the `sharing` slots on the device;
+  `executor.fragment_bytes`, `executor.byte_cap`).
 - None, or the parent's end closing: the worker exits.
 
 An exception in the worker answers with the exception, its traceback
@@ -191,6 +195,10 @@ class SlotWorker:
         self.launches = 0
         self.sp2_calls = 0
         self.peak_bytes = 0
+        #: the byte budget of its last piece (None off a card) and the
+        #: parts that piece was evaluated in
+        self.budget_bytes = None
+        self.parts = 0
         self.modules = ()
         self.build_dir = None
 
@@ -232,6 +240,8 @@ class SlotWorker:
         self.launches += stats["launches"]
         self.sp2_calls += stats["sp2_calls"]
         self.peak_bytes = max(self.peak_bytes, stats["peak_bytes"])
+        self.budget_bytes = stats["budget_bytes"]
+        self.parts = stats["parts"]
         self.modules, self.build_dir = stats["modules"], stats["build_dir"]
         jacobi_eigh.add_launches(stats["launches"])
         sp2.add_calls(stats["sp2_calls"])
@@ -353,6 +363,8 @@ class _Slot:
         if self.device.type == "cuda" and self.device.index is not None:
             torch.cuda.set_device(self.device)
         self.calc = self.polisher = None
+        #: the parent's run number the byte budget was taken for
+        self.run = self.budget = None
 
     def configure(self, config: bytes) -> None:
         from ..methods.xtb.calculator import XtbCalculator
@@ -373,24 +385,46 @@ class _Slot:
         if self.device.type == "cuda" and cfg["settings"].use_pallas_eigh:
             jacobi_eigh.build()  # the parent's build: loaded, not compiled
 
-    def evaluate(self, config, tuples, pad_to, what):
+    def _cap(self, tuples, pad_to, what, run, sharing) -> int:
+        """Most fragments of this piece evaluated at once: all of them,
+        or on a card as many as the run's byte budget holds."""
+        from ..methods.xtb.batch import _sizes_for
+        from .executor import byte_cap, device_budget, fragment_bytes
+
+        if run != self.run:
+            self.run, self.budget = run, device_budget(self.device, sharing)
+        if self.budget is None:
+            return len(tuples)
+        nprim = _sizes_for([t[0] for t in tuples], self.calc.variant)[3]
+        per = fragment_bytes(self.calc, pad_to, nprim, what,
+                             self.polisher is not None)
+        return byte_cap(self.budget, per, pad_to, nprim, what)
+
+    def evaluate(self, config, tuples, pad_to, what, run, sharing):
         from ..ops import jacobi_eigh, sp2
 
         if config is not None:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
-        frag = self.calc.make_batch(tuples, pad_to=pad_to)
-        parts = evaluate_piece(self.calc, self.polisher, frag, tuples,
-                               pad_to, what)
+        cap = self._cap(tuples, pad_to, what, run, sharing)
+        outs = []
+        for start in range(0, len(tuples), cap):
+            part = tuples[start : start + cap]
+            frag = self.calc.make_batch(part, pad_to=pad_to)
+            outs.append(evaluate_piece(self.calc, self.polisher, frag, part,
+                                       pad_to, what))
+            del frag
+        parts = outs[0] if len(outs) == 1 else tuple(
+            None if p[0] is None else np.concatenate(p) for p in zip(*outs))
         return parts, dict(self.stats(), launches=jacobi_eigh.launches - n0,
-                           sp2_calls=sp2.calls - s0)
+                           sp2_calls=sp2.calls - s0, parts=len(outs))
 
     def stats(self) -> dict:
         from ..ops import jacobi_eigh
 
         peak = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else 0)
-        return {"peak_bytes": int(peak),
+        return {"peak_bytes": int(peak), "budget_bytes": self.budget,
                 "modules": sorted({m.split(".")[0] for m in sys.modules}),
                 "build_dir": str(jacobi_eigh._BUILD_DIR)}
 

@@ -53,6 +53,18 @@ HALOGEN = (
 )
 
 
+def jittered_trimers(n: int = 40, seed: int = 11) -> list:
+    """n water trimers (three WATERs 5.5 Bohr apart along x), every atom
+    moved by a seeded normal draw of 0.1 Bohr: no two alike, so their
+    gradients do not depend on the eigenvector gauge (ROADMAP C5)."""
+    rng = np.random.default_rng(seed)
+    numbers = np.tile(WATER[0], 3)
+    base = np.concatenate([WATER[1] + np.array([5.5 * k, 0.0, 0.0])
+                           for k in range(3)])
+    return [(numbers, base + rng.normal(0.0, 0.1, base.shape), 0, 1)
+            for _ in range(n)]
+
+
 def _gly3_fragment():
     """The first residue of validation's gly3 (8 atoms, a doublet)."""
     path = os.path.join(REPO, "validation", "inputs", "sample_inputs",

@@ -57,6 +57,19 @@ Writes, from the repository root:
   unfragmented totals through the driver and their gap (the pair of
   tests/test_gmbe_tail_sentinel.py, at the JAX package's HEAD).
 
+- tests/data/port_golden_memory.json, tests/data/port_memory_<case>.mqc:
+  the driver workflows the executor's byte guard lets run on a card.
+  validation/inputs/no_frag.json (73 atoms) with its driver set to
+  "Hessian": the JAX gradients at the 12 displaced geometries of atoms 0
+  and 40 (+x, -x, +y, -y, +z, -z at the driver's displacement, in
+  batches of 4) and their central-difference Hessian rows; w20_isomer.json
+  at MBE(4) with driver "Gradient": the JAX energies and gradients of 48
+  tetramers evenly spaced over the driver's fragment list, by their index
+  in it (the total is port_golden_gfn1.json's w20_mbe); the energies and
+  gradients of the 40 jittered water trimers of
+  tests/_torch_port_common.py `jittered_trimers` through the JAX
+  executor with the default GFN1 calculator in float64.
+
 - tests/data/port_golden_elements_spd.json: the behaviours of
   tests/test_elements_spd.py and tests/test_elements_ext.py beyond HCNO
   (inputs in tests/_torch_port_common.py): the NaCl + water MBE(2) driver
@@ -67,7 +80,7 @@ Writes, from the repository root:
 
 Usage: python tools/gen_port_golden.py
            [--only gfn1|full|gfn2|polish_fit|fit_tools|decane_gap|
-                   elements_spd]
+                   elements_spd|memory]
 (about five minutes on a CPU for gfn1 and full; gfn2 see its `seconds`;
 polish_fit about six minutes; fit_tools see its `seconds`)
 """
@@ -754,7 +767,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("gfn1", "full", "gfn2", "polish_fit",
                                        "fit_tools", "decane_gap",
-                                       "elements_spd"),
+                                       "elements_spd", "memory"),
                     default=None,
                     help="regenerate one golden file instead of all seven")
     ap.add_argument("--skip-w20", action="store_true",
@@ -775,7 +788,120 @@ def main(argv=None) -> int:
         gen_decane_gap()
     if args.only in (None, "elements_spd"):
         gen_elements_spd()
+    if args.only in (None, "memory"):
+        gen_memory()
     return 0
+
+
+MEMORY_PATH = os.path.join(DATA, "port_golden_memory.json")
+#: no_frag.json's atoms whose displaced gradients are frozen
+HESSIAN_ATOMS = (0, 40)
+#: w20 MBE(4) tetramers frozen, evenly spaced over the fragment list
+N_TETRAMERS = 48
+
+
+class _Captured(Exception):
+    """Raised by `_capture_jobs`' executor with the fragments it got."""
+
+
+def _capture_jobs(cfg):
+    """(the fragment list the JAX driver sends to its executor for cfg,
+    the driver's configuration), without evaluating it."""
+
+    class Capture:
+        n_devices = 1
+
+        def run(self, fragments, what="energy"):
+            raise _Captured(list(fragments))
+
+    try:
+        run_calculation(cfg, write_json=False, executor=Capture())
+    except _Captured as exc:
+        return exc.args[0], config_to_driver(cfg)
+    raise RuntimeError("the driver sent no fragments")
+
+
+def _emit_driver(src: str, dst: str, driver: str) -> str:
+    """validation/inputs/<src> with its driver set, as tests/data/<dst>."""
+    json_path = os.path.join(ROOT, "validation", "inputs", src)
+    with open(json_path) as fh:
+        data = json.load(fh)
+    data["driver"] = driver
+    text = emit_mqc(data, base_dir=os.path.dirname(json_path))
+    with open(os.path.join(DATA, dst), "w") as fh:
+        fh.write(text)
+    return os.path.join(DATA, dst)
+
+
+def _gradients(executor, jobs, batch):
+    """JAX energies and gradients of jobs, `batch` at a time."""
+    es, gs = [], []
+    for start in range(0, len(jobs), batch):
+        e, g, _aux = executor.run(jobs[start:start + batch], what="gradient")
+        es.extend(float(x) for x in np.asarray(e))
+        gs.extend(np.asarray(x).tolist() for x in g)
+    return es, gs
+
+
+def gen_memory() -> None:
+    """Write port_golden_memory.json (see the module docstring)."""
+    t0 = time.time()
+    golden = {"commit": _commit(), "dtype": "float64", "platform": "cpu"}
+
+    mqc = _emit_driver("no_frag.json", "port_memory_gly3_hessian.mqc",
+                       "Hessian")
+    (mol,), drv = _capture_jobs(read_mqc_file(mqc))
+    # the driver's displacement sweep of the one (unfragmented) fragment
+    from metalquicha_tpu.driver import _DisplacedFragment
+    from metalquicha_tpu.numerics.finite_differences import (
+        displaced_geometries,
+    )
+
+    h = drv.hessian.displacement
+    jobs = [_DisplacedFragment(mol, c) for c in
+            displaced_geometries(np.asarray(mol.coords), h)]
+    picked = [2 * (3 * a + d) + s for a in HESSIAN_ATOMS for d in range(3)
+              for s in (0, 1)]
+    energies, grads = _gradients(_make_executor(drv), [jobs[i] for i in
+                                                       picked], 4)
+    g = np.asarray(grads).reshape(len(picked), -1)
+    golden["hessian"] = {
+        "mqc": "tests/data/port_memory_gly3_hessian.mqc",
+        "n_jobs": len(jobs), "displacement": h,
+        "atoms": list(HESSIAN_ATOMS), "jobs": picked,
+        "energies": energies, "gradients": grads,
+        # row 3a+d of the unsymmetrized FD Hessian: (g(+h) - g(-h)) / 2h
+        "rows": ((g[0::2] - g[1::2]) / (2.0 * h)).tolist(),
+    }
+    print(f"memory: Hessian rows {time.time() - t0:.1f} s", flush=True)
+
+    t1 = time.time()
+    mqc = _emit_driver("w20_isomer.json", "port_memory_w20_mbe4_grad.mqc",
+                       "Gradient")
+    jobs, drv = _capture_jobs(read_mqc_file(mqc))
+    tetramers = [i for i, f in enumerate(jobs) if len(f.numbers) == 12]
+    picked = [tetramers[int(k)] for k in
+              np.linspace(0, len(tetramers) - 1, N_TETRAMERS).round()]
+    energies, grads = _gradients(_make_executor(drv),
+                                 [jobs[i] for i in picked], N_TETRAMERS)
+    golden["w20_mbe4_gradient"] = {
+        "mqc": "tests/data/port_memory_w20_mbe4_grad.mqc",
+        "n_jobs": len(jobs), "jobs": picked,
+        "energies": energies, "gradients": grads,
+    }
+    print(f"memory: w20 tetramers {time.time() - t1:.1f} s", flush=True)
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_port_common import jittered_trimers
+
+    e, g, _aux = FragmentExecutor(XtbCalculator(dtype=jnp.float64)).run(
+        jittered_trimers(), what="gradient")
+    golden["trimers"] = {"energies": np.asarray(e).tolist(),
+                         "gradients": [np.asarray(x).tolist() for x in g]}
+    golden["seconds"] = round(time.time() - t0, 1)
+    with open(MEMORY_PATH, "w") as fh:
+        json.dump(golden, fh, indent=1)
+        fh.write("\n")
 
 
 ELEMENTS_SPD_PATH = os.path.join(DATA, "port_golden_elements_spd.json")
