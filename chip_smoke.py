@@ -10,6 +10,19 @@ Phases (each raises on failure; nothing is caught):
              float64, and times all three at all but the last two, beside
              the kernel's bound (FLOP or bytes, whichever is larger) and its
              share of it;
+1b. fermi:   the Fermi-level fill kernel (csrc/fermi_fill.cu, built
+             beside the Jacobi kernel before phase 1, one nvcc each,
+             started together) against its plain torch version at the main
+             path's row shapes, (B, nao) = (512, 16) (the dimer slice),
+             (190, 16) and (20, 11) (the w20 MBE(2) buckets), (2581, 32)
+             and (5985, 32) (the w20 MBE(4) gradient and energy chunks) and
+             (41, 241) (a chunk of the 73-atom FD Hessian), each fragment
+             filled in two spin channels (2B rows), and at (3, 300) (a row
+             longer than the kernel keeps in registers), in float64 (max
+             |df| and max |d entropy| <= 1e-12) and float32 (1e-5 and
+             1e-4); seeded unsorted levels with padded AOs, nuhf 0, 1 and 2
+             and near-degenerate pairs at 300 K; times both at all but the
+             last, in turns, beside the kernel's bound (`fermi_bound`);
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -59,8 +72,9 @@ Phases (each raises on failure; nothing is caught):
              JSON through `python -m metalquicha_tpu_torch.io.prep` and
              `python -m metalquicha_tpu_torch`;
 8. gfn2:     GFN2 (multipole SCC, charge-scaled dispersion; it runs no
-             hand-written kernel, as in the JAX package, whose multipole
-             SCC always diagonalizes with the library's eigh) in float64
+             Jacobi kernel, as in the JAX package, whose multipole SCC
+             always diagonalizes with the library's eigh, but the Fermi
+             kernel in every filling) in float64
              against tests/data/port_golden_gfn2.json: the bench dimer batch
              (B = 512; the first 8 against the goldens; energies/s and
              gradients/s); the w20 MBE(2) list through FragmentExecutor with
@@ -75,8 +89,10 @@ Phases (each raises on failure; nothing is caught):
              wall and peak memory (the SCC of one tetramer does not
              converge in either package: the driver raises ConvergenceError
              after every fragment has been evaluated); the device
-             time of one multipole SCC iteration beside one GFN1 iteration
-             at (512, 16), from CUDA events;
+             time and the device kernels of one SCC iteration at (512,
+             16) on GFN1's exact and Jacobi routes and GFN2's multipole
+             route, and the Fermi launches per iteration
+             (`tools/scc_probe_torch.py`);
 9. polish:   the mixed-precision route (methods/xtb/polish.py). The w20
              MBE(2) list with gradients through (a) the float64 executor,
              (b) raw float32, (c) float32 + f64 polish with the exact
@@ -153,13 +169,15 @@ earlier commit's `csrc/jacobi_eigh.cu`, same C interface) with the same
 nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
-The kernel's launch counter and SP2's call counter are reset before
-phases 3-13; the first must grow in phases 3-6 (5b too), 9, 10 and 13 and both in
-phase 7, phase 8 must leave both as they are, and phase 12 the first.
-Diagnostics go to stdout; the line before the last but one is the
-kernel JSON line, the line before the last the card's name and power
-limit, and the last line `{"ok": true, "device": {...}}`. Exits non-zero,
-with no result, when CUDA is absent.
+The kernels' launch counters and SP2's call counter are reset before
+phases 3-13; the Jacobi kernel's must grow in phases 3-6 (5b too), 9, 10
+and 13 and both in phase 7, phase 8 must leave both as they are, and
+phase 12 the first; the Fermi kernel's must grow in every one of phases
+3-13, since each runs an SCC on the card (phase 10's worker processes'
+launches added). Diagnostics go to stdout; the line before the last but
+one is the kernels' JSON line, the line before the last the card's name
+and power limit, and the last line `{"ok": true, "device": {...}}`.
+Exits non-zero, with no result, when CUDA is absent.
 """
 
 from __future__ import annotations
@@ -172,6 +190,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -202,6 +221,19 @@ SWEEPS = 10             # jacobi_eigh's fixed sweep count
 # TFLOP/s outside them), FP32 outside the tensor cores, and HBM3
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# outside the tensor cores (NVIDIA data sheet): the Fermi fill's rates
+PEAK_VECTOR = {torch.float64: 34e12, torch.float32: 67e12}
+# (B fragments, nao) of the main path's Fermi fills, two rows each: the
+# dimer slice, the w20 MBE(2) buckets, the w20 MBE(4) gradient and energy
+# chunks, a chunk of the 73-atom FD Hessian; then checked only: a row
+# longer than the kernel keeps in registers
+FERMI_TIMED = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+               (41, 241))
+FERMI_SHAPES = FERMI_TIMED + ((3, 300),)
+FERMI_TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-4)}
+# operations per evaluation of CUDA's exp and log (a range reduction and a
+# polynomial): an estimate, not a count of the compiled code
+EXP_OPS = {torch.float64: 20, torch.float32: 8}
 # SP2: (B, N, real states), the first the shape bench.py times, and the
 # tolerance of tests/test_sp2.py's class per dtype
 SP2_SHAPES = ((64, 256, 240), (128, 96, 81))
@@ -222,6 +254,23 @@ def jacobi_bound(bsz: int, n: int, dtype):
     t_flop, t_bytes = flop / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_flop, t_bytes), ("operations" if t_flop >= t_bytes
                                         else "bytes")
+
+
+def fermi_bound(bsz: int, nao: int, dtype):
+    """(bound_ms, bound_by) of the Fermi fill of bsz fragments' two spin
+    channels: per row 81 fills of nao values, each a subtraction, a
+    division, a two-sided clamp, an exp, an add, a reciprocal and the
+    sum's add (7 operations and EXP_OPS), the min and the max, and the
+    entropy of the last fill (a clamp, two logs, 1 - f, two products, an
+    add, a sign, the window's two tests and the sum's add: 10 operations
+    and two EXP_OPS), at the vector rate; eps, the mask, nelec and nuhf
+    read once, f and the entropy written once."""
+    e = EXP_OPS[dtype]
+    ops = 2 * bsz * nao * (81 * (7 + e) + 2 + 10 + 2 * e)
+    nbytes = bsz * (3 * nao + 3) * torch.finfo(dtype).bits // 8
+    t_ops, t_bytes = ops / PEAK_VECTOR[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -265,8 +314,10 @@ def build_baseline(jac, source: str, out_dir: str) -> ctypes.CDLL:
     """Compile another version of the kernel source with the port's nvcc
     flags into out_dir and load it."""
     so = os.path.join(out_dir, "baseline.so")
-    subprocess.run([jac._nvcc(), *jac._NVCC_FLAGS, "-o", so, source],
-                   check=True)
+    from metalquicha_tpu_torch.ops import kernel_build
+
+    subprocess.run([kernel_build.nvcc(), *kernel_build.NVCC_FLAGS, "-o", so,
+                    source], check=True)
     lib = ctypes.CDLL(so)
     for name in ("mqc_jacobi_eigh_f32", "mqc_jacobi_eigh_f64"):
         fn = getattr(lib, name)
@@ -346,6 +397,94 @@ def kernel_phase(jac, rng, base_lib=None):
                 check(val <= tol, f"kernel {what} {val:.3e} > {tol:.1e} "
                                   f"at B={bsz} N={n} {dtype}")
             worst = max(worst, d_plain)
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def fermi_inputs(rng, bsz: int, nao: int, dtype):
+    """A batch for the Fermi fill: (eps, nelec, nuhf, ao_mask) on the card.
+    Every third fragment padded to two thirds of its AOs, nuhf 0, 1 and 2
+    in turn, nelec = 2 floor(n_real / 3) + nuhf; the lowest ceil(nelec / 2)
+    levels in [-1.1, -0.5] Ha, the others 0.3 Ha higher or more, but every
+    fifth fragment's lowest empty level 1e-4 Ha above its highest occupied
+    one (fractional occupations at 300 K); padded AOs at +10 Ha; each row
+    in a random order, as the Jacobi route leaves it."""
+    pos = np.arange(nao)[None, :]
+    n_real = np.where(np.arange(bsz) % 3 == 0, (2 * nao) // 3, nao)[:, None]
+    nuhf = np.arange(bsz) % 3.0
+    nelec = 2.0 * np.floor(n_real[:, 0] / 3.0) + nuhf
+    n_occ = np.ceil(nelec / 2.0)[:, None]
+    u = rng.uniform(0.0, 0.6, size=(bsz, nao))
+    eps = np.where(pos < n_occ, -u, 0.3 + u) - 0.5
+    homo = np.where(pos < n_occ, eps, -np.inf).max(1)
+    near = (np.arange(bsz) % 5 == 0)[:, None] & (pos == n_occ)
+    eps = np.where(near, homo[:, None] + 1e-4, eps)
+    eps = np.where(pos < n_real, eps, 10.0)
+    mask = (pos < n_real).astype(float)
+    perm = np.argsort(rng.random((bsz, nao)), axis=1)
+    eps = np.take_along_axis(eps, perm, 1)
+    mask = np.take_along_axis(mask, perm, 1)
+    return [torch.tensor(x, dtype=dtype, device=DEVICE)
+            for x in (eps, nelec, nuhf, mask)]
+
+
+def fermi_phase(ff, rng):
+    """The Fermi kernel against its plain version: max |df| and max |d
+    entropy| at every shape, both timed at FERMI_TIMED beside the bound.
+    Returns the JSON entry's numbers: times at the slice's (512, 16) in
+    float64, the largest float64 difference over every shape."""
+    from metalquicha_tpu_torch.constants import KB_HARTREE
+
+    kt = 300.0 * KB_HARTREE
+    worst = 0.0
+    entry = {}
+    for dtype in (torch.float64, torch.float32):
+        tol_f, tol_s = FERMI_TOL[dtype]
+        for bsz, nao in FERMI_SHAPES:
+            args = fermi_inputs(rng, bsz, nao, dtype)
+            eps, nelec, nuhf, mask = args
+
+            def kernel():
+                return ff.fermi_occupations(eps, nelec, nuhf, kt, mask)
+
+            def plain():
+                return ff.fermi_occupations_reference(eps, nelec, nuhf, kt,
+                                                      mask)
+
+            f_k, s_k = kernel()
+            f_p, s_p = plain()
+            torch.cuda.synchronize()
+            d_f = float((f_k - f_p).abs().max())
+            d_s = float((s_k - s_p).abs().max())
+            n_el = float((f_k.sum(1) - nelec).abs().max())
+            frac = int(((f_k > 1e-3) & (f_k < 2 - 1e-3)
+                        & ((f_k - 1).abs() > 1e-3)).any(1).sum())
+            line = (f"fermi {str(dtype)[6:]} B={bsz} nao={nao} (rows "
+                    f"{2 * bsz}): max|df|={d_f:.2e} max|ds|={d_s:.2e} "
+                    f"|sum f - nelec|={n_el:.2e} fractional rows={frac}")
+            if (bsz, nao) in FERMI_TIMED:
+                t_p = cuda_ms(plain, 3)
+                t_k = cuda_ms(kernel, 50)
+                t_k2 = cuda_ms(kernel, 50)
+                t_p2 = cuda_ms(plain, 3)
+                t_k, t_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
+                bound, bound_by = fermi_bound(bsz, nao, dtype)
+                line += (f" | ms: kernel={t_k:.4f} plain={t_p:.4f} "
+                         f"bound={bound:.5f} ({bound_by}) "
+                         f"share={bound / t_k:.4f} library=none")
+                if dtype == torch.float64 and (bsz, nao) == (512, 16):
+                    entry = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                             "bound_by": bound_by, "library_ms": None}
+            print(line, flush=True)
+            check(d_f <= tol_f and d_s <= tol_s,
+                  f"fermi kernel vs plain {d_f:.3e} / {d_s:.3e} > "
+                  f"{tol_f:.0e} / {tol_s:.0e} at B={bsz} nao={nao} {dtype}")
+            finite = bool(torch.isfinite(f_k).all()
+                          and torch.isfinite(s_k).all())
+            check(finite, f"fermi kernel: non-finite output at B={bsz} "
+                          f"nao={nao}")
+            if dtype == torch.float64:
+                worst = max(worst, d_f, d_s)
     entry["max_abs_err"] = worst
     return entry
 
@@ -768,55 +907,19 @@ def validation_phase(jac, golden_full):
 
 
 def scc_iteration_ms():
-    """Device ms of one SCC iteration at (512, 16), GFN1 (exact in-loop
-    eigh, the multipole route's eigensolver) and GFN2, from CUDA events
-    around whole 32-iteration solves on prebuilt operands; and the device
-    kernels one multipole iteration launches, from torch.profiler (None
-    where the profiler shows no device activity)."""
-    from metalquicha_tpu_torch.constants import KB_HARTREE
-    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
-    from metalquicha_tpu_torch.methods.xtb import engine
-    from metalquicha_tpu_torch.workloads import bench_dimers
+    """Device ms and device kernels of one SCC iteration at (512, 16) on
+    GFN1's exact and Jacobi routes and GFN2's multipole route, and the
+    Fermi launches per iteration (`tools/scc_probe_torch.py`)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import scc_probe_torch
 
-    kt = 300.0 * KB_HARTREE
-    iters = 32
-    out = {}
-    for variant in ("gfn1", "gfn2"):
-        settings = engine.settings_from_params(variant, max_scf_iter=iters)
-        calc = tcalc.XtbCalculator(settings, variant=variant, device=DEVICE)
-        frag = calc.make_batch(bench_dimers(512))
-        with torch.no_grad():
-            S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag, settings)
-
-            def solve(st=settings):
-                if mp is None:
-                    return engine.scf_solve(H0, S, gamma, frag, kt, st)
-                return engine.scf_solve_multipole(
-                    H0, S, frag.coords, gamma, frag, kt, st, None, mp)
-
-            out[variant] = cuda_ms(solve, 3) / iters
-            if mp is not None:
-                from torch.profiler import ProfilerActivity, profile
-
-                few = settings._replace(max_scf_iter=4)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    solve(few)
-                    torch.cuda.synchronize()
-                n4 = sum(ev.count for ev in prof.key_averages()
-                         if ev.device_type == torch.autograd.DeviceType.CUDA)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    solve(few._replace(max_scf_iter=8))
-                    torch.cuda.synchronize()
-                n8 = sum(ev.count for ev in prof.key_averages()
-                         if ev.device_type == torch.autograd.DeviceType.CUDA)
-                out["launches_per_iteration"] = (
-                    (n8 - n4) / 4.0 if n8 > n4 > 0 else None)
-    return out
+    return scc_probe_torch.iteration_costs(DEVICE)
 
 
 def gfn2_phase(jac, golden):
     """GFN2 against the JAX package's frozen float64 results, on the card.
-    It launches no Jacobi kernel and makes no SP2 call."""
+    It launches no Jacobi kernel and makes no SP2 call, but the Fermi
+    kernel in every filling."""
     from metalquicha_tpu_torch.driver import read_mqc_file, run_calculation
     from metalquicha_tpu_torch.errors import ConvergenceError
     from metalquicha_tpu_torch.constants import BOHR_TO_ANGSTROM
@@ -839,7 +942,9 @@ def gfn2_phase(jac, golden):
         w20_mbe2_fragments,
     )
 
-    n_j, n_s = jac.launches, sp2.calls
+    from metalquicha_tpu_torch.ops import fermi_fill as ff
+
+    n_j, n_s, n_f = jac.launches, sp2.calls, ff.launches
     gd = golden["bench_dimers"]
     settings = settings_from_params("gfn2", max_scf_iter=gd["max_scf_iter"])
     calc = XtbCalculator(settings, variant="gfn2", dtype=torch.float64,
@@ -989,15 +1094,26 @@ def gfn2_phase(jac, golden):
     print(f"gfn2 driver w20_mbe4 (6195 fragments): wall={t:.3f} s "
           f"peak={peak:.2f} GiB {outcome}", flush=True)
 
-    it = scc_iteration_ms()
-    per = it["launches_per_iteration"]
-    print(f"gfn2 SCC iteration at (512, 16), device ms: multipole="
-          f"{it['gfn2']:.3f} gfn1={it['gfn1']:.3f} ratio="
-          f"{it['gfn2'] / it['gfn1']:.2f}; device kernels per multipole "
-          f"iteration: {'not measured' if per is None else f'{per:.0f}'}",
-          flush=True)
+    n_j2, n_s2 = jac.launches, sp2.calls
+    for route, it in scc_iteration_ms().items():
+        per = it["kernels_per_iteration"]
+        busy = it["busy_ms_per_iteration"]
+        host = {k: round(v, 4) for k, v in it["host_ms_per_iteration"].items()}
+        print(f"scc iteration at (512, 16), {route}: device ms="
+              f"{it['ms_per_iteration']:.4f} device kernels="
+              f"{'not measured' if per is None else f'{per:.2f}'} busy ms="
+              f"{'not measured' if busy is None else f'{busy:.4f}'} "
+              f"fermi launches={it['fermi_per_iteration']} host ms {host} "
+              f"top kernels {it['top_kernels']}", flush=True)
+        check(it["fermi_per_iteration"] == 1.0,
+              f"{route}: {it['fermi_per_iteration']} Fermi launches per SCC "
+              f"iteration, not 1")
+    # the GFN1 routes' own launches are not the GFN2 path's
+    n_j += jac.launches - n_j2
+    n_s += sp2.calls - n_s2
     check(jac.launches == n_j and sp2.calls == n_s,
           "the GFN2 path launched the Jacobi kernel or called SP2")
+    check(ff.launches > n_f, "the GFN2 path launched no Fermi kernel")
     return 0
 
 
@@ -1708,6 +1824,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    from metalquicha_tpu_torch.ops import fermi_fill as ff
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
     from metalquicha_tpu_torch.ops import sp2
 
@@ -1723,9 +1840,29 @@ def main() -> int:
     with open(GOLDEN_GFN2) as fh:
         golden_gfn2 = json.load(fh)
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    jac.build()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
+    built = {}
+
+    def build(name, mod):
+        t = time.perf_counter()
+        try:
+            mod.build()
+            built[name] = time.perf_counter() - t
+        except Exception as exc:  # raised below, on this thread
+            built[name] = exc
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in (("jacobi_eigh", jac), ("fermi_fill", ff))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name, res in built.items():
+        if isinstance(res, Exception):
+            raise res
+    print(f"kernel builds: {time.perf_counter() - t0:.2f} s in all "
+          + " ".join(f"{k}={v:.2f} s" for k, v in built.items()), flush=True)
     rng = np.random.default_rng(0)
     if args.baseline:
         with tempfile.TemporaryDirectory() as tmp:
@@ -1733,14 +1870,18 @@ def main() -> int:
                                                           tmp))
     else:
         entry = kernel_phase(jac, rng)
+    t0 = time.perf_counter()
+    fermi_entry = fermi_phase(ff, rng)
+    print(f"phase fermi: {time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
     sp2_phase(rng)
     print(f"phase sp2: {time.perf_counter() - t0:.2f} s", flush=True)
 
     jac.launches = 0
+    ff.launches = 0
     sp2.calls = 0
-    phases = {}
+    phases, fermi = {}, {}
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
@@ -1756,8 +1897,12 @@ def main() -> int:
                              "gfn2": golden_gfn2}),
                            ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
+        f0 = ff.launches
         phases[name] = fn(jac, gold)
-        print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+        fermi[name] = ff.launches - f0
+        print(f"phase {name}: {time.perf_counter() - t0:.2f} s, "
+              f"{fermi[name]} Fermi launches", flush=True)
+        check(fermi[name] > 0, f"the {name} phase launched no Fermi kernel")
     launches = jac.launches
     check(launches > 0, "the main path launched no Jacobi kernel")
     check(phases["polish"] > 0, "the polish phase launched no Jacobi kernel")
@@ -1765,6 +1910,7 @@ def main() -> int:
     check(sp2.calls > 0, "the main path never went through SP2")
     print(f"main path: jacobi launches={launches} {phases} "
           f"sp2 calls={sp2.calls}", flush=True)
+    print(f"main path: fermi launches={ff.launches} {fermi}", flush=True)
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "metalquicha_tpu"))
     check(not jax_side, f"the port loaded {jax_side}")
@@ -1783,6 +1929,18 @@ def main() -> int:
         "bound_ms": entry["bound_ms"],
         "bound_by": entry["bound_by"],
         "library_ms": entry["library_ms"],
+    }, {
+        "name": "fermi_fill",
+        "route": "cuda",
+        "source": "metalquicha_tpu_torch/csrc/fermi_fill.cu",
+        "replaces": "metalquicha_tpu/methods/xtb/engine.py:324",
+        "launches": ff.launches,
+        "max_abs_err": fermi_entry["max_abs_err"],
+        "ms": fermi_entry["ms"],
+        "plain_ms": fermi_entry["plain_ms"],
+        "bound_ms": fermi_entry["bound_ms"],
+        "bound_by": fermi_entry["bound_by"],
+        "library_ms": fermi_entry["library_ms"],
     }]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
-"""Persistent build cache of the port's compiled kernel.
+"""Persistent build cache of the port's compiled kernels.
 
 Counterpart of metalquicha_tpu's `compile_cache.py`, which points JAX's
 persistent XLA cache at a directory. What the port compiles is the nvcc
-build of `csrc/jacobi_eigh.cu` (seconds, at the first launch of a process
-that finds no finished build), so `enable()` directs the directory that
-build is kept in, `ops.jacobi_eigh._BUILD_DIR`: every later process finds
-the shared object there, keyed by a hash of the source and the flags.
+build of each source in `csrc/` (seconds, at the first launch of a
+process that finds no finished build), so `enable()` directs the
+directory those builds are kept in, `ops.kernel_build.BUILD_DIR`: every
+later process finds the shared objects there, keyed by a hash of the
+source and the flags.
 
 Call `enable()` BEFORE the first kernel launch (safe to call repeatedly; a
 library that is already loaded stays loaded). The directory defaults to
@@ -27,10 +28,10 @@ _DEFAULT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 
 def enable(path: str | None = None) -> None:
-    from .ops import jacobi_eigh
+    from .ops import kernel_build
 
     target = path or os.environ.get("MQC_COMPILE_CACHE") or _DEFAULT
     if target == "0":
         target = tempfile.mkdtemp(prefix="mqc_build_")
         atexit.register(shutil.rmtree, target, ignore_errors=True)
-    jacobi_eigh._BUILD_DIR = Path(target)
+    kernel_build.BUILD_DIR = Path(target)

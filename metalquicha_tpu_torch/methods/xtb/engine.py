@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...ops.fermi_fill import fermi_occupations
 from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
 from ...ops.jacobi_eigh import jacobi_eigh
 from ...ops.sp2 import sp2_density
@@ -325,30 +326,6 @@ def gamma_matrix(coords, batch, settings: EngineSettings):
 # ---------------------------------------------------------------------------
 
 
-def _fermi_fill(eps, n_el, kt, ao_mask):
-    """Fermi occupations (one spin channel, occupancy in [0,1]) + entropy,
-    for a batch: eps (B, nao), n_el (B,). 80 bisection steps on mu."""
-    big = 1.0e3
-    e = torch.where(ao_mask > 0.5, eps, big)
-
-    def occ(mu):
-        x = torch.clamp((e - mu[:, None]) / kt, -60.0, 60.0)
-        return 1.0 / (1.0 + torch.exp(x))
-
-    lo = e.min(-1).values - 10.0
-    hi = torch.where(ao_mask > 0.5, e, -big).max(-1).values + 10.0
-    for _ in range(80):
-        mid = 0.5 * (lo + hi)
-        too_many = occ(mid).sum(-1) > n_el
-        lo = torch.where(too_many, lo, mid)
-        hi = torch.where(too_many, mid, hi)
-    f = occ(0.5 * (lo + hi))
-    fc = torch.clamp(f, 1.0e-30, 1.0 - 1.0e-30)
-    entropy = -(fc * torch.log(fc) + (1 - fc) * torch.log(1 - fc))
-    entropy = torch.where((f > 1e-12) & (f < 1.0 - 1e-12), entropy, 0.0)
-    return f, entropy.sum(-1)
-
-
 def _aufbau_fill(eps, n_el, ao_mask):
     """Integer/aufbau filling of one spin channel."""
     big = 1.0e3
@@ -361,15 +338,16 @@ def _aufbau_fill(eps, n_el, ao_mask):
 def occupations(eps, nelec, nuhf, kt, ao_mask, fixed: bool):
     """Two-channel filling; returns (f_total in [0,2] (B, nao), entropy (B,)).
 
-    The alpha and beta channels are filled in one call on a (2B, nao)
-    stack; each row is independent, so this equals two separate fills."""
+    The Fermi filling is `ops/fermi_fill.py` (the CUDA kernel on a card,
+    its plain version on the CPU). The aufbau filling fills the alpha and
+    beta channels in one call on a (2B, nao) stack; each row is
+    independent, so this equals two separate fills."""
+    if not fixed:
+        return fermi_occupations(eps, nelec, nuhf, kt, ao_mask)
     n_ch = torch.cat([0.5 * (nelec + nuhf), 0.5 * (nelec - nuhf)])
     eps2 = torch.cat([eps, eps])
     mask2 = torch.cat([ao_mask, ao_mask])
-    if fixed:
-        f2, s2 = _aufbau_fill(eps2, n_ch, mask2)
-    else:
-        f2, s2 = _fermi_fill(eps2, n_ch, kt, mask2)
+    f2, s2 = _aufbau_fill(eps2, n_ch, mask2)
     bsz = eps.shape[0]
     return f2[:bsz] + f2[bsz:], s2[:bsz] + s2[bsz:]
 

@@ -4,7 +4,7 @@ Counterpart of metalquicha_tpu's `ops/jacobi_eigh.py` (the Pallas kernel
 `_jacobi_kernel` behind `batched_jacobi_eigh`). The kernel is CUDA C++ for
 sm_90a in `csrc/jacobi_eigh.cu`, compiled with nvcc at first use into
 `metalquicha_tpu_torch/_build/` (keyed by a hash of the source) and bound
-through its plain C interface with ctypes.
+through its plain C interface with ctypes (`ops/kernel_build.py`).
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the kernel (or
 raises), a CPU tensor to `jacobi_eigh_reference`, the plain torch version
@@ -17,16 +17,12 @@ depend on their order.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from .kernel_build import KernelLibrary
 
 #: largest matrix dimension the kernel takes (A and V in shared memory)
 MAX_N = 64
@@ -37,18 +33,12 @@ launches = 0
 #: which streams of this process ran the kernel
 launches_by_stream: dict = {}
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "jacobi_eigh.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-_lib = None
-#: guards the build (one nvcc run and one load however many threads make
-#: the first call) and the launch counts
-_build_lock = threading.Lock()
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_LIB = KernelLibrary("jacobi_eigh", {
+    name: [_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr]
+    for name in ("mqc_jacobi_eigh_f32", "mqc_jacobi_eigh_f64")
+})
+#: guards the launch counts
 _count_lock = threading.Lock()
 
 
@@ -110,62 +100,10 @@ def jacobi_eigh_reference(a: torch.Tensor, sweeps: int):
     return torch.diagonal(A, dim1=-2, dim2=-1).clone(), V
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the Jacobi kernel cannot be built")
-
-
 def build() -> ctypes.CDLL:
     """Compile the kernel (once per source hash) and load it; safe to call
     from several threads at once."""
-    if _lib is not None:
-        return _lib
-    with _build_lock:
-        if _lib is None:
-            _build_and_load()
-    return _lib
-
-
-def _build_and_load() -> None:
-    global _lib
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"jacobi_eigh-{key[:16]}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                capture_output=True, text=True, check=False,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
-                    f"{proc.stderr}"
-                )
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so))
-    for name, ptr in (("mqc_jacobi_eigh_f32", ctypes.c_void_p),
-                      ("mqc_jacobi_eigh_f64", ctypes.c_void_p)):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.mqc_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mqc_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    return _LIB.load()
 
 
 def _count(stream: int) -> None:
@@ -197,9 +135,7 @@ def _launch(a: torch.Tensor, sweeps: int):
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(a.data_ptr(), w.data_ptr(), v.data_ptr(), bsz, n, sweeps,
              a.device.index, stream)
-    if err != 0:
-        msg = lib.mqc_cuda_error_string(err).decode()
-        raise RuntimeError(f"Jacobi kernel launch failed: {msg} ({err})")
+    _LIB.check(err, "Jacobi kernel")
     _count(stream)
     return w, v
 

@@ -21,11 +21,12 @@ CUDA context on the slot's device), which builds its piece's batch with
 `make_batch`, evaluates it with its own copy of the calculator, polishes
 it and sends the results back as host arrays; the caller joins them in
 mesh order. The workers start at the first chunk of such a mesh, after
-the caller has built the Jacobi kernel where they will launch it (each
-loads that build), live as long as the executor, across chunks and `run`
-calls, and stop in `close()` (or when the executor is collected, or the
-process exits). Their Jacobi launches and SP2 calls are added to the
-caller's counts (`ops/jacobi_eigh.launches`, `ops/sp2.calls`).
+the caller has built the kernels they will launch (each loads that
+build), live as long as the executor, across chunks and `run` calls, and
+stop in `close()` (or when the executor is collected, or the process
+exits). Their Jacobi and Fermi launches and SP2 calls are added to the
+caller's counts (`ops/jacobi_eigh.launches`, `ops/fermi_fill.launches`,
+`ops/sp2.calls`).
 
 What a worker computes with is sent, not shared: the calculator's
 variant, settings, dtype and solvation model, the polisher's k, the
@@ -81,7 +82,7 @@ from ..logging_ import global_logger as logger
 from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
 from ..methods.xtb.multipole import work_elements as multipole_work_elements
-from ..ops import jacobi_eigh
+from ..ops import fermi_fill, jacobi_eigh
 from . import slot_worker
 from .mesh import fragment_mesh, shard_leading_axis
 from .slot_worker import evaluate_piece
@@ -378,9 +379,11 @@ class FragmentExecutor:
         """Every slot's piece at once, each in its worker; the results in
         mesh order."""
         config = slot_worker.configuration(self.calc, self.polisher)
-        if (self.calc.settings.use_pallas_eigh
-                and any(d.type == "cuda" for d in self.mesh.flat)):
-            jacobi_eigh.build()  # here, before any worker loads it
+        # here, before any worker loads them
+        if any(d.type == "cuda" for d in self.mesh.flat):
+            fermi_fill.build()
+            if self.calc.settings.use_pallas_eigh:
+                jacobi_eigh.build()
         if [w.device for w in self.workers] != self.mesh.flat:
             self.close()
             self._start_workers(config)

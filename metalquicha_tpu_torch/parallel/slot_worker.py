@@ -17,23 +17,24 @@ answer per message:
 - ("start", device, threads, config): the worker sets its torch thread
   count, installs the configuration (`configuration`: the calculator's
   variant, settings, dtype and solvation model's class and fields, the
-  polisher's k or None, the kernel's build directory and the host
+  polisher's k or None, the kernels' build directory and the host
   parameter tables of `parameter_state`), builds its own `XtbCalculator`
-  on its device and its own `HostPolisher` from them and, on a card on
-  the kernel's route, loads the kernel the parent built. No tensor or
-  object of the parent crosses. Answers with its statistics (peak device
-  memory, loaded packages, build directory).
+  on its device and its own `HostPolisher` from them and, on a card,
+  loads the kernels the parent built (the Fermi fill; the Jacobi kernel
+  on its route). No tensor or object of the parent crosses. Answers with
+  its statistics (peak device memory, loaded packages, build
+  directory).
 - ("piece", config or None, tuples, pad_to, what, run, sharing):
   installs the configuration if the parent sent a new one (a run-time
   `load_overlay`, a fit that moved a table, new settings), builds the
   piece's batch from the fragment tuples with `make_batch` on its device,
   evaluates and polishes it (`evaluate_piece`) and answers with host
   arrays (e, g or None, dipole, charges, residual), its statistics and
-  the Jacobi launches and SP2 calls the piece made. On a card the piece
-  is evaluated in parts of at most as many fragments as the device's
-  byte budget holds (`executor.device_budget`, taken once per parent's
-  `run` number and split between the `sharing` slots on the device;
-  `executor.fragment_bytes`, `executor.byte_cap`).
+  the Jacobi and Fermi launches and SP2 calls the piece made. On a card
+  the piece is evaluated in parts of at most as many fragments as the
+  device's byte budget holds (`executor.device_budget`, taken once per
+  parent's `run` number and split between the `sharing` slots on the
+  device; `executor.fragment_bytes`, `executor.byte_cap`).
 - None, or the parent's end closing: the worker exits.
 
 An exception in the worker answers with the exception, its traceback
@@ -152,7 +153,7 @@ def _solvation_spec(solvation):
 def configuration(calc, polisher) -> bytes:
     """Everything a worker builds its calculator and polisher from,
     pickled: equal bytes mean an equal configuration."""
-    from ..ops import jacobi_eigh
+    from ..ops import kernel_build
 
     return pickle.dumps({
         "variant": calc.variant,
@@ -160,7 +161,7 @@ def configuration(calc, polisher) -> bytes:
         "dtype": calc.dtype,
         "solvation": _solvation_spec(calc.solvation),
         "polish_k": None if polisher is None else polisher.k,
-        "build_dir": str(jacobi_eigh._BUILD_DIR),
+        "build_dir": str(kernel_build.BUILD_DIR),
         "state": parameter_state(),
     })
 
@@ -176,11 +177,11 @@ class WorkerExited(RuntimeError):
 class SlotWorker:
     """The parent's handle on one slot's worker process.
 
-    `launches` and `sp2_calls` count the Jacobi launches and SP2 calls the
-    worker has made, `peak_bytes` is its peak device memory (0 on the
-    CPU), `modules` the top-level packages loaded in it, `build_dir` the
-    directory it loads the kernel from, `startup_s` the seconds from its
-    start to its first answer."""
+    `launches`, `fermi_launches` and `sp2_calls` count the Jacobi and
+    Fermi launches and SP2 calls the worker has made, `peak_bytes` is its
+    peak device memory (0 on the CPU), `modules` the top-level packages
+    loaded in it, `build_dir` the directory it loads the kernels from,
+    `startup_s` the seconds from its start to its first answer."""
 
     def __init__(self, index: int, device):
         self.index = index
@@ -193,6 +194,7 @@ class SlotWorker:
         self.startup_s = None
         self.answered_at = None
         self.launches = 0
+        self.fermi_launches = 0
         self.sp2_calls = 0
         self.peak_bytes = 0
         #: the byte budget of its last piece (None off a card) and the
@@ -235,15 +237,17 @@ class SlotWorker:
     def record(self, stats: dict) -> None:
         """Take a piece's statistics: its counts into this handle's and
         this process's counters."""
-        from ..ops import jacobi_eigh, sp2
+        from ..ops import fermi_fill, jacobi_eigh, sp2
 
         self.launches += stats["launches"]
+        self.fermi_launches += stats["fermi_launches"]
         self.sp2_calls += stats["sp2_calls"]
         self.peak_bytes = max(self.peak_bytes, stats["peak_bytes"])
         self.budget_bytes = stats["budget_bytes"]
         self.parts = stats["parts"]
         self.modules, self.build_dir = stats["modules"], stats["build_dir"]
         jacobi_eigh.add_launches(stats["launches"])
+        fermi_fill.add_launches(stats["fermi_launches"])
         sp2.add_calls(stats["sp2_calls"])
 
     def exited(self) -> WorkerExited:
@@ -369,11 +373,11 @@ class _Slot:
     def configure(self, config: bytes) -> None:
         from ..methods.xtb.calculator import XtbCalculator
         from ..methods.xtb.polish import HostPolisher
-        from ..ops import jacobi_eigh
+        from ..ops import fermi_fill, jacobi_eigh, kernel_build
 
         cfg = pickle.loads(config)
         install_parameter_state(cfg["state"])
-        jacobi_eigh._BUILD_DIR = Path(cfg["build_dir"])
+        kernel_build.BUILD_DIR = Path(cfg["build_dir"])
         solvation = cfg["solvation"]
         if solvation is not None:
             cls, fields = solvation
@@ -382,8 +386,11 @@ class _Slot:
                                   cfg["dtype"], self.device, solvation)
         self.polisher = (None if cfg["polish_k"] is None
                          else HostPolisher(self.calc, cfg["polish_k"]))
-        if self.device.type == "cuda" and cfg["settings"].use_pallas_eigh:
-            jacobi_eigh.build()  # the parent's build: loaded, not compiled
+        # the parent's builds: loaded, not compiled
+        if self.device.type == "cuda":
+            fermi_fill.build()
+            if cfg["settings"].use_pallas_eigh:
+                jacobi_eigh.build()
 
     def _cap(self, tuples, pad_to, what, run, sharing) -> int:
         """Most fragments of this piece evaluated at once: all of them,
@@ -401,11 +408,12 @@ class _Slot:
         return byte_cap(self.budget, per, pad_to, nprim, what)
 
     def evaluate(self, config, tuples, pad_to, what, run, sharing):
-        from ..ops import jacobi_eigh, sp2
+        from ..ops import fermi_fill, jacobi_eigh, sp2
 
         if config is not None:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
+        m0 = fermi_fill.launches
         cap = self._cap(tuples, pad_to, what, run, sharing)
         outs = []
         for start in range(0, len(tuples), cap):
@@ -417,16 +425,17 @@ class _Slot:
         parts = outs[0] if len(outs) == 1 else tuple(
             None if p[0] is None else np.concatenate(p) for p in zip(*outs))
         return parts, dict(self.stats(), launches=jacobi_eigh.launches - n0,
+                           fermi_launches=fermi_fill.launches - m0,
                            sp2_calls=sp2.calls - s0, parts=len(outs))
 
     def stats(self) -> dict:
-        from ..ops import jacobi_eigh
+        from ..ops import kernel_build
 
         peak = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else 0)
         return {"peak_bytes": int(peak), "budget_bytes": self.budget,
                 "modules": sorted({m.split(".")[0] for m in sys.modules}),
-                "build_dir": str(jacobi_eigh._BUILD_DIR)}
+                "build_dir": str(kernel_build.BUILD_DIR)}
 
 
 def _answer(slot, msg):

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from metalquicha_tpu_torch.ops import jacobi_eigh as jac
+from metalquicha_tpu_torch.ops import kernel_build
 
 torch.set_num_threads(1)
 
@@ -110,10 +111,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 def test_failed_build_raises(tmp_path, monkeypatch):
     bad = tmp_path / "bad.cu"
     bad.write_text("not cuda\n")
-    monkeypatch.setattr(jac, "_lib", None)
-    monkeypatch.setattr(jac, "_SOURCE", bad)
-    monkeypatch.setattr(jac, "_BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(jac, "_nvcc", lambda: "false")  # a compiler that fails
+    monkeypatch.setattr(jac._LIB, "lib", None)
+    monkeypatch.setattr(jac._LIB, "source", bad)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
+    # a compiler that fails
+    monkeypatch.setattr(kernel_build, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         jac.build()
     assert not list((tmp_path / "build").glob("*.so"))

@@ -48,7 +48,9 @@ from metalquicha_tpu_torch.methods.xtb import params_gfn1
 from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
 from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
 from metalquicha_tpu_torch.methods.xtb.polish import HostPolisher
+from metalquicha_tpu_torch.ops import fermi_fill
 from metalquicha_tpu_torch.ops import jacobi_eigh as jac
+from metalquicha_tpu_torch.ops import kernel_build
 from metalquicha_tpu_torch.ops import sp2
 from metalquicha_tpu_torch.parallel import executor as executor_mod
 from metalquicha_tpu_torch.parallel import slot_worker
@@ -455,10 +457,13 @@ def test_gradients_do_not_depend_on_the_callers_grad_mode(slots, n):
         assert np.abs(a - b).max() <= 1e-12
 
 
-def test_a_slots_exception_reaches_the_caller():
+def test_a_slots_exception_reaches_the_caller(monkeypatch):
     """A device only the worker refuses (the CPU has no card; a card has
     no device of the next index): the worker's start fails, and the
-    caller raises with the slot's index and device."""
+    caller raises with the slot's index and device. (The caller builds
+    the Fermi kernel for a mesh with a card before any worker starts;
+    the CPU has no compiler, so that build is taken as done.)"""
+    monkeypatch.setattr(fermi_fill, "build", lambda: None)
     card = torch.device("cuda", torch.cuda.device_count())
     ex = FragmentExecutor(XtbCalculator(device="cpu"),
                           mesh=fragment_mesh(["cpu", card]), timeout=TIMEOUT)
@@ -572,21 +577,24 @@ def test_workers_load_the_callers_kernel_build(slots, monkeypatch,
     calc = XtbCalculator(device="cpu")
     ex = slots(2, calc)
     ex.close()
-    monkeypatch.setattr(jac, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path)
     ex.run(water_fragments(2), what="energy")
     assert [w.build_dir for w in ex.workers] == [str(tmp_path)] * 2
-    monkeypatch.setattr(jac, "_BUILD_DIR", tmp_path / "later")
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "later")
     ex.run(water_fragments(2), what="energy")
     assert [w.build_dir for w in ex.workers] == [str(tmp_path / "later")] * 2
 
 
 def test_the_kernel_is_built_before_any_worker_starts(monkeypatch):
-    """With a card among the slots and the kernel's route on, the caller
-    builds the kernel before it starts a worker, so the workers only load
-    it (here the card's slot then fails to start: the CPU has no card,
-    and a card no device of the next index)."""
+    """With a card among the slots and the Jacobi kernel's route on, the
+    caller builds the Fermi and the Jacobi kernels before it starts a
+    worker, so the workers only load them (here the card's slot then fails
+    to start: the CPU has no card, and a card no device of the next
+    index)."""
     events = []
     monkeypatch.setattr(jac, "build", lambda: events.append("build"))
+    monkeypatch.setattr(fermi_fill, "build",
+                        lambda: events.append("build fermi"))
     popen = slot_worker.subprocess.Popen
 
     def record(*args, **kwargs):
@@ -601,7 +609,7 @@ def test_the_kernel_is_built_before_any_worker_starts(monkeypatch):
                           timeout=TIMEOUT)
     with pytest.raises(RuntimeError, match=rf"mesh slot 1 \({card}\)"):
         ex.run(water_fragments(2), what="energy")
-    assert events == ["build", "start", "start"]
+    assert events == ["build fermi", "build", "start", "start"]
     assert ex.workers == []
 
 
@@ -626,11 +634,11 @@ def test_kernel_build_runs_once_from_four_threads(monkeypatch, tmp_path):
                          "mqc_cuda_error_string"):
                 setattr(self, name, types.SimpleNamespace())
 
-    monkeypatch.setattr(jac, "_lib", None)
-    monkeypatch.setattr(jac, "_BUILD_DIR", tmp_path)
-    monkeypatch.setattr(jac, "_nvcc", lambda: "fake-nvcc")
-    monkeypatch.setattr(jac.subprocess, "run", fake_run)
-    monkeypatch.setattr(jac.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(jac._LIB, "lib", None)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernel_build, "nvcc", lambda: "fake-nvcc")
+    monkeypatch.setattr(kernel_build.subprocess, "run", fake_run)
+    monkeypatch.setattr(kernel_build.ctypes, "CDLL", FakeLib)
     barrier = threading.Barrier(4)
     libs = []
 

@@ -35,7 +35,7 @@ from metalquicha_tpu_torch.methods.factory import create_calculator
 from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
 from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
 from metalquicha_tpu_torch.methods.xtb.param_fit import FragmentSpec, theta_init
-from metalquicha_tpu_torch.ops import jacobi_eigh
+from metalquicha_tpu_torch.ops import kernel_build
 from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
 from metalquicha_tpu_torch.parallel.mesh import fragment_mesh
 from metalquicha_tpu_torch.workloads import (
@@ -116,7 +116,7 @@ from metalquicha_tpu_torch.methods.xtb.calculator import single_point_energy
 from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
 from metalquicha_tpu_torch.methods.xtb.param_fit import FragmentSpec, theta_init
 from metalquicha_tpu_torch.methods.xtb.polish import HostPolisher
-from metalquicha_tpu_torch.ops import jacobi_eigh
+from metalquicha_tpu_torch.ops import kernel_build
 from metalquicha_tpu_torch.parallel.mesh import fragment_mesh
 global_logger.set_level("warning")
 compile_cache.enable(sys.argv[2])
@@ -146,7 +146,7 @@ print(json.dumps({"loaded": loaded, "polisher": type(ex.polisher).__name__,
                   "polished": polished[""].result.total_energy,
                   "raw": raw[""].result.total_energy,
                   "grad_finite": bool(torch.isfinite(g).all()),
-                  "build_dir": str(jacobi_eigh._BUILD_DIR)}))
+                  "build_dir": str(kernel_build.BUILD_DIR)}))
 """
 
 
@@ -280,24 +280,24 @@ def test_default_path_is_one_device_f64_without_polisher():
 def test_compile_cache_directs_the_build_directory(tmp_path, monkeypatch):
     """`enable`: an explicit path, MQC_COMPILE_CACHE, the package's
     `_build/` by default, and "0" for a fresh temporary directory."""
-    default = jacobi_eigh._BUILD_DIR
-    monkeypatch.setattr(jacobi_eigh, "_BUILD_DIR", default)
+    default = kernel_build.BUILD_DIR
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", default)
     monkeypatch.delenv("MQC_COMPILE_CACHE", raising=False)
     assert str(default) == compile_cache._DEFAULT
     assert os.path.basename(compile_cache._DEFAULT) == "_build"
     compile_cache.enable(str(tmp_path / "a"))
-    assert str(jacobi_eigh._BUILD_DIR) == str(tmp_path / "a")
+    assert str(kernel_build.BUILD_DIR) == str(tmp_path / "a")
     monkeypatch.setenv("MQC_COMPILE_CACHE", str(tmp_path / "b"))
     compile_cache.enable()
-    assert str(jacobi_eigh._BUILD_DIR) == str(tmp_path / "b")
+    assert str(kernel_build.BUILD_DIR) == str(tmp_path / "b")
     assert not (tmp_path / "b").exists()  # made by the build, not before
     monkeypatch.setenv("MQC_COMPILE_CACHE", "0")
     compile_cache.enable()
-    fresh = jacobi_eigh._BUILD_DIR
+    fresh = kernel_build.BUILD_DIR
     assert fresh.is_dir() and not any(fresh.iterdir())
     assert str(fresh) not in (compile_cache._DEFAULT, str(tmp_path / "b"))
     compile_cache.enable()
-    assert jacobi_eigh._BUILD_DIR != fresh  # one per call, none shared
+    assert kernel_build.BUILD_DIR != fresh  # one per call, none shared
     monkeypatch.delenv("MQC_COMPILE_CACHE")
     compile_cache.enable()
-    assert str(jacobi_eigh._BUILD_DIR) == compile_cache._DEFAULT
+    assert str(kernel_build.BUILD_DIR) == compile_cache._DEFAULT

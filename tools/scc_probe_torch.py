@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""What one SCC iteration of the torch port costs on a card.
+
+On the bench dimer batch (512 water dimers, nao 16, seed 0) in float64,
+on three routes: GFN1 with the exact in-loop eigh ("gfn1_exact"), GFN1 on
+the Jacobi route ("gfn1_jacobi") and GFN2's multipole SCC ("gfn2"):
+
+- `ms_per_iteration`: the time one iteration holds the device's stream
+  (its idle gaps included), from CUDA events around whole 32-iteration
+  solves (scf_tol 0, so every solve runs all 32) on prebuilt operands,
+  the mean of 3 solves after a warm-up;
+- `kernels_per_iteration`: the device kernels one iteration launches,
+  from torch.profiler: a solve of 8 iterations minus one of 4, over 4
+  (None where the profiler shows no device activity);
+- `busy_ms_per_iteration`: the device time of those kernels (their sum,
+  from the same two profiles), so that 1 - busy / ms is the device's
+  idle share; `top_kernels`: the five kernels with the most device time
+  per iteration, as [name, launches, device ms];
+- `fermi_per_iteration`: the Fermi kernel's launches per iteration, from
+  its wrapper's count (None where the package has no such kernel);
+- `host_ms_per_iteration`: where the host spends one iteration of a
+  32-iteration solve: the ms inside each of the engine's SCC functions
+  (`HOST_SPLIT`; a call made inside another counts for both, as GFN2's
+  autograd pass `_aes_potentials` inside `_aes_fock`), "solve" for the
+  whole solve up to its last kernel's end, and "other" for the time
+  outside all of them (the Anderson step, the density product);
+- with --walls, `energies_s` and `gradients_s`: host seconds of one
+  `XtbCalculator.energies` and `.gradients` call on the batch (32 SCC
+  iterations), the mean of 3 calls after a warm-up, as `chip_smoke.py`'s
+  slice phase times them.
+
+Usage: python3 tools/scc_probe_torch.py [--walls] [--json-out F]
+It prints one JSON line. It uses only the package's entry points, so it
+measures an older checkout of the package too (put that checkout first on
+PYTHONPATH).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.append(ROOT)
+
+ITERS = 32
+#: route -> (variant, use_pallas_eigh)
+ROUTES = {"gfn1_exact": ("gfn1", False), "gfn1_jacobi": ("gfn1", True),
+          "gfn2": ("gfn2", False)}
+#: the engine's functions an SCC iteration calls, timed on the host
+HOST_SPLIT = ("_fock", "_aes_fock", "_aes_potentials", "_general_eigh",
+              "jacobi_eigh", "occupations", "_shell_populations",
+              "_aes_moments_of_P")
+
+
+def _fermi_count():
+    """The Fermi kernel's launch count, or None without the kernel."""
+    try:
+        from metalquicha_tpu_torch.ops import fermi_fill
+    except ImportError:
+        return None
+    return fermi_fill.launches
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _kernels(fn) -> dict:
+    """name -> [launches, device ms] of the device kernels fn runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            out[ev.key] = [ev.count, us / 1e3]
+    return out
+
+
+def _per_iteration(n4: dict, n8: dict) -> dict:
+    """The kernels of iterations 5-8 per iteration: name -> [launches,
+    device ms]."""
+    return {k: [(n8[k][0] - n4.get(k, [0, 0.0])[0]) / 4.0,
+                (n8[k][1] - n4.get(k, [0, 0.0])[1]) / 4.0] for k in n8}
+
+
+def _host_split(engine, solve) -> dict:
+    """Host ms per iteration inside each of HOST_SPLIT during one solve,
+    the whole solve and the time outside all of them ("other")."""
+    spent, originals = {"outermost": 0.0}, {}
+    depth = [0]
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                dt = time.perf_counter() - t0
+                spent[name] = spent.get(name, 0.0) + dt
+                if depth[0] == 0:
+                    spent["outermost"] += dt
+        return wrapper
+
+    for name in HOST_SPLIT:
+        fn = getattr(engine, name, None)
+        if fn is not None:
+            originals[name] = fn
+            setattr(engine, name, timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(engine, name, fn)
+    outermost = spent.pop("outermost")
+    out = {k: 1e3 * v / ITERS for k, v in spent.items()}
+    out["solve"] = 1e3 * total / ITERS
+    out["other"] = 1e3 * (total - outermost) / ITERS
+    return out
+
+
+def _wall(fn, reps: int) -> float:
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
+    """route -> its costs (the module docstring's keys)."""
+    from metalquicha_tpu_torch.constants import KB_HARTREE
+    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
+    from metalquicha_tpu_torch.methods.xtb import engine
+    from metalquicha_tpu_torch.workloads import bench_dimers
+
+    kt = 300.0 * KB_HARTREE
+    out = {}
+    for route in routes:
+        variant, jacobi = ROUTES[route]
+        settings = engine.settings_from_params(
+            variant, max_scf_iter=ITERS, scf_tol=0.0, use_pallas_eigh=jacobi)
+        calc = tcalc.XtbCalculator(settings, variant=variant,
+                                   dtype=torch.float64, device=device)
+        frag = calc.make_batch(bench_dimers(512))
+        with torch.no_grad():
+            S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag,
+                                                   settings)
+
+            def solve(st=settings):
+                if mp is None:
+                    return engine.scf_solve(H0, S, gamma, frag, kt, st)
+                return engine.scf_solve_multipole(
+                    H0, S, frag.coords, gamma, frag, kt, st, None, mp)
+
+            rec = {"ms_per_iteration": _cuda_ms(solve, 3) / ITERS}
+            n4 = _kernels(lambda: solve(settings._replace(max_scf_iter=4)))
+            n8 = _kernels(lambda: solve(settings._replace(max_scf_iter=8)))
+            per = _per_iteration(n4, n8)
+            count = sum(v[0] for v in per.values())
+            seen = bool(n4) and count > 0
+            rec["kernels_per_iteration"] = count if seen else None
+            rec["busy_ms_per_iteration"] = (
+                sum(v[1] for v in per.values()) if seen else None)
+            rec["top_kernels"] = [
+                [k[:80], v[0], v[1]] for k, v in
+                sorted(per.items(), key=lambda kv: -kv[1][1])[:5]]
+            f0 = _fermi_count()
+            solve(settings._replace(max_scf_iter=4))
+            rec["fermi_per_iteration"] = (
+                None if f0 is None else (_fermi_count() - f0) / 4.0)
+            rec["host_ms_per_iteration"] = _host_split(engine, solve)
+        if walls:
+            rec["energies_s"] = _wall(lambda: calc.energies(frag), 3)
+            rec["gradients_s"] = _wall(lambda: calc.gradients(frag), 3)
+        out[route] = rec
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--walls", action="store_true",
+                    help="also time the energies and gradients calls")
+    ap.add_argument("--json-out", help="also write the line to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("scc_probe_torch: needs a CUDA card", file=sys.stderr)
+        return 1
+    import metalquicha_tpu_torch
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=False).stdout.strip()
+    line = {"package": os.path.dirname(metalquicha_tpu_torch.__file__),
+            "card": card, "routes": iteration_costs(walls=args.walls)}
+    text = json.dumps(line)
+    print(text, flush=True)
+    if args.json_out:
+        with open(args.json_out, "a") as fh:
+            fh.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
