@@ -18,8 +18,11 @@ seed 0, drawn in `bench.py`'s order) and in the same order:
 
 Knobs (environment, `bench.py`'s names): BENCH_BATCH (512), BENCH_ITERS
 (8), BENCH_SCF_ITERS (16), BENCH_GRAD_BATCH (256), BENCH_F64 ("1":
-float64, the default; "0": float32), BENCH_PALLAS ("1": the Jacobi kernel
-in the SCC loop, in either dtype; "0": the exact eigh). Runs on `cuda`
+float64, the default; "0": float32), BENCH_PALLAS ("1": the fast in-loop
+route, which the SCC takes in float32 only, as the JAX package's, so that
+in float64 the SCC runs the exact eigh as `bench.py`'s would, and the
+Jacobi kernel is timed alone at the shapes above; "0": the exact eigh and
+no Jacobi timing). Runs on `cuda`
 unless `--device cpu` is given, and raises without a card. Times are host
 clocks around loops that end in `torch.cuda.synchronize()`, over inputs
 staged on the device beforehand.

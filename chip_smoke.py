@@ -10,19 +10,28 @@ Phases (each raises on failure; nothing is caught):
              float64, and times all three at all but the last two, beside
              the kernel's bound (FLOP or bytes, whichever is larger) and its
              share of it;
-1b. fermi:   the Fermi-level fill kernel (csrc/fermi_fill.cu, built
-             beside the Jacobi kernel before phase 1, one nvcc each,
-             started together) against its plain torch version at the main
-             path's row shapes, (B, nao) = (512, 16) (the dimer slice),
-             (190, 16) and (20, 11) (the w20 MBE(2) buckets), (2581, 32)
-             and (5985, 32) (the w20 MBE(4) gradient and energy chunks) and
-             (41, 241) (a chunk of the 73-atom FD Hessian), each fragment
-             filled in two spin channels (2B rows), and at (3, 300) (a row
-             longer than the kernel keeps in registers), in float64 (max
-             |df| and max |d entropy| <= 1e-12) and float32 (1e-5 and
-             1e-4); seeded unsorted levels with padded AOs, nuhf 0, 1 and 2
-             and near-degenerate pairs at 300 K; times both at all but the
-             last, in turns, beside the kernel's bound (`fermi_bound`);
+1b. fermi:   the Fermi kernels (csrc/fermi_fill.cu, built beside the
+             Jacobi kernel before phase 1, one nvcc each, started
+             together). The fill (`fermi_occupations`) against its plain
+             torch version at the main path's row shapes, (B, nao) =
+             (512, 16) (the dimer slice), (190, 16) and (20, 11) (the w20
+             MBE(2) buckets), (2581, 32) and (5985, 32) (the w20 MBE(4)
+             gradient and energy chunks) and (41, 241) (a chunk of the
+             73-atom FD Hessian), each fragment's two spin channels (a
+             closed shell filled once), and at (3, 300) (a row longer than
+             the kernel keeps in registers) and (64, 8) (quarter-warp
+             rows), in float64 (max |df| and max |d entropy| <= 1e-12) and
+             float32 (1e-5 and 1e-4); seeded unsorted levels with padded
+             AOs, nuhf 0, 1 and 2 mixed and near-degenerate pairs at 300 K;
+             the bisection steps the kernel took and the plain version
+             needs; times both at all but the last two, in turns, beside
+             the kernel's bound (`fermi_bound` on the plain version's
+             steps, and the 80-step count). The fused fill and density
+             (`fermi_density`) against `fermi_density_reference` at (512,
+             16), (190, 16), (20, 11), (2581, 32), (5985, 32) and (128, 64)
+             (max |dP| <= 1e-12 in float64, 1e-5 in float32), timed beside
+             the fill and the product it replaces, the plain version and
+             its bound (`fermi_density_bound`);
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -31,15 +40,21 @@ Phases (each raises on failure; nothing is caught):
              float32 (1e-3); times both routes beside SP2's FLOP bound
              (48 products of 2 N^3 FLOP per matrix and spin channel);
 3. slice:    the bench dimer batch (B = 512, seed 0) through
-             XtbCalculator.energies/gradients with the kernel in the SCC
-             loop, against the exact-eigh route on the card and against
-             the JAX package's float64 goldens (first 8 dimers); energies/s
-             and gradients/s; the same batch in float32 for information;
+             XtbCalculator.energies/gradients with use_pallas_eigh in
+             float64 (the exact route, as the JAX package's: no Jacobi
+             launch, the flag-off results to 1e-10 / 1e-9) against the JAX
+             package's float64 goldens (first 8 dimers); energies/s and
+             gradients/s; the same batch in float32 on the Jacobi route,
+             which must launch the kernel;
 4. executor: FragmentExecutor.run(what="gradient") on bench's w20 MBE(2)
-             fragment list against the golden weighted total;
+             fragment list against the golden weighted total in float64
+             (no Jacobi launch), and in float32 on the Jacobi route (its
+             distance printed, the kernel launched);
 5. driver:   run_calculation on tests/data/port_prism.mqc and
-             port_w20_mbe4.mqc (MBE(4), 6195 fragments) with the kernel in
-             the SCC loop, and prism through `python -m metalquicha_tpu_torch`;
+             port_w20_mbe4.mqc (MBE(4), 6195 fragments) with use_pallas_eigh
+             in float64, prism also in float32 + f64 polish on the Jacobi
+             route (1e-7 of the golden, the kernel launched), and prism
+             through `python -m metalquicha_tpu_torch`;
 5b. memory: the executor's byte guard (parallel/executor.py
              `fragment_bytes`, `device_budget`). The byte model against
              the measured peak per fragment at the shapes of
@@ -52,23 +67,28 @@ Phases (each raises on failure; nothing is caught):
              within 1e-6 of tests/data/port_golden_memory.json's central
              differences, the Hessian symmetric (1e-6) and every row's sum
              over the atoms per direction below 1e-5; then the w20 MBE(4)
-             gradient through run_calculation with the executor on the
-             Jacobi route: 48 tetramers' energies and gradients within
+             gradient through run_calculation with the factory's executor
+             (float64): 48 tetramers' energies and gradients within
              1e-8 of the golden, the total within 1e-8 of the MBE(4)
              golden, the net force below 1e-7. Each run's chunks, wall,
              peak and budget printed; the peak must stay under the budget;
 6. solvation: the w20 MBE(2) list through FragmentExecutor with ALPB
-             water (gradients) and CPCM water (energies), the kernel in the
-             SCC loop, against the JAX package's goldens (totals 1e-8 Ha,
-             ALPB |g| 1e-6); wall time and peak device memory;
+             water (gradients) and CPCM water (energies), use_pallas_eigh
+             in float64, against the JAX package's goldens (totals 1e-8
+             Ha, ALPB |g| 1e-6), and ALPB energies in float32 on the Jacobi
+             route (printed, the kernel launched); wall time and peak
+             device memory;
 7. validation: run_calculation with the factory's settings on every .mqc
              of tests/data/port_golden_gfn1_full.json (the GFN1 cases of
              validation/expected.json: unfragmented, MBE, GMBE, charged,
              multi-molecule, Hessian, solvated) within
              `validation.GOLDEN_TOLERANCES` of the JAX package's results;
-             unfrag_gly3 (228 AOs in one fragment) and gly10_mbe again on
-             the fast route, where the first must go through SP2 and the
-             second through the Jacobi kernel; one solvated case from its
+             unfrag_gly3 (228 AOs in one fragment) and gly10_mbe again with
+             use_pallas_eigh, in float64 (the exact route: neither SP2 nor
+             the Jacobi kernel) and in float32 + f64 polish, where the
+             first must go through SP2 and the second through the Jacobi
+             kernel, both held to the same tolerances; one solvated case
+             from its
              JSON through `python -m metalquicha_tpu_torch.io.prep` and
              `python -m metalquicha_tpu_torch`;
 8. gfn2:     GFN2 (multipole SCC, charge-scaled dispersion; it runs no
@@ -90,8 +110,9 @@ Phases (each raises on failure; nothing is caught):
              converge in either package: the driver raises ConvergenceError
              after every fragment has been evaluated); the device
              time and the device kernels of one SCC iteration at (512,
-             16) on GFN1's exact and Jacobi routes and GFN2's multipole
-             route, and the Fermi launches per iteration
+             16) on GFN1's exact route (float64) and Jacobi route
+             (float32) and GFN2's multipole route (float64), and the Fermi
+             launches per iteration, one fused fill and density each
              (`tools/scc_probe_torch.py`);
 9. polish:   the mixed-precision route (methods/xtb/polish.py). The w20
              MBE(2) list with gradients through (a) the float64 executor,
@@ -118,10 +139,12 @@ Phases (each raises on failure; nothing is caught):
              on two slots dispatched one after the other from this process
              (a warm-up pass each, the workers' start in theirs, then two
              timed passes each in turns; the walls, their ratios and each
-             worker's pid, device, start-up seconds and Jacobi launches
+             worker's pid, device, start-up seconds and Fermi launches
              printed): the two-process total within 1e-10 of one slot's
-             and 1e-8 of the golden, each worker launched the kernel and
-             loaded nothing of jax or the JAX package; then run_calculation
+             and 1e-8 of the golden, each worker launched the Fermi kernel
+             and loaded nothing of jax or the JAX package, and in one more
+             pass in float32 on the Jacobi route each worker launched the
+             Jacobi kernel; then run_calculation
              on port_w20_mbe4.mqc through the same two workers within 1e-7
              of the golden, its wall beside the driver phase's one-slot
              wall and each process's peak device memory printed; its
@@ -171,12 +194,16 @@ phase 1, in the order baseline, this, this, baseline.
 
 The kernels' launch counters and SP2's call counter are reset before
 phases 3-13; the Jacobi kernel's must grow in phases 3-6 (5b too), 9, 10
-and 13 and both in phase 7, phase 8 must leave both as they are, and
-phase 12 the first; the Fermi kernel's must grow in every one of phases
-3-13, since each runs an SCC on the card (phase 10's worker processes'
-launches added). Diagnostics go to stdout; the line before the last but
-one is the kernels' JSON line, the line before the last the card's name
-and power limit, and the last line `{"ok": true, "device": {...}}`.
+and 13, each from its float32 pass (a float64 SCC takes the exact route,
+as the JAX package's) or, in 13, its timing of the kernel alone, and
+both in phase 7; phase 8 must leave both as they are, and phase 12 the
+first; the Fermi kernels' must grow in every one of phases 3-13, since
+each runs an SCC on the card (phase 10's worker processes' launches
+added), the fused fill and density's over the main path, and the SCC
+probe (phase 8) must see one Fermi launch per iteration on every route.
+Diagnostics go to stdout; the line before the last but one is the
+kernels' JSON line, the line before the last the card's name and power
+limit, and the last line `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when CUDA is absent.
 """
 
@@ -229,8 +256,16 @@ PEAK_VECTOR = {torch.float64: 34e12, torch.float32: 67e12}
 # longer than the kernel keeps in registers
 FERMI_TIMED = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
                (41, 241))
-FERMI_SHAPES = FERMI_TIMED + ((3, 300),)
+# checked only: a row longer than the kernel keeps in registers, and rows
+# of 8 (a quarter-warp each)
+FERMI_SHAPES = FERMI_TIMED + ((3, 300), (64, 8))
 FERMI_TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-4)}
+# (B fragments, nao) of the fused fill and density (ops/fermi_fill.py
+# `fermi_density`, nao <= 64): the dimer slice, the w20 MBE(2) buckets, the
+# w20 MBE(4) chunks, and its largest nao; all timed
+DENSITY_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+                  (128, 64))
+DENSITY_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # operations per evaluation of CUDA's exp and log (a range reduction and a
 # polynomial): an estimate, not a count of the compiled code
 EXP_OPS = {torch.float64: 20, torch.float32: 8}
@@ -256,21 +291,58 @@ def jacobi_bound(bsz: int, n: int, dtype):
                                         else "bytes")
 
 
-def fermi_bound(bsz: int, nao: int, dtype):
-    """(bound_ms, bound_by) of the Fermi fill of bsz fragments' two spin
-    channels: per row 81 fills of nao values, each a subtraction, a
-    division, a two-sided clamp, an exp, an add, a reciprocal and the
-    sum's add (7 operations and EXP_OPS), the min and the max, and the
-    entropy of the last fill (a clamp, two logs, 1 - f, two products, an
-    add, a sign, the window's two tests and the sum's add: 10 operations
-    and two EXP_OPS), at the vector rate; eps, the mask, nelec and nuhf
-    read once, f and the entropy written once."""
+def _fill_ops(nao: int, dtype, steps=None, bsz=None, entropy=True):
+    """Operations of the Fermi fill at the vector rate: per filled row,
+    one fill of nao values per bisection step and one more for f, each a
+    subtraction, a division, a two-sided clamp, an exp, an add, a
+    reciprocal and the sum's add (7 operations and EXP_OPS), the min and
+    the max, and the entropy of the last fill (a clamp, two logs, 1 - f,
+    two products, an add, a sign, the window's two tests and the sum's
+    add: 10 operations and two EXP_OPS). steps: int (B, 2) steps each
+    channel's bisection takes to its fixed point, 0 for a channel not
+    filled (a closed shell's beta); None for the 80-step count, both
+    channels of bsz fragments at 80 steps."""
     e = EXP_OPS[dtype]
-    ops = 2 * bsz * nao * (81 * (7 + e) + 2 + 10 + 2 * e)
+    tail = 2 + ((10 + 2 * e) if entropy else 0)
+    if steps is None:
+        rows, fills = 2 * bsz, 2 * bsz * 81
+    else:
+        rows = int((steps > 0).sum())
+        fills = int(steps.sum()) + rows
+    return nao * (fills * (7 + e) + rows * tail)
+
+
+def _bound(times: dict):
+    """(bound_ms, bound_by) from {reason: seconds}: the largest."""
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def fermi_bound(bsz: int, nao: int, dtype, steps=None):
+    """(bound_ms, bound_by) of the Fermi fill of bsz fragments: the fill's
+    operations (`_fill_ops`: the rows filled and the steps these inputs
+    need, counted on the plain version; steps=None gives the 80-step count)
+    at the vector rate, or eps, the mask, nelec and nuhf read once and f
+    and the entropy written once at the memory rate, whichever is
+    larger."""
+    ops = _fill_ops(nao, dtype, steps, bsz)
     nbytes = bsz * (3 * nao + 3) * torch.finfo(dtype).bits // 8
-    t_ops, t_bytes = ops / PEAK_VECTOR[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound({"operations": ops / PEAK_VECTOR[dtype],
+                   "bytes": nbytes / PEAK_BYTES})
+
+
+def fermi_density_bound(bsz: int, nao: int, dtype, steps):
+    """(bound_ms, bound_by) of the fused fill and density: the fill's
+    operations (no entropy) at the vector rate, P = C diag(f) C^T at 2
+    nao^3 FLOP per fragment at PEAK_FLOPS (FP64 on the tensor cores, FP32
+    outside them), or eps, the mask, nelec, nuhf and C read once and P
+    written once at the memory rate: the largest of the three."""
+    ops = _fill_ops(nao, dtype, steps, entropy=False)
+    flop = 2 * bsz * nao**3
+    nbytes = bsz * (2 * nao + 2 + 2 * nao * nao) * torch.finfo(dtype).bits // 8
+    return _bound({"operations": max(ops / PEAK_VECTOR[dtype],
+                                     flop / PEAK_FLOPS[dtype]),
+                   "bytes": nbytes / PEAK_BYTES})
 
 
 def check(ok: bool, msg: str) -> None:
@@ -429,17 +501,28 @@ def fermi_inputs(rng, bsz: int, nao: int, dtype):
 
 
 def fermi_phase(ff, rng):
-    """The Fermi kernel against its plain version: max |df| and max |d
-    entropy| at every shape, both timed at FERMI_TIMED beside the bound.
+    """The Fermi kernels against their plain versions. The fill
+    (`fermi_occupations`): max |df| and max |d entropy| at every shape, the
+    bisection steps the kernel took and the plain version needs (min and
+    max over the rows filled), both timed at FERMI_TIMED beside the bound
+    (`fermi_bound` on the plain version's steps, and the 80-step count). The
+    fused fill and density (`fermi_density`): max |dP| against
+    `fermi_density_reference` at DENSITY_SHAPES, timed beside the fill and
+    the product it replaces in the SCC, the plain version and its bound.
     Returns the JSON entry's numbers: times at the slice's (512, 16) in
-    float64, the largest float64 difference over every shape."""
+    float64, the largest float64 differences over every shape."""
     from metalquicha_tpu_torch.constants import KB_HARTREE
 
     kt = 300.0 * KB_HARTREE
-    worst = 0.0
+    worst = worst_p = 0.0
     entry = {}
+    print("fermi bound: the fill's operations over the rows filled and the "
+          "steps each needs on the plain version (a closed shell once); "
+          "the 80-step bound, 81 fills of both channels, printed beside it "
+          "as bound_80", flush=True)
     for dtype in (torch.float64, torch.float32):
         tol_f, tol_s = FERMI_TOL[dtype]
+        taken = []
         for bsz, nao in FERMI_SHAPES:
             args = fermi_inputs(rng, bsz, nao, dtype)
             eps, nelec, nuhf, mask = args
@@ -451,27 +534,36 @@ def fermi_phase(ff, rng):
                 return ff.fermi_occupations_reference(eps, nelec, nuhf, kt,
                                                       mask)
 
-            f_k, s_k = kernel()
+            f_k, s_k, steps_k = ff.fermi_occupations_steps(eps, nelec, nuhf,
+                                                           kt, mask)
             f_p, s_p = plain()
+            steps_p = ff.fermi_steps_reference(eps, nelec, nuhf, kt, mask)
             torch.cuda.synchronize()
             d_f = float((f_k - f_p).abs().max())
             d_s = float((s_k - s_p).abs().max())
             n_el = float((f_k.sum(1) - nelec).abs().max())
             frac = int(((f_k > 1e-3) & (f_k < 2 - 1e-3)
                         & ((f_k - 1).abs() > 1e-3)).any(1).sum())
+            filled_k, filled_p = steps_k[steps_k > 0], steps_p[steps_p > 0]
+            taken.append(filled_k)
             line = (f"fermi {str(dtype)[6:]} B={bsz} nao={nao} (rows "
-                    f"{2 * bsz}): max|df|={d_f:.2e} max|ds|={d_s:.2e} "
-                    f"|sum f - nelec|={n_el:.2e} fractional rows={frac}")
+                    f"{2 * bsz}, filled {filled_k.numel()}): max|df|={d_f:.2e}"
+                    f" max|ds|={d_s:.2e} |sum f - nelec|={n_el:.2e} "
+                    f"fractional rows={frac} steps kernel "
+                    f"{int(filled_k.min())}-{int(filled_k.max())} plain "
+                    f"{int(filled_p.min())}-{int(filled_p.max())}")
             if (bsz, nao) in FERMI_TIMED:
                 t_p = cuda_ms(plain, 3)
                 t_k = cuda_ms(kernel, 50)
                 t_k2 = cuda_ms(kernel, 50)
                 t_p2 = cuda_ms(plain, 3)
                 t_k, t_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
-                bound, bound_by = fermi_bound(bsz, nao, dtype)
+                bound, bound_by = fermi_bound(bsz, nao, dtype, steps_p)
+                bound80, _ = fermi_bound(bsz, nao, dtype)
                 line += (f" | ms: kernel={t_k:.4f} plain={t_p:.4f} "
                          f"bound={bound:.5f} ({bound_by}) "
-                         f"share={bound / t_k:.4f} library=none")
+                         f"share={bound / t_k:.4f} bound_80={bound80:.5f} "
+                         f"share_80={bound80 / t_k:.4f} library=none")
                 if dtype == torch.float64 and (bsz, nao) == (512, 16):
                     entry = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
                              "bound_by": bound_by, "library_ms": None}
@@ -483,9 +575,62 @@ def fermi_phase(ff, rng):
                           and torch.isfinite(s_k).all())
             check(finite, f"fermi kernel: non-finite output at B={bsz} "
                           f"nao={nao}")
+            check(bool((steps_k[:, 1][nuhf == 0] == 0).all()),
+                  "fermi kernel filled a closed shell's beta channel")
             if dtype == torch.float64:
                 worst = max(worst, d_f, d_s)
+        taken = torch.cat(taken)
+        print(f"fermi {str(dtype)[6:]} bisection steps over every row filled:"
+              f" {int(taken.min())}-{int(taken.max())} of {ff.STEPS}",
+              flush=True)
+
+    for dtype in (torch.float64, torch.float32):
+        tol = DENSITY_TOL[dtype]
+        for bsz, nao in DENSITY_SHAPES:
+            eps, nelec, nuhf, mask = fermi_inputs(rng, bsz, nao, dtype)
+            q = np.linalg.qr(rng.normal(size=(bsz, nao, nao)))[0]
+            C = torch.tensor(q, dtype=dtype, device=DEVICE)
+
+            def fused():
+                return ff.fermi_density(eps, C, nelec, nuhf, kt, mask)
+
+            def fill_and_product():
+                f, _ = ff.fermi_occupations(eps, nelec, nuhf, kt, mask)
+                return (C * f[:, None, :]) @ C.transpose(-1, -2)
+
+            def plain():
+                return ff.fermi_density_reference(eps, C, nelec, nuhf, kt,
+                                                  mask)
+
+            p_k = fused()
+            p_p = plain()
+            torch.cuda.synchronize()
+            d_p = float((p_k - p_p).abs().max())
+            steps_p = ff.fermi_steps_reference(eps, nelec, nuhf, kt, mask)
+            t_p = cuda_ms(plain, 3)
+            t_k = cuda_ms(fused, 50)
+            t_two = cuda_ms(fill_and_product, 50)
+            t_k2 = cuda_ms(fused, 50)
+            t_p2 = cuda_ms(plain, 3)
+            t_k, t_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
+            bound, bound_by = fermi_density_bound(bsz, nao, dtype, steps_p)
+            print(f"fermi density {str(dtype)[6:]} B={bsz} nao={nao}: "
+                  f"max|dP|={d_p:.2e} (tol {tol:.0e}) | ms: kernel={t_k:.4f}"
+                  f" fill+product={t_two:.4f} plain={t_p:.4f} "
+                  f"bound={bound:.5f} ({bound_by}) share={bound / t_k:.4f} "
+                  f"library=none", flush=True)
+            check(d_p <= tol, f"fused density vs plain {d_p:.3e} > {tol:.0e}"
+                              f" at B={bsz} nao={nao} {dtype}")
+            check(bool(torch.isfinite(p_k).all()),
+                  f"fused density: non-finite output at B={bsz} nao={nao}")
+            if dtype == torch.float64:
+                worst_p = max(worst_p, d_p)
+                if (bsz, nao) == (512, 16):
+                    entry.update(density_ms=t_k, density_fill_product_ms=t_two,
+                                 density_plain_ms=t_p, density_bound_ms=bound,
+                                 density_bound_by=bound_by)
     entry["max_abs_err"] = worst
+    entry["density_max_abs_err"] = worst_p
     return entry
 
 
@@ -578,8 +723,9 @@ def slice_phase(jac, golden):
     calc.gradients(frag)  # warm-up: library handles, allocator
     (e_k, aux_k), t_e = wall(lambda: calc.energies(frag), 3)
     (e_g, g_k, aux_g), t_g = wall(lambda: calc.gradients(frag), 3)
-    launches = jac.launches - n0
+    launches64 = jac.launches - n0
 
+    # in float64 the flag takes the exact route, as the JAX package's
     exact = XtbCalculator(kern._replace(use_pallas_eigh=False),
                           dtype=torch.float64, device=DEVICE)
     e_x, g_x, _ = exact.gradients(frag)
@@ -592,27 +738,39 @@ def slice_phase(jac, golden):
     d_g_gold = float(np.abs(g_k[:n].cpu().numpy() - gd["gradients"]).max())
     print(f"slice f64 B=512: energies/s={512 / t_e:.1f} "
           f"gradients/s={512 / t_g:.1f} (energies {t_e:.4f} s, gradients "
-          f"{t_g:.4f} s per call) resid={resid:.2e} kernel-vs-exact dE="
+          f"{t_g:.4f} s per call) resid={resid:.2e} flag-vs-exact dE="
           f"{d_e:.2e} dG={d_g:.2e} golden dE={d_e_gold:.2e} "
-          f"dG={d_g_gold:.2e} launches={launches}", flush=True)
-    check(d_e <= 1e-10, f"kernel vs exact energies {d_e:.3e} > 1e-10")
-    check(d_g <= 1e-9, f"kernel vs exact gradients {d_g:.3e} > 1e-9")
+          f"dG={d_g_gold:.2e} jacobi launches={launches64}", flush=True)
+    # the same route: its energies and gradients differ only where the
+    # card's scatter sums (atomics) round in another order
+    check(d_e <= 1e-10, f"flag vs exact energies {d_e:.3e} > 1e-10")
+    check(d_g <= 1e-9, f"flag vs exact gradients {d_g:.3e} > 1e-9")
+    check(launches64 == 0, "a float64 SCC launched the Jacobi kernel")
     check(resid < 1e-5, f"SCC residual {resid:.3e} >= 1e-5")
     check(d_e_gold <= 1e-9, f"energies vs golden {d_e_gold:.3e} > 1e-9")
     check(d_g_gold <= 1e-8, f"gradients vs golden {d_g_gold:.3e} > 1e-8")
-    check(launches > 0, "slice phase launched no Jacobi kernel")
     check(bool(torch.isfinite(e_k).all() and torch.isfinite(g_k).all()),
           "non-finite energies or gradients")
 
+    # the Jacobi route: float32
     calc32 = XtbCalculator(kern, dtype=torch.float32, device=DEVICE)
+    exact32 = XtbCalculator(kern._replace(use_pallas_eigh=False),
+                            dtype=torch.float32, device=DEVICE)
     frag32 = calc32.make_batch(frags)
     calc32.energies(frag32)  # warm-up
+    n0 = jac.launches
     (e32, aux32), t32 = wall(lambda: calc32.energies(frag32), 3)
+    launches = jac.launches - n0
     resid32 = float(aux32["scf_residual"].max())
-    print(f"slice f32 B=512: energies/s={512 / t32:.1f} resid={resid32:.2e} "
-          f"max|E32-E64|={float((e32.double() - e_k).abs().max()):.2e}",
-          flush=True)
+    e32_x, _ = exact32.energies(frag32)
+    print(f"slice f32 B=512 on the Jacobi route: energies/s={512 / t32:.1f} "
+          f"resid={resid32:.2e} "
+          f"max|E32-E64|={float((e32.double() - e_k).abs().max()):.2e} "
+          f"vs f32 exact route {float((e32 - e32_x).abs().max()):.2e} "
+          f"jacobi launches={launches}", flush=True)
     check(resid32 < 1e-4, f"f32 SCC residual {resid32:.3e} >= 1e-4")
+    check(launches > 0, "slice phase launched no Jacobi kernel in float32")
+    check(bool(torch.isfinite(e32).all()), "non-finite f32 energies")
     return launches
 
 
@@ -627,27 +785,38 @@ def executor_phase(jac, golden):
 
     settings = settings_from_params("gfn1", max_scf_iter=32,
                                     use_pallas_eigh=True)
-    ex = FragmentExecutor(
-        XtbCalculator(settings, dtype=torch.float64, device=DEVICE)
-    )
-    n0 = jac.launches
-    (e, g, aux), t = wall(
-        lambda: ex.run(w20_mbe2_fragments(), what="gradient")
-    )
-    launches = jac.launches - n0
-    total, gnorm = w20_mbe2_assemble(e, g)
     gold = golden["w20_mbe2"]
-    d_t, d_n = abs(total - gold["total"]), abs(gnorm - gold["gradient_norm"])
-    print(f"executor w20 MBE(2) gradient: wall={t:.3f} s total={total:.10f} "
-          f"d_total={d_t:.2e} d|g|={d_n:.2e} "
-          f"resid={aux['scf_residual'].max():.2e} launches={launches}",
-          flush=True)
-    check(d_t <= 1e-8, f"w20 MBE(2) total off the golden by {d_t:.3e}")
+    launches = 0
+    for dtype in (torch.float64, torch.float32):
+        ex = FragmentExecutor(
+            XtbCalculator(settings, dtype=dtype, device=DEVICE)
+        )
+        n0 = jac.launches
+        (e, g, aux), t = wall(
+            lambda: ex.run(w20_mbe2_fragments(), what="gradient")
+        )
+        n_l = jac.launches - n0
+        total, gnorm = w20_mbe2_assemble(e, g)
+        d_t = abs(total - gold["total"])
+        d_n = abs(gnorm - gold["gradient_norm"])
+        print(f"executor w20 MBE(2) gradient {str(dtype)[6:]}: wall={t:.3f} s"
+              f" total={total:.10f} d_total={d_t:.2e} d|g|={d_n:.2e} "
+              f"resid={aux['scf_residual'].max():.2e} jacobi launches={n_l}",
+              flush=True)
+        if dtype == torch.float64:
+            # the exact route, as the JAX package's in float64
+            check(d_t <= 1e-8, f"w20 MBE(2) total off the golden by "
+                               f"{d_t:.3e}")
+            check(n_l == 0, "a float64 SCC launched the Jacobi kernel")
+        else:
+            # raw float32 on the Jacobi route: its distance is printed
+            check(np.isfinite(total) and n_l > 0,
+                  "executor phase launched no Jacobi kernel in float32")
+        launches += n_l
     # d|g| is printed, not held: the w20 waters are exact translates, so
     # far dimers have S eigenvalue gaps below eigh_safe's sqrt(eps) cut,
     # where the reference gradient depends on the eigenvector gauge at
     # the 1e-7 level (swapping the monomers of one dimer moves it 4e-7)
-    check(launches > 0, "executor phase launched no Jacobi kernel")
     return launches
 
 
@@ -664,20 +833,29 @@ def driver_phase(jac, golden):
     for name, gold in golden["driver"].items():
         path = os.path.join(ROOT, gold["mqc"])
         cfg = read_mqc_file(path)
-        ex = make_executor(cfg, DEVICE)
-        ex.calc.settings = ex.calc.settings._replace(use_pallas_eigh=True)
-        n0 = jac.launches
-        out, t = wall(lambda: run_calculation(cfg, write_json=False,
-                                              executor=ex))
-        n_l = jac.launches - n0
-        WALLS[f"driver {name}"] = t
-        total = float(out[""].result.total_energy)
-        d = abs(total - gold["total_energy"])
-        print(f"driver {name}: wall={t:.3f} s total={total:.10f} "
-              f"d_golden={d:.2e} launches={n_l}", flush=True)
-        check(d <= 1e-7, f"{name} total off the golden by {d:.3e}")
-        check(n_l > 0, f"driver {name} launched no Jacobi kernel")
-        launches += n_l
+        # float64 with use_pallas_eigh: the exact route, as the JAX
+        # package's; the Jacobi route in float32 + f64 polish (prism)
+        legs = [("f64", None)] + ([("f32 + polish", {"force_dtype": "f32"})]
+                                  if name == "prism_mbe" else [])
+        for leg, overrides in legs:
+            ex = make_executor(cfg, DEVICE, overrides)
+            ex.calc.settings = ex.calc.settings._replace(use_pallas_eigh=True)
+            n0 = jac.launches
+            out, t = wall(lambda: run_calculation(
+                cfg, write_json=False, executor=ex,
+                driver_overrides=overrides))
+            n_l = jac.launches - n0
+            if overrides is None:
+                WALLS[f"driver {name}"] = t
+            total = float(out[""].result.total_energy)
+            d = abs(total - gold["total_energy"])
+            print(f"driver {name} {leg}: wall={t:.3f} s total={total:.10f} "
+                  f"d_golden={d:.2e} jacobi launches={n_l}", flush=True)
+            check(d <= 1e-7, f"{name} ({leg}) total off the golden by "
+                             f"{d:.3e}")
+            check((n_l > 0) == (overrides is not None),
+                  f"driver {name} ({leg}): {n_l} Jacobi launches")
+            launches += n_l
 
     # the factory path (exact in-loop eigh) through the command line
     gold = golden["driver"]["prism_mbe"]
@@ -713,10 +891,15 @@ def memory_phase(jac, golden):
     with open(GOLDEN_MEMORY) as fh:
         gold = json.load(fh)
     torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    n0 = jac.launches
     for row in probe.calibrate(device):
         check(1.0 <= row["ratio"] <= 2.0,
               f"byte model of {row['shape']} {row['what']} is "
               f"{row['ratio']}x the measured peak")
+    # the calibration's Jacobi-route shapes run in float32
+    launches = jac.launches - n0
+    print(f"memory calibration: {launches} Jacobi launches", flush=True)
+    check(launches > 0, "the memory calibration launched no Jacobi kernel")
 
     runs = {}
 
@@ -757,8 +940,6 @@ def memory_phase(jac, golden):
     check(rec["ok"], f"the w20 MBE(4) gradient failed: {rec.get('error')}")
     check(rec["peak_gib"] < rec["budget_gib"],
           "the w20 MBE(4) gradient's peak is above the executor's budget")
-    check(rec["jacobi_launches"] > 0,
-          "the w20 MBE(4) gradient launched no Jacobi kernel")
     e, grads, _aux = runs[gw["n_jobs"]]
     d_e = max(abs(e[i] - x) for i, x in zip(gw["jobs"], gw["energies"]))
     d_g = max(float(np.abs(np.asarray(grads[i]) - np.asarray(x)).max())
@@ -773,12 +954,14 @@ def memory_phase(jac, golden):
     check(d_g <= 1e-8, f"tetramer gradients off the golden by {d_g:.3e}")
     check(d_t <= 1e-8, f"w20 MBE(4) total off the golden by {d_t:.3e}")
     check(net <= 1e-7, f"w20 MBE(4) net force {net:.3e}")
-    return rec["jacobi_launches"]
+    return launches + rec["jacobi_launches"]
 
 
 def solvation_phase(jac, golden_full):
-    """The solvated w20 MBE(2) list: ALPB gradients and CPCM energies on
-    the Jacobi route against the JAX package's goldens."""
+    """The solvated w20 MBE(2) list: ALPB gradients and CPCM energies
+    with use_pallas_eigh in float64 (the exact route, as the JAX
+    package's) against the JAX package's goldens; ALPB energies on the
+    Jacobi route in float32."""
     from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
     from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
     from metalquicha_tpu_torch.methods.xtb.solvation.born import BornSolvation
@@ -795,12 +978,14 @@ def solvation_phase(jac, golden_full):
         "gfn1", max_scf_iter=gold["max_scf_iter"], use_pallas_eigh=True)
     frags = w20_mbe2_fragments()
     launches = 0
-    for name, model, what in (
-        ("alpb", BornSolvation(eps, alpb=True), "gradient"),
-        ("cpcm", CpcmSolvation(eps, nang=gold["cpcm"]["nang"]), "energy"),
+    for name, model, what, dtype in (
+        ("alpb", BornSolvation(eps, alpb=True), "gradient", torch.float64),
+        ("cpcm", CpcmSolvation(eps, nang=gold["cpcm"]["nang"]), "energy",
+         torch.float64),
+        ("alpb", BornSolvation(eps, alpb=True), "energy", torch.float32),
     ):
         ex = FragmentExecutor(XtbCalculator(
-            settings, dtype=torch.float64, device=DEVICE, solvation=model))
+            settings, dtype=dtype, device=DEVICE, solvation=model))
         n0 = jac.launches
         torch.cuda.reset_peak_memory_stats()
         out, t = wall(lambda: ex.run(frags, what=what))
@@ -812,10 +997,17 @@ def solvation_phase(jac, golden_full):
         total, gnorm = w20_mbe2_assemble(e, g)
         d_t = abs(total - gold[name]["total"])
         d_e = float(np.abs(e - np.asarray(gold[name]["energies"])).max())
-        line = (f"solvation w20 MBE(2) {name} {what}: wall={t:.3f} s "
-                f"peak={peak:.2f} GiB total={total:.10f} d_total={d_t:.2e} "
-                f"max d_fragment={d_e:.2e} "
-                f"resid={aux['scf_residual'].max():.2e} launches={n_l}")
+        line = (f"solvation w20 MBE(2) {name} {what} {str(dtype)[6:]}: "
+                f"wall={t:.3f} s peak={peak:.2f} GiB total={total:.10f} "
+                f"d_total={d_t:.2e} max d_fragment={d_e:.2e} "
+                f"resid={aux['scf_residual'].max():.2e} jacobi launches={n_l}")
+        if dtype == torch.float32:
+            # raw float32 on the Jacobi route: its distance is printed
+            print(line, flush=True)
+            check(np.isfinite(total) and n_l > 0,
+                  f"solvation {name} launched no Jacobi kernel in float32")
+            launches += n_l
+            continue
         check(d_t <= 1e-8, f"{name} w20 MBE(2) total off the golden by "
                            f"{d_t:.3e}")
         if what == "gradient":
@@ -824,8 +1016,8 @@ def solvation_phase(jac, golden_full):
             check(d_n <= 1e-6, f"{name} w20 MBE(2) |g| off the golden by "
                                f"{d_n:.3e}")
         print(line, flush=True)
-        check(n_l > 0, f"solvation {name} launched no Jacobi kernel")
-        launches += n_l
+        check(n_l == 0, f"solvation {name}: a float64 SCC launched the "
+                        f"Jacobi kernel")
     return launches
 
 
@@ -860,24 +1052,36 @@ def validation_phase(jac, golden_full):
                                                   device=DEVICE))
         report("factory", name, gold, outputs, t)
 
+    # use_pallas_eigh: in float64 the exact route, as the JAX package's
+    # (neither SP2 nor the Jacobi kernel); in float32 + f64 polish the fast
+    # route, SP2 at 241 AOs and the Jacobi kernel at 64
     launches = 0
     for name, counter in (("unfrag_gly3", "sp2"), ("gly10_mbe", "jacobi")):
         gold = golden_full["driver"][name]
         cfg = read_mqc_file(os.path.join(ROOT, gold["mqc"]))
-        ex = make_executor(cfg, DEVICE)
-        ex.calc.settings = ex.calc.settings._replace(use_pallas_eigh=True)
-        n_j, n_s = jac.launches, sp2.calls
-        outputs, t = wall(lambda: run_calculation(cfg, write_json=False,
-                                                  executor=ex))
-        n_j, n_s = jac.launches - n_j, sp2.calls - n_s
-        report("fast", name, gold, outputs, t,
-               f" jacobi_launches={n_j} sp2_calls={n_s}")
-        check((n_s if counter == "sp2" else n_j) > 0,
-              f"{name} on the fast route did not go through {counter}")
-        if counter == "sp2":
-            check(n_j == 0, f"{name} launched the Jacobi kernel at "
-                            f"{gold['max_nao']} AOs")
-        launches += n_j
+        for tag, overrides in (("f64 flag", None),
+                               ("f32 + polish fast",
+                                {"force_dtype": "f32"})):
+            ex = make_executor(cfg, DEVICE, overrides)
+            ex.calc.settings = ex.calc.settings._replace(use_pallas_eigh=True)
+            n_j, n_s = jac.launches, sp2.calls
+            outputs, t = wall(lambda: run_calculation(
+                cfg, write_json=False, executor=ex,
+                driver_overrides=overrides))
+            n_j, n_s = jac.launches - n_j, sp2.calls - n_s
+            report(tag, name, gold, outputs, t,
+                   f" jacobi_launches={n_j} sp2_calls={n_s}")
+            if overrides is None:
+                check(n_j == 0 and n_s == 0,
+                      f"{name} in float64 took the fast route")
+                continue
+            check((n_s if counter == "sp2" else n_j) > 0,
+                  f"{name} on the float32 fast route did not go through "
+                  f"{counter}")
+            if counter == "sp2":
+                check(n_j == 0, f"{name} launched the Jacobi kernel at "
+                                f"{gold['max_nao']} AOs")
+            launches += n_j
 
     # a solvated case from its JSON: prep, then the command line
     gold = golden_full["driver"]["alpb_water"]
@@ -908,8 +1112,9 @@ def validation_phase(jac, golden_full):
 
 def scc_iteration_ms():
     """Device ms and device kernels of one SCC iteration at (512, 16) on
-    GFN1's exact and Jacobi routes and GFN2's multipole route, and the
-    Fermi launches per iteration (`tools/scc_probe_torch.py`)."""
+    GFN1's exact route (float64) and Jacobi route (float32) and GFN2's
+    multipole route, and the Fermi launches per iteration
+    (`tools/scc_probe_torch.py`)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import scc_probe_torch
 
@@ -1103,11 +1308,15 @@ def gfn2_phase(jac, golden):
               f"{it['ms_per_iteration']:.4f} device kernels="
               f"{'not measured' if per is None else f'{per:.2f}'} busy ms="
               f"{'not measured' if busy is None else f'{busy:.4f}'} "
-              f"fermi launches={it['fermi_per_iteration']} host ms {host} "
+              f"fermi launches={it['fermi_per_iteration']} (fused fill and "
+              f"density {it['density_per_iteration']}) host ms {host} "
               f"top kernels {it['top_kernels']}", flush=True)
         check(it["fermi_per_iteration"] == 1.0,
               f"{route}: {it['fermi_per_iteration']} Fermi launches per SCC "
               f"iteration, not 1")
+        check(it["density_per_iteration"] == 1.0,
+              f"{route}: the SCC at nao 16 fused {it['density_per_iteration']}"
+              f" densities per iteration, not 1")
     # the GFN1 routes' own launches are not the GFN2 path's
     n_j += jac.launches - n_j2
     n_s += sp2.calls - n_s2
@@ -1373,13 +1582,13 @@ def mesh_phase(jac, golden):
               flush=True)
     workers = list(procs.workers)
     check(len(workers) == 2, f"{len(workers)} workers for two slots")
-    before = [w.launches for w in workers]
+    before = [w.fermi_launches for w in workers]
     for _rep in range(2):
         for name, ex in runs.items():
             (e, g, _aux), t = wall(lambda: ex.run(frags, what="gradient"))
             walls[name].append(t)
             totals[name] = w20_mbe2_assemble(e, g)
-    per_worker = [w.launches - b for w, b in zip(workers, before)]
+    per_worker = [w.fermi_launches - b for w, b in zip(workers, before)]
     one = min(walls["one slot"])
     for name in runs:
         print(f"mesh w20 MBE(2) gradient, {name}: walls "
@@ -1389,10 +1598,10 @@ def mesh_phase(jac, golden):
               flush=True)
     for w, n_l in zip(workers, per_worker):
         print(f"mesh worker slot {w.index}: pid {w.pid} on {w.device}, "
-              f"start-up {w.startup_s:.2f} s, {n_l} Jacobi launches in the "
-              f"timed passes, {w.launches} in all", flush=True)
+              f"start-up {w.startup_s:.2f} s, {n_l} Fermi launches in the "
+              f"timed passes, {w.fermi_launches} in all", flush=True)
     check(min(per_worker) > 0,
-          f"a worker launched no Jacobi kernel: {per_worker}")
+          f"a worker launched no Fermi kernel: {per_worker}")
     for w in workers:
         loaded = {"jax", "metalquicha_tpu"} & set(w.modules)
         check(not loaded, f"worker slot {w.index} loaded {sorted(loaded)}")
@@ -1407,15 +1616,28 @@ def mesh_phase(jac, golden):
     check(d_gold <= 1e-8, f"two-process w20 MBE(2) off the golden by "
                           f"{d_gold:.3e}")
 
+    # the Jacobi route runs in float32: one pass of the same list on the
+    # two workers, each of which must launch the Jacobi kernel
+    procs.calc = XtbCalculator(settings, dtype=torch.float32, device=DEVICE)
+    l0 = [w.launches for w in workers]
+    (e, g, _aux), t = wall(lambda: procs.run(frags, what="gradient"))
+    total32 = w20_mbe2_assemble(e, g)[0]
+    per_worker = [w.launches - b for w, b in zip(workers, l0)]
+    print(f"mesh w20 MBE(2) gradient float32 on the Jacobi route, two worker "
+          f"processes: wall={t:.3f} s total={total32:.10f} d_golden="
+          f"{abs(total32 - golden['w20_mbe2']['total']):.2e} Jacobi launches "
+          f"per worker {per_worker}", flush=True)
+    check(np.isfinite(total32) and min(per_worker) > 0,
+          f"a worker launched no Jacobi kernel: {per_worker}")
+
     # the w20 MBE(4) driver run through the same two worker processes
     gold = golden["driver"]["w20_mbe"]
     cfg = read_mqc_file(os.path.join(ROOT, gold["mqc"]))
     factory = make_executor(cfg, DEVICE)
     procs.calc = factory.calc
-    procs.calc.settings = procs.calc.settings._replace(use_pallas_eigh=True)
     procs.polisher, procs.rescue_tol = factory.polisher, factory.rescue_tol
     torch.cuda.reset_peak_memory_stats()
-    l0 = [w.launches for w in workers]
+    l0 = [w.fermi_launches for w in workers]
     out, t = wall(lambda: run_calculation(cfg, write_json=False,
                                           executor=procs))
     total = float(out[""].result.total_energy)
@@ -1427,8 +1649,9 @@ def mesh_phase(jac, golden):
           f"{WALLS.get('driver w20_mbe', float('nan')):.3f} s) "
           f"total={total:.10f} d_golden={d:.2e}; peak GiB: this process "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}, {peaks}; "
-          f"Jacobi launches "
-          f"{[w.launches - b for w, b in zip(workers, l0)]}", flush=True)
+          f"Fermi launches "
+          f"{[w.fermi_launches - b for w, b in zip(workers, l0)]}",
+          flush=True)
     check(d <= 1e-7, f"two-process w20_mbe4 total off the golden by "
                      f"{d:.3e}")
 
@@ -1879,9 +2102,9 @@ def main() -> int:
     print(f"phase sp2: {time.perf_counter() - t0:.2f} s", flush=True)
 
     jac.launches = 0
-    ff.launches = 0
+    ff.launches = ff.density_launches = 0
     sp2.calls = 0
-    phases, fermi = {}, {}
+    phases, fermi, density = {}, {}, {}
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
@@ -1897,9 +2120,10 @@ def main() -> int:
                              "gfn2": golden_gfn2}),
                            ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
-        f0 = ff.launches
+        f0, d0 = ff.launches, ff.density_launches
         phases[name] = fn(jac, gold)
         fermi[name] = ff.launches - f0
+        density[name] = ff.density_launches - d0
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s, "
               f"{fermi[name]} Fermi launches", flush=True)
         check(fermi[name] > 0, f"the {name} phase launched no Fermi kernel")
@@ -1911,6 +2135,10 @@ def main() -> int:
     print(f"main path: jacobi launches={launches} {phases} "
           f"sp2 calls={sp2.calls}", flush=True)
     print(f"main path: fermi launches={ff.launches} {fermi}", flush=True)
+    print(f"main path: fused fill and density launches (among the fermi "
+          f"launches)={ff.density_launches} {density}", flush=True)
+    check(ff.density_launches > 0,
+          "the main path launched no fused fill and density")
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "metalquicha_tpu"))
     check(not jax_side, f"the port loaded {jax_side}")
@@ -1941,6 +2169,16 @@ def main() -> int:
         "bound_ms": fermi_entry["bound_ms"],
         "bound_by": fermi_entry["bound_by"],
         "library_ms": fermi_entry["library_ms"],
+        # the fused fill and density (`fermi_density`, replacing also the
+        # product at metalquicha_tpu/methods/xtb/engine.py:787-793): its
+        # launches are among `launches`
+        "density_launches": ff.density_launches,
+        "density_max_abs_err": fermi_entry["density_max_abs_err"],
+        "density_ms": fermi_entry["density_ms"],
+        "density_fill_product_ms": fermi_entry["density_fill_product_ms"],
+        "density_plain_ms": fermi_entry["density_plain_ms"],
+        "density_bound_ms": fermi_entry["density_bound_ms"],
+        "density_bound_by": fermi_entry["density_bound_by"],
     }]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -414,9 +414,10 @@ class XtbCalculator:
         fragments with a clear HOMO-LUMO gap. Open-shell batches (nuhf > 0)
         and d/f-block elements (near-degenerate partially filled d levels)
         above the Jacobi kernel's ceiling get the exact in-loop eigensolver
-        instead. One host check per batch, in either dtype."""
+        instead. One host check per float32 batch: a float64 SCC takes the
+        exact route anyway (`engine.scf_solve`), as the JAX package's."""
         s = self.settings
-        if not s.use_pallas_eigh:
+        if not (s.use_pallas_eigh and self.dtype == torch.float32):
             return s
         if frag.ao_mask.shape[-1] <= _engine.PALLAS_EIGH_MAX_N:
             return s  # Jacobi kernel: a true eigh, smearing intact

@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from ...ops.fermi_fill import fermi_occupations
+from ...ops.fermi_fill import DENSITY_MAX_N, fermi_density, fermi_occupations
 from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
 from ...ops.jacobi_eigh import jacobi_eigh
 from ...ops.sp2 import sp2_density
@@ -83,10 +83,11 @@ class EngineSettings(NamedTuple):
     cn_type: str = "exp"
     #: CN counting function for D3 dispersion C6 interpolation
     cn_type_d3: str = "exp"
-    #: fast in-loop SCC solve, in either dtype: the hand-written Jacobi
-    #: kernel (ops/jacobi_eigh.py) for AO dims <= PALLAS_EIGH_MAX_N, SP2
-    #: purification (ops/sp2.py) above. The final variational energy
-    #: always uses `eigh_safe`.
+    #: fast in-loop SCC solve, in float32 only (as the JAX package): the
+    #: hand-written Jacobi kernel (ops/jacobi_eigh.py) for AO dims <=
+    #: PALLAS_EIGH_MAX_N, SP2 purification (ops/sp2.py) above. A float64
+    #: SCC takes the exact route whatever this says. The final
+    #: variational energy always uses `eigh_safe`.
     use_pallas_eigh: bool = False
     #: GFN2 mode: self-consistent atomic dipoles/quadrupoles (AES) and
     #: charge-scaled (D4-style) dispersion inside the SCC
@@ -560,6 +561,23 @@ def _warm_start(x0, shape, like):
     return x0.to(dtype=like.dtype, device=like.device)
 
 
+def _scc_density(eps, C, batch, kt, settings: EngineSettings):
+    """The SCC loop's density P = C diag(f) C^T (not differentiated).
+
+    The Fermi filling up to DENSITY_MAX_N AOs is `fermi_density`: the
+    fill and the product in one kernel launch on a card. Above it, and
+    for the aufbau filling, the fill and a plain batched product, which the
+    JAX package leaves to XLA too (chosen by shape, not a fallback)."""
+    if not settings.fixed_occupations and C.shape[-1] <= DENSITY_MAX_N:
+        return fermi_density(eps, C, batch.nelec, batch.nuhf, kt,
+                             batch.ao_mask)
+    f, _ = occupations(
+        eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
+        settings.fixed_occupations,
+    )
+    return (C * f[:, None, :]) @ C.transpose(-1, -2)
+
+
 def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
               gamma_at=None, q0=None):
     """Bounded SCC loop (not differentiated) with Anderson mixing
@@ -573,14 +591,17 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
     is unique, so the warm start only changes how fast the tolerance is
     reached.
 
-    With settings.use_pallas_eigh the in-loop solve is the fast route, in
-    either dtype: the Jacobi kernel for nao <= PALLAS_EIGH_MAX_N, and above
-    it SP2 density purification (ops/sp2.py): 48 batched (N, N) products
-    replace the eigensolver, valid inside the fixed-point loop because only
-    the density is needed there.
+    With settings.use_pallas_eigh a float32 SCC takes the fast in-loop
+    route, as the JAX package: the Jacobi kernel for nao <=
+    PALLAS_EIGH_MAX_N, and above it SP2 density purification
+    (ops/sp2.py): 48 batched (N, N) products replace the eigensolver,
+    valid inside the fixed-point loop because only the density is needed
+    there. A float64 SCC always takes the exact route (`_ortho_factors`,
+    `_general_eigh`).
     """
-    use_sp2 = settings.use_pallas_eigh and S.shape[-1] > PALLAS_EIGH_MAX_N
-    if settings.use_pallas_eigh:
+    fast_inloop = settings.use_pallas_eigh and S.dtype == torch.float32
+    use_sp2 = fast_inloop and S.shape[-1] > PALLAS_EIGH_MAX_N
+    if fast_inloop:
         Xs, shift_out = _jacobi_route(S)
     else:
         ortho = _ortho_factors(S)
@@ -597,16 +618,12 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
             return Xs @ Po @ Xs
     else:
         def make_density(F):
-            if settings.use_pallas_eigh:
+            if fast_inloop:
                 eps, Cp = jacobi_eigh(Xs @ F @ Xs + shift_out)
                 C = Xs @ Cp
             else:
                 eps, C = _general_eigh(F, ortho)
-            f, _ = occupations(
-                eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
-                settings.fixed_occupations,
-            )
-            return (C * f[:, None, :]) @ C.transpose(-1, -2)
+            return _scc_density(eps, C, batch, kt, settings)
 
     def fixed_point(q):
         P = make_density(_fock(H0, S, q, gamma, batch, settings, gamma_at))
@@ -748,22 +765,28 @@ def _aes_moments_of_P(P, S, batch, mp):
 
 
 def _aes_fixed_point(H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
-                     ortho, detach_occupations=False):
+                     ortho, scc_loop):
     """The multipole SCC map z -> z' (Fock, generalized eigh, filling,
     moments of the new density). It always diagonalizes through
-    `_general_eigh`, whatever use_pallas_eigh says, as the JAX package."""
+    `_general_eigh`, whatever use_pallas_eigh says, as the JAX package.
+
+    scc_loop: the map runs in the (not differentiated) SCC loop, and its
+    density is `_scc_density`'s; otherwise autograd records the map
+    through C, with the occupations detached (exact for gapped systems)."""
 
     def fixed_point(z):
         F, _ = _aes_fock(H0, S, z, coords, gamma, batch, settings,
                          gamma_at, mp)
         eps, C = _general_eigh(F, ortho)
-        f, _ = occupations(
-            eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
-            settings.fixed_occupations,
-        )
-        if detach_occupations:
-            f = f.detach()  # exact for gapped systems
-        P = (C * f[:, None, :]) @ C.transpose(-1, -2)
+        if scc_loop:
+            P = _scc_density(eps, C, batch, kt, settings)
+        else:
+            f, _ = occupations(
+                eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
+                settings.fixed_occupations,
+            )
+            f = f.detach()
+            P = (C * f[:, None, :]) @ C.transpose(-1, -2)
         return _aes_pack(*_aes_moments_of_P(P, S, batch, mp))
 
     return fixed_point
@@ -780,7 +803,7 @@ def scf_solve_multipole(H0, S, coords, gamma, batch, kt,
     nat = batch.atom_mask.shape[1]
     fixed_point = _aes_fixed_point(
         H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
-        _ortho_factors(S),
+        _ortho_factors(S), scc_loop=True,
     )
     return _anderson_solve(
         fixed_point, _warm_start(z0, (bsz, nsh + 9 * nat), S), settings
@@ -795,7 +818,7 @@ def scf_refine_multipole(H0, S, coords, gamma, batch, kt,
     autograd records, occupations detached."""
     fixed_point = _aes_fixed_point(
         H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
-        _ortho_factors(S), detach_occupations=True,
+        _ortho_factors(S), scc_loop=False,
     )
     beta = settings.mixer_damping
     z = z0

@@ -1,18 +1,25 @@
-"""Fermi-level fill of a fragment batch: occupations and entropy.
+"""Fermi-level fill of a fragment batch: occupations and entropy, and the
+density built from them.
 
 Counterpart of metalquicha_tpu's `_fermi_fill` and the non-fixed branch
 of `occupations` (`methods/xtb/engine.py`), whose 80-step bisection on
-the chemical potential XLA runs as one loop on the device. The kernel is
-CUDA C++ for sm_90a in `csrc/fermi_fill.cu` (one launch per call: both
-spin channels, their sum and the entropy), built with nvcc at first use
-into `metalquicha_tpu_torch/_build/` and bound with ctypes
-(`ops/kernel_build.py`).
+the chemical potential XLA runs as one loop on the device, and of the
+density product `(C * f) @ C.T` of its SCC's `make_density`. The kernels
+are CUDA C++ for sm_90a in `csrc/fermi_fill.cu`, built with nvcc at first
+use into `metalquicha_tpu_torch/_build/` and bound with ctypes
+(`ops/kernel_build.py`):
+
+- `fermi_occupations`: one launch per call fills both spin channels and
+  returns their sum and the summed entropy;
+- `fermi_density`: one launch per call fills both channels and returns
+  P = C diag(f) C^T (nao <= DENSITY_MAX_N), for the SCC loop, which needs
+  the density only.
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the kernel (or
-raises), a CPU tensor to `fermi_occupations_reference`, the plain torch
-version of the same arithmetic. The kernel's outputs carry no autograd
-graph; the engine detaches the plain version's where it uses them, as the
-JAX package stops their gradients.
+raises), a CPU tensor to the plain torch version beside it
+(`fermi_occupations_reference`, `fermi_density_reference`). The kernels'
+outputs carry no autograd graph; the engine detaches the plain version's
+where it uses them, as the JAX package stops their gradients.
 """
 
 from __future__ import annotations
@@ -24,26 +31,39 @@ import torch
 
 from .kernel_build import KernelLibrary
 
-#: kernel launches so far (a caller may reset it to 0)
+#: kernel launches so far, both entry points (a caller may reset it to 0)
 launches = 0
 #: the same launches per CUDA stream handle (a caller may clear it)
 launches_by_stream: dict = {}
+#: of `launches`, those of the fused fill and density (`fermi_density`)
+density_launches = 0
+#: the largest nao `fermi_density` takes (its C tile in shared memory)
+DENSITY_MAX_N = 64
+#: bisection steps of the JAX function (the kernel stops earlier once a
+#: step leaves the bracket unchanged: every later step would repeat it)
+STEPS = 80
 
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
+_FILL = [_ptr, _ptr, _ptr, _ptr, ctypes.c_double, _ptr, _ptr, _ptr, _int,
+         _int, _int, _ptr]
+_DENSITY = [_ptr, _ptr, _ptr, _ptr, ctypes.c_double, _ptr, _ptr, _int, _int,
+            _int, _ptr]
 _LIB = KernelLibrary("fermi_fill", {
-    name: [_ptr, _ptr, _ptr, _ptr, ctypes.c_double, _ptr, _ptr, _int, _int,
-           _int, _ptr]
-    for name in ("mqc_fermi_fill_f32", "mqc_fermi_fill_f64")
+    "mqc_fermi_fill_f32": _FILL,
+    "mqc_fermi_fill_f64": _FILL,
+    "mqc_fermi_density_f32": _DENSITY,
+    "mqc_fermi_density_f64": _DENSITY,
 })
 #: guards the launch counts
 _count_lock = threading.Lock()
 
 
-def _fermi_fill(eps, n_el, kt, ao_mask):
-    """Fermi occupations (one spin channel, occupancy in [0,1]) + entropy,
-    for a batch: eps (B, nao), n_el (B,). 80 bisection steps on mu."""
+def _bisect(e, n_el, kt, ao_mask, trace=False):
+    """The JAX function's 80 bisection steps on mu for rows e (R, nao),
+    masked AOs already at 1e3: (lo, hi). With `trace`, also the state
+    after the first step that left (lo, hi) unchanged (the kernel's stop;
+    the 80-step state where no step did) and the steps taken up to it."""
     big = 1.0e3
-    e = torch.where(ao_mask > 0.5, eps, big)
 
     def occ(mu):
         x = torch.clamp((e - mu[:, None]) / kt, -60.0, 60.0)
@@ -51,16 +71,47 @@ def _fermi_fill(eps, n_el, kt, ao_mask):
 
     lo = e.min(-1).values - 10.0
     hi = torch.where(ao_mask > 0.5, e, -big).max(-1).values + 10.0
-    for _ in range(80):
+    if trace:
+        steps = torch.zeros(e.shape[0], dtype=torch.int32, device=e.device)
+        done = torch.zeros(e.shape[0], dtype=torch.bool, device=e.device)
+        lo_stop, hi_stop = lo, hi
+    for _ in range(STEPS):
         mid = 0.5 * (lo + hi)
         too_many = occ(mid).sum(-1) > n_el
-        lo = torch.where(too_many, lo, mid)
-        hi = torch.where(too_many, mid, hi)
-    f = occ(0.5 * (lo + hi))
+        new_lo = torch.where(too_many, lo, mid)
+        new_hi = torch.where(too_many, mid, hi)
+        if trace:
+            # NaN never compares equal: a NaN row runs every step
+            same = (new_lo == lo) & (new_hi == hi)
+            steps = steps + (~done).to(torch.int32)
+            lo_stop = torch.where(done, lo_stop, new_lo)
+            hi_stop = torch.where(done, hi_stop, new_hi)
+            done = done | same
+        lo, hi = new_lo, new_hi
+    if trace:
+        return lo, hi, lo_stop, hi_stop, steps
+    return lo, hi
+
+
+def _fermi_fill(eps, n_el, kt, ao_mask):
+    """Fermi occupations (one spin channel, occupancy in [0,1]) + entropy,
+    for a batch: eps (B, nao), n_el (B,). 80 bisection steps on mu."""
+    e = torch.where(ao_mask > 0.5, eps, 1.0e3)
+    lo, hi = _bisect(e, n_el, kt, ao_mask)
+    mu = 0.5 * (lo + hi)
+    x = torch.clamp((e - mu[:, None]) / kt, -60.0, 60.0)
+    f = 1.0 / (1.0 + torch.exp(x))
     fc = torch.clamp(f, 1.0e-30, 1.0 - 1.0e-30)
     entropy = -(fc * torch.log(fc) + (1 - fc) * torch.log(1 - fc))
     entropy = torch.where((f > 1e-12) & (f < 1.0 - 1e-12), entropy, 0.0)
     return f, entropy.sum(-1)
+
+
+def _channels(eps, nelec, nuhf, ao_mask):
+    """The alpha and beta channels as one (2B, nao) stack: levels, electron
+    counts, mask."""
+    n_ch = torch.cat([0.5 * (nelec + nuhf), 0.5 * (nelec - nuhf)])
+    return torch.cat([eps, eps]), n_ch, torch.cat([ao_mask, ao_mask])
 
 
 def fermi_occupations_reference(eps, nelec, nuhf, kt, ao_mask):
@@ -68,71 +119,176 @@ def fermi_occupations_reference(eps, nelec, nuhf, kt, ao_mask):
     filled on a (2B, nao) stack (each row is independent, so this equals
     two separate fills); returns (f_total in [0,2] (B, nao), entropy
     (B,))."""
-    n_ch = torch.cat([0.5 * (nelec + nuhf), 0.5 * (nelec - nuhf)])
-    eps2 = torch.cat([eps, eps])
-    mask2 = torch.cat([ao_mask, ao_mask])
-    f2, s2 = _fermi_fill(eps2, n_ch, kt, mask2)
+    e2, n_ch, mask2 = _channels(eps, nelec, nuhf, ao_mask)
+    f2, s2 = _fermi_fill(e2, n_ch, kt, mask2)
     bsz = eps.shape[0]
     return f2[:bsz] + f2[bsz:], s2[:bsz] + s2[bsz:]
 
 
+def fermi_density_reference(eps, C, nelec, nuhf, kt, ao_mask):
+    """Plain torch version of the fused kernel: the fill, then
+    P = (C * f) @ C^T (B, nao, nao)."""
+    f, _ = fermi_occupations_reference(eps, nelec, nuhf, kt, ao_mask)
+    return (C * f[:, None, :]) @ C.transpose(-1, -2)
+
+
+def fermi_steps_reference(eps, nelec, nuhf, kt, ao_mask):
+    """Bisection steps each channel's fill takes to its fixed point (the
+    kernel's stop), counted on the plain arithmetic: int32 (B, 2), alpha
+    then beta; 0 for the beta channel of a closed shell (nuhf 0), which
+    the kernel does not fill (its fill would equal the alpha one)."""
+    e2, n_ch, mask2 = _channels(eps, nelec, nuhf, ao_mask)
+    e2 = torch.where(mask2 > 0.5, e2, 1.0e3)
+    steps = _bisect(e2, n_ch, kt, mask2, trace=True)[-1]
+    bsz = eps.shape[0]
+    return torch.stack(
+        [steps[:bsz], torch.where(nuhf == 0, 0, steps[bsz:])], -1)
+
+
 def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source hash) and load it; safe to call
-    from several threads at once."""
+    """Compile the kernels (once per source hash) and load them; safe to
+    call from several threads at once."""
     return _LIB.load()
 
 
-def _count(stream: int) -> None:
-    global launches
+def _count(stream: int, density: bool = False) -> None:
+    global launches, density_launches
     with _count_lock:
         launches += 1
+        density_launches += density
         launches_by_stream[stream] = launches_by_stream.get(stream, 0) + 1
 
 
-def add_launches(n: int) -> None:
+def add_launches(n: int, density: int = 0) -> None:
     """Add launches made in another process (a mesh slot's worker) to the
-    count."""
-    global launches
+    counts: n in all, `density` of them fused."""
+    global launches, density_launches
     with _count_lock:
         launches += n
+        density_launches += density
 
 
-def _launch(eps, nelec, nuhf, kt, ao_mask):
+def _fn(name: str):
+    """The C entry point `name`: the library is built and loaded at the
+    first call only (ctypes keeps the function once looked up)."""
+    return getattr(_LIB.lib or build(), name)
+
+
+def _like(t, like):
+    """t as a contiguous tensor of like's dtype on like's device, copied
+    only where it is not one already."""
+    if (t.dtype != like.dtype or t.device != like.device
+            or not t.is_contiguous()):
+        t = t.to(dtype=like.dtype, device=like.device).contiguous()
+    return t
+
+
+def _operands(eps, nelec, nuhf, ao_mask):
     if eps.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"Fermi kernel takes float32/float64, not {eps.dtype}")
-    # the kernel's outputs carry no graph; it reads the values only
-    eps = eps.detach().contiguous()
-    like = {"dtype": eps.dtype, "device": eps.device}
-    mask = ao_mask.detach().to(**like).contiguous()
-    nelec = nelec.detach().to(**like).contiguous()
-    nuhf = nuhf.detach().to(**like).contiguous()
-    lib = build()
+    # the kernels read the values only: no graph is recorded or needed
+    eps = eps if eps.is_contiguous() else eps.contiguous()
+    return eps, _like(nelec, eps), _like(nuhf, eps), _like(ao_mask, eps)
+
+
+def _suffix(dtype) -> str:
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def _stream(index: int) -> int:
+    """The handle of the current CUDA stream of device `index` (the raw
+    handle: a fraction of `torch.cuda.current_stream`'s host time)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _launch(eps, nelec, nuhf, kt, ao_mask, steps=None):
+    eps, nelec, nuhf, mask = _operands(eps, nelec, nuhf, ao_mask)
+    fn = _fn("mqc_fermi_fill_" + _suffix(eps.dtype))
     bsz, nao = eps.shape
-    f = torch.empty((bsz, nao), **like)
-    entropy = torch.empty((bsz,), **like)
-    fn = (lib.mqc_fermi_fill_f64 if eps.dtype == torch.float64
-          else lib.mqc_fermi_fill_f32)
-    stream = torch.cuda.current_stream(eps.device).cuda_stream
+    # two allocations: cutting one into views costs more host time
+    # (tools/fermi_probe_torch.py --host-only)
+    f, entropy = eps.new_empty((bsz, nao)), eps.new_empty((bsz,))
+    index = eps.device.index
+    stream = _stream(index)
     err = fn(eps.data_ptr(), mask.data_ptr(), nelec.data_ptr(),
              nuhf.data_ptr(), float(kt), f.data_ptr(), entropy.data_ptr(),
-             bsz, nao, eps.device.index, stream)
+             None if steps is None else steps.data_ptr(), bsz, nao, index,
+             stream)
     _LIB.check(err, "Fermi kernel")
     _count(stream)
     return f, entropy
 
 
-def fermi_occupations(eps, nelec, nuhf, kt, ao_mask):
-    """Fermi filling of both spin channels of a batch: eps (B, nao)
-    orbital energies in any order, nelec and nuhf (B,), kt in Hartree,
-    ao_mask (B, nao). Returns (f_total in [0,2] (B, nao), entropy (B,))."""
+def _launch_density(eps, C, nelec, nuhf, kt, ao_mask):
+    eps, nelec, nuhf, mask = _operands(eps, nelec, nuhf, ao_mask)
+    C = _like(C, eps)
+    fn = _fn("mqc_fermi_density_" + _suffix(eps.dtype))
+    bsz, nao = eps.shape
+    P = eps.new_empty((bsz, nao, nao))
+    index = eps.device.index
+    stream = _stream(index)
+    err = fn(eps.data_ptr(), mask.data_ptr(), nelec.data_ptr(),
+             nuhf.data_ptr(), float(kt), C.data_ptr(), P.data_ptr(), bsz,
+             nao, index, stream)
+    _LIB.check(err, "Fermi density kernel")
+    _count(stream, density=True)
+    return P
+
+
+def _check_rows(eps, nelec, nuhf, ao_mask):
     if eps.dim() != 2 or ao_mask.shape != eps.shape:
         raise ValueError(f"expected eps and ao_mask of one (B, nao) shape, "
                          f"got {tuple(eps.shape)} and {tuple(ao_mask.shape)}")
     if nelec.shape != eps.shape[:1] or nuhf.shape != eps.shape[:1]:
         raise ValueError(f"expected nelec and nuhf of shape "
                          f"({eps.shape[0]},)")
+
+
+def fermi_occupations(eps, nelec, nuhf, kt, ao_mask):
+    """Fermi filling of both spin channels of a batch: eps (B, nao)
+    orbital energies in any order, nelec and nuhf (B,), kt in Hartree,
+    ao_mask (B, nao). Returns (f_total in [0,2] (B, nao), entropy (B,))."""
+    _check_rows(eps, nelec, nuhf, ao_mask)
     if eps.device.type == "cuda":
         return _launch(eps, nelec, nuhf, kt, ao_mask)
     if eps.device.type == "cpu":
         return fermi_occupations_reference(eps, nelec, nuhf, kt, ao_mask)
+    raise ValueError(f"no Fermi fill for device {eps.device}")
+
+
+def fermi_occupations_steps(eps, nelec, nuhf, kt, ao_mask):
+    """`fermi_occupations` and the bisection steps each channel took:
+    (f_total, entropy, int32 steps (B, 2)). On a card the kernel writes
+    its own counts (one launch); on the CPU they are the plain
+    arithmetic's (`fermi_steps_reference`)."""
+    _check_rows(eps, nelec, nuhf, ao_mask)
+    if eps.device.type == "cuda":
+        steps = torch.empty((eps.shape[0], 2), dtype=torch.int32,
+                            device=eps.device)
+        return (*_launch(eps, nelec, nuhf, kt, ao_mask, steps), steps)
+    if eps.device.type == "cpu":
+        return (*fermi_occupations_reference(eps, nelec, nuhf, kt, ao_mask),
+                fermi_steps_reference(eps, nelec, nuhf, kt, ao_mask))
+    raise ValueError(f"no Fermi fill for device {eps.device}")
+
+
+def fermi_density(eps, C, nelec, nuhf, kt, ao_mask):
+    """The density of the Fermi filling, P = C diag(f) C^T (B, nao, nao),
+    for eps (B, nao) in any order, their eigenvectors C (B, nao, nao) in
+    columns, nelec and nuhf (B,), kt in Hartree, ao_mask (B, nao);
+    nao <= DENSITY_MAX_N. No graph is recorded through it: the SCC loop
+    uses it, which is not differentiated."""
+    _check_rows(eps, nelec, nuhf, ao_mask)
+    bsz, nao = eps.shape
+    if C.shape != (bsz, nao, nao):
+        raise ValueError(f"expected C of shape {(bsz, nao, nao)}, got "
+                         f"{tuple(C.shape)}")
+    if nao > DENSITY_MAX_N:
+        raise ValueError(f"nao {nao} exceeds DENSITY_MAX_N = "
+                         f"{DENSITY_MAX_N}: fill with fermi_occupations and "
+                         f"multiply")
+    if eps.device.type == "cuda":
+        return _launch_density(eps, C, nelec, nuhf, kt, ao_mask)
+    if eps.device.type == "cpu":
+        return fermi_density_reference(eps, C, nelec, nuhf, kt, ao_mask)
     raise ValueError(f"no Fermi fill for device {eps.device}")

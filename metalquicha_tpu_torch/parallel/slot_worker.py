@@ -247,7 +247,8 @@ class SlotWorker:
         self.parts = stats["parts"]
         self.modules, self.build_dir = stats["modules"], stats["build_dir"]
         jacobi_eigh.add_launches(stats["launches"])
-        fermi_fill.add_launches(stats["fermi_launches"])
+        fermi_fill.add_launches(stats["fermi_launches"],
+                                stats["density_launches"])
         sp2.add_calls(stats["sp2_calls"])
 
     def exited(self) -> WorkerExited:
@@ -413,7 +414,7 @@ class _Slot:
         if config is not None:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
-        m0 = fermi_fill.launches
+        m0, d0 = fermi_fill.launches, fermi_fill.density_launches
         cap = self._cap(tuples, pad_to, what, run, sharing)
         outs = []
         for start in range(0, len(tuples), cap):
@@ -426,6 +427,7 @@ class _Slot:
             None if p[0] is None else np.concatenate(p) for p in zip(*outs))
         return parts, dict(self.stats(), launches=jacobi_eigh.launches - n0,
                            fermi_launches=fermi_fill.launches - m0,
+                           density_launches=fermi_fill.density_launches - d0,
                            sp2_calls=sp2.calls - s0, parts=len(outs))
 
     def stats(self) -> dict:

@@ -218,9 +218,7 @@ def test_failed_launch_raises(monkeypatch):
         mqc_fermi_fill_f64=lambda *args: 9,
         mqc_cuda_error_string=lambda code: b"invalid configuration argument")
     monkeypatch.setattr(ff._LIB, "lib", lib)
-    monkeypatch.setattr(
-        torch.cuda, "current_stream",
-        lambda device=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(ff, "_stream", lambda index: 7)
     (eps, nelec, nuhf, mask), kt, _hot = _inputs("real_batch_300K")
     before = ff.launches
     with pytest.raises(RuntimeError, match="invalid configuration argument"):
@@ -230,9 +228,15 @@ def test_failed_launch_raises(monkeypatch):
 
 def test_entry_points_match_the_source():
     """The ctypes declarations of the wrapper against the C signatures of
-    csrc/fermi_fill.cu: a pointer for each pointer, a double for kt, an
-    int for each int (a mismatch shows only on a card otherwise)."""
+    csrc/fermi_fill.cu: every `int mqc_...` entry point of the source is
+    declared (the fill and the fused density, f32 and f64), with a pointer
+    for each pointer, a double for kt, an int for each int (a mismatch
+    shows only on a card otherwise)."""
     src = ff._LIB.source.read_text()
+    declared = set(re.findall(r"^int (mqc_\w+)\(", src, re.M))
+    assert declared == set(ff._LIB.entry_points) == {
+        "mqc_fermi_fill_f32", "mqc_fermi_fill_f64",
+        "mqc_fermi_density_f32", "mqc_fermi_density_f64"}
     kinds = {"double": "c_double", "int": "c_int", "void*": "c_void_p"}
     for name, argtypes in ff._LIB.entry_points.items():
         params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
@@ -241,6 +245,227 @@ def test_entry_points_match_the_source():
             words = p.replace("*", " * ").split()
             want.append("c_void_p" if "*" in words else kinds[words[-2]])
         assert [t.__name__ for t in argtypes] == want, name
+
+
+def _with_nan_rows(eps, nelec, nuhf, mask):
+    """The inputs with a NaN level in the first row and a NaN electron count
+    in the last (the bisection of such rows never settles)."""
+    eps, nelec = eps.copy(), nelec.copy()
+    eps[0, np.flatnonzero(mask[0] > 0.5)[0]] = np.nan
+    nelec[-1] = np.nan
+    return eps, nelec, nuhf, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(CASES))
+def test_fixed_point_stop_is_exact(name, dtype):
+    """On the plain arithmetic, the bracket after the first step that
+    leaves (lo, hi) unchanged (the kernel's stop) is the 80-step bracket,
+    for every row, NaN rows included (a NaN never compares equal, so they
+    take all 80 steps); every other row stops earlier (its step count is
+    printed)."""
+    (eps, nelec, nuhf, mask), kt, _hot = _inputs(name)
+    eps, nelec, nuhf, mask = _torch(_with_nan_rows(eps, nelec, nuhf, mask),
+                                    dtype)
+    e2, n_ch, mask2 = ff._channels(eps, nelec, nuhf, mask)
+    e2 = torch.where(mask2 > 0.5, e2, 1.0e3)
+    lo, hi, lo_stop, hi_stop, steps = ff._bisect(e2, n_ch, kt, mask2,
+                                                 trace=True)
+    nan = torch.isnan(lo) | torch.isnan(hi)
+    assert bool(nan.any())
+    for a, b in ((lo, lo_stop), (hi, hi_stop)):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        assert bool(same.all())
+    assert bool((steps[nan] == ff.STEPS).all())
+    assert bool((steps[~nan] < ff.STEPS).all())
+    print(f"{name} {dtype}: steps {int(steps[~nan].min())}-"
+          f"{int(steps[~nan].max())} of {ff.STEPS}")
+    # the kernel's convention: a closed shell's beta channel is not filled
+    counts = ff.fermi_steps_reference(eps, nelec, nuhf, kt, mask)
+    bsz = eps.shape[0]
+    assert torch.equal(counts[:, 0], steps[:bsz])
+    assert torch.equal(counts[:, 1],
+                       torch.where(nuhf == 0, 0, steps[bsz:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(CASES))
+def test_closed_shell_filled_once_equals_two_fills(name, dtype):
+    """With nuhf 0 both channels fill the same row to the same electron
+    count, so f_alpha + f_beta = 2 f_alpha and s_alpha + s_beta = 2
+    s_alpha bit for bit: the kernel fills a closed shell once."""
+    (eps, nelec, nuhf, mask), kt, _hot = _inputs(name)
+    eps, nelec, nuhf, mask = _torch((eps, nelec, nuhf, mask), dtype)
+    closed = nuhf == 0
+    assert bool(closed.any())
+    f, s = ff.fermi_occupations_reference(eps, nelec, nuhf, kt, mask)
+    f_a, s_a = ff._fermi_fill(eps, 0.5 * (nelec + nuhf), kt, mask)
+    assert torch.equal(f[closed], 2 * f_a[closed])
+    assert torch.equal(s[closed], 2 * s_a[closed])
+
+
+def _eigenvectors(rng, bsz, nao):
+    """Seeded orthogonal (B, nao, nao) matrices, eigenvectors in columns."""
+    return np.stack([np.linalg.qr(rng.normal(size=(nao, nao)))[0]
+                     for _ in range(bsz)])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_density_reference_matches_jax(name):
+    """`fermi_density_reference` against the JAX package's `occupations`
+    and its SCC's product `(C * f) @ C.T` on the same inputs."""
+    import jax
+    import jax.numpy as jnp
+
+    from metalquicha_tpu.methods.xtb import engine as je
+
+    (eps, nelec, nuhf, mask), kt, _hot = _inputs(name)
+    C = _eigenvectors(np.random.default_rng(len(name)), *eps.shape)
+
+    def jax_density(e, c, ne, nu, m):
+        f, _ = je.occupations(e, ne, nu, kt, m, False)
+        return (c * f[None, :]) @ c.T
+
+    p_j = np.asarray(jax.jit(jax.vmap(jax_density))(
+        *(jnp.asarray(x) for x in (eps, C, nelec, nuhf, mask))))
+    args = _torch((eps, C, nelec, nuhf)) + [kt] + _torch((mask,))
+    p = ff.fermi_density_reference(*args)
+    assert np.abs(p.numpy() - p_j).max() <= TOL
+    # a CPU tensor takes the plain version (up to the kernel's nao)
+    if eps.shape[1] <= ff.DENSITY_MAX_N:
+        before = ff.launches
+        assert torch.equal(ff.fermi_density(*args), p)
+        assert ff.launches == before
+
+
+def test_density_wrapper_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="C of shape"):
+        ff.fermi_density(torch.zeros(2, 4), torch.zeros(2, 4, 5),
+                         torch.zeros(2), torch.zeros(2), KT_300,
+                         torch.ones(2, 4))
+    n = ff.DENSITY_MAX_N + 1
+    with pytest.raises(ValueError, match="DENSITY_MAX_N"):
+        ff.fermi_density(torch.zeros(1, n), torch.zeros(1, n, n),
+                         torch.zeros(1), torch.zeros(1), KT_300,
+                         torch.ones(1, n))
+
+
+def test_cuda_tensor_goes_to_the_density_kernel(monkeypatch):
+    def refuse(*_args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    launched = []
+    monkeypatch.setattr(ff, "fermi_density_reference", refuse)
+    monkeypatch.setattr(ff, "_launch_density",
+                        lambda *args: launched.append(args) or "kernel")
+
+    class OnCard:
+        device = torch.device("cuda", 0)
+
+        def __init__(self, *shape):
+            self.shape = torch.Size(shape)
+
+        def dim(self):
+            return len(self.shape)
+
+    eps, C, rows = OnCard(2, 4), OnCard(2, 4, 4), OnCard(2)
+    out = ff.fermi_density(eps, C, rows, rows, KT_300, eps)
+    assert out == "kernel" and len(launched) == 1
+
+
+def test_steps_on_the_cpu_are_the_plain_counts():
+    (eps, nelec, nuhf, mask), kt, _hot = _inputs("near_degenerate_300K")
+    args = _torch((eps, nelec, nuhf)) + [kt] + _torch((mask,))
+    f, s, steps = ff.fermi_occupations_steps(*args)
+    f_p, s_p = ff.fermi_occupations_reference(*args)
+    assert torch.equal(f, f_p) and torch.equal(s, s_p)
+    assert torch.equal(steps, ff.fermi_steps_reference(*args))
+    assert steps.shape == (eps.shape[0], 2)
+    assert bool((steps[:, 1][args[2] == 0] == 0).all())
+
+
+class _FillCounts:
+    """Counts the engine's calls of the fused density and of the fill."""
+
+    def __init__(self, monkeypatch):
+        self.density = self.fill = 0
+        density, fill = te.fermi_density, te.fermi_occupations
+
+        def counted_density(*args):
+            self.density += 1
+            return density(*args)
+
+        def counted_fill(*args):
+            self.fill += 1
+            return fill(*args)
+
+        monkeypatch.setattr(te, "fermi_density", counted_density)
+        monkeypatch.setattr(te, "fermi_occupations", counted_fill)
+
+
+def _scc_operands(calc, frag):
+    from metalquicha_tpu_torch.methods.xtb.calculator import _scc_operands
+
+    kt = calc.settings.electronic_temp * KB_HARTREE
+    return kt, _scc_operands(frag.coords, frag, calc.settings)
+
+
+@pytest.mark.parametrize("variant", ["gfn1", "gfn2"])
+def test_scc_loop_fuses_the_density_and_refine_does_not(monkeypatch,
+                                                        variant):
+    """Under no_grad the SCC loops (`scf_solve`, `scf_solve_multipole`)
+    take one `fermi_density` per iteration and no separate fill; the
+    differentiable refinement records the fill and the product through
+    C instead."""
+    from _torch_port_common import WATER
+
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+
+    iters = 3
+    calc = XtbCalculator(te.settings_from_params(
+        variant, max_scf_iter=iters, scf_tol=0.0), variant=variant,
+        device="cpu")
+    frag = calc.make_batch([WATER, WATER])
+    kt, (S, H0, gamma, mp) = _scc_operands(calc, frag)
+    counts = _FillCounts(monkeypatch)
+    with torch.no_grad():
+        if variant == "gfn2":
+            z, _ = te.scf_solve_multipole(H0, S, frag.coords, gamma, frag, kt,
+                                          calc.settings, None, mp)
+        else:
+            z, _ = te.scf_solve(H0, S, gamma, frag, kt, calc.settings)
+    assert (counts.density, counts.fill) == (iters, 0)
+    if variant == "gfn2":
+        te.scf_refine_multipole(H0, S, frag.coords, gamma, frag, kt,
+                                calc.settings, None, mp, z, 2)
+    else:
+        te.scf_refine(H0, S, gamma, frag, kt, calc.settings, z, 2)
+    assert (counts.density, counts.fill) == (iters, 2)
+
+
+def test_scc_above_64_aos_fills_and_multiplies(monkeypatch):
+    """Above DENSITY_MAX_N the SCC fills (`fermi_occupations`) and takes a
+    plain product, once per iteration."""
+    from _torch_port_common import WATER
+
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+
+    iters = 2
+    calc = XtbCalculator(te.settings_from_params(
+        "gfn1", max_scf_iter=iters, scf_tol=0.0), device="cpu")
+    n = ff.DENSITY_MAX_N + 1
+    frag = calc.make_batch([WATER], pad_to=(3, 6, n))
+    kt, (S, H0, gamma, _mp) = _scc_operands(calc, frag)
+    counts = _FillCounts(monkeypatch)
+    with torch.no_grad():
+        q, _ = te.scf_solve(H0, S, gamma, frag, kt, calc.settings)
+    assert (counts.density, counts.fill) == (0, iters)
+    small = calc.make_batch([WATER])
+    kt, (S, H0, gamma, _mp) = _scc_operands(calc, small)
+    with torch.no_grad():
+        q_small, _ = te.scf_solve(H0, S, gamma, small, kt, calc.settings)
+    # the same water: padding changes nothing beyond rounding
+    assert float((q[:, :q_small.shape[1]] - q_small).abs().max()) <= 1e-12
 
 
 # ---------------------------------------------------------------------------
@@ -308,3 +533,58 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, monkeypatch):
     assert ff.launches == before + 1
     assert not f.requires_grad and not s.requires_grad
     assert f.device.type == "cuda" and bool(torch.isfinite(f).all())
+
+
+#: (B, nao) of the fused density on the main path: the dimer slice, the
+#: w20 MBE(2) buckets, the w20 MBE(4) gradient and energy chunks, and the
+#: largest nao it takes
+DENSITY_SHAPES = [(512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+                  (128, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", DENSITY_SHAPES)
+def test_density_kernel_matches_plain_version(cuda, shape, dtype):
+    eps, nelec, nuhf, mask = _torch(_card_inputs(shape, shape[1]), dtype,
+                                    cuda)
+    C = torch.tensor(_eigenvectors(np.random.default_rng(shape[0]), *shape),
+                     dtype=dtype, device=cuda)
+    before, fused = ff.launches, ff.density_launches
+    p = ff.fermi_density(eps, C, nelec, nuhf, KT_300, mask)
+    torch.cuda.synchronize()
+    assert ff.launches == before + 1 and ff.density_launches == fused + 1
+    p_p = ff.fermi_density_reference(eps, C, nelec, nuhf, KT_300, mask)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((p - p_p).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_never_reaches_the_density_plain_version(cuda,
+                                                             monkeypatch):
+    def refuse(*_args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ff, "fermi_density_reference", refuse)
+    monkeypatch.setattr(ff, "fermi_occupations_reference", refuse)
+    eps, nelec, nuhf, mask = _torch(_card_inputs((8, 16), 0), device=cuda)
+    C = torch.tensor(_eigenvectors(np.random.default_rng(0), 8, 16),
+                     device=cuda)
+    p = ff.fermi_density(eps, C, nelec, nuhf, KT_300, mask)
+    torch.cuda.synchronize()
+    assert p.device.type == "cuda" and bool(torch.isfinite(p).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_steps(cuda, dtype):
+    """The kernel's own step counts: every filled row stops within 80
+    steps, a closed shell's beta channel is not filled."""
+    eps, nelec, nuhf, mask = _torch(_card_inputs((512, 16), 16), dtype, cuda)
+    f, s, steps = ff.fermi_occupations_steps(eps, nelec, nuhf, KT_300, mask)
+    f_k, s_k = ff.fermi_occupations(eps, nelec, nuhf, KT_300, mask)
+    assert torch.equal(f, f_k) and torch.equal(s, s_k)
+    closed = nuhf == 0
+    assert bool((steps[closed, 1] == 0).all())
+    filled = torch.cat([steps[:, 0], steps[~closed, 1]])
+    assert bool(((filled > 0) & (filled <= ff.STEPS)).all())

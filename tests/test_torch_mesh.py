@@ -550,16 +550,20 @@ def test_a_run_time_overlay_reaches_the_workers(slots, tmp_path, started):
 
 
 def test_worker_counts_reach_the_caller(slots):
-    """Two 11-water clusters (66 AOs) on the fast route go through SP2 in
-    each worker; the workers' calls are added to the caller's count."""
+    """Two 11-water clusters (66 AOs) on the float32 fast route go through
+    SP2 in each worker; the workers' calls are added to the caller's
+    count."""
     waters = water_fragments(11)
     cluster = (np.concatenate([w[0] for w in waters]),
                np.concatenate([w[1] for w in waters]), 0, 1)
     shifted = (cluster[0], cluster[1] + 0.01, 0, 1)
     calc = XtbCalculator(settings_from_params("gfn1", max_scf_iter=8,
                                               use_pallas_eigh=True),
-                         device="cpu")
-    e1, _ = FragmentExecutor(calc).run([cluster, shifted], what="energy")
+                         dtype=torch.float32, device="cpu")
+    # one fragment per run, as each worker's piece: float32 rounds by the
+    # batch it is handed
+    e1 = np.concatenate([FragmentExecutor(calc).run([f], what="energy")[0]
+                         for f in (cluster, shifted)])
     ex = slots(2, calc)
     before = [w.sp2_calls for w in ex.workers] or [0, 0]
     n0 = sp2.calls

@@ -10,17 +10,20 @@ Two measurements, each printed as JSON lines:
               divided by the batch size), beside the executor's byte model
               (`parallel/executor.py` `fragment_bytes`) where the package
               has one, and their ratio. Shapes: GFN1 water dimers (nao 16)
-              on the exact and the Jacobi route, w20 water tetramers (nao
-              32) on both routes, the 73-atom peptide of
+              on the exact route in float64 and on the Jacobi route (in
+              float32: the fast in-loop route runs in float32 only, as the
+              JAX package's), w20 water tetramers (nao 32) on both routes,
+              the 73-atom peptide of
               validation/inputs/no_frag.json padded as the executor pads it
               (nao 241), GFN1 with ALPB and with CPCM water (nao 16) and
               GFN2 (nao 16).
 --workflows   run_calculation on the card for the driver inputs named:
               `hessian` (no_frag.json with its driver set to "Hessian":
               438 displaced gradients of one 73-atom fragment), `w20_grad`
-              (w20_isomer.json at MBE(4) with driver "Gradient", the
-              executor on the Jacobi route) and `w20_energy` (the same at
-              driver "Energy"): wall, peak device memory or the
+              (w20_isomer.json at MBE(4) with driver "Gradient") and
+              `w20_energy` (the same at driver "Energy"), each through the
+              factory's executor (float64, the exact route): wall, peak
+              device memory or the
               out-of-memory error, the executor's chunks and, where the
               package has one, its byte budget.
 
@@ -162,7 +165,8 @@ def calculator(variant, solvation, route, device):
         )
 
         solv = CpcmSolvation(78.4, nang=110)
-    return XtbCalculator(settings, variant, torch.float64, device, solv)
+    dtype = torch.float32 if route == "jacobi" else torch.float64
+    return XtbCalculator(settings, variant, dtype, device, solv)
 
 
 def _model(executor, frags, what):
@@ -222,27 +226,25 @@ def _input(name: str, driver: str):
 
 
 WORKFLOWS = {
-    # name -> (input, driver, in-loop route)
-    "hessian": ("no_frag.json", "Hessian", "exact"),
-    "w20_grad": ("w20_isomer.json", "Gradient", "jacobi"),
-    "w20_energy": ("w20_isomer.json", "Energy", "jacobi"),
+    # name -> (input, driver)
+    "hessian": ("no_frag.json", "Hessian"),
+    "w20_grad": ("w20_isomer.json", "Gradient"),
+    "w20_energy": ("w20_isomer.json", "Energy"),
 }
 
 
 def workflow(name: str, device, capture=None) -> dict:
-    """run_calculation on one driver input through the factory's executor
-    (its in-loop route as WORKFLOWS says); the peak device memory or the
-    out-of-memory error, the chunks and the executor's byte budget.
+    """run_calculation on one driver input through the factory's executor;
+    the peak device memory or the out-of-memory error, the chunks and the
+    executor's byte budget.
     capture(jobs, result) is called with every executor run's input and
     output."""
     from metalquicha_tpu_torch.driver import make_executor, run_calculation
     from metalquicha_tpu_torch.ops import jacobi_eigh
 
-    src, driver, route = WORKFLOWS[name]
+    src, driver = WORKFLOWS[name]
     cfg = _input(src, driver)
     ex = make_executor(cfg, str(device))
-    if route == "jacobi":
-        ex.calc.settings = ex.calc.settings._replace(use_pallas_eigh=True)
     chunks = []
     run_chunk, run = ex._run_chunk, ex.run
 
@@ -259,7 +261,7 @@ def workflow(name: str, device, capture=None) -> dict:
     ex._run_chunk = counted
     ex.run = captured
     n0 = jacobi_eigh.launches
-    rec = {"workflow": name, "input": src, "driver": driver, "route": route}
+    rec = {"workflow": name, "input": src, "driver": driver}
     t0 = time.perf_counter()
     try:
         out, peak = peak_bytes(

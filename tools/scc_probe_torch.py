@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """What one SCC iteration of the torch port costs on a card.
 
-On the bench dimer batch (512 water dimers, nao 16, seed 0) in float64,
-on three routes: GFN1 with the exact in-loop eigh ("gfn1_exact"), GFN1 on
-the Jacobi route ("gfn1_jacobi") and GFN2's multipole SCC ("gfn2"):
+On the bench dimer batch (512 water dimers, nao 16, seed 0), on three
+routes: GFN1 with the exact in-loop eigh in float64 ("gfn1_exact"), GFN1
+on the Jacobi route in float32 ("gfn1_jacobi": the fast in-loop route
+runs in float32 only, as the JAX package's) and GFN2's multipole SCC in
+float64 ("gfn2"):
 
 - `ms_per_iteration`: the time one iteration holds the device's stream
   (its idle gaps included), from CUDA events around whole 32-iteration
@@ -16,14 +18,17 @@ the Jacobi route ("gfn1_jacobi") and GFN2's multipole SCC ("gfn2"):
   from the same two profiles), so that 1 - busy / ms is the device's
   idle share; `top_kernels`: the five kernels with the most device time
   per iteration, as [name, launches, device ms];
-- `fermi_per_iteration`: the Fermi kernel's launches per iteration, from
-  its wrapper's count (None where the package has no such kernel);
+- `fermi_per_iteration`: the Fermi kernels' launches per iteration, from
+  their wrapper's count (None where the package has no such kernel), and
+  `density_per_iteration` those of them that fuse the density product
+  (None where the package has no fused kernel);
 - `host_ms_per_iteration`: where the host spends one iteration of a
   32-iteration solve: the ms inside each of the engine's SCC functions
   (`HOST_SPLIT`; a call made inside another counts for both, as GFN2's
   autograd pass `_aes_potentials` inside `_aes_fock`), "solve" for the
   whole solve up to its last kernel's end, and "other" for the time
-  outside all of them (the Anderson step, the density product);
+  outside all of them (the Anderson step; before the fused density, the
+  density product too);
 - with --walls, `energies_s` and `gradients_s`: host seconds of one
   `XtbCalculator.energies` and `.gradients` call on the batch (32 SCC
   iterations), the mean of 3 calls after a warm-up, as `chip_smoke.py`'s
@@ -51,22 +56,26 @@ if ROOT not in sys.path:
     sys.path.append(ROOT)
 
 ITERS = 32
-#: route -> (variant, use_pallas_eigh)
-ROUTES = {"gfn1_exact": ("gfn1", False), "gfn1_jacobi": ("gfn1", True),
-          "gfn2": ("gfn2", False)}
-#: the engine's functions an SCC iteration calls, timed on the host
+#: route -> (variant, use_pallas_eigh, dtype)
+ROUTES = {"gfn1_exact": ("gfn1", False, torch.float64),
+          "gfn1_jacobi": ("gfn1", True, torch.float32),
+          "gfn2": ("gfn2", False, torch.float64)}
+#: the engine's functions an SCC iteration calls, timed on the host (the
+#: fill and density: `_scc_density`, or `occupations` and, in "other", the
+#: product where a package has no `_scc_density`)
 HOST_SPLIT = ("_fock", "_aes_fock", "_aes_potentials", "_general_eigh",
-              "jacobi_eigh", "occupations", "_shell_populations",
-              "_aes_moments_of_P")
+              "jacobi_eigh", "_scc_density", "occupations",
+              "_shell_populations", "_aes_moments_of_P")
 
 
-def _fermi_count():
-    """The Fermi kernel's launch count, or None without the kernel."""
+def _fermi_counts():
+    """The Fermi kernels' launch counts (all, fused), None for what the
+    package lacks."""
     try:
         from metalquicha_tpu_torch.ops import fermi_fill
     except ImportError:
-        return None
-    return fermi_fill.launches
+        return None, None
+    return fermi_fill.launches, getattr(fermi_fill, "density_launches", None)
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -166,11 +175,11 @@ def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
     kt = 300.0 * KB_HARTREE
     out = {}
     for route in routes:
-        variant, jacobi = ROUTES[route]
+        variant, jacobi, dtype = ROUTES[route]
         settings = engine.settings_from_params(
             variant, max_scf_iter=ITERS, scf_tol=0.0, use_pallas_eigh=jacobi)
-        calc = tcalc.XtbCalculator(settings, variant=variant,
-                                   dtype=torch.float64, device=device)
+        calc = tcalc.XtbCalculator(settings, variant=variant, dtype=dtype,
+                                   device=device)
         frag = calc.make_batch(bench_dimers(512))
         with torch.no_grad():
             S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag,
@@ -194,10 +203,13 @@ def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
             rec["top_kernels"] = [
                 [k[:80], v[0], v[1]] for k, v in
                 sorted(per.items(), key=lambda kv: -kv[1][1])[:5]]
-            f0 = _fermi_count()
+            f0, d0 = _fermi_counts()
             solve(settings._replace(max_scf_iter=4))
+            f1, d1 = _fermi_counts()
             rec["fermi_per_iteration"] = (
-                None if f0 is None else (_fermi_count() - f0) / 4.0)
+                None if f0 is None else (f1 - f0) / 4.0)
+            rec["density_per_iteration"] = (
+                None if d0 is None else (d1 - d0) / 4.0)
             rec["host_ms_per_iteration"] = _host_split(engine, solve)
         if walls:
             rec["energies_s"] = _wall(lambda: calc.energies(frag), 3)
