@@ -39,6 +39,26 @@ Phases (each raises on failure; nothing is caught):
              at (B, N) = (64, 256) and (128, 96) in float64 (1e-8) and
              float32 (1e-3); times both routes beside SP2's FLOP bound
              (48 products of 2 N^3 FLOP per matrix and spin channel);
+2b. scc_graph: the SCC loop as a replayed CUDA graph
+             (methods/xtb/scc_graph.py). The in-loop eigh binding
+             (ops/batched_eigh.py, csrc/batched_eigh.cu, built with the
+             kernels and linked with -lcusolver) against
+             torch.linalg.eigh at (B, n) = (512, 16), (2581, 32), (5985,
+             32), (128, 64), (41, 241) and (1, 16) in float64 and float32:
+             bit for bit where torch calls the same routine (a batch of
+             matrices up to 32), else within 1e-12 in float64, and a
+             residual |A V - V diag(w)| / max|A| below 1e-12 (f64) / 1e-4
+             (f32); both timed, the workspace printed. Then every route,
+             GFN1 exact (f64), Jacobi (f32), SP2 (f32, 16 water
+             dodecamers at 72 AOs), GFN1 + ALPB and GFN2, on the dimer
+             slice and on 64 seeded water hexamers (36 AOs): the graph
+             solve against `graph=False` on the same operands, charges
+             and residuals bit for bit, the same stop iteration, the same
+             launches of every counter (the in-loop solver's once per
+             iteration); the loop body under
+             torch.cuda.set_sync_debug_mode("error"); on the slice both
+             timed at 32 iterations, with the capture's ms. One line
+             `{"scc_graph": ...}`;
 3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with use_pallas_eigh in
              float64 (the exact route, as the JAX package's: no Jacobi
@@ -192,8 +212,12 @@ earlier commit's `csrc/jacobi_eigh.cu`, same C interface) with the same
 nvcc flags into a temporary directory and times it beside this one in
 phase 1, in the order baseline, this, this, baseline.
 
-The kernels' launch counters and SP2's call counter are reset before
-phases 3-13; the Jacobi kernel's must grow in phases 3-6 (5b too), 9, 10
+The kernels' launch counters (their replays' launches included), SP2's
+and the in-loop eigh's call counters and the SCC graph counts are reset
+before phases 3-13; every one of phases 3-13 but the mesh must capture an
+SCC graph and none may run an SCC on the card launch by launch (the
+mesh's workers report theirs, each must have captured); the Jacobi
+kernel's must grow in phases 3-6 (5b too), 9, 10
 and 13, each from its float32 pass (a float64 SCC takes the exact route,
 as the JAX package's) or, in 13, its timing of the kernel alone, and
 both in phase 7; phase 8 must leave both as they are, and phase 12 the
@@ -710,6 +734,235 @@ def sp2_phase(rng):
                 check(pad <= tol, f"sp2 fills padding ({pad:.3e})")
 
 
+# the SCC graph phase: (B, n) of the in-loop eigh against torch's: the
+# dimer slice, the w20 MBE(4) chunks, the largest nao of the fused
+# density, a chunk of the 73-atom Hessian, one fragment
+EIGH_SHAPES = ((512, 16), (2581, 32), (5985, 32), (128, 64), (41, 241),
+               (1, 16))
+EIGH_TOL_F64 = 1e-12
+SCC_ITERS = 32
+
+
+def water_clusters(rng, n_clusters: int, k: int) -> list:
+    """n_clusters seeded clusters of k waters each: the waters on a
+    jittered grid 5.6 Bohr apart, each turned by a random rotation."""
+    from metalquicha_tpu_torch.workloads import WATER_BOHR
+
+    grid = np.array([[i, j, l] for l in range(3) for j in range(3)
+                     for i in range(3)], dtype=float)[:k] * 5.6
+    out = []
+    for _ in range(n_clusters):
+        coords = []
+        for c in grid:
+            q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+            coords.append(WATER_BOHR @ q.T + c + 0.3 * rng.standard_normal(3))
+        out.append((np.tile([8, 1, 1], k), np.vstack(coords), 0, 1))
+    return out
+
+
+def eigh_inputs(rng, bsz: int, n: int, dtype):
+    """Seeded symmetric matrices, one upper element moved by 1e-3 (torch
+    and the binding read the lower triangle)."""
+    a = rng.standard_normal((bsz, n, n))
+    a = a + a.transpose(0, 2, 1)
+    a[:, 0, n - 1] += 1e-3
+    return torch.tensor(a, dtype=dtype, device=DEVICE)
+
+
+def torch_eigh_routine(dtype, n: int, batch: int) -> str:
+    """The cuSOLVER routine `torch.linalg.eigh` calls (torch 2.11, as its
+    kernel names in the profiler and each routine's bits showed):
+    XsyevBatched for a batch of matrices up to 32, syevj one matrix at a
+    time in float32 from 32 to 512, syevd one matrix at a time otherwise.
+    Where it is XsyevBatched the binding's eigenpairs must be torch's bit
+    for bit."""
+    if batch > 1 and n <= 32:
+        return "XsyevBatched"
+    if dtype == torch.float32 and 32 <= n <= 512:
+        return "syevj"
+    return "syevd"
+
+
+def eigh_binding_check(be):
+    """The in-loop eigh (ops/batched_eigh.py) against torch.linalg.eigh."""
+    rng = np.random.default_rng(12)
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        for bsz, n in EIGH_SHAPES:
+            a = eigh_inputs(rng, bsz, n, dtype)
+            status = be.EighStatus(a)
+            w, v = be.eigh(a, status)
+            w_t, v_t = torch.linalg.eigh(a)
+            torch.cuda.synchronize()
+            status.check()
+            sign = torch.sign((v * v_t).sum(-2, keepdim=True))
+            d_w = float((w - w_t).abs().max())
+            d_v = float((v * sign - v_t).abs().max())
+            same = bool(torch.equal(w, w_t) and torch.equal(v, v_t))
+            lower = a.tril() + a.tril(-1).transpose(-1, -2)
+            resid = float((lower @ v - v * w[:, None, :]).abs().max()) / float(
+                a.abs().amax())
+            ms = cuda_ms(lambda: be.eigh(a, status), 5)
+            lib_ms = cuda_ms(lambda: torch.linalg.eigh(a), 3 if n > 32 else 5)
+            tag = "f64" if dtype == torch.float64 else "f32"
+            routine = torch_eigh_routine(dtype, n, bsz)
+            rows.append({"shape": [bsz, n], "dtype": tag, "bitwise": same,
+                         "max_dw": d_w, "max_dv_sign": d_v,
+                         "torch_routine": routine, "ms": ms,
+                         "library_ms": lib_ms,
+                         "workspace_bytes": status.work.numel()})
+            print(f"in-loop eigh {tag} (B, n)=({bsz}, {n}): bitwise={same} "
+                  f"max|dw|={d_w:.3e} max|dV.sign|={d_v:.3e} residual/|A|="
+                  f"{resid:.2e} binding ms={ms:.4f} torch.linalg.eigh ms="
+                  f"{lib_ms:.4f} (torch's routine {routine}) workspace "
+                  f"{status.work.numel()} bytes", flush=True)
+            if routine == "XsyevBatched":
+                check(same, f"in-loop eigh {tag} at ({bsz}, {n}) is not "
+                      f"torch's bit for bit (dw {d_w:.3e}, dV {d_v:.3e})")
+            elif dtype == torch.float64:
+                check(d_w <= EIGH_TOL_F64 and d_v <= EIGH_TOL_F64,
+                      f"in-loop eigh f64 at ({bsz}, {n}) off torch's by "
+                      f"{max(d_w, d_v):.3e} > {EIGH_TOL_F64:.0e}")
+            check(resid <= (1e-12 if dtype == torch.float64 else 1e-4),
+                  f"in-loop eigh {tag} at ({bsz}, {n}): residual {resid:.2e}")
+    return rows
+
+
+def scc_graph_phase(be):
+    """Every route's SCC as a replayed CUDA graph against the eager loop:
+    charges and residuals bit for bit, the same stop iteration, the same
+    launches; the loop body under set_sync_debug_mode("error"); the
+    in-loop eigh against torch.linalg.eigh. Returns the phase's JSON."""
+    from metalquicha_tpu_torch.constants import KB_HARTREE
+    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
+    from metalquicha_tpu_torch.methods.xtb import engine, scc_graph
+    from metalquicha_tpu_torch.methods.xtb.solvation.born import (
+        BornSolvation,
+    )
+    from metalquicha_tpu_torch.ops import fermi_fill as ff
+    from metalquicha_tpu_torch.ops import jacobi_eigh as jac
+    from metalquicha_tpu_torch.ops import sp2
+    from metalquicha_tpu_torch.workloads import bench_dimers
+
+    eigh_rows = eigh_binding_check(be)
+    kt = 300.0 * KB_HARTREE
+    rng = np.random.default_rng(5)
+    dimers = bench_dimers(512)
+    hexamers = water_clusters(rng, 64, 6)      # nao 36
+    dodecamers = water_clusters(rng, 16, 12)   # nao 72: SP2 in float32
+    # route -> (variant, use_pallas_eigh, dtype, ALPB, fragments above 32)
+    routes = {"gfn1_exact": ("gfn1", False, torch.float64, False, hexamers),
+              "gfn1_jacobi": ("gfn1", True, torch.float32, False, hexamers),
+              "sp2": ("gfn1", True, torch.float32, False, dodecamers),
+              "gfn1_alpb": ("gfn1", False, torch.float64, True, hexamers),
+              "gfn2": ("gfn2", False, torch.float64, False, hexamers)}
+
+    def launches():
+        return (ff.launches, ff.density_launches, jac.launches, sp2.calls,
+                be.launches)
+
+    steps = [0]
+    real_step = engine._anderson_step
+
+    def counted_step(*args):
+        steps[0] += 1
+        return real_step(*args)
+
+    def debug_step(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    out = {}
+    for route, (variant, jacobi, dtype, alpb, above) in routes.items():
+        for label, frags in (("512x16", dimers), ("above32", above)):
+            if route == "sp2" and label == "512x16":
+                continue  # the Jacobi route's shape
+            tol = 1e-9 if dtype == torch.float64 else 2e-5
+            settings = engine.settings_from_params(
+                variant, max_scf_iter=64, scf_tol=tol,
+                use_pallas_eigh=jacobi)
+            solv = BornSolvation(78.4, alpb=True) if alpb else None
+            calc = tcalc.XtbCalculator(settings, variant=variant,
+                                       dtype=dtype, device=DEVICE,
+                                       solvation=solv)
+            frag = calc.make_batch(frags)
+            with torch.no_grad():
+                S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag,
+                                                       settings)
+                g_at = tcalc._solv_gamma(frag.coords, frag, solv)
+
+            def solve(graph, st=settings):
+                with torch.no_grad():
+                    if mp is None:
+                        return engine.scf_solve(H0, S, gamma, frag, kt, st,
+                                                g_at, graph=graph)
+                    return engine.scf_solve_multipole(
+                        H0, S, frag.coords, gamma, frag, kt, st, g_at, mp,
+                        graph=graph)
+
+            nao = S.shape[-1]
+            fast = jacobi and dtype == torch.float32
+            expect = ("sp2" if fast and nao > engine.PALLAS_EIGH_MAX_N
+                      else "jacobi" if fast else "eigh")
+            c0 = launches()
+            engine._anderson_step = counted_step
+            try:
+                steps[0] = 0
+                q_e, r_e = solve(False)
+                torch.cuda.synchronize()
+                n_eager = steps[0]
+                c1 = launches()
+                steps[0] = 0
+                r0 = scc_graph.stats["replays"]
+                q_g, r_g = solve(True)
+                torch.cuda.synchronize()
+                n_graph = steps[0] - 1 + scc_graph.stats["replays"] - r0
+                c2 = launches()
+            finally:
+                engine._anderson_step = real_step
+            made_e = [b - a for a, b in zip(c0, c1)]
+            made_g = [b - a for a, b in zip(c1, c2)]
+            same = bool(torch.equal(q_g, q_e) and torch.equal(r_g, r_e))
+            check(same, f"scc graph {route} {label}: charges off the eager "
+                  f"loop by {float((q_g - q_e).abs().max()):.3e}")
+            check(n_graph == n_eager, f"scc graph {route} {label}: stopped "
+                  f"at {n_graph} iterations, the eager loop at {n_eager}")
+            check(made_g == made_e, f"scc graph {route} {label}: launches "
+                  f"{made_g}, the eager loop's {made_e}")
+            used = {"eigh": made_e[4], "jacobi": made_e[2],
+                    "sp2": made_e[3]}
+            check(used[expect] == n_eager and all(
+                v == 0 for k, v in used.items() if k != expect),
+                f"scc graph {route} {label}: in-loop calls {used}, "
+                f"expected {n_eager} of {expect}")
+            # no sync in the loop body
+            engine._anderson_step = debug_step
+            try:
+                solve(False, settings._replace(max_scf_iter=3))
+                torch.cuda.synchronize()
+            finally:
+                engine._anderson_step = real_step
+            rec = {"shape": [len(frags), nao], "in_loop": expect,
+                   "iterations": n_eager, "bitwise": same,
+                   "launches_per_solve": made_g}
+            if label == "512x16" or route == "sp2":
+                fixed = settings._replace(scf_tol=0.0,
+                                          max_scf_iter=SCC_ITERS)
+                for graph in (False, True, True, False):
+                    ms = cuda_ms(lambda g=graph: solve(g, fixed), 1)
+                    rec.setdefault("eager_ms_per_iteration" if not graph
+                                   else "graph_ms_per_iteration",
+                                   []).append(ms / SCC_ITERS)
+                rec["capture_ms"] = {k: scc_graph.stats[k] for k in (
+                    "warmup_ms", "record_ms", "instantiate_ms")}
+            out[f"{route}_{label}"] = rec
+            print(f"scc graph {route} {label}: {rec}", flush=True)
+    return {"routes": out, "eigh": eigh_rows}
+
+
 def slice_phase(jac, golden):
     from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
     from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
@@ -1132,6 +1385,7 @@ def gfn2_phase(jac, golden):
         XtbCalculator,
         single_point_energy,
     )
+    from metalquicha_tpu_torch.methods.xtb import scc_graph
     from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
     from metalquicha_tpu_torch.methods.xtb.solvation.born import BornSolvation
     from metalquicha_tpu_torch.ops import sp2
@@ -1300,7 +1554,12 @@ def gfn2_phase(jac, golden):
           f"peak={peak:.2f} GiB {outcome}", flush=True)
 
     n_j2, n_s2 = jac.launches, sp2.calls
-    for route, it in scc_iteration_ms().items():
+    # the probe's own launch-by-launch solves are its comparison, not the
+    # main path's
+    eager = scc_graph.stats["eager"]
+    costs = scc_iteration_ms()
+    scc_graph.stats["eager"] = eager
+    for route, it in costs.items():
         per = it["kernels_per_iteration"]
         busy = it["busy_ms_per_iteration"]
         host = {k: round(v, 4) for k, v in it["host_ms_per_iteration"].items()}
@@ -1311,6 +1570,13 @@ def gfn2_phase(jac, golden):
               f"fermi launches={it['fermi_per_iteration']} (fused fill and "
               f"density {it['density_per_iteration']}) host ms {host} "
               f"top kernels {it['top_kernels']}", flush=True)
+        gr = it.get("graph") or {}
+        print(f"scc iteration at (512, 16), {route}, replayed graph: "
+              f"stream ms={gr.get('ms_per_iteration')} device kernels="
+              f"{gr.get('kernels_per_iteration')} busy ms="
+              f"{gr.get('busy_ms_per_iteration')} host ms="
+              f"{gr.get('host_ms_per_iteration')} capture ms "
+              f"{gr.get('capture_ms')}", flush=True)
         check(it["fermi_per_iteration"] == 1.0,
               f"{route}: {it['fermi_per_iteration']} Fermi launches per SCC "
               f"iteration, not 1")
@@ -1599,7 +1865,11 @@ def mesh_phase(jac, golden):
     for w, n_l in zip(workers, per_worker):
         print(f"mesh worker slot {w.index}: pid {w.pid} on {w.device}, "
               f"start-up {w.startup_s:.2f} s, {n_l} Fermi launches in the "
-              f"timed passes, {w.fermi_launches} in all", flush=True)
+              f"timed passes, {w.fermi_launches} in all; SCC graphs "
+              f"{w.scc_captures}, eager SCCs {w.scc_eager}", flush=True)
+        check(w.scc_captures > 0 and w.scc_eager == 0,
+              f"worker slot {w.index}: {w.scc_captures} SCC graphs and "
+              f"{w.scc_eager} SCCs launch by launch")
     check(min(per_worker) > 0,
           f"a worker launched no Fermi kernel: {per_worker}")
     for w in workers:
@@ -2047,6 +2317,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    from metalquicha_tpu_torch.methods.xtb import scc_graph
+    from metalquicha_tpu_torch.ops import batched_eigh as be
     from metalquicha_tpu_torch.ops import fermi_fill as ff
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
     from metalquicha_tpu_torch.ops import sp2
@@ -2076,7 +2348,8 @@ def main() -> int:
             built[name] = exc
 
     threads = [threading.Thread(target=build, args=item)
-               for item in (("jacobi_eigh", jac), ("fermi_fill", ff))]
+               for item in (("jacobi_eigh", jac), ("fermi_fill", ff),
+                            ("batched_eigh", be))]
     for t in threads:
         t.start()
     for t in threads:
@@ -2086,6 +2359,7 @@ def main() -> int:
             raise res
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s in all "
           + " ".join(f"{k}={v:.2f} s" for k, v in built.items()), flush=True)
+    print(f"in-loop eigh: cuSOLVER {be.solver_version()}", flush=True)
     rng = np.random.default_rng(0)
     if args.baseline:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2101,10 +2375,17 @@ def main() -> int:
     sp2_phase(rng)
     print(f"phase sp2: {time.perf_counter() - t0:.2f} s", flush=True)
 
+    t0 = time.perf_counter()
+    graph_line = scc_graph_phase(be)
+    print(f"phase scc_graph: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(json.dumps({"scc_graph": graph_line}), flush=True)
+
     jac.launches = 0
     ff.launches = ff.density_launches = 0
     sp2.calls = 0
-    phases, fermi, density = {}, {}, {}
+    be.launches = 0
+    scc_graph.stats.update(captures=0, replays=0, eager=0)
+    phases, fermi, density, captures = {}, {}, {}, {}
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
@@ -2121,12 +2402,19 @@ def main() -> int:
                            ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
         f0, d0 = ff.launches, ff.density_launches
+        g0 = scc_graph.stats["captures"]
         phases[name] = fn(jac, gold)
         fermi[name] = ff.launches - f0
         density[name] = ff.density_launches - d0
+        captures[name] = scc_graph.stats["captures"] - g0
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s, "
-              f"{fermi[name]} Fermi launches", flush=True)
+              f"{fermi[name]} Fermi launches, {captures[name]} SCC graphs",
+              flush=True)
         check(fermi[name] > 0, f"the {name} phase launched no Fermi kernel")
+        check(captures[name] > 0 or name == "mesh",
+              f"the {name} phase captured no SCC graph")
+        check(scc_graph.stats["eager"] == 0,
+              f"the {name} phase ran an SCC on the card launch by launch")
     launches = jac.launches
     check(launches > 0, "the main path launched no Jacobi kernel")
     check(phases["polish"] > 0, "the polish phase launched no Jacobi kernel")
@@ -2137,6 +2425,10 @@ def main() -> int:
     print(f"main path: fermi launches={ff.launches} {fermi}", flush=True)
     print(f"main path: fused fill and density launches (among the fermi "
           f"launches)={ff.density_launches} {density}", flush=True)
+    print(f"main path: SCC graphs captured={scc_graph.stats['captures']} "
+          f"{captures}, replays={scc_graph.stats['replays']}, in-loop eigh "
+          f"calls={be.launches}", flush=True)
+    check(be.launches > 0, "the main path never called the in-loop eigh")
     check(ff.density_launches > 0,
           "the main path launched no fused fill and density")
     jax_side = sorted(m for m in sys.modules

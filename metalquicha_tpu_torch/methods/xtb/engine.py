@@ -32,10 +32,13 @@ from typing import NamedTuple
 
 import torch
 
+from ...ops.batched_eigh import EighStatus
+from ...ops.batched_eigh import eigh as batched_eigh
 from ...ops.fermi_fill import DENSITY_MAX_N, fermi_density, fermi_occupations
 from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
 from ...ops.jacobi_eigh import jacobi_eigh
 from ...ops.sp2 import sp2_density
+from . import scc_graph
 from .batch import PAD_LEVEL
 from .multipole import moment_matrices
 from .overlap import overlap_matrix
@@ -408,10 +411,15 @@ def _ortho_factors(S):
     return Xs, proj_out
 
 
-def _general_eigh(F, ortho):
-    """Generalized eigenproblem via canonical orthogonalization factors."""
+def _general_eigh(F, ortho, status=None):
+    """Generalized eigenproblem via canonical orthogonalization factors.
+
+    status: given by the (not differentiated) SCC loops, whose eigh is
+    then `batched_eigh.eigh` (cuSOLVER's batched routine, its status kept
+    on the device in `status`); otherwise `eigh_safe`."""
     Xs, proj_out = ortho
-    eps, Cp = eigh_safe(Xs @ F @ Xs + PAD_LEVEL * proj_out)
+    a = Xs @ F @ Xs + PAD_LEVEL * proj_out
+    eps, Cp = eigh_safe(a) if status is None else batched_eigh(a, status)
     return eps, Xs @ Cp
 
 
@@ -489,7 +497,100 @@ def _jacobi_route(S):
 _DONE_CHECK_EVERY = 4
 
 
-def _anderson_solve(fixed_point, x0, settings: EngineSettings):
+class _AndersonState(NamedTuple):
+    """The Anderson loop's state, the JAX while_loop's carry. The JAX carry
+    is immutable; here `_anderson_step` updates these tensors in place
+    (`copy_`), so that a captured iteration reads and writes the same
+    buffers at every replay. `it` is the iteration counter as a 0-d int64
+    tensor on the device: every active fragment has done exactly `it`
+    iterations."""
+
+    x: torch.Tensor         # (B, nx) the states
+    resid: torch.Tensor     # (B,) each fragment's last residual
+    active: torch.Tensor    # (B,) bool: still above scf_tol
+    hist_x: torch.Tensor    # (B, m, nx) the window of states
+    hist_f: torch.Tensor    # (B, m, nx) and of residual vectors
+    it: torch.Tensor        # () int64
+
+
+def _anderson_state(x0, settings: EngineSettings) -> _AndersonState:
+    bsz, nx = x0.shape
+    m = settings.broyden_memory
+    dtype, dev = x0.dtype, x0.device
+    return _AndersonState(
+        # a copy: the state is updated in place, x0 may be the caller's
+        x=x0.clone(),
+        resid=torch.ones(bsz, dtype=dtype, device=dev),
+        active=torch.ones(bsz, dtype=torch.bool, device=dev),
+        hist_x=torch.zeros(bsz, m, nx, dtype=dtype, device=dev),
+        hist_f=torch.zeros(bsz, m, nx, dtype=dtype, device=dev),
+        it=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def _anderson_step(fixed_point, state: _AndersonState,
+                   settings: EngineSettings, slots, eye_m) -> None:
+    """One Anderson iteration on `state`, in place; the iteration counter
+    lives on the device, so the step reads no host value that changes
+    between iterations and can be captured once and replayed. slots:
+    arange(m); eye_m: the (m, m) identity."""
+    x, it = state.x, state.it
+    m = settings.broyden_memory
+    beta = settings.mixer_damping
+    f32 = x.dtype == torch.float32
+    reg = 1e-4 if f32 else 1e-12
+    c_lim = 2.0 if f32 else 1e3
+
+    f_res = fixed_point(x) - x
+    it_resid = f_res.abs().amax(-1)
+
+    slot = (it % m).view(1)
+    state.hist_x.index_copy_(1, slot, x[:, None])
+    state.hist_f.index_copy_(1, slot, f_res[:, None])
+
+    # Anderson: minimize ||f + dF c|| over window differences
+    prev = (it - 1) % m
+    valid = ((slots <= it) & (slots != prev))[None, :, None]
+    hist_x, hist_f = state.hist_x, state.hist_f
+    dX = torch.where(valid, hist_x - hist_x.index_select(1, prev.view(1)),
+                     0.0)
+    dF = torch.where(valid, hist_f - hist_f.index_select(1, prev.view(1)),
+                     0.0)
+    G = dF @ dF.transpose(-1, -2)
+    trace = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+    G = G + (reg * trace / m + 1e-30)[:, None, None] * eye_m
+    rhs = (dF @ f_res[..., None])[..., 0]
+    c, _ = torch.linalg.solve_ex(G, rhs)
+    step = (c[:, None, :] @ (dX + beta * dF))[:, 0]
+    x_and = x + beta * f_res - step
+    x_damped = x + beta * f_res
+    # reject wild extrapolations, non-finite steps, the first step
+    bad = (
+        (it < 1)
+        | ~torch.isfinite(x_and).all(-1)
+        | (c.abs().amax(-1) > c_lim)
+    )
+    x_next = torch.where(bad[:, None], x_damped, x_and)
+
+    # fragments already below scf_tol keep their state and residual
+    active = state.active
+    resid = torch.where(active, it_resid, state.resid)
+    x.copy_(torch.where(active[:, None], x_next, x))
+    state.resid.copy_(resid)
+    active.copy_(active & (resid > settings.scf_tol))
+    it.add_(1)
+
+
+def _all_done(state: _AndersonState, settings: EngineSettings,
+              it: int) -> bool:
+    """Whether the loop stops before iteration `it`: every fragment has
+    met scf_tol, asked every _DONE_CHECK_EVERY iterations (a host sync)."""
+    return (settings.scf_tol > 0 and it > 0 and it % _DONE_CHECK_EVERY == 0
+            and not bool(state.active.any()))
+
+
+def _anderson_solve(fixed_point, x0, settings: EngineSettings,
+                    graph: bool = True):
     """Anderson-mixed fixed-point iteration x <- g(x) on a batch of state
     vectors x0 (B, nx); returns the states and the final residuals (B,).
 
@@ -498,61 +599,34 @@ def _anderson_solve(fixed_point, x0, settings: EngineSettings):
     keeps its state while the others iterate, as the JAX package's vmapped
     while_loop does. Window of broyden_memory with Tikhonov-regularized
     normal equations, a c_lim safeguard and damped steps as fallback.
+
+    On a card the iterations run as replays of one captured CUDA graph
+    (`scc_graph.run_replayed`), the counterpart of the JAX package's
+    compiled while_loop, with the same results and the same stop. A failed
+    capture raises. graph=False runs them launch by launch instead, for a
+    caller that compares the two; a CPU tensor always does.
     """
-    bsz, nx = x0.shape
+    state = _anderson_state(x0, settings)
     m = settings.broyden_memory
-    beta = settings.mixer_damping
-    dtype, dev = x0.dtype, x0.device
-    f32 = dtype == torch.float32
-    reg = 1e-4 if f32 else 1e-12
-    c_lim = 2.0 if f32 else 1e3
-    eye_m = torch.eye(m, dtype=dtype, device=dev)
-    slots = torch.arange(m, device=dev)
+    slots = torch.arange(m, device=x0.device)
+    eye_m = torch.eye(m, dtype=x0.dtype, device=x0.device)
 
-    x = x0
-    resid = torch.ones(bsz, dtype=dtype, device=dev)
-    active = torch.ones(bsz, dtype=torch.bool, device=dev)
-    hist_x = torch.zeros(bsz, m, nx, dtype=dtype, device=dev)
-    hist_f = torch.zeros(bsz, m, nx, dtype=dtype, device=dev)
+    def step():
+        _anderson_step(fixed_point, state, settings, slots, eye_m)
 
-    # every active fragment has done exactly `it` iterations
-    for it in range(settings.max_scf_iter):
-        if (settings.scf_tol > 0 and it and it % _DONE_CHECK_EVERY == 0
-                and not bool(active.any())):
-            break
-        f_res = fixed_point(x) - x
-        it_resid = f_res.abs().amax(-1)
+    def done(it):
+        return _all_done(state, settings, it)
 
-        slot = it % m
-        hist_x[:, slot] = x
-        hist_f[:, slot] = f_res
-
-        # Anderson: minimize ||f + dF c|| over window differences
-        prev = (it - 1) % m
-        valid = ((slots <= it) & (slots != prev))[None, :, None]
-        dX = torch.where(valid, hist_x - hist_x[:, prev, None], 0.0)
-        dF = torch.where(valid, hist_f - hist_f[:, prev, None], 0.0)
-        G = dF @ dF.transpose(-1, -2)
-        trace = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
-        G = G + (reg * trace / m + 1e-30)[:, None, None] * eye_m
-        rhs = (dF @ f_res[..., None])[..., 0]
-        c, _ = torch.linalg.solve_ex(G, rhs)
-        step = (c[:, None, :] @ (dX + beta * dF))[:, 0]
-        x_and = x + beta * f_res - step
-        x_damped = x + beta * f_res
-        # reject wild extrapolations, non-finite steps, the first step
-        bad = (
-            (it < 1)
-            | ~torch.isfinite(x_and).all(-1)
-            | (c.abs().amax(-1) > c_lim)
-        )
-        x_next = torch.where(bad[:, None], x_damped, x_and)
-
-        # fragments already below scf_tol keep their state and residual
-        x = torch.where(active[:, None], x_next, x)
-        resid = torch.where(active, it_resid, resid)
-        active = active & (resid > settings.scf_tol)
-    return x, resid
+    if graph and x0.device.type == "cuda":
+        scc_graph.run_replayed(step, done, settings.max_scf_iter, x0.device)
+    else:
+        if x0.device.type == "cuda":
+            scc_graph.stats["eager"] += 1
+        for it in range(settings.max_scf_iter):
+            if done(it):
+                break
+            step()
+    return state.x, state.resid
 
 
 def _warm_start(x0, shape, like):
@@ -579,7 +653,7 @@ def _scc_density(eps, C, batch, kt, settings: EngineSettings):
 
 
 def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
-              gamma_at=None, q0=None):
+              gamma_at=None, q0=None, graph: bool = True):
     """Bounded SCC loop (not differentiated) with Anderson mixing
     (`_anderson_solve`).
 
@@ -597,14 +671,20 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
     (ops/sp2.py): 48 batched (N, N) products replace the eigensolver,
     valid inside the fixed-point loop because only the density is needed
     there. A float64 SCC always takes the exact route (`_ortho_factors`,
-    `_general_eigh`).
+    `_general_eigh`), whose in-loop eigh reports its status once, after
+    the loop.
+
+    graph: on a card, run the iterations as replays of one captured CUDA
+    graph (`_anderson_solve`); False runs them launch by launch, to compare.
     """
     fast_inloop = settings.use_pallas_eigh and S.dtype == torch.float32
     use_sp2 = fast_inloop and S.shape[-1] > PALLAS_EIGH_MAX_N
+    status = None
     if fast_inloop:
         Xs, shift_out = _jacobi_route(S)
     else:
         ortho = _ortho_factors(S)
+        status = EighStatus(S)
 
     if use_sp2:
         # one device-to-host sync per solve, not one per iteration
@@ -622,7 +702,7 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
                 eps, Cp = jacobi_eigh(Xs @ F @ Xs + shift_out)
                 C = Xs @ Cp
             else:
-                eps, C = _general_eigh(F, ortho)
+                eps, C = _general_eigh(F, ortho, status)
             return _scc_density(eps, C, batch, kt, settings)
 
     def fixed_point(q):
@@ -630,9 +710,12 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
         n_sh = _shell_populations(P, S, batch)
         return (batch.sh_refocc - n_sh) * batch.sh_mask
 
-    return _anderson_solve(
-        fixed_point, _warm_start(q0, batch.sh_mask.shape, S), settings
+    out = _anderson_solve(
+        fixed_point, _warm_start(q0, batch.sh_mask.shape, S), settings, graph
     )
+    if status is not None:
+        status.check()
+    return out
 
 
 def scf_refine(H0, S, gamma, batch, kt, settings: EngineSettings, q0,
@@ -765,19 +848,21 @@ def _aes_moments_of_P(P, S, batch, mp):
 
 
 def _aes_fixed_point(H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
-                     ortho, scc_loop):
+                     ortho, status=None):
     """The multipole SCC map z -> z' (Fock, generalized eigh, filling,
     moments of the new density). It always diagonalizes through
     `_general_eigh`, whatever use_pallas_eigh says, as the JAX package.
 
-    scc_loop: the map runs in the (not differentiated) SCC loop, and its
-    density is `_scc_density`'s; otherwise autograd records the map
+    status: an `EighStatus` where the map runs in the (not differentiated)
+    SCC loop: its eigh keeps cuSOLVER's status on the device and its
+    density is `_scc_density`'s; None where autograd records the map
     through C, with the occupations detached (exact for gapped systems)."""
+    scc_loop = status is not None
 
     def fixed_point(z):
         F, _ = _aes_fock(H0, S, z, coords, gamma, batch, settings,
                          gamma_at, mp)
-        eps, C = _general_eigh(F, ortho)
+        eps, C = _general_eigh(F, ortho, status)
         if scc_loop:
             P = _scc_density(eps, C, batch, kt, settings)
         else:
@@ -793,21 +878,28 @@ def _aes_fixed_point(H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
 
 
 def scf_solve_multipole(H0, S, coords, gamma, batch, kt,
-                        settings: EngineSettings, gamma_at, mp, z0=None):
+                        settings: EngineSettings, gamma_at, mp, z0=None,
+                        graph: bool = True):
     """Anderson-mixed SCC over the extended moment state (GFN2/AES):
     `_anderson_solve` on z (B, nsh + 9 nat). Not differentiated.
 
     z0: optional warm start (packed AES state); the fixed point is unique,
-    so it only changes how fast the tolerance is reached."""
+    so it only changes how fast the tolerance is reached. graph: as
+    `scf_solve`'s; the captured iteration holds the autograd pass of
+    `_aes_potentials`."""
     bsz, nsh = batch.sh_mask.shape
     nat = batch.atom_mask.shape[1]
+    status = EighStatus(S)
     fixed_point = _aes_fixed_point(
         H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
-        _ortho_factors(S), scc_loop=True,
+        _ortho_factors(S), status,
     )
-    return _anderson_solve(
-        fixed_point, _warm_start(z0, (bsz, nsh + 9 * nat), S), settings
+    out = _anderson_solve(
+        fixed_point, _warm_start(z0, (bsz, nsh + 9 * nat), S), settings,
+        graph,
     )
+    status.check()
+    return out
 
 
 def scf_refine_multipole(H0, S, coords, gamma, batch, kt,
@@ -818,7 +910,7 @@ def scf_refine_multipole(H0, S, coords, gamma, batch, kt,
     autograd records, occupations detached."""
     fixed_point = _aes_fixed_point(
         H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
-        _ortho_factors(S), scc_loop=False,
+        _ortho_factors(S),
     )
     beta = settings.mixer_damping
     z = z0

@@ -118,10 +118,11 @@ def aes_energy(coords, q_at, mu, theta, at_mrad, at_dkernel, at_qkernel,
 
     e_pair = 0.5 * (pair * (e_qd + e_dd + e_qt)).sum((1, 2))
 
-    # on-site penalties keep the moments bounded (GFN2 self-interaction)
-    weights = torch.tensor(
-        [1.0, 1.0, 1.0, 2.0, 2.0, 2.0], dtype=theta.dtype, device=theta.device
-    )
+    # on-site penalties keep the moments bounded (GFN2 self-interaction);
+    # the weights (1, 1, 1, 2, 2, 2) are filled on the device: a copy from
+    # the host cannot be captured in the SCC loop's CUDA graph
+    weights = torch.full((6,), 2.0, dtype=theta.dtype, device=theta.device)
+    weights[:3] = 1.0
     e_self = (
         at_dkernel * (mu**2).sum(-1)
         + at_qkernel * (theta**2 * weights).sum(-1)

@@ -29,6 +29,7 @@ import threading
 
 import torch
 
+from . import replay_counts
 from .kernel_build import KernelLibrary
 
 #: kernel launches so far, both entry points (a caller may reset it to 0)
@@ -151,12 +152,16 @@ def build() -> ctypes.CDLL:
     return _LIB.load()
 
 
-def _count(stream: int, density: bool = False) -> None:
+def _count(stream: int, n: int = 1, density: bool = False) -> None:
+    """Count n launches on `stream` (under capture, hand them to the
+    capture's tally: each replay counts them)."""
     global launches, density_launches
+    if replay_counts.record(_count, density):
+        return
     with _count_lock:
-        launches += 1
-        density_launches += density
-        launches_by_stream[stream] = launches_by_stream.get(stream, 0) + 1
+        launches += n
+        density_launches += n * density
+        launches_by_stream[stream] = launches_by_stream.get(stream, 0) + n
 
 
 def add_launches(n: int, density: int = 0) -> None:

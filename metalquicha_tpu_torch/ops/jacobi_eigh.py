@@ -22,6 +22,7 @@ import threading
 import numpy as np
 import torch
 
+from . import replay_counts
 from .kernel_build import KernelLibrary
 
 #: largest matrix dimension the kernel takes (A and V in shared memory)
@@ -106,11 +107,15 @@ def build() -> ctypes.CDLL:
     return _LIB.load()
 
 
-def _count(stream: int) -> None:
+def _count(stream: int, n: int = 1) -> None:
+    """Count n launches on `stream` (under capture, hand them to the
+    capture's tally: each replay counts them)."""
     global launches
+    if replay_counts.record(_count):
+        return
     with _count_lock:
-        launches += 1
-        launches_by_stream[stream] = launches_by_stream.get(stream, 0) + 1
+        launches += n
+        launches_by_stream[stream] = launches_by_stream.get(stream, 0) + n
 
 
 def add_launches(n: int) -> None:

@@ -4,9 +4,11 @@ Each kernel is one CUDA C++ source under `csrc/` with a plain C
 interface. `KernelLibrary.load` compiles it with nvcc at first use into
 `BUILD_DIR` (keyed by a hash of the source and the flags, so a later
 process finds the shared object there), loads it with ctypes and declares
-its entry points. The build runs once per process however many threads
-make the first call. A build that fails raises RuntimeError with nvcc's
-output; nothing falls back to a plain version.
+its entry points. A source that calls a CUDA library names it
+(`libs`, e.g. `("cusolver",)`): each becomes a `-l` flag on nvcc's
+command line and is part of the hash. The build runs once per process
+however many threads make the first call. A build that fails raises
+RuntimeError with nvcc's output; nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -43,11 +45,14 @@ def nvcc() -> str:
                        "built")
 
 
-def compile_source(source: Path, stem: str) -> Path:
+def compile_source(source: Path, stem: str, libs=()) -> Path:
     """The shared object of `source` in BUILD_DIR, compiled with nvcc
-    unless a build of the same source and flags is already there."""
+    unless a build of the same source, flags and libraries is already
+    there."""
     src = Path(source).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    links = [f"-l{lib}" for lib in libs]
+    key = hashlib.sha256(
+        src + " ".join((*NVCC_FLAGS, *links)).encode()).hexdigest()
     so = BUILD_DIR / f"{stem}-{key[:16]}.so"
     if so.exists():
         return so
@@ -56,7 +61,7 @@ def compile_source(source: Path, stem: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source), *links],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode != 0:
@@ -76,12 +81,13 @@ class KernelLibrary:
 
     `entry_points` maps each C function to its argument types; every
     function returns an int (a cudaError_t), and every source also exports
-    `mqc_cuda_error_string`."""
+    `mqc_cuda_error_string`. `libs`: the CUDA libraries it links."""
 
-    def __init__(self, stem: str, entry_points: dict):
+    def __init__(self, stem: str, entry_points: dict, libs=()):
         self.stem = stem
         self.source = CSRC / f"{stem}.cu"
         self.entry_points = entry_points
+        self.libs = tuple(libs)
         self.lib = None
         self._lock = threading.Lock()
 
@@ -92,7 +98,8 @@ class KernelLibrary:
             return self.lib
         with self._lock:
             if self.lib is None:
-                lib = ctypes.CDLL(str(compile_source(self.source, self.stem)))
+                lib = ctypes.CDLL(str(compile_source(
+                    self.source, self.stem, self.libs)))
                 for name, argtypes in self.entry_points.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes

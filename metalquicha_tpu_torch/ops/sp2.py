@@ -31,6 +31,8 @@ import threading
 
 import torch
 
+from . import replay_counts
+
 #: `sp2_density` calls so far (a caller may reset it to 0): shows that a run
 #: went through this route
 calls = 0
@@ -43,6 +45,13 @@ def add_calls(n: int) -> None:
     global calls
     with _calls_lock:
         calls += n
+
+
+def _count(_stream, n: int = 1) -> None:
+    """Count n calls (under capture, hand them to the capture's tally: each
+    replay of the graph runs the call's products again)."""
+    if not replay_counts.record(_count):
+        add_calls(n)
 
 
 def sp2_projector(Fo, nocc, ao_mask, iters: int = 48):
@@ -98,9 +107,7 @@ def sp2_density(Fo, nelec, nuhf, ao_mask, iters: int = 48, closed_shell=None):
     `nuhf`, which costs a device-to-host sync; a caller inside a loop
     decides once and passes it.
     """
-    global calls
-    with _calls_lock:
-        calls += 1
+    _count(None)
     if closed_shell is None:
         closed_shell = bool((nuhf == 0).all())
     na = (nelec + nuhf) * 0.5

@@ -178,8 +178,11 @@ class SlotWorker:
     """The parent's handle on one slot's worker process.
 
     `launches`, `fermi_launches` and `sp2_calls` count the Jacobi and
-    Fermi launches and SP2 calls the worker has made, `peak_bytes` is its
-    peak device memory (0 on the CPU), `modules` the top-level packages
+    Fermi launches and SP2 calls the worker has made (its SCC graphs'
+    replays included), `scc_captures` and `scc_eager` its SCC solves on a
+    card that ran as a replayed graph and launch by launch, `peak_bytes`
+    is its peak device memory (0 on the CPU), `modules` the top-level
+    packages
     loaded in it, `build_dir` the directory it loads the kernels from,
     `startup_s` the seconds from its start to its first answer."""
 
@@ -196,6 +199,8 @@ class SlotWorker:
         self.launches = 0
         self.fermi_launches = 0
         self.sp2_calls = 0
+        self.scc_captures = 0
+        self.scc_eager = 0
         self.peak_bytes = 0
         #: the byte budget of its last piece (None off a card) and the
         #: parts that piece was evaluated in
@@ -242,6 +247,8 @@ class SlotWorker:
         self.launches += stats["launches"]
         self.fermi_launches += stats["fermi_launches"]
         self.sp2_calls += stats["sp2_calls"]
+        self.scc_captures += stats["scc_captures"]
+        self.scc_eager += stats["scc_eager"]
         self.peak_bytes = max(self.peak_bytes, stats["peak_bytes"])
         self.budget_bytes = stats["budget_bytes"]
         self.parts = stats["parts"]
@@ -409,12 +416,14 @@ class _Slot:
         return byte_cap(self.budget, per, pad_to, nprim, what)
 
     def evaluate(self, config, tuples, pad_to, what, run, sharing):
+        from ..methods.xtb import scc_graph
         from ..ops import fermi_fill, jacobi_eigh, sp2
 
         if config is not None:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
         m0, d0 = fermi_fill.launches, fermi_fill.density_launches
+        g0, e0 = scc_graph.stats["captures"], scc_graph.stats["eager"]
         cap = self._cap(tuples, pad_to, what, run, sharing)
         outs = []
         for start in range(0, len(tuples), cap):
@@ -428,7 +437,10 @@ class _Slot:
         return parts, dict(self.stats(), launches=jacobi_eigh.launches - n0,
                            fermi_launches=fermi_fill.launches - m0,
                            density_launches=fermi_fill.density_launches - d0,
-                           sp2_calls=sp2.calls - s0, parts=len(outs))
+                           sp2_calls=sp2.calls - s0,
+                           scc_captures=scc_graph.stats["captures"] - g0,
+                           scc_eager=scc_graph.stats["eager"] - e0,
+                           parts=len(outs))
 
     def stats(self) -> dict:
         from ..ops import kernel_build

@@ -32,7 +32,17 @@ float64 ("gfn2"):
 - with --walls, `energies_s` and `gradients_s`: host seconds of one
   `XtbCalculator.energies` and `.gradients` call on the batch (32 SCC
   iterations), the mean of 3 calls after a warm-up, as `chip_smoke.py`'s
-  slice phase times them.
+  slice phase times them;
+- `graph`: the same solves as replays of one captured CUDA graph per solve
+  (the package's default on a card since the graph route; the keys above
+  are then of the launch-by-launch loop, `graph=False`), from the same
+  operands: `ms_per_iteration`, `kernels_per_iteration`,
+  `busy_ms_per_iteration`, `top_kernels`, `host_ms_per_iteration` (the
+  host's ms per iteration from the solve's call to its return, before
+  the device finishes: what the host still spends on the loop) and
+  `capture_ms` (host ms of the last solve's eager warm-up iteration, its
+  recording and its instantiation); None where the package has no graph
+  route.
 
 Usage: python3 tools/scc_probe_torch.py [--walls] [--json-out F]
 It prints one JSON line. It uses only the package's entry points, so it
@@ -43,6 +53,7 @@ PYTHONPATH).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -165,6 +176,44 @@ def _wall(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
+def _device_costs(solve, settings) -> dict:
+    """Stream ms, device kernels, busy ms and top kernels per iteration of
+    solve(settings)."""
+    rec = {"ms_per_iteration": _cuda_ms(lambda: solve(settings), 3) / ITERS}
+    n4 = _kernels(lambda: solve(settings._replace(max_scf_iter=4)))
+    n8 = _kernels(lambda: solve(settings._replace(max_scf_iter=8)))
+    per = _per_iteration(n4, n8)
+    count = sum(v[0] for v in per.values())
+    seen = bool(n4) and count > 0
+    rec["kernels_per_iteration"] = count if seen else None
+    rec["busy_ms_per_iteration"] = (
+        sum(v[1] for v in per.values()) if seen else None)
+    rec["top_kernels"] = [
+        [k[:80], v[0], v[1]] for k, v in
+        sorted(per.items(), key=lambda kv: -kv[1][1])[:5]]
+    return rec
+
+
+def _graph_costs(solve, settings) -> dict:
+    """The `graph` keys: the device costs of the replayed solve, the host's
+    ms per iteration and the last capture's ms."""
+    from metalquicha_tpu_torch.methods.xtb import scc_graph
+
+    rec = _device_costs(solve, settings)
+    solve(settings)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(settings)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    rec["host_ms_per_iteration"] = 1e3 * min(host) / ITERS
+    rec["capture_ms"] = {k: scc_graph.stats[k] for k in (
+        "warmup_ms", "record_ms", "instantiate_ms")}
+    return rec
+
+
 def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
     """route -> its costs (the module docstring's keys)."""
     from metalquicha_tpu_torch.constants import KB_HARTREE
@@ -173,6 +222,10 @@ def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
     from metalquicha_tpu_torch.workloads import bench_dimers
 
     kt = 300.0 * KB_HARTREE
+    # a package with the graph route runs it by default; its keys above
+    # are then of the launch-by-launch loop
+    has_graph = "graph" in inspect.signature(engine.scf_solve).parameters
+    eager = {"graph": False} if has_graph else {}
     out = {}
     for route in routes:
         variant, jacobi, dtype = ROUTES[route]
@@ -185,24 +238,14 @@ def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
             S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag,
                                                    settings)
 
-            def solve(st=settings):
+            def solve(st=settings, **kw):
+                kw = kw or eager
                 if mp is None:
-                    return engine.scf_solve(H0, S, gamma, frag, kt, st)
+                    return engine.scf_solve(H0, S, gamma, frag, kt, st, **kw)
                 return engine.scf_solve_multipole(
-                    H0, S, frag.coords, gamma, frag, kt, st, None, mp)
+                    H0, S, frag.coords, gamma, frag, kt, st, None, mp, **kw)
 
-            rec = {"ms_per_iteration": _cuda_ms(solve, 3) / ITERS}
-            n4 = _kernels(lambda: solve(settings._replace(max_scf_iter=4)))
-            n8 = _kernels(lambda: solve(settings._replace(max_scf_iter=8)))
-            per = _per_iteration(n4, n8)
-            count = sum(v[0] for v in per.values())
-            seen = bool(n4) and count > 0
-            rec["kernels_per_iteration"] = count if seen else None
-            rec["busy_ms_per_iteration"] = (
-                sum(v[1] for v in per.values()) if seen else None)
-            rec["top_kernels"] = [
-                [k[:80], v[0], v[1]] for k, v in
-                sorted(per.items(), key=lambda kv: -kv[1][1])[:5]]
+            rec = _device_costs(solve, settings)
             f0, d0 = _fermi_counts()
             solve(settings._replace(max_scf_iter=4))
             f1, d1 = _fermi_counts()
@@ -211,6 +254,9 @@ def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
             rec["density_per_iteration"] = (
                 None if d0 is None else (d1 - d0) / 4.0)
             rec["host_ms_per_iteration"] = _host_split(engine, solve)
+            rec["graph"] = (_graph_costs(
+                lambda st: solve(st, graph=True), settings)
+                if has_graph else None)
         if walls:
             rec["energies_s"] = _wall(lambda: calc.energies(frag), 3)
             rec["gradients_s"] = _wall(lambda: calc.gradients(frag), 3)
