@@ -51,14 +51,27 @@ Phases (each raises on failure; nothing is caught):
              (f32); both timed, the workspace printed. Then every route,
              GFN1 exact (f64), Jacobi (f32), SP2 (f32, 16 water
              dodecamers at 72 AOs), GFN1 + ALPB and GFN2, on the dimer
-             slice and on 64 seeded water hexamers (36 AOs): the graph
-             solve against `graph=False` on the same operands, charges
-             and residuals bit for bit, the same stop iteration, the same
-             launches of every counter (the in-loop solver's once per
-             iteration); the loop body under
+             slice and on 64 seeded water hexamers (36 AOs): a miss of
+             the graph cache, then hits on two fresh sets of the same
+             shapes (the dimers drawn anew; above 32 AOs seeded sets of
+             the w20 isomer's waters), each against `graph=False` on the
+             same operands (charges and residuals bit for bit, the same
+             stop iteration, the same launches of every counter, the
+             in-loop solver's once per iteration) and each hit against a
+             capture
+             made after the cache is cleared; a hit's setup (host ms)
+             under 10% of the miss's warm-up, recording and
+             instantiation; the loop body under
              torch.cuda.set_sync_debug_mode("error"); on the slice both
-             timed at 32 iterations, with the capture's ms. One line
-             `{"scc_graph": ...}`;
+             timed at 32 iterations (a miss and a hit), with the
+             capture's ms and the cache's bytes. One line
+             `{"scc_graph": ...}`. Every later phase must run its SCCs
+             through captured or cached graphs, none launch by launch;
+             slice, validation, polish, fit_tools and bench, which repeat
+             shapes, must hit the cache. Each phase's SCC solves are
+             printed by reuse distance (`scc_graph.reuse`) with the hits
+             a cache of each cap would have had, in one line
+             `{"scc_reuse": ...}` after the main path;
 3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with use_pallas_eigh in
              float64 (the exact route, as the JAX package's: no Jacobi
@@ -171,7 +184,8 @@ Phases (each raises on failure; nothing is caught):
              gradient (port_memory_w20_mbe4_grad.mqc) through the same
              workers, each planning for half the card and cutting its
              piece into parts (total 1e-7, net force 1e-7, every worker's
-             peak under its budget); no worker alive after `close()`;
+             peak in every run under that run's budget, each printed); no
+             worker alive after `close()`;
 11. fit:     the differentiable parameterization (methods/xtb/param_fit.py):
              rebuild(theta_init) equal to the host batch (1e-12) in GFN1
              and GFN2; dE/dtheta of a water against a central difference on
@@ -234,6 +248,7 @@ Exits non-zero, with no result, when CUDA is absent.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
@@ -300,6 +315,9 @@ SP2_ITERS = 48
 SP2_TOL = {torch.float64: 1e-8, torch.float32: 1e-3}
 #: walls an earlier phase took, for a later one to print beside its own
 WALLS = {}
+#: the main path's phases that solve one shape more than once, and so
+#: must replay cached SCC graphs
+REPEATING = ("slice", "validation", "polish", "fit_tools", "bench")
 
 
 def jacobi_bound(bsz: int, n: int, dtype):
@@ -743,6 +761,17 @@ EIGH_TOL_F64 = 1e-12
 SCC_ITERS = 32
 
 
+def reuse_line(counts) -> dict:
+    """A phase's SCC solves by reuse distance (`scc_graph.reuse`): those
+    of keys new to the phase, those at each distance, and the hits a
+    cache of each cap would have had."""
+    dist = {d: n for d, n in counts.items() if d != "new"}
+    return {"solves": sum(counts.values()), "new": counts["new"],
+            "distances": dict(sorted(dist.items())),
+            "hits_at_cap": {c: sum(n for d, n in dist.items() if d < c)
+                            for c in (1, 2, 4, 8, 16, 32, 64)}}
+
+
 def water_clusters(rng, n_clusters: int, k: int) -> list:
     """n_clusters seeded clusters of k waters each: the waters on a
     jittered grid 5.6 Bohr apart, each turned by a random rotation."""
@@ -846,16 +875,40 @@ def scc_graph_phase(be):
 
     eigh_rows = eigh_binding_check(be)
     kt = 300.0 * KB_HARTREE
-    rng = np.random.default_rng(5)
-    dimers = bench_dimers(512)
-    hexamers = water_clusters(rng, 64, 6)      # nao 36
-    dodecamers = water_clusters(rng, 16, 12)   # nao 72: SP2 in float32
-    # route -> (variant, use_pallas_eigh, dtype, ALPB, fragments above 32)
-    routes = {"gfn1_exact": ("gfn1", False, torch.float64, False, hexamers),
-              "gfn1_jacobi": ("gfn1", True, torch.float32, False, hexamers),
-              "sp2": ("gfn1", True, torch.float32, False, dodecamers),
-              "gfn1_alpb": ("gfn1", False, torch.float64, True, hexamers),
-              "gfn2": ("gfn2", False, torch.float64, False, hexamers)}
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from memory_probe_torch import _w20_waters
+
+    w20_numbers, w20_coords = _w20_waters()
+
+    def w20_clusters(seed, n_clusters, k):
+        """n_clusters sets of k waters of the w20 isomer, drawn by seed."""
+        rng = np.random.default_rng(seed)
+        out = []
+        for _ in range(n_clusters):
+            pick = np.sort(rng.choice(20, k, replace=False))
+            out.append((w20_numbers[pick].reshape(-1),
+                        w20_coords[pick].reshape(-1, 3), 0, 1))
+        return out
+
+    # label -> its fragments from a seed: seed 0 the miss's, seeds 1 and
+    # 2 fresh inputs of the same shapes for the hits
+    # (bench's dimers drawn anew; above 32 AOs, waters of the w20 isomer:
+    # GFN2's SCC leaves some of water_clusters' hexamers unconverged in 64
+    # iterations, and gives one of a new draw a NaN, in the JAX package
+    # as in the port: tests/test_torch_reference_behaviour.py)
+    sets = {"512x16": lambda seed: bench_dimers(512, seed=seed),
+            "above32": lambda seed: (
+                water_clusters(np.random.default_rng(5), 64, 6) if seed == 0
+                else w20_clusters(seed, 64, 6)),                # nao 36
+            "sp2": lambda seed: (
+                water_clusters(np.random.default_rng(5), 16, 12) if seed == 0
+                else w20_clusters(seed, 16, 12))}               # nao 72
+    # route -> (variant, use_pallas_eigh, dtype, ALPB, set above 32 AOs)
+    routes = {"gfn1_exact": ("gfn1", False, torch.float64, False, "above32"),
+              "gfn1_jacobi": ("gfn1", True, torch.float32, False, "above32"),
+              "sp2": ("gfn1", True, torch.float32, False, "sp2"),
+              "gfn1_alpb": ("gfn1", False, torch.float64, True, "above32"),
+              "gfn2": ("gfn2", False, torch.float64, False, "above32")}
 
     def launches():
         return (ff.launches, ff.density_launches, jac.launches, sp2.calls,
@@ -877,9 +930,10 @@ def scc_graph_phase(be):
 
     out = {}
     for route, (variant, jacobi, dtype, alpb, above) in routes.items():
-        for label, frags in (("512x16", dimers), ("above32", above)):
+        for label in ("512x16", "above32"):
             if route == "sp2" and label == "512x16":
                 continue  # the Jacobi route's shape
+            frags_for = sets[above if label == "above32" else label]
             tol = 1e-9 if dtype == torch.float64 else 2e-5
             settings = engine.settings_from_params(
                 variant, max_scf_iter=64, scf_tol=tol,
@@ -888,13 +942,17 @@ def scc_graph_phase(be):
             calc = tcalc.XtbCalculator(settings, variant=variant,
                                        dtype=dtype, device=DEVICE,
                                        solvation=solv)
-            frag = calc.make_batch(frags)
-            with torch.no_grad():
-                S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag,
-                                                       settings)
-                g_at = tcalc._solv_gamma(frag.coords, frag, solv)
 
-            def solve(graph, st=settings):
+            def operands(frags):
+                frag = calc.make_batch(frags)
+                with torch.no_grad():
+                    S, H0, gamma, mp = tcalc._scc_operands(frag.coords,
+                                                           frag, settings)
+                    g_at = tcalc._solv_gamma(frag.coords, frag, solv)
+                return S, H0, gamma, mp, g_at, frag
+
+            def solve(ops, graph, st=settings):
+                S, H0, gamma, mp, g_at, frag = ops
                 with torch.no_grad():
                     if mp is None:
                         return engine.scf_solve(H0, S, gamma, frag, kt, st,
@@ -903,64 +961,110 @@ def scc_graph_phase(be):
                         H0, S, frag.coords, gamma, frag, kt, st, g_at, mp,
                         graph=graph)
 
-            nao = S.shape[-1]
+            def run(ops, graph):
+                """(charges, residuals, iterations, launches per counter,
+                graphs captured)"""
+                c0, s0 = launches(), steps[0]
+                g0 = scc_graph.stats["captures"]
+                r0 = scc_graph.stats["replays"]
+                engine._anderson_step = counted_step
+                try:
+                    q, r = solve(ops, graph)
+                    torch.cuda.synchronize()
+                finally:
+                    engine._anderson_step = real_step
+                made = scc_graph.stats["captures"] - g0
+                # a capture records the step without running it
+                n = (steps[0] - s0 - made + scc_graph.stats["replays"] - r0)
+                return q, r, n, [b - a for a, b in zip(c0, launches())], made
+
+            def same_as(got, ref, what):
+                q, r, n, made = got[:4]
+                ok = bool(torch.equal(q, ref[0]) and torch.equal(r, ref[1]))
+                check(ok, f"scc graph {route} {label} {what}: charges off by "
+                      f"{float((q - ref[0]).abs().max()):.3e}")
+                check(n == ref[2], f"scc graph {route} {label} {what}: "
+                      f"stopped at {n} iterations, against {ref[2]}")
+                check(made == ref[3], f"scc graph {route} {label} {what}: "
+                      f"launches {made}, against {ref[3]}")
+                return ok
+
+            ops = operands(frags_for(0))
+            nao = ops[0].shape[-1]
             fast = jacobi and dtype == torch.float32
             expect = ("sp2" if fast and nao > engine.PALLAS_EIGH_MAX_N
                       else "jacobi" if fast else "eigh")
-            c0 = launches()
-            engine._anderson_step = counted_step
-            try:
-                steps[0] = 0
-                q_e, r_e = solve(False)
-                torch.cuda.synchronize()
-                n_eager = steps[0]
-                c1 = launches()
-                steps[0] = 0
-                r0 = scc_graph.stats["replays"]
-                q_g, r_g = solve(True)
-                torch.cuda.synchronize()
-                n_graph = steps[0] - 1 + scc_graph.stats["replays"] - r0
-                c2 = launches()
-            finally:
-                engine._anderson_step = real_step
-            made_e = [b - a for a, b in zip(c0, c1)]
-            made_g = [b - a for a, b in zip(c1, c2)]
-            same = bool(torch.equal(q_g, q_e) and torch.equal(r_g, r_e))
-            check(same, f"scc graph {route} {label}: charges off the eager "
-                  f"loop by {float((q_g - q_e).abs().max()):.3e}")
-            check(n_graph == n_eager, f"scc graph {route} {label}: stopped "
-                  f"at {n_graph} iterations, the eager loop at {n_eager}")
-            check(made_g == made_e, f"scc graph {route} {label}: launches "
-                  f"{made_g}, the eager loop's {made_e}")
+            eager = run(ops, False)
+            miss = run(ops, True)
+            check(miss[4] == 1, f"scc graph {route} {label}: the first "
+                  f"solve captured {miss[4]} graphs")
+            same = same_as(miss, eager, "miss")
+            miss_ms = sum(scc_graph.stats[k] for k in (
+                "warmup_ms", "record_ms", "instantiate_ms"))
+            n_eager, made_e = eager[2], eager[3]
             used = {"eigh": made_e[4], "jacobi": made_e[2],
                     "sp2": made_e[3]}
             check(used[expect] == n_eager and all(
                 v == 0 for k, v in used.items() if k != expect),
                 f"scc graph {route} {label}: in-loop calls {used}, "
                 f"expected {n_eager} of {expect}")
+            # hits on fresh inputs: each the eager loop's bits and a new
+            # capture's (made after the cache is cleared)
+            hits = []
+            for seed in (1, 2):
+                ops_h = operands(frags_for(seed))
+                check(ops_h[0].shape == ops[0].shape,
+                      f"scc graph {route} {label}: seed {seed} gives "
+                      f"{tuple(ops_h[0].shape)}")
+                ref = run(ops_h, False)
+                h0 = scc_graph.stats["hits"]
+                hit = run(ops_h, True)
+                setup_ms = scc_graph.stats["hit_setup_ms"]
+                check(hit[4] == 0 and scc_graph.stats["hits"] == h0 + 1,
+                      f"scc graph {route} {label}: seed {seed} was no hit")
+                ok_e = same_as(hit, ref, f"hit (seed {seed})")
+                check(not torch.equal(ref[0], eager[0]),
+                      f"scc graph {route} {label}: seed {seed} gave the "
+                      f"seed-0 charges")
+                scc_graph.clear()
+                fresh = run(ops_h, True)
+                ok_f = same_as(hit, fresh[:4], f"hit (seed {seed}) against "
+                               f"a new capture")
+                hits.append({"seed": seed, "iterations": hit[2],
+                             "bitwise_eager": ok_e,
+                             "bitwise_new_capture": ok_f,
+                             "setup_ms": setup_ms})
+                check(setup_ms < 0.1 * miss_ms,
+                      f"scc graph {route} {label}: a hit's setup took "
+                      f"{setup_ms:.3f} ms, a miss's capture {miss_ms:.3f}")
             # no sync in the loop body
             engine._anderson_step = debug_step
             try:
-                solve(False, settings._replace(max_scf_iter=3))
+                solve(ops, False, settings._replace(max_scf_iter=3))
                 torch.cuda.synchronize()
             finally:
                 engine._anderson_step = real_step
-            rec = {"shape": [len(frags), nao], "in_loop": expect,
+            rec = {"shape": [ops[0].shape[0], nao], "in_loop": expect,
                    "iterations": n_eager, "bitwise": same,
-                   "launches_per_solve": made_g}
+                   "launches_per_solve": miss[3], "miss_ms": miss_ms,
+                   "capture_ms": {k: scc_graph.stats[k] for k in (
+                       "warmup_ms", "record_ms", "instantiate_ms")},
+                   "hits": hits,
+                   "held_bytes": scc_graph.stats["held_bytes"]}
             if label == "512x16" or route == "sp2":
+                # launch by launch, a miss, a hit, launch by launch
                 fixed = settings._replace(scf_tol=0.0,
                                           max_scf_iter=SCC_ITERS)
                 for graph in (False, True, True, False):
-                    ms = cuda_ms(lambda g=graph: solve(g, fixed), 1)
+                    ms = cuda_ms(lambda g=graph: solve(ops, g, fixed), 1)
                     rec.setdefault("eager_ms_per_iteration" if not graph
                                    else "graph_ms_per_iteration",
                                    []).append(ms / SCC_ITERS)
-                rec["capture_ms"] = {k: scc_graph.stats[k] for k in (
-                    "warmup_ms", "record_ms", "instantiate_ms")}
             out[f"{route}_{label}"] = rec
             print(f"scc graph {route} {label}: {rec}", flush=True)
-    return {"routes": out, "eigh": eigh_rows}
+    return {"routes": out, "eigh": eigh_rows,
+            "cache": {k: scc_graph.stats[k] for k in (
+                "captures", "hits", "misses", "evictions", "held_bytes")}}
 
 
 def slice_phase(jac, golden):
@@ -1140,6 +1244,14 @@ def memory_phase(jac, golden):
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import memory_probe_torch as probe
 
+    from metalquicha_tpu_torch.methods.xtb import scc_graph
+
+    def cache():
+        return (f"SCC graph cache {scc_graph.stats['held_bytes'] / 2**30:.3f}"
+                f" GiB ({len(scc_graph._entries)} entries, pools' unused "
+                f"{scc_graph.idle_pool_bytes(device) / 2**30:.3f} GiB held "
+                f"out of the budget)")
+
     device = torch.device(DEVICE)
     with open(GOLDEN_MEMORY) as fh:
         gold = json.load(fh)
@@ -1163,10 +1275,13 @@ def memory_phase(jac, golden):
     rec = probe.workflow("hessian", device, capture)
     print(f"memory hessian: ok={rec['ok']} wall={rec['wall_s']:.3f} s "
           f"peak={rec['peak_gib']} GiB budget={rec['budget_gib']} GiB "
-          f"chunks={rec['chunks']} sizes={rec['chunk_sizes']}", flush=True)
+          f"chunks={rec['chunks']} sizes={rec['chunk_sizes']}; {cache()}",
+          flush=True)
     check(rec["ok"], f"the 73-atom Hessian failed: {rec.get('error')}")
     check(rec["peak_gib"] < rec["budget_gib"],
           "the Hessian's peak is above the executor's budget")
+    # no more chunks than before the graph cache held bytes back
+    check(rec["chunks"] <= 12, f"the Hessian ran in {rec['chunks']} chunks")
     _e, grads, _aux = runs[gh["n_jobs"]]
     g = np.stack([np.asarray(grads[i]) for i in gh["jobs"]]).reshape(
         len(gh["jobs"]), -1)
@@ -1188,11 +1303,13 @@ def memory_phase(jac, golden):
     print(f"memory w20 MBE(4) gradient: ok={rec['ok']} wall="
           f"{rec['wall_s']:.3f} s peak={rec['peak_gib']} GiB budget="
           f"{rec['budget_gib']} GiB chunks={rec['chunks']} "
-          f"sizes={rec['chunk_sizes']} launches={rec['jacobi_launches']}",
-          flush=True)
+          f"sizes={rec['chunk_sizes']} launches={rec['jacobi_launches']}; "
+          f"{cache()}", flush=True)
     check(rec["ok"], f"the w20 MBE(4) gradient failed: {rec.get('error')}")
     check(rec["peak_gib"] < rec["budget_gib"],
           "the w20 MBE(4) gradient's peak is above the executor's budget")
+    check(rec["chunks"] <= 5,
+          f"the w20 MBE(4) gradient ran in {rec['chunks']} chunks")
     e, grads, _aux = runs[gw["n_jobs"]]
     d_e = max(abs(e[i] - x) for i, x in zip(gw["jobs"], gw["energies"]))
     d_g = max(float(np.abs(np.asarray(grads[i]) - np.asarray(x)).max())
@@ -1866,10 +1983,11 @@ def mesh_phase(jac, golden):
         print(f"mesh worker slot {w.index}: pid {w.pid} on {w.device}, "
               f"start-up {w.startup_s:.2f} s, {n_l} Fermi launches in the "
               f"timed passes, {w.fermi_launches} in all; SCC graphs "
-              f"{w.scc_captures}, eager SCCs {w.scc_eager}", flush=True)
-        check(w.scc_captures > 0 and w.scc_eager == 0,
-              f"worker slot {w.index}: {w.scc_captures} SCC graphs and "
-              f"{w.scc_eager} SCCs launch by launch")
+              f"{w.scc_captures} captured, {w.scc_hits} cache hits, eager "
+              f"SCCs {w.scc_eager}", flush=True)
+        check(w.scc_captures + w.scc_hits > 0 and w.scc_eager == 0,
+              f"worker slot {w.index}: {w.scc_captures} SCC graphs, "
+              f"{w.scc_hits} hits and {w.scc_eager} SCCs launch by launch")
     check(min(per_worker) > 0,
           f"a worker launched no Fermi kernel: {per_worker}")
     for w in workers:
@@ -1938,14 +2056,21 @@ def mesh_phase(jac, golden):
           f"wall={t:.3f} s total={total:.10f} d_golden={d:.2e} net force="
           f"{net:.2e}; " + "; ".join(
               f"slot {w.index} budget {w.budget_bytes / 2**30:.2f} GiB "
-              f"peak {w.peak_bytes / 2**30:.2f} GiB parts of its last "
+              f"peak {w.peak_bytes / 2**30:.2f} GiB SCC graph cache "
+              f"{w.scc_held_bytes / 2**30:.3f} GiB parts of its last "
               f"piece {w.parts}" for w in workers), flush=True)
     check(d <= 1e-7, f"two-process w20_mbe4 gradient total off the golden "
                      f"by {d:.3e}")
     check(net <= 1e-7, f"two-process w20_mbe4 net force {net:.3e}")
     for w in workers:
-        check(w.peak_bytes < w.budget_bytes,
-              f"slot {w.index} peaked above its budget")
+        # each run's peak against that run's budget
+        runs = {run: (round(budget / 2**30, 2), round(peak / 2**30, 2))
+                for run, (budget, peak) in w.run_memory.items()}
+        print(f"mesh slot {w.index} (budget GiB, peak GiB) per run: {runs}",
+              flush=True)
+        for run, (budget, peak) in w.run_memory.items():
+            check(peak < budget, f"slot {w.index} peaked at {peak} bytes "
+                  f"in run {run}, above its budget of {budget}")
     check(any(w.parts > 1 for w in workers),
           "no worker cut its piece of the tetramer chunk")
     check([w.pid for w in procs.workers] == [w.pid for w in workers],
@@ -2384,8 +2509,10 @@ def main() -> int:
     ff.launches = ff.density_launches = 0
     sp2.calls = 0
     be.launches = 0
-    scc_graph.stats.update(captures=0, replays=0, eager=0)
-    phases, fermi, density, captures = {}, {}, {}, {}
+    scc_graph.stats.update(captures=0, replays=0, eager=0, hits=0,
+                           misses=0, evictions=0)
+    scc_graph.reuse.clear()
+    phases, fermi, density, captures, hits, reuse = {}, {}, {}, {}, {}, {}
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
@@ -2402,17 +2529,24 @@ def main() -> int:
                            ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
         f0, d0 = ff.launches, ff.density_launches
-        g0 = scc_graph.stats["captures"]
+        g0, h0 = scc_graph.stats["captures"], scc_graph.stats["hits"]
+        u0 = collections.Counter(scc_graph.reuse)
         phases[name] = fn(jac, gold)
         fermi[name] = ff.launches - f0
         density[name] = ff.density_launches - d0
         captures[name] = scc_graph.stats["captures"] - g0
+        hits[name] = scc_graph.stats["hits"] - h0
+        reuse[name] = reuse_line(scc_graph.reuse - u0)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s, "
-              f"{fermi[name]} Fermi launches, {captures[name]} SCC graphs",
-              flush=True)
+              f"{fermi[name]} Fermi launches, SCC graphs {captures[name]} "
+              f"captured, {hits[name]} cache hits, the cache holding "
+              f"{scc_graph.stats['held_bytes'] / 2**30:.3f} GiB; reuse "
+              f"{reuse[name]}", flush=True)
         check(fermi[name] > 0, f"the {name} phase launched no Fermi kernel")
-        check(captures[name] > 0 or name == "mesh",
-              f"the {name} phase captured no SCC graph")
+        check(captures[name] + hits[name] > 0 or name == "mesh",
+              f"the {name} phase ran no SCC through a graph")
+        check(hits[name] > 0 or name not in REPEATING,
+              f"the {name} phase repeats shapes and hit no cached graph")
         check(scc_graph.stats["eager"] == 0,
               f"the {name} phase ran an SCC on the card launch by launch")
     launches = jac.launches
@@ -2426,8 +2560,11 @@ def main() -> int:
     print(f"main path: fused fill and density launches (among the fermi "
           f"launches)={ff.density_launches} {density}", flush=True)
     print(f"main path: SCC graphs captured={scc_graph.stats['captures']} "
-          f"{captures}, replays={scc_graph.stats['replays']}, in-loop eigh "
+          f"{captures}, cache hits={scc_graph.stats['hits']} {hits}, "
+          f"evictions={scc_graph.stats['evictions']}, "
+          f"replays={scc_graph.stats['replays']}, in-loop eigh "
           f"calls={be.launches}", flush=True)
+    print(json.dumps({"scc_reuse": reuse}), flush=True)
     check(be.launches > 0, "the main path never called the in-loop eigh")
     check(ff.density_launches > 0,
           "the main path launched no fused fill and density")

@@ -28,6 +28,7 @@ from __future__ import annotations
 import json
 import os
 import warnings
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -589,10 +590,70 @@ def _all_done(state: _AndersonState, settings: EngineSettings,
             and not bool(state.active.any()))
 
 
-def _anderson_solve(fixed_point, x0, settings: EngineSettings,
-                    graph: bool = True):
+class _SccLoop:
+    """One SCC loop: the fixed-point map over its inputs, the state it
+    updates in place, and its step. make_fixed_point(inputs) returns the
+    map and the `EighStatus` its in-loop eigh folds into (or None)."""
+
+    def __init__(self, make_fixed_point, inputs, x0,
+                 settings: EngineSettings):
+        self.fixed_point, self.status = make_fixed_point(inputs)
+        self.settings = settings
+        self.state = _anderson_state(x0, settings)
+        m = settings.broyden_memory
+        self.slots = torch.arange(m, device=x0.device)
+        self.eye_m = torch.eye(m, dtype=x0.dtype, device=x0.device)
+
+    def step(self) -> None:
+        _anderson_step(self.fixed_point, self.state, self.settings,
+                       self.slots, self.eye_m)
+
+    def done(self, it: int) -> bool:
+        return _all_done(self.state, self.settings, it)
+
+    def reset(self, x0) -> None:
+        """The state `_anderson_state(x0)` makes, in place."""
+        st = self.state
+        st.x.copy_(x0)
+        st.resid.fill_(1.0)
+        st.active.fill_(True)
+        zeros = [st.hist_x, st.hist_f, st.it]
+        if self.status is not None:
+            zeros.append(self.status.worst)
+        torch._foreach_zero_(zeros)
+
+    def owned(self) -> list:
+        """The device tensors the loop allocated."""
+        out = [*self.state, self.slots, self.eye_m]
+        if self.status is not None:
+            out.append(self.status.worst)
+            if self.status.work is not None:
+                out.append(self.status.work)
+        return out
+
+
+def _loop_fields(batch, names) -> dict:
+    """The fields of `batch` the SCC loop reads, as a dict (the loop sees
+    them as attributes of a namespace: a field left out raises)."""
+    return {k: getattr(batch, k) for k in names}
+
+
+#: the fields of FragmentData the SCC loops read: the charge-only loop's
+#: and, for GFN2's multipole loop, these and its own
+_LOOP_FIELDS = ("at_gam3", "sh_atom", "sh_mask", "sh_refocc", "ao_shell",
+                "ao_mask", "nelec", "nuhf")
+_LOOP_FIELDS_MULTIPOLE = _LOOP_FIELDS + ("atom_mask", "ao_atom", "glb")
+
+
+def _anderson_solve(make_fixed_point, inputs: dict, x0,
+                    settings: EngineSettings, key, graph: bool = True):
     """Anderson-mixed fixed-point iteration x <- g(x) on a batch of state
     vectors x0 (B, nx); returns the states and the final residuals (B,).
+
+    make_fixed_point(inputs) gives g and the in-loop eigh's `EighStatus`
+    (or None), built over the tensors of `inputs` (a dict); key: what
+    besides the inputs' shapes and the settings fixes g's launches (its
+    route, kT, SP2's closed-shell flag).
 
     Each fragment iterates until its residual max|g(x) - x| drops below
     settings.scf_tol or max_scf_iter is reached; a fragment that stops
@@ -600,33 +661,31 @@ def _anderson_solve(fixed_point, x0, settings: EngineSettings,
     while_loop does. Window of broyden_memory with Tikhonov-regularized
     normal equations, a c_lim safeguard and damped steps as fallback.
 
-    On a card the iterations run as replays of one captured CUDA graph
-    (`scc_graph.run_replayed`), the counterpart of the JAX package's
-    compiled while_loop, with the same results and the same stop. A failed
-    capture raises. graph=False runs them launch by launch instead, for a
-    caller that compares the two; a CPU tensor always does.
+    On a card the iterations run as replays of one captured CUDA graph,
+    kept across calls of the same key and shapes (`scc_graph.solve`), the
+    counterpart of the JAX package's compiled while_loop, with the same
+    results and the same stop. A failed capture raises. graph=False runs
+    them launch by launch instead, for a caller that compares the two; a
+    CPU tensor always does.
     """
-    state = _anderson_state(x0, settings)
-    m = settings.broyden_memory
-    slots = torch.arange(m, device=x0.device)
-    eye_m = torch.eye(m, dtype=x0.dtype, device=x0.device)
-
-    def step():
-        _anderson_step(fixed_point, state, settings, slots, eye_m)
-
-    def done(it):
-        return _all_done(state, settings, it)
+    def build(inp):
+        return _SccLoop(make_fixed_point, inp, x0, settings)
 
     if graph and x0.device.type == "cuda":
-        scc_graph.run_replayed(step, done, settings.max_scf_iter, x0.device)
+        loop = scc_graph.solve((key, settings), inputs, x0, build,
+                               settings.max_scf_iter)
     else:
         if x0.device.type == "cuda":
             scc_graph.stats["eager"] += 1
+        loop = build(inputs)
         for it in range(settings.max_scf_iter):
-            if done(it):
+            if loop.done(it):
                 break
-            step()
-    return state.x, state.resid
+            loop.step()
+    if loop.status is not None:
+        loop.status.check()
+    # copies: a cached loop's state is the next solve's
+    return loop.state.x.clone(), loop.state.resid.clone()
 
 
 def _warm_start(x0, shape, like):
@@ -679,43 +738,52 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
     """
     fast_inloop = settings.use_pallas_eigh and S.dtype == torch.float32
     use_sp2 = fast_inloop and S.shape[-1] > PALLAS_EIGH_MAX_N
-    status = None
+    inputs = {"H0": H0, "S": S, "gamma": gamma, "gamma_at": gamma_at,
+              "batch": _loop_fields(batch, _LOOP_FIELDS)}
     if fast_inloop:
-        Xs, shift_out = _jacobi_route(S)
+        inputs["Xs"], inputs["shift_out"] = _jacobi_route(S)
     else:
-        ortho = _ortho_factors(S)
-        status = EighStatus(S)
+        inputs["Xs"], inputs["proj_out"] = _ortho_factors(S)
+    # one device-to-host sync per solve, not one per iteration
+    closed_shell = bool((batch.nuhf == 0).all()) if use_sp2 else None
 
-    if use_sp2:
-        # one device-to-host sync per solve, not one per iteration
-        closed_shell = bool((batch.nuhf == 0).all())
+    def make_fixed_point(inp):
+        H0, S, gamma, gamma_at = (inp[k] for k in ("H0", "S", "gamma",
+                                                   "gamma_at"))
+        batch, Xs = SimpleNamespace(**inp["batch"]), inp["Xs"]
+        status = None
+        if use_sp2:
+            def make_density(F):
+                Po = sp2_density(
+                    Xs @ F @ Xs + inp["shift_out"], batch.nelec, batch.nuhf,
+                    batch.ao_mask, closed_shell=closed_shell,
+                )
+                return Xs @ Po @ Xs
+        elif fast_inloop:
+            def make_density(F):
+                eps, Cp = jacobi_eigh(Xs @ F @ Xs + inp["shift_out"])
+                return _scc_density(eps, Xs @ Cp, batch, kt, settings)
+        else:
+            status = EighStatus(S)
+            ortho = (Xs, inp["proj_out"])
 
-        def make_density(F):
-            Po = sp2_density(
-                Xs @ F @ Xs + shift_out, batch.nelec, batch.nuhf,
-                batch.ao_mask, closed_shell=closed_shell,
-            )
-            return Xs @ Po @ Xs
-    else:
-        def make_density(F):
-            if fast_inloop:
-                eps, Cp = jacobi_eigh(Xs @ F @ Xs + shift_out)
-                C = Xs @ Cp
-            else:
+            def make_density(F):
                 eps, C = _general_eigh(F, ortho, status)
-            return _scc_density(eps, C, batch, kt, settings)
+                return _scc_density(eps, C, batch, kt, settings)
 
-    def fixed_point(q):
-        P = make_density(_fock(H0, S, q, gamma, batch, settings, gamma_at))
-        n_sh = _shell_populations(P, S, batch)
-        return (batch.sh_refocc - n_sh) * batch.sh_mask
+        def fixed_point(q):
+            P = make_density(_fock(H0, S, q, gamma, batch, settings,
+                                   gamma_at))
+            n_sh = _shell_populations(P, S, batch)
+            return (batch.sh_refocc - n_sh) * batch.sh_mask
 
-    out = _anderson_solve(
-        fixed_point, _warm_start(q0, batch.sh_mask.shape, S), settings, graph
+        return fixed_point, status
+
+    route = "sp2" if use_sp2 else "jacobi" if fast_inloop else "exact"
+    return _anderson_solve(
+        make_fixed_point, inputs, _warm_start(q0, batch.sh_mask.shape, S),
+        settings, (route, closed_shell, float(kt)), graph,
     )
-    if status is not None:
-        status.check()
-    return out
 
 
 def scf_refine(H0, S, gamma, batch, kt, settings: EngineSettings, q0,
@@ -889,17 +957,23 @@ def scf_solve_multipole(H0, S, coords, gamma, batch, kt,
     `_aes_potentials`."""
     bsz, nsh = batch.sh_mask.shape
     nat = batch.atom_mask.shape[1]
-    status = EighStatus(S)
-    fixed_point = _aes_fixed_point(
-        H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
-        _ortho_factors(S), status,
+    inputs = {"H0": H0, "S": S, "coords": coords, "gamma": gamma,
+              "gamma_at": gamma_at, "mp": mp,
+              "batch": _loop_fields(batch, _LOOP_FIELDS_MULTIPOLE)}
+    inputs["Xs"], inputs["proj_out"] = _ortho_factors(S)
+
+    def make_fixed_point(inp):
+        status = EighStatus(inp["S"])
+        return _aes_fixed_point(
+            inp["H0"], inp["S"], inp["coords"], inp["gamma"],
+            SimpleNamespace(**inp["batch"]), kt, settings, inp["gamma_at"],
+            inp["mp"], (inp["Xs"], inp["proj_out"]), status,
+        ), status
+
+    return _anderson_solve(
+        make_fixed_point, inputs, _warm_start(z0, (bsz, nsh + 9 * nat), S),
+        settings, ("multipole", None, float(kt)), graph,
     )
-    out = _anderson_solve(
-        fixed_point, _warm_start(z0, (bsz, nsh + 9 * nat), S), settings,
-        graph,
-    )
-    status.check()
-    return out
 
 
 def scf_refine_multipole(H0, S, coords, gamma, batch, kt,

@@ -1,45 +1,78 @@
-"""The SCC loop as one replayed device program: CUDA graph capture of an
-Anderson iteration.
+"""The SCC loop as one replayed device program, kept across calls: a cache
+of captured Anderson iterations keyed by shape, route and settings.
 
 The JAX package compiles its whole SCC solve into one XLA program
 (`lax.while_loop`, metalquicha_tpu/methods/xtb/engine.py:853; GFN2's at
-:651 with its `jax.grad` inside). The port's counterpart captures one
-iteration of `engine._anderson_step` (the Fock build, the in-loop solve,
-the fill and density, GFN2's autograd pass for the potentials, the
-Anderson step) as a CUDA graph and replays it once per later iteration:
-one launch from the host instead of one per kernel.
+:651 with its `jax.grad` inside), once per settings (the calculator's
+`_jits`, metalquicha_tpu/methods/xtb/calculator.py:481) and input shape
+(`jax.jit`'s own cache): every later call of that shape runs the compiled
+program. The port's counterpart captures one iteration of
+`engine._anderson_step` (the Fock build, the in-loop solve, the fill and
+density, GFN2's autograd pass for the potentials, the Anderson step) as a
+CUDA graph, keeps it with the buffers it reads and writes, and replays it
+once per iteration of every later solve of the same key.
 
-`run_replayed`:
-- runs iteration 0 eagerly on a side stream. It is the warm-up that
-  creates what must exist before a capture (the cuBLAS and cuSOLVER
-  handles and workspaces, the kernels' libraries and their occupancy
-  queries), and it is the loop's first iteration, the damped step;
-- captures iteration 1 on the same stream and replays it for iterations
-  1 to max_scf_iter - 1 on the caller's stream. The capture takes its
-  memory from the pool of the graph this thread last captured for the
-  same stream, which it then replaces: the pool is reused from one solve
-  to the next and holds the largest iteration captured so far. (A pool
-  of its own per solve stays reserved after the graph is gone, until an
-  out-of-memory retry frees it: in the worker processes that share a card
-  those pools piled up and cut the other workers' byte budgets, PERF.md.)
-  The replaced graph was replayed only on that stream, before the new
-  one's replays, so the two never use the memory at once;
-- asks the host's all-done check before each iteration, outside the
-  graph, at the iterations the eager loop asks it, so the graph stops
-  where the eager loop stops.
-The step's state lives in tensors made before the capture and updated in
-place, its iteration counter among them (a 0-d tensor on the device), so
-each replay reads and writes the same buffers and the results equal the
-eager loop's bit for bit. A capture that fails raises: there is no
-eager fallback.
+`solve(key, inputs, x0, build, n_iter)`:
+- the cache's key is the caller's `key` (the route, its settings and
+  whatever else it freezes into the launches, such as kT and SP2's
+  closed-shell flag), the thread, the device, the caller's stream, the
+  grad mode, the TF32 switch, and the layout of every input tensor and of
+  x0 (shape, dtype, broadcast axes) and the value of every other input;
+- a miss copies `inputs` (a dict of tensors, nested dicts, None and plain
+  values) into buffers the new entry owns, allocated outside any capture,
+  and builds the loop over them (`build(static)`: the state, the in-loop
+  eigh's status and workspace). It runs iteration 0 eagerly on a side
+  stream: the warm-up that creates what must exist before a capture (the
+  cuBLAS and cuSOLVER handles and workspaces, the kernels' libraries and
+  their occupancy queries), and the loop's first iteration, the damped
+  step. It captures iteration 1 on that stream and replays it for
+  iterations 1 to n_iter - 1 on the caller's stream;
+- a hit copies the call's inputs into the entry's buffers, resets the
+  state (`loop.reset(x0)`: the counter 0, residuals 1, every fragment
+  active, the windows and the eigh status 0) and replays the graph from
+  iteration 0: the counter lives on the device, so iteration 0's damped
+  step is the captured step with it == 0. A hit runs no eager iteration
+  and records nothing; the graph's kernels are the eager loop's, so the
+  results are its bits and the loop stops where it stops;
+- `loop.done(it)`, asked before iteration it outside the graph at the
+  iterations the eager loop asks it, ends the loop.
+The loop with n_iter < 2 captures nothing and is not kept: its one
+iteration runs eagerly. A capture that fails raises: there is no eager
+fallback, and no hit is ever recaptured.
 
-Launch counts: a capture launches nothing; the wrappers' counts go to a
-`replay_counts.Tally`, and each replay adds them (`ops/replay_counts.py`).
-`stats` holds what the last captures cost, for the probes.
+Memory. An entry holds its input buffers, the loop's state, the in-loop
+eigh's cuSOLVER workspace (4.46 GB at (5985, 32) in float64) and its
+graph. The graphs of one thread on one stream of one device share one
+memory pool: they are replayed on that stream only, one at a time, and
+nothing a replay computes outlives it in the pool (the step writes its
+results into the state, which was allocated outside the capture), so one
+graph's replay may reuse the blocks another's left. A pool lives while
+one of its graphs is in the cache; then the allocator frees its blocks at
+its next release (`torch.cuda.empty_cache`, or an out-of-memory retry).
+At most MAX_ENTRIES entries are kept, and on a card entries holding at
+most MAX_HELD_SHARE of its memory but the newest, the least recently used
+evicted first; an evicted entry is never replayed again. The bytes are counted
+when an entry is made: `stats["held_bytes"]` (buffers, state, workspace
+and pools), and `idle_pool_bytes(device)`, the pools' blocks that the
+allocator holds reserved but not allocated: no other allocation can use
+them, so `parallel/executor.device_budget` holds them out (the buffers
+and workspaces are allocated, and so never counted free). A caller that
+plans its memory for a span of work (the executor's run, a mesh worker's
+run) takes `mark()` at its start; `held_since(mark)` is what the entries
+made since then allocated, and `evict_since(mark)` drops them
+(`parallel/executor.make_room`).
+
+Launch counts: a capture launches nothing; the wrappers' counts go to the
+entry's `replay_counts.Tally`, and each replay, a hit's included, adds
+them (`ops/replay_counts.py`). `stats` holds the cache's counts and what
+the last miss's capture and the last hit's setup cost, for the probes;
+`reuse` counts the solves by reuse distance, the hits a cache of any cap
+would have had.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 
@@ -47,27 +80,161 @@ import torch
 
 from ...ops import replay_counts
 
-#: the SCC solves of this process on a card: those captured ("captures",
-#: with their "replays") and those run launch by launch ("eager", asked
-#: for by a caller that compares); and what the last capture cost, host
-#: ms of its warm-up iteration, its recording and its instantiation
-#: (`capture_end`)
-stats = {"captures": 0, "replays": 0, "eager": 0, "warmup_ms": 0.0,
-         "record_ms": 0.0, "instantiate_ms": 0.0}
+#: entries kept at most. The working set measured on `chip_smoke.py`'s
+#: main path (`reuse`, NVIDIA H100 80GB HBM3): one LM step of the fits
+#: (fit_tools) cycles through 39 keys (84 of its 381 solves at reuse
+#: distance 38, none farther); of the 531 solves that a cache of 64
+#: entries would hit, one of 40 hits 528 and one of 4 only 348
+MAX_ENTRIES = 40
+#: share of its card's memory the entries on one card may hold together
+#: (their buffers, states and cuSOLVER workspaces, up to 4.46 GB at
+#: (5985, 32) in float64), the least recently used evicted first, the
+#: newest always kept: what the cache keeps out of every later byte
+#: budget stays a few GiB however large the solves
+MAX_HELD_SHARE = 0.05
+#: keys the reuse record remembers (`reuse`)
+_RECENT = 64
+
+#: the SCC solves of this process on a card: those that replayed a graph
+#: ("captures", the misses that recorded one, and "hits"), the replays,
+#: and those run launch by launch ("eager", asked for by a caller that
+#: compares); the cache's "misses" and "evictions" and the bytes it holds
+#: ("held_bytes"); what the last miss cost, host ms of its warm-up
+#: iteration, its recording and its instantiation (`capture_end`), and the
+#: last hit's host ms from the lookup to its first replay ("hit_setup_ms")
+stats = {"captures": 0, "replays": 0, "eager": 0, "hits": 0, "misses": 0,
+         "evictions": 0, "held_bytes": 0, "warmup_ms": 0.0,
+         "record_ms": 0.0, "instantiate_ms": 0.0, "hit_setup_ms": 0.0}
 #: one capture at a time in this process (other threads may run)
 _capture_lock = threading.Lock()
+#: guards `_entries`, `_pools` and `stats`' cache counts
+_lock = threading.Lock()
 #: device index -> the side stream warm-ups and captures run on: one per
 #: device, so the caching allocator's blocks for it are reused from one
 #: solve to the next
 _side_streams: dict = {}
-#: per thread, `graphs`: (device index, stream handle) -> the graph last
-#: captured for replay there, whose memory pool the next capture shares
-_held = threading.local()
+#: full key -> _Entry, least recently used first
+_entries: collections.OrderedDict = collections.OrderedDict()
+#: the serial of the last entry made (`mark`)
+_made = 0
+#: the solves of this process on a card by reuse distance: for a key used
+#: before, how many other keys were used since its last solve (a cache of
+#: c entries, least recently used out first, hits the solves at distances
+#: below c); "new" for a key not seen among the last _RECENT keys
+reuse: collections.Counter = collections.Counter()
+#: the last _RECENT keys solved, least recently used first
+_recent: collections.OrderedDict = collections.OrderedDict()
+#: (thread, device index, stream) -> _Pool shared by that key's graphs
+_pools: dict = {}
+
+
+class _Pool:
+    """A graph memory pool: its id, its entries in the cache, and the bytes
+    its captures added (reserved, and of those still allocated)."""
+
+    def __init__(self, device_index: int):
+        self.device_index = device_index
+        self.id = None
+        self.entries = 0
+        self.reserved = 0
+        self.allocated = 0
+
+
+class _Entry:
+    """A cached loop: its input buffers, as the views a hit copies into
+    (`dsts`, with the broadcast axes of each), the loop built over them,
+    its graph and the launches one replay makes."""
+
+    def __init__(self, dsts, loop, pool_key, nbytes, device):
+        self.dsts, self.loop = dsts, loop
+        self.pool_key, self.nbytes = pool_key, nbytes
+        self.device = device
+        self.serial = 0
+        self.graph = None
+        self.tally = None
+
+
+def _axes(t: torch.Tensor) -> tuple:
+    """The broadcast axes of t (stride 0, more than one element)."""
+    return tuple(i for i, (st, n) in enumerate(zip(t.stride(), t.shape))
+                 if st == 0 and n > 1)
+
+
+def _layout(x):
+    """What of an input tree the cache keys on."""
+    if isinstance(x, torch.Tensor):
+        return (x.shape, x.dtype, x.device,
+                _axes(x) if 0 in x.stride() else ())
+    if isinstance(x, dict):
+        return tuple((k, _layout(v)) for k, v in x.items())
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return (type(x), x)
+    raise TypeError(f"an SCC input of type {type(x).__name__}")
+
+
+def _leaves(x, out: list) -> list:
+    """The tensors of an input tree, in the order `_layout` reads them."""
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _leaves(v, out)
+    return out
+
+
+def _narrowed(t: torch.Tensor, axes: tuple) -> torch.Tensor:
+    for a in axes:
+        t = t.narrow(a, 0, 1)
+    return t
+
+
+def _static(x, dsts: list):
+    """Buffers of its own for an input tree, a broadcast tensor kept
+    broadcast (one row in memory), left to `_copy_into` to fill; `dsts`
+    gets each buffer's view a hit copies into and its broadcast axes."""
+    if isinstance(x, torch.Tensor):
+        axes = _axes(x)
+        buf = torch.empty(_narrowed(x, axes).shape, dtype=x.dtype,
+                          device=x.device)
+        dsts.append((buf, axes))
+        return buf.expand(x.shape) if axes else buf
+    if isinstance(x, dict):
+        return {k: _static(v, dsts) for k, v in x.items()}
+    return x
+
+
+def _copy_into(dsts: list, inputs) -> None:
+    """A hit: the call's input tensors into the entry's buffers (one
+    multi-tensor copy per dtype)."""
+    srcs = _leaves(inputs, [])
+    if len(srcs) != len(dsts):
+        raise RuntimeError("SCC graph cache: a hit with other inputs than "
+                           "its key's")
+    groups = {}
+    for (dst, axes), src in zip(dsts, srcs):
+        src = _narrowed(src, axes) if axes else src
+        if src.shape != dst.shape:
+            raise RuntimeError(f"SCC graph cache: a hit copies "
+                               f"{tuple(src.shape)} into {tuple(dst.shape)}")
+        group = groups.setdefault(dst.dtype, ([], []))
+        group[0].append(dst)
+        group[1].append(src)
+    for bufs, group in groups.values():
+        torch._foreach_copy_(bufs, group)
+
+
+def _memory(device):
+    """(reserved, allocated) bytes of the caching allocator on `device`."""
+    if getattr(device, "type", "cuda") != "cuda":
+        return 0, 0
+    return (torch.cuda.memory_reserved(device),
+            torch.cuda.memory_allocated(device))
 
 
 def _capture(graph, step, pool=None):
     """Record step() into `graph` on the current (side) stream, its memory
-    from `pool` (None: a new pool)."""
+    from `pool` (None: a new pool); returns the seconds capture_end took
+    (the instantiation)."""
     graph.capture_begin(pool=pool, capture_error_mode="thread_local")
     try:
         step()
@@ -82,54 +249,210 @@ def _capture(graph, step, pool=None):
     return time.perf_counter() - t
 
 
-def run_replayed(step, done, n_iter: int, device) -> None:
-    """Run iterations 0 .. n_iter - 1 of `step` (which updates the loop's
-    state in place): the first eagerly, every later one as a replay of
-    one captured iteration; `done(it)` is asked before iteration it and
-    ends the loop when true."""
-    if n_iter < 1:
-        return
-    cur = torch.cuda.current_stream(device)
+def solve(key, inputs: dict, x0: torch.Tensor, build, n_iter: int):
+    """Run the SCC loop `build(static inputs)` makes (an object with
+    `step()`, `done(it)`, `reset(x0)` and `owned()`, the tensors it
+    allocated) for up to n_iter iterations from x0, on the cached graph of
+    the key if there is one, else on a new one; returns the loop, whose
+    state holds the result until the next solve of the same key."""
+    cur = torch.cuda.current_stream(x0.device)
     stream = cur.cuda_stream
-    held = getattr(_held, "graphs", None)
-    if held is None:
-        held = _held.graphs = {}
-    key = (cur.device_index, stream)
-    prev = held.get(key)
-    graph = torch.cuda.CUDAGraph()
-    with _capture_lock:
-        side = _side_streams.get(cur.device_index)
-        if side is None:
-            side = _side_streams[cur.device_index] = torch.cuda.Stream(
-                cur.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            tally = _warm_up_and_capture(
-                graph, step, n_iter, None if prev is None else prev.pool())
-    cur.wait_stream(side)
-    if n_iter > 1:
-        held[key] = graph
-    for it in range(1, n_iter):
-        if done(it):
+    pool_key = (threading.get_ident(), cur.device_index, stream)
+    if n_iter < 2:
+        loop = build(inputs)
+        if n_iter == 1:
+            loop.step()
+        return loop
+    full = (pool_key, key, torch.is_grad_enabled(),
+            torch.backends.cuda.matmul.allow_tf32, _layout(inputs),
+            _layout(x0))
+    t0 = time.perf_counter()
+    with _lock:
+        _record_reuse(full)
+        entry = _entries.get(full)
+        if entry is not None:
+            _entries.move_to_end(full)
+            stats["hits"] += 1
+    if entry is None:
+        entry = _miss(full, pool_key, inputs, x0, build, cur)
+        first = 1
+    else:
+        _copy_into(entry.dsts, inputs)
+        entry.loop.reset(x0)
+        stats["hit_setup_ms"] = 1e3 * (time.perf_counter() - t0)
+        first = 0
+    graph, tally, loop = entry.graph, entry.tally, entry.loop
+    for it in range(first, n_iter):
+        if loop.done(it):
             break
         graph.replay()
         tally.replayed(stream)
         stats["replays"] += 1
+    return loop
 
 
-def _warm_up_and_capture(graph, step, n_iter: int, pool):
-    """Iteration 0 eagerly, then (if a later one runs) one captured into
-    `graph` from `pool`; returns the tally of the launches each replay
-    makes."""
+def _miss(full, pool_key, inputs, x0, build, cur) -> _Entry:
+    """A new entry: buffers, loop, iteration 0 eagerly and iteration 1
+    captured on the side stream; kept in the cache, which evicts its least
+    recently used entries beyond MAX_ENTRIES."""
+    dsts = []
+    static = _static(inputs, dsts)
+    # the hit's copies: their kernels loaded here, not in a hit
+    _copy_into(dsts, inputs)
+    loop = build(static)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in [b for b, _ in dsts] + list(loop.owned()))
+    entry = _Entry(dsts, loop, pool_key, nbytes, x0.device)
+    entry.graph = torch.cuda.CUDAGraph()
+    with _lock:
+        pool = _pools.get(pool_key)
+        if pool is None:
+            pool = _pools[pool_key] = _Pool(cur.device_index)
+        pool.entries += 1  # held from here: no eviction frees it meanwhile
+    try:
+        with _capture_lock:
+            side = _side_streams.get(cur.device_index)
+            if side is None:
+                side = _side_streams[cur.device_index] = torch.cuda.Stream(
+                    cur.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                entry.tally = _warm_up_and_capture(entry.graph, loop.step,
+                                                   pool, x0.device)
+        cur.wait_stream(side)
+    except BaseException:
+        with _lock:
+            _release(pool_key)
+        raise
+    global _made
+    with _lock:
+        if pool.id is None:
+            pool.id = entry.graph.pool()
+        _made += 1
+        entry.serial = _made
+        _entries[full] = entry
+        stats["misses"] += 1
+        _trim(x0.device)
+        stats["held_bytes"] = _held_bytes()
+    return entry
+
+
+def _held_cap(device) -> float:
+    """Bytes the entries on `device` may hold together: MAX_HELD_SHARE of
+    its memory; no cap off a card."""
+    if device.type != "cuda":
+        return float("inf")
+    return MAX_HELD_SHARE * torch.cuda.get_device_properties(
+        device).total_memory
+
+
+def _trim(device) -> None:
+    """Evict (under `_lock`) the least recently used entries beyond
+    MAX_ENTRIES, then those on `device` beyond its byte cap but the
+    newest."""
+    while len(_entries) > MAX_ENTRIES:
+        _evict(next(iter(_entries)))
+    cap = _held_cap(device)
+    mine = [k for k, e in _entries.items() if e.device == device]
+    held = sum(_entries[k].nbytes for k in mine)
+    while len(mine) > 1 and held > cap:
+        held -= _entries[mine[0]].nbytes
+        _evict(mine.pop(0))
+
+
+def _record_reuse(full) -> None:
+    """Count the solve of `full` in `reuse` (under `_lock`)."""
+    if full in _recent:
+        keys = list(_recent)
+        reuse[len(keys) - 1 - keys.index(full)] += 1
+        _recent.move_to_end(full)
+    else:
+        reuse["new"] += 1
+        _recent[full] = None
+        if len(_recent) > _RECENT:
+            _recent.popitem(last=False)
+
+
+def _evict(full) -> None:
+    """Drop the entry of `full` (under `_lock`): its graph is never
+    replayed again."""
+    old = _entries.pop(full)
+    old.graph = None
+    _release(old.pool_key)
+    stats["evictions"] += 1
+
+
+def mark() -> int:
+    """The serial of the last entry made: the entries made after it are
+    those `held_since` and `evict_since` see."""
+    return _made
+
+
+def held_since(serial: int) -> int:
+    """Bytes the cached entries made after `serial` allocated (their input
+    buffers, state and workspace)."""
+    with _lock:
+        return sum(e.nbytes for e in _entries.values() if e.serial > serial)
+
+
+def evict_since(serial: int) -> None:
+    """Evict the cached entries made after `serial`."""
+    with _lock:
+        for full in [k for k, e in _entries.items() if e.serial > serial]:
+            _evict(full)
+        stats["held_bytes"] = _held_bytes()
+
+
+def _release(pool_key) -> None:
+    """One entry of the pool gone (under `_lock`): the pool is forgotten
+    with its last entry, and its next capture starts a new one."""
+    pool = _pools[pool_key]
+    pool.entries -= 1
+    if pool.entries == 0:
+        del _pools[pool_key]
+
+
+def _held_bytes() -> int:
+    return (sum(e.nbytes for e in _entries.values())
+            + sum(p.reserved for p in _pools.values()))
+
+
+def _warm_up_and_capture(graph, step, pool: _Pool, device):
+    """Iteration 0 eagerly, then iteration 1 captured into `graph` from
+    `pool`; returns the tally of the launches each replay makes."""
     t0 = time.perf_counter()
     step()
     t1 = time.perf_counter()
+    reserved, allocated = _memory(device)
     with replay_counts.capturing() as tally:
-        if n_iter > 1:
-            inst = _capture(graph, step, pool)
-            t2 = time.perf_counter()
-            stats.update(captures=stats["captures"] + 1,
-                         warmup_ms=1e3 * (t1 - t0),
-                         record_ms=1e3 * (t2 - t1 - inst),
-                         instantiate_ms=1e3 * inst)
+        inst = _capture(graph, step, pool.id)
+    t2 = time.perf_counter()
+    reserved2, allocated2 = _memory(device)
+    pool.reserved += reserved2 - reserved
+    pool.allocated += allocated2 - allocated
+    stats.update(captures=stats["captures"] + 1, warmup_ms=1e3 * (t1 - t0),
+                 record_ms=1e3 * (t2 - t1 - inst), instantiate_ms=1e3 * inst)
     return tally
+
+
+def idle_pool_bytes(device) -> int:
+    """Bytes the cache's graph pools hold on `device` that the caching
+    allocator counts as reserved and not allocated, as counted when each
+    capture was made."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with _lock:
+        return sum(max(p.reserved - p.allocated, 0) for p in _pools.values()
+                   if p.device_index == index)
+
+
+def clear() -> None:
+    """Forget every entry (their graphs are freed with the last reference;
+    the pools' blocks at the allocator's next release)."""
+    with _lock:
+        for entry in _entries.values():
+            entry.graph = None
+        _entries.clear()
+        _pools.clear()
+        stats["held_bytes"] = 0

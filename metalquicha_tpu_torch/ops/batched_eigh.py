@@ -116,6 +116,19 @@ def _workspace_bytes(dcode: int, n: int, bsz: int, index: int) -> int:
     return got
 
 
+def workspace_bytes(dtype, n: int, device, batch: int = 1024) -> float:
+    """cuSOLVER's workspace per (n, n) matrix of `dtype` on card `device`,
+    from its query for a batch of `batch` (linear in the batch to within
+    bytes: 745248 per matrix at (2581, 32) and (5985, 32) in float64)."""
+    if _LIB.lib is None:
+        build()
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _workspace_bytes(int(dtype == torch.float64), n, batch,
+                            index) / batch
+
+
 def _launch(a: torch.Tensor, status: EighStatus):
     if a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"batched eigh takes float32/float64, not {a.dtype}")

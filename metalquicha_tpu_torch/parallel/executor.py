@@ -58,12 +58,17 @@ shape takes in an energy or a gradient evaluation (the overlap's
 (nao, nao, nprim, nprim) tables, (nao, nao) matrices, ATM's
 (nat, nat, nat) triples, the solvation model's and GFN2's moment
 intermediates), and `device_budget` is what a slot may plan for:
-BUDGET_SHARE of the device's free bytes, taken once per `run`, split
+BUDGET_SHARE of the device's free bytes, the SCC graph cache's held
+out (`methods/xtb/scc_graph.py`), taken once per `run`, split
 evenly between the mesh slots that share the device. A one-slot mesh cuts
 its chunks to min(element cap, budget / model bytes); on a mesh of
 several slots every worker applies the same rule on its own device and
-evaluates its piece in parts of at most that many fragments. A fragment
-the budget cannot hold raises `DeviceMemoryError`, naming its shape;
+evaluates its piece in parts of at most that many fragments. The model
+holds one chunk's own SCC graph cache entries (`scc_entry_bytes`); the
+entries a run made for its earlier chunks are held in the plan too: they
+stay only while they fit beside the next chunk in the budget
+(`make_room`). A fragment the budget cannot hold raises
+`DeviceMemoryError`, naming its shape;
 nothing moves to the CPU. On the CPU no budget is taken and chunks are
 cut as the JAX package cuts them.
 """
@@ -79,10 +84,11 @@ import torch
 
 from ..logging_ import global_logger as logger
 
+from ..methods.xtb import scc_graph
 from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
 from ..methods.xtb.multipole import work_elements as multipole_work_elements
-from ..ops import fermi_fill, jacobi_eigh
+from ..ops import batched_eigh, fermi_fill, jacobi_eigh
 from . import slot_worker
 from .mesh import fragment_mesh, shard_leading_axis
 from .slot_worker import evaluate_piece
@@ -129,7 +135,8 @@ def fragment_bytes(calc, pad_to, nprim: int, what: str,
     tables, ATM or the solvation model, whichever is largest); a gradient
     keeps every phase's graph until its backward pass. Elements are of
     the calculator's dtype, or float64 where a polisher re-evaluates
-    (`polished`)."""
+    (`polished`). Both hold the SCC graph cache's entry for the shape
+    (`scc_entry_bytes`) beside them."""
     nat, _nsh, nao = pad_to
     c = BYTE_MODEL[what]
     settings = calc.settings
@@ -142,21 +149,68 @@ def fragment_bytes(calc, pad_to, nprim: int, what: str,
         parts.append(c["solvation"] * calc.solvation.work_elements(nat))
     held = max(parts) if what == "energy" else sum(parts)
     size = 8 if polished else torch.finfo(calc.dtype).bits // 8
-    return size * (held + c["matrix"] * nao * nao)
+    return (size * (held + c["matrix"] * nao * nao)
+            + scc_entry_bytes(calc, pad_to, polished))
+
+
+def scc_entry_bytes(calc, pad_to, polished: bool = False) -> float:
+    """Bytes one fragment's share of an SCC graph cache entry keeps from
+    its solve to the end of the call and beyond (`scc_graph`): copies of
+    the loop's inputs (H0, S, the orthogonalizer's two matrices, gamma,
+    the solvation kernel, GFN2's moment integrals), its state (the two
+    Anderson windows) and, on the exact route on a card, the in-loop
+    eigh's cuSOLVER workspace (its query). A polished calculator also
+    keeps the float64 polish's entry."""
+    nat, nsh, nao = pad_to
+    settings = calc.settings
+    nx = nsh + 9 * nat if settings.multipoles else nsh
+    elements = 4 * nao * nao + nsh * nsh + (2 * settings.broyden_memory
+                                            + 3) * nx
+    if getattr(calc, "solvation", None) is not None:
+        elements += nat * nat
+    if settings.multipoles:
+        elements += 9 * nao * nao
+    dtypes = [calc.dtype] + ([torch.float64] if polished else [])
+    out = 0.0
+    for dtype in dtypes:
+        out += elements * (torch.finfo(dtype).bits // 8)
+        exact = not (settings.use_pallas_eigh and dtype == torch.float32)
+        if exact and calc.device.type == "cuda":
+            out += batched_eigh.workspace_bytes(dtype, nao, calc.device)
+    return out
 
 
 def device_budget(device, sharing: int = 1):
     """Bytes one mesh slot may plan for on `device`: BUDGET_SHARE of the
-    device's free bytes (and of the blocks this process's allocator holds
-    unused), split between the `sharing` slots on the device; None on a
-    device that is not a card (no byte cap there)."""
+    device's free bytes and of the blocks this process's allocator holds
+    unused, split between the `sharing` slots on the device; None on a
+    device that is not a card (no byte cap there).
+
+    The SCC graph cache's bytes are held out: the unused blocks of its
+    graphs' memory pools serve only those graphs
+    (`scc_graph.idle_pool_bytes`), and its buffers and workspaces are
+    allocated, so neither free nor unused."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
     free, _total = torch.cuda.mem_get_info(device)
     cached = (torch.cuda.memory_reserved(device)
-              - torch.cuda.memory_allocated(device))
-    return int(BUDGET_SHARE * (free + cached) / sharing)
+              - torch.cuda.memory_allocated(device)
+              - scc_graph.idle_pool_bytes(device))
+    return int(BUDGET_SHARE * (free + max(cached, 0)) / sharing)
+
+
+def make_room(budget: int, mark: int, shape, planned: float, last):
+    """Before a piece of `shape` (its padded shape and its size) modelled
+    at `planned` bytes, in a run whose budget was taken after SCC graph
+    cache serial `mark`: the graphs the run cached since stay if their
+    bytes fit beside the piece in the budget, else they are evicted. A
+    piece of the last piece's shape replays the graphs that piece made and
+    allocates none, so it peaks where that piece did. Returns `shape`, the
+    next call's `last`."""
+    if shape != last and scc_graph.held_since(mark) + planned > budget:
+        scc_graph.evict_since(mark)
+    return shape
 
 
 def byte_cap(budget: int, per_fragment: float, pad_to, nprim: int,
@@ -301,6 +355,7 @@ class FragmentExecutor:
         t0 = time.time()
         self.runs += 1
         budget = self.last_budget = self._budget()
+        mark, last = scc_graph.mark(), None
         n_done = 0
         energies = np.zeros(n)
         gradients = [None] * n if what == "gradient" else None
@@ -326,6 +381,9 @@ class FragmentExecutor:
                                             what))
             for start in range(0, len(members), max_b):
                 chunk = members[start : start + max_b]
+                if budget is not None:
+                    last = make_room(budget, mark, (pad_to, len(chunk)),
+                                     len(chunk) * per, last)
                 self._run_chunk(chunk, pad_to, what, energies, gradients,
                                 aux_out)
                 n_done += len(chunk)

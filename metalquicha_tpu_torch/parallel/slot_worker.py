@@ -33,8 +33,11 @@ answer per message:
   the Jacobi and Fermi launches and SP2 calls the piece made. On a card
   the piece is evaluated in parts of at most as many fragments as the
   device's byte budget holds (`executor.device_budget`, taken once per
-  parent's `run` number and split between the `sharing` slots on the
-  device; `executor.fragment_bytes`, `executor.byte_cap`).
+  parent's `run` number, after the SCC graphs earlier runs cached are
+  dropped, and split between the `sharing` slots on the device;
+  `executor.fragment_bytes`, `executor.byte_cap`), the graphs its earlier
+  parts cached kept only while they fit beside the next part
+  (`executor.make_room`).
 - None, or the parent's end closing: the worker exits.
 
 An exception in the worker answers with the exception, its traceback
@@ -179,12 +182,14 @@ class SlotWorker:
 
     `launches`, `fermi_launches` and `sp2_calls` count the Jacobi and
     Fermi launches and SP2 calls the worker has made (its SCC graphs'
-    replays included), `scc_captures` and `scc_eager` its SCC solves on a
-    card that ran as a replayed graph and launch by launch, `peak_bytes`
-    is its peak device memory (0 on the CPU), `modules` the top-level
-    packages
-    loaded in it, `build_dir` the directory it loads the kernels from,
-    `startup_s` the seconds from its start to its first answer."""
+    replays included), `scc_captures`, `scc_hits` and `scc_eager` its SCC
+    solves on a card that captured a graph, replayed a cached one and ran
+    launch by launch, `scc_held_bytes` what its graph cache holds,
+    `peak_bytes` is its peak device memory (0 on the CPU), `run_memory`
+    each run's budget and peak, `modules` the
+    top-level packages loaded in it, `build_dir` the directory it loads
+    the kernels from, `startup_s` the seconds from its start to its first
+    answer."""
 
     def __init__(self, index: int, device):
         self.index = index
@@ -200,8 +205,13 @@ class SlotWorker:
         self.fermi_launches = 0
         self.sp2_calls = 0
         self.scc_captures = 0
+        self.scc_hits = 0
         self.scc_eager = 0
+        self.scc_held_bytes = 0
         self.peak_bytes = 0
+        #: parent's run number -> (its byte budget, the worker's peak
+        #: device memory in that run); None and 0 off a card
+        self.run_memory = {}
         #: the byte budget of its last piece (None off a card) and the
         #: parts that piece was evaluated in
         self.budget_bytes = None
@@ -248,9 +258,13 @@ class SlotWorker:
         self.fermi_launches += stats["fermi_launches"]
         self.sp2_calls += stats["sp2_calls"]
         self.scc_captures += stats["scc_captures"]
+        self.scc_hits += stats["scc_hits"]
         self.scc_eager += stats["scc_eager"]
+        self.scc_held_bytes = stats["scc_held_bytes"]
         self.peak_bytes = max(self.peak_bytes, stats["peak_bytes"])
         self.budget_bytes = stats["budget_bytes"]
+        self.run_memory[stats["run"]] = (stats["budget_bytes"],
+                                         stats["peak_bytes"])
         self.parts = stats["parts"]
         self.modules, self.build_dir = stats["modules"], stats["build_dir"]
         jacobi_eigh.add_launches(stats["launches"])
@@ -377,6 +391,9 @@ class _Slot:
         self.calc = self.polisher = None
         #: the parent's run number the byte budget was taken for
         self.run = self.budget = None
+        #: the run's SCC graph cache mark and its last part's shape
+        #: (`executor.make_room`)
+        self.mark, self.last = 0, None
 
     def configure(self, config: bytes) -> None:
         from ..methods.xtb.calculator import XtbCalculator
@@ -400,34 +417,50 @@ class _Slot:
             if cfg["settings"].use_pallas_eigh:
                 jacobi_eigh.build()
 
-    def _cap(self, tuples, pad_to, what, run, sharing) -> int:
-        """Most fragments of this piece evaluated at once: all of them,
-        or on a card as many as the run's byte budget holds."""
+    def _cap(self, tuples, pad_to, what, run, sharing):
+        """(most fragments of this piece evaluated at once: all of them,
+        or on a card as many as the run's byte budget holds; the modelled
+        bytes of one, None off a card)."""
+        from ..methods.xtb import scc_graph
         from ..methods.xtb.batch import _sizes_for
         from .executor import byte_cap, device_budget, fragment_bytes
 
         if run != self.run:
+            # each run plans for its share of the card anew: the graphs
+            # earlier runs cached go first, as their bytes would count in
+            # this worker's peak and not in its budget
+            scc_graph.clear()
+            if self.device.type == "cuda":
+                # the run's peak, held to the run's budget
+                torch.cuda.reset_peak_memory_stats(self.device)
             self.run, self.budget = run, device_budget(self.device, sharing)
+            self.mark, self.last = scc_graph.mark(), None
         if self.budget is None:
-            return len(tuples)
+            return len(tuples), None
         nprim = _sizes_for([t[0] for t in tuples], self.calc.variant)[3]
         per = fragment_bytes(self.calc, pad_to, nprim, what,
                              self.polisher is not None)
-        return byte_cap(self.budget, per, pad_to, nprim, what)
+        return byte_cap(self.budget, per, pad_to, nprim, what), per
 
     def evaluate(self, config, tuples, pad_to, what, run, sharing):
         from ..methods.xtb import scc_graph
         from ..ops import fermi_fill, jacobi_eigh, sp2
+        from .executor import make_room
 
         if config is not None:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
         m0, d0 = fermi_fill.launches, fermi_fill.density_launches
         g0, e0 = scc_graph.stats["captures"], scc_graph.stats["eager"]
-        cap = self._cap(tuples, pad_to, what, run, sharing)
+        h0 = scc_graph.stats["hits"]
+        cap, per = self._cap(tuples, pad_to, what, run, sharing)
         outs = []
         for start in range(0, len(tuples), cap):
             part = tuples[start : start + cap]
+            if per is not None:
+                self.last = make_room(self.budget, self.mark,
+                                      (pad_to, len(part)), len(part) * per,
+                                      self.last)
             frag = self.calc.make_batch(part, pad_to=pad_to)
             outs.append(evaluate_piece(self.calc, self.polisher, frag, part,
                                        pad_to, what))
@@ -439,8 +472,10 @@ class _Slot:
                            density_launches=fermi_fill.density_launches - d0,
                            sp2_calls=sp2.calls - s0,
                            scc_captures=scc_graph.stats["captures"] - g0,
+                           scc_hits=scc_graph.stats["hits"] - h0,
                            scc_eager=scc_graph.stats["eager"] - e0,
-                           parts=len(outs))
+                           scc_held_bytes=scc_graph.stats["held_bytes"],
+                           parts=len(outs), run=self.run)
 
     def stats(self) -> dict:
         from ..ops import kernel_build

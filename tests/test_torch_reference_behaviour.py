@@ -12,7 +12,10 @@
 - the decane GMBE(1) − unfragmented gap through the port's driver, held
   to the JAX package at HEAD (tests/data/port_golden_decane_gap.json,
   written by tools/gen_port_golden.py --only decane_gap); the older
-  tests/data/gmbe_tail_sentinel.json predates the shipped ATM globals.
+  tests/data/gmbe_tail_sentinel.json predates the shipped ATM globals;
+- GFN2's SCC on a seeded draw of chip_smoke.py's random water hexamers:
+  the port leaves unconverged and gives a NaN to the same hexamers as the
+  JAX package.
 """
 
 import json
@@ -267,3 +270,34 @@ def test_decane_gmbe1_gap_matches_jax():
     assert abs(gap - gold["gap_ha"]) <= 1e-9
     # the sentinel's own sanity bound: a cap-dominated gap
     assert abs(gap) < 0.1
+
+
+def test_random_hexamers_fail_where_the_reference_fails():
+    """chip_smoke.py's seeded water hexamers (`water_clusters`: waters on a
+    jittered grid 5.6 Bohr apart, each turned at random) of a new draw
+    (seed 7), in GFN2 with 64 SCC iterations at scf_tol 1e-9: hexamer 0
+    stops unconverged and hexamer 7 gives a NaN energy and residual in the
+    JAX package on the CPU, and the port does the same; hexamer 4, which
+    both converge, agrees to 1e-10 Ha."""
+    import jax.numpy as jnp
+
+    from chip_smoke import water_clusters
+    from metalquicha_tpu.methods.xtb import calculator as jcalc
+    from metalquicha_tpu.methods.xtb.engine import settings_from_params as jsp
+
+    restore_jax_overlay()
+    frags = [water_clusters(np.random.default_rng(7), 64, 6)[i]
+             for i in (0, 4, 7)]
+    kw = dict(max_scf_iter=64, scf_tol=1e-9)
+    jc = jcalc.XtbCalculator(jsp("gfn2", **kw), variant="gfn2",
+                             dtype=jnp.float64)
+    e_j, aux_j = jc.energies(jc.make_batch(frags))
+    e_j, r_j = np.asarray(e_j), np.asarray(aux_j["scf_residual"])
+    calc = XtbCalculator(settings_from_params("gfn2", **kw), variant="gfn2",
+                         dtype=torch.float64, device="cpu")
+    e_t, aux_t = calc.energies(calc.make_batch(frags))
+    e_t, r_t = e_t.numpy(), aux_t["scf_residual"].numpy()
+    for e, r in ((e_j, r_j), (e_t, r_t)):
+        assert r[0] > 1e-6 and r[1] <= 1e-9
+        assert np.isnan(e[2]) and np.isnan(r[2])
+    assert abs(e_t[1] - e_j[1]) <= 1e-10

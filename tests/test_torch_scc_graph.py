@@ -11,21 +11,19 @@ On the CPU:
 - one live cross-check against the JAX package's `scf_solve` and
   `scf_solve_multipole` (1e-9, as tests/test_torch_scc.py and
   tests/test_torch_gfn2.py);
-- `run_replayed`'s control flow with a stand-in for the CUDA graph (its
-  replay runs the recorded step again with no counting): the eager loop's
-  results, stop and counts;
+- `scc_graph.solve`'s control flow with stand-ins for the CUDA graph
+  (`_torch_scc_standins.py`: a replay runs the recorded step again with no
+  counting): the eager loop's results, stop and counts;
 - the replay accounting of the launch counters (`ops/replay_counts.py`).
 The capture itself needs a card: the `gpu` cases hold the graph to the
 eager loop bit for bit (`python3 -m pytest --noconftest
 tests/test_torch_scc_graph.py -m gpu`).
 """
 
-import contextlib
-import threading
-
 import numpy as np
 import pytest
 import torch
+from _torch_scc_standins import no_card  # noqa: F401 (a fixture)
 from _torch_port_common import (
     GLY3_FRAG,
     H3O,
@@ -105,6 +103,15 @@ def _loop_before_graph(fixed_point, x0, settings, graph=True):
     return x, resid
 
 
+def _before(make_fixed_point, inputs, x0, settings, key, graph=True):
+    """`_loop_before_graph` in `engine._anderson_solve`'s place."""
+    fixed_point, status = make_fixed_point(inputs)
+    out = _loop_before_graph(fixed_point, x0, settings)
+    if status is not None:
+        status.check()
+    return out
+
+
 #: route -> (variant, use_pallas_eigh, dtype, solvation, SP2 forced)
 ROUTES = {
     "gfn1_exact": ("gfn1", False, torch.float64, False, False),
@@ -171,7 +178,7 @@ def test_stepped_loop_equals_the_loop_before(monkeypatch, route, freeze):
     q, resid, its = _counted(monkeypatch, per_iteration, solve)
     made = sp2.calls - n0
     with monkeypatch.context() as mp:
-        mp.setattr(te, "_anderson_solve", _loop_before_graph)
+        mp.setattr(te, "_anderson_solve", _before)
         q_b, resid_b, its_b = _counted(monkeypatch, per_iteration, solve)
     assert torch.equal(q, q_b) and torch.equal(resid, resid_b)
     assert its == its_b
@@ -193,7 +200,8 @@ def test_warm_start_is_not_written_to():
     q0 = torch.tensor(np.random.default_rng(0).standard_normal((3, 5)))
     before = q0.clone()
     settings = tsp("gfn1", max_scf_iter=4)
-    x, _ = te._anderson_solve(lambda z: 0.5 * z, q0, settings)
+    x, _ = te._anderson_solve(lambda _inp: (lambda z: 0.5 * z, None), {},
+                              q0, settings, None)
     assert torch.equal(q0, before) and x.data_ptr() != q0.data_ptr()
 
 
@@ -237,59 +245,6 @@ def test_stepped_loop_matches_jax():
     assert max_abs_diff(z, z_j) <= 1e-9
 
 
-class _Stream:
-    cuda_stream = 77
-    device_index = 0
-    device = None
-
-    def __init__(self, *_args):
-        pass
-
-    def wait_stream(self, _other):
-        pass
-
-
-class _Graph:
-    """Stands in for torch.cuda.CUDAGraph: `_capture` runs the step once
-    (the wrappers' counts go to the tally, as under a capture) and keeps
-    it; that run is the first replay's work, and every later replay runs
-    the step again without counting, as a replay launches with no Python
-    involved."""
-
-    def __init__(self):
-        self.step = None
-        self.replays = 0
-
-    def pool(self):
-        return id(self)
-
-    def replay(self):
-        self.replays += 1
-        if self.replays > 1:
-            with replay_counts.capturing():
-                self.step()
-
-
-def _fake_capture(graph, step, pool=None):
-    graph.step = step
-    graph.shared = pool
-    step()
-    return 0.0
-
-
-@pytest.fixture
-def no_card(monkeypatch):
-    """torch.cuda's streams and graphs replaced by stand-ins."""
-    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
-    monkeypatch.setattr(torch.cuda, "current_stream", _Stream)
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda _s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
-    monkeypatch.setattr(scc_graph, "_capture", _fake_capture)
-    monkeypatch.setattr(scc_graph, "_side_streams", {})
-    monkeypatch.setattr(scc_graph, "_held", threading.local())
-
-
 @pytest.mark.parametrize("freeze", [False, True], ids=["tol0", "freeze"])
 def test_run_replayed_stops_and_counts_as_the_eager_loop(monkeypatch,
                                                          no_card, freeze):
@@ -303,16 +258,12 @@ def test_run_replayed_stops_and_counts_as_the_eager_loop(monkeypatch,
     q, resid, its = _counted(monkeypatch, per_iteration, solve)
     eager = sp2.calls - n0
 
-    def replayed(fixed_point, x0, settings, graph=True):
-        state = te._anderson_state(x0, settings)
-        m = settings.broyden_memory
-        slots, eye_m = torch.arange(m), torch.eye(m, dtype=x0.dtype)
-        scc_graph.run_replayed(
-            lambda: te._anderson_step(fixed_point, state, settings, slots,
-                                      eye_m),
-            lambda it: te._all_done(state, settings, it),
-            settings.max_scf_iter, x0.device)
-        return state.x, state.resid
+    def replayed(make_fixed_point, inputs, x0, settings, key, graph=True):
+        loop = scc_graph.solve(
+            (key, settings), inputs, x0,
+            lambda inp: te._SccLoop(make_fixed_point, inp, x0, settings),
+            settings.max_scf_iter)
+        return loop.state.x.clone(), loop.state.resid.clone()
 
     with monkeypatch.context() as mp:
         mp.setattr(te, "_anderson_solve", replayed)
@@ -323,15 +274,17 @@ def test_run_replayed_stops_and_counts_as_the_eager_loop(monkeypatch,
     # the first
     assert its_g == its and sp2.calls - n0 == eager == its
     assert (its < n_max) == freeze
-    # the next solve's capture shares the memory pool of the graph this
-    # thread last captured for the stream, and replaces it
-    (first,) = scc_graph._held.graphs.values()
+    # the next solve of the same inputs replays the cached graph from
+    # iteration 0, with no warm-up and no capture
+    (entry,) = scc_graph._entries.values()
     with monkeypatch.context() as mp:
         mp.setattr(te, "_anderson_solve", replayed)
-        q_2, _ = solve()
-    (second,) = scc_graph._held.graphs.values()
-    assert second is not first and second.shared == first.pool()
-    assert torch.equal(q_2, q)
+        n0 = sp2.calls
+        q_2, resid_2, its_2 = _counted(monkeypatch, per_iteration, solve)
+    assert scc_graph._entries[next(iter(scc_graph._entries))] is entry
+    assert scc_graph.stats["captures"] == 1 and scc_graph.stats["hits"] == 1
+    assert torch.equal(q_2, q) and torch.equal(resid_2, resid)
+    assert its_2 == its and sp2.calls - n0 == its
 
 
 def test_replay_adds_the_recorded_launches():

@@ -6,8 +6,11 @@ Two measurements, each printed as JSON lines:
 --calibrate   the peak device memory one fragment of a padded shape
               takes in `XtbCalculator.energies` and `.gradients`
               (`torch.cuda.max_memory_allocated` above what was allocated
-              before the call, with the batch already on the device,
-              divided by the batch size), beside the executor's byte model
+              before the call, with the batch already on the device and
+              the SCC graph cache emptied, divided by the batch size: the
+              call's own cache entry counts; the entries other chunks of
+              a run keep are held by `executor.make_room`, not by the
+              model), beside the executor's byte model
               (`parallel/executor.py` `fragment_bytes`) where the package
               has one, and their ratio. Shapes: GFN1 water dimers (nao 16)
               on the exact route in float64 and on the Jacobi route (in
@@ -74,10 +77,23 @@ SHAPES = {
 }
 
 
+def _clear_scc_graph_cache() -> None:
+    """Empty the package's SCC graph cache, where it has one."""
+    try:
+        from metalquicha_tpu_torch.methods.xtb import scc_graph
+    except ImportError:  # a checkout from before the graph route
+        return
+    if hasattr(scc_graph, "clear"):
+        scc_graph.clear()
+
+
 def peak_bytes(fn, device):
     """(fn(), peak bytes fn allocated above what was live before it)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        # the graphs earlier calls cached: their entries' and pools'
+        # blocks are freed, not counted as live
+        _clear_scc_graph_cache()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)

@@ -41,8 +41,20 @@ float64 ("gfn2"):
   host's ms per iteration from the solve's call to its return, before
   the device finishes: what the host still spends on the loop) and
   `capture_ms` (host ms of the last solve's eager warm-up iteration, its
-  recording and its instantiation); None where the package has no graph
-  route.
+  recording and its instantiation) and `hit_ms` (host ms of a solve's
+  setup on a hit of the graph cache: the lookup, the copies into the
+  cached buffers and the state's reset; None before the cache); None
+  where the package has no graph route;
+- `parts`: for one `XtbCalculator.energies` and one `.gradients` call on
+  the batch (32 SCC iterations, after a warm-up call, so the SCC replays
+  a cached graph where the package has one), the host ms and the stream
+  ms (CUDA events on the call's stream, idle gaps included) of its three
+  parts: `operands`, the SCC's operand build before the loop (from
+  `calculator._converge_charges`' start to `engine._anderson_solve`'s:
+  `_scc_operands`, `_ortho_factors` or `_jacobi_route`, the eigh status),
+  `loop`, the loop itself (`_anderson_solve`), and `functional`, the
+  rest of the call (the variational functional after the loop, and for a
+  gradient its backward pass).
 
 Usage: python3 tools/scc_probe_torch.py [--walls] [--json-out F]
 It prints one JSON line. It uses only the package's entry points, so it
@@ -211,7 +223,53 @@ def _graph_costs(solve, settings) -> dict:
     rec["host_ms_per_iteration"] = 1e3 * min(host) / ITERS
     rec["capture_ms"] = {k: scc_graph.stats[k] for k in (
         "warmup_ms", "record_ms", "instantiate_ms")}
+    rec["hit_ms"] = scc_graph.stats.get("hit_setup_ms")
     return rec
+
+
+def _parts(call) -> dict:
+    """Host and stream ms of call()'s operand build, SCC loop and
+    functional (the module docstring's `parts`)."""
+    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
+    from metalquicha_tpu_torch.methods.xtb import engine
+
+    marks = {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[name] = (time.perf_counter(), ev)
+
+    def around(fn, before, after):
+        def wrapper(*args, **kwargs):
+            mark(before)
+            out = fn(*args, **kwargs)
+            mark(after)
+            return out
+        return wrapper
+
+    converge, solve = tcalc._converge_charges, engine._anderson_solve
+    tcalc._converge_charges = around(converge, "solve_start", "solve_end")
+    engine._anderson_solve = around(solve, "loop_start", "loop_end")
+    try:
+        call()
+        torch.cuda.synchronize()
+        mark("start")
+        call()
+        mark("end")
+        torch.cuda.synchronize()
+    finally:
+        tcalc._converge_charges, engine._anderson_solve = converge, solve
+
+    def span(a, b):
+        (ta, ea), (tb, eb) = marks[a], marks[b]
+        return [1e3 * (tb - ta), ea.elapsed_time(eb)]
+
+    head, tail = span("start", "solve_start"), span("loop_end", "end")
+    return {"operands": span("solve_start", "loop_start"),
+            "loop": span("loop_start", "loop_end"),
+            "functional": [head[0] + tail[0], head[1] + tail[1]],
+            "call": span("start", "end")}
 
 
 def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
@@ -260,6 +318,9 @@ def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
         if walls:
             rec["energies_s"] = _wall(lambda: calc.energies(frag), 3)
             rec["gradients_s"] = _wall(lambda: calc.gradients(frag), 3)
+        # [host ms, stream ms] per part
+        rec["parts"] = {"energies": _parts(lambda: calc.energies(frag)),
+                        "gradients": _parts(lambda: calc.gradients(frag))}
         out[route] = rec
     return out
 
