@@ -32,6 +32,18 @@ Phases (each raises on failure; nothing is caught):
              (max |dP| <= 1e-12 in float64, 1e-5 in float32), timed beside
              the fill and the product it replaces, the plain version and
              its bound (`fermi_density_bound`);
+1c. window:  the Anderson window kernel (csrc/anderson_window.cu, built
+             with the others) against its plain versions, the torch
+             algebra it replaces (`anderson_window_reference`: batched
+             products and torch.linalg.solve_ex) and the kernel's order in
+             elementwise ops (`anderson_window_rowwise`), at (B, nx) =
+             (512, 12) and (512, 62) (the dimer slice in GFN1 and GFN2),
+             (5985, 24) (the w20 MBE(4) chunk), (64, 36) and (64, 186)
+             (GFN1 and GFN2 water hexamers), m = 12, float64 (1e-12) and
+             float32 (1e-5), the active flags equal; a fragment alone and
+             in its batch bit for bit equal; the kernel, the rowwise twin
+             (plain_ms) and the reference (library_ms) timed beside the
+             bound (`window_bound`);
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -72,6 +84,21 @@ Phases (each raises on failure; nothing is caught):
              printed by reuse distance (`scc_graph.reuse`) with the hits
              a cache of each cap would have had, in one line
              `{"scc_reuse": ...}` after the main path;
+2c. call_graph: every route's `XtbCalculator.energies` and `.gradients`
+             as replayed device programs (`scc_graph.Call`: the operand
+             build, the loop and the functional, the gradient's backward
+             pass inside its capture): GFN1 exact, Jacobi, SP2 (16 water
+             dodecamers, 72 AOs), ALPB and GFN2 on the dimer slice (B =
+             512), CPCM's energies on 64 dimers; a miss and two hits on
+             fresh inputs, each bit for bit `graph=False`'s (energies,
+             gradients, every aux field), every stage's run once more under
+             torch.cuda.set_sync_debug_mode("error") (a miss and launch by
+             launch), a hit's setup ms beside the miss's warm-up; one line
+             `{"call_graph": ...}`;
+2d. c17:     ROADMAP C17 (`tools/c17_probe_torch.py`'s cut deltas): the
+             rigid trimer MBE(2) gradient and total from one batch and from
+             a two-slot cut must be equal bit for bit; the w20 MBE(2)
+             deltas are printed, not held; one line `{"c17": ...}`;
 3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with use_pallas_eigh in
              float64 (the exact route, as the JAX package's: no Jacobi
@@ -229,8 +256,11 @@ phase 1, in the order baseline, this, this, baseline.
 The kernels' launch counters (their replays' launches included), SP2's
 and the in-loop eigh's call counters and the SCC graph counts are reset
 before phases 3-13; every one of phases 3-13 but the mesh must capture an
-SCC graph and none may run an SCC on the card launch by launch (the
-mesh's workers report theirs, each must have captured); the Jacobi
+SCC graph and none may run an SCC on the card launch by launch, nor any
+stage of a calculator's call (the mesh's workers report theirs, each must
+have captured, and run no stage launch by launch); every one of phases
+3-13 must launch the Anderson window kernel (the workers' launches
+added); the Jacobi
 kernel's must grow in phases 3-6 (5b too), 9, 10
 and 13, each from its float32 pass (a float64 SCC takes the exact route,
 as the JAX package's) or, in 13, its timing of the kernel alone, and
@@ -769,7 +799,7 @@ def reuse_line(counts) -> dict:
     return {"solves": sum(counts.values()), "new": counts["new"],
             "distances": dict(sorted(dist.items())),
             "hits_at_cap": {c: sum(n for d, n in dist.items() if d < c)
-                            for c in (1, 2, 4, 8, 16, 32, 64)}}
+                            for c in (1, 2, 4, 8, 16, 32, 64, 128, 256)}}
 
 
 def water_clusters(rng, n_clusters: int, k: int) -> list:
@@ -1002,7 +1032,9 @@ def scc_graph_phase(be):
             miss_ms = sum(scc_graph.stats[k] for k in (
                 "warmup_ms", "record_ms", "instantiate_ms"))
             n_eager, made_e = eager[2], eager[3]
-            used = {"eigh": made_e[4], "jacobi": made_e[2],
+            # the binding also diagonalizes S once per solve, for the
+            # orthogonalizer (every route)
+            used = {"eigh": made_e[4] - 1, "jacobi": made_e[2],
                     "sp2": made_e[3]}
             check(used[expect] == n_eager and all(
                 v == 0 for k, v in used.items() if k != expect),
@@ -1065,6 +1097,268 @@ def scc_graph_phase(be):
     return {"routes": out, "eigh": eigh_rows,
             "cache": {k: scc_graph.stats[k] for k in (
                 "captures", "hits", "misses", "evictions", "held_bytes")}}
+
+
+# the Anderson window kernel: (B fragments, nx) at the main path's shapes:
+# the dimer slice in GFN1 (nsh) and GFN2 (nsh + 9 nat), the w20 MBE(4)
+# chunk, GFN1 and GFN2 water hexamers; m = broyden_memory
+WINDOW_SHAPES = ((512, 12), (512, 62), (5985, 24), (64, 36), (64, 186))
+WINDOW_M = 12
+WINDOW_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+#: (reg, c_lim) the engine passes per dtype
+WINDOW_LIMITS = {torch.float64: (1e-12, 1e3), torch.float32: (1e-4, 2.0)}
+
+
+def window_state(rng, bsz: int, nx: int, dtype, it: int = 11):
+    """A seeded Anderson state at iteration `it`: windows of a sequence of
+    states converging to a fixed point, one frozen fragment; (x, f_res,
+    hist_x, hist_f, resid, active, it) on the card."""
+    m = WINDOW_M
+    target = rng.standard_normal((bsz, nx))
+    hist_x = np.zeros((bsz, m, nx))
+    hist_f = np.zeros((bsz, m, nx))
+    for k in range(it):
+        xk = target + 0.5 ** k * rng.standard_normal((bsz, nx))
+        hist_x[:, k % m] = xk
+        hist_f[:, k % m] = (target - xk) * 0.7 + 1e-3 * 0.5 ** k * (
+            rng.standard_normal((bsz, nx)))
+    x = target + 0.5 ** it * rng.standard_normal((bsz, nx))
+    active = np.ones(bsz, dtype=bool)
+    active[-1] = False
+    out = [torch.tensor(a, dtype=dtype, device=DEVICE) for a in
+           (x, (target - x) * 0.7, hist_x, hist_f, rng.uniform(0, 1, bsz))]
+    return (*out, torch.tensor(active, device=DEVICE),
+            torch.tensor(it, dtype=torch.int64, device=DEVICE))
+
+
+def window_bound(bsz: int, nx: int, dtype):
+    """(bound_ms, bound_by) of one window step: (m(m+1)/2 + m) dot products
+    of 2 nx operations, the elimination's 2 m^3 / 3, the step's 4 m nx and
+    the update's 4 nx, at the vector rate; or the two windows, x and f_res
+    read once and x, the two new window slots, the residual and the flag
+    written once, at the memory rate."""
+    m = WINDOW_M
+    ops = bsz * ((m * (m + 1) // 2 + m) * 2 * nx + 2 * m**3 // 3
+                 + 4 * m * nx + 4 * nx)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = bsz * ((2 * m * nx + 2 * nx) * size + (3 * nx + 1) * size + 1)
+    return _bound({"operations": ops / PEAK_VECTOR[dtype],
+                   "bytes": nbytes / PEAK_BYTES})
+
+
+def window_phase(aw):
+    """The Anderson window kernel against its plain versions (the torch
+    algebra it replaces, `anderson_window_reference`, and the kernel's order
+    in plain ops, `anderson_window_rowwise`) at the main path's shapes:
+    x, the windows and the residuals within WINDOW_TOL, the flags equal;
+    a fragment's bits the same alone and in its batch; times of the kernel,
+    the rowwise twin (plain_ms) and the reference's batched products and
+    solve_ex (library_ms) beside the bound. Returns the kernels line's
+    entry (the (512, 12) float64 shape)."""
+    rng = np.random.default_rng(14)
+    entry = None
+    for dtype in (torch.float64, torch.float32):
+        reg, c_lim = WINDOW_LIMITS[dtype]
+        kw = dict(beta=0.4, reg=reg, c_lim=c_lim, scf_tol=1e-6)
+        for bsz, nx in WINDOW_SHAPES:
+            state = window_state(rng, bsz, nx, dtype)
+
+            def run(fn, st=state):
+                out = [t.clone() for t in st]
+                fn(*out, **kw)
+                return [out[0], out[2], out[3], out[4], out[5]]
+
+            def plain(fn):
+                return lambda *a, **k: fn(*a, k["beta"], k["reg"],
+                                          k["c_lim"], k["scf_tol"])
+
+            n0 = aw.launches
+            got = run(aw.anderson_window)
+            torch.cuda.synchronize()
+            check(aw.launches == n0 + 1, "the window kernel did not count "
+                  "its launch")
+            err = 0.0
+            for ref_fn in (aw.anderson_window_reference,
+                           aw.anderson_window_rowwise):
+                ref = run(plain(ref_fn))
+                check(torch.equal(got[4], ref[4]),
+                      f"window ({bsz}, {nx}): the active flags differ")
+                for a, b in zip(got[:4], ref[:4]):
+                    err = max(err, float((a - b).abs().max()))
+            # a fragment alone, and the batch's last three: the same bits
+            for rows in ([0], [bsz - 1, 1, 0]):
+                idx = torch.tensor(rows, device=DEVICE)
+                part = [t.index_select(0, idx) if t.dim() else t
+                        for t in state]
+                alone = run(aw.anderson_window, part)
+                check(all(torch.equal(a, b.index_select(0, idx))
+                          for a, b in zip(alone, got)),
+                      f"window ({bsz}, {nx}): a fragment's bits depend on "
+                      f"its batch")
+            tag = "f64" if dtype == torch.float64 else "f32"
+            check(err <= WINDOW_TOL[dtype], f"window {tag} ({bsz}, {nx}): "
+                  f"max err {err:.3e} > {WINDOW_TOL[dtype]:.0e}")
+            work = [t.clone() for t in state]
+            times = {}
+            for name, fn in (("library", plain(aw.anderson_window_reference)),
+                             ("kernel", aw.anderson_window),
+                             ("kernel2", aw.anderson_window),
+                             ("plain", plain(aw.anderson_window_rowwise))):
+                times[name] = cuda_ms(lambda f=fn: f(*work, **kw),
+                                      3 if name == "plain" else 20)
+            ms = min(times["kernel"], times["kernel2"])
+            bound_ms, bound_by = window_bound(bsz, nx, dtype)
+            print(f"anderson window {tag} (B, nx, m)=({bsz}, {nx}, "
+                  f"{WINDOW_M}): max err={err:.3e} kernel ms={ms:.4f} "
+                  f"rowwise ms={times['plain']:.4f} library (batched "
+                  f"products + solve_ex) ms={times['library']:.4f} bound "
+                  f"ms={bound_ms:.6f} ({bound_by}, {100 * bound_ms / ms:.2f}%"
+                  f" of it)", flush=True)
+            if entry is None:
+                entry = {"max_abs_err": err, "ms": ms,
+                         "plain_ms": times["plain"], "bound_ms": bound_ms,
+                         "bound_by": bound_by,
+                         "library_ms": times["library"]}
+    return entry
+
+
+def call_graph_phase():
+    """Every route's `energies` and `gradients` as replayed device programs
+    (`scc_graph.Call`: the operand build, the loop and the functional):
+    a miss and two hits on fresh inputs, each bit for bit `graph=False`'s
+    (energies, gradients, every aux field); every stage's run under
+    set_sync_debug_mode("error"); a hit's setup against the miss's
+    warm-up. Returns the phase's JSON."""
+    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
+    from metalquicha_tpu_torch.methods.xtb import engine, scc_graph
+    from metalquicha_tpu_torch.methods.xtb.solvation.born import (
+        BornSolvation,
+    )
+    from metalquicha_tpu_torch.methods.xtb.solvation.cpcm import (
+        CpcmSolvation,
+    )
+    from metalquicha_tpu_torch.workloads import bench_dimers
+
+    # route -> (variant, use_pallas_eigh, dtype, solvation, fragments of a
+    # seed, gradients)
+    dodecamers = lambda seed: water_clusters(  # noqa: E731 (nao 72)
+        np.random.default_rng(40 + seed), 16, 12)
+    routes = {
+        "gfn1_exact": ("gfn1", False, torch.float64, None,
+                       lambda seed: bench_dimers(512, seed=seed), True),
+        "gfn1_jacobi": ("gfn1", True, torch.float32, None,
+                        lambda seed: bench_dimers(512, seed=seed), True),
+        "sp2": ("gfn1", True, torch.float32, None, dodecamers, True),
+        "gfn1_alpb": ("gfn1", False, torch.float64, "alpb",
+                      lambda seed: bench_dimers(512, seed=seed), True),
+        "gfn1_cpcm": ("gfn1", False, torch.float64, "cpcm",
+                      lambda seed: bench_dimers(64, seed=seed), False),
+        "gfn2": ("gfn2", False, torch.float64, None,
+                 lambda seed: bench_dimers(512, seed=seed), True),
+        # GFN2's loop keeps the exact orthogonalizer on the fast route
+        "gfn2_f32": ("gfn2", True, torch.float32, None,
+                     lambda seed: bench_dimers(64, seed=seed), True),
+    }
+    real_stage = scc_graph.Call.stage
+
+    def debug_stage(self, key, inputs, fn):
+        def checked(inp):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(inp)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return real_stage(self, key, inputs, checked)
+
+    def call(calc, frag, grad, graph):
+        if grad:
+            e, g, aux = calc.gradients(frag, graph=graph)
+            return dict(aux, energy=e, gradient=g)
+        e, aux = calc.energies(frag, graph=graph)
+        return dict(aux, energy=e)
+
+    out = {}
+    for route, (variant, jacobi, dtype, solv, frags_for, grads) in (
+            routes.items()):
+        settings = engine.settings_from_params(
+            variant, use_pallas_eigh=jacobi,
+            scf_tol=1e-9 if dtype == torch.float64 else 2e-5,
+            max_scf_iter=64)
+        solvation = (BornSolvation(78.4, alpb=True) if solv == "alpb" else
+                     CpcmSolvation(78.4) if solv == "cpcm" else None)
+        calc = tcalc.XtbCalculator(settings, variant=variant, dtype=dtype,
+                                   device=DEVICE, solvation=solvation)
+        for grad in (False, True) if grads else (False,):
+            kind = "gradients" if grad else "energies"
+            rec = {"calls": []}
+            for seed in (0, 1, 2):
+                frag = calc.make_batch(frags_for(seed))
+                e0 = scc_graph.stats["stage_eager"]
+                ref = call(calc, frag, grad, False)
+                check(scc_graph.stats["stage_eager"] == e0 + 2,
+                      f"call graph {route} {kind}: graph=False ran "
+                      f"{scc_graph.stats['stage_eager'] - e0} stages")
+                c0 = scc_graph.stats["stage_captures"]
+                h0 = scc_graph.stats["stage_hits"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = call(calc, frag, grad, True)
+                torch.cuda.synchronize()
+                host_s = time.perf_counter() - t0
+                made = scc_graph.stats["stage_captures"] - c0
+                hits = scc_graph.stats["stage_hits"] - h0
+                # a gradients call shares the energies call's operand
+                # build (run without grad), and captures its functional
+                first = (2, 0) if not grad else (1, 1)
+                check((made, hits) == (first if seed == 0 else (0, 2)),
+                      f"call graph {route} {kind} seed {seed}: {made} "
+                      f"captures, {hits} hits")
+                same = all(torch.equal(got[k], ref[k]) for k in ref)
+                bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+                check(same, f"call graph {route} {kind} seed {seed}: "
+                      f"{bad} differ from graph=False, energies by "
+                      f"{float((got['energy'] - ref['energy']).abs().max()):.3e}")
+                check(bool(torch.isfinite(got["energy"]).all()),
+                      f"call graph {route} {kind}: non-finite energies")
+                rec["calls"].append({
+                    "seed": seed, "host_s": host_s, "bitwise": same,
+                    "miss_warmup_ms" if seed == 0 else "hit_setup_ms": (
+                        scc_graph.stats["stage_warmup_ms"] if seed == 0
+                        else scc_graph.stats["stage_hit_setup_ms"])})
+            # every stage once more with the card's sync check on: a miss
+            # (a new kT) and launch by launch
+            scc_graph.Call.stage = debug_stage
+            try:
+                frag = calc.make_batch(frags_for(3))
+                hot = tcalc.XtbCalculator(
+                    settings._replace(electronic_temp=310.0),
+                    variant=variant, dtype=dtype, device=DEVICE,
+                    solvation=solvation)
+                call(hot, frag, grad, True)
+                call(hot, frag, grad, False)
+                torch.cuda.synchronize()
+            finally:
+                scc_graph.Call.stage = real_stage
+            rec["release_ms"] = scc_graph.stats["stage_release_ms"]
+            rec["record_ms"] = scc_graph.stats["stage_record_ms"]
+            rec["shape"] = list(frag.ao_mask.shape)
+            out[f"{route}_{kind}"] = rec
+            print(f"call graph {route} {kind}: {rec}", flush=True)
+    return out
+
+
+def c17_check():
+    """ROADMAP C17: the rigid trimer MBE(2) gradient and total from one
+    batch and from a two-slot cut, equal bit for bit (the window solve no
+    longer depends on the batch); the w20 MBE(2) deltas printed."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from c17_probe_torch import cut_deltas
+
+    deltas = cut_deltas(torch.device(DEVICE))
+    print(f"c17 cut deltas: {deltas}", flush=True)
+    check(deltas["trimer_max_dG"] == 0.0 and deltas["trimer_d_total"] == 0.0,
+          f"C17: the trimer's gradient depends on the cut: {deltas}")
+    return deltas
 
 
 def slice_phase(jac, golden):
@@ -1249,8 +1543,11 @@ def memory_phase(jac, golden):
     def cache():
         return (f"SCC graph cache {scc_graph.stats['held_bytes'] / 2**30:.3f}"
                 f" GiB ({len(scc_graph._entries)} entries, pools' unused "
-                f"{scc_graph.idle_pool_bytes(device) / 2**30:.3f} GiB held "
-                f"out of the budget)")
+                f"{scc_graph.idle_pool_bytes(device) / 2**30:.3f} GiB, this "
+                f"thread's counted in the budget; pools given back: "
+                f"{scc_graph.stats['pool_releases']}; stages captured "
+                f"{scc_graph.stats['stage_captures']}, hits "
+                f"{scc_graph.stats['stage_hits']} so far)")
 
     device = torch.device(DEVICE)
     with open(GOLDEN_MEMORY) as fh:
@@ -1984,10 +2281,18 @@ def mesh_phase(jac, golden):
               f"start-up {w.startup_s:.2f} s, {n_l} Fermi launches in the "
               f"timed passes, {w.fermi_launches} in all; SCC graphs "
               f"{w.scc_captures} captured, {w.scc_hits} cache hits, eager "
-              f"SCCs {w.scc_eager}", flush=True)
+              f"SCCs {w.scc_eager}; call stages {w.stage_captures} "
+              f"captured, {w.stage_hits} hits, {w.stage_eager} launch by "
+              f"launch; {w.window_launches} Anderson window launches",
+              flush=True)
         check(w.scc_captures + w.scc_hits > 0 and w.scc_eager == 0,
               f"worker slot {w.index}: {w.scc_captures} SCC graphs, "
               f"{w.scc_hits} hits and {w.scc_eager} SCCs launch by launch")
+        check(w.stage_captures + w.stage_hits > 0 and w.stage_eager == 0
+              and w.window_launches > 0,
+              f"worker slot {w.index}: {w.stage_captures} stage graphs, "
+              f"{w.stage_hits} hits, {w.stage_eager} stages launch by "
+              f"launch, {w.window_launches} window launches")
     check(min(per_worker) > 0,
           f"a worker launched no Fermi kernel: {per_worker}")
     for w in workers:
@@ -2443,6 +2748,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     from metalquicha_tpu_torch.methods.xtb import scc_graph
+    from metalquicha_tpu_torch.ops import anderson_window as aw
     from metalquicha_tpu_torch.ops import batched_eigh as be
     from metalquicha_tpu_torch.ops import fermi_fill as ff
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
@@ -2474,7 +2780,7 @@ def main() -> int:
 
     threads = [threading.Thread(target=build, args=item)
                for item in (("jacobi_eigh", jac), ("fermi_fill", ff),
-                            ("batched_eigh", be))]
+                            ("anderson_window", aw), ("batched_eigh", be))]
     for t in threads:
         t.start()
     for t in threads:
@@ -2497,6 +2803,11 @@ def main() -> int:
     print(f"phase fermi: {time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
+    window_entry = window_phase(aw)
+    print(f"phase anderson window: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
     sp2_phase(rng)
     print(f"phase sp2: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -2505,14 +2816,27 @@ def main() -> int:
     print(f"phase scc_graph: {time.perf_counter() - t0:.2f} s", flush=True)
     print(json.dumps({"scc_graph": graph_line}), flush=True)
 
+    t0 = time.perf_counter()
+    call_line = call_graph_phase()
+    print(f"phase call_graph: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(json.dumps({"call_graph": call_line}), flush=True)
+
+    t0 = time.perf_counter()
+    c17 = c17_check()
+    print(f"phase c17: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(json.dumps({"c17": c17}), flush=True)
+
     jac.launches = 0
     ff.launches = ff.density_launches = 0
+    aw.launches = 0
     sp2.calls = 0
     be.launches = 0
     scc_graph.stats.update(captures=0, replays=0, eager=0, hits=0,
-                           misses=0, evictions=0)
+                           misses=0, evictions=0, stage_captures=0,
+                           stage_hits=0, stage_eager=0)
     scc_graph.reuse.clear()
     phases, fermi, density, captures, hits, reuse = {}, {}, {}, {}, {}, {}
+    windows, stages = {}, {}
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
@@ -2529,6 +2853,8 @@ def main() -> int:
                            ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
         f0, d0 = ff.launches, ff.density_launches
+        w0 = aw.launches
+        s0 = (scc_graph.stats["stage_captures"], scc_graph.stats["stage_hits"])
         g0, h0 = scc_graph.stats["captures"], scc_graph.stats["hits"]
         u0 = collections.Counter(scc_graph.reuse)
         phases[name] = fn(jac, gold)
@@ -2537,8 +2863,13 @@ def main() -> int:
         captures[name] = scc_graph.stats["captures"] - g0
         hits[name] = scc_graph.stats["hits"] - h0
         reuse[name] = reuse_line(scc_graph.reuse - u0)
+        windows[name] = aw.launches - w0
+        stages[name] = (scc_graph.stats["stage_captures"] - s0[0],
+                        scc_graph.stats["stage_hits"] - s0[1])
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s, "
-              f"{fermi[name]} Fermi launches, SCC graphs {captures[name]} "
+              f"{fermi[name]} Fermi launches, {windows[name]} Anderson "
+              f"window launches, call stages {stages[name][0]} captured, "
+              f"{stages[name][1]} hits, SCC graphs {captures[name]} "
               f"captured, {hits[name]} cache hits, the cache holding "
               f"{scc_graph.stats['held_bytes'] / 2**30:.3f} GiB; reuse "
               f"{reuse[name]}", flush=True)
@@ -2549,6 +2880,10 @@ def main() -> int:
               f"the {name} phase repeats shapes and hit no cached graph")
         check(scc_graph.stats["eager"] == 0,
               f"the {name} phase ran an SCC on the card launch by launch")
+        check(windows[name] > 0,
+              f"the {name} phase launched no Anderson window kernel")
+        check(scc_graph.stats["stage_eager"] == 0,
+              f"the {name} phase ran a calculator's stage launch by launch")
     launches = jac.launches
     check(launches > 0, "the main path launched no Jacobi kernel")
     check(phases["polish"] > 0, "the polish phase launched no Jacobi kernel")
@@ -2557,6 +2892,9 @@ def main() -> int:
     print(f"main path: jacobi launches={launches} {phases} "
           f"sp2 calls={sp2.calls}", flush=True)
     print(f"main path: fermi launches={ff.launches} {fermi}", flush=True)
+    print(f"main path: anderson window launches={aw.launches} {windows}",
+          flush=True)
+    print(f"main path: call stages (captured, hits)={stages}", flush=True)
     print(f"main path: fused fill and density launches (among the fermi "
           f"launches)={ff.density_launches} {density}", flush=True)
     print(f"main path: SCC graphs captured={scc_graph.stats['captures']} "
@@ -2608,6 +2946,13 @@ def main() -> int:
         "density_plain_ms": fermi_entry["density_plain_ms"],
         "density_bound_ms": fermi_entry["density_bound_ms"],
         "density_bound_by": fermi_entry["density_bound_by"],
+    }, {
+        "name": "anderson_window",
+        "route": "cuda",
+        "source": "metalquicha_tpu_torch/csrc/anderson_window.cu",
+        "replaces": "metalquicha_tpu/methods/xtb/engine.py:808",
+        "launches": aw.launches,
+        **window_entry,
     }]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

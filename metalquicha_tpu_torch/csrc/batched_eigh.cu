@@ -30,6 +30,13 @@
 // call (before any capture: the SCC's warm-up iteration runs eagerly), with
 // its stream set to the caller's at every call.
 //
+// The same file binds cuSOLVER's LU factorization and solve
+// (cusolverDnXgetrf, cusolverDnXgetrs, one matrix after another on the
+// caller's stream, their infos folded the same way), for CPCM's linear
+// system (`ops/batched_eigh.py` `solve`): torch's `torch.linalg.solve`
+// reads its info on the host, and for some shapes takes MAGMA's batched
+// routines, which synchronize; neither can be captured.
+//
 // Return codes: 0, a cudaError_t, or kSolverBase + a cusolverStatus_t
 // (`mqc_cuda_error_string` names both).
 
@@ -118,6 +125,50 @@ int solve(Solver& s, cudaDataType t, void* a, void* w, void* work,
                    host, info, batch));
 }
 
+// Device and host bytes of workspace Xgetrf needs for one (n, n) matrix.
+int lu_workspace(Solver& s, cudaDataType t, int n, size_t* dev,
+                 size_t* host) {
+  return status(cusolverDnXgetrf_bufferSize(s.handle, s.params, n, n, t,
+                                            nullptr, n, t, dev, host));
+}
+
+// LU factors of each column-major (n, n) matrix of `a`, in place, with
+// its pivots (int64, (batch, n)) and info (batch ints)
+int lu_factor(Solver& s, cudaDataType t, size_t elem, void* a,
+              int64_t* ipiv, void* work, size_t work_bytes, int* info,
+              int n, int batch) {
+  size_t need = 0, host = 0;
+  int err = lu_workspace(s, t, n, &need, &host);
+  if (err != 0) return err;
+  if (need > work_bytes) return cudaErrorInvalidValue;
+  if (host > s.host_work.size()) s.host_work.resize(host);
+  char* base = static_cast<char*>(a);
+  for (int i = 0; i < batch && err == 0; ++i) {
+    err = status(cusolverDnXgetrf(
+        s.handle, s.params, n, n, t, base + elem * n * n * i, n,
+        ipiv + static_cast<int64_t>(n) * i, t, work, work_bytes,
+        host > 0 ? s.host_work.data() : nullptr, host, info + i));
+  }
+  return err;
+}
+
+// Solves op(A_i) X_i = B_i from A_i's LU factors, B_i column-major (n,
+// nrhs), overwritten by X_i; trans 1 for A^T
+int lu_solve(Solver& s, cudaDataType t, size_t elem, int trans,
+             const void* lu, const int64_t* ipiv, void* b, int* info, int n,
+             int nrhs, int batch) {
+  const char* lu_base = static_cast<const char*>(lu);
+  char* b_base = static_cast<char*>(b);
+  int err = 0;
+  for (int i = 0; i < batch && err == 0; ++i) {
+    err = status(cusolverDnXgetrs(
+        s.handle, s.params, trans ? CUBLAS_OP_T : CUBLAS_OP_N, n, nrhs, t,
+        lu_base + elem * n * n * i, n, ipiv + static_cast<int64_t>(n) * i,
+        t, b_base + elem * n * nrhs * i, n, info + i));
+  }
+  return err;
+}
+
 // Runs fn(solver) on `device` and leaves the calling thread's current
 // device as it found it.
 template <typename Fn>
@@ -171,6 +222,61 @@ int mqc_eigh(int dtype, void* a, void* w, void* work, long long work_bytes,
     if (err == 0)
       err = solve(s, dtype == 1 ? CUDA_R_64F : CUDA_R_32F, a, w, work,
                   static_cast<size_t>(work_bytes), info, n, batch);
+    if (err != 0) return err;
+    fold_info<<<(batch + 255) / 256, 256, 0, st>>>(info, batch, worst);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Workspace bytes on the device for one (n, n) LU factorization.
+int mqc_lu_workspace(int dtype, int n, int device, long long* device_bytes,
+                     long long* host_bytes) {
+  return on_device(device, [&](Solver& s) {
+    size_t dev = 0, host = 0;
+    const int err = lu_workspace(s, dtype == 1 ? CUDA_R_64F : CUDA_R_32F, n,
+                                 &dev, &host);
+    *device_bytes = static_cast<long long>(dev);
+    *host_bytes = static_cast<long long>(host);
+    return err;
+  });
+}
+
+// a: (batch, n, n) column-major, overwritten with its LU factors; ipiv:
+// int64 (batch, n); info: (batch) ints; worst raised to the largest |info|.
+int mqc_lu_factor(int dtype, void* a, long long* ipiv, void* work,
+                  long long work_bytes, int* info, int* worst, int n,
+                  int batch, int device, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  return on_device(device, [&](Solver& s) {
+    const auto st = static_cast<cudaStream_t>(stream);
+    int err = status(cusolverDnSetStream(s.handle, st));
+    const bool f64 = dtype == 1;
+    if (err == 0)
+      err = lu_factor(s, f64 ? CUDA_R_64F : CUDA_R_32F,
+                      f64 ? sizeof(double) : sizeof(float), a,
+                      reinterpret_cast<int64_t*>(ipiv), work,
+                      static_cast<size_t>(work_bytes), info, n, batch);
+    if (err != 0) return err;
+    fold_info<<<(batch + 255) / 256, 256, 0, st>>>(info, batch, worst);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// lu, ipiv: mqc_lu_factor's; b: (batch, nrhs, n) rows, i.e. each B_i
+// column-major (n, nrhs), overwritten by X_i; trans 1 solves A^T X = B.
+int mqc_lu_solve(int dtype, int trans, const void* lu, const long long* ipiv,
+                 void* b, int* info, int* worst, int n, int nrhs, int batch,
+                 int device, void* stream) {
+  if (batch <= 0 || n <= 0 || nrhs <= 0) return 0;
+  return on_device(device, [&](Solver& s) {
+    const auto st = static_cast<cudaStream_t>(stream);
+    int err = status(cusolverDnSetStream(s.handle, st));
+    const bool f64 = dtype == 1;
+    if (err == 0)
+      err = lu_solve(s, f64 ? CUDA_R_64F : CUDA_R_32F,
+                     f64 ? sizeof(double) : sizeof(float), trans, lu,
+                     reinterpret_cast<const int64_t*>(ipiv), b, info, n,
+                     nrhs, batch);
     if (err != 0) return err;
     fold_info<<<(batch + 255) / 256, 256, 0, st>>>(info, batch, worst);
     return static_cast<int>(cudaGetLastError());

@@ -16,7 +16,8 @@ import torch
 
 from ...constants import KB_HARTREE
 
-from .batch import XtbBatch, build_batch
+from . import scc_graph
+from .batch import PAD_LEVEL, XtbBatch, build_batch
 from .dispersion_d3 import atm_energy, build_d3_tables, d3_energy, full_pair_table
 from . import engine as _engine
 from .engine import (
@@ -37,6 +38,8 @@ from .engine import (
 )
 from .multipole import moment_matrices
 from .overlap import overlap_matrix
+from .solvation import born as _born
+from .solvation import cpcm as _cpcm
 from .xbond import halogen_bond_energy
 
 
@@ -280,7 +283,27 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
     elif diff_scf_iters:
         q_star = _refiner(coords, frag, kt, settings, gamma_at)(
             q_star, diff_scf_iters)
+    energy, aux = _functional(coords, frag, q_star, kt, settings, solvation,
+                              gamma_at)
+    return energy, _aux(aux, q_star, resid)
 
+
+def _aux(aux: dict, q_star, resid) -> dict:
+    """The functional's aux with the converged state and residual, in the
+    JAX package's order."""
+    # GFN2's shell_charges: the packed AES state, the hand-off point for a
+    # warm start
+    return {"charges": aux["charges"], "shell_charges": q_star,
+            "scf_residual": resid, "dipole": aux["dipole"],
+            "e_el": aux["e_el"], "e_rep": aux["e_rep"],
+            "e_disp": aux["e_disp"]}
+
+
+def _functional(coords, frag: FragmentData, q_star, kt,
+                settings: EngineSettings, solvation, gamma_at):
+    """Everything after the SCC: the total energies (B,) at the converged
+    state q_star, differentiable in coords, and their parts (charges,
+    dipole, e_el, e_rep, e_disp)."""
     # dispersion rides its OWN coordination number (tblite's d3 container
     # uses the classic single-exponential D3 CN)
     cn = coordination_numbers(
@@ -348,17 +371,101 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
     # wires them via tblite and defaults them ON)
     if solvation is not None and hasattr(solvation, "surface_energy"):
         energy = energy + solvation.surface_energy(coords, frag)
-    aux = {
-        "charges": q_at,
-        # GFN2: the packed AES state, the hand-off point for a warm start
-        "shell_charges": q_star,
-        "scf_residual": resid,
-        "dipole": dipole,
-        "e_el": e_el,
-        "e_rep": e_rep,
-        "e_disp": e_disp,
-    }
+    aux = {"charges": q_at, "dipole": dipole, "e_el": e_el, "e_rep": e_rep,
+           "e_disp": e_disp}
     return energy, aux
+
+
+def _solvation_key(solvation):
+    """What of a solvation model a stage bakes into its launches: its
+    class and fields, and the module constants its kernels read where a
+    batch carries no `solv_scalars` (the fitted overlay resets them at run
+    time, `solvation/born.py:load_solvation_overlay`)."""
+    if solvation is None:
+        return None
+    return (type(solvation).__name__, tuple(sorted(vars(solvation).items())),
+            _cpcm.COSMO_X, _cpcm.SELF_INTERACTION, _born.RHO_OFFSET,
+            _born.ALPB_ALPHA)
+
+
+def _operand_stage(inp, settings: EngineSettings, solvation):
+    """The operand build of a call (not differentiated): S, H0, gamma, the
+    solvation kernel, GFN2's moment tables and the SCC's orthogonalizer,
+    from the stage's inputs (coords and the batch's fields)."""
+    c = inp["coords"]
+    frag = FragmentData(coords=c, **inp["frag"])
+    S, H0, gamma, mp = _scc_operands(c, frag, settings)
+    out = {"S": S, "H0": H0, "gamma": gamma,
+           "gamma_at": _solv_gamma(c, frag, solvation)}
+    out["Xs"], out["ortho_shift"] = _engine.scc_orthogonalizer(S, settings)
+    if mp is not None:
+        out.update(cn_d3=mp["cn"], D=mp["D"], Q=mp["Q"])
+    return out
+
+
+def _functional_stage(inp, kt, settings: EngineSettings, solvation,
+                      grad: bool):
+    """The functional of a call at the converged state: the energies and
+    their parts and, with `grad`, the gradient (autograd in the stage)."""
+    c = inp["coords"]
+    if grad:
+        c = c.detach().requires_grad_(True)
+    frag = FragmentData(coords=c, **inp["frag"])
+    gamma_at = _solv_gamma(c, frag, solvation)
+    energy, aux = _functional(c, frag, inp["q_star"], kt, settings,
+                              solvation, gamma_at)
+    out = {"energy": energy.detach()}
+    if grad:
+        (g,) = torch.autograd.grad(energy.sum(), c)
+        out["gradient"] = g
+    out.update({k: v.detach() for k, v in aux.items()})
+    return out
+
+
+def evaluate(frag: FragmentData, settings: EngineSettings, solvation=None,
+             grad: bool = False, graph: bool = True):
+    """(energies (B,), gradients (B, nat, 3) or None, aux) of a padded
+    batch: what `XtbCalculator.energies` and `.gradients` return.
+
+    The counterpart of the JAX calculator's compiled programs
+    (metalquicha_tpu/methods/xtb/calculator.py:483-505): on a card the
+    call is three replayed device programs (`scc_graph.Call`), each kept
+    across calls of the same key and shapes: the operand build, the SCC
+    loop and the functional (with the gradient's backward pass). A call
+    reads the device at the loop's done-checks (and SP2's closed-shell
+    flag) and once at its end, for every solver's status. graph=False runs
+    each stage launch by launch, with the same kernels and bits, for a
+    caller that compares; off a card the stages always do."""
+    kt = settings.electronic_temp * KB_HARTREE
+    fields = {k: v for k, v in frag._asdict().items() if k != "coords"}
+    coords = frag.coords.detach()
+    base = (settings, float(kt), _solvation_key(solvation), PAD_LEVEL)
+    with scc_graph.Call(frag.coords.device, graph) as call:
+        with torch.no_grad():
+            ops = call.stage(
+                ("operands",) + base, {"coords": coords, "frag": fields},
+                lambda inp: _operand_stage(inp, settings, solvation))
+            ortho = (ops["Xs"], ops["ortho_shift"])
+            if settings.multipoles:
+                mp = _mp_tables(frag, ops["cn_d3"])
+                mp["D"], mp["Q"] = ops["D"], ops["Q"]
+                q_star, resid = scf_solve_multipole(
+                    ops["H0"], ops["S"], coords, ops["gamma"], frag, kt,
+                    settings, ops["gamma_at"], mp, graph=graph, ortho=ortho)
+            else:
+                q_star, resid = scf_solve(
+                    ops["H0"], ops["S"], ops["gamma"], frag, kt, settings,
+                    ops["gamma_at"], graph=graph, ortho=ortho)
+        del ops, ortho
+        inputs = {"coords": coords, "q_star": q_star, "frag": fields}
+        # grad mode is per thread: set here, whatever the caller's
+        with torch.enable_grad() if grad else torch.no_grad():
+            out = call.stage(
+                ("functional", grad) + base, inputs,
+                lambda inp: _functional_stage(inp, kt, settings, solvation,
+                                              grad))
+        call.finish()
+    return out["energy"], out.get("gradient"), _aux(out, q_star, resid)
 
 
 def check_device(device) -> torch.device:
@@ -438,20 +545,15 @@ class XtbCalculator:
                                         solvation=self.solvation,
                                         variant=self.variant)
 
-    def energies(self, frag: FragmentData):
-        with torch.no_grad():
-            return single_point_energy(frag.coords, frag,
-                                       self._settings_for(frag),
-                                       self.solvation)
+    def energies(self, frag: FragmentData, graph: bool = True):
+        """(energies (B,), aux). On a card the call runs as replayed
+        device programs (`evaluate`); graph=False runs it launch by launch,
+        only to compare the two."""
+        e, _g, aux = evaluate(frag, self._settings_for(frag), self.solvation,
+                              grad=False, graph=graph)
+        return e, aux
 
-    def gradients(self, frag: FragmentData):
-        # grad mode is per thread: on whatever the caller's (a mesh slot
-        # evaluates in a thread of its own)
-        with torch.enable_grad():
-            coords = frag.coords.detach().requires_grad_(True)
-            e, aux = single_point_energy(coords, frag,
-                                         self._settings_for(frag),
-                                         self.solvation)
-            (g,) = torch.autograd.grad(e.sum(), coords)
-        aux = {k: v.detach() for k, v in aux.items()}
-        return e.detach(), g, aux
+    def gradients(self, frag: FragmentData, graph: bool = True):
+        """(energies (B,), gradients (B, nat, 3), aux), as `energies`."""
+        return evaluate(frag, self._settings_for(frag), self.solvation,
+                        grad=True, graph=graph)

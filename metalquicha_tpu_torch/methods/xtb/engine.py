@@ -33,7 +33,8 @@ from typing import NamedTuple
 
 import torch
 
-from ...ops.batched_eigh import EighStatus
+from ...ops.anderson_window import anderson_window
+from ...ops.batched_eigh import EighStatus, eigh_folded
 from ...ops.batched_eigh import eigh as batched_eigh
 from ...ops.fermi_fill import DENSITY_MAX_N, fermi_density, fermi_occupations
 from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
@@ -371,11 +372,16 @@ class _EighSafe(torch.autograd.Function):
     too large). Gaps below sqrt(eps_mach) (f32: 3.5e-4, f64: 1.5e-8 Ha)
     are treated as exact degeneracies and their coupling zeroed, the
     correct limit for gauge-invariant outputs (energies, equal-occupation
-    densities)."""
+    densities).
+
+    The forward pass is `batched_eigh.eigh_folded`: `torch.linalg.eigh` on
+    the CPU; on a card the cuSOLVER binding, whose status goes to the
+    calling stage of the call (no host synchronization, so the stage can
+    be captured)."""
 
     @staticmethod
     def forward(ctx, a):
-        w, v = torch.linalg.eigh(a)
+        w, v = eigh_folded(a)
         ctx.save_for_backward(w, v)
         return w, v
 
@@ -395,6 +401,31 @@ class _EighSafe(torch.autograd.Function):
 def eigh_safe(a):
     """(eigenvalues, eigenvectors) with the degeneracy-safe backward."""
     return _EighSafe.apply(a)
+
+
+class _EighValues(_EighSafe):
+    """`eigh_safe` whose backward, where the eigenvectors take no gradient,
+    is `torch.linalg.eigvalsh`'s (V diag(dw) V^T, the same products)."""
+
+    @staticmethod
+    def forward(ctx, a):
+        ctx.set_materialize_grads(False)
+        return _EighSafe.forward(ctx, a)
+
+    @staticmethod
+    def backward(ctx, dw, dv):
+        w, v = ctx.saved_tensors
+        if dv is None:
+            return torch.matmul(v * dw.unsqueeze(-2), v.mH)
+        return _EighSafe.backward(
+            ctx, torch.zeros_like(w) if dw is None else dw, dv)
+
+
+def eigvalsh(a):
+    """Eigenvalues (..., n) of a batch of symmetric matrices: on the CPU
+    `torch.linalg.eigvalsh`'s values and gradient, bit for bit; on a card
+    the binding of `eigh_safe`'s forward pass, with no host sync."""
+    return _EighValues.apply(a)[0]
 
 
 def _ortho_factors(S):
@@ -477,8 +508,9 @@ def _jacobi_route(S):
     canonical S^-1/2 with linear dependence removed below 1e-5 (the JAX
     in-loop route's threshold) and the removed combos pinned at +PAD_LEVEL,
     so they are never occupied by the eigensolver's filling nor by SP2's
-    trace projection."""
-    s_eig, U = torch.linalg.eigh(S)
+    trace projection. Its eigh is `batched_eigh.eigh_folded`, as
+    `eigh_safe`'s forward pass."""
+    s_eig, U = eigh_folded(S)
     lindep = 1e-5
     s_keep = (s_eig > lindep).to(S.dtype)
     winv = torch.where(
@@ -490,6 +522,18 @@ def _jacobi_route(S):
         _eye(S.shape[-1], S) - (U * s_keep[:, None, :]) @ Ut
     )
     return Xs, shift_out
+
+
+def scc_orthogonalizer(S, settings: EngineSettings):
+    """The SCC loop's orthogonalizer of S: (Xs, shift_out) of
+    `_jacobi_route` on GFN1's fast in-loop route (settings.use_pallas_eigh
+    in float32), else (Xs, proj_out) of `_ortho_factors`. GFN2's loop
+    (`_aes_fixed_point`) takes `_ortho_factors` whatever use_pallas_eigh
+    says, as the JAX package's does."""
+    if (settings.use_pallas_eigh and S.dtype == torch.float32
+            and not settings.multipoles):
+        return _jacobi_route(S)
+    return _ortho_factors(S)
 
 
 #: SCC iterations between two checks whether every fragment has met
@@ -530,56 +574,21 @@ def _anderson_state(x0, settings: EngineSettings) -> _AndersonState:
 
 
 def _anderson_step(fixed_point, state: _AndersonState,
-                   settings: EngineSettings, slots, eye_m) -> None:
+                   settings: EngineSettings) -> None:
     """One Anderson iteration on `state`, in place; the iteration counter
     lives on the device, so the step reads no host value that changes
-    between iterations and can be captured once and replayed. slots:
-    arange(m); eye_m: the (m, m) identity."""
-    x, it = state.x, state.it
-    m = settings.broyden_memory
-    beta = settings.mixer_damping
+    between iterations and can be captured once and replayed. The window
+    algebra after f_res = g(x) - x is `ops/anderson_window.py` (one kernel
+    launch on a card); the counter's increment is a launch of its own."""
+    x = state.x
     f32 = x.dtype == torch.float32
-    reg = 1e-4 if f32 else 1e-12
-    c_lim = 2.0 if f32 else 1e3
-
     f_res = fixed_point(x) - x
-    it_resid = f_res.abs().amax(-1)
-
-    slot = (it % m).view(1)
-    state.hist_x.index_copy_(1, slot, x[:, None])
-    state.hist_f.index_copy_(1, slot, f_res[:, None])
-
-    # Anderson: minimize ||f + dF c|| over window differences
-    prev = (it - 1) % m
-    valid = ((slots <= it) & (slots != prev))[None, :, None]
-    hist_x, hist_f = state.hist_x, state.hist_f
-    dX = torch.where(valid, hist_x - hist_x.index_select(1, prev.view(1)),
-                     0.0)
-    dF = torch.where(valid, hist_f - hist_f.index_select(1, prev.view(1)),
-                     0.0)
-    G = dF @ dF.transpose(-1, -2)
-    trace = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
-    G = G + (reg * trace / m + 1e-30)[:, None, None] * eye_m
-    rhs = (dF @ f_res[..., None])[..., 0]
-    c, _ = torch.linalg.solve_ex(G, rhs)
-    step = (c[:, None, :] @ (dX + beta * dF))[:, 0]
-    x_and = x + beta * f_res - step
-    x_damped = x + beta * f_res
-    # reject wild extrapolations, non-finite steps, the first step
-    bad = (
-        (it < 1)
-        | ~torch.isfinite(x_and).all(-1)
-        | (c.abs().amax(-1) > c_lim)
+    anderson_window(
+        x, f_res, state.hist_x, state.hist_f, state.resid, state.active,
+        state.it, beta=settings.mixer_damping, reg=1e-4 if f32 else 1e-12,
+        c_lim=2.0 if f32 else 1e3, scf_tol=settings.scf_tol,
     )
-    x_next = torch.where(bad[:, None], x_damped, x_and)
-
-    # fragments already below scf_tol keep their state and residual
-    active = state.active
-    resid = torch.where(active, it_resid, state.resid)
-    x.copy_(torch.where(active[:, None], x_next, x))
-    state.resid.copy_(resid)
-    active.copy_(active & (resid > settings.scf_tol))
-    it.add_(1)
+    state.it.add_(1)
 
 
 def _all_done(state: _AndersonState, settings: EngineSettings,
@@ -600,31 +609,27 @@ class _SccLoop:
         self.fixed_point, self.status = make_fixed_point(inputs)
         self.settings = settings
         self.state = _anderson_state(x0, settings)
-        m = settings.broyden_memory
-        self.slots = torch.arange(m, device=x0.device)
-        self.eye_m = torch.eye(m, dtype=x0.dtype, device=x0.device)
 
     def step(self) -> None:
-        _anderson_step(self.fixed_point, self.state, self.settings,
-                       self.slots, self.eye_m)
+        _anderson_step(self.fixed_point, self.state, self.settings)
 
     def done(self, it: int) -> bool:
         return _all_done(self.state, self.settings, it)
 
-    def reset(self, x0) -> None:
-        """The state `_anderson_state(x0)` makes, in place."""
-        st = self.state
-        st.x.copy_(x0)
-        st.resid.fill_(1.0)
-        st.active.fill_(True)
-        zeros = [st.hist_x, st.hist_f, st.it]
-        if self.status is not None:
-            zeros.append(self.status.worst)
-        torch._foreach_zero_(zeros)
+    def restart_state(self) -> tuple:
+        """What a restart from iteration 0 sets, whatever the state before:
+        (x, to the new start; the counter, to 0). Nothing else of the
+        state is read before a solve writes it: the first iteration counts
+        every fragment as active and writes every residual, its step,
+        rejected at it = 0, is the only one that reads the window's older
+        slots (every later one reads slots written in the same solve), and
+        the eigh status is 0 unless a failure was read, which zeroes it
+        (`EighStatus.check`)."""
+        return self.state.x, self.state.it
 
     def owned(self) -> list:
         """The device tensors the loop allocated."""
-        out = [*self.state, self.slots, self.eye_m]
+        out = list(self.state)
         if self.status is not None:
             out.append(self.status.worst)
             if self.status.work is not None:
@@ -682,7 +687,10 @@ def _anderson_solve(make_fixed_point, inputs: dict, x0,
             if loop.done(it):
                 break
             loop.step()
-    if loop.status is not None:
+    call = scc_graph.current_call()
+    if call is not None:
+        call.defer(loop.status)
+    elif loop.status is not None:
         loop.status.check()
     # copies: a cached loop's state is the next solve's
     return loop.state.x.clone(), loop.state.resid.clone()
@@ -712,7 +720,7 @@ def _scc_density(eps, C, batch, kt, settings: EngineSettings):
 
 
 def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
-              gamma_at=None, q0=None, graph: bool = True):
+              gamma_at=None, q0=None, graph: bool = True, ortho=None):
     """Bounded SCC loop (not differentiated) with Anderson mixing
     (`_anderson_solve`).
 
@@ -735,15 +743,17 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
 
     graph: on a card, run the iterations as replays of one captured CUDA
     graph (`_anderson_solve`); False runs them launch by launch, to compare.
+    ortho: the loop's orthogonalizer (`scc_orthogonalizer(S, settings)`)
+    where the caller built it.
     """
     fast_inloop = settings.use_pallas_eigh and S.dtype == torch.float32
     use_sp2 = fast_inloop and S.shape[-1] > PALLAS_EIGH_MAX_N
     inputs = {"H0": H0, "S": S, "gamma": gamma, "gamma_at": gamma_at,
               "batch": _loop_fields(batch, _LOOP_FIELDS)}
-    if fast_inloop:
-        inputs["Xs"], inputs["shift_out"] = _jacobi_route(S)
-    else:
-        inputs["Xs"], inputs["proj_out"] = _ortho_factors(S)
+    Xs, shift = ortho if ortho is not None else scc_orthogonalizer(
+        S, settings)
+    inputs["Xs"] = Xs
+    inputs["shift_out" if fast_inloop else "proj_out"] = shift
     # one device-to-host sync per solve, not one per iteration
     closed_shell = bool((batch.nuhf == 0).all()) if use_sp2 else None
 
@@ -947,20 +957,21 @@ def _aes_fixed_point(H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
 
 def scf_solve_multipole(H0, S, coords, gamma, batch, kt,
                         settings: EngineSettings, gamma_at, mp, z0=None,
-                        graph: bool = True):
+                        graph: bool = True, ortho=None):
     """Anderson-mixed SCC over the extended moment state (GFN2/AES):
     `_anderson_solve` on z (B, nsh + 9 nat). Not differentiated.
 
     z0: optional warm start (packed AES state); the fixed point is unique,
-    so it only changes how fast the tolerance is reached. graph: as
-    `scf_solve`'s; the captured iteration holds the autograd pass of
+    so it only changes how fast the tolerance is reached. graph and ortho:
+    as `scf_solve`'s; the captured iteration holds the autograd pass of
     `_aes_potentials`."""
     bsz, nsh = batch.sh_mask.shape
     nat = batch.atom_mask.shape[1]
     inputs = {"H0": H0, "S": S, "coords": coords, "gamma": gamma,
               "gamma_at": gamma_at, "mp": mp,
               "batch": _loop_fields(batch, _LOOP_FIELDS_MULTIPOLE)}
-    inputs["Xs"], inputs["proj_out"] = _ortho_factors(S)
+    inputs["Xs"], inputs["proj_out"] = (
+        ortho if ortho is not None else _ortho_factors(S))
 
     def make_fixed_point(inp):
         status = EighStatus(inp["S"])

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ....constants import ANGSTROM_TO_BOHR
+from ..engine import eigvalsh
 
 
 def _radii_table():
@@ -113,7 +114,60 @@ def _eye(n, like):
 
 
 def _const(value, like):
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    """A 0-d tensor of `value` made on like's device (a fill, not a copy
+    from the host: a captured program may hold it)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+#: (nang, dtype, device) -> the angular grid's points and weights on the
+#: device, made at the first call: a captured program reads them, and
+#: copies nothing from the host
+_GRIDS: dict = {}
+
+
+def device_grid(nang: int, like):
+    """The `nang`-point angular grid (points (nang, 3), weights (nang,))
+    as tensors of like's dtype on like's device."""
+    key = (nang, like.dtype, like.device)
+    got = _GRIDS.get(key)
+    if got is None:
+        from .grids import angular_grid
+
+        pts_np, w_np = angular_grid(nang)
+        got = _GRIDS[key] = (
+            torch.as_tensor(pts_np, dtype=like.dtype, device=like.device),
+            torch.as_tensor(w_np, dtype=like.dtype, device=like.device))
+    return got
+
+
+class _ProdLast(torch.autograd.Function):
+    """x.prod(-1), with a backward that reads nothing on the host (torch's
+    own counts the zeros of x on the host, so a captured program cannot
+    hold it): where a slice has no zero, torch's grad * (prod / x), bit
+    for bit; where it has, the product of the others from exclusive
+    cumulative products."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.prod(-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        grad, out = grad.unsqueeze(-1), out.unsqueeze(-1)
+        ones = torch.ones_like(x[..., :1])
+        left = torch.cat([ones, x[..., :-1]], -1).cumprod(-1)
+        right = torch.cat([ones, x.flip(-1)[..., :-1]], -1).cumprod(-1)
+        others = left * right.flip(-1)
+        no_zero = (x != 0).all(-1, keepdim=True)
+        return grad * torch.where(no_zero, out / x, others)
+
+
+def prod_last(x):
+    """The product over the last axis, capturable in its backward too."""
+    return _ProdLast.apply(x)
 
 
 def _per_fragment(x, like):
@@ -187,17 +241,13 @@ class BornSolvation:
         if not (self.use_cds or self.use_shift):
             return torch.zeros(coords.shape[0], dtype=coords.dtype,
                                device=coords.device)
-        from .grids import angular_grid
-
         rvdw = frag.solv_rvdw
         tension = frag.solv_tension
         atom_mask = frag.atom_mask
         gshift = frag.solv_scalars[:, 2]
         probe = frag.solv_scalars[:, 3]
 
-        pts_np, w_np = angular_grid(self.sasa_nang)
-        unit = torch.as_tensor(pts_np, dtype=coords.dtype, device=coords.device)
-        w = torch.as_tensor(w_np, dtype=coords.dtype, device=coords.device)
+        unit, w = device_grid(self.sasa_nang, coords)
 
         nat = coords.shape[1]
         # SAS radii (B, nat); padded atoms (rvdw = 0) get 1.0
@@ -213,7 +263,7 @@ class BornSolvation:
         sw = torch.where(
             (not_self > 0.5) & (atom_mask[:, None, None, :] > 0.5), sw, 1.0
         )
-        exposed = (sw.prod(-1) * w).sum(-1)  # fraction in [0, 1], (B, nat)
+        exposed = (prod_last(sw) * w).sum(-1)  # fraction in [0, 1], (B, nat)
         sasa = 4.0 * math.pi * rs**2 * exposed * atom_mask
         e_cds = (tension * sasa).sum(-1)
         return e_cds + gshift
@@ -264,7 +314,8 @@ class BornSolvation:
         cov = (
             w[:, :, None, None] * d[:, :, :, None] * d[:, :, None, :]
         ).sum(1) / wsum[:, None, None]
-        lam = torch.linalg.eigvalsh(cov)
+        # eigvalsh's values and gradient; on a card with no host sync
+        lam = eigvalsh(cov)
         axes = torch.sqrt(torch.maximum(5.0 * lam, _const(1e-12, coords)))
         r_eff = (w * rvdw).sum(-1) / wsum  # mean vdw radius contribution
         return torch.exp(torch.log(axes + r_eff[:, None]).mean(-1))

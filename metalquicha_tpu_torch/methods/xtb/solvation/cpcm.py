@@ -6,8 +6,8 @@ vdW cavity screen the atomic partial charges:
 with f = (eps-1)/(eps+x). Every atom carries a full angular grid; buried
 points are smoothly switched off via their effective area (their
 self-interaction diverges, driving their charge to zero), so the shapes
-are static and a whole batch is one `torch.linalg.solve` of
-(B, nat*nang, nat*nang) systems.
+are static and a whole batch is one LU solve of (B, nat*nang, nat*nang)
+systems (`ops/batched_eigh.solve`).
 
 Grid: exact Lebedev rules for tabulated orders, Gauss-Legendre x phi
 product quadrature otherwise (grids.angular_grid); cpcm_nang selects the
@@ -28,7 +28,15 @@ import numpy as np
 import torch
 
 from ....constants import ANGSTROM_TO_BOHR
-from .born import PARAM_SETS, _const, _eye, _per_fragment
+from ....ops.batched_eigh import solve as batched_solve
+from .born import (
+    PARAM_SETS,
+    _const,
+    _eye,
+    _per_fragment,
+    device_grid,
+    prod_last,
+)
 
 COSMO_X = 0.5          # f = (eps-1)/(eps+COSMO_X)
 SELF_INTERACTION = 1.07  # zeta in A_kk = zeta*sqrt(4 pi / a_k)
@@ -66,8 +74,6 @@ class CpcmSolvation:
     def gamma_atoms(self, coords, rvdw, sx, atom_mask, scalars=None):
         """Atom-level solvation kernel (B, nat, nat); `scalars` is the
         optional (B, 4) [cosmo_x, zeta, ...] per fragment."""
-        from .grids import angular_grid
-
         cosmo_x = _per_fragment(
             scalars[:, 0] if scalars is not None else COSMO_X, coords
         )
@@ -75,10 +81,8 @@ class CpcmSolvation:
             scalars[:, 1] if scalars is not None else SELF_INTERACTION, coords
         )
         bsz, nat = coords.shape[:2]
-        pts_np, w_np = angular_grid(self.nang)
-        nang = len(w_np)
-        unit = torch.as_tensor(pts_np, dtype=coords.dtype, device=coords.device)
-        gw = torch.as_tensor(w_np, dtype=coords.dtype, device=coords.device)
+        unit, gw = device_grid(self.nang, coords)
+        nang = gw.shape[0]
 
         radii = torch.where(rvdw > 0, rvdw, 1.0)
         # surface points: (B, nat, nang, 3)
@@ -97,7 +101,7 @@ class CpcmSolvation:
         sw = torch.where(
             (not_self > 0.5) & (atom_mask[:, None, None, :] > 0.5), sw, 1.0
         )
-        weight = sw.prod(-1) * atom_mask[:, :, None]  # (B, nat, nang)
+        weight = prod_last(sw) * atom_mask[:, :, None]  # (B, nat, nang)
         area = (4.0 * math.pi * gw) * radii[:, :, None] ** 2 * weight
         area_flat = area.reshape(bsz, npts)
 
@@ -119,7 +123,10 @@ class CpcmSolvation:
 
         eps = self.dielectric
         f = (eps - 1.0) / (eps + cosmo_x)
-        AinvB = torch.linalg.solve(A, Bm)
+        # on a card cuSOLVER's LU with its info folded into the calling
+        # stage's status (read after the call); torch.linalg.solve_ex on
+        # the CPU
+        AinvB = batched_solve(A, Bm)
         gamma = -f[:, None, None] * (Bm.transpose(-1, -2) @ AinvB)
         gamma = 0.5 * (gamma + gamma.transpose(-1, -2))
         return gamma * (atom_mask[:, :, None] * atom_mask[:, None, :])

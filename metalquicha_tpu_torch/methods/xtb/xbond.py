@@ -37,8 +37,12 @@ def halogen_bond_energy(coords, numbers, xbond_strength, rcov, atom_mask):
     r = torch.sqrt((diff**2).sum(-1) + eye)
 
     is_x = (xbond_strength > 0.0) & (atom_mask > 0.5)
-    donors = torch.tensor(DONOR_Z, device=numbers.device)
-    is_d = torch.isin(numbers, donors) & (atom_mask > 0.5)
+    # compared with each donor number in turn: no table copied from the
+    # host, so a captured program can hold it
+    is_d = torch.zeros_like(is_x)
+    for z in DONOR_Z:
+        is_d = is_d | (numbers == z)
+    is_d = is_d & (atom_mask > 0.5)
 
     # covalent neighbor of each X: nearest other real atom
     big = 1.0e6

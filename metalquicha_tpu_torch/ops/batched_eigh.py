@@ -1,4 +1,4 @@
-"""The SCC loop's eigendecomposition, with no host synchronization.
+"""Batched eigendecomposition on a card with no host synchronization.
 
 On a card `torch.linalg.eigh` checks cuSOLVER's `info` on the host, which
 synchronizes the device with the host in every call: such a call cannot
@@ -9,12 +9,21 @@ counterpart: a thin binding of cuSOLVER's batched eigensolver
 (`csrc/batched_eigh.cu`, built with nvcc at first use into
 `metalquicha_tpu_torch/_build/` and bound with ctypes, linking
 `-lcusolver`), on the current stream, with `info` folded on the device
-into an `EighStatus` that the caller reads once, after its loop. The
-status also holds cuSOLVER's workspace, allocated once per solve before
-the loop (about 90 n^2 elements per matrix: 4.4 GB at (5985, 32) in
-float64): made inside the loop it would come from the side stream's
-cache and from the CUDA graph's memory pool, neither of which the rest of
-the program can reuse.
+into an `EighStatus` that the caller reads once, after its work. The
+status also holds cuSOLVER's workspace (about 90 n^2 elements per matrix:
+4.4 GB at (5985, 32) in float64), allocated before the work: made inside
+a captured program it would come from the CUDA graph's memory pool. The
+statuses of one thread on one device share one workspace per shape
+(`_shared_workspace`): their calls run one after the other on that
+thread's stream.
+
+Callers on a card: the (not differentiated) SCC loops, each with an
+`EighStatus` of its own; and the forward pass of `engine.eigh_safe` (the
+operand build's orthogonalizer, the functional's two eigendecompositions,
+ALPB/GBSA's 3x3 covariances) through `eigh_folded`, which takes its status
+from the `StageStatus` the calling stage collects into (`collecting`) or,
+outside a stage, makes one and checks it at once. A stage folds other
+device-side `info` too (CPCM's `torch.linalg.solve_ex`, `fold_info`).
 
 It is a library call and not a hand-written kernel. Its routine is
 cusolverDnXsyevBatched at every shape, with torch's settings and layout
@@ -30,15 +39,15 @@ kernels):
   float64 by chip_smoke.py).
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the binding (or
-raises), a CPU tensor to `torch.linalg.eigh`, the plain version. Only the
-not-differentiated SCC loops call it; `engine.eigh_safe` (autograd) stays
-on `torch.linalg.eigh`.
+raises), a CPU tensor to `torch.linalg.eigh`, the plain version.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
+import weakref
 
 import torch
 
@@ -54,11 +63,24 @@ _LIB = KernelLibrary("batched_eigh", {
                            ctypes.POINTER(_ll)],
     "mqc_eigh": [_int, _ptr, _ptr, _ptr, _ll, _ptr, _ptr, _int, _int, _int,
                  _ptr],
+    "mqc_lu_workspace": [_int, _int, _int, ctypes.POINTER(_ll),
+                         ctypes.POINTER(_ll)],
+    "mqc_lu_factor": [_int, _ptr, _ptr, _ptr, _ll, _ptr, _ptr, _int, _int,
+                      _int, _ptr],
+    "mqc_lu_solve": [_int, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int,
+                     _int, _int, _ptr],
     "mqc_eigh_solver_version": [ctypes.POINTER(_int)],
 }, libs=("cusolver",))
 _count_lock = threading.Lock()
 #: (dtype code, n, batch, device) -> device workspace bytes
 _workspace: dict = {}
+#: (dtype code, n, device) -> the LU factorization's workspace bytes
+_lu_workspace: dict = {}
+#: (thread, device, dtype code, n, batch) -> the workspace the statuses of
+#: that thread share, while one of them holds it
+_shared = weakref.WeakValueDictionary()
+#: the calling thread's `StageStatus` (`collecting`)
+_local = threading.local()
 
 
 def build() -> ctypes.CDLL:
@@ -77,30 +99,242 @@ def _count(stream: int, n: int = 1) -> None:
 
 class EighStatus:
     """What one solve's calls share: cuSOLVER's workspace for matrices of
-    the shape and type of `like` (B, n, n), allocated here on a card, and
-    the largest |info| cuSOLVER reported over the calls, kept on the
-    device (an int32 0-d tensor) until `check` reads it."""
+    the shape and type of `like` (B, n, n) on a card (the calling
+    thread's, `_shared_workspace`), and the largest |info| cuSOLVER
+    reported over the calls, kept on the device (an int32 0-d tensor,
+    `worst`, or the one given) until `check` reads it."""
 
-    def __init__(self, like: torch.Tensor):
+    def __init__(self, like: torch.Tensor, worst=None):
         self.shape = (like.dtype, *like.shape)
-        self.worst = torch.zeros((), dtype=torch.int32, device=like.device)
+        self.worst = worst if worst is not None else torch.zeros(
+            (), dtype=torch.int32, device=like.device)
         self.work = None
         if like.device.type == "cuda":
-            if _LIB.lib is None:
-                build()
-            nbytes = _workspace_bytes(int(like.dtype == torch.float64),
-                                      like.shape[-1], like.shape[0],
-                                      like.device.index)
-            self.work = torch.empty((nbytes,), dtype=torch.uint8,
-                                    device=like.device)
+            self.work = _shared_workspace(like)
 
     def check(self) -> None:
-        """Raise if any call reported a failure (one device-to-host read)."""
+        """Raise if any call reported a failure (one device-to-host read);
+        the status is zeroed first, so that a cached loop that holds it
+        starts its next solve clean."""
         bad = int(self.worst)
         if bad:
+            self.worst.zero_()
             raise RuntimeError(
                 f"batched eigh: cuSOLVER reported info {bad} (a matrix "
                 f"failed to converge, or an argument was wrong)")
+
+
+def _shared_workspace(like: torch.Tensor) -> torch.Tensor:
+    """The workspace for matrices like `like` that this thread's statuses
+    share on its device, allocated at the first one."""
+    if _LIB.lib is None:
+        build()
+    dcode = int(like.dtype == torch.float64)
+    n, bsz, index = like.shape[-1], like.shape[0], like.device.index
+    key = (threading.get_ident(), index, dcode, n, bsz)
+    work = _shared.get(key)
+    if work is None:
+        nbytes = _workspace_bytes(dcode, n, bsz, index)
+        work = torch.empty((nbytes,), dtype=torch.uint8, device=like.device)
+        _shared[key] = work
+    return work
+
+
+class StageStatus:
+    """The status of one stage of a call (`calculator.evaluate` on a
+    card): one `EighStatus` per matrix shape its eighs see, all folding
+    into one `worst`, and the `info` of its other solvers (`fold_info`,
+    `solve`). Made at the stage's first run, before any capture; `check`
+    reads it (the call reads it with the others, `scc_graph.Call.finish`),
+    and a failure read zeroes it."""
+
+    def __init__(self, device):
+        self.worst = torch.zeros((), dtype=torch.int32, device=device)
+        self.statuses = {}
+        #: no new status may be made (a capture reads the ones made)
+        self.frozen = False
+
+    def status_for(self, a: torch.Tensor) -> EighStatus:
+        key = (a.dtype, *a.shape)
+        got = self.statuses.get(key)
+        if got is None:
+            if self.frozen:
+                raise RuntimeError(
+                    f"batched eigh: a stage met a new shape {tuple(a.shape)} "
+                    f"after its first run")
+            got = self.statuses[key] = EighStatus(a, self.worst)
+        return got
+
+    def fold(self, info: torch.Tensor) -> None:
+        torch.maximum(self.worst, info.abs().max().to(torch.int32),
+                      out=self.worst)
+
+    def check(self) -> None:
+        bad = int(self.worst)
+        if bad:
+            self.worst.zero_()
+            raise RuntimeError(
+                f"a stage's solver reported info {bad} (an eigensolve that "
+                f"did not converge, a singular system, or a wrong argument)")
+
+    def owned(self) -> list:
+        """The device tensors it holds (the workspaces are shared)."""
+        return [self.worst]
+
+
+@contextlib.contextmanager
+def collecting(stage: StageStatus):
+    """Within the block, this thread's `eigh_folded` and `fold_info` fold
+    into `stage`."""
+    prev = getattr(_local, "stage", None)
+    _local.stage = stage
+    try:
+        yield stage
+    finally:
+        _local.stage = prev
+
+
+def eigh_folded(a: torch.Tensor):
+    """`eigh` of a batch (..., n, n) whose status goes to the calling
+    stage (`collecting`), or, outside a stage, is checked at once (which
+    synchronizes); `torch.linalg.eigh` on the CPU."""
+    if a.device.type != "cuda":
+        return eigh_plain(a)
+    n = a.shape[-1]
+    flat = a.reshape(-1, n, n)
+    stage = getattr(_local, "stage", None)
+    w, v = eigh(flat, None if stage is None else stage.status_for(flat))
+    return w.reshape(a.shape[:-1]), v.reshape(a.shape)
+
+
+def eigh_plain(a: torch.Tensor):
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"batched eigh takes float32/float64, not {a.dtype}")
+    return torch.linalg.eigh(a)
+
+
+def fold_info(info: torch.Tensor, what: str) -> None:
+    """A solver's `info` (int tensor): folded into the calling stage's
+    status on a card, else read at once; raises where it is not 0."""
+    stage = getattr(_local, "stage", None)
+    if stage is not None and info.device.type == "cuda":
+        stage.fold(info)
+        return
+    if bool((info != 0).any()):
+        raise RuntimeError(f"{what}: the solver reported info "
+                           f"{int(info.abs().max())}")
+
+
+def _lu_workspace_bytes(dcode: int, n: int, index: int) -> int:
+    key = (dcode, n, index)
+    got = _lu_workspace.get(key)
+    if got is None:
+        dev, host = _ll(0), _ll(0)
+        _LIB.check(_LIB.lib.mqc_lu_workspace(dcode, n, index,
+                                             ctypes.byref(dev),
+                                             ctypes.byref(host)),
+                   "LU workspace query")
+        got = _lu_workspace[key] = max(int(dev.value), 1)
+    return got
+
+
+def _worst_for(stage, device):
+    """(the int32 status a solver call folds into, whether it is the call's
+    own, to be read at once)."""
+    if stage is not None:
+        return stage.worst, False
+    return torch.zeros((), dtype=torch.int32, device=device), True
+
+
+def _lu_factor(a: torch.Tensor, stage):
+    """LU factors of A^T for a batch of row-major A (B, n, n), read as
+    column-major: (the factors, int64 pivots)."""
+    bsz, n, _ = a.shape
+    dcode = int(a.dtype == torch.float64)
+    index = a.device.index
+    lu = a.contiguous().clone()
+    ipiv = torch.empty((bsz, n), dtype=torch.int64, device=a.device)
+    work = torch.empty((_lu_workspace_bytes(dcode, n, index),),
+                       dtype=torch.uint8, device=a.device)
+    info = torch.empty((bsz,), dtype=torch.int32, device=a.device)
+    worst, own = _worst_for(stage, a.device)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    _LIB.check(_LIB.lib.mqc_lu_factor(
+        dcode, lu.data_ptr(), ipiv.data_ptr(), work.data_ptr(), work.numel(),
+        info.data_ptr(), worst.data_ptr(), n, bsz, index, stream),
+        "LU factorization")
+    _count(stream)
+    if own:
+        _raise_if(worst, "LU factorization")
+    return lu, ipiv
+
+
+def _lu_solve(lu, ipiv, b: torch.Tensor, trans: bool, stage):
+    """X with op(M) X = b from M's factors (`_lu_factor`: M = A^T), b
+    (B, n, k) row-major; trans solves M^T X = A X = b."""
+    bsz, n, k = b.shape
+    index = b.device.index
+    # B_i column-major: its transpose row-major, solved in place
+    x = b.transpose(-1, -2).contiguous()
+    info = torch.empty((bsz,), dtype=torch.int32, device=b.device)
+    worst, own = _worst_for(stage, b.device)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    _LIB.check(_LIB.lib.mqc_lu_solve(
+        int(b.dtype == torch.float64), int(trans), lu.data_ptr(),
+        ipiv.data_ptr(), x.data_ptr(), info.data_ptr(), worst.data_ptr(), n,
+        k, bsz, index, stream), "LU solve")
+    _count(stream)
+    if own:
+        _raise_if(worst, "LU solve")
+    return x.transpose(-1, -2)
+
+
+def _raise_if(worst, what: str) -> None:
+    bad = int(worst)
+    if bad:
+        raise RuntimeError(f"{what}: cuSOLVER reported info {bad}")
+
+
+class _Solve(torch.autograd.Function):
+    """X = A^-1 B on a card through the LU binding; the backward pass
+    solves with the saved factors (A^T gB = gX, gA = -gB X^T), its infos
+    folded into the forward's stage."""
+
+    @staticmethod
+    def forward(ctx, a, b, stage):
+        lu, ipiv = _lu_factor(a, stage)
+        x = _lu_solve(lu, ipiv, b, True, stage)
+        ctx.stage = stage
+        ctx.save_for_backward(lu, ipiv, x)
+        return x
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gx):
+        lu, ipiv, x = ctx.saved_tensors
+        gb = _lu_solve(lu, ipiv, gx, False, ctx.stage)
+        return -gb @ x.transpose(-1, -2), gb, None
+
+
+def solve(a: torch.Tensor, b: torch.Tensor):
+    """X with A X = B for a batch (B, n, n) and (B, n, k), differentiable
+    in both. On a card cuSOLVER's LU (getrf, getrs) through the binding,
+    its infos folded into the calling stage's status (`collecting`) or,
+    outside a stage, read at once; on the CPU `torch.linalg.solve_ex`, its
+    info read at once (the bits of `torch.linalg.solve`)."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[-1] != a.shape[-2] or (
+            b.shape[:2] != a.shape[:2]):
+        raise ValueError(f"expected (B, n, n) and (B, n, k), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device.type == "cuda":
+        if _LIB.lib is None:
+            build()
+        return _Solve.apply(a, b, getattr(_local, "stage", None))
+    if a.device.type == "cpu":
+        x, info = torch.linalg.solve_ex(a, b)
+        fold_info(info, "linear solve")
+        return x
+    raise ValueError(f"no batched solve for device {a.device}")
 
 
 def _workspace_bytes(dcode: int, n: int, bsz: int, index: int) -> int:
@@ -173,10 +407,7 @@ def eigh(a: torch.Tensor, status: EighStatus | None = None):
             status.check()
         return out
     if a.device.type == "cpu":
-        if a.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"batched eigh takes float32/float64, not "
-                            f"{a.dtype}")
-        return torch.linalg.eigh(a)
+        return eigh_plain(a)
     raise ValueError(f"no batched eigh for device {a.device}")
 
 

@@ -59,16 +59,21 @@ shape takes in an energy or a gradient evaluation (the overlap's
 (nat, nat, nat) triples, the solvation model's and GFN2's moment
 intermediates), and `device_budget` is what a slot may plan for:
 BUDGET_SHARE of the device's free bytes, the SCC graph cache's held
-out (`methods/xtb/scc_graph.py`), taken once per `run`, split
+out but for the calling thread's own pool (`methods/xtb/scc_graph.py`),
+taken once per `run`, split
 evenly between the mesh slots that share the device. A one-slot mesh cuts
 its chunks to min(element cap, budget / model bytes); on a mesh of
 several slots every worker applies the same rule on its own device and
 evaluates its piece in parts of at most that many fragments. The model
-holds one chunk's own SCC graph cache entries (`scc_entry_bytes`); the
+holds one chunk's own SCC graph cache entries, its call's stages among
+them (`scc_entry_bytes`); the
 entries a run made for its earlier chunks are held in the plan too: they
-stay only while they fit beside the next chunk in the budget
-(`make_room`). A fragment the budget cannot hold raises
-`DeviceMemoryError`, naming its shape;
+stay only while they fit beside the next chunk in the budget, and the
+calling thread's graph pool only while a new shape's eager warm-up fits
+beside its idle blocks (`make_room`); chunks of one shape replay the
+graphs the first captured (`scc_graph.planned`), and a run whose chunks
+the budget cut gives the pool back at its end. A fragment the budget
+cannot hold raises `DeviceMemoryError`, naming its shape;
 nothing moves to the CPU. On the CPU no budget is taken and chunks are
 cut as the JAX package cuts them.
 """
@@ -88,7 +93,7 @@ from ..methods.xtb import scc_graph
 from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
 from ..methods.xtb.multipole import work_elements as multipole_work_elements
-from ..ops import batched_eigh, fermi_fill, jacobi_eigh
+from ..ops import anderson_window, batched_eigh, fermi_fill, jacobi_eigh
 from . import slot_worker
 from .mesh import fragment_mesh, shard_leading_axis
 from .slot_worker import evaluate_piece
@@ -150,33 +155,51 @@ def fragment_bytes(calc, pad_to, nprim: int, what: str,
     held = max(parts) if what == "energy" else sum(parts)
     size = 8 if polished else torch.finfo(calc.dtype).bits // 8
     return (size * (held + c["matrix"] * nao * nao)
-            + scc_entry_bytes(calc, pad_to, polished))
+            + scc_entry_bytes(calc, pad_to, nprim, polished))
 
 
-def scc_entry_bytes(calc, pad_to, polished: bool = False) -> float:
-    """Bytes one fragment's share of an SCC graph cache entry keeps from
-    its solve to the end of the call and beyond (`scc_graph`): copies of
-    the loop's inputs (H0, S, the orthogonalizer's two matrices, gamma,
-    the solvation kernel, GFN2's moment integrals), its state (the two
-    Anderson windows) and, on the exact route on a card, the in-loop
-    eigh's cuSOLVER workspace (its query). A polished calculator also
-    keeps the float64 polish's entry."""
+def scc_entry_bytes(calc, pad_to, nprim: int,
+                    polished: bool = False) -> float:
+    """Bytes one fragment's share of a call's SCC graph cache entries keeps
+    from its call to the end of the run and beyond (`scc_graph`): the
+    loop's entry (copies of its inputs: H0, S, the orthogonalizer's two
+    matrices, gamma, the solvation kernel, GFN2's moment integrals; its
+    state, the two Anderson windows), the stage entries of the operand
+    build (the batch's fields and coordinates in, the loop's inputs out)
+    and of the functional (the batch, coordinates and converged state in;
+    energies, gradients and aux out), and on a card cuSOLVER's workspace
+    for the (nao, nao) eighs, which the loop's, the orthogonalizer's and
+    the functional's statuses share (`batched_eigh._shared_workspace`), and
+    with ALPB the one for its (3, 3) covariances (its query's bytes). The
+    graphs' pool is the functional's peak, which the byte model's
+    coefficients hold; D3's pair table, one broadcast copy per stage entry
+    (116 KB), is left out. A polished calculator also keeps the float64
+    polish's entries. nprim: primitives per AO."""
     nat, nsh, nao = pad_to
     settings = calc.settings
     nx = nsh + 9 * nat if settings.multipoles else nsh
-    elements = 4 * nao * nao + nsh * nsh + (2 * settings.broyden_memory
-                                            + 3) * nx
+    loop_inputs = 4 * nao * nao + nsh * nsh
     if getattr(calc, "solvation", None) is not None:
-        elements += nat * nat
+        loop_inputs += nat * nat
     if settings.multipoles:
-        elements += 9 * nao * nao
+        loop_inputs += 9 * nao * nao
+    # a stage's copy of the batch's fields: the primitive tables (five
+    # values per primitive), the AO, shell and atom tables (D3's reference
+    # tables, GFN2's AES table) and the outputs' rows
+    fields = nao * (5 * nprim + 8) + nsh * 12 + nat * 48
+    # the operand build's outputs and the loop's copies of them, the loop's
+    # state and fields, the two stages' fields
+    elements = (2 * loop_inputs + (2 * settings.broyden_memory + 4) * nx
+                + 2 * nao + 4 * nsh + nat + 2 * fields)
     dtypes = [calc.dtype] + ([torch.float64] if polished else [])
     out = 0.0
+    alpb = getattr(getattr(calc, "solvation", None), "alpb", False)
     for dtype in dtypes:
         out += elements * (torch.finfo(dtype).bits // 8)
-        exact = not (settings.use_pallas_eigh and dtype == torch.float32)
-        if exact and calc.device.type == "cuda":
+        if calc.device.type == "cuda":
             out += batched_eigh.workspace_bytes(dtype, nao, calc.device)
+            if alpb:  # the eigenvalues of ALPB's 3x3 covariances
+                out += batched_eigh.workspace_bytes(dtype, 3, calc.device)
     return out
 
 
@@ -186,30 +209,44 @@ def device_budget(device, sharing: int = 1):
     unused, split between the `sharing` slots on the device; None on a
     device that is not a card (no byte cap there).
 
-    The SCC graph cache's bytes are held out: the unused blocks of its
-    graphs' memory pools serve only those graphs
-    (`scc_graph.idle_pool_bytes`), and its buffers and workspaces are
-    allocated, so neither free nor unused."""
+    The SCC graph cache's bytes other than the calling thread's pool are
+    held out: the unused blocks of other threads' graph pools serve only
+    their graphs (`scc_graph.idle_pool_bytes`), and its buffers and
+    workspaces are allocated, so neither free nor unused. The calling
+    thread's own pool is the run's: its captures and replays reuse its
+    blocks, and `make_room` gives them back before an eager warm-up that
+    would not fit beside them."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
     free, _total = torch.cuda.mem_get_info(device)
     cached = (torch.cuda.memory_reserved(device)
               - torch.cuda.memory_allocated(device)
-              - scc_graph.idle_pool_bytes(device))
+              - scc_graph.idle_pool_bytes(device, own=False))
     return int(BUDGET_SHARE * (free + max(cached, 0)) / sharing)
 
 
-def make_room(budget: int, mark: int, shape, planned: float, last):
+def make_room(budget: int, mark: int, shape, planned: float, last,
+              device=None):
     """Before a piece of `shape` (its padded shape and its size) modelled
     at `planned` bytes, in a run whose budget was taken after SCC graph
     cache serial `mark`: the graphs the run cached since stay if their
     bytes fit beside the piece in the budget, else they are evicted. A
     piece of the last piece's shape replays the graphs that piece made and
-    allocates none, so it peaks where that piece did. Returns `shape`, the
-    next call's `last`."""
-    if shape != last and scc_graph.held_since(mark) + planned > budget:
+    allocates none, so it peaks where that piece did. A piece of a new
+    shape runs its stages once eagerly, outside the graph pool: where the
+    calling thread's pool on `device` holds more idle blocks than fit
+    beside it, every entry on that pool is evicted and its blocks given
+    back (`scc_graph.evict_own_pool`). Returns `shape`, the next call's
+    `last`."""
+    if shape == last:
+        return shape
+    if scc_graph.held_since(mark) + planned > budget:
         scc_graph.evict_since(mark)
+    if device is not None and torch.device(device).type == "cuda" and (
+            scc_graph.held_since(mark) + planned
+            + scc_graph.own_idle_bytes(device) > budget):
+        scc_graph.evict_own_pool(device)
     return shape
 
 
@@ -365,33 +402,44 @@ class FragmentExecutor:
             "scf_residual": np.zeros(n),
         }
 
-        for bucket_atoms, members in sorted(self._buckets(fragments).items()):
-            pad_to = self._pad_shapes_for(bucket_atoms, members)
-            if self._multipoles() or budget is not None:
-                nprim = _sizes_for([t[0] for _, t in members],
-                                   self.calc.variant)[3]
-            if self._multipoles():
-                max_b = self._max_chunk(pad_to, nprim)
-            else:
-                max_b = self._max_chunk(pad_to)
-            if budget is not None:
-                per = fragment_bytes(self.calc, pad_to, nprim, what,
-                                     self.polisher is not None)
-                max_b = min(max_b, byte_cap(budget, per, pad_to, nprim,
-                                            what))
-            for start in range(0, len(members), max_b):
-                chunk = members[start : start + max_b]
+        # the chunks' graph pools are the run's to plan (`make_room`)
+        cut = False
+        with scc_graph.planned():
+            for bucket_atoms, members in sorted(
+                    self._buckets(fragments).items()):
+                pad_to = self._pad_shapes_for(bucket_atoms, members)
+                if self._multipoles() or budget is not None:
+                    nprim = _sizes_for([t[0] for _, t in members],
+                                       self.calc.variant)[3]
+                if self._multipoles():
+                    max_b = self._max_chunk(pad_to, nprim)
+                else:
+                    max_b = self._max_chunk(pad_to)
                 if budget is not None:
-                    last = make_room(budget, mark, (pad_to, len(chunk)),
-                                     len(chunk) * per, last)
-                self._run_chunk(chunk, pad_to, what, energies, gradients,
-                                aux_out)
-                n_done += len(chunk)
-                if n > 1:
-                    logger.info(
-                        f"  Processed {n_done}/{n} fragments "
-                        f"[{time.time() - t0:.2f} s]"
-                    )
+                    per = fragment_bytes(self.calc, pad_to, nprim, what,
+                                         self.polisher is not None)
+                    fit = byte_cap(budget, per, pad_to, nprim, what)
+                    cut = cut or fit < min(max_b, len(members))
+                    max_b = min(max_b, fit)
+                for start in range(0, len(members), max_b):
+                    chunk = members[start : start + max_b]
+                    if budget is not None:
+                        last = make_room(budget, mark, (pad_to, len(chunk)),
+                                         len(chunk) * per, last,
+                                         self.mesh.flat[0])
+                    self._run_chunk(chunk, pad_to, what, energies,
+                                    gradients, aux_out)
+                    n_done += len(chunk)
+                    if n > 1:
+                        logger.info(
+                            f"  Processed {n_done}/{n} fragments "
+                            f"[{time.time() - t0:.2f} s]"
+                        )
+        if cut:
+            # chunks cut to the budget captured graphs sized to the card;
+            # their pool goes back with the run, for other work and other
+            # processes on the card
+            scc_graph.evict_own_pool(self.mesh.flat[0])
 
         if what == "gradient":
             return energies, gradients, aux_out
@@ -440,6 +488,8 @@ class FragmentExecutor:
         # here, before any worker loads them
         if any(d.type == "cuda" for d in self.mesh.flat):
             fermi_fill.build()
+            anderson_window.build()
+            batched_eigh.build()
             if self.calc.settings.use_pallas_eigh:
                 jacobi_eigh.build()
         if [w.device for w in self.workers] != self.mesh.flat:

@@ -182,9 +182,12 @@ class SlotWorker:
 
     `launches`, `fermi_launches` and `sp2_calls` count the Jacobi and
     Fermi launches and SP2 calls the worker has made (its SCC graphs'
-    replays included), `scc_captures`, `scc_hits` and `scc_eager` its SCC
-    solves on a card that captured a graph, replayed a cached one and ran
-    launch by launch, `scc_held_bytes` what its graph cache holds,
+    replays included), `window_launches` its Anderson window kernel's,
+    `scc_captures`, `scc_hits` and `scc_eager` its SCC solves on a card
+    that captured a graph, replayed a cached one and ran launch by launch,
+    `stage_captures`, `stage_hits` and `stage_eager` the same of its
+    calls' other stages (`scc_graph.Call`), `scc_held_bytes` what its
+    graph cache holds,
     `peak_bytes` is its peak device memory (0 on the CPU), `run_memory`
     each run's budget and peak, `modules` the
     top-level packages loaded in it, `build_dir` the directory it loads
@@ -204,9 +207,13 @@ class SlotWorker:
         self.launches = 0
         self.fermi_launches = 0
         self.sp2_calls = 0
+        self.window_launches = 0
         self.scc_captures = 0
         self.scc_hits = 0
         self.scc_eager = 0
+        self.stage_captures = 0
+        self.stage_hits = 0
+        self.stage_eager = 0
         self.scc_held_bytes = 0
         self.peak_bytes = 0
         #: parent's run number -> (its byte budget, the worker's peak
@@ -252,14 +259,18 @@ class SlotWorker:
     def record(self, stats: dict) -> None:
         """Take a piece's statistics: its counts into this handle's and
         this process's counters."""
-        from ..ops import fermi_fill, jacobi_eigh, sp2
+        from ..ops import anderson_window, fermi_fill, jacobi_eigh, sp2
 
         self.launches += stats["launches"]
+        self.window_launches += stats["window_launches"]
         self.fermi_launches += stats["fermi_launches"]
         self.sp2_calls += stats["sp2_calls"]
         self.scc_captures += stats["scc_captures"]
         self.scc_hits += stats["scc_hits"]
         self.scc_eager += stats["scc_eager"]
+        self.stage_captures += stats["stage_captures"]
+        self.stage_hits += stats["stage_hits"]
+        self.stage_eager += stats["stage_eager"]
         self.scc_held_bytes = stats["scc_held_bytes"]
         self.peak_bytes = max(self.peak_bytes, stats["peak_bytes"])
         self.budget_bytes = stats["budget_bytes"]
@@ -271,6 +282,7 @@ class SlotWorker:
         fermi_fill.add_launches(stats["fermi_launches"],
                                 stats["density_launches"])
         sp2.add_calls(stats["sp2_calls"])
+        anderson_window.add_launches(stats["window_launches"])
 
     def exited(self) -> WorkerExited:
         """The exception for a worker whose end of the pipe closed."""
@@ -398,7 +410,8 @@ class _Slot:
     def configure(self, config: bytes) -> None:
         from ..methods.xtb.calculator import XtbCalculator
         from ..methods.xtb.polish import HostPolisher
-        from ..ops import fermi_fill, jacobi_eigh, kernel_build
+        from ..ops import anderson_window, batched_eigh, fermi_fill
+        from ..ops import jacobi_eigh, kernel_build
 
         cfg = pickle.loads(config)
         install_parameter_state(cfg["state"])
@@ -414,6 +427,8 @@ class _Slot:
         # the parent's builds: loaded, not compiled
         if self.device.type == "cuda":
             fermi_fill.build()
+            anderson_window.build()
+            batched_eigh.build()
             if cfg["settings"].use_pallas_eigh:
                 jacobi_eigh.build()
 
@@ -444,36 +459,48 @@ class _Slot:
 
     def evaluate(self, config, tuples, pad_to, what, run, sharing):
         from ..methods.xtb import scc_graph
-        from ..ops import fermi_fill, jacobi_eigh, sp2
+        from ..ops import anderson_window, fermi_fill, jacobi_eigh, sp2
         from .executor import make_room
 
         if config is not None:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
         m0, d0 = fermi_fill.launches, fermi_fill.density_launches
+        w0 = anderson_window.launches
         g0, e0 = scc_graph.stats["captures"], scc_graph.stats["eager"]
         h0 = scc_graph.stats["hits"]
+        sg0, sh0, se0 = (scc_graph.stats[k] for k in (
+            "stage_captures", "stage_hits", "stage_eager"))
         cap, per = self._cap(tuples, pad_to, what, run, sharing)
         outs = []
-        for start in range(0, len(tuples), cap):
-            part = tuples[start : start + cap]
-            if per is not None:
-                self.last = make_room(self.budget, self.mark,
-                                      (pad_to, len(part)), len(part) * per,
-                                      self.last)
-            frag = self.calc.make_batch(part, pad_to=pad_to)
-            outs.append(evaluate_piece(self.calc, self.polisher, frag, part,
-                                       pad_to, what))
-            del frag
+        # the parts' graph pools are the run's to plan (`make_room`); the
+        # next run clears them
+        with scc_graph.planned():
+            for start in range(0, len(tuples), cap):
+                part = tuples[start : start + cap]
+                if per is not None:
+                    self.last = make_room(self.budget, self.mark,
+                                          (pad_to, len(part)),
+                                          len(part) * per, self.last,
+                                          self.device)
+                frag = self.calc.make_batch(part, pad_to=pad_to)
+                outs.append(evaluate_piece(self.calc, self.polisher, frag,
+                                           part, pad_to, what))
+                del frag
         parts = outs[0] if len(outs) == 1 else tuple(
             None if p[0] is None else np.concatenate(p) for p in zip(*outs))
         return parts, dict(self.stats(), launches=jacobi_eigh.launches - n0,
                            fermi_launches=fermi_fill.launches - m0,
                            density_launches=fermi_fill.density_launches - d0,
+                           window_launches=anderson_window.launches - w0,
                            sp2_calls=sp2.calls - s0,
                            scc_captures=scc_graph.stats["captures"] - g0,
                            scc_hits=scc_graph.stats["hits"] - h0,
                            scc_eager=scc_graph.stats["eager"] - e0,
+                           stage_captures=(scc_graph.stats["stage_captures"]
+                                           - sg0),
+                           stage_hits=scc_graph.stats["stage_hits"] - sh0,
+                           stage_eager=scc_graph.stats["stage_eager"] - se0,
                            scc_held_bytes=scc_graph.stats["held_bytes"],
                            parts=len(outs), run=self.run)
 

@@ -1,5 +1,5 @@
-"""The SCC loop's eigh binding (ops/batched_eigh.py, csrc/batched_eigh.cu)
-and the per-library link flags of its build (ops/kernel_build.py).
+"""The eigh binding (ops/batched_eigh.py, csrc/batched_eigh.cu) and the
+per-library link flags of its build (ops/kernel_build.py).
 
 On the CPU: the shape and type checks, a device that is neither CPU nor
 CUDA raising, the CPU route equal to `torch.linalg.eigh` bit for bit, the
@@ -7,9 +7,14 @@ dispatch of a tensor on a card to the binding, the status read once, the
 ctypes declarations against the C source, and `-l`
 flags reaching nvcc's command line (a stand-in `nvcc` that records its
 arguments) and the build's hash. The engine's SCC loops call the binding
-and the differentiated paths do not. The binding itself runs on a card
-only: the `gpu` cases hold it to `torch.linalg.eigh` (`python3 -m pytest
---noconftest tests/test_torch_batched_eigh.py -m gpu`).
+with a status of their own; `eigh_safe`'s forward pass (the operand
+build's orthogonalizer, the functional) goes through `eigh_folded`, which
+on a card takes its status from the calling stage (`StageStatus`) or
+checks one at once, and on the CPU is `torch.linalg.eigh`; a stage folds
+solver infos (`fold_info`) and reads them once. The binding itself runs
+on a card only: the `gpu` cases hold it to `torch.linalg.eigh`
+(`python3 -m pytest --noconftest tests/test_torch_batched_eigh.py -m
+gpu`).
 """
 
 import re
@@ -90,6 +95,63 @@ def test_cuda_tensor_goes_to_the_binding(monkeypatch):
     assert launched[-1] is not given and checked == [OnCard.device]
 
 
+def test_folded_eigh_takes_the_stages_status(monkeypatch):
+    """On a card `eigh_folded` gives the binding the calling stage's status
+    for the matrices' shape (one per shape, all folding into the stage's
+    one `worst`), or outside a stage a status of its own, checked at once;
+    a (..., n, n) batch is flattened and its results shaped back. On the
+    CPU it is `torch.linalg.eigh`."""
+    calls = []
+    monkeypatch.setattr(be, "eigh", lambda a, status=None: (
+        calls.append((tuple(a.shape), status))
+        or (a[..., 0], a)))
+    monkeypatch.setattr(be, "EighStatus", lambda like, worst=None: (
+        types.SimpleNamespace(like=tuple(like.shape), worst=worst)))
+    a = torch.zeros(2, 3, 4, 4, device="meta")
+    monkeypatch.setattr(type(a), "device", property(
+        lambda t: torch.device("cuda", 0)))
+    w, v = be.eigh_folded(a)
+    assert w.shape == (2, 3, 4) and v.shape == (2, 3, 4, 4)
+    assert calls[-1] == ((6, 4, 4), None)
+    stage = be.StageStatus("meta")
+    with be.collecting(stage):
+        be.eigh_folded(a)
+        be.eigh_folded(a)
+        be.eigh_folded(torch.zeros(5, 2, 2, device="meta"))
+    first, second, third = (s for _shape, s in calls[1:])
+    assert first is second and third is not first
+    assert first.worst is third.worst is stage.worst
+    stage.frozen = True
+    with be.collecting(stage), pytest.raises(RuntimeError,
+                                             match="new shape"):
+        be.eigh_folded(torch.zeros(7, 2, 2, device="meta"))
+
+
+def test_cpu_folded_eigh_is_torchs():
+    a = _symmetric((3, 5, 5), torch.float64)
+    with be.collecting(be.StageStatus("cpu")):
+        w, v = be.eigh_folded(a)
+    w_t, v_t = torch.linalg.eigh(a)
+    assert torch.equal(w, w_t) and torch.equal(v, v_t)
+
+
+def test_stage_folds_infos_and_reads_them_once():
+    """A stage folds the largest |info| on the device; outside a stage (or
+    on the CPU) `fold_info` reads it at once and raises."""
+    stage = be.StageStatus("cpu")
+    stage.fold(torch.tensor([0, -3, 2], dtype=torch.int32))
+    stage.fold(torch.tensor([1], dtype=torch.int32))
+    assert int(stage.worst) == 3
+    with pytest.raises(RuntimeError, match="info 3"):
+        stage.check()
+    # a failure read is zeroed
+    stage.check()
+    be.fold_info(torch.zeros(4, dtype=torch.int32), "a solve")
+    with be.collecting(stage), pytest.raises(RuntimeError,
+                                             match="a solve: .* info 5"):
+        be.fold_info(torch.tensor([0, 5], dtype=torch.int32), "a solve")
+
+
 def test_status_raises_on_a_bad_info():
     status = be.EighStatus(torch.zeros(3, 4, 4))
     assert status.work is None  # a workspace on a card only
@@ -97,6 +159,7 @@ def test_status_raises_on_a_bad_info():
     status.worst.fill_(33)
     with pytest.raises(RuntimeError, match="info 33"):
         status.check()
+    status.check()  # a failure read is zeroed
 
 
 def test_failed_call_raises_and_is_not_counted(monkeypatch):
@@ -187,9 +250,10 @@ def test_library_build_passes_its_libraries(tmp_path, monkeypatch):
 @pytest.mark.parametrize("multipoles", [False, True], ids=["gfn1", "gfn2"])
 def test_scc_loops_call_the_binding_and_autograd_does_not(monkeypatch,
                                                           multipoles):
-    """The SCC loop's eigh is the binding (one call per iteration, with a
-    status); the refine and the variational functional stay on
-    `eigh_safe`."""
+    """The SCC loop's eigh is the binding called with its loop's status
+    (one call per iteration); the refine and the variational functional
+    call `eigh_safe`, whose forward pass is `eigh_folded`
+    (`torch.linalg.eigh` here on the CPU, a stage's status on a card)."""
     variant = "gfn2" if multipoles else "gfn1"
     calls = []
     real = be.eigh
@@ -241,3 +305,43 @@ def test_binding_matches_torch_on_the_card(cuda, shape, dtype):
         sign = torch.sign((v * v_t).sum(-2, keepdim=True))
         assert float((w - w_t).abs().max()) <= 1e-12
         assert float((v * sign - v_t).abs().max()) <= 1e-12
+
+
+def test_cpu_solve_is_torchs_and_raises_on_a_singular_system():
+    a = _symmetric((3, 6, 6), torch.float64) + 8.0 * torch.eye(6)
+    b = _symmetric((3, 6, 6), torch.float64)[:, :, :2]
+    assert torch.equal(be.solve(a, b), torch.linalg.solve(a, b))
+    with pytest.raises(RuntimeError, match="info"):
+        be.solve(torch.zeros(2, 3, 3, dtype=torch.float64),
+                 torch.ones(2, 3, 1, dtype=torch.float64))
+    with pytest.raises(ValueError, match="device"):
+        be.solve(a.to("meta"), b.to("meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 208, 12), (64, 660, 6), (1, 40, 3)])
+def test_lu_binding_matches_torch_on_the_card(cuda, shape, dtype):
+    """The LU binding's solve and its gradient against torch.linalg.solve
+    (CPCM's shapes: points x atoms), and a singular system's info folded
+    into a stage and read once."""
+    bsz, n, k = shape
+    a = _symmetric((bsz, n, n), torch.float64) + n * torch.eye(n)
+    b = _symmetric((bsz, n, n), torch.float64)[:, :, :k]
+    a, b = (t.to(device=cuda, dtype=dtype).requires_grad_(True)
+            for t in (a, b))
+    w = torch.randn(bsz, n, k, dtype=dtype, device=cuda)
+    x = be.solve(a, b)
+    ga, gb = torch.autograd.grad((x * w).sum(), (a, b))
+    x_t = torch.linalg.solve(a, b)
+    ga_t, gb_t = torch.autograd.grad((x_t * w).sum(), (a, b))
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for got, ref in ((x, x_t), (ga, ga_t), (gb, gb_t)):
+        assert float((got - ref).abs().max()) <= tol * float(
+            ref.abs().max())
+    stage = be.StageStatus(cuda)
+    with be.collecting(stage):
+        be.solve(torch.zeros(2, 4, 4, dtype=dtype, device=cuda),
+                 torch.ones(2, 4, 1, dtype=dtype, device=cuda))
+    with pytest.raises(RuntimeError, match="info"):
+        stage.check()

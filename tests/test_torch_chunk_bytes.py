@@ -13,7 +13,11 @@ monkeypatched) a bucket of 40 jittered water trimers is cut into at least
 1e-10) and gradients within C17's size (1e-9); an FD Hessian through the
 driver equals the unforced one (1e-8) and the JAX Hessian norm (1e-5); a
 fragment the budget cannot hold raises, naming its shape. Two slots on one
-device each plan for half of it. Frozen JAX values:
+device each plan for half of it. The model's cache entries
+(`scc_entry_bytes`) hold what one call's entries allocate (the loop's and
+the operand build's and the functional's stages, run through the cache
+with the stand-ins of `_torch_scc_standins.py`), and on a card the eigh
+workspace on every route. Frozen JAX values:
 tests/data/port_golden_memory.json, port_golden_gfn1_full.json
 (tools/gen_port_golden.py).
 """
@@ -26,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_scc_standins import no_card, staged  # noqa: F401 (fixtures)
 from _torch_port_common import (
     HALOGEN,
     REPO,
@@ -39,6 +44,7 @@ from _torch_port_common import (
 from metalquicha_tpu_torch.driver import read_mqc_file, run_calculation
 from metalquicha_tpu_torch.logging_ import global_logger
 from metalquicha_tpu_torch.methods.xtb import overlap as tov
+from metalquicha_tpu_torch.methods.xtb import scc_graph
 from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
 from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
 from metalquicha_tpu_torch.parallel import executor as executor_mod
@@ -47,6 +53,7 @@ from metalquicha_tpu_torch.parallel.executor import (
     FragmentExecutor,
     byte_cap,
     fragment_bytes,
+    scc_entry_bytes,
 )
 
 torch.set_num_threads(1)
@@ -358,3 +365,71 @@ def test_slots_on_one_card_split_its_budget(monkeypatch):
     assert [m[-1] for m in sent] == [3, 3, 3]
     assert [m[-2] for m in sent] == [ex.runs] * 3
     ex.workers.clear()
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["energy", "gradient"])
+@pytest.mark.parametrize("variant,solvation", [
+    ("gfn1", None), ("gfn1", "alpb"), ("gfn2", None)])
+def test_entry_bytes_hold_a_calls_entries(staged, variant, solvation, grad):
+    """One call's cache entries (the loop and the operand build's and the
+    functional's stages: their buffers, the loop's state, the statuses),
+    per fragment, within [0.5, 1] of `scc_entry_bytes` (no workspace off a
+    card; D3's pair table, one broadcast copy per entry whatever the
+    batch, left out as the model leaves it)."""
+    from metalquicha_tpu_torch.methods.xtb.solvation.born import (
+        BornSolvation,
+    )
+
+    solv = BornSolvation(78.4) if solvation else None
+    calc = XtbCalculator(settings_from_params(variant, max_scf_iter=4),
+                         variant, torch.float64, "cpu", solv)
+    frags = jittered_trimers(6)
+    frag = calc.make_batch(frags)
+    pad_to = (frag.coords.shape[1], frag.sh_mask.shape[1],
+              frag.ao_mask.shape[1])
+    if grad:
+        calc.gradients(frag)
+    else:
+        calc.energies(frag)
+    assert len(scc_graph._entries) == 3
+    table = sum(b.numel() * b.element_size()
+                for e in scc_graph._entries.values()
+                for b, axes in e.dsts if axes)
+    held = (sum(e.nbytes for e in scc_graph._entries.values())
+            - table) / len(frags)
+    model = scc_entry_bytes(calc, pad_to, frag.prim_alpha.shape[-1])
+    assert 0.5 * model <= held <= model
+
+
+def test_entry_bytes_count_the_workspace_on_every_route(monkeypatch):
+    """On a card the orthogonalizer's and the functional's eighs need
+    cuSOLVER's workspace on every route (the Jacobi route's loop has
+    none, its operand build and functional do), once per dtype; ALPB's
+    covariances one more."""
+    from metalquicha_tpu_torch.ops import batched_eigh
+
+    monkeypatch.setattr(batched_eigh, "workspace_bytes",
+                        lambda dtype, n, device: 1000.0 * (
+                            2 if dtype == torch.float64 else 1))
+    pad_to = (6, 12, 16)
+    for jacobi, dtype in ((False, torch.float64), (True, torch.float32)):
+        calc = XtbCalculator(settings_from_params(
+            "gfn1", use_pallas_eigh=jacobi), dtype=dtype, device="cpu")
+        off_card = scc_entry_bytes(calc, pad_to, 6)
+        calc.device = torch.device("cuda", 0)
+        size = 2 if dtype == torch.float64 else 1
+        assert scc_entry_bytes(calc, pad_to, 6) == off_card + 1000.0 * size
+    # the float32 route's polish keeps a float64 entry beside its own
+    polished = scc_entry_bytes(calc, pad_to, 6, polished=True)
+    assert polished == 3 * off_card + 1000.0 + 2000.0
+    # ALPB adds the workspace of its 3x3 covariances' eigenvalues
+    from metalquicha_tpu_torch.methods.xtb.solvation.born import (
+        BornSolvation,
+    )
+
+    for alpb, extra in ((True, 2000.0), (False, 0.0)):
+        calc = XtbCalculator(device="cpu", solvation=BornSolvation(
+            78.4, alpb=alpb))
+        off_card = scc_entry_bytes(calc, pad_to, 6)
+        calc.device = torch.device("cuda", 0)
+        assert scc_entry_bytes(calc, pad_to, 6) == off_card + 2000.0 + extra

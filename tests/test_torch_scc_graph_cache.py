@@ -261,7 +261,7 @@ def test_interleaving_and_eviction(monkeypatch, cached):
     (pool,) = scc_graph._pools.values()
     assert pool.entries == 2
     for entry in scc_graph._entries.values():
-        assert entry.graph.shared == pool.id != id(entry.graph)
+        assert entry.graph.shared == pool.id != entry.graph.pool()
 
 
 def _eager_solve(make_fixed_point, inputs, x0, settings, key, graph=True):
@@ -318,8 +318,12 @@ def test_broadcast_inputs_stay_broadcast(no_card):
 
 
 def test_device_budget_holds_out_the_pools(monkeypatch):
-    """The unused bytes of the cache's pools on the device are not counted
-    as usable; other devices' pools and the allocated bytes do not enter."""
+    """The unused bytes of other threads' pools on the device are not
+    counted as usable; the calling thread's own pool is the run's (its
+    captures and replays reuse it, `make_room` gives it back), and other
+    devices' pools and the allocated bytes do not enter."""
+    import threading
+
     gib = 2**30
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (40 * gib, 80 * gib))
@@ -330,18 +334,23 @@ def test_device_budget_holds_out_the_pools(monkeypatch):
     monkeypatch.setattr(scc_graph, "_pools", {})
     before = executor_mod.device_budget("cuda:0")
     assert before == int(executor_mod.BUDGET_SHARE * 45 * gib)
-    for key, index, reserved, allocated in ((1, 0, 3 * gib, gib // 2),
-                                            (2, 1, 5 * gib, 0)):
-        pool = scc_graph._Pool(index)
+    me, other = threading.get_ident(), -1
+    for key, reserved, allocated in (((other, 0, 7), 3 * gib, gib // 2),
+                                     ((other, 1, 7), 5 * gib, 0),
+                                     ((me, 0, 7), 2 * gib, 0)):
+        pool = scc_graph._Pool(key[1])
         pool.reserved, pool.allocated, pool.entries = reserved, allocated, 1
         scc_graph._pools[key] = pool
-    assert scc_graph.idle_pool_bytes("cuda:0") == 3 * gib - gib // 2
+    assert scc_graph.idle_pool_bytes("cuda:0") == 5 * gib - gib // 2
+    assert scc_graph.idle_pool_bytes("cuda:0", own=False) == (
+        3 * gib - gib // 2)
+    assert scc_graph.own_idle_bytes("cuda:0") == 2 * gib
     assert executor_mod.device_budget("cuda:0") == int(
         executor_mod.BUDGET_SHARE * (45 * gib - 3 * gib + gib // 2))
     assert executor_mod.device_budget("cuda:0", 2) == int(
         executor_mod.BUDGET_SHARE * (45 * gib - 3 * gib + gib // 2) / 2)
     # never below the free bytes
-    scc_graph._pools[1].reserved = 100 * gib
+    scc_graph._pools[(other, 0, 7)].reserved = 100 * gib
     assert executor_mod.device_budget("cuda:0") == int(
         executor_mod.BUDGET_SHARE * 40 * gib)
 
@@ -514,7 +523,8 @@ def test_worker_handle_keeps_each_runs_budget_and_peak():
     the worker's peak in that run, and the peak over all runs."""
     handle = slot_worker.SlotWorker(0, "cpu")
     base = dict(launches=0, fermi_launches=0, density_launches=0,
-                sp2_calls=0, scc_captures=0, scc_hits=0, scc_eager=0,
+                window_launches=0, sp2_calls=0, scc_captures=0, scc_hits=0,
+                scc_eager=0, stage_captures=0, stage_hits=0, stage_eager=0,
                 scc_held_bytes=0, parts=1, modules=[], build_dir="")
     for run, budget, peak in ((1, 100, 60), (2, 80, 70), (2, 80, 75)):
         handle.record(dict(base, run=run, budget_bytes=budget,

@@ -7,15 +7,17 @@ after the other in this process (`SerialCut`), for the rigid water trimer
 MBE(2) gradient (`workloads.trimer_mbe2_fragments`, whose dimers have
 exactly degenerate cross-monomer spectra) and the w20 MBE(2) |g| in
 float64 and in float32 + the f64 polish. The deltas are measured once per
-solve of the Anderson step's window (`--solves`): torch's
-`torch.linalg.solve_ex` (library, what the engine calls), the same one
-fragment at a time (looped), or Gaussian elimination in elementwise
-batched ops, whose bits for a fragment do not depend on the batch
-(rowwise). A change that makes the port's results independent of the cut
-should bring every delta to 0 with the library solve.
+route of the Anderson step's window algebra (`--solves`): the window
+kernel, one block per fragment (kernel, what the engine runs on a card,
+`ops/anderson_window.py`); its plain torch version, batched products and
+`torch.linalg.solve_ex` (library, what the engine ran before the kernel);
+the same with the solve one fragment at a time (looped); or the kernel's
+order in elementwise batched ops (rowwise). Where a delta stays with the
+kernel, it comes from outside the window (the Fock build's batched
+products, ROADMAP C17).
 
 Usage: python3 tools/c17_probe_torch.py [--device cuda]
-           [--solves library,looped,rowwise] [--json-out F]
+           [--solves kernel,library,looped,rowwise] [--json-out F]
 It prints a line per solve and one JSON line.
 """
 
@@ -109,41 +111,43 @@ def looped_solve(G, rhs):
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
 
-def rowwise_solve(G, rhs):
-    """Gaussian elimination with partial pivoting in elementwise batched
-    ops, whose bits for a fragment do not depend on the batch."""
-    bsz, m = rhs.shape
-    A = torch.cat([G, rhs[..., None]], -1).clone()
-    rows = torch.arange(bsz, device=G.device)
-    for k in range(m):
-        p = k + A[:, k:, k].abs().argmax(-1)
-        row_k, row_p = A[:, k].clone(), A[rows, p].clone()
-        A[rows, p] = row_k
-        A[:, k] = row_p
-        f = A[:, k + 1 :, k] / A[:, k, k][:, None]
-        A[:, k + 1 :] = A[:, k + 1 :] - f[..., None] * A[:, k, None, :]
-    x = torch.zeros_like(rhs)
-    for k in reversed(range(m)):
-        acc = A[:, k, m] - (A[:, k, k + 1 : m] * x[:, k + 1 :]).sum(-1)
-        x[:, k] = acc / A[:, k, k]
-    return x, torch.zeros(bsz, dtype=torch.int32, device=G.device)
+def _plain(fn, solve=None):
+    """The engine's window op replaced by plain version `fn` (its
+    keywords as the wrapper's), its solve by `solve` where given."""
+    def window(*args, beta, reg, c_lim, scf_tol):
+        if solve is not None:
+            torch.linalg.solve_ex = solve
+        try:
+            return fn(*args, beta, reg, c_lim, scf_tol)
+        finally:
+            torch.linalg.solve_ex = _LIBRARY_SOLVE
+    return window
 
 
 _LIBRARY_SOLVE = torch.linalg.solve_ex
-SOLVES = {"library": _LIBRARY_SOLVE, "looped": looped_solve,
-          "rowwise": rowwise_solve}
+
+
+def _windows():
+    from metalquicha_tpu_torch.ops import anderson_window as aw
+
+    return {"kernel": aw.anderson_window,
+            "library": _plain(aw.anderson_window_reference),
+            "looped": _plain(aw.anderson_window_reference, looped_solve),
+            "rowwise": _plain(aw.anderson_window_rowwise)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--solves", default="library",
+    ap.add_argument("--solves", default="kernel",
                     help="comma-separated: the Anderson step's window "
-                         "solve for the deltas (library, looped, rowwise)")
+                         "algebra for the deltas (kernel, library, looped, "
+                         "rowwise)")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     from metalquicha_tpu_torch.logging_ import global_logger
     from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
+    from metalquicha_tpu_torch.methods.xtb import engine, scc_graph
 
     global_logger.set_level("warning")
     device = tcalc.check_device(args.device)
@@ -151,12 +155,16 @@ def main(argv=None) -> int:
     result = {"device": str(device)}
     if device.type == "cuda":
         result["card"] = torch.cuda.get_device_name(device)
+    windows, real = _windows(), engine.anderson_window
     for name in args.solves.split(","):
-        torch.linalg.solve_ex = SOLVES[name]
+        engine.anderson_window = windows[name]
+        # the graphs captured with another route's window are not replayed
+        scc_graph.clear()
         try:
             result[f"deltas_{name}"] = cut_deltas(device)
         finally:
-            torch.linalg.solve_ex = _LIBRARY_SOLVE
+            engine.anderson_window = real
+            scc_graph.clear()
         print(f"c17 cut deltas, solve {name}: {result[f'deltas_{name}']}",
               flush=True)
     line = json.dumps(result)

@@ -8,7 +8,10 @@ Two measurements, each printed as JSON lines:
               (`torch.cuda.max_memory_allocated` above what was allocated
               before the call, with the batch already on the device and
               the SCC graph cache emptied, divided by the batch size: the
-              call's own cache entry counts; the entries other chunks of
+              call's own cache entries count (its loop's and, where the
+              call runs as stages, the operand build's and the
+              functional's, each a miss: an eager run, then its capture);
+              the entries other chunks of
               a run keep are held by `executor.make_room`, not by the
               model), beside the executor's byte model
               (`parallel/executor.py` `fragment_bytes`) where the package

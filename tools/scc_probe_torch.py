@@ -46,15 +46,17 @@ float64 ("gfn2"):
   cached buffers and the state's reset; None before the cache); None
   where the package has no graph route;
 - `parts`: for one `XtbCalculator.energies` and one `.gradients` call on
-  the batch (32 SCC iterations, after a warm-up call, so the SCC replays
-  a cached graph where the package has one), the host ms and the stream
-  ms (CUDA events on the call's stream, idle gaps included) of its three
-  parts: `operands`, the SCC's operand build before the loop (from
-  `calculator._converge_charges`' start to `engine._anderson_solve`'s:
-  `_scc_operands`, `_ortho_factors` or `_jacobi_route`, the eigh status),
-  `loop`, the loop itself (`_anderson_solve`), and `functional`, the
-  rest of the call (the variational functional after the loop, and for a
-  gradient its backward pass).
+  the batch (32 SCC iterations, after a warm-up call, so the SCC and,
+  where the package has them, the call's other stages replay cached
+  graphs), the host ms and the stream ms (CUDA events on the call's
+  stream, idle gaps included) of its three parts: `operands`, from the
+  call's start to the loop's (`engine._anderson_solve`: `_scc_operands`,
+  the orthogonalizer, the eigh status), `loop`, the loop itself, and
+  `functional`, the rest of the call (the variational functional after
+  the loop, for a gradient its backward pass, and the status read); and,
+  where the call runs as stages (`scc_graph.Call`), `stages`: the host
+  and stream ms of each stage's own call (`operands` and `functional`: a
+  hit's copies, replay and clones) and of the call's `finish`.
 
 Usage: python3 tools/scc_probe_torch.py [--walls] [--json-out F]
 It prints one JSON line. It uses only the package's entry points, so it
@@ -229,9 +231,8 @@ def _graph_costs(solve, settings) -> dict:
 
 def _parts(call) -> dict:
     """Host and stream ms of call()'s operand build, SCC loop and
-    functional (the module docstring's `parts`)."""
-    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
-    from metalquicha_tpu_torch.methods.xtb import engine
+    functional, and of its stages (the module docstring's `parts`)."""
+    from metalquicha_tpu_torch.methods.xtb import engine, scc_graph
 
     marks = {}
 
@@ -248,9 +249,19 @@ def _parts(call) -> dict:
             return out
         return wrapper
 
-    converge, solve = tcalc._converge_charges, engine._anderson_solve
-    tcalc._converge_charges = around(converge, "solve_start", "solve_end")
+    staged = hasattr(scc_graph, "Call")
+    solve = engine._anderson_solve
     engine._anderson_solve = around(solve, "loop_start", "loop_end")
+    if staged:
+        stage, finish = scc_graph.Call.stage, scc_graph.Call.finish
+
+        def timed_stage(self, key, inputs, fn):
+            name = key[0]
+            return around(stage, f"{name}_start", f"{name}_end")(
+                self, key, inputs, fn)
+
+        scc_graph.Call.stage = timed_stage
+        scc_graph.Call.finish = around(finish, "finish_start", "finish_end")
     try:
         call()
         torch.cuda.synchronize()
@@ -259,17 +270,22 @@ def _parts(call) -> dict:
         mark("end")
         torch.cuda.synchronize()
     finally:
-        tcalc._converge_charges, engine._anderson_solve = converge, solve
+        engine._anderson_solve = solve
+        if staged:
+            scc_graph.Call.stage, scc_graph.Call.finish = stage, finish
 
     def span(a, b):
         (ta, ea), (tb, eb) = marks[a], marks[b]
         return [1e3 * (tb - ta), ea.elapsed_time(eb)]
 
-    head, tail = span("start", "solve_start"), span("loop_end", "end")
-    return {"operands": span("solve_start", "loop_start"),
-            "loop": span("loop_start", "loop_end"),
-            "functional": [head[0] + tail[0], head[1] + tail[1]],
-            "call": span("start", "end")}
+    out = {"operands": span("start", "loop_start"),
+           "loop": span("loop_start", "loop_end"),
+           "functional": span("loop_end", "end"),
+           "call": span("start", "end")}
+    if staged:
+        out["stages"] = {k: span(f"{k}_start", f"{k}_end")
+                         for k in ("operands", "functional", "finish")}
+    return out
 
 
 def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
