@@ -33,7 +33,8 @@ Phases (each raises on failure; nothing is caught):
              the fill and the product it replaces, the plain version and
              its bound (`fermi_density_bound`);
 1c. window:  the Anderson window kernel (csrc/anderson_window.cu, built
-             with the others) against its plain versions, the torch
+             with the others; a warp per fragment up to nx = 32, a block
+             above) against its plain versions, the torch
              algebra it replaces (`anderson_window_reference`: batched
              products and torch.linalg.solve_ex) and the kernel's order in
              elementwise ops (`anderson_window_rowwise`), at (B, nx) =
@@ -41,9 +42,25 @@ Phases (each raises on failure; nothing is caught):
              (5985, 24) (the w20 MBE(4) chunk), (64, 36) and (64, 186)
              (GFN1 and GFN2 water hexamers), m = 12, float64 (1e-12) and
              float32 (1e-5), the active flags equal; a fragment alone and
-             in its batch bit for bit equal; the kernel, the rowwise twin
-             (plain_ms) and the reference (library_ms) timed beside the
-             bound (`window_bound`);
+             in its batch bit for bit equal; the kernel (graph-replayed:
+             its device time; and launched one by one from Python, as
+             the phase timed it before), the rowwise twin (plain_ms) and the reference
+             (library_ms) timed beside the bound (`window_bound`);
+1d. gemm:    the batch-invariant product kernel (csrc/fragment_gemm.cu,
+             built with the others) against its plain versions (the
+             kernel's order in elementwise ops) and torch.matmul at (B, n)
+             = (512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+             (128, 64): the product with every transpose, the sandwich
+             x f x + s and the matvec with and without its transpose;
+             the rectangular products of D3's C6 contraction ((1, 5) by
+             (5, 5) per atom pair of a 73-atom Hessian chunk and of the
+             w20 dimers, and its backward's (5, 1) by (1, 5)) with every
+             transpose, and the contraction itself (`pair_bilinear`)
+             against the einsums it replaced; float64 (1e-13 of the
+             largest entry) and float32 (1e-5); a fragment alone and in
+             its batch bit for bit equal; the product and the sandwich,
+             the plain version and torch.matmul (library_ms) timed
+             graph-replayed beside the bound (`gemm_bound`);
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -96,9 +113,10 @@ Phases (each raises on failure; nothing is caught):
              launch), a hit's setup ms beside the miss's warm-up; one line
              `{"call_graph": ...}`;
 2d. c17:     ROADMAP C17 (`tools/c17_probe_torch.py`'s cut deltas): the
-             rigid trimer MBE(2) gradient and total from one batch and from
-             a two-slot cut must be equal bit for bit; the w20 MBE(2)
-             deltas are printed, not held; one line `{"c17": ...}`;
+             rigid trimer MBE(2) gradient and total, and the w20 MBE(2)
+             |g|, max |dg| and total in float64 and in float32 + polish,
+             from one batch and from a two-slot cut must be equal bit for
+             bit; one line `{"c17": ...}`;
 3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with use_pallas_eigh in
              float64 (the exact route, as the JAX package's: no Jacobi
@@ -259,8 +277,8 @@ before phases 3-13; every one of phases 3-13 but the mesh must capture an
 SCC graph and none may run an SCC on the card launch by launch, nor any
 stage of a calculator's call (the mesh's workers report theirs, each must
 have captured, and run no stage launch by launch); every one of phases
-3-13 must launch the Anderson window kernel (the workers' launches
-added); the Jacobi
+3-13 must launch the Anderson window kernel and the fragment product
+kernel (the workers' launches added); the Jacobi
 kernel's must grow in phases 3-6 (5b too), 9, 10
 and 13, each from its float32 pass (a float64 SCC takes the exact route,
 as the JAX package's) or, in 13, its timing of the kernel alone, and
@@ -439,6 +457,30 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls captured in one CUDA graph
+    and replayed, after a warm-up call and a warm-up replay: the kernels'
+    own time, with no host time between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -899,6 +941,7 @@ def scc_graph_phase(be):
         BornSolvation,
     )
     from metalquicha_tpu_torch.ops import fermi_fill as ff
+    from metalquicha_tpu_torch.ops import fragment_gemm as fm
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
     from metalquicha_tpu_torch.ops import sp2
     from metalquicha_tpu_torch.workloads import bench_dimers
@@ -942,7 +985,7 @@ def scc_graph_phase(be):
 
     def launches():
         return (ff.launches, ff.density_launches, jac.launches, sp2.calls,
-                be.launches)
+                be.launches, fm.launches)
 
     steps = [0]
     real_step = engine._anderson_step
@@ -1206,20 +1249,221 @@ def window_phase(aw):
                              ("plain", plain(aw.anderson_window_rowwise))):
                 times[name] = cuda_ms(lambda f=fn: f(*work, **kw),
                                       3 if name == "plain" else 20)
-            ms = min(times["kernel"], times["kernel2"])
+            eager = min(times["kernel"], times["kernel2"])
+            ms = graph_ms(lambda: aw.anderson_window(*work, **kw), 20)
             bound_ms, bound_by = window_bound(bsz, nx, dtype)
             print(f"anderson window {tag} (B, nx, m)=({bsz}, {nx}, "
                   f"{WINDOW_M}): max err={err:.3e} kernel ms={ms:.4f} "
+                  f"(graph-replayed; launched one by one from Python "
+                  f"{eager:.4f}) "
                   f"rowwise ms={times['plain']:.4f} library (batched "
                   f"products + solve_ex) ms={times['library']:.4f} bound "
                   f"ms={bound_ms:.6f} ({bound_by}, {100 * bound_ms / ms:.2f}%"
                   f" of it)", flush=True)
             if entry is None:
-                entry = {"max_abs_err": err, "ms": ms,
+                entry = {"max_abs_err": err, "ms": ms, "eager_ms": eager,
                          "plain_ms": times["plain"], "bound_ms": bound_ms,
                          "bound_by": bound_by,
                          "library_ms": times["library"]}
     return entry
+
+
+# the batch-invariant product kernel: (B fragments, n) at the main path's
+# shapes: the dimer slice, the w20 MBE(2) buckets, the w20 MBE(4) gradient
+# and energy chunks, the largest fragments it takes
+GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+               (128, 64))
+GEMM_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+# rectangular products (B, m, k, n) on the main path: D3's C6 contraction,
+# a (1, R) by (R, R) product per atom pair, for a 73-atom Hessian chunk
+# (41 x 73 x 73 pairs) and the w20 MBE(2) dimers (190 x 6 x 6), and the
+# (R, 1) by (1, R) form of its backward pass
+GEMM_RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5),
+             (190 * 36, 5, 1, 5))
+# (B, nat) of D3's pair contraction (`pair_bilinear`) on the main path
+PAIR_SHAPES = ((41, 73), (190, 6))
+
+
+def gemm_bound(bsz: int, n: int, dtype, sandwich: bool = False):
+    """(bound_ms, bound_by) of a batch of (n, n) products: 2 n^3
+    operations a product at PEAK_FLOPS (FP64 on the tensor cores, FP32
+    outside them), or the operands read and the result written once (3 n^2
+    elements), at the memory rate; the sandwich two products and an add
+    over 4 n^2 elements (x, f and the shift read, the result written)."""
+    k = 2 if sandwich else 1
+    flop = bsz * (k * 2 * n**3 + (n * n if sandwich else 0))
+    nbytes = bsz * (k + 2) * n * n * torch.finfo(dtype).bits // 8
+    return _bound({"operations": flop / PEAK_FLOPS[dtype],
+                   "bytes": nbytes / PEAK_BYTES})
+
+
+def _rel_err(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def gemm_phase(fm):
+    """The batch-invariant product kernel (csrc/fragment_gemm.cu) against
+    its plain versions (the kernel's order in elementwise ops,
+    `fragment_bmm_reference` / `matvec_reference`) and torch.matmul at the
+    main path's shapes: the product with every transpose, the sandwich
+    x f x + s and the matvec, max err relative to the largest entry within
+    GEMM_TOL; a fragment's bits the same alone and in its batch; times of
+    the kernel, the plain version and torch.matmul (library_ms: cuBLAS's
+    batched product, which the engine ran before) beside the bound.
+    Returns the kernels line's entry (the (512, 16) float64 product, the
+    sandwich's numbers beside it)."""
+    rng = np.random.default_rng(15)
+    entry = None
+    for dtype in (torch.float64, torch.float32):
+        for bsz, n in GEMM_SHAPES:
+            a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
+                                    dtype=dtype, device=DEVICE)
+                       for _ in range(3))
+            err = 0.0
+            for ta, tb in ((False, False), (True, False), (False, True),
+                           (True, True)):
+                n0 = fm.launches
+                got = fm.fragment_bmm(a, b, ta, tb)
+                torch.cuda.synchronize()
+                check(fm.launches == n0 + 1, "the product kernel did not "
+                      "count its launch")
+                ref = torch.matmul(a.mT if ta else a, b.mT if tb else b)
+                err = max(err, _rel_err(got, ref), _rel_err(
+                    got, fm.fragment_bmm_reference(a, b, ta, tb)))
+            sw = fm.sandwich(a, b, s)
+            err = max(err, _rel_err(sw, a @ b @ a + s), _rel_err(
+                sw, fm.fragment_bmm_reference(
+                    fm.fragment_bmm_reference(a, b), a) + s))
+            mv = fm.fragment_matvec(a, b[:, 0])
+            err = max(err, _rel_err(mv, (a @ b[:, 0, :, None])[..., 0]),
+                      _rel_err(mv, fm.matvec_reference(a, b[:, 0])))
+            # the transposed matvec of the Coulomb term's backward pass
+            mvt = fm.fragment_matvec(a, b[:, 0], True)
+            err = max(err, _rel_err(mvt, (a.mT @ b[:, 0, :, None])[..., 0]),
+                      _rel_err(mvt, fm.matvec_reference(a, b[:, 0], True)))
+            tag = "f64" if dtype == torch.float64 else "f32"
+            check(err <= GEMM_TOL[dtype], f"fragment products {tag} ({bsz}, "
+                  f"{n}): max err {err:.3e} > {GEMM_TOL[dtype]:.0e}")
+            # a fragment alone, and the batch's last and first: the same bits
+            whole = (fm.fragment_bmm(a, b, False, True), sw, mv, mvt)
+            for rows in ([0], [bsz - 1, 0]):
+                idx = torch.tensor(rows, device=DEVICE)
+                a1, b1, s1 = (t.index_select(0, idx) for t in (a, b, s))
+                part = (fm.fragment_bmm(a1, b1, False, True),
+                        fm.sandwich(a1, b1, s1),
+                        fm.fragment_matvec(a1, b1[:, 0]),
+                        fm.fragment_matvec(a1, b1[:, 0], True))
+                check(all(torch.equal(p, w.index_select(0, idx))
+                          for p, w in zip(part, whole)),
+                      f"fragment products ({bsz}, {n}): a fragment's bits "
+                      f"depend on its batch")
+            # graph-replayed: each call's own device time (the wrapper's
+            # host time, longer than these kernels, left out); in turns
+            times = {}
+            for name, fn in (
+                    ("library", lambda: torch.matmul(a, b.mT)),
+                    ("kernel", lambda: fm.fragment_bmm(a, b, False, True)),
+                    ("kernel2", lambda: fm.fragment_bmm(a, b, False, True)),
+                    ("plain", lambda: fm.fragment_bmm_reference(
+                        a, b, False, True)),
+                    ("sw_library", lambda: a @ b @ a + s),
+                    ("sw_kernel", lambda: fm.sandwich(a, b, s)),
+                    ("sw_kernel2", lambda: fm.sandwich(a, b, s))):
+                times[name] = graph_ms(fn, 3 if name == "plain" else 20)
+            ms = min(times["kernel"], times["kernel2"])
+            sw_ms = min(times["sw_kernel"], times["sw_kernel2"])
+            bound_ms, bound_by = gemm_bound(bsz, n, dtype)
+            sw_bound, _ = gemm_bound(bsz, n, dtype, sandwich=True)
+            print(f"fragment products {tag} (B, n)=({bsz}, {n}): max err="
+                  f"{err:.3e} product ms={ms:.4f} plain ms="
+                  f"{times['plain']:.4f} torch.matmul ms="
+                  f"{times['library']:.4f} bound ms={bound_ms:.6f} "
+                  f"({bound_by}, {100 * bound_ms / ms:.2f}% of it); "
+                  f"sandwich ms={sw_ms:.4f} torch ms="
+                  f"{times['sw_library']:.4f} bound ms={sw_bound:.6f}",
+                  flush=True)
+            if entry is None:
+                entry = {"max_abs_err": err, "ms": ms,
+                         "plain_ms": times["plain"], "bound_ms": bound_ms,
+                         "bound_by": bound_by,
+                         "library_ms": times["library"],
+                         "sandwich_ms": sw_ms,
+                         "sandwich_library_ms": times["sw_library"],
+                         "sandwich_bound_ms": sw_bound}
+        rect_phase(fm, rng, dtype)
+    return entry
+
+
+def rect_phase(fm, rng, dtype):
+    """The product kernel's rectangular forms on the main path (GEMM_RECT,
+    every transpose) against both plain versions, and D3's pair
+    contraction (`pair_bilinear`, PAIR_SHAPES) against the einsums it
+    replaced and the kernel's order: errors within GEMM_TOL, a fragment's
+    bits the same alone and in its batch; times beside torch's."""
+    tag = "f64" if dtype == torch.float64 else "f32"
+    tol = GEMM_TOL[dtype]
+    for bsz, m, k, n in GEMM_RECT:
+        err, times = 0.0, {}
+        for ta, tb in ((False, False), (True, False), (False, True),
+                       (True, True)):
+            a = torch.tensor(rng.standard_normal(
+                (bsz, *((k, m) if ta else (m, k)))), dtype=dtype,
+                device=DEVICE)
+            b = torch.tensor(rng.standard_normal(
+                (bsz, *((n, k) if tb else (k, n)))), dtype=dtype,
+                device=DEVICE)
+            got = fm.fragment_bmm(a, b, ta, tb)
+            check(tuple(got.shape) == (bsz, m, n),
+                  f"fragment product shape {tuple(got.shape)}")
+            ref = torch.matmul(a.mT if ta else a, b.mT if tb else b)
+            err = max(err, _rel_err(got, ref), _rel_err(
+                got, fm.fragment_bmm_reference(a, b, ta, tb)))
+            for rows in ([0], [bsz - 1, 0]):
+                idx = torch.tensor(rows, device=DEVICE)
+                part = fm.fragment_bmm(a.index_select(0, idx),
+                                       b.index_select(0, idx), ta, tb)
+                check(torch.equal(part, got.index_select(0, idx)),
+                      f"fragment products ({bsz}, {m}, {k}, {n}): a "
+                      f"fragment's bits depend on its batch")
+            if not (ta or tb):
+                times["kernel"] = graph_ms(
+                    lambda: fm.fragment_bmm(a, b), 20)
+                times["library"] = graph_ms(lambda: torch.matmul(a, b), 20)
+        check(err <= tol, f"fragment products {tag} ({bsz}, {m}, {k}, {n}): "
+              f"max err {err:.3e} > {tol:.0e}")
+        print(f"fragment products {tag} (B, m, k, n)=({bsz}, {m}, {k}, {n}),"
+              f" every transpose: max err={err:.3e} product ms="
+              f"{times['kernel']:.4f} torch.matmul ms="
+              f"{times['library']:.4f}", flush=True)
+    for bsz, nat in PAIR_SHAPES:
+        w = torch.tensor(rng.random((bsz, nat, 5)), dtype=dtype,
+                         device=DEVICE)
+        w = w / w.sum(-1, keepdim=True)
+        grids = torch.tensor(rng.random((bsz, nat, nat, 5, 5)) * 40.0,
+                             dtype=dtype, device=DEVICE)
+        got = fm.pair_bilinear(w, grids)
+
+        def einsums():
+            v = torch.einsum("bia,bijac->bijc", w, grids)
+            return torch.einsum("bijc,bjc->bij", v, w)
+
+        rows = w[:, :, None, None, :].expand(-1, -1, nat, 1, -1)
+        plain = (fm.fragment_bmm_reference(rows, grids)[..., 0, :]
+                 * w[:, None, :, :]).sum(-1)
+        err = max(_rel_err(got, einsums()), _rel_err(got, plain))
+        check(err <= tol, f"pair_bilinear {tag} ({bsz}, {nat}): max err "
+              f"{err:.3e} > {tol:.0e}")
+        for idx in ([0], [bsz - 1, 0]):
+            idx = torch.tensor(idx, device=DEVICE)
+            part = fm.pair_bilinear(w.index_select(0, idx),
+                                    grids.index_select(0, idx))
+            check(torch.equal(part, got.index_select(0, idx)),
+                  f"pair_bilinear ({bsz}, {nat}): a fragment's bits depend "
+                  f"on its batch")
+        ms = graph_ms(lambda: fm.pair_bilinear(w, grids), 20)
+        lib = graph_ms(einsums, 20)
+        print(f"pair_bilinear {tag} (B, nat)=({bsz}, {nat}): max err="
+              f"{err:.3e} ms={ms:.4f} torch.einsum ms={lib:.4f}", flush=True)
 
 
 def call_graph_phase():
@@ -1348,16 +1592,18 @@ def call_graph_phase():
 
 
 def c17_check():
-    """ROADMAP C17: the rigid trimer MBE(2) gradient and total from one
-    batch and from a two-slot cut, equal bit for bit (the window solve no
-    longer depends on the batch); the w20 MBE(2) deltas printed."""
+    """ROADMAP C17: the rigid trimer MBE(2) gradient and total, and the
+    w20 MBE(2) |g|, max |dg| and total in float64 and in float32 + the f64
+    polish, from one batch and from a two-slot cut, equal bit for bit: the
+    window solve, every GFN1 product up to 64 AOs and D3's C6 contraction
+    (`ops/fragment_gemm.py`) no longer depend on the batch."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from c17_probe_torch import cut_deltas
 
     deltas = cut_deltas(torch.device(DEVICE))
     print(f"c17 cut deltas: {deltas}", flush=True)
-    check(deltas["trimer_max_dG"] == 0.0 and deltas["trimer_d_total"] == 0.0,
-          f"C17: the trimer's gradient depends on the cut: {deltas}")
+    check(all(v == 0.0 for v in deltas.values()),
+          f"C17: a fragment's gradient depends on the cut: {deltas}")
     return deltas
 
 
@@ -2283,16 +2529,17 @@ def mesh_phase(jac, golden):
               f"{w.scc_captures} captured, {w.scc_hits} cache hits, eager "
               f"SCCs {w.scc_eager}; call stages {w.stage_captures} "
               f"captured, {w.stage_hits} hits, {w.stage_eager} launch by "
-              f"launch; {w.window_launches} Anderson window launches",
-              flush=True)
+              f"launch; {w.window_launches} Anderson window launches, "
+              f"{w.gemm_launches} fragment product launches", flush=True)
         check(w.scc_captures + w.scc_hits > 0 and w.scc_eager == 0,
               f"worker slot {w.index}: {w.scc_captures} SCC graphs, "
               f"{w.scc_hits} hits and {w.scc_eager} SCCs launch by launch")
         check(w.stage_captures + w.stage_hits > 0 and w.stage_eager == 0
-              and w.window_launches > 0,
+              and w.window_launches > 0 and w.gemm_launches > 0,
               f"worker slot {w.index}: {w.stage_captures} stage graphs, "
               f"{w.stage_hits} hits, {w.stage_eager} stages launch by "
-              f"launch, {w.window_launches} window launches")
+              f"launch, {w.window_launches} window launches, "
+              f"{w.gemm_launches} fragment product launches")
     check(min(per_worker) > 0,
           f"a worker launched no Fermi kernel: {per_worker}")
     for w in workers:
@@ -2751,6 +2998,7 @@ def main() -> int:
     from metalquicha_tpu_torch.ops import anderson_window as aw
     from metalquicha_tpu_torch.ops import batched_eigh as be
     from metalquicha_tpu_torch.ops import fermi_fill as ff
+    from metalquicha_tpu_torch.ops import fragment_gemm as fm
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
     from metalquicha_tpu_torch.ops import sp2
 
@@ -2780,7 +3028,8 @@ def main() -> int:
 
     threads = [threading.Thread(target=build, args=item)
                for item in (("jacobi_eigh", jac), ("fermi_fill", ff),
-                            ("anderson_window", aw), ("batched_eigh", be))]
+                            ("anderson_window", aw), ("fragment_gemm", fm),
+                            ("batched_eigh", be))]
     for t in threads:
         t.start()
     for t in threads:
@@ -2808,6 +3057,11 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
+    gemm_entry = gemm_phase(fm)
+    print(f"phase fragment products: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
     sp2_phase(rng)
     print(f"phase sp2: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -2829,6 +3083,7 @@ def main() -> int:
     jac.launches = 0
     ff.launches = ff.density_launches = 0
     aw.launches = 0
+    fm.launches = 0
     sp2.calls = 0
     be.launches = 0
     scc_graph.stats.update(captures=0, replays=0, eager=0, hits=0,
@@ -2836,7 +3091,7 @@ def main() -> int:
                            stage_hits=0, stage_eager=0)
     scc_graph.reuse.clear()
     phases, fermi, density, captures, hits, reuse = {}, {}, {}, {}, {}, {}
-    windows, stages = {}, {}
+    windows, stages, gemms = {}, {}, {}
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
@@ -2853,7 +3108,7 @@ def main() -> int:
                            ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
         f0, d0 = ff.launches, ff.density_launches
-        w0 = aw.launches
+        w0, m0 = aw.launches, fm.launches
         s0 = (scc_graph.stats["stage_captures"], scc_graph.stats["stage_hits"])
         g0, h0 = scc_graph.stats["captures"], scc_graph.stats["hits"]
         u0 = collections.Counter(scc_graph.reuse)
@@ -2864,11 +3119,13 @@ def main() -> int:
         hits[name] = scc_graph.stats["hits"] - h0
         reuse[name] = reuse_line(scc_graph.reuse - u0)
         windows[name] = aw.launches - w0
+        gemms[name] = fm.launches - m0
         stages[name] = (scc_graph.stats["stage_captures"] - s0[0],
                         scc_graph.stats["stage_hits"] - s0[1])
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s, "
               f"{fermi[name]} Fermi launches, {windows[name]} Anderson "
-              f"window launches, call stages {stages[name][0]} captured, "
+              f"window launches, {gemms[name]} fragment product launches, "
+              f"call stages {stages[name][0]} captured, "
               f"{stages[name][1]} hits, SCC graphs {captures[name]} "
               f"captured, {hits[name]} cache hits, the cache holding "
               f"{scc_graph.stats['held_bytes'] / 2**30:.3f} GiB; reuse "
@@ -2882,6 +3139,8 @@ def main() -> int:
               f"the {name} phase ran an SCC on the card launch by launch")
         check(windows[name] > 0,
               f"the {name} phase launched no Anderson window kernel")
+        check(gemms[name] > 0,
+              f"the {name} phase launched no fragment product kernel")
         check(scc_graph.stats["stage_eager"] == 0,
               f"the {name} phase ran a calculator's stage launch by launch")
     launches = jac.launches
@@ -2893,6 +3152,8 @@ def main() -> int:
           f"sp2 calls={sp2.calls}", flush=True)
     print(f"main path: fermi launches={ff.launches} {fermi}", flush=True)
     print(f"main path: anderson window launches={aw.launches} {windows}",
+          flush=True)
+    print(f"main path: fragment product launches={fm.launches} {gemms}",
           flush=True)
     print(f"main path: call stages (captured, hits)={stages}", flush=True)
     print(f"main path: fused fill and density launches (among the fermi "
@@ -2953,6 +3214,13 @@ def main() -> int:
         "replaces": "metalquicha_tpu/methods/xtb/engine.py:808",
         "launches": aw.launches,
         **window_entry,
+    }, {
+        "name": "fragment_gemm",
+        "route": "cuda",
+        "source": "metalquicha_tpu_torch/csrc/fragment_gemm.cu",
+        "replaces": "metalquicha_tpu/methods/xtb/engine.py:443",
+        "launches": fm.launches,
+        **gemm_entry,
     }]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

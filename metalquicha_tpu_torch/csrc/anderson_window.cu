@@ -1,4 +1,5 @@
-// The Anderson window step of the SCC loop, one fragment per block.
+// The Anderson window step of the SCC loop: a warp per fragment at small
+// nx, a block per fragment above.
 //
 // Replaces, in metalquicha_tpu/methods/xtb/engine.py, the window algebra
 // of the SCC's Anderson step (:808-842, GFN2's :614-641): everything after
@@ -18,7 +19,7 @@
 //   dX_j = valid_j ? hx_j - hx_prev : 0, dF_j likewise,
 //   G = dF dF^T + (reg tr(dF dF^T) / m + 1e-30) I, rhs = dF f,
 //   c = G^-1 rhs (Gaussian elimination with partial pivoting),
-//   x_and = x + beta f - c^T (dX + beta dF), x_damped = x + beta f,
+//   x_and = x + beta f - sum_j c_j (dX_j + beta dF_j), x_damped = x + beta f,
 //   bad = it < 1 or a non-finite x_and or max |c| > c_lim,
 //   x_next = bad ? x_damped : x_and,
 // and, for a fragment still active (every fragment at it = 0), x = x_next
@@ -27,33 +28,43 @@
 // a value that the others read.
 //
 // What bounds it. Per fragment, (m(m+1)/2 + m) dot products of length nx
-// (2 FLOP per element), the (m, m) elimination (m^3 / 3 multiply-adds,
-// one warp, a chain of m pivot steps) and the step (2 m FLOP per element);
-// the bytes are the two windows read (2 m nx elements), x and f read, x
-// and the new window slots written. At the main path's shapes (m = 12, nx
-// = 12-400) both bounds are a few microseconds for the whole batch, and
-// the launch is bound by the latency of each block's chain: the dot
-// products' shuffle trees, the elimination's 12 dependent pivot steps and
-// the block barriers between the phases.
+// (2 FLOP per element), the (m, m) elimination (m^3 / 3 multiply-adds, a
+// chain of m pivot steps) and the step (2 m FLOP per element); the bytes
+// are the two windows read (2 m nx elements), x and f read, x and the new
+// window slots written. At the main path's shapes (m = 12, nx = 12-400)
+// both bounds are a few microseconds for the whole batch, and every
+// fragment's work is resident at once: the launch is bound by the latency
+// of one fragment's chain of dependent steps.
 //
 // What the design does about it, and for the bits:
-// - One block of 128 threads per fragment; a fragment's arithmetic is the
-//   same whatever the batch or the fragment's place in it, so its bits do
-//   not depend on either (what C17 asks of the window).
-// - The dot products: one warp per product, its lanes striding over nx
-//   with fused multiply-adds in a fixed order, summed by a fixed
-//   __shfl_xor_sync butterfly (every lane ends with the same bits). The
-//   window is read through L1; the slot just written is read from the
-//   caller's x and f.
-// - G and rhs go to shared memory as one augmented (m, m + 1) matrix. One
-//   warp eliminates, a lane per row: the pivot is the first index of the
-//   largest |.| (a NaN counts as the largest), as LAPACK's i?amax and
-//   torch.argmax pick it; the row update is a - f b rounded twice (no
-//   contraction into an FMA), as the elementwise plain twin computes it
-//   (`anderson_window_rowwise`). m <= 32.
-// - The step and the update are elementwise, rounded as the plain version
-//   rounds x + beta f (no FMA); `bad` and the residual are block
-//   reductions.
+// - The window is staged in shared memory once: dF_j and dS_j = dX_j +
+//   beta dF_j for the m rows (2 m nx elements) and f, so no product
+//   re-derives a difference from device memory. Where 2 m nx does not fit
+//   (nx above about 1000 at m = 12 in f64) the products stream nx in
+//   tiles of dF, and the step forms dS_j from the window again, with the
+//   same arithmetic.
+// - nx <= 32 (GFN1's dimers and tetramers): a warp per fragment, four
+//   fragments a 128-thread block, no block barrier. G and rhs a lane per
+//   entry: a dot product in ascending order from shared memory, with no
+//   shuffle tree. Above, a block per fragment: a warp per dot product, its
+//   lanes striding over nx in a fixed order and summed by a fixed
+//   __shfl_xor_sync butterfly, four products in flight per warp.
+// - The elimination in registers of one warp (m <= 16): lane i holds row
+//   i of [G | rhs]; the pivot is the first index of the largest |.| (a NaN
+//   counts as the largest), as LAPACK's i?amax and torch.argmax pick it,
+//   found by a butterfly; rows are swapped by relabelling the lanes, the
+//   pivot row is broadcast by shuffles, the update is a - f b rounded
+//   twice (no contraction into an FMA), and the back substitution
+//   broadcasts each coefficient by a shuffle: the arithmetic of the
+//   elementwise plain twin (`anderson_window_rowwise`). For 16 < m <= 32
+//   the same arithmetic on the rows in shared memory (a register row
+//   unrolled to 32 would take nvcc half a minute).
+// - The step is formed once, sum_j c_j dS_j rounded twice per term in
+//   ascending j as the twin rounds it; x_and is written, and rewritten
+//   with the damped step (from the new window slot, which holds the state
+//   read) only if a value was not finite.
+// Every fragment's arithmetic depends on (m, nx) alone, not on the batch
+// or the fragment's place in it (what C17 asks of the window).
 //
 // The kernel launches on the caller's stream, allocates nothing, and the
 // C entry points return cudaGetLastError() after the launch.
@@ -68,6 +79,21 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxM = 32;
 constexpr unsigned kFull = 0xffffffffu;
+// a warp per fragment up to this nx, a block above
+constexpr int kSmallNx = 32;
+// the dynamic shared memory a block stages its window in
+constexpr size_t kStageBytes = 200 * 1024;
+constexpr size_t kStaticSmem = 48 * 1024;
+// dot products in flight per warp at large nx
+constexpr int kInFlight = 4;
+// the largest m whose solve runs in registers (a lane per row, the row
+// unrolled); above it the rows stay in shared memory. Every caller in the
+// repo runs broyden_memory = 12, but the window is a setting a user may
+// raise (settings_from_params(broyden_memory=...)), and the wrapper's
+// contract since the first window kernel is m <= MAX_M = 32: the shared
+// memory solve keeps m in (16, 32] on the kernel (no plain-torch path on
+// a card) without the register row's compile time.
+constexpr int kRegM = 16;
 
 // correctly rounded arithmetic that the compiler may not contract
 __device__ __forceinline__ double add(double a, double b) {
@@ -133,13 +159,36 @@ __device__ __forceinline__ bool better(T v, int i, T w, int j) {
   return v > w;
 }
 
+// the lane whose flag is set (exactly one)
+__device__ __forceinline__ int lane_of(bool flag) {
+  return __ffs(__ballot_sync(kFull, flag)) - 1;
+}
+
+// product p of G's upper triangle (row by row) and then of rhs: (j, k),
+// k = -1 for rhs_j
+__device__ __forceinline__ void entry(int p, int m, int* j, int* k) {
+  const int n_g = m * (m + 1) / 2;
+  if (p >= n_g) {
+    *j = p - n_g;
+    *k = -1;
+    return;
+  }
+  int r = 0, q = p;
+  while (q >= m - r) {
+    q -= m - r;
+    ++r;
+  }
+  *j = r;
+  *k = r + q;
+}
+
 template <typename T>
 struct Window {
   const T* hx;  // the fragment's (m, nx) windows
   const T* hf;
   const T* x;   // its state and residual vector
   const T* f;
-  int slot, prev, m, nx;
+  int slot, prev, nx;
   long long it;
 
   __device__ bool valid(int j) const { return j <= it && j != prev; }
@@ -150,174 +199,422 @@ struct Window {
   __device__ T wf(int j, int e) const {
     return j == slot ? f[e] : hf[static_cast<long long>(j) * nx + e];
   }
-  __device__ T dX(int j, int e) const {
-    return valid(j) ? sub(wx(j, e), wx(prev, e)) : T(0);
-  }
-  __device__ T dF(int j, int e) const {
-    return valid(j) ? sub(wf(j, e), wf(prev, e)) : T(0);
+  // dF_j and dS_j = dX_j + beta dF_j at e for j < m, into dF[j * ld]
+  // and (where dS is given) dS[j * ld]: the window entries loaded kRegM
+  // rows at a time before any is used
+  __device__ void stage(int e, int m, T beta, T* dF, T* dS, int ld) const {
+    const T xp = wx(prev, e), fp = wf(prev, e);
+    for (int j0 = 0; j0 < m; j0 += kRegM) {
+      T vx[kRegM], vf[kRegM];
+#pragma unroll
+      for (int u = 0; u < kRegM; ++u) {
+        if (j0 + u < m) {
+          vx[u] = wx(j0 + u, e);
+          vf[u] = wf(j0 + u, e);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRegM; ++u) {
+        const int j = j0 + u;
+        if (j < m) {
+          const bool v = valid(j);
+          const T d_f = v ? sub(vf[u], fp) : T(0);
+          const T d_x = v ? sub(vx[u], xp) : T(0);
+          dF[j * ld] = d_f;
+          if (dS != nullptr) dS[j * ld] = add(d_x, mul(beta, d_f));
+        }
+      }
+    }
   }
 };
 
+// Solve (G + shift I) c = rhs for the [G | rhs] rows in shared memory (row
+// stride ld) in the registers of one warp (called by all its lanes), m <=
+// kRegM; c to cs in shared memory.
+template <typename T>
+__device__ __forceinline__ void solve_registers(const T* aug, int ld, int m,
+                                                T reg, T* cs) {
+  const int lane = threadIdx.x % kWarp;
+  T row[kRegM];
+  T rhs = T(0);
+#pragma unroll
+  for (int q = 0; q < kRegM; ++q)
+    row[q] = (lane < m && q < m) ? aug[lane * ld + q] : T(0);
+  if (lane < m) rhs = aug[lane * ld + m];
+
+  // the regularizer: the trace summed in ascending order
+  T diag = T(0);
+#pragma unroll
+  for (int q = 0; q < kRegM; ++q)
+    if (q == lane) diag = row[q];
+  T tr = T(0);
+  for (int j = 0; j < m; ++j) tr = add(tr, __shfl_sync(kFull, diag, j));
+  const T shift = add(dvd(mul(reg, tr), T(m)), T(1e-30));
+#pragma unroll
+  for (int q = 0; q < kRegM; ++q)
+    if (q == lane && q < m) row[q] = add(row[q], shift);
+
+  // the elimination: lane `lane` holds logical row L
+  int L = lane;
+#pragma unroll
+  for (int k = 0; k < kRegM; ++k) {
+    if (k >= m) break;
+    T v = T(-1);
+    int i = kMaxM;
+    if (L >= k && L < m) {
+      v = fabs(row[k]);
+      i = L;
+    }
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) {
+      const T v2 = __shfl_xor_sync(kFull, v, o);
+      const int i2 = __shfl_xor_sync(kFull, i, o);
+      if (better(v2, i2, v, i)) {
+        v = v2;
+        i = i2;
+      }
+    }
+    // swap logical rows k and i: relabel the two lanes
+    const int pl = lane_of(L == i);
+    const int kl = lane_of(L == k);
+    if (lane == kl) L = i;
+    if (lane == pl) L = k;
+    const bool upd = L > k && L < m;
+    const T piv = dvd(row[k], __shfl_sync(kFull, row[k], pl));
+#pragma unroll
+    for (int q = k + 1; q < kRegM; ++q) {
+      if (q < m) {
+        const T b = __shfl_sync(kFull, row[q], pl);
+        if (upd) row[q] = sub(row[q], mul(piv, b));
+      }
+    }
+    const T b = __shfl_sync(kFull, rhs, pl);
+    if (upd) rhs = sub(rhs, mul(piv, b));
+  }
+
+  // the back substitution, each coefficient from the lane of its row
+  T c[kRegM];
+#pragma unroll
+  for (int k = kRegM - 1; k >= 0; --k) {
+    c[k] = T(0);
+    if (k < m) {
+      T acc = T(0);
+#pragma unroll
+      for (int q = k + 1; q < kRegM; ++q)
+        if (q < m) acc = add(acc, mul(row[q], c[q]));
+      const T val = dvd(sub(rhs, acc), row[k]);
+      c[k] = __shfl_sync(kFull, val, lane_of(L == k));
+      if (lane == 0) cs[k] = c[k];
+    }
+  }
+  __syncwarp();
+}
+
+// The same solve, m in (kRegM, 32], on the rows in shared memory, a lane
+// per row, the rows swapped in place; the same arithmetic (and bits).
+template <typename T>
+__device__ __forceinline__ void solve_shared(T* aug, int ld, int m, T reg,
+                                             T* cs) {
+  const int lane = threadIdx.x % kWarp;
+  if (lane == 0) {
+    T tr = T(0);
+    for (int j = 0; j < m; ++j) tr = add(tr, aug[j * ld + j]);
+    const T shift = add(dvd(mul(reg, tr), T(m)), T(1e-30));
+    for (int j = 0; j < m; ++j) aug[j * ld + j] = add(aug[j * ld + j], shift);
+  }
+  __syncwarp();
+  for (int k = 0; k < m; ++k) {
+    T v = T(-1);
+    int i = kMaxM;
+    if (lane >= k && lane < m) {
+      v = fabs(aug[lane * ld + k]);
+      i = lane;
+    }
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) {
+      const T v2 = __shfl_xor_sync(kFull, v, o);
+      const int i2 = __shfl_xor_sync(kFull, i, o);
+      if (better(v2, i2, v, i)) {
+        v = v2;
+        i = i2;
+      }
+    }
+    if (i != k) {
+      for (int col = lane; col <= m; col += kWarp) {
+        const T t = aug[k * ld + col];
+        aug[k * ld + col] = aug[i * ld + col];
+        aug[i * ld + col] = t;
+      }
+    }
+    __syncwarp();
+    if (lane > k && lane < m) {
+      const T piv = dvd(aug[lane * ld + k], aug[k * ld + k]);
+      for (int col = k + 1; col <= m; ++col)
+        aug[lane * ld + col] =
+            sub(aug[lane * ld + col], mul(piv, aug[k * ld + col]));
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    for (int k = m - 1; k >= 0; --k) {
+      T acc = T(0);
+      for (int j = k + 1; j < m; ++j)
+        acc = add(acc, mul(aug[k * ld + j], cs[j]));
+      cs[k] = dvd(sub(aug[k * ld + m], acc), aug[k * ld + k]);
+    }
+  }
+  __syncwarp();
+}
+
+// c (in cs) of the fragment's window, by one warp
+template <typename T>
+__device__ __forceinline__ void solve(T* aug, int ld, int m, T reg, T* cs) {
+  if (m <= kRegM) {
+    solve_registers(aug, ld, m, reg, cs);
+  } else {
+    solve_shared(aug, ld, m, reg, cs);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T max_abs(const T* c, int m) {
+  T cmax = T(0);
+  for (int j = 0; j < m; ++j) cmax = max_nan(cmax, fabs(c[j]));
+  return cmax;
+}
+
+// nx <= 32: a warp per fragment, kWarps fragments a block. Shared memory
+// per warp: dF (m, nx), dS (m, nx), f (nx), [G | rhs] (m, m + 1), c (m).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-window_kernel(T* __restrict__ x, const T* __restrict__ f, T* __restrict__ hx,
-              T* __restrict__ hf, T* __restrict__ resid,
-              bool* __restrict__ active, const long long* __restrict__ it_ptr,
-              T beta, T reg, T c_lim, T scf_tol, int m, int nx) {
-  __shared__ T aug[kMaxM][kMaxM + 1];  // [G | rhs], then eliminated
-  __shared__ T c[kMaxM];
-  __shared__ T red[kWarps];
-  __shared__ int bad_any;
+    window_warp(T* __restrict__ x, const T* __restrict__ f,
+                T* __restrict__ hx, T* __restrict__ hf,
+                T* __restrict__ resid, bool* __restrict__ active,
+                const long long* __restrict__ it_ptr, T beta, T reg,
+                T c_lim, T scf_tol, int batch, int m, int nx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= batch) return;  // whole warps: no block barrier below
+  const int ld = m + 1;
+  T* dF = reinterpret_cast<T*>(smem) +
+          static_cast<size_t>(warp) * (2 * m * nx + nx + m * ld + m);
+  T* dS = dF + m * nx;
+  T* fs = dS + m * nx;
+  T* aug = fs + nx;
+  T* cs = aug + m * ld;
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   const long long it = *it_ptr;
   const long long mm = m;
   const int slot = static_cast<int>(it % mm);
   const int prev = static_cast<int>((((it - 1) % mm) + mm) % mm);
+  // every fragment is active at the first iteration (a cached loop's
+  // restart resets only the counter)
+  const bool on = active[b] || it < 1;
   T* xb = x + static_cast<long long>(b) * nx;
   const T* fb = f + static_cast<long long>(b) * nx;
   T* hxb = hx + static_cast<long long>(b) * m * nx;
   T* hfb = hf + static_cast<long long>(b) * m * nx;
-  const Window<T> w{hxb, hfb, xb, fb, slot, prev, m, nx, it};
+  const Window<T> w{hxb, hfb, xb, fb, slot, prev, nx, it};
 
-  // the residual; the new window slot
+  // the residual, the new window slot, the staged window
+  const bool in = lane < nx;
+  T xe = T(0), fe = T(0);
+  if (in) {
+    xe = xb[lane];
+    fe = fb[lane];
+    fs[lane] = fe;
+    w.stage(lane, m, beta, dF + lane, dS + lane, nx);
+  }
+  const T it_resid = warp_max(in ? max_nan(T(0), fabs(fe)) : T(0));
+  __syncwarp();
+  if (in) {
+    hxb[static_cast<long long>(slot) * nx + lane] = xe;
+    hfb[static_cast<long long>(slot) * nx + lane] = fe;
+  }
+
+  // G's upper triangle and rhs: a lane per entry, ascending e. A masked
+  // row is 0 and still multiplied, as in the plain version's product (0
+  // times a non-finite value is NaN there too)
+  const int n_prod = m * (m + 1) / 2 + m;
+  for (int p = lane; p < n_prod; p += kWarp) {
+    int j, k;
+    entry(p, m, &j, &k);
+    const T* a = dF + j * nx;
+    const T* o = k < 0 ? fs : dF + k * nx;
+    T acc = T(0);
+    for (int e = 0; e < nx; ++e) acc = fma_(a[e], o[e], acc);
+    if (k < 0) {
+      aug[j * ld + m] = acc;
+    } else {
+      aug[j * ld + k] = acc;
+      aug[k * ld + j] = acc;
+    }
+  }
+  __syncwarp();
+
+  solve(aug, ld, m, reg, cs);
+  const bool known_bad = it < 1 || max_abs(cs, m) > c_lim;
+
+  // the step, once; rejected where a value is not finite
+  const T damped = add(xe, mul(beta, fe));
+  T x_and = damped;
+  if (in) {
+    T step = T(0);
+    for (int j = 0; j < m; ++j)
+      step = add(step, mul(cs[j], dS[j * nx + lane]));
+    x_and = sub(damped, step);
+  }
+  const bool nonfinite = __any_sync(kFull, in && !isfinite(x_and));
+  const bool bad = known_bad || nonfinite;
+  if (on && in) xb[lane] = bad ? damped : x_and;
+  if (lane == 0) {
+    const T r = on ? it_resid : resid[b];
+    resid[b] = r;
+    active[b] = on && r > scf_tol;
+  }
+}
+
+// nx > 32: a block per fragment. Dynamic shared memory: dF (m, nt), then,
+// where the whole window is staged (nt = nx), dS (m, nt); then f (nt).
+// The registers are capped so that four blocks fit an SM (the dimer
+// slice's 512 fragments in one wave): only warp 0 needs the solve's.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+    window_block(T* __restrict__ x, const T* __restrict__ f,
+                 T* __restrict__ hx, T* __restrict__ hf,
+                 T* __restrict__ resid, bool* __restrict__ active,
+                 const long long* __restrict__ it_ptr, T beta, T reg,
+                 T c_lim, T scf_tol, int m, int nx, int nt, bool staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T aug[kMaxM][kMaxM + 1];  // [G | rhs]
+  __shared__ T c_s[kMaxM];
+  __shared__ T red[kWarps];
+  __shared__ T cmax_s;
+  __shared__ int bad_any;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  T* dF = reinterpret_cast<T*>(smem);
+  T* dS = dF + m * nt;
+  T* fs = staged ? dS + m * nt : dS;
+
+  const long long it = *it_ptr;
+  const long long mm = m;
+  const int slot = static_cast<int>(it % mm);
+  const int prev = static_cast<int>((((it - 1) % mm) + mm) % mm);
+  const bool on = active[b] || it < 1;
+  T* xb = x + static_cast<long long>(b) * nx;
+  const T* fb = f + static_cast<long long>(b) * nx;
+  T* hxb = hx + static_cast<long long>(b) * m * nx;
+  T* hfb = hf + static_cast<long long>(b) * m * nx;
+  const Window<T> w{hxb, hfb, xb, fb, slot, prev, nx, it};
+
+  // G's upper triangle and rhs, nx in tiles of nt: a warp per product,
+  // kInFlight at once; a tile's sums added to the running ones
+  const int n_prod = m * (m + 1) / 2 + m;
+  for (int e0 = 0; e0 < nx; e0 += nt) {
+    const int ne = min(nt, nx - e0);
+    if (e0 > 0) __syncthreads();  // the last tile's products are done
+    for (int e = tid; e < ne; e += kThreads) {
+      fs[e] = fb[e0 + e];
+      w.stage(e0 + e, m, beta, dF + e, staged ? dS + e : nullptr, nt);
+    }
+    __syncthreads();
+    for (int p0 = warp * kInFlight; p0 < n_prod; p0 += kWarps * kInFlight) {
+      int jj[kInFlight], kk[kInFlight];
+      T acc[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        jj[u] = 0;
+        kk[u] = -1;
+        if (p0 + u < n_prod) entry(p0 + u, m, &jj[u], &kk[u]);
+        acc[u] = T(0);
+      }
+      for (int e = lane; e < ne; e += kWarp) {
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          const T o = kk[u] < 0 ? fs[e] : dF[kk[u] * nt + e];
+          acc[u] = fma_(dF[jj[u] * nt + e], o, acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const T s = warp_sum(acc[u]);
+        if (lane == 0 && p0 + u < n_prod) {
+          const int j = jj[u], k = kk[u];
+          T* dst = k < 0 ? &aug[j][m] : &aug[j][k];
+          const T total = e0 == 0 ? s : add(*dst, s);
+          *dst = total;
+          if (k >= 0) aug[k][j] = total;
+        }
+      }
+    }
+  }
+
+  // the residual and the new window slot (every read of the old slot is
+  // done: the products' last barrier)
   T amax = T(0);
   for (int e = tid; e < nx; e += kThreads) {
-    const T fe = fb[e];
+    const T xe = xb[e], fe = fb[e];
     amax = max_nan(amax, fabs(fe));
-    hxb[static_cast<long long>(slot) * nx + e] = xb[e];
+    hxb[static_cast<long long>(slot) * nx + e] = xe;
     hfb[static_cast<long long>(slot) * nx + e] = fe;
   }
   amax = warp_max(amax);
   if (lane == 0) red[warp] = amax;
-  if (tid == 0) bad_any = 0;
-  __syncthreads();
-  T it_resid = red[0];
-#pragma unroll
-  for (int k = 1; k < kWarps; ++k) it_resid = max_nan(it_resid, red[k]);
-
-  // G's upper triangle and rhs: one warp per dot product
-  const int n_g = m * (m + 1) / 2;
-  for (int p = warp; p < n_g + m; p += kWarps) {
-    int j, k;
-    if (p < n_g) {  // p -> (j, k), j <= k, row by row
-      j = 0;
-      int q = p;
-      while (q >= m - j) {
-        q -= m - j;
-        ++j;
-      }
-      k = j + q;
-    } else {
-      j = p - n_g;
-      k = -1;
-    }
-    // a masked row is 0 and still multiplied, as in the plain version's
-    // product (0 times a non-finite value is NaN there too)
-    T acc = T(0);
-    for (int e = lane; e < nx; e += kWarp) {
-      const T other = k < 0 ? fb[e] : w.dF(k, e);
-      acc = fma_(w.dF(j, e), other, acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      if (k < 0) {
-        aug[j][m] = acc;
-      } else {
-        aug[j][k] = acc;
-        aug[k][j] = acc;
-      }
-    }
-  }
   __syncthreads();
 
-  // the regularizer, then the elimination: warp 0, a lane per row
   if (warp == 0) {
+    solve(&aug[0][0], kMaxM + 1, m, reg, c_s);
     if (lane == 0) {
-      T tr = T(0);
-      for (int j = 0; j < m; ++j) tr = add(tr, aug[j][j]);
-      const T shift = add(dvd(mul(reg, tr), T(m)), T(1e-30));
-      for (int j = 0; j < m; ++j) aug[j][j] = add(aug[j][j], shift);
-    }
-    __syncwarp();
-    for (int k = 0; k < m; ++k) {
-      T v = T(-1);
-      int i = kMaxM;
-      if (lane >= k && lane < m) {
-        v = fabs(aug[lane][k]);
-        i = lane;
-      }
-#pragma unroll
-      for (int o = kWarp / 2; o > 0; o >>= 1) {
-        const T v2 = __shfl_xor_sync(kFull, v, o);
-        const int i2 = __shfl_xor_sync(kFull, i, o);
-        if (better(v2, i2, v, i)) {
-          v = v2;
-          i = i2;
-        }
-      }
-      const int p = i;
-      if (p != k) {
-        for (int col = lane; col <= m; col += kWarp) {
-          const T t = aug[k][col];
-          aug[k][col] = aug[p][col];
-          aug[p][col] = t;
-        }
-      }
-      __syncwarp();
-      if (lane > k && lane < m) {
-        const T piv = dvd(aug[lane][k], aug[k][k]);
-        for (int col = 0; col <= m; ++col)
-          aug[lane][col] = sub(aug[lane][col], mul(piv, aug[k][col]));
-      }
-      __syncwarp();
-    }
-    if (lane == 0) {
-      for (int k = m - 1; k >= 0; --k) {
-        T acc = T(0);
-        for (int j = k + 1; j < m; ++j) acc = add(acc, mul(aug[k][j], c[j]));
-        c[k] = dvd(sub(aug[k][m], acc), aug[k][k]);
-      }
+      cmax_s = max_abs(c_s, m);
+      bad_any = 0;
     }
   }
   __syncthreads();
 
-  // the step: rejected where a value is not finite
-  T cmax = T(0);
-  for (int j = 0; j < m; ++j) cmax = max_nan(cmax, fabs(c[j]));
-  const T bf = beta;
-  int nonfinite = 0;
-  for (int e = tid; e < nx; e += kThreads) {
-    T step = T(0);
-    for (int j = 0; j < m; ++j)
-      step = fma_(c[j], add(w.dX(j, e), mul(bf, w.dF(j, e))), step);
-    const T x_and = sub(add(xb[e], mul(bf, fb[e])), step);
-    nonfinite |= !isfinite(x_and);
-  }
-  nonfinite = __any_sync(kFull, nonfinite);
-  if (lane == 0 && nonfinite) atomicOr(&bad_any, 1);
-  __syncthreads();
-  const bool bad = it < 1 || bad_any || cmax > c_lim;
-
-  // every fragment is active at the first iteration (a cached loop's
-  // restart resets only the counter)
-  const bool on = active[b] || it < 1;
+  // the step, once: x_and written; rewritten with the damped step below if
+  // a value was not finite
+  const bool known_bad = it < 1 || cmax_s > c_lim;
+  bool nonfinite = false;
   if (on) {
     for (int e = tid; e < nx; e += kThreads) {
-      const T damped = add(xb[e], mul(bf, fb[e]));
-      if (bad) {
+      const T damped = add(xb[e], mul(beta, fb[e]));
+      if (known_bad) {
         xb[e] = damped;
-      } else {
-        T step = T(0);
-        for (int j = 0; j < m; ++j)
-          step = fma_(c[j], add(w.dX(j, e), mul(bf, w.dF(j, e))), step);
-        xb[e] = sub(damped, step);
+        continue;
       }
+      T ds_e[kMaxM];
+      const T* ds = dS + e;
+      int ld = nt;
+      if (!staged) {
+        // dS_j at e formed again from the window, with the staged
+        // rows' arithmetic
+        T df_e[kMaxM];
+        w.stage(e, m, beta, df_e, ds_e, 1);
+        ds = ds_e;
+        ld = 1;
+      }
+      T step = T(0);
+      for (int j = 0; j < m; ++j) step = add(step, mul(c_s[j], ds[j * ld]));
+      const T x_and = sub(damped, step);
+      nonfinite |= !isfinite(x_and);
+      xb[e] = x_and;
     }
   }
+  if (__any_sync(kFull, nonfinite) && lane == 0) atomicOr(&bad_any, 1);
   __syncthreads();
+  if (on && !known_bad && bad_any) {
+    // x from the new window slot: the state this step read
+    for (int e = tid; e < nx; e += kThreads)
+      xb[e] = add(hxb[static_cast<long long>(slot) * nx + e],
+                  mul(beta, fb[e]));
+  }
   if (tid == 0) {
+    T it_resid = red[0];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) it_resid = max_nan(it_resid, red[k]);
     const T r = on ? it_resid : resid[b];
     resid[b] = r;
     active[b] = on && r > scf_tol;
@@ -343,6 +640,58 @@ int on_device(int device, Launch launch) {
   return static_cast<int>(err);
 }
 
+// Above 48 KB a kernel needs its dynamic shared memory raised, once per
+// device (the attribute is the context's) and per size asked
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
+                       size_t* granted) {
+  if (bytes <= kStaticSmem) return cudaSuccess;
+  size_t* g = granted + (device & 63);
+  if (__atomic_load_n(g, __ATOMIC_ACQUIRE) >= bytes) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) __atomic_store_n(g, bytes, __ATOMIC_RELEASE);
+  return err;
+}
+
+template <typename T>
+cudaError_t launch(T* x, const T* f, T* hx, T* hf, T* resid, bool* active,
+                   const long long* it, T beta, T reg, T c_lim, T scf_tol,
+                   int batch, int m, int nx, int device,
+                   cudaStream_t stream) {
+  if (nx <= kSmallNx) {
+    static size_t granted[64] = {};
+    const size_t smem =
+        kWarps * static_cast<size_t>(2 * m * nx + nx + m * (m + 1) + m) *
+        sizeof(T);
+    const cudaError_t err = allow_smem(window_warp<T>, smem, device, granted);
+    if (err != cudaSuccess) return err;
+    window_warp<T><<<(batch + kWarps - 1) / kWarps, kThreads, smem,
+                     stream>>>(x, f, hx, hf, resid, active, it, beta, reg,
+                               c_lim, scf_tol, batch, m, nx);
+    return cudaGetLastError();
+  }
+  static size_t granted[64] = {};
+  // the whole window where it fits, else tiles of dF and f (multiples of
+  // 32 wide)
+  int nt = nx;
+  size_t smem = static_cast<size_t>(2 * m + 1) * nx * sizeof(T);
+  const bool staged = smem <= kStageBytes;
+  if (!staged) {
+    nt = static_cast<int>(kStageBytes / ((m + 1) * sizeof(T))) / kWarp *
+         kWarp;
+    if (nt > nx) nt = nx;
+    smem = static_cast<size_t>(m + 1) * nt * sizeof(T);
+  }
+  const cudaError_t err = allow_smem(window_block<T>, smem, device, granted);
+  if (err != cudaSuccess) return err;
+  window_block<T><<<batch, kThreads, smem, stream>>>(
+      x, f, hx, hf, resid, active, it, beta, reg, c_lim, scf_tol, m, nx, nt,
+      staged);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int window(T* x, const T* f, T* hx, T* hf, T* resid, bool* active,
            const long long* it, double beta, double reg, double c_lim,
@@ -351,12 +700,10 @@ int window(T* x, const T* f, T* hx, T* hf, T* resid, bool* active,
   if (batch <= 0 || nx <= 0) return 0;
   if (m < 1 || m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
   return on_device(device, [&] {
-    window_kernel<T><<<batch, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        x, f, hx, hf, resid, active, it, static_cast<T>(beta),
-        static_cast<T>(reg), static_cast<T>(c_lim), static_cast<T>(scf_tol),
-        m, nx);
-    return cudaGetLastError();
+    return launch<T>(x, f, hx, hf, resid, active, it, static_cast<T>(beta),
+                     static_cast<T>(reg), static_cast<T>(c_lim),
+                     static_cast<T>(scf_tol), batch, m, nx, device,
+                     static_cast<cudaStream_t>(stream));
   });
 }
 

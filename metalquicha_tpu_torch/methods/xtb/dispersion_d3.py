@@ -22,6 +22,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ...ops.fragment_gemm import pair_bilinear
 from .params_elements_ext import (
     EXT_C6_REFS as _EXT_C6,
     EXT_R4R2 as _EXT_R4R2,
@@ -253,8 +254,7 @@ def c6_coefficients(cn, ref_cn, zidx, pair_table, sqrtc6):
     zsafe = torch.clamp(zidx, min=0)
     bidx = torch.arange(zidx.shape[0], device=zidx.device)[:, None, None]
     grids = pair_table[bidx, zsafe[:, :, None], zsafe[:, None, :]]
-    v = torch.einsum("bia,bijac->bijc", w, grids)             # (B,nat,nat,R)
-    c6 = torch.einsum("bijc,bjc->bij", v, w)
+    c6 = pair_bilinear(w, grids)                              # (B,nat,nat)
     s = (w * sqrtc6).sum(-1)                                  # (B, nat)
     core = zidx >= 0
     both_core = core[:, :, None] & core[:, None, :]

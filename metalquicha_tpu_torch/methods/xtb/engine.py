@@ -37,6 +37,12 @@ from ...ops.anderson_window import anderson_window
 from ...ops.batched_eigh import EighStatus, eigh_folded
 from ...ops.batched_eigh import eigh as batched_eigh
 from ...ops.fermi_fill import DENSITY_MAX_N, fermi_density, fermi_occupations
+from ...ops.fragment_gemm import MAX_N as GEMM_MAX_N
+from ...ops.fragment_gemm import (
+    fragment_bmm,
+    fragment_matvec,
+    sandwich,
+)
 from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
 from ...ops.jacobi_eigh import jacobi_eigh
 from ...ops.sp2 import sp2_density
@@ -164,6 +170,32 @@ def _take2(m, idx):
     """m[b, idx[b, i], idx[b, j]] for a (B, n, n) tensor m."""
     bidx = torch.arange(m.shape[0], device=m.device)[:, None, None]
     return m[bidx, idx[:, :, None], idx[:, None, :]]
+
+
+def _small(*tensors) -> bool:
+    """Whether the batch-invariant product kernel takes these (..., r, c)
+    operands: every size up to its GEMM_MAX_N. The shape decides: above it
+    a product goes to torch.matmul, as the JAX package leaves every product
+    to XLA."""
+    return all(max(t.shape[-2:]) <= GEMM_MAX_N for t in tensors)
+
+
+def _mm(a, b, trans_a=False, trans_b=False):
+    """op(a) @ op(b) of (B, r, c) batches (op: the transpose where asked):
+    `fragment_bmm` up to GEMM_MAX_N, whose bits for a fragment do not
+    depend on its batch on a card (torch.matmul on the CPU)."""
+    if _small(a, b):
+        return fragment_bmm(a, b, trans_a, trans_b)
+    return torch.matmul(a.transpose(-1, -2) if trans_a else a,
+                        b.transpose(-1, -2) if trans_b else b)
+
+
+def _sandwich(x, f, shift):
+    """x @ f @ x + shift: `sandwich`, one launch on a card, up to
+    GEMM_MAX_N."""
+    if _small(x):
+        return sandwich(x, f, shift)
+    return x @ f @ x + shift
 
 
 def _scatter_sum(values, idx, size):
@@ -392,9 +424,8 @@ class _EighSafe(torch.autograd.Function):
         tol = torch.finfo(w.dtype).eps ** 0.5
         keep = torch.abs(gap) > tol
         f = torch.where(keep, 1.0 / torch.where(keep, gap, 1.0), 0.0)
-        vt = v.transpose(-1, -2)
-        inner = f * (vt @ dv) + torch.diag_embed(dw)
-        da = v @ inner @ vt
+        inner = f * _mm(v, dv, trans_a=True) + torch.diag_embed(dw)
+        da = _mm(_mm(v, inner), v, trans_b=True)
         return 0.5 * (da + da.transpose(-1, -2))
 
 
@@ -416,7 +447,7 @@ class _EighValues(_EighSafe):
     def backward(ctx, dw, dv):
         w, v = ctx.saved_tensors
         if dv is None:
-            return torch.matmul(v * dw.unsqueeze(-2), v.mH)
+            return _mm(v * dw.unsqueeze(-2), v, trans_b=True)
         return _EighSafe.backward(
             ctx, torch.zeros_like(w) if dw is None else dw, dv)
 
@@ -437,9 +468,9 @@ def _ortho_factors(S):
     s, U = eigh_safe(S)
     keep = (s > 1e-7).to(S.dtype)
     w = torch.where(s > 1e-7, torch.rsqrt(torch.clamp(s, min=1e-7)), 0.0)
-    Ut = U.transpose(-1, -2)
-    Xs = (U * w[:, None, :]) @ Ut
-    proj_out = _eye(S.shape[-1], S) - (U * keep[:, None, :]) @ Ut
+    Xs = _mm(U * w[:, None, :], U, trans_b=True)
+    proj_out = _eye(S.shape[-1], S) - _mm(U * keep[:, None, :], U,
+                                          trans_b=True)
     return Xs, proj_out
 
 
@@ -450,9 +481,9 @@ def _general_eigh(F, ortho, status=None):
     then `batched_eigh.eigh` (cuSOLVER's batched routine, its status kept
     on the device in `status`); otherwise `eigh_safe`."""
     Xs, proj_out = ortho
-    a = Xs @ F @ Xs + PAD_LEVEL * proj_out
+    a = _sandwich(Xs, F, PAD_LEVEL * proj_out)
     eps, Cp = eigh_safe(a) if status is None else batched_eigh(a, status)
-    return eps, Xs @ Cp
+    return eps, _mm(Xs, Cp)
 
 
 def _atom_charges(q_sh, batch):
@@ -461,6 +492,8 @@ def _atom_charges(q_sh, batch):
 
 
 def _matvec(m, x):
+    if _small(m):
+        return fragment_matvec(m, x)
     return (m @ x[..., None])[..., 0]
 
 
@@ -516,10 +549,9 @@ def _jacobi_route(S):
     winv = torch.where(
         s_eig > lindep, torch.rsqrt(torch.clamp(s_eig, min=lindep)), 0.0
     )
-    Ut = U.transpose(-1, -2)
-    Xs = (U * winv[:, None, :]) @ Ut
+    Xs = _mm(U * winv[:, None, :], U, trans_b=True)
     shift_out = PAD_LEVEL * (
-        _eye(S.shape[-1], S) - (U * s_keep[:, None, :]) @ Ut
+        _eye(S.shape[-1], S) - _mm(U * s_keep[:, None, :], U, trans_b=True)
     )
     return Xs, shift_out
 
@@ -707,8 +739,9 @@ def _scc_density(eps, C, batch, kt, settings: EngineSettings):
 
     The Fermi filling up to DENSITY_MAX_N AOs is `fermi_density`: the
     fill and the product in one kernel launch on a card. Above it, and
-    for the aufbau filling, the fill and a plain batched product, which the
-    JAX package leaves to XLA too (chosen by shape, not a fallback)."""
+    for the aufbau filling, the fill and a product (`_mm`: the
+    batch-invariant kernel up to GEMM_MAX_N, torch.matmul above, where the
+    JAX package leaves it to XLA; chosen by shape, not a fallback)."""
     if not settings.fixed_occupations and C.shape[-1] <= DENSITY_MAX_N:
         return fermi_density(eps, C, batch.nelec, batch.nuhf, kt,
                              batch.ao_mask)
@@ -716,7 +749,7 @@ def _scc_density(eps, C, batch, kt, settings: EngineSettings):
         eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
         settings.fixed_occupations,
     )
-    return (C * f[:, None, :]) @ C.transpose(-1, -2)
+    return _mm(C * f[:, None, :], C, trans_b=True)
 
 
 def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
@@ -771,8 +804,8 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
                 return Xs @ Po @ Xs
         elif fast_inloop:
             def make_density(F):
-                eps, Cp = jacobi_eigh(Xs @ F @ Xs + inp["shift_out"])
-                return _scc_density(eps, Xs @ Cp, batch, kt, settings)
+                eps, Cp = jacobi_eigh(_sandwich(Xs, F, inp["shift_out"]))
+                return _scc_density(eps, _mm(Xs, Cp), batch, kt, settings)
         else:
             status = EighStatus(S)
             ortho = (Xs, inp["proj_out"])
@@ -814,7 +847,7 @@ def scf_refine(H0, S, gamma, batch, kt, settings: EngineSettings, q0,
             settings.fixed_occupations,
         )
         f = f.detach()
-        P = (C * f[:, None, :]) @ C.transpose(-1, -2)
+        P = _mm(C * f[:, None, :], C, trans_b=True)
         n_sh = _shell_populations(P, S, batch)
         q_new = (batch.sh_refocc - n_sh) * batch.sh_mask
         q = q + 0.5 * (q_new - q)

@@ -494,7 +494,8 @@ def _warm_up_and_capture(graph, step, pool: _Pool, device):
     step()
     t1 = time.perf_counter()
     reserved, allocated = _memory(device)
-    with replay_counts.capturing() as tally:
+    with replay_counts.capturing(
+            torch.cuda.current_stream(device).cuda_stream) as tally:
         inst = _capture(graph, step, pool.id)
     t2 = time.perf_counter()
     reserved2, allocated2 = _memory(device)
@@ -799,7 +800,7 @@ def _capture_stage(full, entry: _Entry, fn, static) -> None:
             t0 = time.perf_counter()
             with (torch.cuda.stream(side),
                   batched_eigh.collecting(entry.status),
-                  replay_counts.capturing() as tally):
+                  replay_counts.capturing(side.cuda_stream) as tally):
                 _capture(entry.graph, body, pool.id)
             t1 = time.perf_counter()
             reserved2, allocated2 = _memory(entry.device)

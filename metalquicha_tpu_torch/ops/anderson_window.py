@@ -4,7 +4,9 @@ Counterpart of the window algebra of metalquicha_tpu's Anderson step
 (`methods/xtb/engine.py:808-842`, GFN2's `:614-641`): everything after
 f_res = g(x) - x, which the JAX package writes in jnp for one fragment
 under `vmap`. The kernel is CUDA C++ for sm_90a in
-`csrc/anderson_window.cu`, one block per fragment, built with nvcc at
+`csrc/anderson_window.cu` (a warp per fragment up to nx = 32, a block
+above, the window staged in shared memory once, the solve in one warp's
+registers), built with nvcc at
 first use into `metalquicha_tpu_torch/_build/` and bound with ctypes
 (`ops/kernel_build.py`). A fragment's bits do not depend on its batch,
 where torch's batched products and `torch.linalg.solve_ex` choose their
@@ -20,9 +22,12 @@ any earlier state by setting x and the counter alone (`engine._SccLoop`).
 Dispatch is by the tensor's device: a CUDA tensor goes to the kernel (or
 raises), a CPU tensor to `anderson_window_reference`, the torch algebra
 the engine ran before the kernel. `anderson_window_rowwise` is the
-kernel's order of elimination in elementwise batched ops, whose bits for
-a fragment do not depend on the batch either; the tests hold the two plain
-versions to each other.
+kernel's arithmetic of elimination and step in elementwise batched ops,
+whose bits for a fragment do not depend on the batch either (its dot
+products sum in torch's order, the kernel's in its own); the tests hold the
+two plain versions to each other, and the kernel to the twin bit for bit
+where the windows hold small integers, whose dot products are exact in any
+order.
 """
 
 from __future__ import annotations
@@ -157,8 +162,9 @@ def rowwise_solve(G, rhs):
 def anderson_window_rowwise(x, f_res, hist_x, hist_f, resid, active, it,
                             beta, reg, c_lim, scf_tol):
     """Plain torch version in the kernel's order: the products as
-    elementwise products and sums, the solve by `rowwise_solve`; a
-    fragment's bits do not depend on its batch."""
+    elementwise products and sums, the solve by `rowwise_solve`, the step
+    summed in ascending j with each term rounded apart, as the kernel
+    rounds it; a fragment's bits do not depend on its batch."""
     m = hist_x.shape[1]
     it_resid = f_res.abs().amax(-1)
     _write_slot(x, f_res, hist_x, hist_f, it, m)
@@ -171,7 +177,10 @@ def anderson_window_rowwise(x, f_res, hist_x, hist_f, resid, active, it,
     G = G + torch.diag_embed(shift[:, None].expand(-1, m))
     rhs = (dF * f_res[:, None, :]).sum(-1)
     c = rowwise_solve(G, rhs)
-    step = (c[:, :, None] * (dX + beta * dF)).sum(1)
+    dS = dX + beta * dF
+    step = torch.zeros_like(x)
+    for j in range(m):
+        step = step + c[:, j, None] * dS[:, j]
     _finish(x, f_res, it_resid, c, step, resid, active, it, beta, c_lim,
             scf_tol)
 

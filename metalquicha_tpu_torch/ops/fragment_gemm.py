@@ -1,0 +1,343 @@
+"""Batch-invariant products of small per-fragment matrices.
+
+The JAX package leaves the SCC's and the functional's batched products
+(`methods/xtb/engine.py:443-453`, `:758-760`, `:780-781`) to XLA. On a
+card torch.matmul sends them to cuBLAS, which picks its batched routine,
+and with it each dot product's order of summation, by the batch count, so
+a fragment's bits depended on how the executor cut the batch (ROADMAP
+C17). The kernel (CUDA C++ for sm_90a in `csrc/fragment_gemm.cu`, built
+with nvcc at first use into `metalquicha_tpu_torch/_build/` and bound with
+ctypes, `ops/kernel_build.py`) reduces every output element in one fixed
+order that depends on the sizes only: f64 on the FP64 tensor cores in
+ascending blocks of 4 in k, f32 by FFMA in ascending k; where every size
+is 8 or less, and for the matvec, FMA in ascending k, a thread an
+element.
+
+- `fragment_bmm(a, b, trans_a, trans_b)`: op(a) @ op(b);
+- `sandwich(x, f, shift)`: x @ f @ x + shift in one launch;
+- `fragment_matvec(m, x, trans)`: op(m) @ x;
+- `pair_bilinear(w, grids)`: c[b, i, j] = w[b, i] . grids[b, i, j] .
+  w[b, j], D3's C6 contraction (a (1, R) by (R, R) product per atom pair
+  on the kernel, then a sum over R).
+
+Operands are (..., n, n) batches with the same leading shape, every size
+up to MAX_N. Each op is a `torch.autograd.Function` on a card whose
+backward calls the same kernel (so the backward is batch-invariant too,
+and itself differentiable: `param_fit.py` runs a double backward).
+
+Dispatch is by the tensors' device: a CUDA tensor goes to the kernel (or
+raises), a CPU tensor to the plain torch version, which is the torch
+expression the engine ran before the kernel (`torch.matmul`,
+`torch.einsum`), so every CPU result keeps its bits; any other device
+raises. `fragment_bmm_reference` and `matvec_reference` are the
+kernel's order in elementwise torch ops, for the tests; nothing on the
+main path calls them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import replay_counts
+from .kernel_build import KernelLibrary
+
+#: kernel launches so far, every entry (a caller may reset it to 0)
+launches = 0
+#: the largest size a product takes (its tiles in shared memory): the
+#: range of the fused density
+MAX_N = 64
+
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_BMM = [_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _int, _ptr]
+_SANDWICH = [_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr]
+_MATVEC = [_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr]
+_LIB = KernelLibrary("fragment_gemm", {
+    "mqc_fragment_bmm_f32": _BMM,
+    "mqc_fragment_bmm_f64": _BMM,
+    "mqc_fragment_sandwich_f32": _SANDWICH,
+    "mqc_fragment_sandwich_f64": _SANDWICH,
+    "mqc_fragment_matvec_f32": _MATVEC,
+    "mqc_fragment_matvec_f64": _MATVEC,
+})
+_count_lock = threading.Lock()
+
+
+def build() -> ctypes.CDLL:
+    """Compile the kernel (once per source hash) and load it; safe to call
+    from several threads at once."""
+    return _LIB.load()
+
+
+def _count(stream: int, n: int = 1) -> None:
+    global launches
+    # a backward pass launches from autograd's device thread: the stream
+    # tells its capture
+    if replay_counts.record(_count, stream=stream):
+        return
+    with _count_lock:
+        launches += n
+
+
+def add_launches(n: int) -> None:
+    """Add launches made in another process (a mesh slot's worker)."""
+    global launches
+    with _count_lock:
+        launches += n
+
+
+def _op(t, trans):
+    return t.transpose(-1, -2) if trans else t
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def fragment_bmm_reference(a, b, trans_a=False, trans_b=False):
+    """op(a) @ op(b) in the kernel's order: each element summed in
+    ascending k from 0, in elementwise torch ops (a product and a sum
+    rounded apart, where the f32 kernel fuses them and the f64 kernel sums
+    blocks of 4 on the tensor cores: equal within rounding)."""
+    a, b = _op(a, trans_a), _op(b, trans_b)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=a.dtype,
+                      device=a.device)
+    for q in range(a.shape[-1]):
+        acc = acc + a[..., :, q, None] * b[..., None, q, :]
+    return acc
+
+
+def matvec_reference(m, x, trans=False):
+    """op(m) @ x in ascending k from 0."""
+    m = _op(m, trans)
+    acc = torch.zeros(m.shape[:-1], dtype=m.dtype, device=m.device)
+    for q in range(m.shape[-1]):
+        acc = acc + m[..., q] * x[..., q, None]
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launches
+# ---------------------------------------------------------------------------
+
+
+def _fn(name: str, dtype):
+    lib = _LIB.lib or build()
+    return getattr(lib, f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+
+
+def _stream(t) -> tuple:
+    index = t.device.index
+    return index, torch._C._cuda_getCurrentRawStream(index)
+
+
+def _operand(t, trans):
+    """(a contiguous tensor, its transpose flag): a transposed view of a
+    contiguous batch is passed as it is stored, with the flag flipped."""
+    if t.is_contiguous():
+        return t, trans
+    if t.transpose(-1, -2).is_contiguous():
+        return t.transpose(-1, -2), not trans
+    return t.contiguous(), trans
+
+
+def _flat(t):
+    return t.reshape(-1, *t.shape[-2:])
+
+
+def _launch_bmm(a, b, trans_a, trans_b):
+    """op(a) @ op(b) on the card: one launch."""
+    m, k = _op(a, trans_a).shape[-2:]
+    n = _op(b, trans_b).shape[-1]
+    lead = a.shape[:-2]
+    a, trans_a = _operand(a, trans_a)
+    b, trans_b = _operand(b, trans_b)
+    c = torch.empty(*lead, m, n, dtype=a.dtype, device=a.device)
+    index, stream = _stream(a)
+    err = _fn("mqc_fragment_bmm", a.dtype)(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), _flat(c).shape[0], m, n,
+        k, int(trans_a), int(trans_b), index, stream)
+    _LIB.check(err, "fragment product kernel")
+    _count(stream)
+    return c
+
+
+def _launch_sandwich(x, f, shift):
+    x, f, shift = x.contiguous(), f.contiguous(), shift.contiguous()
+    c = torch.empty_like(x)
+    index, stream = _stream(x)
+    err = _fn("mqc_fragment_sandwich", x.dtype)(
+        x.data_ptr(), f.data_ptr(), shift.data_ptr(), c.data_ptr(),
+        _flat(c).shape[0], x.shape[-1], index, stream)
+    _LIB.check(err, "fragment sandwich kernel")
+    _count(stream)
+    return c
+
+
+def _launch_matvec(m, x, trans):
+    rows, cols = _op(m, trans).shape[-2:]
+    m, trans = _operand(m, trans)
+    x = x.contiguous()
+    y = torch.empty(*m.shape[:-2], rows, dtype=m.dtype, device=m.device)
+    index, stream = _stream(m)
+    err = _fn("mqc_fragment_matvec", m.dtype)(
+        m.data_ptr(), x.data_ptr(), y.data_ptr(),
+        _flat(m).shape[0], rows, cols, int(trans), index, stream)
+    _LIB.check(err, "fragment matvec kernel")
+    _count(stream)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Gradients: each backward calls the same ops, so it is batch-invariant and
+# differentiable once more
+# ---------------------------------------------------------------------------
+
+
+class _Bmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, trans_a, trans_b):
+        ctx.save_for_backward(a, b)
+        ctx.trans = (trans_a, trans_b)
+        return _launch_bmm(a, b, trans_a, trans_b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        ta, tb = ctx.trans
+        da = db = None
+        # C = op(A) op(B): d op(A) = dC op(B)^T, d op(B) = op(A)^T dC
+        if ctx.needs_input_grad[0]:
+            da = (_Bmm.apply(b, dc, tb, True) if ta
+                  else _Bmm.apply(dc, b, False, not tb))
+        if ctx.needs_input_grad[1]:
+            db = (_Bmm.apply(dc, a, True, ta) if tb
+                  else _Bmm.apply(a, dc, not ta, False))
+        return da, db, None, None
+
+
+class _Sandwich(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, f, shift):
+        ctx.save_for_backward(x, f)
+        return _launch_sandwich(x, f, shift)
+
+    @staticmethod
+    def backward(ctx, dc):
+        x, f = ctx.saved_tensors
+        dx = df = None
+        # C = X F X + S: dX = dC (F X)^T + (X F)^T dC, dF = X^T dC X^T
+        if ctx.needs_input_grad[0]:
+            dx = (_Bmm.apply(dc, _Bmm.apply(f, x, False, False), False, True)
+                  + _Bmm.apply(_Bmm.apply(x, f, False, False), dc, True,
+                               False))
+        if ctx.needs_input_grad[1]:
+            df = _Bmm.apply(_Bmm.apply(x, dc, True, False), x, False, True)
+        return dx, df, dc if ctx.needs_input_grad[2] else None
+
+
+class _Matvec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, x, trans):
+        ctx.save_for_backward(m, x)
+        ctx.trans = trans
+        return _launch_matvec(m, x, trans)
+
+    @staticmethod
+    def backward(ctx, dy):
+        m, x = ctx.saved_tensors
+        trans = ctx.trans
+        dm = dx = None
+        # y = op(M) x: d op(M) = dy x^T (elementwise), dx = op(M)^T dy
+        if ctx.needs_input_grad[0]:
+            dm = (x[..., :, None] * dy[..., None, :] if trans
+                  else dy[..., :, None] * x[..., None, :])
+        if ctx.needs_input_grad[1]:
+            dx = _Matvec.apply(m, dy, not trans)
+        return dm, dx, None
+
+
+# ---------------------------------------------------------------------------
+# The ops
+# ---------------------------------------------------------------------------
+
+
+def _device(*tensors) -> str:
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("fragment products: operands on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fragment product kernel for device {dev}")
+    return dev.type
+
+
+def _check(*tensors) -> None:
+    """What the kernel takes: float32/float64 of one dtype, the same
+    leading shape, every size up to MAX_N."""
+    dtype, lead = tensors[0].dtype, tensors[0].shape[:-2]
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fragment products take float32/float64, not "
+                        f"{dtype}")
+    for t in tensors:
+        if t.dtype != dtype or t.dim() < 3 or t.shape[:-2] != lead:
+            raise ValueError(
+                f"fragment products: operands of one dtype and one leading "
+                f"shape, got {[tuple(u.shape) for u in tensors]}")
+        if max(t.shape[-2:]) > MAX_N:
+            raise ValueError(f"fragment products take sizes up to MAX_N = "
+                             f"{MAX_N}, got {tuple(t.shape)}")
+
+
+def fragment_bmm(a, b, trans_a: bool = False, trans_b: bool = False):
+    """op(a) @ op(b) for (..., m, k) and (..., k, n) batches (op: the
+    transpose where asked)."""
+    if _device(a, b) == "cpu":
+        return torch.matmul(_op(a, trans_a), _op(b, trans_b))
+    _check(a, b)
+    if _op(a, trans_a).shape[-1] != _op(b, trans_b).shape[-2]:
+        raise ValueError(f"fragment_bmm: {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not chain")
+    return _Bmm.apply(a, b, trans_a, trans_b)
+
+
+def sandwich(x, f, shift):
+    """x @ f @ x + shift for (..., n, n) batches."""
+    if _device(x, f, shift) == "cpu":
+        return x @ f @ x + shift
+    _check(x, f, shift)
+    if not (x.shape == f.shape == shift.shape
+            and x.shape[-1] == x.shape[-2]):
+        raise ValueError("sandwich: x, f and shift are square, one shape")
+    return _Sandwich.apply(x, f, shift)
+
+
+def fragment_matvec(m, x, trans: bool = False):
+    """op(m) @ x for (..., rows, cols) m and (..., cols) x."""
+    if _device(m, x) == "cpu":
+        return (_op(m, trans) @ x[..., None])[..., 0]
+    _check(m)
+    if (x.dtype != m.dtype or x.shape[:-1] != m.shape[:-2]
+            or x.shape[-1] != _op(m, trans).shape[-1]):
+        raise ValueError(f"fragment_matvec: {tuple(m.shape)} and "
+                         f"{tuple(x.shape)} do not chain")
+    return _Matvec.apply(m, x, trans)
+
+
+def pair_bilinear(w, grids):
+    """c[b, i, j] = sum over a, c of w[b, i, a] grids[b, i, j, a, c]
+    w[b, j, c] for (B, nat, R) weights and (B, nat, nat, R, R) grids
+    (D3's C6 from its reference grids). On a card the inner contraction
+    is a (1, R) by (R, R) product per atom pair on the kernel and the
+    outer a sum over R, whose order depends on R alone (torch.einsum there
+    is a batched cuBLAS product, whose order follows the batch count); on
+    the CPU the two einsums."""
+    if _device(w, grids) == "cpu":
+        v = torch.einsum("bia,bijac->bijc", w, grids)
+        return torch.einsum("bijc,bjc->bij", v, w)
+    nat = w.shape[1]
+    rows = w[:, :, None, None, :].expand(-1, -1, nat, 1, -1)
+    v = fragment_bmm(rows, grids)[..., 0, :]
+    return (v * w[:, None, :, :]).sum(-1)

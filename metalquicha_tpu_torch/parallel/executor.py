@@ -93,7 +93,8 @@ from ..methods.xtb import scc_graph
 from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
 from ..methods.xtb.multipole import work_elements as multipole_work_elements
-from ..ops import anderson_window, batched_eigh, fermi_fill, jacobi_eigh
+from ..ops import anderson_window, batched_eigh, fermi_fill, fragment_gemm
+from ..ops import jacobi_eigh
 from . import slot_worker
 from .mesh import fragment_mesh, shard_leading_axis
 from .slot_worker import evaluate_piece
@@ -489,6 +490,7 @@ class FragmentExecutor:
         if any(d.type == "cuda" for d in self.mesh.flat):
             fermi_fill.build()
             anderson_window.build()
+            fragment_gemm.build()
             batched_eigh.build()
             if self.calc.settings.use_pallas_eigh:
                 jacobi_eigh.build()

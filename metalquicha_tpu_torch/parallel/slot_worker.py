@@ -183,6 +183,7 @@ class SlotWorker:
     `launches`, `fermi_launches` and `sp2_calls` count the Jacobi and
     Fermi launches and SP2 calls the worker has made (its SCC graphs'
     replays included), `window_launches` its Anderson window kernel's,
+    `gemm_launches` its fragment product kernel's,
     `scc_captures`, `scc_hits` and `scc_eager` its SCC solves on a card
     that captured a graph, replayed a cached one and ran launch by launch,
     `stage_captures`, `stage_hits` and `stage_eager` the same of its
@@ -208,6 +209,7 @@ class SlotWorker:
         self.fermi_launches = 0
         self.sp2_calls = 0
         self.window_launches = 0
+        self.gemm_launches = 0
         self.scc_captures = 0
         self.scc_hits = 0
         self.scc_eager = 0
@@ -259,10 +261,12 @@ class SlotWorker:
     def record(self, stats: dict) -> None:
         """Take a piece's statistics: its counts into this handle's and
         this process's counters."""
-        from ..ops import anderson_window, fermi_fill, jacobi_eigh, sp2
+        from ..ops import anderson_window, fermi_fill, fragment_gemm
+        from ..ops import jacobi_eigh, sp2
 
         self.launches += stats["launches"]
         self.window_launches += stats["window_launches"]
+        self.gemm_launches += stats["gemm_launches"]
         self.fermi_launches += stats["fermi_launches"]
         self.sp2_calls += stats["sp2_calls"]
         self.scc_captures += stats["scc_captures"]
@@ -283,6 +287,7 @@ class SlotWorker:
                                 stats["density_launches"])
         sp2.add_calls(stats["sp2_calls"])
         anderson_window.add_launches(stats["window_launches"])
+        fragment_gemm.add_launches(stats["gemm_launches"])
 
     def exited(self) -> WorkerExited:
         """The exception for a worker whose end of the pipe closed."""
@@ -411,7 +416,7 @@ class _Slot:
         from ..methods.xtb.calculator import XtbCalculator
         from ..methods.xtb.polish import HostPolisher
         from ..ops import anderson_window, batched_eigh, fermi_fill
-        from ..ops import jacobi_eigh, kernel_build
+        from ..ops import fragment_gemm, jacobi_eigh, kernel_build
 
         cfg = pickle.loads(config)
         install_parameter_state(cfg["state"])
@@ -428,6 +433,7 @@ class _Slot:
         if self.device.type == "cuda":
             fermi_fill.build()
             anderson_window.build()
+            fragment_gemm.build()
             batched_eigh.build()
             if cfg["settings"].use_pallas_eigh:
                 jacobi_eigh.build()
@@ -459,14 +465,15 @@ class _Slot:
 
     def evaluate(self, config, tuples, pad_to, what, run, sharing):
         from ..methods.xtb import scc_graph
-        from ..ops import anderson_window, fermi_fill, jacobi_eigh, sp2
+        from ..ops import anderson_window, fermi_fill, fragment_gemm
+        from ..ops import jacobi_eigh, sp2
         from .executor import make_room
 
         if config is not None:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
         m0, d0 = fermi_fill.launches, fermi_fill.density_launches
-        w0 = anderson_window.launches
+        w0, x0 = anderson_window.launches, fragment_gemm.launches
         g0, e0 = scc_graph.stats["captures"], scc_graph.stats["eager"]
         h0 = scc_graph.stats["hits"]
         sg0, sh0, se0 = (scc_graph.stats[k] for k in (
@@ -493,6 +500,7 @@ class _Slot:
                            fermi_launches=fermi_fill.launches - m0,
                            density_launches=fermi_fill.density_launches - d0,
                            window_launches=anderson_window.launches - w0,
+                           gemm_launches=fragment_gemm.launches - x0,
                            sp2_calls=sp2.calls - s0,
                            scc_captures=scc_graph.stats["captures"] - g0,
                            scc_hits=scc_graph.stats["hits"] - h0,

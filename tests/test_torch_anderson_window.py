@@ -17,9 +17,11 @@ On the CPU:
 - the dispatch: a CPU tensor never builds the kernel, another device
   raises, a CUDA tensor goes to the launch; the ctypes declarations
   against the C signatures; a window above MAX_M raises.
-The `gpu` cases hold the kernel to both plain versions on the card and
-check that a fragment's bits do not depend on its batch (`python3 -m
-pytest --noconftest tests/test_torch_anderson_window.py -m gpu`).
+The `gpu` cases hold the kernel to both plain versions on the card (a warp
+per fragment up to nx = 32, a block above, a window streamed in tiles),
+to the rowwise twin bit for bit on windows of small integers, and check
+that a fragment's bits do not depend on its batch (`python3 -m pytest
+--noconftest tests/test_torch_anderson_window.py -m gpu`).
 """
 
 import re
@@ -56,20 +58,21 @@ CASES = {"it0": 0, "it1": 1, "partial": 5, "full": 11, "wrapped": 30,
          "near_singular": 20, "nonfinite": 7}
 
 
-def _state(case, bsz=5, nx=14, dtype=torch.float64, seed=0):
+def _state(case, bsz=5, nx=14, dtype=torch.float64, seed=0, m=M):
     """A seeded loop state for `case`: (x, f_res, hist_x, hist_f, resid,
-    active, it). The windows hold a smooth sequence of states converging
-    to a fixed point, as an SCC's do; slots not yet written are zero."""
+    active, it), window m. The windows hold a smooth sequence of states
+    converging to a fixed point, as an SCC's do; slots not yet written are
+    zero."""
     rng = np.random.default_rng(seed)
     it = CASES[case]
     target = rng.standard_normal((bsz, nx))
-    hist_x = np.zeros((bsz, M, nx))
-    hist_f = np.zeros((bsz, M, nx))
+    hist_x = np.zeros((bsz, m, nx))
+    hist_f = np.zeros((bsz, m, nx))
     for k in range(it):
         decay = 0.5 ** k
         xk = target + decay * rng.standard_normal((bsz, nx))
-        hist_x[:, k % M] = xk
-        hist_f[:, k % M] = (target - xk) * 0.7 + 1e-3 * decay * (
+        hist_x[:, k % m] = xk
+        hist_f[:, k % m] = (target - xk) * 0.7 + 1e-3 * decay * (
             rng.standard_normal((bsz, nx)))
     x = target + 0.5 ** it * rng.standard_normal((bsz, nx))
     f_res = (target - x) * 0.7
@@ -384,8 +387,12 @@ def cuda():
 
 
 #: (B, nx) of the window on the main path: the dimer slice (GFN1 and
-#: GFN2), the w20 MBE(4) chunks, a GFN2 hexamer
-GPU_SHAPES = [(512, 12), (512, 62), (5985, 24), (64, 372)]
+#: GFN2), the w20 MBE(4) chunks, a GFN2 hexamer; an odd batch of small
+#: fragments, four to a block with the last block part empty; a window too
+#: wide to stage whole (2 m nx above the kernel's 200 KB), streamed in
+#: tiles
+GPU_SHAPES = [(512, 12), (512, 62), (5985, 24), (64, 372), (7, 30),
+              (8, 2500)]
 
 
 @pytest.mark.gpu
@@ -408,6 +415,40 @@ def test_kernel_matches_plain_versions(cuda, shape, case, dtype):
         assert _same(got[1], ref[1]) and _same(got[2], ref[2])
 
 
+def _integer_state(bsz, nx, dtype, seed=2):
+    """A full window (it = 11) of small integers: every dot product, and
+    so G and rhs, exact in any order of summation."""
+    rng = np.random.default_rng(seed)
+    ints = [rng.integers(-3, 4, shape).astype(float) for shape in
+            ((bsz, nx), (bsz, nx), (bsz, M, nx), (bsz, M, nx))]
+    out = [torch.tensor(a, dtype=dtype) for a in ints]
+    resid = torch.tensor(rng.uniform(0.0, 1.0, bsz), dtype=dtype)
+    return (*out, resid, torch.ones(bsz, dtype=torch.bool),
+            torch.tensor(11, dtype=torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+def test_kernel_equals_the_twin_on_integer_windows(cuda, shape, dtype):
+    """Where the dot products are exact, the kernel's x, windows, residuals
+    and flags equal `anderson_window_rowwise`'s bit for bit: its
+    elimination in registers and its step are the twin's arithmetic. The
+    coefficient limit is lifted so that every step is taken."""
+    state = [t.to(cuda) for t in _integer_state(*shape, dtype)]
+    kw = dict(beta=0.4, reg=LIMITS[dtype][0], c_lim=1e30, scf_tol=1e-6)
+    outs = []
+    for fn in (aw.anderson_window, _kw(aw.anderson_window_rowwise)):
+        x, f_res, hist_x, hist_f, resid, active, it = (
+            t.clone() for t in state)
+        fn(x, f_res, hist_x, hist_f, resid, active, it, **kw)
+        outs.append((x, hist_x, hist_f, resid, active))
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(*outs))
+    damped = state[0] + 0.4 * state[1]
+    assert not torch.equal(outs[0][0], damped), "no step was taken"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_bits_do_not_depend_on_the_batch(cuda, dtype):
@@ -419,3 +460,38 @@ def test_kernel_bits_do_not_depend_on_the_batch(cuda, dtype):
         got = _run(aw.anderson_window, part, dtype)
         for a, b in zip(got, whole):
             assert _same(a, b.index_select(0, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(40, 186), (8, 2500)])
+def test_block_kernel_bits_do_not_depend_on_the_batch(cuda, shape, dtype):
+    """The same for a block per fragment, staged whole and in tiles."""
+    bsz, nx = shape
+    state = [t.to(cuda) for t in _state("full", bsz, nx, dtype=dtype)]
+    whole = _run(aw.anderson_window, state, dtype)
+    for rows in ([0], [bsz - 1, 3, 0]):
+        idx = torch.tensor(rows, device=cuda)
+        part = [t.index_select(0, idx) if t.dim() else t for t in state]
+        got = _run(aw.anderson_window, part, dtype)
+        for a, b in zip(got, whole):
+            assert _same(a, b.index_select(0, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["partial", "wrapped", "near_singular",
+                                  "nonfinite"])
+@pytest.mark.parametrize("shape", [(64, 24), (16, 62)])
+def test_wide_window_matches_plain_versions(cuda, shape, case, dtype):
+    """A window of m = 20 (its solve on rows in shared memory, above the
+    register solve's 16), warp and block per fragment."""
+    state = [t.to(cuda) for t in _state(case, *shape, dtype=dtype, m=20)]
+    got = _run(aw.anderson_window, state, dtype)
+    for plain in (aw.anderson_window_reference, aw.anderson_window_rowwise):
+        ref = _run(_kw(plain), state, dtype)
+        for a, b in zip(got, ref):
+            if a.dtype == torch.bool:
+                assert torch.equal(a, b)
+            else:
+                assert _close(a, b, TOL[dtype])

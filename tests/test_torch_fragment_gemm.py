@@ -1,0 +1,554 @@
+"""The batch-invariant product kernel (`ops/fragment_gemm.py`): its plain
+versions, its gradients, its dispatch, and the engine's products through it.
+
+On the CPU:
+- `fragment_bmm_reference` (the kernel's order, ascending k, in
+  elementwise ops) and the ops' plain versions against torch.matmul, with
+  every transpose, and against the JAX package's `_ortho_factors` and
+  `_general_eigh` on seeded inputs (float64 1e-13, float32 1e-5,
+  relative to the largest entry);
+- `pair_bilinear` (D3's C6 contraction) on the CPU: the two einsums bit
+  for bit, and the card's formulation (a (1, R) by (R, R) product per
+  pair, then a sum over R) within tolerance;
+- the autograd Functions with the launchers monkeypatched to the plain
+  versions: gradcheck and gradgradcheck in float64;
+- the engine sends every product of a GFN1 SCC iteration (the Fock
+  transforms, the Coulomb matvec), of its orthogonalizers and of the
+  functional through the op; above 64 AOs, and for GFN2's multipole
+  products, it does not;
+- the dispatch: a CPU tensor never builds the kernel, another device
+  raises, a CUDA tensor goes to the launch, a failed launch raises
+  uncounted; a launch from another thread on a captured stream (a
+  backward pass) counted per replay; the ctypes declarations against the
+  C signatures.
+The `gpu` cases hold the kernel to both plain versions on the card at the
+main path's shapes, square and rectangular (D3's (1, R) by (R, R) and its
+backward's forms), and check that a fragment's bits do not depend on its
+batch (`python3 -m pytest --noconftest tests/test_torch_fragment_gemm.py
+-m gpu`).
+"""
+
+import re
+import threading
+import types
+
+import numpy as np
+import pytest
+import torch
+from _torch_port_common import H3O, WATER
+
+from metalquicha_tpu_torch.constants import KB_HARTREE
+from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
+from metalquicha_tpu_torch.methods.xtb import engine as te
+from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params as tsp
+from metalquicha_tpu_torch.ops import fragment_gemm as fm
+
+torch.set_num_threads(1)
+KT = 300.0 * KB_HARTREE
+TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+TRANS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def _mats(shape, dtype=torch.float64, seed=0, n=2):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(shape), dtype=dtype)
+            for _ in range(n)]
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _op(t, trans):
+    return t.transpose(-1, -2) if trans else t
+
+
+def _operands(bsz, m, k, n, trans, dtype=torch.float64, seed=0, lead=()):
+    """a, b whose op(a) is (m, k) and op(b) is (k, n)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((*lead, bsz, *((k, m) if trans[0] else (m, k))))
+    b = rng.standard_normal((*lead, bsz, *((n, k) if trans[1] else (k, n))))
+    return (torch.tensor(a, dtype=dtype), torch.tensor(b, dtype=dtype))
+
+
+#: (m, k, n) of the products: a square, D3's (1, R) by (R, R) and the two
+#: products of its backward pass, one of each size class
+RECT = [(11, 11, 11), (1, 5, 5), (5, 1, 5), (30, 7, 19), (64, 3, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("trans", TRANS)
+@pytest.mark.parametrize("mkn", RECT)
+def test_reference_matches_matmul(mkn, trans, dtype):
+    a, b = _operands(6, *mkn, trans, dtype)
+    want = torch.matmul(_op(a, trans[0]), _op(b, trans[1]))
+    assert _rel(fm.fragment_bmm_reference(a, b, *trans), want) <= TOL[dtype]
+    assert torch.equal(fm.fragment_bmm(a, b, *trans), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sandwich_and_matvec_plain_versions(dtype):
+    x, f, s = _mats((5, 16, 16), dtype, n=3)
+    want = x @ f @ x + s
+    assert torch.equal(fm.sandwich(x, f, s), want)
+    kernel_order = fm.fragment_bmm_reference(
+        fm.fragment_bmm_reference(x, f), x) + s
+    assert _rel(kernel_order, want) <= TOL[dtype]
+    v = f[:, :, 0]
+    for trans in (False, True):
+        ref = (_op(x, trans) @ v[..., None])[..., 0]
+        assert torch.equal(fm.fragment_matvec(x, v, trans), ref)
+        assert _rel(fm.matvec_reference(x, v, trans), ref) <= TOL[dtype]
+
+
+def _pair_inputs(bsz, nat, dtype=torch.float64, seed=3, device="cpu"):
+    rng = np.random.default_rng(seed)
+    w = rng.random((bsz, nat, 5))
+    w = w / w.sum(-1, keepdims=True)
+    grids = rng.random((bsz, nat, nat, 5, 5)) * 40.0
+    return (torch.tensor(w, dtype=dtype, device=device),
+            torch.tensor(grids, dtype=dtype, device=device))
+
+
+def _pair_kernel_order(w, grids):
+    """The card's formulation of `pair_bilinear` in plain ops."""
+    nat = w.shape[1]
+    rows = w[:, :, None, None, :].expand(-1, -1, nat, 1, -1)
+    v = fm.fragment_bmm_reference(rows, grids)[..., 0, :]
+    return (v * w[:, None, :, :]).sum(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pair_bilinear_plain_versions(dtype):
+    """On the CPU the two einsums D3 ran before, bit for bit; the card's
+    formulation agrees within tolerance."""
+    w, grids = _pair_inputs(3, 7, dtype)
+    v = torch.einsum("bia,bijac->bijc", w, grids)
+    want = torch.einsum("bijc,bjc->bij", v, w)
+    assert torch.equal(fm.pair_bilinear(w, grids), want)
+    assert _rel(_pair_kernel_order(w, grids), want) <= TOL[dtype]
+
+
+def _jax_np(dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plain_versions_match_jax_ortho_and_general_eigh(dtype):
+    """The orthogonalizer and the generalized eigenproblem built from the
+    kernel's order (`fragment_bmm_reference`) against the JAX package's
+    `_ortho_factors` and `_general_eigh` under vmap."""
+    # imported here: the file's `gpu` cases run where jax is not installed
+    import jax
+
+    from metalquicha_tpu.methods.xtb import engine as je
+
+    rng = np.random.default_rng(7)
+    bsz, n = 4, 12
+    a = rng.standard_normal((bsz, n, n)) * 0.05
+    S = np.eye(n) + a + a.transpose(0, 2, 1)
+    F = rng.standard_normal((bsz, n, n))
+    F = F + F.transpose(0, 2, 1) + np.diag(np.arange(n, dtype=float) * 2.0)
+    npd = _jax_np(dtype)
+    xs_j, proj_j = jax.vmap(je._ortho_factors)(S.astype(npd))
+    eps_j, c_j = jax.vmap(je._general_eigh)(
+        F.astype(npd), (xs_j, proj_j))
+
+    St, Ft = (torch.tensor(t, dtype=dtype) for t in (S, F))
+    s, U = torch.linalg.eigh(St)
+    keep = (s > 1e-7).to(dtype)
+    w = torch.where(s > 1e-7, torch.rsqrt(torch.clamp(s, min=1e-7)), 0.0)
+    xs = fm.fragment_bmm_reference(U * w[:, None, :], U, trans_b=True)
+    proj = torch.eye(n, dtype=dtype) - fm.fragment_bmm_reference(
+        U * keep[:, None, :], U, trans_b=True)
+    assert _rel(xs, torch.tensor(np.asarray(xs_j))) <= TOL[dtype]
+    assert float(proj.abs().max()) <= TOL[dtype]
+    a_ref = fm.fragment_bmm_reference(
+        fm.fragment_bmm_reference(xs, Ft), xs) + te.PAD_LEVEL * proj
+    eps, cp = torch.linalg.eigh(a_ref)
+    c = fm.fragment_bmm_reference(xs, cp)
+    assert _rel(eps, torch.tensor(np.asarray(eps_j))) <= TOL[dtype]
+    # eigenvectors up to each column's sign, in float64 (in float32 they
+    # carry the eigh's own error, eps |A| / gap, about 1e-5 here)
+    if dtype == torch.float64:
+        c_j = torch.tensor(np.asarray(c_j))
+        sign = torch.sign((c * c_j).sum(-2, keepdim=True))
+        assert _rel(c * sign, c_j) <= TOL[dtype]
+    # and the port's own engine functions on the plain route
+    xs_p, proj_p = te._ortho_factors(St)
+    assert _rel(xs_p, xs) <= TOL[dtype]
+    eps_p, _ = te._general_eigh(Ft, (xs_p, proj_p))
+    assert _rel(eps_p, eps) <= TOL[dtype]
+
+
+@pytest.fixture
+def plain_launchers(monkeypatch):
+    """The Functions' launches sent to the plain versions on the CPU."""
+    monkeypatch.setattr(fm, "_launch_bmm", fm.fragment_bmm_reference)
+    monkeypatch.setattr(
+        fm, "_launch_sandwich", lambda x, f, s: fm.fragment_bmm_reference(
+            fm.fragment_bmm_reference(x, f), x) + s)
+    monkeypatch.setattr(fm, "_launch_matvec", fm.matvec_reference)
+
+
+@pytest.mark.parametrize("trans", TRANS)
+def test_bmm_gradients(plain_launchers, trans):
+    a = _mats((2, 4, 3) if trans[0] else (2, 3, 4), seed=1)[0]
+    b = _mats((2, 5, 4) if trans[1] else (2, 4, 5), seed=2)[0]
+    a.requires_grad_()
+    b.requires_grad_()
+
+    def fn(a, b):
+        return fm._Bmm.apply(a, b, *trans)
+
+    assert torch.autograd.gradcheck(fn, (a, b))
+    assert torch.autograd.gradgradcheck(fn, (a, b))
+
+
+def test_sandwich_gradients(plain_launchers):
+    x, f, s = (t.requires_grad_() for t in _mats((2, 4, 4), seed=4, n=3))
+    assert torch.autograd.gradcheck(fm._Sandwich.apply, (x, f, s))
+    assert torch.autograd.gradgradcheck(fm._Sandwich.apply, (x, f, s))
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_matvec_gradients(plain_launchers, trans):
+    m = _mats((3, 4, 5), seed=5)[0].requires_grad_()
+    x = _mats((3, 4 if trans else 5), seed=6)[0].requires_grad_()
+
+    def fn(m, x):
+        return fm._Matvec.apply(m, x, trans)
+
+    assert torch.autograd.gradcheck(fn, (m, x))
+    assert torch.autograd.gradgradcheck(fn, (m, x))
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """Calls of the engine's kernel ops by name."""
+    calls = {}
+    for name in ("fragment_bmm", "sandwich", "fragment_matvec"):
+        real = getattr(te, name)
+
+        def count(*args, _name=name, _real=real, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(te, name, count)
+    return calls
+
+
+def _per_iteration(calls, frag, settings):
+    """Each op's calls in one SCC iteration (3 iterations less 1)."""
+    counts = []
+    for n_iter in (1, 3):
+        calls.clear()
+        tcalc._converge_charges(frag.coords, frag, KT,
+                                settings._replace(max_scf_iter=n_iter))
+        counts.append(dict(calls))
+    return {k: (counts[1].get(k, 0) - counts[0].get(k, 0)) // 2
+            for k in set(counts[0]) | set(counts[1])}
+
+
+def test_engine_products_go_through_the_op(counted):
+    calc = tcalc.XtbCalculator(tsp("gfn1"), device="cpu")
+    frag = calc.make_batch([WATER, H3O])
+    exact = _per_iteration(counted, frag, tsp("gfn1"))
+    # the Fock transform, C = Xs Cp and the Coulomb matvec
+    assert exact == {"sandwich": 1, "fragment_bmm": 1, "fragment_matvec": 1}
+    counted.clear()
+    te._ortho_factors(torch.eye(8, dtype=torch.float64).expand(2, 8, 8))
+    assert counted == {"fragment_bmm": 2}
+    counted.clear()
+    te._jacobi_route(torch.eye(8, dtype=torch.float32).expand(2, 8, 8))
+    assert counted == {"fragment_bmm": 2}
+
+    fast = tsp("gfn1", use_pallas_eigh=True)
+    calc32 = tcalc.XtbCalculator(fast, dtype=torch.float32, device="cpu")
+    frag32 = calc32.make_batch([WATER, H3O])
+    jacobi = _per_iteration(counted, frag32, fast)
+    assert jacobi["sandwich"] == 1 and jacobi["fragment_bmm"] == 1
+
+    counted.clear()
+    with torch.no_grad():
+        q, _ = tcalc._converge_charges(frag.coords, frag, KT, tsp("gfn1"))
+    counted.clear()
+    te.electronic_energy(frag.coords, q, frag, KT, tsp("gfn1"))
+    # the orthogonalizer's two products, the transform and C; a matvec in
+    # the Fock matrix's potential, the band energy's potential and the
+    # Coulomb energy
+    assert counted == {"fragment_bmm": 3, "sandwich": 1,
+                       "fragment_matvec": 3}
+    counted.clear()
+    te.scf_refine(*(tcalc._scc_operands(frag.coords, frag, tsp("gfn1"))[k]
+                    for k in (1, 0, 2)), frag, KT, tsp("gfn1"), q, 1)
+    # two in the orthogonalizer, the transform's C and the density
+    assert counted["fragment_bmm"] == 4 and counted["sandwich"] == 1
+
+
+def test_large_fragments_and_gfn2_multipoles_stay_on_matmul(counted):
+    ring = [(np.tile(WATER[0], 12),
+             np.concatenate([WATER[1] + np.array([6.0 * k, 0.0, 0.0])
+                             for k in range(12)]), 0, 1)]
+    calc = tcalc.XtbCalculator(tsp("gfn1"), device="cpu")
+    frag = calc.make_batch(ring)
+    assert frag.ao_mask.shape[1] > fm.MAX_N
+    assert _per_iteration(counted, frag, tsp("gfn1")) == {}
+    gfn2 = tsp("gfn2")
+    calc2 = tcalc.XtbCalculator(gfn2, variant="gfn2", device="cpu")
+    frag2 = calc2.make_batch([WATER, H3O])
+    per = _per_iteration(counted, frag2, gfn2)
+    # the Fock transform and C only: the moments' products stay einsums
+    assert per["sandwich"] == 1 and per["fragment_bmm"] == 1
+
+
+def test_cpu_tensor_never_builds_the_kernel(monkeypatch):
+    def refuse(*_args):
+        raise AssertionError("the kernel was built for a CPU tensor")
+
+    monkeypatch.setattr(fm._LIB, "load", refuse)
+    before = fm.launches
+    a, b, s = _mats((3, 5, 5), n=3)
+    fm.fragment_bmm(a, b, True, False)
+    fm.sandwich(a, b, s)
+    fm.fragment_matvec(a, b[:, 0])
+    fm.pair_bilinear(*_pair_inputs(2, 3))
+    assert fm.launches == before
+
+
+def test_other_devices_raise():
+    a = torch.zeros(2, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        fm.fragment_bmm(a, a)
+    with pytest.raises(ValueError, match="device"):
+        fm.sandwich(a, a, a)
+    with pytest.raises(ValueError, match="device"):
+        fm.fragment_matvec(a, a[:, 0])
+    with pytest.raises(ValueError, match="device"):
+        fm.pair_bilinear(a[:, :, :2], torch.zeros(2, 4, 4, 2, 2,
+                                                  device="meta"))
+
+
+def test_d3_c6_goes_through_the_op(monkeypatch):
+    """D3's C6 contraction is `pair_bilinear`, the method code leaves the
+    device to the op."""
+    from metalquicha_tpu_torch.methods.xtb import dispersion_d3
+
+    calls = []
+    real = dispersion_d3.pair_bilinear
+    monkeypatch.setattr(dispersion_d3, "pair_bilinear",
+                        lambda *a: calls.append(a) or real(*a))
+    calc = tcalc.XtbCalculator(tsp("gfn1", max_scf_iter=2), device="cpu")
+    calc.energies(calc.make_batch([WATER, H3O]))
+    assert calls and all(c[1].shape[-2:] == (5, 5) for c in calls)
+
+
+def test_cuda_tensor_goes_to_the_kernel(monkeypatch):
+    """The dispatch reads the device only: tensors that say they lie on a
+    card go to the Functions, never to torch.matmul."""
+    launched = []
+
+    class Stub:
+        @staticmethod
+        def apply(*args):
+            launched.append(args)
+            return "kernel"
+
+    for name in ("_Bmm", "_Sandwich", "_Matvec"):
+        monkeypatch.setattr(fm, name, Stub)
+    monkeypatch.setattr(fm, "_check", lambda *args: None)
+
+    def card(shape):
+        t = types.SimpleNamespace(device=torch.device("cuda", 0),
+                                  shape=shape, dtype=torch.float64)
+        t.transpose = lambda *_: t
+        return t
+
+    m, v = card((2, 4, 4)), card((2, 4))
+    assert fm.fragment_bmm(m, m) == "kernel"
+    assert fm.sandwich(m, m, m) == "kernel"
+    assert fm.fragment_matvec(m, v) == "kernel"
+    assert len(launched) == 3
+
+
+def test_failed_launch_raises(monkeypatch):
+    """A launch that returns a CUDA error raises with its message and is
+    not counted."""
+    lib = types.SimpleNamespace(
+        mqc_fragment_bmm_f64=lambda *args: 9,
+        mqc_cuda_error_string=lambda code: b"invalid configuration argument")
+    monkeypatch.setattr(fm._LIB, "lib", lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 7, raising=False)
+    a, b = _mats((2, 4, 4))
+    before = fm.launches
+    with pytest.raises(RuntimeError, match="invalid configuration argument"):
+        fm._launch_bmm(a, b, False, True)
+    assert fm.launches == before
+
+
+def test_launches_of_another_thread_reach_the_capture_of_their_stream():
+    """A backward pass launches from autograd's device thread: a launch on
+    a captured stream is recorded for each replay, whatever thread makes
+    it; one on another stream is counted at once."""
+    from metalquicha_tpu_torch.ops import replay_counts
+
+    before = fm.launches
+    with replay_counts.capturing(stream=77) as tally:
+        worker = threading.Thread(target=lambda: (fm._count(77),
+                                                  fm._count(78)))
+        worker.start()
+        worker.join()
+    assert fm.launches == before + 1
+    for _ in range(3):
+        tally.replayed(77)
+    assert fm.launches == before + 4
+    fm._count(77)
+    assert fm.launches == before + 5
+
+
+def test_sizes_above_the_kernel_raise_on_a_card(monkeypatch):
+    monkeypatch.setattr(fm, "_device", lambda *t: "cuda")
+    a = torch.zeros(2, fm.MAX_N + 1, fm.MAX_N + 1)
+    with pytest.raises(ValueError, match="MAX_N"):
+        fm.fragment_bmm(a, a)
+    with pytest.raises(TypeError, match="float32/float64"):
+        fm.fragment_bmm(a.to(torch.int32), a.to(torch.int32))
+
+
+def test_entry_points_match_the_source():
+    """The ctypes declarations of the wrapper against the C signatures of
+    csrc/fragment_gemm.cu (a mismatch shows only on a card otherwise)."""
+    src = fm._LIB.source.read_text()
+    declared = set(re.findall(r"^int (mqc_\w+)\(", src, re.M))
+    assert declared == set(fm._LIB.entry_points) == {
+        f"mqc_fragment_{k}_{t}" for k in ("bmm", "sandwich", "matvec")
+        for t in ("f32", "f64")}
+    kinds = {"double": "c_double", "int": "c_int"}
+    for name, argtypes in fm._LIB.entry_points.items():
+        params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+        want = []
+        for p in params.split(","):
+            words = p.replace("*", " * ").split()
+            want.append("c_void_p" if "*" in words else kinds[words[-2]])
+        assert [t.__name__ for t in argtypes] == want, name
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
+    # torch.matmul in full float32, as the engine's products were
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+#: (B, n) of the main path: the dimer slice, the w20 MBE(4) chunk, the
+#: largest fragments the kernel takes, one fragment, an odd batch, and
+#: sizes of 8 (the products on the direct kernel, the sandwich not)
+GPU_SHAPES = [(512, 16), (5985, 32), (128, 64), (1, 16), (7, 64), (20, 8)]
+
+
+def _card_mats(shape, dtype, device, n=3, seed=0):
+    return [t.to(device) for t in _mats(shape, dtype, seed, n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+def test_kernel_matches_plain_versions(cuda, shape, dtype):
+    bsz, n = shape
+    a, b, s = _card_mats((bsz, n, n), dtype, cuda)
+    tol = TOL[dtype]
+    for trans in TRANS:
+        before = fm.launches
+        got = fm.fragment_bmm(a, b, *trans)
+        torch.cuda.synchronize()
+        assert fm.launches == before + 1
+        assert _rel(got, fm.fragment_bmm_reference(a, b, *trans)) <= tol
+        ref = torch.matmul(_op(a, trans[0]), _op(b, trans[1]))
+        assert _rel(got, ref) <= tol
+    got = fm.sandwich(a, b, s)
+    ref = fm.fragment_bmm_reference(fm.fragment_bmm_reference(a, b), a) + s
+    assert _rel(got, ref) <= tol and _rel(got, a @ b @ a + s) <= tol
+    for trans in (False, True):
+        got = fm.fragment_matvec(a, b[:, 0], trans)
+        assert _rel(got, fm.matvec_reference(a, b[:, 0], trans)) <= tol
+        ref = (_op(a, trans) @ b[:, 0, :, None])[..., 0]
+        assert _rel(got, ref) <= tol
+
+
+#: (B, m, k, n) of rectangular products on the main path: D3's (1, R) by
+#: (R, R) per atom pair of a 73-atom Hessian chunk (41 x 73 x 73) and of
+#: the w20 MBE(2) dimers (190 x 6 x 6), the forms of its backward pass,
+#: and one of each size class
+GPU_RECT = [(41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (6840, 5, 1, 5),
+            (300, 30, 7, 19), (33, 64, 3, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bmkn", GPU_RECT)
+def test_rectangular_products_on_the_card(cuda, bmkn, dtype):
+    bsz, m, k, n = bmkn
+    for trans in TRANS:
+        a, b = (t.to(cuda) for t in _operands(bsz, m, k, n, trans, dtype))
+        got = fm.fragment_bmm(a, b, *trans)
+        assert got.shape == (bsz, m, n)
+        assert _rel(got, fm.fragment_bmm_reference(a, b, *trans)) <= TOL[dtype]
+        ref = torch.matmul(_op(a, trans[0]), _op(b, trans[1]))
+        assert _rel(got, ref) <= TOL[dtype]
+        for rows in ([0], [bsz - 1, 0]):
+            idx = torch.tensor(rows, device=cuda)
+            part = fm.fragment_bmm(a.index_select(0, idx),
+                                   b.index_select(0, idx), *trans)
+            assert torch.equal(part, got.index_select(0, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pair_bilinear_on_the_card(cuda, dtype):
+    """D3's C6 contraction on the kernel against the einsums and the
+    kernel's order, its bits the same for a fragment alone."""
+    w, grids = _pair_inputs(12, 23, dtype, device=cuda)
+    before = fm.launches
+    got = fm.pair_bilinear(w, grids)
+    assert fm.launches == before + 1
+    want = torch.einsum("bijc,bjc->bij",
+                        torch.einsum("bia,bijac->bijc", w, grids), w)
+    assert _rel(got, want) <= TOL[dtype]
+    assert _rel(got, _pair_kernel_order(w, grids)) <= TOL[dtype]
+    assert torch.equal(fm.pair_bilinear(w[-1:], grids[-1:]), got[-1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+def test_kernel_bits_do_not_depend_on_the_batch(cuda, shape, dtype):
+    bsz, n = shape
+    a, b, s = _card_mats((bsz, n, n), dtype, cuda, seed=1)
+    whole = (fm.fragment_bmm(a, b, False, True), fm.sandwich(a, b, s),
+             fm.fragment_matvec(a, b[:, 0]),
+             fm.fragment_matvec(a, b[:, 0], True))
+    for rows in ([0], [bsz - 1, 0], [bsz - 1, bsz // 2, 0]):
+        idx = torch.tensor(rows, device=cuda)
+        a1, b1, s1 = (t.index_select(0, idx) for t in (a, b, s))
+        part = (fm.fragment_bmm(a1, b1, False, True),
+                fm.sandwich(a1, b1, s1), fm.fragment_matvec(a1, b1[:, 0]),
+                fm.fragment_matvec(a1, b1[:, 0], True))
+        for p, w in zip(part, whole):
+            assert torch.equal(p, w.index_select(0, idx))
+
+
+@pytest.mark.gpu
+def test_gradients_on_the_card(cuda):
+    """The Functions' backward passes on the card against torch's own
+    gradients of the plain expression (float64, 1e-12)."""
+    x, f, s = (t.requires_grad_() for t in _card_mats((64, 16, 16),
+                                                        torch.float64, cuda))
+    out = fm.sandwich(x, f, s)
+    got = torch.autograd.grad((out * out).sum(), (x, f, s))
+    ref_out = x @ f @ x + s
+    want = torch.autograd.grad((ref_out * ref_out).sum(), (x, f, s))
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-12

@@ -8,17 +8,26 @@ MBE(2) gradient (`workloads.trimer_mbe2_fragments`, whose dimers have
 exactly degenerate cross-monomer spectra) and the w20 MBE(2) |g| in
 float64 and in float32 + the f64 polish. The deltas are measured once per
 route of the Anderson step's window algebra (`--solves`): the window
-kernel, one block per fragment (kernel, what the engine runs on a card,
+kernel (kernel, what the engine runs on a card,
 `ops/anderson_window.py`); its plain torch version, batched products and
-`torch.linalg.solve_ex` (library, what the engine ran before the kernel);
-the same with the solve one fragment at a time (looped); or the kernel's
-order in elementwise batched ops (rowwise). Where a delta stays with the
-kernel, it comes from outside the window (the Fock build's batched
-products, ROADMAP C17).
+`torch.linalg.solve_ex` (library, what the engine ran before the
+kernel); the same with the solve one fragment at a time (looped); or the
+kernel's order in elementwise batched ops (rowwise); and once per route of
+the engine's products (`--products`): the batch-invariant kernel
+(kernel, `ops/fragment_gemm.py`: the products, the Coulomb matvec and
+D3's C6 contraction), or torch.matmul and torch.einsum in their place
+(library, what the port ran before it).
+
+`--locate` names, per products route, the first value that depends on
+the batch: the w20 MBE(2) dimers' float64 gradients as one batch of 190
+and as its first 95, launch by launch, every call of the engine's traced
+functions (`TRACED`) and the kernels' backward passes compared on the
+shared fragments in call order.
 
 Usage: python3 tools/c17_probe_torch.py [--device cuda]
-           [--solves kernel,library,looped,rowwise] [--json-out F]
-It prints a line per solve and one JSON line.
+           [--solves kernel,library,looped,rowwise]
+           [--products kernel,library] [--locate] [--json-out F]
+It prints a line per route and one JSON line.
 """
 
 from __future__ import annotations
@@ -103,6 +112,123 @@ def cut_deltas(device):
     return out
 
 
+#: (module, function) pairs whose outputs `first_difference` compares; an
+#: in-place op (the window) is read after the call from its first argument
+TRACED = (
+    ("engine", "overlap_matrix"), ("engine", "coordination_numbers"),
+    ("engine", "h0_matrix"), ("engine", "gamma_matrix"),
+    ("engine", "eigh_folded"), ("engine", "batched_eigh"),
+    ("engine", "eigh_safe"), ("engine", "fragment_bmm"),
+    ("engine", "sandwich"), ("engine", "fragment_matvec"),
+    ("engine", "fermi_density"),
+    ("engine", "fermi_occupations"), ("engine", "anderson_window"),
+    ("engine", "_fock"), ("engine", "_shell_populations"),
+    ("dispersion_d3", "c6_coefficients"), ("dispersion_d3", "d3_energy"),
+    ("dispersion_d3", "atm_energy"),
+)
+#: autograd Functions whose backward passes are compared too
+TRACED_BACKWARD = (("engine", "_EighSafe"), ("fragment_gemm", "_Bmm"),
+                   ("fragment_gemm", "_Sandwich"),
+                   ("fragment_gemm", "_Matvec"))
+
+
+class _Found(Exception):
+    pass
+
+
+class _Trace:
+    """The traced calls of one run (`ref` None) or their comparison with a
+    recorded run's on its first `rows` fragments."""
+
+    def __init__(self, bsz, ref=None, rows=None):
+        self.bsz, self.ref, self.rows = bsz, ref, rows
+        self.calls = []
+
+    def add(self, name, out):
+        flat = [t.detach() for t in _tensors(out)
+                if t.dim() and t.shape[0] == self.bsz]
+        k = len(self.calls)
+        self.calls.append(name)
+        if self.ref is None:
+            self.calls[-1] = (name, [t.cpu().clone() for t in flat])
+            return
+        ref_name, ref_out = self.ref[k]
+        if ref_name != name:
+            raise _Found({"op": name, "call": k,
+                          "diverged": f"call order ({ref_name})"})
+        for t, r in zip(flat, ref_out):
+            mine = t[: self.rows].cpu()
+            same = torch.equal(torch.nan_to_num(mine), torch.nan_to_num(r))
+            if not same:
+                raise _Found({"op": name, "call": k, "max_abs_diff": float(
+                    (mine - r).abs().max())})
+
+
+def _tensors(out):
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def first_difference(device):
+    """The first traced value (in call order) of the w20 MBE(2) dimers'
+    float64 gradients that differs between the 190 as one batch and its
+    first 95 alone, or None where the gradients agree bit for bit."""
+    from metalquicha_tpu_torch.methods.xtb import dispersion_d3, engine
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.ops import fragment_gemm
+    from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
+
+    mods = {"engine": engine, "dispersion_d3": dispersion_d3,
+            "fragment_gemm": fragment_gemm}
+    calc = XtbCalculator(settings_from_params("gfn1", max_scf_iter=32),
+                         dtype=torch.float64, device=device)
+    dimers = w20_mbe2_fragments()[20:]
+    half = len(dimers) // 2
+    runs = {}
+
+    def run(frags, trace):
+        saved = []
+        for mod, name in TRACED:
+            fn = getattr(mods[mod], name)
+            saved.append((mods[mod], name, fn))
+
+            def traced(*args, _fn=fn, _name=name, **kw):
+                out = _fn(*args, **kw)
+                trace.add(_name, args[0] if _name == "anderson_window"
+                          else out)
+                return out
+            setattr(mods[mod], name, traced)
+        for mod, name in TRACED_BACKWARD:
+            cls = getattr(mods[mod], name)
+            fn = cls.__dict__["backward"]
+            saved.append((cls, "backward", fn))
+
+            def backward(ctx, *grads, _fn=fn.__func__, _name=name):
+                out = _fn(ctx, *grads)
+                trace.add(f"{_name}.backward", out)
+                return out
+            cls.backward = staticmethod(backward)
+        try:
+            frag = calc.make_batch(frags)
+            e, g, _ = calc.gradients(frag, graph=False)
+            trace.add("gradients", (e, g))
+        finally:
+            for owner, name, fn in reversed(saved):
+                setattr(owner, name, fn)
+        return trace
+
+    runs["half"] = run(dimers[:half], _Trace(half))
+    try:
+        run(dimers, _Trace(len(dimers), runs["half"].calls, half))
+    except _Found as found:
+        return found.args[0]
+    return None
+
+
 def looped_solve(G, rhs):
     """torch.linalg.solve_ex one fragment at a time: each fragment's solve
     takes the one-matrix routine, whatever the batch."""
@@ -127,6 +253,36 @@ def _plain(fn, solve=None):
 _LIBRARY_SOLVE = torch.linalg.solve_ex
 
 
+def _library_products():
+    """The kernel ops replaced by the torch calls they replaced (cuBLAS's
+    batched products on a card), by (module, name)."""
+    def bmm(a, b, trans_a=False, trans_b=False):
+        return torch.matmul(a.transpose(-1, -2) if trans_a else a,
+                            b.transpose(-1, -2) if trans_b else b)
+
+    def pair_bilinear(w, grids):
+        v = torch.einsum("bia,bijac->bijc", w, grids)
+        return torch.einsum("bijc,bjc->bij", v, w)
+
+    return {("engine", "fragment_bmm"): bmm,
+            ("engine", "sandwich"): lambda x, f, shift: x @ f @ x + shift,
+            ("engine", "fragment_matvec"):
+                lambda m, x: (m @ x[..., None])[..., 0],
+            ("dispersion_d3", "pair_bilinear"): pair_bilinear}
+
+
+def _products(name):
+    """Route `name` of the kernel ops, by (module, name)."""
+    from metalquicha_tpu_torch.ops import fragment_gemm as fm
+
+    if name == "library":
+        return _library_products()
+    return {("engine", "fragment_bmm"): fm.fragment_bmm,
+            ("engine", "sandwich"): fm.sandwich,
+            ("engine", "fragment_matvec"): fm.fragment_matvec,
+            ("dispersion_d3", "pair_bilinear"): fm.pair_bilinear}
+
+
 def _windows():
     from metalquicha_tpu_torch.ops import anderson_window as aw
 
@@ -143,11 +299,18 @@ def main(argv=None) -> int:
                     help="comma-separated: the Anderson step's window "
                          "algebra for the deltas (kernel, library, looped, "
                          "rowwise)")
+    ap.add_argument("--products", default="kernel",
+                    help="comma-separated: the engine's products for the "
+                         "deltas (kernel, library)")
+    ap.add_argument("--locate", action="store_true",
+                    help="name the first value that depends on the batch, "
+                         "per products route")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     from metalquicha_tpu_torch.logging_ import global_logger
     from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
-    from metalquicha_tpu_torch.methods.xtb import engine, scc_graph
+    from metalquicha_tpu_torch.methods.xtb import dispersion_d3, engine
+    from metalquicha_tpu_torch.methods.xtb import scc_graph
 
     global_logger.set_level("warning")
     device = tcalc.check_device(args.device)
@@ -156,17 +319,33 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         result["card"] = torch.cuda.get_device_name(device)
     windows, real = _windows(), engine.anderson_window
-    for name in args.solves.split(","):
-        engine.anderson_window = windows[name]
-        # the graphs captured with another route's window are not replayed
-        scc_graph.clear()
+    mods = {"engine": engine, "dispersion_d3": dispersion_d3}
+    real_products = _products("kernel")
+    for products in args.products.split(","):
+        for (mod, name), fn in _products(products).items():
+            setattr(mods[mod], name, fn)
         try:
-            result[f"deltas_{name}"] = cut_deltas(device)
+            for name in args.solves.split(","):
+                engine.anderson_window = windows[name]
+                # the graphs captured on another route are not replayed
+                scc_graph.clear()
+                try:
+                    key = f"deltas_{name}_{products}"
+                    result[key] = cut_deltas(device)
+                finally:
+                    engine.anderson_window = real
+                    scc_graph.clear()
+                print(f"c17 cut deltas, solve {name}, products {products}: "
+                      f"{result[key]}", flush=True)
+            if args.locate:
+                result[f"first_{products}"] = first_difference(device)
+                print(f"c17 first value that depends on the batch, "
+                      f"products {products}: {result[f'first_{products}']}",
+                      flush=True)
         finally:
-            engine.anderson_window = real
+            for (mod, name), fn in real_products.items():
+                setattr(mods[mod], name, fn)
             scc_graph.clear()
-        print(f"c17 cut deltas, solve {name}: {result[f'deltas_{name}']}",
-              flush=True)
     line = json.dumps(result)
     print(line, flush=True)
     if args.json_out:

@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Device times of the Anderson window kernel and the fragment product
+kernel at the main path's shapes, on a card.
+
+Each kernel is timed two ways: its launches replayed from one CUDA graph
+(`graph_ms`: the kernel's own time, no host time between launches) and
+launched one by one from Python with CUDA events around the calls
+(`eager_ms`, as `chip_smoke.py`'s window phase timed it before: where the
+wrapper's host time is longer than the kernel, that is what it reads).
+The product kernel is timed beside torch.matmul (cuBLAS's batched
+product), graph-replayed too.
+
+With an older checkout first on PYTHONPATH (unpacked with `git archive`
+into the gitignored `_archive/`), it times that checkout's kernels; the
+product kernel where the checkout has one.
+
+Usage: python3 tools/kernel_times_torch.py [--reps N] [--json-out F]
+It prints a line per shape and one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+#: (B, nx) of the window on the main path (chip_smoke.WINDOW_SHAPES)
+WINDOW_SHAPES = ((512, 12), (512, 62), (5985, 24), (64, 36), (64, 186))
+WINDOW_M = 12
+#: (reg, c_lim) the engine passes per dtype
+WINDOW_LIMITS = {torch.float64: (1e-12, 1e3), torch.float32: (1e-4, 2.0)}
+#: (B, n) of the products on the main path (chip_smoke.GEMM_SHAPES)
+GEMM_SHAPES = ((512, 16), (190, 16), (2581, 32), (5985, 32), (128, 64))
+
+
+def eager_ms(fn, reps: int) -> float:
+    """Mean time per call of reps calls launched from Python, by CUDA
+    events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time per call of reps calls captured in one CUDA graph
+    and replayed (after a warm-up replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def window_state(rng, bsz: int, nx: int, dtype, it: int = 11):
+    """A seeded Anderson state at iteration `it` on the card (as
+    chip_smoke.window_state)."""
+    m = WINDOW_M
+    target = rng.standard_normal((bsz, nx))
+    hist_x = np.zeros((bsz, m, nx))
+    hist_f = np.zeros((bsz, m, nx))
+    for k in range(it):
+        xk = target + 0.5 ** k * rng.standard_normal((bsz, nx))
+        hist_x[:, k % m] = xk
+        hist_f[:, k % m] = (target - xk) * 0.7 + 1e-3 * 0.5 ** k * (
+            rng.standard_normal((bsz, nx)))
+    x = target + 0.5 ** it * rng.standard_normal((bsz, nx))
+    active = np.ones(bsz, dtype=bool)
+    active[-1] = False
+    out = [torch.tensor(a, dtype=dtype, device="cuda") for a in
+           (x, (target - x) * 0.7, hist_x, hist_f, rng.uniform(0, 1, bsz))]
+    return (*out, torch.tensor(active, device="cuda"),
+            torch.tensor(it, dtype=torch.int64, device="cuda"))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--json-out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_times: CUDA is not available", file=sys.stderr)
+        return 1
+    from metalquicha_tpu_torch.ops import anderson_window as aw
+
+    aw.build()
+    try:
+        fm = importlib.import_module(
+            "metalquicha_tpu_torch.ops.fragment_gemm")
+        fm.build()
+    except ModuleNotFoundError:
+        fm = None
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    result = {"card": card, "source": aw.__file__, "window": [],
+              "gemm": []}
+    rng = np.random.default_rng(14)
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        reg, c_lim = WINDOW_LIMITS[dtype]
+        kw = dict(beta=0.4, reg=reg, c_lim=c_lim, scf_tol=1e-6)
+        for bsz, nx in WINDOW_SHAPES:
+            state = window_state(rng, bsz, nx, dtype)
+
+            def step(st=state):
+                aw.anderson_window(*st, **kw)
+
+            rec = {"dtype": tag, "shape": [bsz, nx],
+                   "eager_ms": eager_ms(step, args.reps),
+                   "graph_ms": graph_ms(step, args.reps)}
+            result["window"].append(rec)
+            print(f"window {tag} {bsz}x{nx}: {rec}", flush=True)
+        if fm is None:
+            continue
+        for bsz, n in GEMM_SHAPES:
+            a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
+                                    dtype=dtype, device="cuda")
+                       for _ in range(3))
+            rec = {"dtype": tag, "shape": [bsz, n]}
+            for name, fn in (
+                    ("bmm", lambda: fm.fragment_bmm(a, b, False, True)),
+                    ("matmul", lambda: torch.matmul(a, b.mT)),
+                    ("sandwich", lambda: fm.sandwich(a, b, s)),
+                    ("torch_sandwich", lambda: a @ b @ a + s)):
+                rec[f"{name}_graph_ms"] = graph_ms(fn, args.reps)
+                rec[f"{name}_eager_ms"] = eager_ms(fn, args.reps)
+            result["gemm"].append(rec)
+            print(f"products {tag} {bsz}x{n}: {rec}", flush=True)
+    line = json.dumps(result)
+    print(line, flush=True)
+    if args.json_out:
+        with open(args.json_out, "w") as fh:
+            fh.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
