@@ -46,11 +46,20 @@ Phases (each raises on failure; nothing is caught):
              its device time; and launched one by one from Python, as
              the phase timed it before), the rowwise twin (plain_ms) and the reference
              (library_ms) timed beside the bound (`window_bound`);
+             windows above 32 (ROADMAP C21): m = 40 and 64 partly
+             filled at (512, 12) and wrapped at (64, 186), against both
+             plain versions;
 1d. gemm:    the batch-invariant product kernel (csrc/fragment_gemm.cu,
-             built with the others) against its plain versions (the
+             built with the others) bit for bit its first version's
+             (commit df9980a) at
+             every case of the fingerprint fixture
+             (tests/data/fragment_gemm_bits.json, tools/gemm_bits_torch.py);
+             operands with a storage offset and of odd n bit for bit the
+             same products on aligned operands; against its plain versions (the
              kernel's order in elementwise ops) and torch.matmul at (B, n)
              = (512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
-             (128, 64): the product with every transpose, the sandwich
+             (128, 64), and above 64 (k in tiles) at (16, 96) and (3,
+             128): the product with every transpose, the sandwich
              x f x + s and the matvec with and without its transpose;
              the rectangular products of D3's C6 contraction ((1, 5) by
              (5, 5) per atom pair of a 73-atom Hessian chunk and of the
@@ -60,7 +69,8 @@ Phases (each raises on failure; nothing is caught):
              largest entry) and float32 (1e-5); a fragment alone and in
              its batch bit for bit equal; the product and the sandwich,
              the plain version and torch.matmul (library_ms) timed
-             graph-replayed beside the bound (`gemm_bound`);
+             graph-replayed beside the bound (`gemm_bound`), the matvec
+             beside torch.matmul's;
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -116,7 +126,10 @@ Phases (each raises on failure; nothing is caught):
              rigid trimer MBE(2) gradient and total, and the w20 MBE(2)
              |g|, max |dg| and total in float64 and in float32 + polish,
              from one batch and from a two-slot cut must be equal bit for
-             bit; one line `{"c17": ...}`;
+             bit; printed beside them the w20 MBE(2) gradient's in GFN2
+             and with ALPB, and the 16 dodecamers' (96 AOs, one batch
+             against two of 8), whose gradient must be equal bit for bit;
+             one line `{"c17": ...}`;
 3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with use_pallas_eigh in
              float64 (the exact route, as the JAX package's: no Jacobi
@@ -1147,25 +1160,33 @@ def scc_graph_phase(be):
 # chunk, GFN1 and GFN2 water hexamers; m = broyden_memory
 WINDOW_SHAPES = ((512, 12), (512, 62), (5985, 24), (64, 36), (64, 186))
 WINDOW_M = 12
+# windows above the first kernel's 32 (ROADMAP C21), (B, nx, m, it,
+# decay): at the dimer slice's GFN1 shape (a warp per fragment) with the
+# window partly filled (at nx = 12 a full window of 40 would be rank 12,
+# its coefficients set by the regularizer's rounding), and wrapped at
+# GFN2's hexamer shape (a block per fragment)
+WIDE_WINDOWS = ((512, 12, 40, 11, 0.5), (512, 12, 64, 11, 0.5),
+                (64, 186, 40, 43, 0.8), (64, 186, 64, 67, 0.8))
 WINDOW_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 #: (reg, c_lim) the engine passes per dtype
 WINDOW_LIMITS = {torch.float64: (1e-12, 1e3), torch.float32: (1e-4, 2.0)}
 
 
-def window_state(rng, bsz: int, nx: int, dtype, it: int = 11):
+def window_state(rng, bsz: int, nx: int, dtype, it: int = 11,
+                 m: int = WINDOW_M, decay: float = 0.5):
     """A seeded Anderson state at iteration `it`: windows of a sequence of
-    states converging to a fixed point, one frozen fragment; (x, f_res,
-    hist_x, hist_f, resid, active, it) on the card."""
-    m = WINDOW_M
+    states converging to a fixed point (by `decay` an iteration), one
+    frozen fragment; (x, f_res, hist_x, hist_f, resid, active, it) on the
+    card."""
     target = rng.standard_normal((bsz, nx))
     hist_x = np.zeros((bsz, m, nx))
     hist_f = np.zeros((bsz, m, nx))
     for k in range(it):
-        xk = target + 0.5 ** k * rng.standard_normal((bsz, nx))
+        xk = target + decay ** k * rng.standard_normal((bsz, nx))
         hist_x[:, k % m] = xk
-        hist_f[:, k % m] = (target - xk) * 0.7 + 1e-3 * 0.5 ** k * (
+        hist_f[:, k % m] = (target - xk) * 0.7 + 1e-3 * decay ** k * (
             rng.standard_normal((bsz, nx)))
-    x = target + 0.5 ** it * rng.standard_normal((bsz, nx))
+    x = target + decay ** it * rng.standard_normal((bsz, nx))
     active = np.ones(bsz, dtype=bool)
     active[-1] = False
     out = [torch.tensor(a, dtype=dtype, device=DEVICE) for a in
@@ -1265,7 +1286,37 @@ def window_phase(aw):
                          "plain_ms": times["plain"], "bound_ms": bound_ms,
                          "bound_by": bound_by,
                          "library_ms": times["library"]}
+        wide_window_check(aw, rng, dtype, kw)
     return entry
+
+
+def wide_window_check(aw, rng, dtype, kw):
+    """Windows above 32 (WIDE_WINDOWS, ROADMAP C21) on the kernel against
+    both plain versions: x, the windows and the residuals within
+    WINDOW_TOL, the flags equal."""
+    tag = "f64" if dtype == torch.float64 else "f32"
+    for bsz, nx, m, it, decay in WIDE_WINDOWS:
+        state = window_state(rng, bsz, nx, dtype, it=it, m=m, decay=decay)
+        outs = []
+        for fn in (aw.anderson_window,
+                   lambda *a, **k: aw.anderson_window_reference(
+                       *a, k["beta"], k["reg"], k["c_lim"], k["scf_tol"]),
+                   lambda *a, **k: aw.anderson_window_rowwise(
+                       *a, k["beta"], k["reg"], k["c_lim"], k["scf_tol"])):
+            out = [t.clone() for t in state]
+            fn(*out, **kw)
+            outs.append([out[0], out[2], out[3], out[4], out[5]])
+        torch.cuda.synchronize()
+        err = 0.0
+        for ref in outs[1:]:
+            check(torch.equal(outs[0][4], ref[4]),
+                  f"window m={m} {tag}: the active flags differ")
+            for a, b in zip(outs[0][:4], ref[:4]):
+                err = max(err, float((a - b).abs().max()))
+        check(err <= WINDOW_TOL[dtype], f"window m={m} {tag} ({bsz}, {nx}): "
+              f"max err {err:.3e} > {WINDOW_TOL[dtype]:.0e}")
+        print(f"anderson window {tag} (B, nx, m)=({bsz}, {nx}, {m}), it={it}:"
+              f" max err={err:.3e} against both plain versions", flush=True)
 
 
 # the batch-invariant product kernel: (B fragments, n) at the main path's
@@ -1273,6 +1324,10 @@ def window_phase(aw):
 # and energy chunks, the largest fragments it takes
 GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
                (128, 64))
+# above 64 (k streamed in tiles): the call_graph phase's dodecamers (nao 72
+# padded to 96) and the largest the kernel takes (no fingerprint: the
+# first version took sizes up to 64)
+GEMM_WIDE = ((16, 96), (3, 128))
 GEMM_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 # rectangular products (B, m, k, n) on the main path: D3's C6 contraction,
 # a (1, R) by (R, R) product per atom pair, for a 73-atom Hessian chunk
@@ -1312,10 +1367,12 @@ def gemm_phase(fm):
     batched product, which the engine ran before) beside the bound.
     Returns the kernels line's entry (the (512, 16) float64 product, the
     sandwich's numbers beside it)."""
+    gemm_bits_check(fm)
+    layout_check(fm)
     rng = np.random.default_rng(15)
     entry = None
     for dtype in (torch.float64, torch.float32):
-        for bsz, n in GEMM_SHAPES:
+        for bsz, n in GEMM_SHAPES + GEMM_WIDE:
             a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
                                     dtype=dtype, device=DEVICE)
                        for _ in range(3))
@@ -1368,7 +1425,9 @@ def gemm_phase(fm):
                         a, b, False, True)),
                     ("sw_library", lambda: a @ b @ a + s),
                     ("sw_kernel", lambda: fm.sandwich(a, b, s)),
-                    ("sw_kernel2", lambda: fm.sandwich(a, b, s))):
+                    ("sw_kernel2", lambda: fm.sandwich(a, b, s)),
+                    ("mv_library", lambda: torch.matmul(a, b[:, 0, :, None])),
+                    ("mv_kernel", lambda: fm.fragment_matvec(a, b[:, 0]))):
                 times[name] = graph_ms(fn, 3 if name == "plain" else 20)
             ms = min(times["kernel"], times["kernel2"])
             sw_ms = min(times["sw_kernel"], times["sw_kernel2"])
@@ -1380,8 +1439,10 @@ def gemm_phase(fm):
                   f"{times['library']:.4f} bound ms={bound_ms:.6f} "
                   f"({bound_by}, {100 * bound_ms / ms:.2f}% of it); "
                   f"sandwich ms={sw_ms:.4f} torch ms="
-                  f"{times['sw_library']:.4f} bound ms={sw_bound:.6f}",
-                  flush=True)
+                  f"{times['sw_library']:.4f} bound ms={sw_bound:.6f} "
+                  f"({100 * sw_bound / sw_ms:.2f}% of it); matvec ms="
+                  f"{times['mv_kernel']:.4f} torch.matmul ms="
+                  f"{times['mv_library']:.4f}", flush=True)
             if entry is None:
                 entry = {"max_abs_err": err, "ms": ms,
                          "plain_ms": times["plain"], "bound_ms": bound_ms,
@@ -1392,6 +1453,80 @@ def gemm_phase(fm):
                          "sandwich_bound_ms": sw_bound}
         rect_phase(fm, rng, dtype)
     return entry
+
+
+def gemm_bits_check(fm):
+    """The product kernel bit for bit its first version (commit df9980a;
+    the fixture
+    `tests/data/fragment_gemm_bits.json`, written on the card from that
+    commit by `tools/gemm_bits_torch.py --write`): every entry, transpose,
+    shape and dtype the fixture holds, which covers GEMM_SHAPES and
+    GEMM_RECT in both dtypes."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import gemm_bits_torch as bits
+
+    fixture = bits.load_fixture()
+    want = {bits.key_of(e, d, shape, ta, tb)
+            for d in ("f64", "f32")
+            for shape in ([(b, n, n, n) for b, n in GEMM_SHAPES]
+                          + list(GEMM_RECT))
+            for e, ta, tb in [("bmm", ta, tb) for ta in (False, True)
+                              for tb in (False, True)]}
+    check(want <= set(fixture["cases"]), f"the fingerprint fixture lacks "
+          f"{sorted(want - set(fixture['cases']))}")
+    t0 = time.perf_counter()
+    differ = bits.compare(fm, fixture)
+    check(not differ, f"the product kernel's bits moved from the "
+          f"fingerprint: {differ}")
+    print(f"fragment products: {len(fixture['cases'])} cases bit for bit "
+          f"the fingerprint of {fixture['module']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def layout_check(fm):
+    """Operands the kernel stages element by element against the same
+    product on operands it stages 16 bytes at a time, bit for bit: a view
+    whose storage offset leaves it 4 or 8 bytes off 16 (every entry and
+    transpose, one shape of each size class), and rows of odd length (n =
+    11, 37 and 97 against the product padded with a zero row and column to
+    12, 38 and 98, whose leading block takes the same sums)."""
+    rng = np.random.default_rng(16)
+    for dtype in (torch.float64, torch.float32):
+        for bsz, n in ((190, 16), (2581, 32), (128, 64), (16, 96)):
+            flat = torch.tensor(rng.standard_normal(bsz * n * n + 1),
+                                dtype=dtype, device=DEVICE)
+            off = flat[1:].view(bsz, n, n)
+            whole = off.clone()
+            b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
+                                 dtype=dtype, device=DEVICE)
+                    for _ in range(2))
+            pairs = [(fm.fragment_bmm(off, b, ta, tb),
+                      fm.fragment_bmm(whole, b, ta, tb))
+                     for ta in (False, True) for tb in (False, True)]
+            pairs += [(fm.fragment_bmm(b, off, ta, tb),
+                       fm.fragment_bmm(b, whole, ta, tb))
+                      for ta in (False, True) for tb in (False, True)]
+            pairs.append((fm.sandwich(off, b, s), fm.sandwich(whole, b, s)))
+            pairs.append((fm.sandwich(b, off, off), fm.sandwich(b, whole,
+                                                               whole)))
+            check(all(torch.equal(x, y) for x, y in pairs),
+                  f"fragment products ({bsz}, {n}): an operand with a "
+                  f"storage offset changed the bits")
+        for bsz, n in ((20, 11), (128, 37), (8, 97)):
+            a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
+                                    dtype=dtype, device=DEVICE)
+                       for _ in range(3))
+            pad = [torch.nn.functional.pad(t, (0, 1, 0, 1)) for t in (a, b, s)]
+            cut = (slice(None), slice(0, n), slice(0, n))
+            pairs = [(fm.fragment_bmm(a, b, ta, tb),
+                      fm.fragment_bmm(pad[0], pad[1], ta, tb)[cut])
+                     for ta in (False, True) for tb in (False, True)]
+            pairs.append((fm.sandwich(a, b, s), fm.sandwich(*pad)[cut]))
+            check(all(torch.equal(x, y) for x, y in pairs),
+                  f"fragment products ({bsz}, {n}): rows of odd length "
+                  f"changed the bits")
+    print("fragment products: offset and odd-n operands bit for bit the "
+          "same products on aligned ones", flush=True)
 
 
 def rect_phase(fm, rng, dtype):
@@ -1595,16 +1730,29 @@ def c17_check():
     """ROADMAP C17: the rigid trimer MBE(2) gradient and total, and the
     w20 MBE(2) |g|, max |dg| and total in float64 and in float32 + the f64
     polish, from one batch and from a two-slot cut, equal bit for bit: the
-    window solve, every GFN1 product up to 64 AOs and D3's C6 contraction
-    (`ops/fragment_gemm.py`) no longer depend on the batch."""
+    window solve, every GFN1 product up to 128 AOs and D3's C6 contraction
+    (`ops/fragment_gemm.py`) no longer depend on the batch. Beside them,
+    measured and printed, the deltas beyond GFN1 up to 64 AOs: the w20
+    MBE(2) gradient in GFN2 and in GFN1 with ALPB, and the call_graph
+    phase's 16 dodecamers (nao 72, padded to 96) as one batch against two
+    of 8, float64; of these only the dodecamers' gradient is held to 0
+    (ROADMAP C17 lists what is open)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from c17_probe_torch import cut_deltas
+    from c17_probe_torch import beyond_deltas, cut_deltas
 
     deltas = cut_deltas(torch.device(DEVICE))
     print(f"c17 cut deltas: {deltas}", flush=True)
     check(all(v == 0.0 for v in deltas.values()),
           f"C17: a fragment's gradient depends on the cut: {deltas}")
-    return deltas
+    beyond = beyond_deltas(torch.device(DEVICE))
+    print(f"c17 cut deltas beyond GFN1 up to 64 AOs: {beyond}", flush=True)
+    check(all(np.isfinite(v) for v in beyond.values()),
+          f"C17: a delta beyond GFN1 is not finite: {beyond}")
+    # the products above 64 AOs on the kernel's k-tiled sizes: the
+    # dodecamers' gradients no longer depend on the cut
+    check(beyond["dodecamers_max_dg"] == 0.0,
+          f"C17: the dodecamers' gradient depends on the cut: {beyond}")
+    return dict(deltas, beyond=beyond)
 
 
 def slice_phase(jac, golden):
@@ -3083,7 +3231,7 @@ def main() -> int:
     jac.launches = 0
     ff.launches = ff.density_launches = 0
     aw.launches = 0
-    fm.launches = 0
+    fm.launches_by_kind.clear()
     sp2.calls = 0
     be.launches = 0
     scc_graph.stats.update(captures=0, replays=0, eager=0, hits=0,
@@ -3153,8 +3301,10 @@ def main() -> int:
     print(f"main path: fermi launches={ff.launches} {fermi}", flush=True)
     print(f"main path: anderson window launches={aw.launches} {windows}",
           flush=True)
-    print(f"main path: fragment product launches={fm.launches} {gemms}",
-          flush=True)
+    by_kind = {fm.kind_name(k): n
+               for k, n in sorted(fm.launches_by_kind.items())}
+    print(f"main path: fragment product launches={fm.launches} {gemms}; by "
+          f"kind {by_kind}", flush=True)
     print(f"main path: call stages (captured, hits)={stages}", flush=True)
     print(f"main path: fused fill and density launches (among the fermi "
           f"launches)={ff.density_launches} {density}", flush=True)
@@ -3220,6 +3370,9 @@ def main() -> int:
         "source": "metalquicha_tpu_torch/csrc/fragment_gemm.cu",
         "replaces": "metalquicha_tpu/methods/xtb/engine.py:443",
         "launches": fm.launches,
+        # the main path's launches by kind: the direct kernel, or the size
+        # class (16, 32, 64 staged whole; 128 with k in tiles)
+        "launches_by_kind": by_kind,
         **gemm_entry,
     }]}))
     print(nvidia_smi())

@@ -77,22 +77,27 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kMaxM = 32;
+// the largest window (broyden_memory) the kernel takes: its [G | rhs]
+// system (m, m + 1) in shared memory beside the tiles, in f64 too
+constexpr int kMaxM = 128;
 constexpr unsigned kFull = 0xffffffffu;
 // a warp per fragment up to this nx, a block above
 constexpr int kSmallNx = 32;
 // the dynamic shared memory a block stages its window in
 constexpr size_t kStageBytes = 200 * 1024;
 constexpr size_t kStaticSmem = 48 * 1024;
+// the dynamic shared memory a block may take (the card's 227 KB, less
+// the kernels' own static arrays)
+constexpr size_t kMaxDynamic = 232448 - 1024;
 // dot products in flight per warp at large nx
 constexpr int kInFlight = 4;
 // the largest m whose solve runs in registers (a lane per row, the row
-// unrolled); above it the rows stay in shared memory. Every caller in the
-// repo runs broyden_memory = 12, but the window is a setting a user may
-// raise (settings_from_params(broyden_memory=...)), and the wrapper's
-// contract since the first window kernel is m <= MAX_M = 32: the shared
-// memory solve keeps m in (16, 32] on the kernel (no plain-torch path on
-// a card) without the register row's compile time.
+// unrolled); above it the rows stay in shared memory, each lane holding
+// rows lane, lane + 32, ... Every caller in the repo runs broyden_memory =
+// 12, but the window is a setting a user may raise
+// (settings_from_params(broyden_memory=...)), and the JAX package takes
+// any: the shared memory solve keeps m in (16, kMaxM] on the kernel (no
+// plain-torch path on a card) without the register row's compile time.
 constexpr int kRegM = 16;
 
 // correctly rounded arithmetic that the compiler may not contract
@@ -199,29 +204,30 @@ struct Window {
   __device__ T wf(int j, int e) const {
     return j == slot ? f[e] : hf[static_cast<long long>(j) * nx + e];
   }
-  // dF_j and dS_j = dX_j + beta dF_j at e for j < m, into dF[j * ld]
-  // and (where dS is given) dS[j * ld]: the window entries loaded kRegM
-  // rows at a time before any is used
-  __device__ void stage(int e, int m, T beta, T* dF, T* dS, int ld) const {
+  // dF_j and dS_j = dX_j + beta dF_j at e for j0 <= j < j1, into
+  // dF[(j - j0) * ld] and (where dS is given) dS[(j - j0) * ld]: the
+  // window entries loaded kRegM rows at a time before any is used
+  __device__ void stage(int e, int j0, int j1, T beta, T* dF, T* dS,
+                        int ld) const {
     const T xp = wx(prev, e), fp = wf(prev, e);
-    for (int j0 = 0; j0 < m; j0 += kRegM) {
+    for (int jb = j0; jb < j1; jb += kRegM) {
       T vx[kRegM], vf[kRegM];
 #pragma unroll
       for (int u = 0; u < kRegM; ++u) {
-        if (j0 + u < m) {
-          vx[u] = wx(j0 + u, e);
-          vf[u] = wf(j0 + u, e);
+        if (jb + u < j1) {
+          vx[u] = wx(jb + u, e);
+          vf[u] = wf(jb + u, e);
         }
       }
 #pragma unroll
       for (int u = 0; u < kRegM; ++u) {
-        const int j = j0 + u;
-        if (j < m) {
+        const int j = jb + u;
+        if (j < j1) {
           const bool v = valid(j);
           const T d_f = v ? sub(vf[u], fp) : T(0);
           const T d_x = v ? sub(vx[u], xp) : T(0);
-          dF[j * ld] = d_f;
-          if (dS != nullptr) dS[j * ld] = add(d_x, mul(beta, d_f));
+          dF[(j - j0) * ld] = d_f;
+          if (dS != nullptr) dS[(j - j0) * ld] = add(d_x, mul(beta, d_f));
         }
       }
     }
@@ -310,8 +316,9 @@ __device__ __forceinline__ void solve_registers(const T* aug, int ld, int m,
   __syncwarp();
 }
 
-// The same solve, m in (kRegM, 32], on the rows in shared memory, a lane
-// per row, the rows swapped in place; the same arithmetic (and bits).
+// The same solve, m in (kRegM, kMaxM], on the rows in shared memory, lane
+// l holding rows l, l + 32, ..., the rows swapped in place; the same
+// arithmetic (and bits).
 template <typename T>
 __device__ __forceinline__ void solve_shared(T* aug, int ld, int m, T reg,
                                              T* cs) {
@@ -326,9 +333,11 @@ __device__ __forceinline__ void solve_shared(T* aug, int ld, int m, T reg,
   for (int k = 0; k < m; ++k) {
     T v = T(-1);
     int i = kMaxM;
-    if (lane >= k && lane < m) {
-      v = fabs(aug[lane * ld + k]);
-      i = lane;
+    for (int r = lane; r < m; r += kWarp) {
+      if (r >= k && better(fabs(aug[r * ld + k]), r, v, i)) {
+        v = fabs(aug[r * ld + k]);
+        i = r;
+      }
     }
 #pragma unroll
     for (int o = kWarp / 2; o > 0; o >>= 1) {
@@ -347,11 +356,11 @@ __device__ __forceinline__ void solve_shared(T* aug, int ld, int m, T reg,
       }
     }
     __syncwarp();
-    if (lane > k && lane < m) {
-      const T piv = dvd(aug[lane * ld + k], aug[k * ld + k]);
+    for (int r = lane; r < m; r += kWarp) {
+      if (r <= k) continue;
+      const T piv = dvd(aug[r * ld + k], aug[k * ld + k]);
       for (int col = k + 1; col <= m; ++col)
-        aug[lane * ld + col] =
-            sub(aug[lane * ld + col], mul(piv, aug[k * ld + col]));
+        aug[r * ld + col] = sub(aug[r * ld + col], mul(piv, aug[k * ld + col]));
     }
     __syncwarp();
   }
@@ -383,8 +392,9 @@ __device__ __forceinline__ T max_abs(const T* c, int m) {
   return cmax;
 }
 
-// nx <= 32: a warp per fragment, kWarps fragments a block. Shared memory
-// per warp: dF (m, nx), dS (m, nx), f (nx), [G | rhs] (m, m + 1), c (m).
+// nx <= 32: a warp per fragment, up to kWarps fragments a block (fewer
+// where a large window's shared memory would not fit). Shared memory per
+// warp: dF (m, nx), dS (m, nx), f (nx), [G | rhs] (m, m + 1), c (m).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     window_warp(T* __restrict__ x, const T* __restrict__ f,
@@ -394,7 +404,7 @@ __global__ void __launch_bounds__(kThreads)
                 T c_lim, T scf_tol, int batch, int m, int nx) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int b = blockIdx.x * kWarps + warp;
+  const int b = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (b >= batch) return;  // whole warps: no block barrier below
   const int ld = m + 1;
   T* dF = reinterpret_cast<T*>(smem) +
@@ -424,7 +434,7 @@ __global__ void __launch_bounds__(kThreads)
     xe = xb[lane];
     fe = fb[lane];
     fs[lane] = fe;
-    w.stage(lane, m, beta, dF + lane, dS + lane, nx);
+    w.stage(lane, 0, m, beta, dF + lane, dS + lane, nx);
   }
   const T it_resid = warp_max(in ? max_nan(T(0), fabs(fe)) : T(0));
   __syncwarp();
@@ -475,8 +485,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// nx > 32: a block per fragment. Dynamic shared memory: dF (m, nt), then,
-// where the whole window is staged (nt = nx), dS (m, nt); then f (nt).
+// nx > 32: a block per fragment. Dynamic shared memory: [G | rhs] (m,
+// m + 1) and c (m), dF (m, nt), then, where the whole window is staged
+// (nt = nx), dS (m, nt); then f (nt).
 // The registers are capped so that four blocks fit an SM (the dimer
 // slice's 512 fragments in one wave): only warp 0 needs the solve's.
 template <typename T>
@@ -487,15 +498,16 @@ __global__ void __launch_bounds__(kThreads, 4)
                  const long long* __restrict__ it_ptr, T beta, T reg,
                  T c_lim, T scf_tol, int m, int nx, int nt, bool staged) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T aug[kMaxM][kMaxM + 1];  // [G | rhs]
-  __shared__ T c_s[kMaxM];
   __shared__ T red[kWarps];
   __shared__ T cmax_s;
   __shared__ int bad_any;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  T* dF = reinterpret_cast<T*>(smem);
+  const int ld = m + 1;
+  T* aug = reinterpret_cast<T*>(smem);  // [G | rhs]
+  T* c_s = aug + m * ld;
+  T* dF = c_s + m;
   T* dS = dF + m * nt;
   T* fs = staged ? dS + m * nt : dS;
 
@@ -518,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (e0 > 0) __syncthreads();  // the last tile's products are done
     for (int e = tid; e < ne; e += kThreads) {
       fs[e] = fb[e0 + e];
-      w.stage(e0 + e, m, beta, dF + e, staged ? dS + e : nullptr, nt);
+      w.stage(e0 + e, 0, m, beta, dF + e, staged ? dS + e : nullptr, nt);
     }
     __syncthreads();
     for (int p0 = warp * kInFlight; p0 < n_prod; p0 += kWarps * kInFlight) {
@@ -543,10 +555,10 @@ __global__ void __launch_bounds__(kThreads, 4)
         const T s = warp_sum(acc[u]);
         if (lane == 0 && p0 + u < n_prod) {
           const int j = jj[u], k = kk[u];
-          T* dst = k < 0 ? &aug[j][m] : &aug[j][k];
+          T* dst = aug + j * ld + (k < 0 ? m : k);
           const T total = e0 == 0 ? s : add(*dst, s);
           *dst = total;
-          if (k >= 0) aug[k][j] = total;
+          if (k >= 0) aug[k * ld + j] = total;
         }
       }
     }
@@ -566,7 +578,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   __syncthreads();
 
   if (warp == 0) {
-    solve(&aug[0][0], kMaxM + 1, m, reg, c_s);
+    solve(aug, ld, m, reg, c_s);
     if (lane == 0) {
       cmax_s = max_abs(c_s, m);
       bad_any = 0;
@@ -585,19 +597,21 @@ __global__ void __launch_bounds__(kThreads, 4)
         xb[e] = damped;
         continue;
       }
-      T ds_e[kMaxM];
-      const T* ds = dS + e;
-      int ld = nt;
-      if (!staged) {
-        // dS_j at e formed again from the window, with the staged
-        // rows' arithmetic
-        T df_e[kMaxM];
-        w.stage(e, m, beta, df_e, ds_e, 1);
-        ds = ds_e;
-        ld = 1;
-      }
       T step = T(0);
-      for (int j = 0; j < m; ++j) step = add(step, mul(c_s[j], ds[j * ld]));
+      if (staged) {
+        for (int j = 0; j < m; ++j)
+          step = add(step, mul(c_s[j], dS[j * nt + e]));
+      } else {
+        // dS_j at e formed again from the window, kRegM rows at a time,
+        // with the staged rows' arithmetic
+        for (int j0 = 0; j0 < m; j0 += kRegM) {
+          const int j1 = min(m, j0 + kRegM);
+          T df_e[kRegM], ds_e[kRegM];
+          w.stage(e, j0, j1, beta, df_e, ds_e, 1);
+          for (int j = j0; j < j1; ++j)
+            step = add(step, mul(c_s[j], ds_e[j - j0]));
+        }
+      }
       const T x_and = sub(damped, step);
       nonfinite |= !isfinite(x_and);
       xb[e] = x_and;
@@ -660,30 +674,39 @@ cudaError_t launch(T* x, const T* f, T* hx, T* hf, T* resid, bool* active,
                    const long long* it, T beta, T reg, T c_lim, T scf_tol,
                    int batch, int m, int nx, int device,
                    cudaStream_t stream) {
+  // [G | rhs] and c
+  const size_t system = static_cast<size_t>(m * (m + 1) + m) * sizeof(T);
   if (nx <= kSmallNx) {
     static size_t granted[64] = {};
-    const size_t smem =
-        kWarps * static_cast<size_t>(2 * m * nx + nx + m * (m + 1) + m) *
-        sizeof(T);
+    const size_t per_warp =
+        static_cast<size_t>(2 * m * nx + nx) * sizeof(T) + system;
+    int warps = kWarps;
+    while (warps > 1 && warps * per_warp > kMaxDynamic) warps /= 2;
+    if (per_warp > kMaxDynamic) return cudaErrorInvalidValue;
+    const size_t smem = warps * per_warp;
     const cudaError_t err = allow_smem(window_warp<T>, smem, device, granted);
     if (err != cudaSuccess) return err;
-    window_warp<T><<<(batch + kWarps - 1) / kWarps, kThreads, smem,
+    window_warp<T><<<(batch + warps - 1) / warps, warps * kWarp, smem,
                      stream>>>(x, f, hx, hf, resid, active, it, beta, reg,
                                c_lim, scf_tol, batch, m, nx);
     return cudaGetLastError();
   }
   static size_t granted[64] = {};
-  // the whole window where it fits, else tiles of dF and f (multiples of
-  // 32 wide)
+  // the whole window where it fits beside the system, else tiles of dF
+  // and f (multiples of 32 wide)
+  const size_t room = kMaxDynamic - system < kStageBytes
+                          ? kMaxDynamic - system
+                          : kStageBytes;
   int nt = nx;
-  size_t smem = static_cast<size_t>(2 * m + 1) * nx * sizeof(T);
-  const bool staged = smem <= kStageBytes;
+  size_t tiles = static_cast<size_t>(2 * m + 1) * nx * sizeof(T);
+  const bool staged = tiles <= room;
   if (!staged) {
-    nt = static_cast<int>(kStageBytes / ((m + 1) * sizeof(T))) / kWarp *
-         kWarp;
+    nt = static_cast<int>(room / ((m + 1) * sizeof(T))) / kWarp * kWarp;
     if (nt > nx) nt = nx;
-    smem = static_cast<size_t>(m + 1) * nt * sizeof(T);
+    if (nt < kWarp) return cudaErrorInvalidValue;
+    tiles = static_cast<size_t>(m + 1) * nt * sizeof(T);
   }
+  const size_t smem = system + tiles;
   const cudaError_t err = allow_smem(window_block<T>, smem, device, granted);
   if (err != cudaSuccess) return err;
   window_block<T><<<batch, kThreads, smem, stream>>>(

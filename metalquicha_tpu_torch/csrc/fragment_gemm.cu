@@ -13,58 +13,150 @@
 // fragment's bits are the same whatever the batch count and whatever its
 // place in the batch.
 //
-// Entries (f32 and f64; all operands contiguous, one fragment after the
-// other; sizes up to 64, the range of the fused density):
+// Entries (f32 and f64; each operand one fragment after the other, a
+// fragment's matrix contiguous; sizes up to 128):
 // - bmm: C = op(A) op(B), op(A) (m, k), op(B) (k, n), where op
 //   transposes a matrix stored the other way round;
-// - sandwich: C = (X F) X + S for (n, n) X, F, S, in one launch, X F kept
-//   in shared memory;
+// - sandwich: C = (X F) X + S for (n, n) X, F, S, n <= 64, in one launch,
+//   X F kept in shared memory (above 64 the wrapper runs two products and
+//   an add, with the same roundings);
 // - matvec: y = op(M) x for op(M) (rows, cols).
 //
-// Arithmetic. Where every size is 8 or less (D3's (1, R) by (R, R) per
-// atom pair), and for the matvec, a thread per output element by FMA in
-// ascending k from global memory (the direct kernel). Above, a block per
-// fragment: f64 on the FP64 tensor cores (mma.sync m8n8k4), each 8 x 8
-// output tile accumulating over k in ascending blocks of 4, the operands
-// padded with zeros to a multiple of 8 in shared memory (a zero block adds
-// exact zeros); from 32 up a warp runs a 2 x 2 group of tiles at once
-// (four independent chains, each tile's sum unchanged). f32 by FFMA in
-// ascending k from 0 (no TF32, which would keep 10 bits of the mantissa),
-// a thread holding TM x TN outputs in registers, so each value read from
-// shared memory feeds several FMAs; each element's sum is the same
-// whatever the tile. S is added to the rounded product, as torch's
-// `a @ b + s` rounds.
+// Arithmetic (the same bits as the first version of this kernel, which
+// took sizes up to 64):
+// - f64 on the FP64 tensor cores (mma.sync m8n8k4): each 8 x 8 output
+//   tile accumulates over k in ascending blocks of 4, the operands padded
+//   with zeros to a multiple of 8 in shared memory (a zero block adds
+//   exact zeros);
+// - f32 by FFMA, one chain per element in ascending k from 0 (no TF32,
+//   which would keep 10 bits of the mantissa);
+// - S is added to the rounded product, as torch's `a @ b + s` rounds; the
+//   sandwich's X F is rounded to T in shared memory first.
+// Where every size is 8 or less (D3's (1, R) by (R, R) per atom pair),
+// and for the matvec, a thread per output element by FMA in ascending k
+// from global memory (the direct kernel).
 //
 // What bounds it. At the main path's shapes ((512, 16) to (5985, 32) and
 // (128, 64)) a product is 2 n^3 operations over 3 n^2 elements moved:
 // 10.7 operations a byte at n = 64 in f64, under the card's ridge (20 at
-// 67 TFLOP/s and 3.35 TB/s), so the bound is the bytes; every launch is
-// short, and one block per fragment keeps the batch's loads in flight on
-// all SMs at once. The kernel launches on the caller's stream, allocates
-// nothing, and the C entry points return cudaGetLastError() after the
-// launch.
+// 67 TFLOP/s and 3.35 TB/s), so the bound is the bytes. Every launch is
+// short (a few microseconds), so what counts is how soon the loads start
+// on every SM and how few instructions bring an operand to the
+// arithmetic. The design, against the first version's five limits (each
+// choice measured on the card against its alternatives, `Cfg`):
+// 1. Persistent blocks: the grid is min(work units, SMs x resident
+//    blocks), the resident count from the occupancy query once per device
+//    and size class; a block walks its units with the grid's stride, so
+//    no last wave runs partly filled (a grid of one block a unit lost
+//    6-16% at 32). f32 runs a two-stage ring: a block issues the next
+//    unit's copies (cp.async, one group a unit) into the other stage
+//    before it computes the current one (wait_group 1), so loads and
+//    arithmetic overlap inside a block (three or four stages gained
+//    nothing). f64 stages one unit at a time: its operands are twice the
+//    bytes, and more resident blocks (its registers capped at 64 a thread
+//    at 32, eight blocks an SM) kept more bytes in flight than a second
+//    stage did (the sandwich 4-9% faster at 32 and 64, the product level).
+// 2. Work units: a fragment at classes 16 and 32 (f64: a warp a tile at
+//    16, a warp a 2 x 2 group of tiles at 32; f32: 64 threads at 16),
+//    (fragment, band of 32 rows) at 64: (128, 64) is 256 units for 132
+//    SMs instead of 128 blocks, op(B) read again from L2 (bands of 16
+//    rows made the f64 product L2-bound). A band reduces each element
+//    exactly as the whole tile does. The sandwich's unit stays a whole
+//    fragment (a band of (X F) X needs all of X F). Above 64 (up to 128,
+//    the fragments above 64 AOs): (fragment, band of 32 rows), k streamed
+//    through the ring in tiles of 32, the outputs kept in registers.
+// 3. Staging by 16-byte cp.async.cg wherever the operand's base address
+//    and stored row length allow it (checked in the C entry, per
+//    operand), a power-of-two count of lanes a row (no index division).
+//    f32 rows are not padded but their 16-byte chunks XOR-swizzled
+//    (`sidx`), so the copies and the float4 reads are free of bank
+//    conflicts; f64 rows keep their padding of 4 (32 bytes, so still
+//    16-byte aligned), which leaves the fragment loads' addresses a base
+//    plus k (an XOR a load cost the f64 product 1-13% of its time, the
+//    sandwich at 64 a third). An operand that
+//    is not aligned (f64 rows of odd length, a view with a storage offset)
+//    is copied element by element by the same kernel into the same
+//    layout: the same bits.
+// 4. f32 reads 16 bytes at a time: a thread holds a 4 x 4 tile of
+//    contiguous rows and columns (1 x 4 at class 16) and takes k in blocks
+//    of 4, reading op(A) and op(B) as float4 (LDS.128) along whichever
+//    axis the stored layout makes contiguous: 8 loads feed 64 FFMAs, where
+//    6 fed 8 before. f64 keeps its scalar fragment loads (loading the next
+//    k block's fragments ahead in registers gained nothing).
+// 5. Stores of 16 bytes (double2, float4) where n and the output's base
+//    allow them, scalar otherwise.
+// The kernel launches on the caller's stream, allocates nothing, never
+// synchronizes, and the C entry points return cudaGetLastError() after
+// the launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxN = 64;
+// the largest size a product takes (the sandwich: kStagedN)
+constexpr int kMaxN = 128;
+// the largest size whose operands are staged whole (size classes 16, 32,
+// 64); above, the tiled kernel streams k
+constexpr int kStagedN = 64;
 // products with every size up to this take the direct kernel
 constexpr int kTiny = 8;
+// rows of op(A) a unit computes at class 64 (`Cfg`)
+constexpr int kBand64 = 32;
 constexpr int kStaticSmem = 48 * 1024;
+// the most units a launch takes: a block's walk stays in int range
+constexpr long long kMaxUnits = (1ll << 31) / 8;
+// the bits of a launch's flags
+constexpr int kTransA = 1, kTransB = 2, kVecA = 4, kVecB = 8, kVecC = 16;
 
-// Row stride of a staged matrix: f64 with 4 more than a multiple of 16
-// (an m8n8k4 operand's 8 rows x 4 columns fall on distinct banks); f32 odd
-// (a warp reads 32 rows of one column)
+// The work of one unit, by element type and size class N (the bits do
+// not depend on these; the values are the fastest of those measured on
+// the card):
+// - kBand: rows of op(A) a unit computes, the whole tile at 16 and 32, a
+//   band of kBand64 rows at 64 (16 made the f64 product L2-bound);
+// - f32: TM x 4 outputs a thread (TM = 1 at 16, where a thread of two
+//   rows lost, else 4), a thread per TM x 4 outputs of the unit;
+// - f64: a warp per G x G group of 8 x 8 tiles (G = 1 at 16: four warps a
+//   fragment beat one), 128 threads at 16 and 32, 256 at 64;
+// - stages of the ring: 2 in f32, 1 in f64, whose registers are capped
+//   for eight blocks an SM at 32 (more resident blocks kept more bytes in
+//   flight than a second stage did).
 template <typename T, int N>
-__host__ __device__ constexpr int ld_of() {
-  return sizeof(T) == 8 ? N + 4 : N + 1;
-}
+struct Cfg {
+  static constexpr bool kF64 = sizeof(T) == 8;
+  static constexpr int kBand = N == 64 ? kBand64 : N;
+  static constexpr int TM = N == 16 ? 1 : 4;
+  static constexpr int G = N == 16 ? 1 : 2;
+  static constexpr int kThreads =
+      kF64 ? (N == 64 ? 256 : 128) : (kBand / TM) * (N / 4);
+  static constexpr int kSandwichThreads =
+      kF64 ? kThreads : (N / TM) * (N / 4);
+  static constexpr int kStages = kF64 ? 1 : 2;
+  static constexpr int kMinBlocks = kF64 && N == 32 ? 8 : 1;
+  // staged rows: f64 padded by 4 (32 bytes: rows stay 16-byte aligned, and
+  // an m8n8k4 operand's 8 rows x 4 columns fall on distinct banks in each
+  // half-warp); f32 unpadded, its 16-byte chunks swizzled (`sidx`)
+  static constexpr int kPad = kF64 ? 4 : 0;
+  static constexpr int kLd = N + kPad, kLdBand = kBand + kPad;
+  // elements a stage holds: op(A)'s band, stored either way, then op(B)
+  static constexpr int kA =
+      kBand * kLd > N * kLdBand ? kBand * kLd : N * kLdBand;
+  static constexpr int kStage = kA + N * kLd;
+  // the sandwich's X, F and X F
+  static constexpr int kMat = N * kLd;
+};
 
-template <int N>
-__host__ __device__ constexpr int threads_of() {
-  return N == 64 ? 256 : 128;
+// Element index of (r, c) in a staged matrix with rows of ld elements.
+// f64: rows padded (Cfg::kPad), no swizzle, so a fragment load's address
+// is a base plus k (design point 3). f32: the 16-byte chunks of row r
+// XOR-swizzled so that the warp's copies and its float4 loads (rows 4
+// apart, or 8 chunks of one row) fall on distinct banks.
+template <typename T>
+__device__ __forceinline__ int sidx(int r, int c, int ld) {
+  if (sizeof(T) == 8) return r * ld + c;
+  const int s = ld >= 32 ? (r >> 2) & 7 : ((r >> 1) ^ (r >> 3)) & 3;
+  return r * ld + (c ^ (s << 2));
 }
 
 __device__ __forceinline__ void cp_async(double* dst, const double* src) {
@@ -77,9 +169,18 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(__cvta_generic_to_global(src)));
 }
-__device__ __forceinline__ void cp_async_wait_all() {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(__cvta_generic_to_global(src)));
+}
+__device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// every group but the newest `Pending` has landed
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 __device__ __forceinline__ double fma_(double a, double b, double c) {
@@ -89,75 +190,88 @@ __device__ __forceinline__ float fma_(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
 }
 
-// Issue the copies of a stored (rows, cols) matrix into s (row stride ld)
-// and zero the padding up to the next multiples of 8: 8, 16 or 32
-// threads a row as the padded row is long (shifts, no index division per
-// element, and few threads idle on short rows).
+// lanes a row of `n` items: the next power of two, 2 to 32 (shifts and
+// masks, no index division)
+__device__ __forceinline__ int row_shift(int n) {
+  return n <= 2 ? 1 : n <= 4 ? 2 : n <= 8 ? 3 : n <= 16 ? 4 : 5;
+}
+
+// Issue the copies of a stored (rows, cols) block at g (row stride gs)
+// into s (rows of ld elements, swizzled) and zero its padding up to the
+// next multiples of 8, lanes a padded row as it is long: 16-byte copies
+// (and zeros) where vec (g 16-byte aligned, gs a whole number of chunks)
+// and the rows are whole chunks, else a copy an element.
 template <typename T>
-__device__ __forceinline__ void stage(T* s, int ld, const T* g, int rows,
-                                      int cols) {
+__device__ __forceinline__ void stage(T* s, int ld, const T* g, long long gs,
+                                      int rows, int cols, bool vec) {
+  constexpr int E = 16 / sizeof(T);
   const int pr = (rows + 7) & ~7, pc = (cols + 7) & ~7;
-  const int shift = pc <= 8 ? 3 : pc <= 16 ? 4 : 5;
-  const int per_row = 1 << shift;
-  const int lane = threadIdx.x & (per_row - 1);
+  if (vec && cols % E == 0) {
+    const int cpr = pc / E;
+    const int shift = row_shift(cpr);
+    const int lane = threadIdx.x & ((1 << shift) - 1);
+    for (int i = threadIdx.x >> shift; i < pr; i += blockDim.x >> shift) {
+      const T* gi = g + i * gs;
+      for (int j = lane * E; j < pc; j += E << shift) {
+        T* dst = s + sidx<T>(i, j, ld);
+        if (i < rows && j < cols) {
+          cp_async16(dst, gi + j);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
+    return;
+  }
+  const int shift = row_shift(pc);
+  const int lane = threadIdx.x & ((1 << shift) - 1);
   for (int i = threadIdx.x >> shift; i < pr; i += blockDim.x >> shift) {
-    const T* gi = g + static_cast<long long>(i) * cols;
-    for (int j = lane; j < pc; j += per_row) {
+    const T* gi = g + i * gs;
+    for (int j = lane; j < pc; j += 1 << shift) {
       if (i < rows && j < cols) {
-        cp_async(s + i * ld + j, gi + j);
+        cp_async(s + sidx<T>(i, j, ld), gi + j);
       } else {
-        s[i * ld + j] = T(0);
+        s[sidx<T>(i, j, ld)] = T(0);
       }
     }
   }
 }
 
-// op(X)[r][c] of a matrix staged in shared memory as it is stored
+// op(X)[r][c] of a matrix staged as it is stored
 template <typename T>
 struct Op {
   const T* s;
   int ld;
   bool trans;
   __device__ __forceinline__ T operator()(int r, int c) const {
-    return trans ? s[c * ld + r] : s[r * ld + c];
+    return trans ? s[sidx<T>(c, r, ld)] : s[sidx<T>(r, c, ld)];
   }
 };
 
-// The outputs of a thread (f32) and the tiles of a warp (f64), by size
-// class: f32 TM x TN, a thread for every TM x TN of the class's padded
-// square (16: 1 x 2 on 128 threads, 32: 4 x 2 on 128, 64: 4 x 4 on 256);
-// f64 G x G tiles of 8 x 8 a warp (16: 1, 32 and 64: 2)
-template <int N>
-struct Tiling {
-  static constexpr int TM = N == 16 ? 1 : 4;
-  static constexpr int TN = N == 64 ? 4 : 2;
-  static constexpr int G = N == 16 ? 1 : 2;
-};
-
-// op(A) op(B), (m, k) by (k, n): sink(i, j, v) for every output element
-// of the padded tiles (i and j may reach the next multiple of 8). f64: the
-// warps take G x G groups of 8 x 8 tiles in turn on the tensor cores.
-template <int N, typename Sink>
-__device__ __forceinline__ void product(Op<double> a, Op<double> b, int m,
-                                        int n, int k, Sink sink) {
-  constexpr int G = Tiling<N>::G;
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int warps = blockDim.x / kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int ti_n = (m + 7) / 8, tj_n = (n + 7) / 8, kpad = (k + 3) & ~3;
-  const int gi_n = (ti_n + G - 1) / G, gj_n = (tj_n + G - 1) / G;
-  for (int group = warp; group < gi_n * gj_n; group += warps) {
-    const int ti0 = (group / gj_n) * G, tj0 = (group % gj_n) * G;
-    // a tile of the group past the last (warp-uniform) runs no mma
-    bool row_ok[G], col_ok[G];
+// A warp's G x G group of 8 x 8 tiles at tile (ti0, tj0) of op(A) op(B)
+// (ti_n x tj_n tiles): a tile past the last (warp-uniform) runs no mma
+template <int G>
+struct Group {
+  int ti0, tj0;
+  bool row_ok[G], col_ok[G];
+  __device__ __forceinline__ Group(int group, int ti_n, int tj_n) {
+    const int gj_n = (tj_n + G - 1) / G;
+    ti0 = (group / gj_n) * G;
+    tj0 = (group % gj_n) * G;
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       row_ok[u] = ti0 + u < ti_n;
       col_ok[u] = tj0 + u < tj_n;
     }
-    double d[G][G][2] = {};
+  }
+  // d += op(A)[rows][0, kpad) op(B)[0, kpad)[cols], in ascending blocks
+  // of 4
+  __device__ __forceinline__ void accumulate(Op<double> a, Op<double> b,
+                                             int kpad, double (&d)[G][G][2])
+      const {
+    const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+    double av[G], bv[G];
     for (int k0 = 0; k0 < kpad; k0 += 4) {
-      double av[G], bv[G];
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         av[u] = row_ok[u] ? a((ti0 + u) * 8 + g, k0 + t) : 0.0;
@@ -176,99 +290,488 @@ __device__ __forceinline__ void product(Op<double> a, Op<double> b, int m,
         }
       }
     }
+  }
+  // sink(i, j, v0, v1) for the outputs (i, j) and (i, j + 1) of every
+  // tile of the group (i and j may reach the next multiple of 8; j even)
+  template <typename Sink>
+  __device__ __forceinline__ void drain(const double (&d)[G][G][2],
+                                        Sink sink) const {
+    const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int u = 0; u < G; ++u) {
 #pragma unroll
       for (int v = 0; v < G; ++v) {
         if (!(row_ok[u] && col_ok[v])) continue;
-        const int i = (ti0 + u) * 8 + g, j = (tj0 + v) * 8 + 2 * t;
-        sink(i, j, d[u][v][0]);
-        sink(i, j + 1, d[u][v][1]);
+        sink((ti0 + u) * 8 + g, (tj0 + v) * 8 + 2 * t, d[u][v][0],
+             d[u][v][1]);
       }
     }
   }
+};
+
+// f64: op(A) op(B), (m, k) by (k, n), on the tensor cores: the warps take
+// G x G groups of 8 x 8 tiles in turn; sink(i, j, v0, v1) for the
+// outputs (i, j) and (i, j + 1) of every padded tile (i and j may reach
+// the next multiple of 8; j even)
+template <int G, typename Sink>
+__device__ __forceinline__ void product(Op<double> a, Op<double> b, int m,
+                                        int n, int k, Sink sink) {
+  const int warp = threadIdx.x / kWarp, warps = blockDim.x / kWarp;
+  const int ti_n = (m + 7) / 8, tj_n = (n + 7) / 8, kpad = (k + 3) & ~3;
+  const int groups = ((ti_n + G - 1) / G) * ((tj_n + G - 1) / G);
+  for (int group = warp; group < groups; group += warps) {
+    const Group<G> grp(group, ti_n, tj_n);
+    double d[G][G][2] = {};
+    grp.accumulate(a, b, kpad, d);
+    grp.drain(d, sink);
+  }
 }
 
-// f32: a thread per TM x TN set of the padded outputs in turn (rows i0 +
-// r tiles_i, columns j0 + c tiles_j: neighbouring threads read and write
-// neighbouring columns), each element by FFMA in ascending k
-template <int N, typename Sink>
-__device__ __forceinline__ void product(Op<float> a, Op<float> b, int m,
-                                        int n, int k, Sink sink) {
-  constexpr int TM = Tiling<N>::TM, TN = Tiling<N>::TN;
-  const int tiles_i = ((m + 7) & ~7) / TM, tiles_j = ((n + 7) & ~7) / TN;
-  for (int idx = threadIdx.x; idx < tiles_i * tiles_j; idx += blockDim.x) {
-    const int i0 = idx / tiles_j, j0 = idx % tiles_j;
-    float acc[TM][TN] = {};
-    for (int q = 0; q < k; ++q) {
-      float av[TM], bv[TN];
+__device__ __forceinline__ float4 lds4(const float* s, int r, int c,
+                                       int ld) {
+  return *reinterpret_cast<const float4*>(s + sidx<float>(r, c, ld));
+}
+
+// f32: op(A) op(B) for the thread's TM x 4 outputs, rows i0.. and columns
+// j0.. (i0 < m, j0 < n), each by FFMA in ascending k from 0; k in blocks
+// of 4, op(A) and op(B) read 16 bytes at a time along the stored rows
+// (TA: A stored (k, m); TB: B stored (n, k)); sink(acc)
+template <int TM, bool TA, bool TB>
+__device__ __forceinline__ void accumulate_f32(const float* as, int lda,
+                                               const float* bs, int ldb,
+                                               int k, int i0, int j0,
+                                               float (&acc)[TM][4]) {
+  auto block = [&](int k0, int kk) {
+    float av[TM][4], bv[4][4];  // av[r][q] = op(A)[i0 + r][k0 + q]
+    if constexpr (TA && TM == 1) {
 #pragma unroll
-      for (int r = 0; r < TM; ++r) av[r] = a(i0 + r * tiles_i, q);
+      for (int q = 0; q < 4; ++q) av[0][q] = as[sidx<float>(k0 + q, i0, lda)];
+    } else if constexpr (!TA) {
 #pragma unroll
-      for (int c = 0; c < TN; ++c) bv[c] = b(q, j0 + c * tiles_j);
+      for (int r = 0; r < TM; ++r) {
+        const float4 v = lds4(as, i0 + r, k0, lda);
+        av[r][0] = v.x, av[r][1] = v.y, av[r][2] = v.z, av[r][3] = v.w;
+      }
+    } else {
+      static_assert(TM == 4, "op(A) stored (k, m) takes 1 or 4 rows");
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = lds4(as, k0 + q, i0, lda);
+        av[0][q] = v.x, av[1][q] = v.y, av[2][q] = v.z, av[3][q] = v.w;
+      }
+    }
+    if constexpr (!TB) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = lds4(bs, k0 + q, j0, ldb);
+        bv[q][0] = v.x, bv[q][1] = v.y, bv[q][2] = v.z, bv[q][3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 v = lds4(bs, j0 + c, k0, ldb);
+        bv[0][c] = v.x, bv[1][c] = v.y, bv[2][c] = v.z, bv[3][c] = v.w;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= kk) break;
 #pragma unroll
       for (int r = 0; r < TM; ++r) {
 #pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fma_(av[r], bv[c], acc[r][c]);
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] = fma_(av[r][q], bv[q][c], acc[r][c]);
       }
     }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-#pragma unroll
-      for (int c = 0; c < TN; ++c)
-        sink(i0 + r * tiles_i, j0 + c * tiles_j, acc[r][c]);
-    }
+  };
+  const int k4 = k & ~3;
+  for (int k0 = 0; k0 < k4; k0 += 4) block(k0, 4);
+  if (k4 < k) block(k4, k - k4);
+}
+
+// the same with the transposes as arguments
+template <int TM>
+__device__ __forceinline__ void accumulate_f32_op(const float* as, int lda,
+                                                  bool ta, const float* bs,
+                                                  int ldb, bool tb, int k,
+                                                  int i0, int j0,
+                                                  float (&acc)[TM][4]) {
+  if (ta) {
+    if (tb)
+      accumulate_f32<TM, true, true>(as, lda, bs, ldb, k, i0, j0, acc);
+    else
+      accumulate_f32<TM, true, false>(as, lda, bs, ldb, k, i0, j0, acc);
+  } else {
+    if (tb)
+      accumulate_f32<TM, false, true>(as, lda, bs, ldb, k, i0, j0, acc);
+    else
+      accumulate_f32<TM, false, false>(as, lda, bs, ldb, k, i0, j0, acc);
   }
 }
 
-// C = op(A) op(B): one block per fragment
-template <typename T, int N>
-__global__ void __launch_bounds__(threads_of<N>())
-    bmm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-               T* __restrict__ c, int m, int n, int k, bool trans_a,
-               bool trans_b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = ld_of<T, N>();
-  T* as = reinterpret_cast<T*>(smem);
-  T* bs = as + N * ld;
-  const long long f = blockIdx.x;
-  stage(as, ld, a + f * m * k, trans_a ? k : m, trans_a ? m : k);
-  stage(bs, ld, b + f * k * n, trans_b ? n : k, trans_b ? k : n);
-  cp_async_wait_all();
-  __syncthreads();
-  T* cf = c + f * m * n;
-  product<N>(Op<T>{as, ld, trans_a}, Op<T>{bs, ld, trans_b}, m, n, k,
-          [&](int i, int j, T v) {
-            if (i < m && j < n) cf[i * n + j] = v;
-          });
+// the f32 product of k terms from 0 for the thread's TM x 4 outputs, then
+// sink(acc)
+template <int TM, bool TA, bool TB, typename Sink>
+__device__ __forceinline__ void product_f32(const float* as, int lda,
+                                            const float* bs, int ldb, int k,
+                                            int i0, int j0, Sink sink) {
+  float acc[TM][4] = {};
+  accumulate_f32<TM, TA, TB>(as, lda, bs, ldb, k, i0, j0, acc);
+  sink(acc);
 }
 
-// C = (X F) X + S: one block per fragment, X F in shared memory
+// the output's row of 4 f32 (j0 < n) or 2 f64 (j even, < n), stored 16
+// bytes at once where vec
+__device__ __forceinline__ void store(float* row, int j0, int n,
+                                      const float* v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(row + j0) = make_float4(v[0], v[1], v[2],
+                                                       v[3]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (j0 + c < n) row[j0 + c] = v[c];
+}
+__device__ __forceinline__ void store(double* row, int j, int n, double v0,
+                                      double v1, bool vec) {
+  if (vec) {
+    *reinterpret_cast<double2*>(row + j) = make_double2(v0, v1);
+    return;
+  }
+  row[j] = v0;
+  if (j + 1 < n) row[j + 1] = v1;
+}
+
+// The walk of a persistent block over units blockIdx.x, blockIdx.x +
+// gridDim.x, ...: with S = 2 a ring, the next unit's copies in flight
+// while a unit is computed; with S = 1 a unit staged, then computed.
+// issue(stage, unit) issues a unit's copies (one cp.async group),
+// compute(stage, unit) uses them.
+template <int S, typename Issue, typename Compute>
+__device__ __forceinline__ void ring(int units, Issue issue,
+                                     Compute compute) {
+  int u = blockIdx.x;
+  if (u >= units) return;
+  const int stride = gridDim.x;
+  if constexpr (S == 1) {
+    for (; u < units; u += stride) {
+      issue(0, u);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      compute(0, u);
+      __syncthreads();
+    }
+    return;
+  }
+  issue(0, u);
+  cp_async_commit();
+  for (int st = 0; u < units; u += stride, st ^= 1) {
+    if (u + stride < units) issue(st ^ 1, u + stride);
+    cp_async_commit();  // (an empty group past the last unit)
+    cp_async_wait<1>();
+    __syncthreads();
+    compute(st, u);
+    __syncthreads();  // the stage is read before a later unit refills it
+  }
+}
+
+// C = op(A) op(B): units (fragment, band of kBand rows of op(A))
 template <typename T, int N>
-__global__ void __launch_bounds__(threads_of<N>())
-    sandwich_kernel(const T* __restrict__ x, const T* __restrict__ f,
-                    const T* __restrict__ s, T* __restrict__ c, int n) {
+__global__ void __launch_bounds__(Cfg<T, N>::kThreads, Cfg<T, N>::kMinBlocks)
+    bmm_kernel(const T* __restrict__ a, const T* __restrict__ b,
+               T* __restrict__ c, int batch, int m, int n, int k,
+               int flags) {
+  using C = Cfg<T, N>;
+  constexpr int kBand = C::kBand, kA = C::kA, kStage = C::kStage;
+  constexpr int kLd = C::kLd, kLdA = C::kLdBand;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = ld_of<T, N>();
-  T* xs = reinterpret_cast<T*>(smem);
-  T* fs = xs + N * ld;
-  T* ts = fs + N * ld;
-  const long long off = static_cast<long long>(blockIdx.x) * n * n;
-  stage(xs, ld, x + off, n, n);
-  stage(fs, ld, f + off, n, n);
-  cp_async_wait_all();
-  __syncthreads();
-  // the tiles write X F's padding too (zeros, from the zero padding of X
-  // and F), which the second product reads
-  product<N>(Op<T>{xs, ld, false}, Op<T>{fs, ld, false}, n, n, n,
-             [&](int i, int j, T v) { ts[i * ld + j] = v; });
-  __syncthreads();
-  const T* sf = s + off;
-  T* cf = c + off;
-  product<N>(Op<T>{ts, ld, false}, Op<T>{xs, ld, false}, n, n, n,
-             [&](int i, int j, T v) {
-               if (i < n && j < n) cf[i * n + j] = v + sf[i * n + j];
-             });
+  T* buf = reinterpret_cast<T*>(smem);
+  const bool ta = flags & kTransA, tb = flags & kTransB;
+  const bool va = flags & kVecA, vb = flags & kVecB, vc = flags & kVecC;
+  const int bands = (m + kBand - 1) / kBand;
+  // a unit's fragment and first row
+  auto decode = [&](int unit, long long& f, int& r0) {
+    if constexpr (kBand == N) {
+      f = unit;
+      r0 = 0;
+    } else {
+      f = unit / bands;
+      r0 = (unit - static_cast<int>(f) * bands) * kBand;
+    }
+  };
+  ring<C::kStages>(
+      batch * bands,
+      [&](int st, int unit) {
+        long long f;
+        int r0;
+        decode(unit, f, r0);
+        const int mr = min(kBand, m - r0);
+        T* as = buf + st * kStage;
+        const T* af = a + f * m * k;
+        const T* bf = b + f * k * n;
+        if (ta) {
+          stage(as, kLdA, af + r0, m, k, mr, va);
+        } else {
+          stage(as, kLd, af + static_cast<long long>(r0) * k, k, mr, k, va);
+        }
+        if (tb) {
+          stage(as + kA, kLd, bf, k, n, k, vb);
+        } else {
+          stage(as + kA, kLd, bf, n, k, n, vb);
+        }
+      },
+      [&](int st, int unit) {
+        long long f;
+        int r0;
+        decode(unit, f, r0);
+        const int mr = min(kBand, m - r0);
+        const T* as = buf + st * kStage;
+        T* cf = c + (f * m + r0) * n;
+        if constexpr (C::kF64) {
+          product<C::G>(Op<T>{as, ta ? kLdA : kLd, ta},
+                        Op<T>{as + kA, kLd, tb}, mr, n, k,
+                        [&](int i, int j, T v0, T v1) {
+                    if (i < mr && j < n) store(cf + i * n, j, n, v0, v1, vc);
+                  });
+        } else {
+          constexpr int TM = C::TM;
+          const int ti = threadIdx.x / (N / 4), tj = threadIdx.x % (N / 4);
+          const int i0 = ti * TM, j0 = tj * 4;
+          if (i0 >= mr || j0 >= n) return;
+          float acc[TM][4] = {};
+          accumulate_f32_op<TM>(as, ta ? kLdA : kLd, ta, as + kA, kLd, tb, k,
+                                i0, j0, acc);
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+            if (i0 + r < mr) store(cf + (i0 + r) * n, j0, n, acc[r], vc);
+        }
+      });
+}
+
+// C = (X F) X + S: a unit a fragment, X F in shared memory
+template <typename T, int N>
+__global__ void __launch_bounds__(Cfg<T, N>::kSandwichThreads,
+                                  Cfg<T, N>::kMinBlocks)
+    sandwich_kernel(const T* __restrict__ x, const T* __restrict__ f,
+                    const T* __restrict__ s, T* __restrict__ c, int batch,
+                    int n, int flags) {
+  using C = Cfg<T, N>;
+  constexpr int kMat = C::kMat, kStage = 2 * kMat, kLd = C::kLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  T* ts = buf + C::kStages * kStage;
+  const bool vx = flags & kVecA, vf = flags & kVecB, vc = flags & kVecC;
+  const long long nn = static_cast<long long>(n) * n;
+  ring<C::kStages>(
+      batch,
+      [&](int st, int unit) {
+        T* xs = buf + st * kStage;
+        stage(xs, kLd, x + unit * nn, n, n, n, vx);
+        stage(xs + kMat, kLd, f + unit * nn, n, n, n, vf);
+      },
+      [&](int st, int unit) {
+        const T* xs = buf + st * kStage;
+        const T* fs = xs + kMat;
+        const T* sf = s + unit * nn;
+        T* cf = c + unit * nn;
+        if constexpr (C::kF64) {
+          // the tiles write X F's padding too (zeros, from the zero
+          // padding of X and F), which the second product reads
+          product<C::G>(Op<T>{xs, kLd, false}, Op<T>{fs, kLd, false}, n, n,
+                        n, [&](int i, int j, T v0, T v1) {
+                          *reinterpret_cast<double2*>(
+                              ts + sidx<T>(i, j, kLd)) = make_double2(v0, v1);
+                        });
+          __syncthreads();
+          product<C::G>(Op<T>{ts, kLd, false}, Op<T>{xs, kLd, false}, n, n,
+                        n,
+                  [&](int i, int j, T v0, T v1) {
+                    if (i >= n || j >= n) return;
+                    const T* srow = sf + i * n;
+                    T s0, s1 = T(0);
+                    if (vc) {
+                      const double2 sv =
+                          *reinterpret_cast<const double2*>(srow + j);
+                      s0 = sv.x, s1 = sv.y;
+                    } else {
+                      s0 = srow[j];
+                      if (j + 1 < n) s1 = srow[j + 1];
+                    }
+                    store(cf + i * n, j, n, v0 + s0, v1 + s1, vc);
+                  });
+        } else {
+          constexpr int TM = C::TM;
+          const int ti = threadIdx.x / (N / 4), tj = threadIdx.x % (N / 4);
+          const int i0 = ti * TM, j0 = tj * 4;
+          const bool mine = i0 < n && j0 < n;
+          if (mine) {
+            product_f32<TM, false, false>(
+                xs, kLd, fs, kLd, n, i0, j0, [&](const float (&acc)[TM][4]) {
+#pragma unroll
+                  for (int r = 0; r < TM; ++r)
+                    *reinterpret_cast<float4*>(ts + sidx<T>(i0 + r, j0, kLd)) =
+                        make_float4(acc[r][0], acc[r][1], acc[r][2],
+                                    acc[r][3]);
+                });
+          }
+          __syncthreads();
+          if (!mine) return;
+          product_f32<TM, false, false>(
+              ts, kLd, xs, kLd, n, i0, j0, [&](const float (&acc)[TM][4]) {
+#pragma unroll
+                for (int r = 0; r < TM; ++r) {
+                  if (i0 + r >= n) continue;
+                  const T* srow = sf + (i0 + r) * n;
+                  float v[4];
+                  if (vc) {
+                    const float4 sv =
+                        *reinterpret_cast<const float4*>(srow + j0);
+                    v[0] = acc[r][0] + sv.x, v[1] = acc[r][1] + sv.y;
+                    v[2] = acc[r][2] + sv.z, v[3] = acc[r][3] + sv.w;
+                  } else {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                      v[q] = j0 + q < n ? acc[r][q] + srow[j0 + q] : 0.0f;
+                  }
+                  store(cf + (i0 + r) * n, j0, n, v, vc);
+                }
+              });
+        }
+      });
+}
+
+// Sizes 65 to 128 (fragments above 64 AOs on the exact route): units
+// (fragment, band of kTiledBand rows of op(A)); k streamed through the
+// ring in tiles of kTileK in ascending order, the unit's outputs held in
+// registers from tile to tile (f64: each warp's 2 x 2 groups of tiles;
+// f32: a 4 x 4 tile a thread), so each element takes the same blocks of 4
+// (f64) or the same chain of FFMAs (f32) as one pass over k would.
+constexpr int kTiledN = 128, kTiledBand = 32, kTileK = 32;
+constexpr int kTiledThreads = 256;
+
+template <typename T>
+struct Tiled {
+  static constexpr bool kF64 = sizeof(T) == 8;
+  static constexpr int kPad = kF64 ? 4 : 0;
+  // op(A)'s tile (band x k, stored either way) and op(B)'s (k x n, or n
+  // x k as stored transposed)
+  static constexpr int kLdA = kTileK + kPad;
+  static constexpr int kA = kTiledBand * kLdA;
+  static constexpr int kLdB = kTiledN + kPad, kLdBt = kTileK + kPad;
+  static constexpr int kB =
+      kTileK * kLdB > kTiledN * kLdBt ? kTileK * kLdB : kTiledN * kLdBt;
+  static constexpr int kStage = kA + kB;
+  // f64 2 x 2 groups a warp: (32 / 16) x (128 / 16) over 8 warps
+  static constexpr int kGroups =
+      (kTiledBand / 16) * (kTiledN / 16) / (kTiledThreads / kWarp);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kTiledThreads)
+    bmm_tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                     T* __restrict__ c, int batch, int m, int n, int k,
+                     int flags) {
+  using C = Tiled<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  const bool ta = flags & kTransA, tb = flags & kTransB;
+  const bool va = flags & kVecA, vb = flags & kVecB, vc = flags & kVecC;
+  const int bands = (m + kTiledBand - 1) / kTiledBand;
+  const int tiles = (k + kTileK - 1) / kTileK;
+  const int units = batch * bands;
+  if (static_cast<int>(blockIdx.x) >= units) return;
+  // item i of this block: k tile i % tiles of its (i / tiles)-th unit
+  const int items = ((units - 1 - blockIdx.x) / gridDim.x + 1) * tiles;
+  struct Item {
+    long long f;
+    int r0, mr, k0, kk, tile;
+  };
+  auto item = [&](int i) {
+    Item it;
+    const int unit = blockIdx.x + (i / tiles) * gridDim.x;
+    it.tile = i % tiles;
+    it.f = unit / bands;
+    it.r0 = (unit - static_cast<int>(it.f) * bands) * kTiledBand;
+    it.mr = min(kTiledBand, m - it.r0);
+    it.k0 = it.tile * kTileK;
+    it.kk = min(kTileK, k - it.k0);
+    return it;
+  };
+  auto issue = [&](int st, int i) {
+    const Item it = item(i);
+    T* as = buf + st * C::kStage;
+    const T* af = a + it.f * m * k;
+    const T* bf = b + it.f * k * n;
+    if (ta) {
+      stage(as, C::kLdA, af + static_cast<long long>(it.k0) * m + it.r0, m,
+            it.kk, it.mr, va);
+    } else {
+      stage(as, C::kLdA, af + static_cast<long long>(it.r0) * k + it.k0, k,
+            it.mr, it.kk, va);
+    }
+    if (tb) {
+      stage(as + C::kA, C::kLdBt, bf + it.k0, k, n, it.kk, vb);
+    } else {
+      stage(as + C::kA, C::kLdB, bf + static_cast<long long>(it.k0) * n, n,
+            it.kk, n, vb);
+    }
+  };
+  const int warp = threadIdx.x / kWarp;
+  // the f32 thread's 4 x 4 outputs
+  const int i0 = (threadIdx.x / (kTiledN / 4)) * 4;
+  const int j0 = (threadIdx.x % (kTiledN / 4)) * 4;
+  double d[C::kGroups][2][2][2] = {};
+  float acc[4][4] = {};
+  issue(0, 0);
+  cp_async_commit();
+  for (int i = 0, st = 0; i < items; ++i, st ^= 1) {
+    if (i + 1 < items) issue(st ^ 1, i + 1);
+    cp_async_commit();  // (an empty group past the last item)
+    cp_async_wait<1>();
+    __syncthreads();
+    const Item it = item(i);
+    const T* as = buf + st * C::kStage;
+    const bool last = it.tile == tiles - 1;
+    T* cf = c + (it.f * m + it.r0) * n;
+    if constexpr (C::kF64) {
+      const Op<T> oa{as, C::kLdA, ta};
+      const Op<T> ob{as + C::kA, tb ? C::kLdBt : C::kLdB, tb};
+      const int ti_n = (it.mr + 7) / 8, tj_n = (n + 7) / 8;
+      const int groups = ((ti_n + 1) / 2) * ((tj_n + 1) / 2);
+#pragma unroll
+      for (int q = 0; q < C::kGroups; ++q) {
+        const int group = warp + q * (kTiledThreads / kWarp);
+        if (group >= groups) continue;
+        const Group<2> grp(group, ti_n, tj_n);
+        grp.accumulate(oa, ob, (it.kk + 3) & ~3, d[q]);
+        if (!last) continue;
+        grp.drain(d[q], [&](int r, int j, T v0, T v1) {
+          if (r < it.mr && j < n) store(cf + r * n, j, n, v0, v1, vc);
+        });
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+          for (int v = 0; v < 2; ++v) d[q][u][v][0] = d[q][u][v][1] = 0.0;
+        }
+      }
+    } else {
+      if (i0 < it.mr && j0 < n) {
+        accumulate_f32_op<4>(as, C::kLdA, ta, as + C::kA,
+                             tb ? C::kLdBt : C::kLdB, tb, it.kk, i0, j0, acc);
+        if (last) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (i0 + r < it.mr) store(cf + (i0 + r) * n, j0, n, acc[r], vc);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is read before a later item refills it
+  }
 }
 
 // C = op(A) op(B) with a thread per output element, FMA in ascending k
@@ -332,35 +835,114 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
   return err;
 }
 
+// The blocks of `kernel` the card holds at once (SMs x resident blocks an
+// SM at this block size and shared memory), queried once per device after
+// its shared memory was raised
+template <typename Kernel>
+cudaError_t resident(Kernel kernel, int threads, size_t smem, int device,
+                     int* cache, int* slots) {
+  int* held = cache + (device & 63);
+  int v = __atomic_load_n(held, __ATOMIC_ACQUIRE);
+  if (v == 0) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    v = per_sm * sms;
+    __atomic_store_n(held, v, __ATOMIC_RELEASE);
+  }
+  *slots = v;
+  return cudaSuccess;
+}
+
+inline int grid_of(int units, int slots) {
+  return units < slots ? units : slots;
+}
+
 template <typename T, int N>
-cudaError_t launch_bmm(const T* a, const T* b, T* c, int batch,
-                       int m, int n, int k, bool ta, bool tb, int device,
+cudaError_t launch_bmm(const T* a, const T* b, T* c, int batch, int m,
+                       int n, int k, int flags, int device,
                        cudaStream_t stream) {
+  using C = Cfg<T, N>;
   static unsigned long long done = 0;
-  const size_t smem = 2 * N * ld_of<T, N>() * sizeof(T);
+  static int slots_of[64] = {};
+  const size_t smem = C::kStages * C::kStage * sizeof(T);
   cudaError_t err = allow_smem(bmm_kernel<T, N>, smem, device, &done);
   if (err != cudaSuccess) return err;
-  bmm_kernel<T, N><<<batch, threads_of<N>(), smem, stream>>>(a, b, c, m, n,
-                                                            k, ta, tb);
+  int slots = 0;
+  err = resident(bmm_kernel<T, N>, C::kThreads, smem, device, slots_of,
+                 &slots);
+  if (err != cudaSuccess) return err;
+  const long long units =
+      static_cast<long long>(batch) * ((m + C::kBand - 1) / C::kBand);
+  if (units > kMaxUnits) return cudaErrorInvalidValue;
+  bmm_kernel<T, N><<<grid_of(static_cast<int>(units), slots), C::kThreads,
+                     smem, stream>>>(
+      a, b, c, batch, m, n, k, flags);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tiled(const T* a, const T* b, T* c, int batch, int m,
+                         int n, int k, int flags, int device,
+                         cudaStream_t stream) {
+  static unsigned long long done = 0;
+  static int slots_of[64] = {};
+  const size_t smem = 2 * Tiled<T>::kStage * sizeof(T);
+  cudaError_t err = allow_smem(bmm_tiled_kernel<T>, smem, device, &done);
+  if (err != cudaSuccess) return err;
+  int slots = 0;
+  err = resident(bmm_tiled_kernel<T>, kTiledThreads, smem, device, slots_of,
+                 &slots);
+  if (err != cudaSuccess) return err;
+  const long long units =
+      static_cast<long long>(batch) * ((m + kTiledBand - 1) / kTiledBand);
+  if (units * ((k + kTileK - 1) / kTileK) > kMaxUnits)
+    return cudaErrorInvalidValue;
+  bmm_tiled_kernel<T><<<grid_of(static_cast<int>(units), slots),
+                        kTiledThreads, smem, stream>>>(a, b, c, batch, m, n,
+                                                       k, flags);
   return cudaGetLastError();
 }
 
 template <typename T, int N>
 cudaError_t launch_sandwich(const T* x, const T* f, const T* s, T* c,
-                            int batch, int n, int device,
+                            int batch, int n, int flags, int device,
                             cudaStream_t stream) {
+  using C = Cfg<T, N>;
   static unsigned long long done = 0;
-  const size_t smem = 3 * N * ld_of<T, N>() * sizeof(T);
+  static int slots_of[64] = {};
+  const size_t smem = (2 * C::kStages + 1) * C::kMat * sizeof(T);
   cudaError_t err = allow_smem(sandwich_kernel<T, N>, smem, device, &done);
   if (err != cudaSuccess) return err;
-  sandwich_kernel<T, N><<<batch, threads_of<N>(), smem, stream>>>(x, f, s,
-                                                                  c, n);
+  int slots = 0;
+  err = resident(sandwich_kernel<T, N>, C::kSandwichThreads, smem, device,
+                 slots_of, &slots);
+  if (err != cudaSuccess) return err;
+  if (batch > kMaxUnits) return cudaErrorInvalidValue;
+  sandwich_kernel<T, N><<<grid_of(batch, slots), C::kSandwichThreads, smem,
+                          stream>>>(x, f, s, c, batch, n, flags);
   return cudaGetLastError();
 }
 
-// the size class of the staged tiles: 16, 32 or 64 (0: too large)
+// the size class: 16, 32 or 64 (operands staged whole), 128 (k streamed
+// in tiles), 0 (too large)
 inline int size_class(int n) {
-  return n <= 16 ? 16 : n <= 32 ? 32 : n <= kMaxN ? 64 : 0;
+  return n <= 16 ? 16 : n <= 32 ? 32 : n <= kStagedN ? 64
+                                       : n <= kMaxN ? 128 : 0;
+}
+
+// whether 16-byte copies reach every stored row of an operand at p with
+// rows of row_len elements: p 16-byte aligned and the rows whole chunks
+// (so is then every fragment's base)
+template <typename T>
+bool vec_ok(const T* p, long long row_len) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (row_len * static_cast<long long>(sizeof(T))) % 16 == 0;
 }
 
 template <typename T>
@@ -395,16 +977,19 @@ int bmm(const T* a, const T* b, T* c, int batch, int m, int n,
   if (m <= kTiny && n <= kTiny && k <= kTiny)
     return direct<T>(a, b, c, batch, m, n, k, trans_a, trans_b, device,
                      stream);
+  const int flags = (trans_a ? kTransA : 0) | (trans_b ? kTransB : 0) |
+                    (vec_ok(a, trans_a ? m : k) ? kVecA : 0) |
+                    (vec_ok(b, trans_b ? k : n) ? kVecB : 0) |
+                    (vec_ok(c, n) ? kVecC : 0);
   const auto st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     if (cls == 16)
-      return launch_bmm<T, 16>(a, b, c, batch, m, n, k, trans_a, trans_b,
-                               device, st);
+      return launch_bmm<T, 16>(a, b, c, batch, m, n, k, flags, device, st);
     if (cls == 32)
-      return launch_bmm<T, 32>(a, b, c, batch, m, n, k, trans_a, trans_b,
-                               device, st);
-    return launch_bmm<T, 64>(a, b, c, batch, m, n, k, trans_a, trans_b,
-                             device, st);
+      return launch_bmm<T, 32>(a, b, c, batch, m, n, k, flags, device, st);
+    if (cls == 64)
+      return launch_bmm<T, 64>(a, b, c, batch, m, n, k, flags, device, st);
+    return launch_tiled<T>(a, b, c, batch, m, n, k, flags, device, st);
   });
 }
 
@@ -413,14 +998,17 @@ int sandwich(const T* x, const T* f, const T* s, T* c, int batch, int n,
              int device, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const int cls = size_class(n);
-  if (cls == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (cls == 0 || n > kStagedN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int flags = (vec_ok(x, n) ? kVecA : 0) | (vec_ok(f, n) ? kVecB : 0) |
+                    (vec_ok(c, n) && vec_ok(s, n) ? kVecC : 0);
   const auto st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     if (cls == 16)
-      return launch_sandwich<T, 16>(x, f, s, c, batch, n, device, st);
+      return launch_sandwich<T, 16>(x, f, s, c, batch, n, flags, device, st);
     if (cls == 32)
-      return launch_sandwich<T, 32>(x, f, s, c, batch, n, device, st);
-    return launch_sandwich<T, 64>(x, f, s, c, batch, n, device, st);
+      return launch_sandwich<T, 32>(x, f, s, c, batch, n, flags, device, st);
+    return launch_sandwich<T, 64>(x, f, s, c, batch, n, flags, device, st);
   });
 }
 
@@ -429,7 +1017,8 @@ int sandwich(const T* x, const T* f, const T* s, T* c, int batch, int n,
 extern "C" {
 
 // a: (batch, m, k), or (batch, k, m) with trans_a; b: (batch, k, n), or
-// (batch, n, k) with trans_b; c: (batch, m, n). m, n, k <= 64.
+// (batch, n, k) with trans_b; c: (batch, m, n). m, n, k <= 128. Any
+// element-aligned base address (a view with a storage offset).
 int mqc_fragment_bmm_f32(const float* a, const float* b, float* c,
                          int batch, int m, int n, int k, int trans_a,
                          int trans_b, int device, void* stream) {
@@ -444,7 +1033,8 @@ int mqc_fragment_bmm_f64(const double* a, const double* b, double* c,
                      stream);
 }
 
-// x, f, s, c: (batch, n, n), n <= 64
+// x, f, s, c: (batch, n, n), n <= 64 (above, the wrapper runs two
+// products and an add)
 int mqc_fragment_sandwich_f32(const float* x, const float* f, const float* s,
                               float* c, int batch, int n, int device,
                               void* stream) {

@@ -42,9 +42,11 @@ from .kernel_build import KernelLibrary
 
 #: kernel launches so far (a caller may reset it to 0)
 launches = 0
-#: the largest window (broyden_memory) the kernel takes: one warp
-#: eliminates, a lane per row
-MAX_M = 32
+#: the largest window (broyden_memory) the kernel takes on a card: one
+#: warp eliminates, a lane per row up to 16 (in registers) and rows l, l +
+#: 32, ... of the system in shared memory above; the plain version a CPU
+#: tensor runs takes any, as the JAX package's step does
+MAX_M = 128
 
 _ptr, _int, _dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _WINDOW = [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _dbl, _dbl, _dbl, _dbl,
@@ -192,6 +194,10 @@ def _fn(name: str):
 def _launch(x, f_res, hist_x, hist_f, resid, active, it, beta, reg, c_lim,
             scf_tol):
     bsz, m, nx = hist_x.shape
+    if m > MAX_M:
+        raise ValueError(f"broyden_memory {m} exceeds the window kernel's "
+                         f"MAX_M = {MAX_M} (the card's limit; a CPU tensor "
+                         f"takes any)")
     fn = _fn("mqc_anderson_window_" + (
         "f64" if x.dtype == torch.float64 else "f32"))
     f_res = f_res if f_res.is_contiguous() else f_res.contiguous()
@@ -222,9 +228,6 @@ def _check(x, f_res, hist_x, hist_f, resid, active, it):
         raise TypeError("Anderson window: active is bool, the counter int64")
     if any(t.dtype != x.dtype for t in (f_res, hist_x, hist_f, resid)):
         raise TypeError("Anderson window: the state has mixed dtypes")
-    if m > MAX_M:
-        raise ValueError(f"broyden_memory {m} exceeds the kernel's window "
-                         f"of MAX_M = {MAX_M}")
 
 
 def anderson_window(x, f_res, hist_x, hist_f, resid, active, it, *, beta,

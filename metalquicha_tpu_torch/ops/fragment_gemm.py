@@ -11,10 +11,18 @@ ctypes, `ops/kernel_build.py`) reduces every output element in one fixed
 order that depends on the sizes only: f64 on the FP64 tensor cores in
 ascending blocks of 4 in k, f32 by FFMA in ascending k; where every size
 is 8 or less, and for the matvec, FMA in ascending k, a thread an
-element.
+element. Above, persistent blocks walk units of work (a fragment, or a
+band of rows of one at 64 and above), staged by 16-byte copies (f32
+through a two-stage ring), k streamed in tiles above 64 (up to MAX_N);
+the kernel reads each operand's alignment itself (a view with a storage
+offset, or rows of odd length in f64, are copied element by element into
+the same layout, with the same bits), so the wrapper passes every
+operand as it lies: a contiguous view with its offset, a transposed view
+as it is stored with its flag flipped.
 
 - `fragment_bmm(a, b, trans_a, trans_b)`: op(a) @ op(b);
-- `sandwich(x, f, shift)`: x @ f @ x + shift in one launch;
+- `sandwich(x, f, shift)`: x @ f @ x + shift in one launch (up to
+  STAGED_N; two products and an add above);
 - `fragment_matvec(m, x, trans)`: op(m) @ x;
 - `pair_bilinear(w, grids)`: c[b, i, j] = w[b, i] . grids[b, i, j] .
   w[b, j], D3's C6 contraction (a (1, R) by (R, R) product per atom pair
@@ -36,6 +44,7 @@ main path calls them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 
@@ -44,11 +53,14 @@ import torch
 from . import replay_counts
 from .kernel_build import KernelLibrary
 
-#: kernel launches so far, every entry (a caller may reset it to 0)
-launches = 0
-#: the largest size a product takes (its tiles in shared memory): the
-#: range of the fused density
-MAX_N = 64
+#: kernel launches so far by kind (`kind_of`), every entry; `launches` is
+#: their sum (a caller may clear it)
+launches_by_kind = collections.Counter()
+#: the largest size a product takes: staged whole in shared memory up to
+#: STAGED_N (the range of the fused density), k streamed in tiles above
+#: (fragments above 64 AOs on the exact route)
+MAX_N = 128
+STAGED_N = 64
 
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
 _BMM = [_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _int, _ptr]
@@ -71,21 +83,45 @@ def build() -> ctypes.CDLL:
     return _LIB.load()
 
 
-def _count(stream: int, n: int = 1) -> None:
-    global launches
+def __getattr__(name):
+    if name == "launches":
+        # kernel launches so far, every entry
+        return sum(launches_by_kind.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _count(stream: int, n: int = 1, kind: tuple = None) -> None:
     # a backward pass launches from autograd's device thread: the stream
     # tells its capture
-    if replay_counts.record(_count, stream=stream):
+    if replay_counts.record(_count, kind, stream=stream):
         return
     with _count_lock:
-        launches += n
+        launches_by_kind[kind] += n
 
 
-def add_launches(n: int) -> None:
-    """Add launches made in another process (a mesh slot's worker)."""
-    global launches
+def add_launches(by_kind: dict) -> None:
+    """Add launches made in another process (a mesh slot's worker), by
+    kind."""
     with _count_lock:
-        launches += n
+        launches_by_kind.update(by_kind)
+
+
+def kind_of(entry: str, *sizes: int) -> tuple:
+    """A launch's kind, (entry, class): class 0 for the direct kernel (a
+    product whose sizes are all 8 or less, and the matvec: a thread an
+    output), else the size class of the tiles the kernel stages (16, 32,
+    64, or 128 with k in tiles, by the largest size)."""
+    top = max(sizes)
+    if entry == "matvec" or (entry == "bmm" and top <= 8):
+        return entry, 0
+    return entry, (16 if top <= 16 else 32 if top <= 32 else
+                   64 if top <= 64 else 128)
+
+
+def kind_name(kind: tuple) -> str:
+    """"<entry> <size class>" or "<entry> direct", for printing."""
+    entry, cls = kind
+    return f"{entry} {cls or 'direct'}"
 
 
 def _op(t, trans):
@@ -161,11 +197,18 @@ def _launch_bmm(a, b, trans_a, trans_b):
         a.data_ptr(), b.data_ptr(), c.data_ptr(), _flat(c).shape[0], m, n,
         k, int(trans_a), int(trans_b), index, stream)
     _LIB.check(err, "fragment product kernel")
-    _count(stream)
+    _count(stream, kind=kind_of("bmm", m, n, k))
     return c
 
 
 def _launch_sandwich(x, f, shift):
+    """x @ f @ x + shift on the card: one launch up to STAGED_N (X F kept
+    in shared memory); above, the two products (X F rounded to memory, as
+    the kernel rounds it to shared memory) and the add: the roundings of
+    the one launch."""
+    if x.shape[-1] > STAGED_N:
+        return _launch_bmm(_launch_bmm(x, f, False, False), x, False,
+                           False) + shift
     x, f, shift = x.contiguous(), f.contiguous(), shift.contiguous()
     c = torch.empty_like(x)
     index, stream = _stream(x)
@@ -173,7 +216,7 @@ def _launch_sandwich(x, f, shift):
         x.data_ptr(), f.data_ptr(), shift.data_ptr(), c.data_ptr(),
         _flat(c).shape[0], x.shape[-1], index, stream)
     _LIB.check(err, "fragment sandwich kernel")
-    _count(stream)
+    _count(stream, kind=kind_of("sandwich", x.shape[-1]))
     return c
 
 
@@ -187,7 +230,7 @@ def _launch_matvec(m, x, trans):
         m.data_ptr(), x.data_ptr(), y.data_ptr(),
         _flat(m).shape[0], rows, cols, int(trans), index, stream)
     _LIB.check(err, "fragment matvec kernel")
-    _count(stream)
+    _count(stream, kind=kind_of("matvec", rows, cols))
     return y
 
 

@@ -47,6 +47,7 @@ boundary, never device memory.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import pickle
@@ -266,7 +267,7 @@ class SlotWorker:
 
         self.launches += stats["launches"]
         self.window_launches += stats["window_launches"]
-        self.gemm_launches += stats["gemm_launches"]
+        self.gemm_launches += sum(stats["gemm_by_kind"].values())
         self.fermi_launches += stats["fermi_launches"]
         self.sp2_calls += stats["sp2_calls"]
         self.scc_captures += stats["scc_captures"]
@@ -287,7 +288,7 @@ class SlotWorker:
                                 stats["density_launches"])
         sp2.add_calls(stats["sp2_calls"])
         anderson_window.add_launches(stats["window_launches"])
-        fragment_gemm.add_launches(stats["gemm_launches"])
+        fragment_gemm.add_launches(stats["gemm_by_kind"])
 
     def exited(self) -> WorkerExited:
         """The exception for a worker whose end of the pipe closed."""
@@ -473,7 +474,8 @@ class _Slot:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
         m0, d0 = fermi_fill.launches, fermi_fill.density_launches
-        w0, x0 = anderson_window.launches, fragment_gemm.launches
+        w0 = anderson_window.launches
+        k0 = collections.Counter(fragment_gemm.launches_by_kind)
         g0, e0 = scc_graph.stats["captures"], scc_graph.stats["eager"]
         h0 = scc_graph.stats["hits"]
         sg0, sh0, se0 = (scc_graph.stats[k] for k in (
@@ -500,7 +502,8 @@ class _Slot:
                            fermi_launches=fermi_fill.launches - m0,
                            density_launches=fermi_fill.density_launches - d0,
                            window_launches=anderson_window.launches - w0,
-                           gemm_launches=fragment_gemm.launches - x0,
+                           gemm_by_kind=dict(
+                               fragment_gemm.launches_by_kind - k0),
                            sp2_calls=sp2.calls - s0,
                            scc_captures=scc_graph.stats["captures"] - g0,
                            scc_hits=scc_graph.stats["hits"] - h0,

@@ -16,7 +16,9 @@ On the CPU:
   SCC of 32 iterations through it against the JAX package (1e-9);
 - the dispatch: a CPU tensor never builds the kernel, another device
   raises, a CUDA tensor goes to the launch; the ctypes declarations
-  against the C signatures; a window above MAX_M raises.
+  against the C signatures; a window above the kernel's MAX_M raises for a
+  CUDA tensor, and a CPU tensor takes any window: a GFN1 SCC at
+  broyden_memory = 40 against the JAX package (1e-9).
 The `gpu` cases hold the kernel to both plain versions on the card (a warp
 per fragment up to nx = 32, a block above, a window streamed in tiles),
 to the rowwise twin bit for bit on windows of small integers, and check
@@ -318,13 +320,68 @@ def test_other_devices_raise():
                            scf_tol=0.0)
 
 
-def test_window_above_the_kernel_raises():
-    x, f_res, _, _, resid, active, it = _state("it0")
-    big = torch.zeros(x.shape[0], aw.MAX_M + 1, x.shape[1],
-                      dtype=torch.float64)
-    with pytest.raises(ValueError, match="MAX_M"):
-        aw.anderson_window(x, f_res, big, big.clone(), resid, active, it,
-                           beta=0.4, reg=1e-12, c_lim=1e3, scf_tol=0.0)
+def test_window_above_the_kernel_raises(monkeypatch):
+    """On a card a window above MAX_M raises, naming the limit, before the
+    kernel is built or launched; MAX_M itself goes to the launch. A CPU
+    tensor runs the same window on the plain version."""
+    launched = []
+    lib = types.SimpleNamespace(
+        mqc_anderson_window_f64=lambda *args: launched.append(args) or 0)
+    monkeypatch.setattr(aw._LIB, "lib", lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 7, raising=False)
+    for m in (aw.MAX_M + 1, aw.MAX_M):
+        state = _state("it1", bsz=2, nx=3, m=m)
+        if m > aw.MAX_M:
+            with pytest.raises(ValueError, match=f"MAX_M = {aw.MAX_M}"):
+                aw._launch(*state, 0.4, 1e-12, 1e3, 0.0)
+        else:
+            aw._launch(*state, 0.4, 1e-12, 1e3, 0.0)
+    assert len(launched) == 1 and launched[0][-4:-2] == (aw.MAX_M, 3)
+    monkeypatch.undo()
+    state = _state("wrapped", m=aw.MAX_M + 1)
+    got = _run(aw.anderson_window, state, torch.float64)
+    ref = _run(_kw(aw.anderson_window_reference), state, torch.float64)
+    assert all(_same(a, b) for a, b in zip(got, ref))
+
+
+def test_window_above_32_runs_on_the_cpu_and_matches_jax():
+    """A GFN1 SCC at broyden_memory = 40 (above the first kernel's 32),
+    48 iterations so the window wraps, through the port's window op on the
+    CPU against the JAX package's scf_solve with the same setting (float64,
+    1e-9)."""
+    import jax
+
+    from metalquicha_tpu.methods.xtb import engine as je
+    from metalquicha_tpu.methods.xtb.engine import settings_from_params as jsp
+
+    restore_jax_overlay()
+    frags = [WATER, H3O, GLY3_FRAG]
+    fixed = dict(max_scf_iter=48, scf_tol=0.0, broyden_memory=40)
+    jf = jax_fragment_data(frags)
+    tf = port_from_jax(jf)
+    settings = tsp("gfn1", **fixed)
+    assert settings.broyden_memory == 40
+    calls = []
+    real = te.anderson_window
+
+    def counted(*args, **kw):
+        calls.append(args[2].shape[1])
+        return real(*args, **kw)
+
+    te.anderson_window = counted
+    try:
+        with torch.no_grad():
+            S, H0, gamma, _ = tcalc._scc_operands(tf.coords, tf, settings)
+        q, _ = te.scf_solve(H0, S, gamma, tf, KT, settings)
+    finally:
+        te.anderson_window = real
+    assert calls and set(calls) == {40}
+    jset = jsp("gfn1", **fixed)
+    q_j, _ = jax.jit(jax.vmap(
+        lambda h, s, g, f: je.scf_solve(h, s, g, f, KT, jset)
+    ))(*(np.asarray(t.numpy()) for t in (H0, S, gamma)), jf)
+    assert max_abs_diff(q, q_j) <= 1e-9
 
 
 def test_cuda_tensor_goes_to_the_kernel(monkeypatch):
@@ -487,6 +544,24 @@ def test_wide_window_matches_plain_versions(cuda, shape, case, dtype):
     """A window of m = 20 (its solve on rows in shared memory, above the
     register solve's 16), warp and block per fragment."""
     state = [t.to(cuda) for t in _state(case, *shape, dtype=dtype, m=20)]
+    got = _run(aw.anderson_window, state, dtype)
+    for plain in (aw.anderson_window_reference, aw.anderson_window_rowwise):
+        ref = _run(_kw(plain), state, dtype)
+        for a, b in zip(got, ref):
+            if a.dtype == torch.bool:
+                assert torch.equal(a, b)
+            else:
+                assert _close(a, b, TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [40, 64, aw.MAX_M])
+@pytest.mark.parametrize("shape", [(64, 12), (16, 186)])
+def test_window_above_32_matches_plain_versions(cuda, shape, m, dtype):
+    """Windows above the first kernel's 32 (a lane holding two or more rows
+    of the system), warp and block per fragment, partly filled."""
+    state = [t.to(cuda) for t in _state("full", *shape, dtype=dtype, m=m)]
     got = _run(aw.anderson_window, state, dtype)
     for plain in (aw.anderson_window_reference, aw.anderson_window_rowwise):
         ref = _run(_kw(plain), state, dtype)

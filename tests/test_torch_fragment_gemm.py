@@ -14,13 +14,29 @@ On the CPU:
   versions: gradcheck and gradgradcheck in float64;
 - the engine sends every product of a GFN1 SCC iteration (the Fock
   transforms, the Coulomb matvec), of its orthogonalizers and of the
-  functional through the op; above 64 AOs, and for GFN2's multipole
-  products, it does not;
+  functional through the op, a fragment of 72 AOs too (the kernel's
+  k-tiled sizes up to MAX_N = 128); above MAX_N, and for GFN2's
+  multipole products, it does not; above 64 the sandwich is two product
+  launches and an add;
 - the dispatch: a CPU tensor never builds the kernel, another device
   raises, a CUDA tensor goes to the launch, a failed launch raises
   uncounted; a launch from another thread on a captured stream (a
-  backward pass) counted per replay; the ctypes declarations against the
-  C signatures.
+  backward pass) counted per replay, and by kind (direct, or the size
+  class); the ctypes declarations against the C signatures;
+- what the wrapper hands the C entry (a launcher recording its
+  arguments): every operand as it lies (a view with a storage offset with
+  its own address, never copied; a transposed view as it is stored, its
+  flag flipped), at n = 11, 16, 20, 32 and 64;
+- a plain-Python model of the kernel's persistent walk over (fragment,
+  band) units and its ring (two stages in f32, one in f64), with the
+  band heights and the stages read from
+  the source: every unit once, every row of every fragment once, for
+  every grid of 1 to 2 x 132 blocks;
+- the bit fingerprint of the kernel's first version (commit df9980a;
+  `tests/data/
+  fragment_gemm_bits.json`, `tools/gemm_bits_torch.py`) covers every
+  shape, dtype and entry of `chip_smoke.py`'s gemm phase, and its recipe
+  remakes the inputs it hashed.
 The `gpu` cases hold the kernel to both plain versions on the card at the
 main path's shapes, square and rectangular (D3's (1, R) by (R, R) and its
 backward's forms), and check that a fragment's bits do not depend on its
@@ -28,7 +44,12 @@ batch (`python3 -m pytest --noconftest tests/test_torch_fragment_gemm.py
 -m gpu`).
 """
 
+import collections
+import itertools
+import math
+import os
 import re
+import sys
 import threading
 import types
 
@@ -286,12 +307,15 @@ def test_engine_products_go_through_the_op(counted):
     assert counted["fragment_bmm"] == 4 and counted["sandwich"] == 1
 
 
+def _water_ring(k):
+    return [(np.tile(WATER[0], k),
+             np.concatenate([WATER[1] + np.array([6.0 * i, 0.0, 0.0])
+                             for i in range(k)]), 0, 1)]
+
+
 def test_large_fragments_and_gfn2_multipoles_stay_on_matmul(counted):
-    ring = [(np.tile(WATER[0], 12),
-             np.concatenate([WATER[1] + np.array([6.0 * k, 0.0, 0.0])
-                             for k in range(12)]), 0, 1)]
     calc = tcalc.XtbCalculator(tsp("gfn1"), device="cpu")
-    frag = calc.make_batch(ring)
+    frag = calc.make_batch(_water_ring(24))
     assert frag.ao_mask.shape[1] > fm.MAX_N
     assert _per_iteration(counted, frag, tsp("gfn1")) == {}
     gfn2 = tsp("gfn2")
@@ -300,6 +324,37 @@ def test_large_fragments_and_gfn2_multipoles_stay_on_matmul(counted):
     per = _per_iteration(counted, frag2, gfn2)
     # the Fock transform and C only: the moments' products stay einsums
     assert per["sandwich"] == 1 and per["fragment_bmm"] == 1
+
+
+def test_fragments_above_64_aos_go_through_the_op(counted):
+    """A fragment of 72 AOs (12 waters, padded to 96) takes the op's
+    products as the small ones do, up to MAX_N (the kernel's k-tiled
+    class on a card); its shells (above 64) take the op's matvec too."""
+    calc = tcalc.XtbCalculator(tsp("gfn1"), device="cpu")
+    frag = calc.make_batch(_water_ring(12))
+    assert fm.STAGED_N < frag.ao_mask.shape[1] <= fm.MAX_N
+    # the Fock transform, C = Xs Cp, the density (above the fused fill's
+    # 64) and the Coulomb matvec
+    assert _per_iteration(counted, frag, tsp("gfn1")) == {
+        "sandwich": 1, "fragment_bmm": 2, "fragment_matvec": 1}
+
+
+def test_sandwich_above_the_staged_size_is_two_products(recorded):
+    """Above STAGED_N the wrapper runs the sandwich as two product
+    launches (X F rounded to memory, as the kernel rounds it to shared
+    memory) and the add: two launches counted, no sandwich entry."""
+    n = fm.STAGED_N + 8
+    x, f, shift = _mats((2, n, n), n=3)
+    before = fm.launches
+    out = fm._launch_sandwich(x, f, shift)
+    names = [name for name, _ in recorded.calls]
+    assert names == ["mqc_fragment_bmm_f64"] * 2
+    first, second = (args for _, args in recorded.calls)
+    assert first[0] == x.data_ptr() and first[1] == f.data_ptr()
+    assert second[1] == x.data_ptr() and second[0] == first[2]
+    assert second[3:9] == (2, n, n, n, 0, 0)
+    assert fm.launches == before + 2 and out.shape == (2, n, n)
+    assert fm.kind_of("bmm", n, n, n) == ("bmm", 128)
 
 
 def test_cpu_tensor_never_builds_the_kernel(monkeypatch):
@@ -416,6 +471,202 @@ def test_sizes_above_the_kernel_raise_on_a_card(monkeypatch):
         fm.fragment_bmm(a.to(torch.int32), a.to(torch.int32))
 
 
+class _Recorder:
+    """A stand-in for the kernel's library: records each entry's
+    arguments and returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("mqc_fragment_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    lib = _Recorder()
+    monkeypatch.setattr(fm._LIB, "lib", lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 7, raising=False)
+    return lib
+
+
+def _offset_view(shape, dtype, elements=1):
+    """A contiguous view whose storage starts `elements` in (its address
+    then off 16 bytes by 4 or 8)."""
+    flat = torch.arange(math.prod(shape) + elements, dtype=dtype)
+    return flat[elements:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [11, 16, 20, 32, 64])
+def test_wrapper_passes_operands_as_they_lie(recorded, n, dtype):
+    """The wrapper hands the C entry each operand's own address: a view
+    with a storage offset is not copied (the kernel stages it element by
+    element), a transposed view goes as it is stored with its flag
+    flipped, and the sizes are op(a)'s and op(b)'s; the launch is counted
+    by kind."""
+    tag = "f64" if dtype == torch.float64 else "f32"
+    a = _offset_view((3, n, n), dtype)
+    b = torch.ones(3, n, n, dtype=dtype)
+    cases = [(a, b, False, False, False, False),      # offset, contiguous
+             (a.mT, b, False, False, True, False),    # transposed views
+             (a, b.mT, True, True, True, False)]
+    kind = fm.kind_of("bmm", n)
+    before = fm.launches_by_kind[kind]
+    for x, y, tx, ty, want_tx, want_ty in cases:
+        fm._launch_bmm(x, y, tx, ty)
+        name, args = recorded.calls[-1]
+        assert name == f"mqc_fragment_bmm_{tag}"
+        stored_x = x.mT if want_tx != tx else x
+        stored_y = y.mT if want_ty != ty else y
+        assert args[0] == stored_x.data_ptr() and args[1] == stored_y.data_ptr()
+        assert args[3:9] == (3, n, n, n, int(want_tx), int(want_ty))
+        assert args[9:] == (None, 7)
+    # the offset view's own address, 4 or 8 bytes past the storage start
+    assert recorded.calls[0][1][0] == a.untyped_storage().data_ptr() + (
+        a.element_size())
+    assert fm.launches_by_kind[kind] == before + 3
+    fm._launch_sandwich(a, b, a)
+    name, args = recorded.calls[-1]
+    assert name == f"mqc_fragment_sandwich_{tag}"
+    assert args[0] == a.data_ptr() and args[2] == a.data_ptr()
+    assert args[4:6] == (3, n)
+    fm._launch_matvec(a.mT, b[:, 0], False)
+    name, args = recorded.calls[-1]
+    assert name == f"mqc_fragment_matvec_{tag}" and args[0] == a.data_ptr()
+    assert args[3:7] == (3, n, n, 1)
+
+
+def test_launch_kinds():
+    """Counts by kind: the direct kernel for products whose sizes are all 8
+    or less and for the matvec, else the size class of the staged tiles
+    (the sandwich has no direct form)."""
+    assert fm.kind_of("bmm", 1, 5, 5) == ("bmm", 0)
+    assert fm.kind_of("bmm", 8, 8, 9) == ("bmm", 16)
+    assert fm.kind_of("bmm", 20, 20, 20) == ("bmm", 32)
+    assert fm.kind_of("bmm", 64, 3, 40) == ("bmm", 64)
+    assert fm.kind_of("bmm", 65, 3, 40) == ("bmm", 128)
+    assert fm.kind_of("sandwich", 6) == ("sandwich", 16)
+    assert fm.kind_of("matvec", 64, 64) == ("matvec", 0)
+    assert [fm.kind_name(fm.kind_of(*k)) for k in (
+        ("bmm", 1, 5, 5), ("sandwich", 40), ("bmm", 97))] == [
+        "bmm direct", "sandwich 64", "bmm 128"]
+
+
+def _source_constant(name):
+    """A constexpr int of the kernel's source."""
+    src = fm._LIB.source.read_text()
+    return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
+
+
+def _walk(units, grid, tiles=1, stages=2):
+    """The kernel's walk for every block of a grid (its `ring` of one or
+    two stages, and the tiled kernel's loop over items): (unit, k tile) in
+    each block's order; the item a stage holds is computed from it before
+    a later item refills it."""
+    out = []
+    for block in range(grid):
+        if block >= units:
+            continue
+        mine = (units - 1 - block) // grid + 1
+        items = mine * tiles
+        held = {}
+        for i in range(items):
+            stage = i % stages
+            if i == 0 or stages == 1:
+                assert stage not in held
+                held[stage] = i
+            if stages == 2 and i + 1 < items:
+                assert (stage ^ 1) not in held  # computed and released
+                held[stage ^ 1] = i + 1
+            assert held.pop(stage) == i
+            out.append((block + (i // tiles) * grid, i % tiles))
+    return out
+
+
+def test_work_unit_walk_covers_every_band_once():
+    """A plain-Python model of the persistent walk: for every grid of 1 to
+    2 x 132 blocks, every (fragment, band) unit is computed exactly once
+    (above 64, each of its k tiles once and in ascending order), from the
+    stage it was issued to, and the bands of a fragment cover its rows
+    exactly once, at the band heights of the source and of the whole tile
+    (classes 16 and 32); with a ring of one stage (f64) and of two (f32,
+    and the sizes above 64)."""
+    band64 = _source_constant("kBand64")
+    tiled_band = _source_constant("kTiledBand")
+    tile_k = _source_constant("kTileK")
+    assert (band64, tiled_band, tile_k) == (32, 32, 32)
+    for (band, batch, m, k), stages in itertools.product((
+            (band64, 128, 64, 64), (band64, 3, 37, 9), (16, 190, 16, 16),
+            (32, 5, 20, 20), (tiled_band, 16, 96, 96),
+            (tiled_band, 3, 128, 70)), (1, 2)):
+        bands = -(-m // band)
+        tiles = -(-k // tile_k) if max(m, k) > 64 else 1
+        units = batch * bands
+        for grid in range(1, 2 * 132 + 1):
+            walked = _walk(units, min(grid, units), tiles, stages)
+            assert sorted(walked) == [(u, t) for u in range(units)
+                                      for t in range(tiles)]
+            order = collections.defaultdict(list)
+            for u, t in walked:
+                order[u].append(t)
+            assert all(ts == list(range(tiles)) for ts in order.values())
+            rows = collections.Counter()
+            for u in order:
+                f, r0 = divmod(u, bands)
+                rows.update((f, r) for r in range(r0 * band,
+                                                  min(m, r0 * band + band)))
+            assert len(rows) == batch * m and set(rows.values()) == {1}
+
+
+def _bits_tool():
+    tools = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import gemm_bits_torch
+
+    return gemm_bits_torch
+
+
+def test_bit_fingerprint_covers_the_gemm_phase():
+    """The fixture holds a fingerprint for every shape, dtype and entry
+    `chip_smoke.py`'s gemm phase names (the product with each transpose,
+    the sandwich, the matvec and its transpose at GEMM_SHAPES; the product
+    with each transpose at GEMM_RECT), and the tool's recipe remakes the
+    inputs it hashed, shape and bytes."""
+    import chip_smoke
+
+    bits = _bits_tool()
+    fixture = bits.load_fixture()
+    assert fixture["seed"] == bits.SEED and fixture["recipe"] == bits.RECIPE
+    assert "H100" in fixture["card"]
+    want = set()
+    for dtype in ("f64", "f32"):
+        for bsz, n in chip_smoke.GEMM_SHAPES:
+            shape = (bsz, n, n, n)
+            want |= {bits.key_of("bmm", dtype, shape, ta, tb)
+                     for ta, tb in TRANS}
+            want |= {bits.key_of("sandwich", dtype, shape, False, False),
+                     bits.key_of("matvec", dtype, shape, False, False),
+                     bits.key_of("matvec", dtype, shape, True, False)}
+        want |= {bits.key_of("bmm", dtype, tuple(shape), ta, tb)
+                 for shape in chip_smoke.GEMM_RECT for ta, tb in TRANS}
+    cases = bits.cases()
+    assert want <= set(fixture["cases"]) == {c[0] for c in cases}
+    for key, entry, dtype, shape, ta, tb in cases:
+        arrays = bits.inputs(entry, dtype, shape, ta, tb)
+        assert [a.shape for a in arrays] == bits.input_shapes(
+            entry, shape, ta, tb)
+        assert {a.dtype.itemsize for a in arrays} == {
+            8 if dtype == "f64" else 4}
+        assert [bits.digest(a) for a in arrays] == (
+            fixture["cases"][key]["inputs"]), key
+
+
 def test_entry_points_match_the_source():
     """The ctypes declarations of the wrapper against the C signatures of
     csrc/fragment_gemm.cu (a mismatch shows only on a card otherwise)."""
@@ -445,8 +696,10 @@ def cuda():
 
 #: (B, n) of the main path: the dimer slice, the w20 MBE(4) chunk, the
 #: largest fragments the kernel takes, one fragment, an odd batch, and
-#: sizes of 8 (the products on the direct kernel, the sandwich not)
-GPU_SHAPES = [(512, 16), (5985, 32), (128, 64), (1, 16), (7, 64), (20, 8)]
+#: sizes of 8 (the products on the direct kernel, the sandwich not); above
+#: 64, k in tiles (the dodecamers' 96, the largest, and one past 64)
+GPU_SHAPES = [(512, 16), (5985, 32), (128, 64), (1, 16), (7, 64), (20, 8),
+              (16, 96), (3, 128), (5, 65)]
 
 
 def _card_mats(shape, dtype, device, n=3, seed=0):
@@ -483,7 +736,8 @@ def test_kernel_matches_plain_versions(cuda, shape, dtype):
 #: the w20 MBE(2) dimers (190 x 6 x 6), the forms of its backward pass,
 #: and one of each size class
 GPU_RECT = [(41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (6840, 5, 1, 5),
-            (300, 30, 7, 19), (33, 64, 3, 40)]
+            (300, 30, 7, 19), (33, 64, 3, 40), (9, 100, 70, 128),
+            (7, 65, 3, 40)]
 
 
 @pytest.mark.gpu

@@ -523,7 +523,7 @@ def test_worker_handle_keeps_each_runs_budget_and_peak():
     the worker's peak in that run, and the peak over all runs."""
     handle = slot_worker.SlotWorker(0, "cpu")
     base = dict(launches=0, fermi_launches=0, density_launches=0,
-                window_launches=0, gemm_launches=0, sp2_calls=0,
+                window_launches=0, gemm_by_kind={}, sp2_calls=0,
                 scc_captures=0, scc_hits=0,
                 scc_eager=0, stage_captures=0, stage_hits=0, stage_eager=0,
                 scc_held_bytes=0, parts=1, modules=[], build_dir="")

@@ -18,15 +18,22 @@ the engine's products (`--products`): the batch-invariant kernel
 D3's C6 contraction), or torch.matmul and torch.einsum in their place
 (library, what the port ran before it).
 
+Beyond GFN1 up to 64 AOs (`beyond_deltas`, float64, the kernel routes):
+the w20 MBE(2) gradient in GFN2 and in GFN1 with ALPB (one batch against
+the two-slot cut), and a bucket above 64 AOs, `chip_smoke.py`'s 16 water
+dodecamers (nao 72, padded to 96; seed 40), as one batch against two of 8.
+
 `--locate` names, per products route, the first value that depends on
-the batch: the w20 MBE(2) dimers' float64 gradients as one batch of 190
-and as its first 95, launch by launch, every call of the engine's traced
-functions (`TRACED`) and the kernels' backward passes compared on the
-shared fragments in call order.
+the batch, for each of LOCATE_CASES: the w20 MBE(2) dimers' float64
+gradients (GFN1, GFN2, GFN1 with ALPB) as one batch of 190 and as its
+first 95, and the 16 dodecamers and their first 8, launch by launch,
+every call of the traced functions (`TRACED`) and the kernels' backward
+passes compared on the shared fragments in call order.
 
 Usage: python3 tools/c17_probe_torch.py [--device cuda]
            [--solves kernel,library,looped,rowwise]
-           [--products kernel,library] [--locate] [--json-out F]
+           [--products kernel,library] [--beyond] [--locate]
+           [--json-out F]
 It prints a line per route and one JSON line.
 """
 
@@ -112,6 +119,75 @@ def cut_deltas(device):
     return out
 
 
+def dodecamers():
+    """chip_smoke.py's 16 seeded water dodecamers (its call_graph phase's
+    bucket above 64 AOs: nao 72, padded to 96)."""
+    from chip_smoke import water_clusters
+
+    return water_clusters(np.random.default_rng(40), 16, 12)
+
+
+def _calculator(case, device):
+    """The float64 calculator of a case: w20_gfn1, w20_gfn2, w20_alpb
+    (GFN1, water) or dodecamers (GFN1, scf_tol 1e-9 as the call_graph
+    phase's)."""
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.methods.xtb.solvation.born import (
+        BornSolvation,
+    )
+
+    variant = "gfn2" if case == "w20_gfn2" else "gfn1"
+    if case == "dodecamers":
+        base = settings_from_params(variant, scf_tol=1e-9, max_scf_iter=64)
+    else:
+        base = settings_from_params(variant, max_scf_iter=32)
+    solvation = BornSolvation(78.4, alpb=True) if case == "w20_alpb" else None
+    return XtbCalculator(base, variant=variant, dtype=torch.float64,
+                         device=device, solvation=solvation)
+
+
+def beyond_deltas(device):
+    """C17's deltas beyond GFN1 up to 64 AOs, float64: the w20 MBE(2)
+    gradient in GFN2 and with ALPB (one batch against the two-slot cut:
+    |g|, max |dg|, total), and the 16 dodecamers as one batch against two
+    of 8 (max |dE|, max |dg|)."""
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+    from metalquicha_tpu_torch.workloads import (
+        w20_mbe2_assemble,
+        w20_mbe2_fragments,
+    )
+
+    out = {}
+    frags = w20_mbe2_fragments()
+    for case in ("w20_gfn2", "w20_alpb"):
+        calc = _calculator(case, device)
+        e1, g1, _ = FragmentExecutor(calc).run(frags, what="gradient")
+        e2, g2, _ = SerialCut.make(calc).run(frags, what="gradient")
+        t1, n1 = w20_mbe2_assemble(e1, g1)
+        t2, n2 = w20_mbe2_assemble(e2, g2)
+        out[f"{case}_d_gnorm"] = abs(n1 - n2)
+        out[f"{case}_d_total"] = abs(t1 - t2)
+        out[f"{case}_max_dg"] = max(
+            float(np.abs(np.asarray(a) - np.asarray(b)).max())
+            for a, b in zip(g1, g2))
+    calc = _calculator("dodecamers", device)
+    clusters = dodecamers()
+    half = len(clusters) // 2
+    e1, g1, _ = calc.gradients(calc.make_batch(clusters))
+    parts = [calc.gradients(calc.make_batch(p))
+             for p in (clusters[:half], clusters[half:])]
+    e2 = torch.cat([p[0] for p in parts])
+    g2 = torch.cat([p[1] for p in parts])
+    out["dodecamers_d_energy"] = float((e1 - e2).abs().max())
+    out["dodecamers_max_dg"] = float((g1 - g2).abs().max())
+    return out
+
+
+#: where --locate looks: (case, whole batch, the first part of it)
+LOCATE_CASES = ("w20_gfn1", "w20_gfn2", "w20_alpb", "dodecamers")
+
+
 #: (module, function) pairs whose outputs `first_difference` compares; an
 #: in-place op (the window) is read after the call from its first argument
 TRACED = (
@@ -123,6 +199,11 @@ TRACED = (
     ("engine", "fermi_density"),
     ("engine", "fermi_occupations"), ("engine", "anderson_window"),
     ("engine", "_fock"), ("engine", "_shell_populations"),
+    ("engine", "_ortho_factors"), ("engine", "_general_eigh"),
+    ("engine", "_scc_density"), ("engine", "_coulomb_potential"),
+    ("engine", "moment_matrices"), ("engine", "_aes_potentials"),
+    ("engine", "_aes_fock"), ("engine", "_aes_moments_of_P"),
+    ("calculator", "_scc_operands"), ("calculator", "_solv_gamma"),
     ("dispersion_d3", "c6_coefficients"), ("dispersion_d3", "d3_energy"),
     ("dispersion_d3", "atm_energy"),
 )
@@ -172,28 +253,30 @@ def _tensors(out):
     return []
 
 
-def first_difference(device):
-    """The first traced value (in call order) of the w20 MBE(2) dimers'
-    float64 gradients that differs between the 190 as one batch and its
-    first 95 alone, or None where the gradients agree bit for bit."""
+def first_difference(device, case="w20_gfn1"):
+    """The first traced value (in call order) of a case's float64
+    gradients that differs between its fragments as one batch (the w20
+    MBE(2) dimers: 190; the dodecamers: 16) and the first half alone, or
+    None where the gradients agree bit for bit."""
+    from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
     from metalquicha_tpu_torch.methods.xtb import dispersion_d3, engine
-    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
-    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
     from metalquicha_tpu_torch.ops import fragment_gemm
     from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
 
     mods = {"engine": engine, "dispersion_d3": dispersion_d3,
-            "fragment_gemm": fragment_gemm}
-    calc = XtbCalculator(settings_from_params("gfn1", max_scf_iter=32),
-                         dtype=torch.float64, device=device)
-    dimers = w20_mbe2_fragments()[20:]
+            "fragment_gemm": fragment_gemm, "calculator": tcalc}
+    calc = _calculator(case, device)
+    dimers = (dodecamers() if case == "dodecamers"
+              else w20_mbe2_fragments()[20:])
     half = len(dimers) // 2
     runs = {}
 
     def run(frags, trace):
         saved = []
         for mod, name in TRACED:
-            fn = getattr(mods[mod], name)
+            fn = getattr(mods[mod], name, None)
+            if fn is None:
+                continue
             saved.append((mods[mod], name, fn))
 
             def traced(*args, _fn=fn, _name=name, **kw):
@@ -302,9 +385,13 @@ def main(argv=None) -> int:
     ap.add_argument("--products", default="kernel",
                     help="comma-separated: the engine's products for the "
                          "deltas (kernel, library)")
+    ap.add_argument("--beyond", action="store_true",
+                    help="also the deltas beyond GFN1 up to 64 AOs (GFN2, "
+                         "ALPB, the dodecamers above 64 AOs), per products "
+                         "route")
     ap.add_argument("--locate", action="store_true",
                     help="name the first value that depends on the batch, "
-                         "per products route")
+                         "per products route and case")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     from metalquicha_tpu_torch.logging_ import global_logger
@@ -337,11 +424,20 @@ def main(argv=None) -> int:
                     scc_graph.clear()
                 print(f"c17 cut deltas, solve {name}, products {products}: "
                       f"{result[key]}", flush=True)
+            if args.beyond:
+                scc_graph.clear()
+                key = f"beyond_{products}"
+                result[key] = beyond_deltas(device)
+                print(f"c17 cut deltas beyond GFN1 up to 64 AOs, products "
+                      f"{products}: {result[key]}", flush=True)
             if args.locate:
-                result[f"first_{products}"] = first_difference(device)
-                print(f"c17 first value that depends on the batch, "
-                      f"products {products}: {result[f'first_{products}']}",
-                      flush=True)
+                for case in LOCATE_CASES:
+                    key = (f"first_{products}" if case == "w20_gfn1"
+                           else f"first_{products}_{case}")
+                    result[key] = first_difference(device, case)
+                    print(f"c17 first value that depends on the batch, "
+                          f"products {products}, {case}: {result[key]}",
+                          flush=True)
         finally:
             for (mod, name), fn in real_products.items():
                 setattr(mods[mod], name, fn)

@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""A bit fingerprint of the fragment product kernel's outputs, on a card.
+
+Every entry of `ops/fragment_gemm.py` that `chip_smoke.py`'s gemm phase
+names (the product with each transpose, the sandwich x f x + s, the
+matvec and its transpose at the square shapes; the product with each
+transpose at the rectangular ones), in float64 and float32, on inputs made
+from a seed with numpy (`inputs`: one generator per case, seeded with
+SEED and the case's entry, shape, transposes and dtype; standard normal
+values drawn in float64 and cast). Each output's bytes are hashed
+(SHA-256), and so are the inputs'.
+
+`--write F` records the fingerprints of whatever kernel comes first on
+the path: with an older checkout first on PYTHONPATH (unpacked with `git
+archive` into the gitignored `_archive/`), that checkout's kernel. The
+fixture `tests/data/fragment_gemm_bits.json` holds the fingerprints of the
+kernel's first version (commit df9980a); `--check` (and `chip_smoke.py`'s
+gemm phase) recomputes every case with the kernel of this tree and
+compares: the kernel may be redesigned, its bits may not move.
+
+Usage: python3 tools/gemm_bits_torch.py [--write F | --check]
+           [--fixture F]
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.append(ROOT)
+FIXTURE = os.path.join(ROOT, "tests", "data", "fragment_gemm_bits.json")
+
+SEED = 16
+#: (B, n) and (B, m, k, n) of chip_smoke.py's GEMM_SHAPES and GEMM_RECT
+SQUARE = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+          (128, 64))
+RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (190 * 36, 5, 1, 5))
+TRANS = ((False, False), (True, False), (False, True), (True, True))
+DTYPES = ("f64", "f32")
+ENTRIES = ("bmm", "sandwich", "matvec")
+RECIPE = ("numpy.random.default_rng([SEED, entry index in ENTRIES, B, m, "
+          "k, n, trans_a, trans_b, bits of the dtype]).standard_normal(shape)"
+          " per input in the order listed, drawn in float64 and cast to the "
+          "case's dtype; bmm: a stored (B, k, m) if trans_a else (B, m, k), "
+          "b stored (B, n, k) if trans_b else (B, k, n); sandwich: x, f, s "
+          "(B, n, n); matvec: mat (B, n, n) (trans_a: its transpose is "
+          "applied), x (B, n)")
+
+
+def cases():
+    """Every case as (key, entry, dtype, (B, m, k, n), trans_a, trans_b)."""
+    out = []
+    for dtype in DTYPES:
+        shapes = [((bsz, n, n, n), True) for bsz, n in SQUARE]
+        shapes += [(shape, False) for shape in RECT]
+        for shape, square in shapes:
+            for ta, tb in TRANS:
+                out.append(("bmm", dtype, shape, ta, tb))
+            if square:
+                out.append(("sandwich", dtype, shape, False, False))
+                out.append(("matvec", dtype, shape, False, False))
+                out.append(("matvec", dtype, shape, True, False))
+    return [(key_of(*c), *c) for c in out]
+
+
+def key_of(entry, dtype, shape, ta, tb) -> str:
+    flags = ("T" if ta else "N") + ("T" if tb else "N")
+    return f"{entry}/{dtype}/{'x'.join(map(str, shape))}/{flags}"
+
+
+def input_shapes(entry, shape, ta, tb):
+    bsz, m, k, n = shape
+    if entry == "bmm":
+        return [(bsz, *((k, m) if ta else (m, k))),
+                (bsz, *((n, k) if tb else (k, n)))]
+    if entry == "sandwich":
+        return [(bsz, n, n)] * 3
+    return [(bsz, n, n), (bsz, n)]
+
+
+def inputs(entry, dtype, shape, ta, tb):
+    """The case's inputs as numpy arrays of its dtype (RECIPE)."""
+    bits = 64 if dtype == "f64" else 32
+    rng = np.random.default_rng(
+        [SEED, ENTRIES.index(entry), *shape, int(ta), int(tb), bits])
+    np_dtype = np.float64 if dtype == "f64" else np.float32
+    return [rng.standard_normal(s).astype(np_dtype)
+            for s in input_shapes(entry, shape, ta, tb)]
+
+
+def digest(arr) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def run(fm, entry, args, ta, tb):
+    """The case's output on the card, through the wrapper's entry."""
+    if entry == "bmm":
+        return fm.fragment_bmm(args[0], args[1], ta, tb)
+    if entry == "sandwich":
+        return fm.sandwich(*args)
+    return fm.fragment_matvec(args[0], args[1], ta)
+
+
+def fingerprints(fm):
+    """{key: {"inputs": [sha...], "output": sha}} of the kernel in module
+    fm, every case."""
+    import torch
+
+    out = {}
+    for key, entry, dtype, shape, ta, tb in cases():
+        arrays = inputs(entry, dtype, shape, ta, tb)
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        got = run(fm, entry, args, ta, tb)
+        out[key] = {"inputs": [digest(a) for a in arrays],
+                    "output": digest(got.cpu().numpy())}
+    return out
+
+
+def load_fixture(path=FIXTURE) -> dict:
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def compare(fm, fixture: dict) -> list:
+    """The keys whose output (or inputs) differ from the fixture's, and the
+    cases it lacks."""
+    want = fixture["cases"]
+    got = fingerprints(fm)
+    return sorted(k for k in got
+                  if k not in want or got[k] != want[k])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--write", default=None,
+                    help="record the fingerprints of the kernel first on "
+                         "the path into this file")
+    ap.add_argument("--check", action="store_true",
+                    help="compare this tree's kernel with the fixture")
+    ap.add_argument("--fixture", default=FIXTURE)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gemm_bits: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from metalquicha_tpu_torch.ops import fragment_gemm as fm
+
+    fm.build()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"gemm_bits: kernel of {fm.__file__} on {card}", flush=True)
+    if args.write:
+        doc = {"seed": SEED, "recipe": RECIPE, "module": os.path.relpath(
+            fm.__file__, ROOT), "card": card,
+            "cases": fingerprints(fm)}
+        with open(args.write, "w") as fh:
+            json.dump(doc, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        print(f"gemm_bits: {len(doc['cases'])} cases written to "
+              f"{args.write}", flush=True)
+    if args.check:
+        bad = compare(fm, load_fixture(args.fixture))
+        print(json.dumps({"gemm_bits": {"cases": len(cases()),
+                                        "differ": bad}}), flush=True)
+        return 1 if bad else 0
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

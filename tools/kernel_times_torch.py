@@ -8,7 +8,10 @@ launched one by one from Python with CUDA events around the calls
 (`eager_ms`, as `chip_smoke.py`'s window phase timed it before: where the
 wrapper's host time is longer than the kernel, that is what it reads).
 The product kernel is timed beside torch.matmul (cuBLAS's batched
-product), graph-replayed too.
+product), graph-replayed too, with its bound (`chip_smoke.gemm_bound`,
+here `gemm_bound`): the product, the sandwich x f x + s against torch's
+`x @ f @ x + s`, and the matvec (B, n, n) by (B, n) against
+torch.matmul's.
 
 With an older checkout first on PYTHONPATH (unpacked with `git archive`
 into the gitignored `_archive/`), it times that checkout's kernels; the
@@ -35,7 +38,25 @@ WINDOW_M = 12
 #: (reg, c_lim) the engine passes per dtype
 WINDOW_LIMITS = {torch.float64: (1e-12, 1e3), torch.float32: (1e-4, 2.0)}
 #: (B, n) of the products on the main path (chip_smoke.GEMM_SHAPES)
-GEMM_SHAPES = ((512, 16), (190, 16), (2581, 32), (5985, 32), (128, 64))
+GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+               (128, 64))
+#: the card's peak rates (chip_smoke.PEAK_FLOPS, PEAK_BYTES)
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def gemm_bound(bsz: int, n: int, bits: int, sandwich: bool = False):
+    """(bound_ms, bound_by) of a batch of (n, n) products, as
+    chip_smoke.gemm_bound: 2 n^3 operations a product (the sandwich two
+    and an add) at the peak rate, or the operands read and the result
+    written once at the memory rate."""
+    k = 2 if sandwich else 1
+    flop = bsz * (k * 2 * n**3 + (n * n if sandwich else 0))
+    nbytes = bsz * (k + 2) * n * n * bits // 8
+    times = {"operations": flop / PEAK_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def eager_ms(fn, reps: int) -> float:
@@ -142,12 +163,18 @@ def main(argv=None) -> int:
             a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
                                     dtype=dtype, device="cuda")
                        for _ in range(3))
-            rec = {"dtype": tag, "shape": [bsz, n]}
+            v = b[:, 0]
+            bits = torch.finfo(dtype).bits
+            rec = {"dtype": tag, "shape": [bsz, n],
+                   "bound_ms": gemm_bound(bsz, n, bits)[0],
+                   "sandwich_bound_ms": gemm_bound(bsz, n, bits, True)[0]}
             for name, fn in (
                     ("bmm", lambda: fm.fragment_bmm(a, b, False, True)),
                     ("matmul", lambda: torch.matmul(a, b.mT)),
                     ("sandwich", lambda: fm.sandwich(a, b, s)),
-                    ("torch_sandwich", lambda: a @ b @ a + s)):
+                    ("torch_sandwich", lambda: a @ b @ a + s),
+                    ("matvec", lambda: fm.fragment_matvec(a, v)),
+                    ("torch_matvec", lambda: torch.matmul(a, v[..., None]))):
                 rec[f"{name}_graph_ms"] = graph_ms(fn, args.reps)
                 rec[f"{name}_eager_ms"] = eager_ms(fn, args.reps)
             result["gemm"].append(rec)

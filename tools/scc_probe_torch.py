@@ -33,6 +33,13 @@ float64 ("gfn2"):
   `XtbCalculator.energies` and `.gradients` call on the batch (32 SCC
   iterations), the mean of 3 calls after a warm-up, as `chip_smoke.py`'s
   slice phase times them;
+- with --slice, instead of the routes: `slice`, `chip_smoke.py`'s slice
+  phase timed call by call (GFN1 f64 with `use_pallas_eigh`, 512
+  dimers, a gradients call to warm up, then three energies calls and
+  three gradients calls): each call's host seconds and the graphs it
+  captured (`scc_graph.stats`' captures and stage captures), and
+  `energies_per_s` and `gradients_per_s` as the phase computes them (512
+  over the mean of its three calls);
 - `graph`: the same solves as replays of one captured CUDA graph per solve
   (the package's default on a card since the graph route; the keys above
   are then of the launch-by-launch loop, `graph=False`), from the same
@@ -58,7 +65,7 @@ float64 ("gfn2"):
   and stream ms of each stage's own call (`operands` and `functional`: a
   hit's copies, replay and clones) and of the call's `finish`.
 
-Usage: python3 tools/scc_probe_torch.py [--walls] [--json-out F]
+Usage: python3 tools/scc_probe_torch.py [--walls | --slice] [--json-out F]
 It prints one JSON line. It uses only the package's entry points, so it
 measures an older checkout of the package too (put that checkout first on
 PYTHONPATH).
@@ -341,10 +348,47 @@ def iteration_costs(device="cuda", routes=tuple(ROUTES), walls=False):
     return out
 
 
+def slice_walls(device="cuda") -> dict:
+    """`chip_smoke.py`'s slice phase, call by call (the docstring's
+    `slice`)."""
+    from metalquicha_tpu_torch.methods.xtb import scc_graph
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.workloads import bench_dimers
+
+    settings = settings_from_params("gfn1", use_pallas_eigh=True)
+    calc = XtbCalculator(settings, dtype=torch.float64, device=device)
+    frag = calc.make_batch(bench_dimers(512))
+    calc.gradients(frag)  # the phase's warm-up
+
+    def calls(fn):
+        out = []
+        for _ in range(3):
+            c0, s0 = (scc_graph.stats[k]
+                      for k in ("captures", "stage_captures"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append({"s": time.perf_counter() - t0,
+                        "captures": scc_graph.stats["captures"] - c0,
+                        "stage_captures": (scc_graph.stats["stage_captures"]
+                                           - s0)})
+        return out
+
+    energies = calls(lambda: calc.energies(frag))
+    gradients = calls(lambda: calc.gradients(frag))
+    return {"energies": energies, "gradients": gradients,
+            "energies_per_s": 512 / (sum(c["s"] for c in energies) / 3),
+            "gradients_per_s": 512 / (sum(c["s"] for c in gradients) / 3)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--walls", action="store_true",
                     help="also time the energies and gradients calls")
+    ap.add_argument("--slice", action="store_true",
+                    help="only chip_smoke.py's slice phase, call by call")
     ap.add_argument("--json-out", help="also write the line to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -357,7 +401,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=False).stdout.strip()
     line = {"package": os.path.dirname(metalquicha_tpu_torch.__file__),
-            "card": card, "routes": iteration_costs(walls=args.walls)}
+            "card": card}
+    if args.slice:
+        line["slice"] = slice_walls()
+    else:
+        line["routes"] = iteration_costs(walls=args.walls)
     text = json.dumps(line)
     print(text, flush=True)
     if args.json_out:
