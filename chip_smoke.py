@@ -71,6 +71,22 @@ Phases (each raises on failure; nothing is caught):
              the plain version and torch.matmul (library_ms) timed
              graph-replayed beside the bound (`gemm_bound`), the matvec
              beside torch.matmul's;
+1e. sums:   the batch-invariant fragment sums (csrc/fragment_reduce.cu,
+             built with the others): GFN2's moment contraction into the
+             Fock matrix (`moment_fock`, d = 3 and 6 at once), the moment
+             row sums (`moment_rows`: d = 3 and 6 into atoms, unsegmented
+             as its backward runs it, and d = 1 with a mask as the shell
+             populations), the segment sums (`segment_sum`: c = 3, 6 and
+             1 with a mask) and the sums over trailing dims
+             (`fragment_sum`: a row, an (n, n) pair table, a (6, n, n)
+             table past the warp's rows) against their plain versions in
+             the kernel's order and the torch expressions they replaced
+             at (B, n) = (512, 16), (5985, 32), (64, 48), (16, 96),
+             float64 (1e-13 of the largest entry) and float32 (1e-5),
+             whether the bits are the plain version's printed; a fragment
+             alone and in its batch bit for bit equal; the kernel, the
+             plain version and torch timed graph-replayed beside the bound
+             (`reduce_bound`);
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -126,10 +142,14 @@ Phases (each raises on failure; nothing is caught):
              rigid trimer MBE(2) gradient and total, and the w20 MBE(2)
              |g|, max |dg| and total in float64 and in float32 + polish,
              from one batch and from a two-slot cut must be equal bit for
-             bit; printed beside them the w20 MBE(2) gradient's in GFN2
-             and with ALPB, and the 16 dodecamers' (96 AOs, one batch
-             against two of 8), whose gradient must be equal bit for bit;
-             one line `{"c17": ...}`;
+             bit; so must, three times in this process, the w20 MBE(2)
+             gradient in GFN2 and with ALPB (|g|, max |dg|, total) and the
+             16 dodecamers (96 AOs, one batch against two of 8: energies
+             and gradients), each repeat's totals, |g| and sums bit for bit
+             the first's; printed, not held, the cuts still open (CPCM's
+             w20 MBE(2) energies, the dodecamers in float32 on SP2, 8
+             jittered 73-atom peptides at 228 AOs); one line
+             `{"c17": ...}`;
 3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with use_pallas_eigh in
              float64 (the exact route, as the JAX package's: no Jacobi
@@ -290,8 +310,9 @@ before phases 3-13; every one of phases 3-13 but the mesh must capture an
 SCC graph and none may run an SCC on the card launch by launch, nor any
 stage of a calculator's call (the mesh's workers report theirs, each must
 have captured, and run no stage launch by launch); every one of phases
-3-13 must launch the Anderson window kernel and the fragment product
-kernel (the workers' launches added); the Jacobi
+3-13 must launch the Anderson window kernel, the fragment product kernel
+and the fragment sum kernel (the workers' launches added), and the main
+path every entry of the last; the Jacobi
 kernel's must grow in phases 3-6 (5b too), 9, 10
 and 13, each from its float32 pass (a float64 SCC takes the exact route,
 as the JAX package's) or, in 13, its timing of the kernel alone, and
@@ -312,6 +333,7 @@ import argparse
 import collections
 import ctypes
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -955,6 +977,7 @@ def scc_graph_phase(be):
     )
     from metalquicha_tpu_torch.ops import fermi_fill as ff
     from metalquicha_tpu_torch.ops import fragment_gemm as fm
+    from metalquicha_tpu_torch.ops import fragment_reduce as fr
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
     from metalquicha_tpu_torch.ops import sp2
     from metalquicha_tpu_torch.workloads import bench_dimers
@@ -998,7 +1021,7 @@ def scc_graph_phase(be):
 
     def launches():
         return (ff.launches, ff.density_launches, jac.launches, sp2.calls,
-                be.launches, fm.launches)
+                be.launches, fm.launches, fr.launches)
 
     steps = [0]
     real_step = engine._anderson_step
@@ -1352,6 +1375,27 @@ def gemm_bound(bsz: int, n: int, dtype, sandwich: bool = False):
                    "bytes": nbytes / PEAK_BYTES})
 
 
+def matvec_bound(bsz: int, n: int, dtype):
+    """(bound_ms, bound_by) of a batch of (n, n) matvecs: M and x read
+    and y written once at the memory rate, or 2 n^2 operations a fragment
+    at the vector rate (the direct kernel: FMA, no tensor cores)."""
+    nbytes = bsz * (n * n + 2 * n) * torch.finfo(dtype).bits // 8
+    return _bound({"operations": 2 * bsz * n * n / PEAK_VECTOR[dtype],
+                   "bytes": nbytes / PEAK_BYTES})
+
+
+def pair_bound(bsz: int, nat: int, dtype, r: int = 5):
+    """(bound_ms, bound_by) of `pair_bilinear` on (bsz, nat, r) weights
+    and (bsz, nat, nat, r, r) grids: both read and the (bsz, nat, nat)
+    output written once at the memory rate, or 2 r^2 + 2 r operations a
+    pair at the vector rate."""
+    pairs = bsz * nat * nat
+    nbytes = (bsz * nat * r + pairs * (r * r + 1)) * torch.finfo(
+        dtype).bits // 8
+    return _bound({"operations": pairs * (2 * r * r + 2 * r)
+                   / PEAK_VECTOR[dtype], "bytes": nbytes / PEAK_BYTES})
+
+
 def _rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
@@ -1433,6 +1477,7 @@ def gemm_phase(fm):
             sw_ms = min(times["sw_kernel"], times["sw_kernel2"])
             bound_ms, bound_by = gemm_bound(bsz, n, dtype)
             sw_bound, _ = gemm_bound(bsz, n, dtype, sandwich=True)
+            mv_bound, mv_by = matvec_bound(bsz, n, dtype)
             print(f"fragment products {tag} (B, n)=({bsz}, {n}): max err="
                   f"{err:.3e} product ms={ms:.4f} plain ms="
                   f"{times['plain']:.4f} torch.matmul ms="
@@ -1442,7 +1487,8 @@ def gemm_phase(fm):
                   f"{times['sw_library']:.4f} bound ms={sw_bound:.6f} "
                   f"({100 * sw_bound / sw_ms:.2f}% of it); matvec ms="
                   f"{times['mv_kernel']:.4f} torch.matmul ms="
-                  f"{times['mv_library']:.4f}", flush=True)
+                  f"{times['mv_library']:.4f} bound ms={mv_bound:.6f} "
+                  f"({mv_by})", flush=True)
             if entry is None:
                 entry = {"max_abs_err": err, "ms": ms,
                          "plain_ms": times["plain"], "bound_ms": bound_ms,
@@ -1597,8 +1643,185 @@ def rect_phase(fm, rng, dtype):
                   f"on its batch")
         ms = graph_ms(lambda: fm.pair_bilinear(w, grids), 20)
         lib = graph_ms(einsums, 20)
+        bound_ms, bound_by = pair_bound(bsz, nat, dtype)
         print(f"pair_bilinear {tag} (B, nat)=({bsz}, {nat}): max err="
-              f"{err:.3e} ms={ms:.4f} torch.einsum ms={lib:.4f}", flush=True)
+              f"{err:.3e} ms={ms:.4f} torch.einsum ms={lib:.4f} bound ms="
+              f"{bound_ms:.6f} ({bound_by})", flush=True)
+
+
+#: (B, n) of the fragment sums' check: the dimer slice (16 AOs), the w20
+#: MBE(4) chunk (32), GFN2 water hexamers (36 AOs, padded to 48), the 16
+#: dodecamers (72, padded to 96); the moments d = 3 (dipoles) and 6
+#: (quadrupoles)
+REDUCE_SHAPES = ((512, 16), (5985, 32), (64, 48), (16, 96))
+REDUCE_TOL = GEMM_TOL
+#: the entries of csrc/fragment_reduce.cu: what each replaces in the JAX
+#: package (XLA's contraction or sum there)
+REDUCE_REPLACES = {
+    "moment_fock": "metalquicha_tpu/methods/xtb/engine.py:567",
+    "moment_rows": "metalquicha_tpu/methods/xtb/gfn2.py:50",
+    "segment_sum": "metalquicha_tpu/methods/xtb/engine.py:458",
+    "fragment_sum": "metalquicha_tpu/methods/xtb/engine.py:950",
+}
+
+
+def reduce_bound(entry: str, bsz: int, n: int, dtype, d: int = 6,
+                 size: int = 0, length: int = 0):
+    """(bound_ms, bound_by) of one launch of a fragment sum entry: every
+    input read once and every output written once at the memory rate, or
+    its multiplies and adds at the vector rate (no tensor cores), the
+    larger. moment_fock: f, v (n, 3 + 6), D, Q in, F out, (2 x 9 + 3) n^2
+    operations; moment_rows: a, m (d n^2), the index and weights in,
+    (size, d) out, 2 d n^2 operations; segment_sum: (n, d) values and the
+    index in, (size, d) out; fragment_sum: `length` elements a row in, one
+    out."""
+    item = torch.finfo(dtype).bits // 8
+    if entry == "moment_fock":
+        elems, ops = 11 * n * n + 9 * n, 21 * n * n
+        extra = 0
+    elif entry == "moment_rows":
+        elems, ops = (1 + d) * n * n + n + size * d, 2 * d * n * n
+        extra = 8 * n
+    elif entry == "segment_sum":
+        elems, ops, extra = n * d + size * d, n * d, 8 * n
+    else:
+        elems, ops, extra = length + 1, length, 0
+    return _bound({"operations": bsz * ops / PEAK_VECTOR[dtype],
+                   "bytes": bsz * (elems * item + extra) / PEAK_BYTES})
+
+
+def _reduce_case(rng, bsz: int, n: int, dtype):
+    """Seeded operands of the fragment sums at (bsz, n): f, P (n, n), the
+    moment tables D (3, n, n) and Q (6, n, n), potentials (n, 3) and (n,
+    6), an atom index of n // 3 segments in sorted runs (an AO's atom),
+    a 0/1 mask."""
+    def t(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=DEVICE)
+
+    nat = max(1, n // 3)
+    idx = torch.tensor(np.sort(rng.integers(0, nat, (bsz, n)), axis=1),
+                       dtype=torch.int64, device=DEVICE)
+    mask = torch.tensor(rng.random((bsz, n)) < 0.9, dtype=dtype,
+                        device=DEVICE)
+    return {"f": t((bsz, n, n)), "P": t((bsz, n, n)), "D": t((bsz, 3, n, n)),
+            "Q": t((bsz, 6, n, n)), "vD": t((bsz, n, 3)),
+            "vQ": t((bsz, n, 6)), "idx": idx, "nat": nat, "mask": mask}
+
+
+def reduce_phase(fr):
+    """The fragment sums (csrc/fragment_reduce.cu) against their plain
+    versions in the kernel's order (`ops/fragment_reduce.py`
+    *_reference) at REDUCE_SHAPES, d = 3 and 6, float64 and float32: max
+    err relative to the largest entry within REDUCE_TOL, and whether the
+    bits are the plain version's; a fragment's bits alone and in its batch
+    equal; the kernel, the plain version and the torch expression it
+    replaced (library_ms: the einsums, the row sums and scatter_add, sum)
+    timed graph-replayed beside the bound. Returns the kernels line's
+    entries, the (512, 16) float64 case of each."""
+    rng = np.random.default_rng(17)
+    entries = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for bsz, n in REDUCE_SHAPES:
+            c = _reduce_case(rng, bsz, n, dtype)
+            nat = c["nat"]
+            # entry -> [(kernel, plain, torch's, bound's arguments)], each
+            # a function of the operands
+            fock = ("f", "vD", "D", "vQ", "Q")
+            cases = {
+                "moment_fock": [(
+                    lambda c: fr.moment_fock(*(c[k] for k in fock)),
+                    lambda c: fr.moment_fock_reference(*(c[k] for k in fock)),
+                    lambda c: fr._torch_moment_fock(*(c[k] for k in fock)),
+                    {})],
+                "moment_rows": [(
+                    lambda c, m=m: fr.moment_rows(c["P"], c[m], c["idx"],
+                                                  nat),
+                    lambda c, m=m: fr.moment_rows_reference(
+                        c["P"], c[m], c["idx"], nat),
+                    lambda c, m=m: fr._torch_moment_rows(c["P"], c[m],
+                                                         c["idx"], nat),
+                    {"d": 3 if m == "D" else 6, "size": nat})
+                    for m in ("D", "Q")] + [(
+                    # the backward's rows, and the shell populations' form
+                    lambda c: fr.moment_rows(c["P"], c["Q"]),
+                    lambda c: fr.moment_rows_reference(c["P"], c["Q"]),
+                    lambda c: fr._torch_moment_rows(c["P"], c["Q"]),
+                    {"d": 6, "size": n}), (
+                    lambda c: fr.moment_rows(c["P"], c["f"][:, None],
+                                             c["idx"], nat, c["mask"]),
+                    lambda c: fr.moment_rows_reference(
+                        c["P"], c["f"][:, None], c["idx"], nat, c["mask"]),
+                    lambda c: fr._torch_moment_rows(
+                        c["P"], c["f"][:, None], c["idx"], nat, c["mask"]),
+                    {"d": 1, "size": nat})],
+                "segment_sum": [(
+                    lambda c, v=v: fr.segment_sum(c[v], c["idx"], nat),
+                    lambda c, v=v: fr.segment_sum_reference(c[v], c["idx"],
+                                                            nat),
+                    lambda c, v=v: fr._torch_segment_sum(c[v], c["idx"],
+                                                         nat),
+                    {"d": 3 if v == "vD" else 6, "size": nat})
+                    for v in ("vD", "vQ")] + [(
+                    lambda c: fr.segment_sum(c["vD"][..., 0], c["idx"], nat,
+                                             c["mask"]),
+                    lambda c: fr.segment_sum_reference(
+                        c["vD"][..., 0], c["idx"], nat, c["mask"]),
+                    lambda c: fr._torch_segment_sum(
+                        c["vD"][..., 0], c["idx"], nat, c["mask"]),
+                    {"d": 1, "size": nat})],
+                "fragment_sum": [(
+                    lambda c, x=x, dims=dims: fr.fragment_sum(c[x], dims),
+                    lambda c, x=x, dims=dims: fr.fragment_sum_reference(
+                        c[x], dims),
+                    lambda c, x=x, dims=dims: c[x].sum(dims),
+                    {"length": n if dims == -1
+                     else math.prod(c[x].shape[1:])})
+                    for x, dims in (("P", -1), ("P", (1, 2)),
+                                    ("Q", (1, 2, 3)))],
+            }
+            for entry, forms in cases.items():
+                err, bitwise = 0.0, True
+                for kernel, plain, library, _kw in forms:
+                    got, ref, lib = kernel(c), plain(c), library(c)
+                    check(got.shape == ref.shape == lib.shape,
+                          f"{entry} ({bsz}, {n}): shapes {tuple(got.shape)}"
+                          f" {tuple(ref.shape)} {tuple(lib.shape)}")
+                    err = max(err, _rel_err(got, ref), _rel_err(got, lib))
+                    bitwise = bitwise and torch.equal(got, ref)
+                check(err <= REDUCE_TOL[dtype],
+                      f"{entry} {tag} ({bsz}, {n}): max err {err:.3e} > "
+                      f"{REDUCE_TOL[dtype]:.0e}")
+                # a fragment alone, and the batch's last and first: the
+                # same bits
+                for rows in ([0], [bsz - 1, 0]):
+                    sel = torch.tensor(rows, device=DEVICE)
+                    part = {k: (v.index_select(0, sel)
+                                if torch.is_tensor(v) else v)
+                            for k, v in c.items()}
+                    for kernel, _plain, _lib, _kw in forms:
+                        check(torch.equal(kernel(part), kernel(c).index_select(
+                            0, sel)), f"{entry} ({bsz}, {n}): a fragment's "
+                              f"bits depend on its batch")
+                kernel, plain, library, kw = forms[0]
+                ms = min(graph_ms(lambda: kernel(c), 20),
+                         graph_ms(lambda: kernel(c), 20))
+                plain_ms = graph_ms(lambda: plain(c), 3)
+                library_ms = graph_ms(lambda: library(c), 20)
+                bound_ms, bound_by = reduce_bound(entry, bsz, n, dtype, **kw)
+                print(f"fragment sums {entry} {tag} (B, n)=({bsz}, {n}): "
+                      f"max err={err:.3e} bit for bit the plain version: "
+                      f"{bitwise}; ms={ms:.4f} plain ms={plain_ms:.4f} torch "
+                      f"ms={library_ms:.4f} bound ms={bound_ms:.6f} "
+                      f"({bound_by}, {100 * bound_ms / ms:.2f}% of it)",
+                      flush=True)
+                if entry not in entries:
+                    entries[entry] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "bitwise_plain": bitwise}
+    return entries
 
 
 def call_graph_phase():
@@ -1726,33 +1949,52 @@ def call_graph_phase():
     return out
 
 
+#: repeats of the deltas beyond GFN1 in one process: each must read 0 and
+#: give the same values as the first
+C17_REPEATS = 3
+
+
 def c17_check():
     """ROADMAP C17: the rigid trimer MBE(2) gradient and total, and the
     w20 MBE(2) |g|, max |dg| and total in float64 and in float32 + the f64
     polish, from one batch and from a two-slot cut, equal bit for bit: the
     window solve, every GFN1 product up to 128 AOs and D3's C6 contraction
-    (`ops/fragment_gemm.py`) no longer depend on the batch. Beside them,
-    measured and printed, the deltas beyond GFN1 up to 64 AOs: the w20
-    MBE(2) gradient in GFN2 and in GFN1 with ALPB, and the call_graph
-    phase's 16 dodecamers (nao 72, padded to 96) as one batch against two
-    of 8, float64; of these only the dodecamers' gradient is held to 0
-    (ROADMAP C17 lists what is open)."""
+    (`ops/fragment_gemm.py`) no longer depend on the batch. Beyond GFN1,
+    C17_REPEATS times: the w20 MBE(2) gradient in GFN2 and in GFN1 with
+    ALPB (|g|, max |dg|, total) and the call_graph phase's 16 dodecamers
+    (nao 72, padded to 96) as one batch against two of 8 (energy and
+    gradient), float64, every delta exactly 0 with GFN2's moment
+    contractions, the energies' sums and the segment sums on
+    `ops/fragment_reduce.py`, and each repeat's values (totals, |g|, sums)
+    the first's bit for bit. Printed beside them, not held, what ROADMAP
+    C17 lists as open (`open_deltas`: CPCM, SP2 in float32, the 73-atom
+    peptide)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from c17_probe_torch import beyond_deltas, cut_deltas
+    from c17_probe_torch import beyond_deltas, cut_deltas, open_deltas
 
     deltas = cut_deltas(torch.device(DEVICE))
     print(f"c17 cut deltas: {deltas}", flush=True)
     check(all(v == 0.0 for v in deltas.values()),
           f"C17: a fragment's gradient depends on the cut: {deltas}")
-    beyond = beyond_deltas(torch.device(DEVICE))
-    print(f"c17 cut deltas beyond GFN1 up to 64 AOs: {beyond}", flush=True)
-    check(all(np.isfinite(v) for v in beyond.values()),
-          f"C17: a delta beyond GFN1 is not finite: {beyond}")
-    # the products above 64 AOs on the kernel's k-tiled sizes: the
-    # dodecamers' gradients no longer depend on the cut
-    check(beyond["dodecamers_max_dg"] == 0.0,
-          f"C17: the dodecamers' gradient depends on the cut: {beyond}")
-    return dict(deltas, beyond=beyond)
+    repeats = []
+    for rep in range(C17_REPEATS):
+        got = beyond_deltas(torch.device(DEVICE), values=True)
+        print(f"c17 beyond GFN1, repeat {rep}: {got}", flush=True)
+        moved = {k: v for k, v in got.items()
+                 if ("_d_" in k or "_max_d" in k) and v != 0.0}
+        check(not moved, f"C17: beyond GFN1 a result depends on the cut "
+              f"(repeat {rep}): {moved}")
+        if repeats:
+            differ = {k: (repeats[0][k], v) for k, v in got.items()
+                      if v != repeats[0][k]}
+            check(not differ, f"C17: repeat {rep} of one process differs "
+                  f"from the first: {differ}")
+        repeats.append(got)
+    still_open = open_deltas(torch.device(DEVICE))
+    print(f"c17 cut deltas still open (measured, not held): {still_open}",
+          flush=True)
+    return dict(deltas, beyond=repeats[0], repeats=len(repeats),
+                open=still_open)
 
 
 def slice_phase(jac, golden):
@@ -2678,16 +2920,19 @@ def mesh_phase(jac, golden):
               f"SCCs {w.scc_eager}; call stages {w.stage_captures} "
               f"captured, {w.stage_hits} hits, {w.stage_eager} launch by "
               f"launch; {w.window_launches} Anderson window launches, "
-              f"{w.gemm_launches} fragment product launches", flush=True)
+              f"{w.gemm_launches} fragment product launches, "
+              f"{w.reduce_launches} fragment sum launches", flush=True)
         check(w.scc_captures + w.scc_hits > 0 and w.scc_eager == 0,
               f"worker slot {w.index}: {w.scc_captures} SCC graphs, "
               f"{w.scc_hits} hits and {w.scc_eager} SCCs launch by launch")
         check(w.stage_captures + w.stage_hits > 0 and w.stage_eager == 0
-              and w.window_launches > 0 and w.gemm_launches > 0,
+              and w.window_launches > 0 and w.gemm_launches > 0
+              and w.reduce_launches > 0,
               f"worker slot {w.index}: {w.stage_captures} stage graphs, "
               f"{w.stage_hits} hits, {w.stage_eager} stages launch by "
               f"launch, {w.window_launches} window launches, "
-              f"{w.gemm_launches} fragment product launches")
+              f"{w.gemm_launches} fragment product launches, "
+              f"{w.reduce_launches} fragment sum launches")
     check(min(per_worker) > 0,
           f"a worker launched no Fermi kernel: {per_worker}")
     for w in workers:
@@ -3147,6 +3392,7 @@ def main() -> int:
     from metalquicha_tpu_torch.ops import batched_eigh as be
     from metalquicha_tpu_torch.ops import fermi_fill as ff
     from metalquicha_tpu_torch.ops import fragment_gemm as fm
+    from metalquicha_tpu_torch.ops import fragment_reduce as fr
     from metalquicha_tpu_torch.ops import jacobi_eigh as jac
     from metalquicha_tpu_torch.ops import sp2
 
@@ -3177,7 +3423,7 @@ def main() -> int:
     threads = [threading.Thread(target=build, args=item)
                for item in (("jacobi_eigh", jac), ("fermi_fill", ff),
                             ("anderson_window", aw), ("fragment_gemm", fm),
-                            ("batched_eigh", be))]
+                            ("fragment_reduce", fr), ("batched_eigh", be))]
     for t in threads:
         t.start()
     for t in threads:
@@ -3210,6 +3456,11 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
+    reduce_entries = reduce_phase(fr)
+    print(f"phase fragment sums: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
     sp2_phase(rng)
     print(f"phase sp2: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -3232,6 +3483,7 @@ def main() -> int:
     ff.launches = ff.density_launches = 0
     aw.launches = 0
     fm.launches_by_kind.clear()
+    fr.launches_by_kind.clear()
     sp2.calls = 0
     be.launches = 0
     scc_graph.stats.update(captures=0, replays=0, eager=0, hits=0,
@@ -3239,7 +3491,7 @@ def main() -> int:
                            stage_hits=0, stage_eager=0)
     scc_graph.reuse.clear()
     phases, fermi, density, captures, hits, reuse = {}, {}, {}, {}, {}, {}
-    windows, stages, gemms = {}, {}, {}
+    windows, stages, gemms, sums = {}, {}, {}, {}
     for name, fn, gold in (("slice", slice_phase, golden),
                            ("executor", executor_phase, golden),
                            ("driver", driver_phase, golden),
@@ -3256,7 +3508,7 @@ def main() -> int:
                            ("bench", bench_phase, golden)):
         t0 = time.perf_counter()
         f0, d0 = ff.launches, ff.density_launches
-        w0, m0 = aw.launches, fm.launches
+        w0, m0, r0 = aw.launches, fm.launches, fr.launches
         s0 = (scc_graph.stats["stage_captures"], scc_graph.stats["stage_hits"])
         g0, h0 = scc_graph.stats["captures"], scc_graph.stats["hits"]
         u0 = collections.Counter(scc_graph.reuse)
@@ -3268,11 +3520,13 @@ def main() -> int:
         reuse[name] = reuse_line(scc_graph.reuse - u0)
         windows[name] = aw.launches - w0
         gemms[name] = fm.launches - m0
+        sums[name] = fr.launches - r0
         stages[name] = (scc_graph.stats["stage_captures"] - s0[0],
                         scc_graph.stats["stage_hits"] - s0[1])
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s, "
               f"{fermi[name]} Fermi launches, {windows[name]} Anderson "
               f"window launches, {gemms[name]} fragment product launches, "
+              f"{sums[name]} fragment sum launches, "
               f"call stages {stages[name][0]} captured, "
               f"{stages[name][1]} hits, SCC graphs {captures[name]} "
               f"captured, {hits[name]} cache hits, the cache holding "
@@ -3289,6 +3543,8 @@ def main() -> int:
               f"the {name} phase launched no Anderson window kernel")
         check(gemms[name] > 0,
               f"the {name} phase launched no fragment product kernel")
+        check(sums[name] > 0,
+              f"the {name} phase launched no fragment sum kernel")
         check(scc_graph.stats["stage_eager"] == 0,
               f"the {name} phase ran a calculator's stage launch by launch")
     launches = jac.launches
@@ -3305,6 +3561,12 @@ def main() -> int:
                for k, n in sorted(fm.launches_by_kind.items())}
     print(f"main path: fragment product launches={fm.launches} {gemms}; by "
           f"kind {by_kind}", flush=True)
+    sums_by_kind = dict(sorted(fr.launches_by_kind.items()))
+    print(f"main path: fragment sum launches={fr.launches} {sums}; by "
+          f"entry {sums_by_kind}", flush=True)
+    for name in REDUCE_REPLACES:
+        check(fr.launches_by_kind[name] > 0,
+              f"the main path launched no {name} kernel")
     print(f"main path: call stages (captured, hits)={stages}", flush=True)
     print(f"main path: fused fill and density launches (among the fermi "
           f"launches)={ff.density_launches} {density}", flush=True)
@@ -3374,7 +3636,18 @@ def main() -> int:
         # class (16, 32, 64 staged whole; 128 with k in tiles)
         "launches_by_kind": by_kind,
         **gemm_entry,
-    }]}))
+    }] + [{
+        "name": entry,
+        "route": "cuda",
+        "source": "metalquicha_tpu_torch/csrc/fragment_reduce.cu",
+        "replaces": REDUCE_REPLACES[entry],
+        # moment_fock's entry also runs the contraction of moment_rows'
+        # backward (`moment_contract`), counted with it
+        "launches": fr.launches_by_kind[entry] + (
+            fr.launches_by_kind["moment_contract"]
+            if entry == "moment_fock" else 0),
+        **reduce_entries[entry],
+    } for entry in REDUCE_REPLACES]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ...constants import KB_HARTREE
+from ...ops.fragment_reduce import fragment_sum
 
 from . import scc_graph
 from .batch import PAD_LEVEL, XtbBatch, build_batch
@@ -323,9 +324,9 @@ def _functional(coords, frag: FragmentData, q_star, kt,
         )
         q_at = _atom_charges(q_sh, frag)
         # dipole = sum q R + sum mu (atomic dipoles added)
-        dipole = ((frag.atom_mask * q_at)[:, :, None] * coords).sum(1) + (
-            mu_at * frag.atom_mask[:, :, None]
-        ).sum(1)
+        dipole = fragment_sum(
+            (frag.atom_mask * q_at)[:, :, None] * coords, 1
+        ) + fragment_sum(mu_at * frag.atom_mask[:, :, None], 1)
         e_disp = torch.zeros_like(e_el)
         if settings.disp_s9:
             # ATM term: charge-INdependent (D4 keeps the three-body term
@@ -349,7 +350,7 @@ def _functional(coords, frag: FragmentData, q_star, kt,
                 glb[:, 16], glb[:, 17], glb[:, 14], glb[:, 15],
             )
         q_at = _atom_charges(q_star, frag)
-        dipole = ((frag.atom_mask * q_at)[:, :, None] * coords).sum(1)
+        dipole = fragment_sum((frag.atom_mask * q_at)[:, :, None] * coords, 1)
 
     light_mask = ((frag.numbers > 0) & (frag.numbers <= 2)).to(coords.dtype)
     e_rep = repulsion_energy(
@@ -358,7 +359,7 @@ def _functional(coords, frag: FragmentData, q_star, kt,
         light_mask=light_mask, klight=settings.klight_rep,
     )
     # per-element atomic reference constants (zero geometric derivatives)
-    e_atomic = (frag.at_e0 * frag.atom_mask).sum(-1)
+    e_atomic = fragment_sum(frag.at_e0 * frag.atom_mask)
 
     energy = e_el + e_rep + e_disp + e_atomic
     if not settings.multipoles:

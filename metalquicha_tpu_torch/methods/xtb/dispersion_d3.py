@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ...ops.fragment_gemm import pair_bilinear
+from ...ops.fragment_reduce import fragment_sum
 from .params_elements_ext import (
     EXT_C6_REFS as _EXT_C6,
     EXT_R4R2 as _EXT_R4R2,
@@ -255,7 +256,7 @@ def c6_coefficients(cn, ref_cn, zidx, pair_table, sqrtc6):
     bidx = torch.arange(zidx.shape[0], device=zidx.device)[:, None, None]
     grids = pair_table[bidx, zsafe[:, :, None], zsafe[:, None, :]]
     c6 = pair_bilinear(w, grids)                              # (B,nat,nat)
-    s = (w * sqrtc6).sum(-1)                                  # (B, nat)
+    s = fragment_sum(w * sqrtc6)                              # (B, nat)
     core = zidx >= 0
     both_core = core[:, :, None] & core[:, None, :]
     return torch.where(both_core, c6, s[:, :, None] * s[:, None, :])
@@ -335,7 +336,7 @@ def atm_energy(coords, cn, d3tab, atom_mask, s9, rs9, a1, a2, alp=16.0):
         * pair_ok.transpose(1, 2)[:, :, None, :]
     )
     # each unordered triple appears 6x in the full (a,b,c) tensor
-    e3 = (c9 * ang * fd / rrr**3 * tmask).sum((1, 2, 3)) / 6.0
+    e3 = fragment_sum(c9 * ang * fd / rrr**3 * tmask, (1, 2, 3)) / 6.0
     return s9 * e3
 
 
@@ -373,4 +374,4 @@ def d3_energy(coords, cn, d3tab, atom_mask, s6, s8, a1, a2, c6_scale=None):
 
     pair_mask = atom_mask[:, :, None] * atom_mask[:, None, :] * (1.0 - eye)
     pair_mask = pair_mask * (r2 > 1e-10)  # skip coincident pairs (GMBE caps)
-    return -0.5 * (e * pair_mask).sum((1, 2))
+    return -0.5 * fragment_sum(e * pair_mask, (1, 2))

@@ -43,6 +43,14 @@ from ...ops.fragment_gemm import (
     fragment_matvec,
     sandwich,
 )
+from ...ops.fragment_reduce import (
+    fragment_sum,
+    moment_fock,
+    moment_rows,
+    segment_sum,
+    take,
+    take2,
+)
 from ...ops.jacobi_eigh import MAX_N as PALLAS_EIGH_MAX_N
 from ...ops.jacobi_eigh import jacobi_eigh
 from ...ops.sp2 import sp2_density
@@ -160,16 +168,10 @@ def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
-def _take(x, idx):
-    """x[b, idx[b, k]] for a (B, n) or (B, n, ...) tensor x."""
-    bidx = torch.arange(x.shape[0], device=x.device)
-    return x[bidx.view(-1, *([1] * (idx.dim() - 1))), idx]
-
-
-def _take2(m, idx):
-    """m[b, idx[b, i], idx[b, j]] for a (B, n, n) tensor m."""
-    bidx = torch.arange(m.shape[0], device=m.device)[:, None, None]
-    return m[bidx, idx[:, :, None], idx[:, None, :]]
+#: x[b, idx[b, k]] for a (B, n) or (B, n, ...) x, and m[b, idx[b, i],
+#: idx[b, j]] for a (B, n, n) m (on a card their backward passes sum in a
+#: fixed order)
+_take, _take2 = take, take2
 
 
 def _small(*tensors) -> bool:
@@ -196,18 +198,6 @@ def _sandwich(x, f, shift):
     if _small(x):
         return sandwich(x, f, shift)
     return x @ f @ x + shift
-
-
-def _scatter_sum(values, idx, size):
-    """out[b, s] = sum_k values[b, k] over idx[b, k] == s, for values
-    (B, n) or (B, n, c) and idx (B, n)."""
-    out = torch.zeros(
-        values.shape[0], size, *values.shape[2:],
-        dtype=values.dtype, device=values.device,
-    )
-    if values.dim() > 2:
-        idx = idx[:, :, None].expand(-1, -1, values.shape[2])
-    return out.scatter_add(1, idx, values)
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +263,7 @@ def repulsion_energy(coords, zeff, alpha, atom_mask, kexp, rexp,
     else:
         k_ab = kexp
     e = zz / r ** rexp[:, None, None] * torch.exp(-ab * r**k_ab)
-    return 0.5 * (e * pair_mask).sum((1, 2))
+    return 0.5 * fragment_sum(e * pair_mask, (1, 2))
 
 
 def h0_matrix(S, coords, batch, cn, settings: EngineSettings):
@@ -488,7 +478,7 @@ def _general_eigh(F, ortho, status=None):
 
 def _atom_charges(q_sh, batch):
     nat = batch.at_gam3.shape[1]
-    return _scatter_sum(q_sh * batch.sh_mask, batch.sh_atom, nat)
+    return segment_sum(q_sh, batch.sh_atom, nat, batch.sh_mask)
 
 
 def _matvec(m, x):
@@ -513,13 +503,13 @@ def _coulomb_potential(q_sh, gamma, batch, settings, gamma_at=None):
 
 
 def _coulomb_energy(q_sh, gamma, batch, settings, gamma_at=None):
-    e2 = 0.5 * (q_sh * _matvec(gamma, q_sh)).sum(-1)
+    e2 = 0.5 * fragment_sum(q_sh * _matvec(gamma, q_sh))
     if settings.third_order or gamma_at is not None:
         q_at = _atom_charges(q_sh, batch)
         if settings.third_order:
-            e2 = e2 + (batch.at_gam3 * q_at**3).sum(-1) / 3.0
+            e2 = e2 + fragment_sum(batch.at_gam3 * q_at**3) / 3.0
         if gamma_at is not None:
-            e2 = e2 + 0.5 * (q_at * _matvec(gamma_at, q_at)).sum(-1)
+            e2 = e2 + 0.5 * fragment_sum(q_at * _matvec(gamma_at, q_at))
     return e2
 
 
@@ -531,9 +521,11 @@ def _fock(H0, S, q_sh, gamma, batch, settings, gamma_at=None):
 
 
 def _shell_populations(P, S, batch):
-    ps = (P * S).sum(-1)  # (PS)_mumu for symmetric S
+    """The shell populations: (PS)_mumu for symmetric S (the row sums of
+    P * S) summed into shells, one launch on a card (`moment_rows`)."""
     nsh = batch.sh_mask.shape[1]
-    return _scatter_sum(ps * batch.ao_mask, batch.ao_shell, nsh)
+    return moment_rows(P, S[:, None], batch.ao_shell, nsh,
+                       batch.ao_mask)[..., 0]
 
 
 def _jacobi_route(S):
@@ -937,12 +929,11 @@ def _aes_fock(H0, S, z, coords, gamma, batch, settings, gamma_at, mp):
     # path relies on) breaks.
     tr_v = (vth[..., 0] + vth[..., 1] + vth[..., 2]) / 3.0
     vth_eff = torch.cat([vth[..., :3] - tr_v[..., None], vth[..., 3:]], -1)
-    G = -torch.einsum(
-        "bkd,bdkl->bkl", _take(vmu, batch.ao_atom), mp["D"]
-    ) - torch.einsum(
-        "bkd,bdkl->bkl", _take(vth_eff, batch.ao_atom), mp["Q"]
-    )
-    return F + 0.5 * (G + G.transpose(-1, -2)), (vq, vmu, vth_eff)
+    # F + (G + G^T) / 2, G = -sum_d v_mu D - sum_d v_th Q (`moment_fock`:
+    # one launch on a card)
+    F = moment_fock(F, _take(vmu, batch.ao_atom), mp["D"],
+                    _take(vth_eff, batch.ao_atom), mp["Q"])
+    return F, (vq, vmu, vth_eff)
 
 
 def _aes_moments_of_P(P, S, batch, mp):
@@ -1077,7 +1068,7 @@ def electronic_energy_multipole(coords, z_star, batch, kt,
         settings.fixed_occupations,
     )
     f = f.detach()
-    e_band = (f * eps).sum(-1)
+    e_band = fragment_sum(f * eps)
 
     nsh = batch.sh_mask.shape[1]
     nat = batch.atom_mask.shape[1]
@@ -1088,9 +1079,9 @@ def electronic_energy_multipole(coords, z_star, batch, kt,
     # of the gradient
     e_el = (
         e_band
-        + (vq * n_star).sum(-1)
-        - (vmu * mu).sum((1, 2))
-        - (vth * th).sum((1, 2))
+        + fragment_sum(vq * n_star)
+        - fragment_sum(vmu * mu, (1, 2))
+        - fragment_sum(vth * th, (1, 2))
         + _aes_interaction(
             q, mu, th, coords, gamma, batch, settings, gamma_at, mp
         )
@@ -1126,13 +1117,13 @@ def electronic_energy(coords, q_star, batch, kt, settings: EngineSettings,
         settings.fixed_occupations,
     )
     f = f.detach()
-    e_band = (f * eps).sum(-1)
+    e_band = fragment_sum(f * eps)
 
     v_sh = _coulomb_potential(q_star, gamma, batch, settings, gamma_at)
     n_star = (batch.sh_refocc - q_star) * batch.sh_mask
     # E_band = tr(P H0) - sum_sh v_sh n_sh, so adding back sum v n* recovers
     # tr(P H0); E_coul then adds the charge-fluctuation energy once.
-    e_el = e_band + (v_sh * n_star).sum(-1) + _coulomb_energy(
+    e_el = e_band + fragment_sum(v_sh * n_star) + _coulomb_energy(
         q_star, gamma, batch, settings, gamma_at
     )
     if settings.include_entropy and not settings.fixed_occupations:

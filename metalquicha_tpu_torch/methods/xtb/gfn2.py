@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .engine import _scatter_sum
+from ...ops.fragment_reduce import fragment_sum, moment_rows
 
 #: global AES damping constants (GFN2 conventions: critical radii scaled
 #: pair radii, steepness a3/a5)
@@ -45,10 +45,10 @@ def camm_moments(P, S, D, Q, ao_atom, nat):
     (mu (B, nat, 3), theta (B, nat, 6)); theta is made traceless in the
     (xx, yy, zz) components. S is unused (the JAX signature).
     """
-    contr_d = (P[:, None] * D).sum(-1).transpose(1, 2)   # (B, nao, 3)
-    contr_q = (P[:, None] * Q).sum(-1).transpose(1, 2)   # (B, nao, 6)
-    mu = -_scatter_sum(contr_d, ao_atom, nat)
-    th = -_scatter_sum(contr_q, ao_atom, nat)
+    # the row sums sum_l P_kl M_kl (B, nao, 3 | 6) summed over each atom's
+    # AOs (`moment_rows`: one launch each on a card)
+    mu = -moment_rows(P, D, ao_atom, nat)
+    th = -moment_rows(P, Q, ao_atom, nat)
     # traceless quadrupole: subtract tr/3 from diagonal components
     tr = (th[..., 0] + th[..., 1] + th[..., 2]) / 3.0
     th = torch.cat([th[..., :3] - tr[..., None], th[..., 3:]], -1)
@@ -116,7 +116,7 @@ def aes_energy(coords, q_at, mu, theta, at_mrad, at_dkernel, at_qkernel,
         + q_at[:, None, :] * _r_theta_r(theta[:, :, None, :], dvec)
     )
 
-    e_pair = 0.5 * (pair * (e_qd + e_dd + e_qt)).sum((1, 2))
+    e_pair = 0.5 * fragment_sum(pair * (e_qd + e_dd + e_qt), (1, 2))
 
     # on-site penalties keep the moments bounded (GFN2 self-interaction);
     # the weights (1, 1, 1, 2, 2, 2) are filled on the device: a copy from
@@ -124,10 +124,10 @@ def aes_energy(coords, q_at, mu, theta, at_mrad, at_dkernel, at_qkernel,
     weights = torch.full((6,), 2.0, dtype=theta.dtype, device=theta.device)
     weights[:3] = 1.0
     e_self = (
-        at_dkernel * (mu**2).sum(-1)
-        + at_qkernel * (theta**2 * weights).sum(-1)
+        at_dkernel * fragment_sum(mu**2)
+        + at_qkernel * fragment_sum(theta**2 * weights)
     )
-    return e_pair + (e_self * atom_mask).sum(-1)
+    return e_pair + fragment_sum(e_self * atom_mask)
 
 
 def d4_zeta(q_at, at_ga, at_zref, atom_mask):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ....constants import ANGSTROM_TO_BOHR
+from ....ops.fragment_reduce import broadcast, fragment_sum
 from ..engine import eigvalsh
 
 
@@ -252,20 +253,28 @@ class BornSolvation:
         nat = coords.shape[1]
         # SAS radii (B, nat); padded atoms (rvdw = 0) get 1.0
         rs = torch.where(rvdw > 0, rvdw, 1.0) + probe[:, None]
-        pts = coords[:, :, None, :] + rs[:, :, None, None] * unit
+        # `broadcast`: on a card the backward of each broadcast operand
+        # sums over the points and atoms in a fixed order
+        bsz, nang = coords.shape[0], unit.shape[0]
+        grid = (bsz, nat, nang, 3)
+        pts = broadcast(coords[:, :, None, :], grid) + broadcast(
+            rs[:, :, None, None], grid) * unit
+        pairs = (bsz, nat, nang, nat, 3)
         d_at = torch.sqrt(
-            ((pts[:, :, :, None, :] - coords[:, None, None, :, :]) ** 2).sum(-1)
+            ((broadcast(pts[:, :, :, None, :], pairs)
+              - broadcast(coords[:, None, None, :, :], pairs)) ** 2).sum(-1)
             + 1e-30
         )
-        signed = d_at - rs[:, None, None, :]
+        signed = d_at - broadcast(rs[:, None, None, :], d_at.shape)
         sw = 1.0 / (1.0 + torch.exp(-signed / SASA_SWITCH))
         not_self = (1.0 - _eye(nat, coords))[None, :, None, :]
         sw = torch.where(
             (not_self > 0.5) & (atom_mask[:, None, None, :] > 0.5), sw, 1.0
         )
-        exposed = (prod_last(sw) * w).sum(-1)  # fraction in [0, 1], (B, nat)
+        # fraction in [0, 1], (B, nat)
+        exposed = fragment_sum(prod_last(sw) * w)
         sasa = 4.0 * math.pi * rs**2 * exposed * atom_mask
-        e_cds = (tension * sasa).sum(-1)
+        e_cds = fragment_sum(tension * sasa)
         return e_cds + gshift
 
     def born_radii(self, coords, rvdw, sx, atom_mask, rho_offset=None):
@@ -296,7 +305,7 @@ class BornSolvation:
         omega = 0.5 * inner
         omega = torch.where(rho_i >= U, 0.0, omega)
         pair_mask = atom_mask[:, :, None] * atom_mask[:, None, :] * (1.0 - eye)
-        psi_sum = (omega * pair_mask).sum(-1)
+        psi_sum = fragment_sum(omega * pair_mask)
 
         psi = rho_t * psi_sum
         arg = OBC_ALPHA * psi - OBC_BETA * psi**2 + OBC_GAMMA * psi**3
@@ -308,16 +317,16 @@ class BornSolvation:
     def electrostatic_size(self, coords, rvdw, atom_mask):
         """ALPB effective electrostatic size A_det (Bohr), (B,)."""
         w = torch.where(atom_mask > 0.5, rvdw**3, 0.0)
-        wsum = w.sum(-1) + 1e-30
-        c = (w[:, :, None] * coords).sum(1) / wsum[:, None]
+        wsum = fragment_sum(w) + 1e-30
+        c = fragment_sum(w[:, :, None] * coords, 1) / wsum[:, None]
         d = coords - c[:, None, :]
-        cov = (
-            w[:, :, None, None] * d[:, :, :, None] * d[:, :, None, :]
-        ).sum(1) / wsum[:, None, None]
+        cov = fragment_sum(
+            w[:, :, None, None] * d[:, :, :, None] * d[:, :, None, :], 1
+        ) / wsum[:, None, None]
         # eigvalsh's values and gradient; on a card with no host sync
         lam = eigvalsh(cov)
         axes = torch.sqrt(torch.maximum(5.0 * lam, _const(1e-12, coords)))
-        r_eff = (w * rvdw).sum(-1) / wsum  # mean vdw radius contribution
+        r_eff = fragment_sum(w * rvdw) / wsum  # mean vdw radius contribution
         return torch.exp(torch.log(axes + r_eff[:, None]).mean(-1))
 
     def gamma_atoms(self, coords, rvdw, sx, atom_mask, scalars=None):

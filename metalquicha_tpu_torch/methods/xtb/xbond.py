@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ...ops.fragment_reduce import fragment_sum
+
 XB_DAMP = 0.44
 XB_RSCALE = 1.3
 
@@ -73,4 +75,4 @@ def halogen_bond_energy(coords, numbers, xbond_strength, rcov, atom_mask):
         & (nn[:, :, None] != idx[None, None, :])  # donor != own neighbor
     )
     e = torch.where(pair, xbond_strength[:, :, None] * fangl * frad, 0.0)
-    return e.sum((1, 2))
+    return fragment_sum(e, (1, 2))

@@ -94,6 +94,7 @@ from ..methods.xtb.batch import _sizes_for, element_basis
 from ..methods.xtb.calculator import XtbCalculator
 from ..methods.xtb.multipole import work_elements as multipole_work_elements
 from ..ops import anderson_window, batched_eigh, fermi_fill, fragment_gemm
+from ..ops import fragment_reduce
 from ..ops import jacobi_eigh
 from . import slot_worker
 from .mesh import fragment_mesh, shard_leading_axis
@@ -491,6 +492,7 @@ class FragmentExecutor:
             fermi_fill.build()
             anderson_window.build()
             fragment_gemm.build()
+            fragment_reduce.build()
             batched_eigh.build()
             if self.calc.settings.use_pallas_eigh:
                 jacobi_eigh.build()

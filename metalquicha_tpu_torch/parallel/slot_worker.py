@@ -184,7 +184,8 @@ class SlotWorker:
     `launches`, `fermi_launches` and `sp2_calls` count the Jacobi and
     Fermi launches and SP2 calls the worker has made (its SCC graphs'
     replays included), `window_launches` its Anderson window kernel's,
-    `gemm_launches` its fragment product kernel's,
+    `gemm_launches` its fragment product kernel's, `reduce_launches` its
+    fragment sum kernel's,
     `scc_captures`, `scc_hits` and `scc_eager` its SCC solves on a card
     that captured a graph, replayed a cached one and ran launch by launch,
     `stage_captures`, `stage_hits` and `stage_eager` the same of its
@@ -211,6 +212,7 @@ class SlotWorker:
         self.sp2_calls = 0
         self.window_launches = 0
         self.gemm_launches = 0
+        self.reduce_launches = 0
         self.scc_captures = 0
         self.scc_hits = 0
         self.scc_eager = 0
@@ -263,11 +265,12 @@ class SlotWorker:
         """Take a piece's statistics: its counts into this handle's and
         this process's counters."""
         from ..ops import anderson_window, fermi_fill, fragment_gemm
-        from ..ops import jacobi_eigh, sp2
+        from ..ops import fragment_reduce, jacobi_eigh, sp2
 
         self.launches += stats["launches"]
         self.window_launches += stats["window_launches"]
         self.gemm_launches += sum(stats["gemm_by_kind"].values())
+        self.reduce_launches += sum(stats.get("reduce_by_kind", {}).values())
         self.fermi_launches += stats["fermi_launches"]
         self.sp2_calls += stats["sp2_calls"]
         self.scc_captures += stats["scc_captures"]
@@ -289,6 +292,7 @@ class SlotWorker:
         sp2.add_calls(stats["sp2_calls"])
         anderson_window.add_launches(stats["window_launches"])
         fragment_gemm.add_launches(stats["gemm_by_kind"])
+        fragment_reduce.add_launches(stats.get("reduce_by_kind", {}))
 
     def exited(self) -> WorkerExited:
         """The exception for a worker whose end of the pipe closed."""
@@ -417,7 +421,8 @@ class _Slot:
         from ..methods.xtb.calculator import XtbCalculator
         from ..methods.xtb.polish import HostPolisher
         from ..ops import anderson_window, batched_eigh, fermi_fill
-        from ..ops import fragment_gemm, jacobi_eigh, kernel_build
+        from ..ops import fragment_gemm, fragment_reduce, jacobi_eigh
+        from ..ops import kernel_build
 
         cfg = pickle.loads(config)
         install_parameter_state(cfg["state"])
@@ -435,6 +440,7 @@ class _Slot:
             fermi_fill.build()
             anderson_window.build()
             fragment_gemm.build()
+            fragment_reduce.build()
             batched_eigh.build()
             if cfg["settings"].use_pallas_eigh:
                 jacobi_eigh.build()
@@ -467,7 +473,7 @@ class _Slot:
     def evaluate(self, config, tuples, pad_to, what, run, sharing):
         from ..methods.xtb import scc_graph
         from ..ops import anderson_window, fermi_fill, fragment_gemm
-        from ..ops import jacobi_eigh, sp2
+        from ..ops import fragment_reduce, jacobi_eigh, sp2
         from .executor import make_room
 
         if config is not None:
@@ -476,6 +482,7 @@ class _Slot:
         m0, d0 = fermi_fill.launches, fermi_fill.density_launches
         w0 = anderson_window.launches
         k0 = collections.Counter(fragment_gemm.launches_by_kind)
+        r0 = collections.Counter(fragment_reduce.launches_by_kind)
         g0, e0 = scc_graph.stats["captures"], scc_graph.stats["eager"]
         h0 = scc_graph.stats["hits"]
         sg0, sh0, se0 = (scc_graph.stats[k] for k in (
@@ -504,6 +511,8 @@ class _Slot:
                            window_launches=anderson_window.launches - w0,
                            gemm_by_kind=dict(
                                fragment_gemm.launches_by_kind - k0),
+                           reduce_by_kind=dict(
+                               fragment_reduce.launches_by_kind - r0),
                            sp2_calls=sp2.calls - s0,
                            scc_captures=scc_graph.stats["captures"] - g0,
                            scc_hits=scc_graph.stats["hits"] - h0,

@@ -49,7 +49,7 @@ from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
 from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
 from metalquicha_tpu_torch.methods.xtb.polish import HostPolisher
 from metalquicha_tpu_torch.ops import anderson_window, batched_eigh
-from metalquicha_tpu_torch.ops import fragment_gemm
+from metalquicha_tpu_torch.ops import fragment_gemm, fragment_reduce
 from metalquicha_tpu_torch.ops import fermi_fill
 from metalquicha_tpu_torch.ops import jacobi_eigh as jac
 from metalquicha_tpu_torch.ops import kernel_build
@@ -463,10 +463,11 @@ def test_a_slots_exception_reaches_the_caller(monkeypatch):
     """A device only the worker refuses (the CPU has no card; a card has
     no device of the next index): the worker's start fails, and the
     caller raises with the slot's index and device. (The caller builds
-    the Fermi, Anderson window and fragment product kernels and the eigh
-    binding for a mesh with a card before any worker starts; the CPU has no
-    compiler, so those builds are taken as done.)"""
-    for mod in (fermi_fill, anderson_window, fragment_gemm, batched_eigh):
+    the Fermi, Anderson window, fragment product and fragment sum kernels
+    and the eigh binding for a mesh with a card before any worker starts;
+    the CPU has no compiler, so those builds are taken as done.)"""
+    for mod in (fermi_fill, anderson_window, fragment_gemm, fragment_reduce,
+                batched_eigh):
         monkeypatch.setattr(mod, "build", lambda: None)
     card = torch.device("cuda", torch.cuda.device_count())
     ex = FragmentExecutor(XtbCalculator(device="cpu"),
@@ -595,8 +596,9 @@ def test_workers_load_the_callers_kernel_build(slots, monkeypatch,
 
 def test_the_kernel_is_built_before_any_worker_starts(monkeypatch):
     """With a card among the slots and the Jacobi kernel's route on, the
-    caller builds the Fermi, Anderson window, fragment product and Jacobi
-    kernels and the eigh binding before it starts a worker, so the workers
+    caller builds the Fermi, Anderson window, fragment product, fragment
+    sum and Jacobi kernels and the eigh binding before it starts a worker,
+    so the workers
     only load them
     (here the card's slot then fails to start: the CPU has no card, and a
     card no device of the next index)."""
@@ -608,6 +610,8 @@ def test_the_kernel_is_built_before_any_worker_starts(monkeypatch):
                         lambda: events.append("build window"))
     monkeypatch.setattr(fragment_gemm, "build",
                         lambda: events.append("build products"))
+    monkeypatch.setattr(fragment_reduce, "build",
+                        lambda: events.append("build sums"))
     monkeypatch.setattr(batched_eigh, "build",
                         lambda: events.append("build eigh"))
     popen = slot_worker.subprocess.Popen
@@ -625,7 +629,7 @@ def test_the_kernel_is_built_before_any_worker_starts(monkeypatch):
     with pytest.raises(RuntimeError, match=rf"mesh slot 1 \({card}\)"):
         ex.run(water_fragments(2), what="energy")
     assert events == ["build fermi", "build window", "build products",
-                      "build eigh", "build", "start", "start"]
+                      "build sums", "build eigh", "build", "start", "start"]
     assert ex.workers == []
 
 

@@ -18,22 +18,38 @@ the engine's products (`--products`): the batch-invariant kernel
 D3's C6 contraction), or torch.matmul and torch.einsum in their place
 (library, what the port ran before it).
 
-Beyond GFN1 up to 64 AOs (`beyond_deltas`, float64, the kernel routes):
-the w20 MBE(2) gradient in GFN2 and in GFN1 with ALPB (one batch against
-the two-slot cut), and a bucket above 64 AOs, `chip_smoke.py`'s 16 water
+Beyond GFN1 (`beyond_deltas`, float64, the kernel routes): the w20
+MBE(2) gradient in GFN2 and in GFN1 with ALPB (one batch against the
+two-slot cut), and a bucket above 64 AOs, `chip_smoke.py`'s 16 water
 dodecamers (nao 72, padded to 96; seed 40), as one batch against two of 8.
+And what is still open (`open_deltas`, measured, not held): the w20 MBE(2)
+energies with CPCM (one batch against the two-slot cut), the 16
+dodecamers in float32 on SP2's route (one batch against two of 8), and 8
+jittered copies of the 73-atom peptide of validation/inputs/no_frag.json
+(228 AOs: products above the kernel's 128) as one batch against two of 4.
 
-`--locate` names, per products route, the first value that depends on
-the batch, for each of LOCATE_CASES: the w20 MBE(2) dimers' float64
-gradients (GFN1, GFN2, GFN1 with ALPB) as one batch of 190 and as its
-first 95, and the 16 dodecamers and their first 8, launch by launch,
-every call of the traced functions (`TRACED`) and the kernels' backward
-passes compared on the shared fragments in call order.
+`--reductions` runs these per route of the sums of `ops/fragment_reduce.py`
+(ROADMAP C17 beyond GFN1), each step putting one more of its entries on
+the kernel, the others on the torch expressions they replaced (a CPU
+tensor's): none (torch's einsums, reductions, scatter_add and indexing
+backward), fock (GFN2's moment contraction `moment_fock`), rows (and the
+row sums `moment_rows`), all (and `segment_sum`, `fragment_sum`, the
+gathers' backward, the broadcasts' backward: what the engine runs on a
+card).
+
+`--locate` names, per products and reductions route, the first value that
+depends on the batch, for each of LOCATE_CASES: the w20 MBE(2) dimers'
+float64 gradients (GFN1, GFN2) as one batch of 190 and as its first 95,
+its 20 monomers with ALPB and their first 10, and the 16 dodecamers and
+their first 8, launch by launch, every call of the traced functions
+(`TRACED`), the kernels' backward passes and the gradient the gathers
+`_take` / `_take2` pass back to their input, compared on the shared
+fragments in call order.
 
 Usage: python3 tools/c17_probe_torch.py [--device cuda]
            [--solves kernel,library,looped,rowwise]
-           [--products kernel,library] [--beyond] [--locate]
-           [--json-out F]
+           [--products kernel,library] [--reductions none,fock,rows,all]
+           [--beyond] [--open] [--locate] [--json-out F]
 It prints a line per route and one JSON line.
 """
 
@@ -147,11 +163,13 @@ def _calculator(case, device):
                          device=device, solvation=solvation)
 
 
-def beyond_deltas(device):
-    """C17's deltas beyond GFN1 up to 64 AOs, float64: the w20 MBE(2)
-    gradient in GFN2 and with ALPB (one batch against the two-slot cut:
-    |g|, max |dg|, total), and the 16 dodecamers as one batch against two
-    of 8 (max |dE|, max |dg|)."""
+def beyond_deltas(device, values=False):
+    """C17's deltas beyond GFN1, float64: the w20 MBE(2) gradient in GFN2
+    and with ALPB (one batch against the two-slot cut: |g|, max |dg|,
+    total), and the 16 dodecamers as one batch against two of 8 (max |dE|,
+    max |dg|). With `values`, also what the one batch gave (the totals and
+    |g|, the dodecamers' energies and gradients summed), to hold repeats
+    of one process to each other."""
     from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
     from metalquicha_tpu_torch.workloads import (
         w20_mbe2_assemble,
@@ -171,6 +189,8 @@ def beyond_deltas(device):
         out[f"{case}_max_dg"] = max(
             float(np.abs(np.asarray(a) - np.asarray(b)).max())
             for a, b in zip(g1, g2))
+        if values:
+            out[f"{case}_total"], out[f"{case}_gnorm"] = t1, n1
     calc = _calculator("dodecamers", device)
     clusters = dodecamers()
     half = len(clusters) // 2
@@ -181,11 +201,72 @@ def beyond_deltas(device):
     g2 = torch.cat([p[1] for p in parts])
     out["dodecamers_d_energy"] = float((e1 - e2).abs().max())
     out["dodecamers_max_dg"] = float((g1 - g2).abs().max())
+    if values:
+        out["dodecamers_energy_sum"] = float(e1.sum())
+        out["dodecamers_gradient_sum"] = float(g1.abs().sum())
+    return out
+
+
+def _halves(calc, frags, grad):
+    """(energies, gradients or None) of `frags` as one batch and as its
+    two halves."""
+    half = len(frags) // 2
+    runs = []
+    for parts in ([frags], [frags[:half], frags[half:]]):
+        outs = [calc.gradients(calc.make_batch(p)) if grad
+                else calc.energies(calc.make_batch(p)) for p in parts]
+        runs.append((torch.cat([o[0] for o in outs]),
+                     torch.cat([o[1] for o in outs]) if grad else None))
+    return runs
+
+
+def open_deltas(device):
+    """What C17 leaves open, measured (not held): the w20 MBE(2) energies
+    with CPCM (max |dE|, total), the 16 dodecamers in float32 on SP2's
+    route (max |dE|, max |dg|), 8 jittered 73-atom peptides (228 AOs)
+    (max |dE|, max |dg|), each one batch against a cut in two."""
+    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
+    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
+    from metalquicha_tpu_torch.methods.xtb.solvation.cpcm import (
+        CpcmSolvation,
+    )
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+    from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import memory_probe_torch
+
+    out = {}
+    calc = XtbCalculator(settings_from_params("gfn1", max_scf_iter=32),
+                         dtype=torch.float64, device=device,
+                         solvation=CpcmSolvation(78.4))
+    frags = w20_mbe2_fragments()
+    e1 = FragmentExecutor(calc).run(frags, what="energy")[0]
+    e2 = SerialCut.make(calc).run(frags, what="energy")[0]
+    e1, e2 = np.asarray(e1), np.asarray(e2)
+    out["cpcm_max_de"] = float(np.abs(e1 - e2).max())
+    out["cpcm_d_energy_sum"] = abs(float(e1.sum()) - float(e2.sum()))
+    calc = XtbCalculator(
+        settings_from_params("gfn1", use_pallas_eigh=True, scf_tol=2e-5,
+                             max_scf_iter=64),
+        dtype=torch.float32, device=device)
+    (e1, g1), (e2, g2) = _halves(calc, dodecamers(), True)
+    out["sp2_f32_max_de"] = float((e1 - e2).abs().max())
+    out["sp2_f32_max_dg"] = float((g1 - g2).abs().max())
+    calc = XtbCalculator(settings_from_params("gfn1"), dtype=torch.float64,
+                         device=device)
+    (e1, g1), (e2, g2) = _halves(
+        calc, memory_probe_torch.fragments("peptide", 8), True)
+    out["peptide_max_de"] = float((e1 - e2).abs().max())
+    out["peptide_max_dg"] = float((g1 - g2).abs().max())
     return out
 
 
 #: where --locate looks: (case, whole batch, the first part of it)
 LOCATE_CASES = ("w20_gfn1", "w20_gfn2", "w20_alpb", "dodecamers")
+#: the modules that call the ops of `ops/fragment_reduce.py`
+REDUCE_USERS = ("engine", "gfn2", "calculator", "dispersion_d3", "xbond",
+                "born")
 
 
 #: (module, function) pairs whose outputs `first_difference` compares; an
@@ -206,11 +287,32 @@ TRACED = (
     ("calculator", "_scc_operands"), ("calculator", "_solv_gamma"),
     ("dispersion_d3", "c6_coefficients"), ("dispersion_d3", "d3_energy"),
     ("dispersion_d3", "atm_energy"),
+    # the energy's sums (ROADMAP C17 beyond GFN1)
+    ("gfn2", "camm_moments"), ("gfn2", "aes_energy"),
+    ("engine", "repulsion_energy"), ("engine", "_coulomb_energy"),
+    ("engine", "_atom_charges"), ("engine", "electronic_energy"),
+    ("engine", "electronic_energy_multipole"),
+    ("calculator", "halogen_bond_energy"), ("engine", "eigvalsh"),
+    ("Born", "surface_energy"), ("Born", "born_radii"),
+    ("Born", "electrostatic_size"), ("Born", "gamma_atoms"),
+    # the ops of ops/fragment_reduce.py, where the tree has them
+    *((mod, name) for mod in REDUCE_USERS
+      for name in ("moment_fock", "moment_rows", "segment_sum",
+                   "fragment_sum")),
 )
 #: autograd Functions whose backward passes are compared too
-TRACED_BACKWARD = (("engine", "_EighSafe"), ("fragment_gemm", "_Bmm"),
+TRACED_BACKWARD = (("engine", "_EighSafe"), ("engine", "_EighValues"),
+                   ("fragment_gemm", "_Bmm"),
                    ("fragment_gemm", "_Sandwich"),
-                   ("fragment_gemm", "_Matvec"))
+                   ("fragment_gemm", "_Matvec"), ("born", "_ProdLast"),
+                   ("fragment_reduce", "_MomentFock"),
+                   ("fragment_reduce", "_MomentRows"),
+                   ("fragment_reduce", "_SegmentSum"),
+                   ("fragment_reduce", "_FragmentSum"),
+                   ("fragment_reduce", "_Broadcast"))
+#: gathers whose input's gradient (their backward's accumulated rows) is
+#: compared
+TRACED_GATHERS = (("engine", "_take"), ("engine", "_take2"))
 
 
 class _Found(Exception):
@@ -219,7 +321,7 @@ class _Found(Exception):
 
 class _Trace:
     """The traced calls of one run (`ref` None) or their comparison with a
-    recorded run's on its first `rows` fragments."""
+    recorded run's on its fragments `rows` (a slice)."""
 
     def __init__(self, bsz, ref=None, rows=None):
         self.bsz, self.ref, self.rows = bsz, ref, rows
@@ -238,11 +340,13 @@ class _Trace:
             raise _Found({"op": name, "call": k,
                           "diverged": f"call order ({ref_name})"})
         for t, r in zip(flat, ref_out):
-            mine = t[: self.rows].cpu()
+            mine = t[self.rows].cpu()
             same = torch.equal(torch.nan_to_num(mine), torch.nan_to_num(r))
             if not same:
                 raise _Found({"op": name, "call": k, "max_abs_diff": float(
-                    (mine - r).abs().max())})
+                    (mine - r).abs().max()), "shape": list(t.shape),
+                    "after": [c if isinstance(c, str) else c[0]
+                              for c in self.ref[max(0, k - 6):k]]})
 
 
 def _tensors(out):
@@ -253,40 +357,110 @@ def _tensors(out):
     return []
 
 
-def first_difference(device, case="w20_gfn1"):
-    """The first traced value (in call order) of a case's float64
-    gradients that differs between its fragments as one batch (the w20
-    MBE(2) dimers: 190; the dodecamers: 16) and the first half alone, or
-    None where the gradients agree bit for bit."""
+def _modules() -> dict:
+    """The modules (and the Born model's class) the probe patches, by the
+    names TRACED uses; `fragment_reduce` only where the tree has it."""
     from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
-    from metalquicha_tpu_torch.methods.xtb import dispersion_d3, engine
+    from metalquicha_tpu_torch.methods.xtb import dispersion_d3, engine, gfn2
+    from metalquicha_tpu_torch.methods.xtb import xbond
+    from metalquicha_tpu_torch.methods.xtb.solvation import born
     from metalquicha_tpu_torch.ops import fragment_gemm
-    from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
 
     mods = {"engine": engine, "dispersion_d3": dispersion_d3,
-            "fragment_gemm": fragment_gemm, "calculator": tcalc}
+            "fragment_gemm": fragment_gemm, "calculator": tcalc,
+            "gfn2": gfn2, "xbond": xbond, "born": born,
+            "Born": born.BornSolvation}
+    try:
+        from metalquicha_tpu_torch.ops import fragment_reduce
+    except ImportError:
+        pass
+    else:
+        mods["fragment_reduce"] = fragment_reduce
+    return mods
+
+
+def _grad_probe(trace, name):
+    """An identity whose backward adds the gradient passing back through
+    it to `trace`."""
+    class _Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            trace.add(name, g)
+            return g
+    return _Probe
+
+
+def _hook_nodes(roots, trace) -> list:
+    """A hook on every node of the autograd graph behind `roots` (but the
+    leaves' accumulators) that adds the gradients the node passes back to
+    `trace`, named by the node; the hooks' handles."""
+    stack = [t.grad_fn for t in roots if t.grad_fn is not None]
+    seen, handles = set(), []
+    while stack:
+        node = stack.pop()
+        if node in seen:
+            continue
+        seen.add(node)
+        name = node.name()
+        if "AccumulateGrad" not in name:
+            handles.append(node.register_hook(
+                lambda grads, _outs, _n=name: trace.add(f"node {_n}",
+                                                        grads)))
+        stack.extend(f for f, _ in node.next_functions if f is not None)
+    return handles
+
+
+def first_difference(device, case="w20_gfn1", nodes=False):
+    """The first traced value (in call order) of a case's float64
+    gradients that differs between its fragments as one batch (the w20
+    MBE(2) dimers: 190; with ALPB its 20 monomers; the dodecamers: 16) and
+    the first half alone, then the second half alone (`half`: which), or
+    None where the gradients agree bit for bit. With `nodes`, the
+    gradient every node of the functional's autograd graph passes back is
+    compared too, in the order the backward pass runs them (where no
+    traced function differs before the gradient itself)."""
+    from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
+
+    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
+
+    mods = _modules()
     calc = _calculator(case, device)
-    dimers = (dodecamers() if case == "dodecamers"
-              else w20_mbe2_fragments()[20:])
-    half = len(dimers) // 2
+    frags = (dodecamers() if case == "dodecamers"
+             else w20_mbe2_fragments()[:20] if case == "w20_alpb"
+             else w20_mbe2_fragments()[20:])
+    half = len(frags) // 2
+    # padded as the executor pads the bucket (the dodecamers as the
+    # call_graph phase builds them)
+    pad_to = None
+    if case != "dodecamers":
+        ex = FragmentExecutor(calc)
+        ((atoms, members),) = ex._buckets(frags).items()
+        pad_to = ex._pad_shapes_for(atoms, members)
     runs = {}
 
-    def run(frags, trace):
+    def run(batch, trace):
         saved = []
         for mod, name in TRACED:
-            fn = getattr(mods[mod], name, None)
+            owner = mods.get(mod)
+            fn = None if owner is None else owner.__dict__.get(name)
             if fn is None:
                 continue
-            saved.append((mods[mod], name, fn))
+            saved.append((owner, name, fn))
 
-            def traced(*args, _fn=fn, _name=name, **kw):
+            def traced(*args, _fn=fn, _name=f"{mod}.{name}",
+                       _window=name == "anderson_window", **kw):
                 out = _fn(*args, **kw)
-                trace.add(_name, args[0] if _name == "anderson_window"
-                          else out)
+                trace.add(_name, args[0] if _window else out)
                 return out
-            setattr(mods[mod], name, traced)
+            setattr(owner, name, traced)
         for mod, name in TRACED_BACKWARD:
-            cls = getattr(mods[mod], name)
+            cls = getattr(mods.get(mod), name, None)
+            if cls is None:
+                continue
             fn = cls.__dict__["backward"]
             saved.append((cls, "backward", fn))
 
@@ -295,20 +469,44 @@ def first_difference(device, case="w20_gfn1"):
                 trace.add(f"{_name}.backward", out)
                 return out
             cls.backward = staticmethod(backward)
+        for mod, name in TRACED_GATHERS:
+            fn = getattr(mods[mod], name)
+            saved.append((mods[mod], name, fn))
+            probe = _grad_probe(trace, f"{name}.input_grad")
+
+            def gather(x, idx, _fn=fn, _probe=probe):
+                if (torch.is_tensor(x) and x.requires_grad
+                        and torch.is_grad_enabled()):
+                    x = _probe.apply(x)
+                return _fn(x, idx)
+            setattr(mods[mod], name, gather)
+        real_grad = torch.autograd.grad
+        handles = []
+
+        def grad(outputs, inputs, *args, **kw):
+            if nodes:
+                handles.extend(_hook_nodes(_tensors(outputs), trace))
+            return real_grad(outputs, inputs, *args, **kw)
+        torch.autograd.grad = grad
         try:
-            frag = calc.make_batch(frags)
+            frag = calc.make_batch(batch, pad_to=pad_to)
             e, g, _ = calc.gradients(frag, graph=False)
             trace.add("gradients", (e, g))
         finally:
+            torch.autograd.grad = real_grad
+            for h in handles:
+                h.remove()
             for owner, name, fn in reversed(saved):
                 setattr(owner, name, fn)
         return trace
 
-    runs["half"] = run(dimers[:half], _Trace(half))
-    try:
-        run(dimers, _Trace(len(dimers), runs["half"].calls, half))
-    except _Found as found:
-        return found.args[0]
+    for which, rows in (("first", slice(0, half)),
+                        ("second", slice(half, 2 * half))):
+        runs[which] = run(frags[rows], _Trace(half))
+        try:
+            run(frags, _Trace(len(frags), runs[which].calls, rows))
+        except _Found as found:
+            return dict(found.args[0], half=which)
     return None
 
 
@@ -375,6 +573,77 @@ def _windows():
             "rowwise": _plain(aw.anderson_window_rowwise)}
 
 
+#: the entries each --reductions step puts on the kernel
+REDUCTION_STEPS = {
+    "none": (),
+    "fock": ("moment_fock",),
+    "rows": ("moment_fock", "moment_rows"),
+    "all": ("moment_fock", "moment_rows", "segment_sum", "fragment_sum",
+            "take", "take2", "broadcast"),
+}
+
+
+def _torch_reductions() -> dict:
+    """The torch expressions the ops of `ops/fragment_reduce.py` replaced
+    (a CPU tensor's route), by name."""
+    from metalquicha_tpu_torch.ops import fragment_reduce as fr
+
+    return {"moment_fock": fr._torch_moment_fock,
+            "moment_rows": fr._torch_moment_rows,
+            "segment_sum": fr._torch_segment_sum,
+            "fragment_sum": lambda x, dim=-1: x.sum(dim),
+            "take": fr._torch_take, "take2": fr._torch_take2,
+            "broadcast": lambda x, shape: x}
+
+
+def _route_reductions(step) -> list:
+    """Put the entries of `step` on the kernel and the others on torch's
+    expressions in every module that calls them; returns what to
+    restore."""
+    mods = _modules()
+    saved = []
+    for name, fn in _torch_reductions().items():
+        if name in REDUCTION_STEPS[step]:
+            continue
+        for mod in REDUCE_USERS:
+            if name in mods[mod].__dict__:
+                saved.append((mods[mod], name, mods[mod].__dict__[name]))
+                setattr(mods[mod], name, fn)
+    return saved
+
+
+def _beyond_and_locate(args, device, tag, result) -> None:
+    """--beyond, --open and --locate on the routes in place, into
+    `result` under keys tagged `tag`."""
+    from metalquicha_tpu_torch.methods.xtb import scc_graph
+
+    if args.beyond:
+        scc_graph.clear()
+        result[f"beyond_{tag}"] = beyond_deltas(device)
+        print(f"c17 cut deltas beyond GFN1, route {tag}: "
+              f"{result[f'beyond_{tag}']}", flush=True)
+    if args.open:
+        scc_graph.clear()
+        result[f"open_{tag}"] = open_deltas(device)
+        print(f"c17 cut deltas still open, route {tag}: "
+              f"{result[f'open_{tag}']}", flush=True)
+    if args.locate:
+        for case in LOCATE_CASES:
+            key = (f"first_{tag}" if case == "w20_gfn1"
+                   else f"first_{tag}_{case}")
+            result[key] = first_difference(device, case)
+            print(f"c17 first value that depends on the batch, route "
+                  f"{tag}, {case}: {result[key]}", flush=True)
+            if (result[key] or {}).get("op") == "gradients":
+                # no traced value before the gradient: the backward's nodes
+                result[key + "_node"] = first_difference(device, case,
+                                                         nodes=True)
+                print(f"c17 first backward node that depends on the "
+                      f"batch, route {tag}, {case}: "
+                      f"{result[key + '_node']}", flush=True)
+    scc_graph.clear()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -385,13 +654,20 @@ def main(argv=None) -> int:
     ap.add_argument("--products", default="kernel",
                     help="comma-separated: the engine's products for the "
                          "deltas (kernel, library)")
+    ap.add_argument("--reductions", default="all",
+                    help="comma-separated steps of the sums of "
+                         "ops/fragment_reduce.py on the kernel (none, fock, "
+                         "rows, all) for --beyond, --open and --locate")
     ap.add_argument("--beyond", action="store_true",
-                    help="also the deltas beyond GFN1 up to 64 AOs (GFN2, "
-                         "ALPB, the dodecamers above 64 AOs), per products "
-                         "route")
+                    help="also the deltas beyond GFN1 (GFN2, ALPB, the "
+                         "dodecamers above 64 AOs), per products and "
+                         "reductions route")
+    ap.add_argument("--open", action="store_true",
+                    help="also the deltas C17 leaves open (CPCM, SP2 in "
+                         "float32, the 73-atom peptide), measured")
     ap.add_argument("--locate", action="store_true",
                     help="name the first value that depends on the batch, "
-                         "per products route and case")
+                         "per products and reductions route and case")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     from metalquicha_tpu_torch.logging_ import global_logger
@@ -412,7 +688,7 @@ def main(argv=None) -> int:
         for (mod, name), fn in _products(products).items():
             setattr(mods[mod], name, fn)
         try:
-            for name in args.solves.split(","):
+            for name in filter(None, args.solves.split(",")):
                 engine.anderson_window = windows[name]
                 # the graphs captured on another route are not replayed
                 scc_graph.clear()
@@ -424,20 +700,14 @@ def main(argv=None) -> int:
                     scc_graph.clear()
                 print(f"c17 cut deltas, solve {name}, products {products}: "
                       f"{result[key]}", flush=True)
-            if args.beyond:
-                scc_graph.clear()
-                key = f"beyond_{products}"
-                result[key] = beyond_deltas(device)
-                print(f"c17 cut deltas beyond GFN1 up to 64 AOs, products "
-                      f"{products}: {result[key]}", flush=True)
-            if args.locate:
-                for case in LOCATE_CASES:
-                    key = (f"first_{products}" if case == "w20_gfn1"
-                           else f"first_{products}_{case}")
-                    result[key] = first_difference(device, case)
-                    print(f"c17 first value that depends on the batch, "
-                          f"products {products}, {case}: {result[key]}",
-                          flush=True)
+            for step in args.reductions.split(","):
+                tag = products + ("" if step == "all" else f"_{step}")
+                saved = _route_reductions(step)
+                try:
+                    _beyond_and_locate(args, device, tag, result)
+                finally:
+                    for owner, name, fn in reversed(saved):
+                        setattr(owner, name, fn)
         finally:
             for (mod, name), fn in real_products.items():
                 setattr(mods[mod], name, fn)
