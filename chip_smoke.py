@@ -75,18 +75,20 @@ Phases (each raises on failure; nothing is caught):
              built with the others): GFN2's moment contraction into the
              Fock matrix (`moment_fock`, d = 3 and 6 at once), the moment
              row sums (`moment_rows`: d = 3 and 6 into atoms, unsegmented
-             as its backward runs it, and d = 1 with a mask as the shell
-             populations), the segment sums (`segment_sum`: c = 3, 6 and
-             1 with a mask) and the sums over trailing dims
-             (`fragment_sum`: a row, an (n, n) pair table, a (6, n, n)
-             table past the warp's rows) against their plain versions in
-             the kernel's order and the torch expressions they replaced
-             at (B, n) = (512, 16), (5985, 32), (64, 48), (16, 96),
-             float64 (1e-13 of the largest entry) and float32 (1e-5),
-             whether the bits are the plain version's printed; a fragment
-             alone and in its batch bit for bit equal; the kernel, the
-             plain version and torch timed graph-replayed beside the bound
-             (`reduce_bound`);
+             as its backward runs it, d = 1 with a mask as the shell
+             populations, an index in no sorted order), the segment sums
+             (`segment_sum`: c = 3, 6, 1 with a mask, n as the gathers'
+             backward over an (n, n) table, an unsorted index) and the
+             sums over trailing dims (`fragment_sum`: a row, an (n, n)
+             pair table, a (6, n, n) table past the warp's rows), every
+             form of `reduce_forms`, against their plain versions in the
+             kernel's order and the torch expressions they replaced at
+             (B, n) = (512, 16), (5985, 32), (64, 48), (16, 96) and the
+             73-atom Hessian's (1, 241), float64 (1e-13 of the largest
+             entry) and float32 (1e-5), the bits the plain version's
+             (checked); a fragment alone and in its batch bit for bit
+             equal; every form's kernel, plain version and torch timed
+             graph-replayed beside the bound (`reduce_bound`);
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -1651,9 +1653,10 @@ def rect_phase(fm, rng, dtype):
 
 #: (B, n) of the fragment sums' check: the dimer slice (16 AOs), the w20
 #: MBE(4) chunk (32), GFN2 water hexamers (36 AOs, padded to 48), the 16
-#: dodecamers (72, padded to 96); the moments d = 3 (dipoles) and 6
-#: (quadrupoles)
-REDUCE_SHAPES = ((512, 16), (5985, 32), (64, 48), (16, 96))
+#: dodecamers (72, padded to 96), the 73-atom FD Hessian's one fragment
+#: (241 AOs: odd rows, a fragment's bands in one cluster); the moments d =
+#: 3 (dipoles) and 6 (quadrupoles)
+REDUCE_SHAPES = ((512, 16), (5985, 32), (64, 48), (16, 96), (1, 241))
 REDUCE_TOL = GEMM_TOL
 #: the entries of csrc/fragment_reduce.cu: what each replaces in the JAX
 #: package (XLA's contraction or sum there)
@@ -1666,24 +1669,27 @@ REDUCE_REPLACES = {
 
 
 def reduce_bound(entry: str, bsz: int, n: int, dtype, d: int = 6,
-                 size: int = 0, length: int = 0):
+                 size: int = 0, length: int = 0, index: bool = True,
+                 weights: bool = False):
     """(bound_ms, bound_by) of one launch of a fragment sum entry: every
     input read once and every output written once at the memory rate, or
     its multiplies and adds at the vector rate (no tensor cores), the
     larger. moment_fock: f, v (n, 3 + 6), D, Q in, F out, (2 x 9 + 3) n^2
-    operations; moment_rows: a, m (d n^2), the index and weights in,
-    (size, d) out, 2 d n^2 operations; segment_sum: (n, d) values and the
-    index in, (size, d) out; fragment_sum: `length` elements a row in, one
-    out."""
+    operations; moment_rows: a, m (d n^2), the int64 index and the weights
+    where the form has them in, (size, d) out, 2 d n^2 operations;
+    segment_sum: (n, d) values, the index and the weights where the form
+    has them in, (size, d) out; fragment_sum: `length` elements a row in,
+    one out."""
     item = torch.finfo(dtype).bits // 8
+    read = (n if weights else 0), (8 * n if index else 0)
     if entry == "moment_fock":
         elems, ops = 11 * n * n + 9 * n, 21 * n * n
         extra = 0
     elif entry == "moment_rows":
-        elems, ops = (1 + d) * n * n + n + size * d, 2 * d * n * n
-        extra = 8 * n
+        elems, ops = (1 + d) * n * n + read[0] + size * d, 2 * d * n * n
+        extra = read[1]
     elif entry == "segment_sum":
-        elems, ops, extra = n * d + size * d, n * d, 8 * n
+        elems, ops, extra = n * d + read[0] + size * d, n * d, read[1]
     else:
         elems, ops, extra = length + 1, length, 0
     return _bound({"operations": bsz * ops / PEAK_VECTOR[dtype],
@@ -1694,133 +1700,181 @@ def _reduce_case(rng, bsz: int, n: int, dtype):
     """Seeded operands of the fragment sums at (bsz, n): f, P (n, n), the
     moment tables D (3, n, n) and Q (6, n, n), potentials (n, 3) and (n,
     6), an atom index of n // 3 segments in sorted runs (an AO's atom),
-    a 0/1 mask."""
+    the same index in a random order within each fragment (segments that
+    are not runs), a 0/1 mask."""
     def t(shape):
         return torch.tensor(rng.standard_normal(shape), dtype=dtype,
                             device=DEVICE)
 
     nat = max(1, n // 3)
-    idx = torch.tensor(np.sort(rng.integers(0, nat, (bsz, n)), axis=1),
-                       dtype=torch.int64, device=DEVICE)
+    idx = np.sort(rng.integers(0, nat, (bsz, n)), axis=1)
+    mixed = np.take_along_axis(
+        idx, np.argsort(rng.random((bsz, n)), axis=1), axis=1)
     mask = torch.tensor(rng.random((bsz, n)) < 0.9, dtype=dtype,
                         device=DEVICE)
     return {"f": t((bsz, n, n)), "P": t((bsz, n, n)), "D": t((bsz, 3, n, n)),
             "Q": t((bsz, 6, n, n)), "vD": t((bsz, n, 3)),
-            "vQ": t((bsz, n, 6)), "idx": idx, "nat": nat, "mask": mask}
+            "vQ": t((bsz, n, 6)), "nat": nat, "mask": mask,
+            "idx": torch.tensor(idx, dtype=torch.int64, device=DEVICE),
+            "mixed": torch.tensor(mixed, dtype=torch.int64, device=DEVICE)}
+
+
+def reduce_forms(fr, n: int) -> dict:
+    """The forms the main path calls each entry of csrc/fragment_reduce.cu
+    in, on `_reduce_case`'s operands c: {entry: [(label, kernel, plain,
+    torch's, reduce_bound's arguments)]}, each a function of c; the first
+    of each entry gives the kernels line."""
+    fock = ("f", "vD", "D", "vQ", "Q")
+
+    def rows(m, idx="idx", weights=None):
+        def args(c):
+            return (c["P"], c[m]) if idx is None else (
+                c["P"], c[m], c[idx], c["nat"],
+                None if weights is None else c[weights])
+        return (lambda c: fr.moment_rows(*args(c)),
+                lambda c: fr.moment_rows_reference(*args(c)),
+                lambda c: fr._torch_moment_rows(*args(c)))
+
+    def seg(v, idx="idx", weights=None):
+        def args(c):
+            return (c[v] if v != "vD0" else c["vD"][..., 0], c[idx],
+                    c["nat"], None if weights is None else c[weights])
+        return (lambda c: fr.segment_sum(*args(c)),
+                lambda c: fr.segment_sum_reference(*args(c)),
+                lambda c: fr._torch_segment_sum(*args(c)))
+
+    nat = max(1, n // 3)
+    return {
+        "moment_fock": [(
+            "D+Q", lambda c: fr.moment_fock(*(c[k] for k in fock)),
+            lambda c: fr.moment_fock_reference(*(c[k] for k in fock)),
+            lambda c: fr._torch_moment_fock(*(c[k] for k in fock)), {})],
+        "moment_rows": [
+            ("d=3 atoms", *rows("D"), {"d": 3, "size": nat}),
+            ("d=6 atoms", *rows("Q"), {"d": 6, "size": nat}),
+            # the backward's rows
+            ("d=6 rows", *rows("Q", None), {"d": 6, "size": n,
+                                            "index": False}),
+            # GFN1's shell populations: one plane, the AO mask
+            ("d=1 mask", *rows("f1", "idx", "mask"),
+             {"d": 1, "size": nat, "weights": True}),
+            ("d=3 unsorted", *rows("D", "mixed"), {"d": 3, "size": nat})],
+        "segment_sum": [
+            ("c=3", *seg("vD"), {"d": 3, "size": nat}),
+            ("c=6", *seg("vQ"), {"d": 6, "size": nat}),
+            # the atomic charges: one value an entry, the shell mask
+            ("c=1 mask", *seg("vD0", "idx", "mask"),
+             {"d": 1, "size": nat, "weights": True}),
+            ("c=3 unsorted", *seg("vD", "mixed"), {"d": 3, "size": nat}),
+            # take2's backward over an (n, n) table
+            ("c=n", *seg("P"), {"d": n, "size": nat})],
+        "fragment_sum": [(
+            f"{x} dims {dims}",
+            lambda c, x=x, dims=dims: fr.fragment_sum(c[x], dims),
+            lambda c, x=x, dims=dims: fr.fragment_sum_reference(c[x], dims),
+            lambda c, x=x, dims=dims: c[x].sum(dims), {"length": length})
+            for x, dims, length in (("P", -1, n), ("P", (1, 2), n * n),
+                                    ("Q", (1, 2, 3), 6 * n * n))],
+    }
+
+
+def reduce_long_fragments(fr) -> None:
+    """Fragments too long for a block's shared memory, which the kernels
+    sum in runs of entries (float64, seeded on the card): moment_rows at
+    6000 AOs with d = 6 into an atom index with weights, segment_sum over
+    40000 entries with weights; each bit for bit its plain version
+    (checked)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    f64 = torch.float64
+
+    def case(n):
+        idx = torch.randint(0, n // 3, (1, n), generator=gen, device=DEVICE)
+        w = torch.rand((1, n), generator=gen, dtype=f64, device=DEVICE)
+        return idx.sort(dim=1).values, (w < 0.9).to(f64)
+
+    n = 6000
+    a = torch.randn((1, n, n), generator=gen, dtype=f64, device=DEVICE)
+    m = torch.randn((1, 6, n, n), generator=gen, dtype=f64, device=DEVICE)
+    idx, w = case(n)
+    same = torch.equal(fr.moment_rows(a, m, idx, n // 3, w),
+                       fr.moment_rows_reference(a, m, idx, n // 3, w))
+    check(same, f"moment_rows (1, {n}) d=6: not bit for bit the plain "
+          f"version")
+    del a, m
+    n = 40000
+    v = torch.randn((1, n), generator=gen, dtype=f64, device=DEVICE)
+    idx, w = case(n)
+    same = torch.equal(fr.segment_sum(v, idx, n // 3, w),
+                       fr.segment_sum_reference(v, idx, n // 3, w))
+    check(same, f"segment_sum (1, {n}): not bit for bit the plain version")
+    print("fragment sums past a block's shared memory: moment_rows (1, "
+          "6000) d=6 and segment_sum (1, 40000) bit for bit the plain "
+          "versions: True", flush=True)
 
 
 def reduce_phase(fr):
     """The fragment sums (csrc/fragment_reduce.cu) against their plain
     versions in the kernel's order (`ops/fragment_reduce.py`
-    *_reference) at REDUCE_SHAPES, d = 3 and 6, float64 and float32: max
-    err relative to the largest entry within REDUCE_TOL, and whether the
-    bits are the plain version's; a fragment's bits alone and in its batch
-    equal; the kernel, the plain version and the torch expression it
-    replaced (library_ms: the einsums, the row sums and scatter_add, sum)
-    timed graph-replayed beside the bound. Returns the kernels line's
-    entries, the (512, 16) float64 case of each."""
+    *_reference) at REDUCE_SHAPES in every form of `reduce_forms`, float64
+    and float32: max err relative to the largest entry within REDUCE_TOL,
+    and the bits the plain version's in every case (checked); a
+    fragment's bits alone and in its batch equal; every form's kernel, its
+    plain version and the torch expression it replaced (library_ms: the
+    einsums, the row sums and scatter_add, sum) timed graph-replayed
+    beside the bound; then `reduce_long_fragments`. Returns the kernels
+    line's entries, the (512, 16) float64 case of each entry's first
+    form."""
     rng = np.random.default_rng(17)
     entries = {}
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
         for bsz, n in REDUCE_SHAPES:
             c = _reduce_case(rng, bsz, n, dtype)
-            nat = c["nat"]
-            # entry -> [(kernel, plain, torch's, bound's arguments)], each
-            # a function of the operands
-            fock = ("f", "vD", "D", "vQ", "Q")
-            cases = {
-                "moment_fock": [(
-                    lambda c: fr.moment_fock(*(c[k] for k in fock)),
-                    lambda c: fr.moment_fock_reference(*(c[k] for k in fock)),
-                    lambda c: fr._torch_moment_fock(*(c[k] for k in fock)),
-                    {})],
-                "moment_rows": [(
-                    lambda c, m=m: fr.moment_rows(c["P"], c[m], c["idx"],
-                                                  nat),
-                    lambda c, m=m: fr.moment_rows_reference(
-                        c["P"], c[m], c["idx"], nat),
-                    lambda c, m=m: fr._torch_moment_rows(c["P"], c[m],
-                                                         c["idx"], nat),
-                    {"d": 3 if m == "D" else 6, "size": nat})
-                    for m in ("D", "Q")] + [(
-                    # the backward's rows, and the shell populations' form
-                    lambda c: fr.moment_rows(c["P"], c["Q"]),
-                    lambda c: fr.moment_rows_reference(c["P"], c["Q"]),
-                    lambda c: fr._torch_moment_rows(c["P"], c["Q"]),
-                    {"d": 6, "size": n}), (
-                    lambda c: fr.moment_rows(c["P"], c["f"][:, None],
-                                             c["idx"], nat, c["mask"]),
-                    lambda c: fr.moment_rows_reference(
-                        c["P"], c["f"][:, None], c["idx"], nat, c["mask"]),
-                    lambda c: fr._torch_moment_rows(
-                        c["P"], c["f"][:, None], c["idx"], nat, c["mask"]),
-                    {"d": 1, "size": nat})],
-                "segment_sum": [(
-                    lambda c, v=v: fr.segment_sum(c[v], c["idx"], nat),
-                    lambda c, v=v: fr.segment_sum_reference(c[v], c["idx"],
-                                                            nat),
-                    lambda c, v=v: fr._torch_segment_sum(c[v], c["idx"],
-                                                         nat),
-                    {"d": 3 if v == "vD" else 6, "size": nat})
-                    for v in ("vD", "vQ")] + [(
-                    lambda c: fr.segment_sum(c["vD"][..., 0], c["idx"], nat,
-                                             c["mask"]),
-                    lambda c: fr.segment_sum_reference(
-                        c["vD"][..., 0], c["idx"], nat, c["mask"]),
-                    lambda c: fr._torch_segment_sum(
-                        c["vD"][..., 0], c["idx"], nat, c["mask"]),
-                    {"d": 1, "size": nat})],
-                "fragment_sum": [(
-                    lambda c, x=x, dims=dims: fr.fragment_sum(c[x], dims),
-                    lambda c, x=x, dims=dims: fr.fragment_sum_reference(
-                        c[x], dims),
-                    lambda c, x=x, dims=dims: c[x].sum(dims),
-                    {"length": n if dims == -1
-                     else math.prod(c[x].shape[1:])})
-                    for x, dims in (("P", -1), ("P", (1, 2)),
-                                    ("Q", (1, 2, 3)))],
-            }
-            for entry, forms in cases.items():
-                err, bitwise = 0.0, True
-                for kernel, plain, library, _kw in forms:
+            c["f1"] = c["f"][:, None]
+            for entry, forms in reduce_forms(fr, n).items():
+                for label, kernel, plain, library, kw in forms:
                     got, ref, lib = kernel(c), plain(c), library(c)
+                    what = f"{entry} {label} {tag} ({bsz}, {n})"
                     check(got.shape == ref.shape == lib.shape,
-                          f"{entry} ({bsz}, {n}): shapes {tuple(got.shape)}"
-                          f" {tuple(ref.shape)} {tuple(lib.shape)}")
-                    err = max(err, _rel_err(got, ref), _rel_err(got, lib))
-                    bitwise = bitwise and torch.equal(got, ref)
-                check(err <= REDUCE_TOL[dtype],
-                      f"{entry} {tag} ({bsz}, {n}): max err {err:.3e} > "
-                      f"{REDUCE_TOL[dtype]:.0e}")
-                # a fragment alone, and the batch's last and first: the
-                # same bits
-                for rows in ([0], [bsz - 1, 0]):
-                    sel = torch.tensor(rows, device=DEVICE)
-                    part = {k: (v.index_select(0, sel)
-                                if torch.is_tensor(v) else v)
-                            for k, v in c.items()}
-                    for kernel, _plain, _lib, _kw in forms:
-                        check(torch.equal(kernel(part), kernel(c).index_select(
-                            0, sel)), f"{entry} ({bsz}, {n}): a fragment's "
-                              f"bits depend on its batch")
-                kernel, plain, library, kw = forms[0]
-                ms = min(graph_ms(lambda: kernel(c), 20),
-                         graph_ms(lambda: kernel(c), 20))
-                plain_ms = graph_ms(lambda: plain(c), 3)
-                library_ms = graph_ms(lambda: library(c), 20)
-                bound_ms, bound_by = reduce_bound(entry, bsz, n, dtype, **kw)
-                print(f"fragment sums {entry} {tag} (B, n)=({bsz}, {n}): "
-                      f"max err={err:.3e} bit for bit the plain version: "
-                      f"{bitwise}; ms={ms:.4f} plain ms={plain_ms:.4f} torch "
-                      f"ms={library_ms:.4f} bound ms={bound_ms:.6f} "
-                      f"({bound_by}, {100 * bound_ms / ms:.2f}% of it)",
-                      flush=True)
-                if entry not in entries:
-                    entries[entry] = {
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms, "bitwise_plain": bitwise}
+                          f"{what}: shapes {tuple(got.shape)} "
+                          f"{tuple(ref.shape)} {tuple(lib.shape)}")
+                    err = max(_rel_err(got, ref), _rel_err(got, lib))
+                    check(err <= REDUCE_TOL[dtype],
+                          f"{what}: max err {err:.3e} > "
+                          f"{REDUCE_TOL[dtype]:.0e}")
+                    check(torch.equal(got, ref),
+                          f"{what}: not bit for bit the plain version")
+                    # a fragment alone, and the batch's last and first:
+                    # the same bits
+                    for sel in ([0], [bsz - 1, 0]):
+                        sel = torch.tensor(sel, device=DEVICE)
+                        part = {k: (v.index_select(0, sel)
+                                    if torch.is_tensor(v) else v)
+                                for k, v in c.items()}
+                        part["f1"] = part["f"][:, None]
+                        check(torch.equal(kernel(part),
+                                          got.index_select(0, sel)),
+                              f"{what}: a fragment's bits depend on its "
+                              f"batch")
+                    ms = min(graph_ms(lambda: kernel(c), 20),
+                             graph_ms(lambda: kernel(c), 20))
+                    plain_ms = graph_ms(lambda: plain(c), 3)
+                    library_ms = graph_ms(lambda: library(c), 20)
+                    bound_ms, bound_by = reduce_bound(entry, bsz, n, dtype,
+                                                      **kw)
+                    print(f"fragment sums {what}: max err={err:.3e} bit "
+                          f"for bit the plain version: True; ms={ms:.4f} "
+                          f"plain ms={plain_ms:.4f} torch "
+                          f"ms={library_ms:.4f} bound ms={bound_ms:.6f} "
+                          f"({bound_by}, {100 * bound_ms / ms:.2f}% of it)",
+                          flush=True)
+                    if entry not in entries:
+                        entries[entry] = {
+                            "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms,
+                            "bitwise_plain": True}
+    reduce_long_fragments(fr)
     return entries
 
 

@@ -33,13 +33,58 @@
 // FMA contraction), so the plain versions in elementwise torch ops
 // (`ops/fragment_reduce.py`, *_reference) reproduce the kernel's bits.
 //
-// One thread an output (a warp or a block a row for fragment_sum): the
-// sizes here are small (a fragment's AOs, atoms, moments), and simple
-// first. The launches allocate nothing, never synchronize, and return
-// cudaGetLastError().
+// moment_fock: one thread an output; fragment_sum: a warp or a block a
+// row.
+//
+// moment_rows and segment_sum, redesigned for the H100 with the same
+// bits. What bounds them: a fragment's chains are few and serial (at
+// (16, 96) with d = 3, 16 x 96 x 3 chains of 96 dependent adds) and the
+// bytes small (a, m read once: 4.7 MB at (16, 96), 1.4 us at the memory
+// rate), so the time is how soon the operands reach the chains and how
+// many chains run at once; at (5985, 32) the bytes (196 MB) bound it. The
+// first version ran a thread per output, each walking its rows of a and m
+// in global memory one dependent load after the other, uncoalesced (16.6x
+// torch's time at (16, 96)). Now:
+// - moment_rows: a unit is (fragments, band of rows, group of planes):
+//   a fragment's rows cut into bands where the batch alone would leave
+//   the card idle, several fragments to a block where a fragment is
+//   small (`rows_plan`). The band's rows of a and of each plane of m are
+//   staged into shared memory in tiles of L columns of l by 16-byte
+//   cp.async.cg (element by element where the operand's base or rows are
+//   not 16-byte aligned), up to four tiles in flight, so any n fits; a
+//   row is padded by one 16-byte chunk, so the chains' 16-byte reads
+//   (rows of one plane in consecutive threads) are free of bank
+//   conflicts. A thread a chain (k, e) carries c[k, e] across the tiles
+//   in ascending l: every chain of the unit runs at once, from shared
+//   memory. Without an index, c is stored coalesced. With one, c stays in
+//   shared memory; where a small batch spreads a fragment's bands over
+//   several blocks, those blocks are one thread block cluster (up to
+//   kMaxCluster), and the segment sums read each member's c through
+//   distributed shared memory after cluster.sync(). Where a fragment's c
+//   would not fit (thousands of AOs), a block holds a run of its bands
+//   at a time and adds each run's sums on to the outputs, the entries
+//   still in ascending k.
+// - segment_sum: a block stages its fragments' (n, c) values (or a band
+//   of columns, where c is large: the gathers' backward over (n, n)
+//   tables), index and weights coalesced; a fragment too long for shared
+//   memory in runs of entries, summed on in the same way.
+// In both, a group of 8 to 32 lanes sums a segment (`segment_walk`): a
+// ballot over as many entries of the staged index at a time finds its
+// members, which a lane a column adds in ascending k; where a batch that
+// fills the card gives segment_sum few columns, a thread an output scans
+// the staged index instead (measured faster there, slower elsewhere).
+// Whatever the index: segments need not be sorted runs, and an entry
+// outside [0, size) adds to none. The launches
+// allocate nothing and never synchronize; the card's SM count and
+// shared-memory limit are queried once per device; a cluster launch
+// (cudaLaunchKernelEx) is captured into CUDA graphs like any other. Each
+// returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -47,6 +92,29 @@ constexpr int kThreads = 256;
 constexpr int kWarp = 32;
 // fragment_sum: rows up to this length take a warp, longer a block
 constexpr long long kWarpRowMax = 4096;
+// threads a block of moment_rows and of segment_sum
+constexpr int kRowThreads = 256;
+constexpr int kSegThreads = 256;
+// segment_sum over a batch that fills the card, of up to this many
+// columns: a thread an output scanning the index; else a lane group a
+// segment (`walk_sums`)
+constexpr int kScanCols = 16;
+// shared memory by which the plans cut: two of moment_rows' staged tiles
+// (more in flight where they fit), segment_sum's staged values
+constexpr long long kStageBytes = 48 * 1024;
+// shared memory a block gets without opting in
+constexpr long long kDefaultSmem = 48 * 1024;
+// the fewest rows of a band where a small batch is cut into bands
+constexpr int kMinBand = 8;
+// without an index (no cluster to feed), bands of at least 16 rows
+// (measured faster at (64, 48), slower at 96-241 AOs but still well under
+// the first version's time there)
+constexpr int kMinBandPlain = 16;
+// the most tiles of moment_rows in flight in a block
+constexpr int kMaxStages = 4;
+// the most blocks of a cluster (the portable limit): one fragment's bands
+// with an index
+constexpr int kMaxCluster = 8;
 
 __device__ __forceinline__ double add_(double a, double b) {
   return __dadd_rn(a, b);
@@ -110,77 +178,486 @@ __global__ void moment_fock_kernel(const T* __restrict__ f,
   out[idx] = sub_(f[idx], mul_(T(0.5), add_(g, gt)));
 }
 
-// c[k, e] = sum_l a[k, l] m[e, k, l], l ascending, for one fragment
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(__cvta_generic_to_global(src)));
+}
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(__cvta_generic_to_global(src)));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(__cvta_generic_to_global(src)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// every group but the newest `Pending` has landed
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// 16 bytes of a staged row
 template <typename T>
-__device__ __forceinline__ T row_dot(const T* __restrict__ a,
-                                     const T* __restrict__ m, int n, int k,
-                                     int e) {
-  const long long nn = static_cast<long long>(n) * n;
-  const T* ar = a + static_cast<long long>(k) * n;
-  const T* mr = m + e * nn + static_cast<long long>(k) * n;
-  T acc = T(0);
-  for (int l = 0; l < n; ++l) acc = add_(acc, mul_(ar[l], mr[l]));
+struct Chunk;
+template <>
+struct Chunk<double> {
+  using V = double2;
+};
+template <>
+struct Chunk<float> {
+  using V = float4;
+};
+
+// acc + a[0] m[0] + a[1] m[1] (+ ...) in ascending order, each product
+// and sum rounded apart
+__device__ __forceinline__ double chunk_dot(double acc, double2 a,
+                                            double2 m) {
+  acc = add_(acc, mul_(a.x, m.x));
+  return add_(acc, mul_(a.y, m.y));
+}
+__device__ __forceinline__ float chunk_dot(float acc, float4 a, float4 m) {
+  acc = add_(acc, mul_(a.x, m.x));
+  acc = add_(acc, mul_(a.y, m.y));
+  acc = add_(acc, mul_(a.z, m.z));
+  return add_(acc, mul_(a.w, m.w));
+}
+
+// every cp.async group but the newest `pending` (0-3) has landed
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0:
+      cp_async_wait<0>();
+      break;
+    case 1:
+      cp_async_wait<1>();
+      break;
+    case 2:
+      cp_async_wait<2>();
+      break;
+    default:
+      cp_async_wait<3>();
+  }
+}
+
+// `count` entries of a (batch, n) index (and weights) from flat entry
+// `from` into shared memory: sseg the index (-1 outside [0, size)), sw the
+// weights (several whole fragments, or a run of one fragment's entries)
+template <typename T>
+__device__ __forceinline__ void stage_index(const long long* __restrict__ seg,
+                                            const T* __restrict__ w,
+                                            long long from, int count,
+                                            int size, int* sseg, T* sw) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const long long x = seg[from + i];
+    sseg[i] = x >= 0 && x < size ? static_cast<int>(x) : -1;
+    if (w) sw[i] = w[from + i];
+  }
+}
+
+// lanes a segment's sum takes (`segment_walk`): at least its columns and
+// 8, more (up to a warp: fewer ballots over a long index) where `lanes`
+// lanes share `pairs` segments
+__host__ __device__ __forceinline__ int walk_lanes(int cols, int lanes = 0,
+                                                   int pairs = 1) {
+  int gs = cols <= 8 ? 8 : cols <= 16 ? 16 : kWarp;
+  while (gs < kWarp && 2 * gs * pairs <= lanes) gs *= 2;
+  return gs;
+}
+
+// The sum of segment s of one fragment's staged index `row` (n entries)
+// by a group of gs lanes (a power of two) of a warp, the warp's groups
+// each on its own segment (`valid`: the group has one): the group finds
+// the members gs entries at a time by a ballot, then each lane that
+// holds a column (`active`) adds w[k] x(k), or x(k) without weights, for
+// the members k in ascending order, from acc (+0, or the sum over the
+// entries before `row`: the plain version's order; an entry outside [0,
+// size) matches no s). Every lane of the warp calls it the same number of
+// times.
+template <typename T, typename Get>
+__device__ __forceinline__ T segment_walk(const int* __restrict__ row, int n,
+                                          int s, const T* __restrict__ w,
+                                          int gs, bool valid, bool active,
+                                          T acc, Get x) {
+  const int lane = threadIdx.x % kWarp, g0 = lane & ~(gs - 1);
+  const unsigned mine = gs == kWarp ? 0xffffffffu : (1u << gs) - 1u;
+  for (int k0 = 0; k0 < n; k0 += gs) {
+    const int k = k0 + (lane - g0);
+    unsigned hits =
+        (__ballot_sync(0xffffffffu, valid && k < n && row[k] == s) >> g0) &
+        mine;
+    while (hits) {
+      const int q = k0 + __ffs(hits) - 1;
+      hits &= hits - 1;
+      if (active) {
+        const T v = x(q);
+        acc = add_(acc, w ? mul_(w[q], v) : v);
+      }
+    }
+  }
   return acc;
 }
 
-// without an index: a thread per (b, k, e); with one: a thread per
-// (b, s, e), k ascending over the fragment's rows in segment s
-template <typename T>
-__global__ void moment_rows_kernel(const T* __restrict__ a,
-                                   const T* __restrict__ m, int d,
-                                   const long long* __restrict__ seg,
-                                   const T* __restrict__ w, int size,
-                                   T* __restrict__ out, long long total,
-                                   int n) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int rows = seg ? size : n;
-  const long long per = static_cast<long long>(rows) * d;
-  const long long b = idx / per;
-  const int r = static_cast<int>(idx - b * per);
-  const int s = r / d, e = r - (r / d) * d;
-  const long long nn = static_cast<long long>(n) * n;
-  const T* af = a + b * nn;
-  const T* mf = m + b * d * nn;
-  if (!seg) {
-    out[idx] = row_dot(af, mf, n, s, e);
-    return;
+// out[f, s, e] of a unit, for fragments f < frags, segments s0 .. s0 +
+// sn - 1 and columns e < cols, over n staged entries a fragment, by
+// threads tid of `threads` (warps whole; a cluster's blocks together): a
+// group of lanes an (f, s), a lane a column (`segment_walk`); x(f, q, e)
+// the value of entry q, out(f, s, e) the output; with `more`, the sums go
+// on from the outputs (the entries are a run after the runs summed
+// before, by the same threads)
+template <typename T, typename Get, typename Out>
+__device__ __forceinline__ void walk_sums(const int* __restrict__ sseg,
+                                          const T* __restrict__ sw, int n,
+                                          int frags, int s0, int sn,
+                                          int cols, int tid, int threads,
+                                          bool more, Get x, Out out) {
+  const int pairs = frags * sn;
+  const int gs = walk_lanes(cols, threads, pairs), groups = threads / gs;
+  const int g = tid / gs, li = tid % gs;
+  for (int base = 0; base < pairs; base += groups) {
+    const int pair = base + g;
+    const bool valid = pair < pairs;
+    const int f = valid ? pair / sn : 0, s = s0 + pair - f * sn;
+    for (int el = 0; el < cols; el += gs) {
+      const int e = el + li;
+      const bool active = valid && e < cols;
+      const T sum = segment_walk(sseg + f * n, n, s,
+                                 sw ? sw + f * n : nullptr, gs, valid,
+                                 active, more && active ? out(f, s, e) : T(0),
+                                 [&](int q) { return x(f, q, e); });
+      if (active) out(f, s, e) = sum;
+    }
   }
-  const long long* sf = seg + b * n;
-  T acc = T(0);
-  for (int k = 0; k < n; ++k) {
-    if (sf[k] != s) continue;
-    const T c = row_dot(af, mf, n, k, e);
-    acc = add_(acc, w ? mul_(w[b * n + k], c) : c);
-  }
-  out[idx] = acc;
 }
 
-// a thread per (b, s, e), k ascending over the fragment's entries in
-// segment s
+// Where moment_rows' segment sums run: none (no index: c stored); Block,
+// in the block that computed c, after each run of its bands; Cluster,
+// across a cluster's blocks after all of them have their c
+enum class Sums { None, Block, Cluster };
+
+// One launch of moment_rows: the schedule the C entry chose (`rows_plan`)
+// and the operands. A unit is F fragments x a band of R rows x a group of
+// De planes of m; with an index, a fragment's nb bands are computed by
+// the C blocks of a cluster (block `rank` bands rank, rank + C, ...; C = 1
+// where the batch fills the card), else every (band, group, fragments)
+// is its own block. A block holds the c of nbl of its bands at a time: in
+// a cluster all of them; with C = 1 a run of nbl bands, whose segment sums
+// it adds on to the outputs of the runs before (where a fragment's c would
+// not fit its shared memory).
 template <typename T>
-__global__ void segment_sum_kernel(const T* __restrict__ v,
-                                   const long long* __restrict__ seg,
-                                   const T* __restrict__ w, int size,
-                                   T* __restrict__ out, long long total,
-                                   int n, int c) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long per = static_cast<long long>(size) * c;
-  const long long b = idx / per;
-  const int r = static_cast<int>(idx - b * per);
-  const int s = r / c, e = r - (r / c) * c;
-  const long long* sf = seg + b * n;
-  const T* vf = v + b * n * c;
-  T acc = T(0);
-  for (int k = 0; k < n; ++k) {
-    if (sf[k] != s) continue;
-    const T x = vf[static_cast<long long>(k) * c + e];
-    acc = add_(acc, w ? mul_(w[b * n + k], x) : x);
+struct Rows {
+  const T* a;
+  const T* m;
+  const long long* seg;
+  const T* w;
+  T* out;
+  long long batch;
+  int n, d, size;
+  int F, R, De, groups, nb, C, nbl, stages;
+  int vec_a, vec_m;
+};
+
+// Shared memory of a block: `stages` tiles of F (1 + De) R staged rows of
+// LD elements (per fragment a's band, then each plane's), then c of the
+// bands it holds (F x nbl x R x De), then with an index the weights and
+// the index of the entries whose c the block or its cluster holds (F x
+// `span`).
+template <typename T, int L>
+struct RowsSmem {
+  static constexpr int E = 16 / sizeof(T);
+  // a row padded by one chunk: LD / E chunks is odd, so the 8 rows a
+  // quarter-warp's 16-byte reads touch fall on distinct banks
+  static constexpr int LD = L + E;
+  static size_t tile(const Rows<T>& p) {
+    return static_cast<size_t>(p.F) * (1 + p.De) * p.R * LD * sizeof(T);
   }
-  out[idx] = acc;
+  // the entries whose index a block stages at once
+  __host__ __device__ static int span(const Rows<T>& p) {
+    const long long held = static_cast<long long>(p.nbl) * p.R * p.C;
+    return held < p.n ? static_cast<int>(held) : p.n;
+  }
+  static size_t bytes(const Rows<T>& p) {
+    const size_t c = static_cast<size_t>(p.F) * p.nbl * p.R * p.De *
+                     sizeof(T);
+    const size_t fn = p.seg ? static_cast<size_t>(p.F) * span(p) : 0;
+    return p.stages * tile(p) + c + fn * (sizeof(T) + sizeof(int));
+  }
+};
+
+// c[k, e] = sum_l a[k, l] m[e, k, l] a thread a chain (k, e) of the
+// unit, l ascending through tiles of L staged by cp.async (16 bytes where
+// the operand allows), up to `stages` tiles in flight; then, without an
+// index (W = None), c stored coalesced; with one, out[s, e] a lane
+// group an (f, s) (`walk_sums`): Block after each run of nbl bands, on
+// from the runs before; Cluster at the end, reading each member's c from
+// the shared memory of the cluster's block that computed it. Each way
+// its own instantiation, with only its own code in the loop.
+template <typename T, int L, Sums W>
+__global__ void __launch_bounds__(kRowThreads, 4)
+    moment_rows_kernel(const Rows<T> p) {
+  using S = RowsSmem<T, L>;
+  using V = typename Chunk<T>::V;
+  constexpr int E = S::E, LD = S::LD, CH = L / E;
+  constexpr bool segd = W != Sums::None;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int n = p.n, R = p.R, De = p.De, F = p.F;
+  const int rows = F * (1 + De) * R, span = S::span(p);
+  T* stage = reinterpret_cast<T*>(smem);
+  T* sc = stage + static_cast<long long>(p.stages) * rows * LD;
+  T* sw = sc + F * p.nbl * R * De;
+  int* sseg = reinterpret_cast<int*>(sw + (segd ? F * span : 0));
+
+  // the unit, and the bands of it this block computes
+  long long u = blockIdx.x;
+  int rank = 0, first, step, end;
+  if constexpr (W == Sums::Block) {
+    first = 0;
+    step = 1;
+    end = p.nb;
+  } else if constexpr (W == Sums::Cluster) {
+    rank = static_cast<int>(u % p.C);
+    u /= p.C;
+    first = rank;
+    step = p.C;
+    end = p.nb;
+  } else {
+    first = static_cast<int>(u % p.nb);
+    u /= p.nb;
+    step = 1;
+    end = first + 1;
+  }
+  const int e0 = static_cast<int>(u % p.groups) * De;
+  const long long b0 = (u / p.groups) * F;
+  const int dv = min(De, p.d - e0);
+  const int fv = static_cast<int>(min(static_cast<long long>(F),
+                                      p.batch - b0));
+  const int nt = (n + L - 1) / L;
+  const int mine = (end - first + step - 1) / step;
+  const int items = mine * nt;
+
+  // item = (the block's band j, tile of l): a's and the planes' rows of
+  // the band, columns l0 .. l0 + L - 1, zeros past n (each adds an exact
+  // +0: a chain starts at +0 and so never holds -0)
+  // a thread copies chunk j of rows r0, r0 + kRowStep, ...: (f, plane,
+  // k) of its first row divided out once, then advanced by kRowStep
+  constexpr int kRowStep = kRowThreads / CH;
+  const int jc = (t % CH) * E, r0 = t / CH;
+  const int k_0 = r0 % R, pl_0 = (r0 / R) % (1 + De),
+            f_0 = r0 / (R * (1 + De));
+  auto issue = [&](int item, T* buf) {
+    const int k0 = (first + (item / nt) * step) * R;
+    const int l0 = (item % nt) * L, cols = min(L, n - l0);
+    int k = k_0, pl = pl_0, f = f_0;
+    for (int r = r0; r < rows; r += kRowStep) {
+      T* dst = buf + r * LD + jc;
+      const bool live = f < fv && pl <= dv && k0 + k < n;
+      const bool vec = pl == 0 ? p.vec_a : p.vec_m;
+      const long long b = b0 + f;
+      const T* src = pl == 0 ? p.a + (b * n + k0 + k) * n + l0
+                             : p.m + ((b * p.d + e0 + pl - 1) * n + k0 + k) *
+                                         n + l0;
+      for (k += kRowStep; k >= R; k -= R) {
+        if (++pl > De) {
+          pl = 0;
+          ++f;
+        }
+      }
+      if (!live) continue;
+      if (vec) {
+        if (jc < cols) {
+          cp_async16(dst, src + jc);
+        } else {
+          *reinterpret_cast<V*>(dst) = V{};
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < E; ++q) {
+          if (jc + q < cols) {
+            cp_async(dst + q, src + jc + q);
+          } else {
+            dst[q] = T(0);
+          }
+        }
+      }
+    }
+  };
+
+  // the chain (k, e) of fragment f: consecutive threads take consecutive
+  // rows of one plane
+  const int k = t % R, e = (t / R) % De, f = t / (R * De);
+  const bool chain = f < fv && e < dv;
+  const int ns = p.stages;
+  for (int s = 0; s < ns - 1; ++s) {
+    if (s < items) issue(s, stage + s * rows * LD);
+    cp_async_commit();
+  }
+  T acc = T(0);
+  for (int it = 0; it < items; ++it) {
+    const int ahead = it + ns - 1;
+    if (ahead < items) issue(ahead, stage + (ahead % ns) * rows * LD);
+    cp_async_commit();
+    const int j = it / nt, tile = it - j * nt;
+    // the entries whose c the block holds from band j on (Block: a run of
+    // bands; Cluster: the fragment's): their index staged at the run's
+    // first item, the loads overlapping the tiles' copies
+    const int run0 = W == Sums::Block ? (j - j % p.nbl) * R : 0;
+    const int kn = min(span, n - run0);
+    if (segd && (W == Sums::Block ? tile == 0 && j % p.nbl == 0 : it == 0))
+      stage_index(p.seg, p.w, b0 * n + run0, fv * kn, p.size, sseg, sw);
+    cp_async_wait_pending(ns - 1);
+    __syncthreads();
+    const T* buf = stage + (it % ns) * rows * LD;
+    if (tile == 0) acc = T(0);
+    if (chain && (first + j * step) * R + k < n) {
+      const V* ra =
+          reinterpret_cast<const V*>(buf + (f * (1 + De) * R + k) * LD);
+      const V* rm = reinterpret_cast<const V*>(
+          buf + ((f * (1 + De) + 1 + e) * R + k) * LD);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) acc = chunk_dot(acc, ra[c], rm[c]);
+      if (tile == nt - 1)
+        sc[((f * p.nbl + (W == Sums::Block ? j % p.nbl : j)) * R + k) * De +
+           e] = acc;
+    }
+    __syncthreads();
+    if constexpr (W == Sums::Block) {
+      if (tile == nt - 1 && (j % p.nbl == p.nbl - 1 || j == mine - 1)) {
+        // the run's sums (entries run0 .. run0 + kn - 1), on from the
+        // runs before: every (f, s, e) by the same threads each time
+        walk_sums(
+            sseg, p.w ? sw : nullptr, kn, fv, 0, p.size, dv, t,
+            kRowThreads, run0 > 0,
+            [&](int ff, int q, int ee) {
+              return sc[(ff * p.nbl * R + q) * De + ee];
+            },
+            [&](int ff, int s, int ee) -> T& {
+              return p.out[((b0 + ff) * p.size + s) * p.d + e0 + ee];
+            });
+        if (j != mine - 1) __syncthreads();
+      }
+    }
+  }
+
+  if constexpr (W == Sums::None) {
+    // c of the band, coalesced: consecutive threads, consecutive (k, e)
+    const int k0 = first * R, nr = min(R, n - k0);
+    for (int i = t; i < fv * nr * dv; i += kRowThreads) {
+      const int ee = i % dv, kk = (i / dv) % nr, ff = i / (dv * nr);
+      p.out[((b0 + ff) * n + k0 + kk) * p.d + e0 + ee] =
+          sc[(ff * R + kk) * De + ee];
+    }
+  } else if constexpr (W == Sums::Cluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    // out[s, e]; a member q's c lies with the block of rank (q / R) % C,
+    // at its band (q / R) / C
+    walk_sums(
+        sseg, p.w ? sw : nullptr, n, fv, 0, p.size, dv,
+        rank * kRowThreads + t, p.C * kRowThreads, false,
+        [&](int ff, int q, int ee) {
+          const int band = q / R;
+          return *cluster.map_shared_rank(
+              sc + ((ff * p.nbl + band / p.C) * R + q - band * R) * De + ee,
+              band % p.C);
+        },
+        [&](int ff, int s, int ee) -> T& {
+          return p.out[((b0 + ff) * p.size + s) * p.d + e0 + ee];
+        });
+    // no block leaves while another may still read its c
+    cluster.sync();
+  }
+}
+
+// One launch of segment_sum: a unit is F fragments x a band of Ce
+// columns x a band of Sb segments; a block stages Kc entries a fragment
+// at a time (all n, unless they would not fit its shared memory: then F
+// = 1 and the sums go on run by run).
+template <typename T>
+struct Segments {
+  const T* v;
+  const long long* seg;
+  const T* w;
+  T* out;
+  long long batch;
+  int n, c, size;
+  int F, Ce, bands_c, Sb, bands_s, scan, Kc;
+  static size_t bytes_of(const Segments& p) {
+    const size_t fn = static_cast<size_t>(p.F) * p.Kc;
+    return fn * p.Ce * sizeof(T) + (p.w ? fn * sizeof(T) : 0) +
+           fn * sizeof(int);
+  }
+};
+
+// The unit's values (Kc x Ce a fragment, coalesced by element cp.async),
+// index and weights staged; then the unit's sums: with Scan a thread an
+// output scanning the staged index, else `walk_sums`; with Runs (Kc < n,
+// not with Scan) again for each further run of Kc entries, on from the
+// sums so far. Each way its own instantiation.
+template <typename T, bool Scan, bool Runs>
+__global__ void __launch_bounds__(kSegThreads)
+    segment_sum_kernel(const Segments<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x, n = p.n, Ce = p.Ce, F = p.F, Kc = p.Kc;
+  T* sv = reinterpret_cast<T*>(smem);
+  T* sw = sv + F * Kc * Ce;
+  int* sseg = reinterpret_cast<int*>(sw + (p.w ? F * Kc : 0));
+
+  long long u = blockIdx.x;
+  const int s0 = static_cast<int>(u % p.bands_s) * p.Sb;
+  u /= p.bands_s;
+  const int e0 = static_cast<int>(u % p.bands_c) * Ce;
+  const long long b0 = (u / p.bands_c) * F;
+  const int cv = min(Ce, p.c - e0), sn = min(p.Sb, p.size - s0);
+  const int fv = static_cast<int>(min(static_cast<long long>(F),
+                                      p.batch - b0));
+  auto out = [&](int f, int s, int e) -> T& {
+    return p.out[((b0 + f) * p.size + s) * p.c + e0 + e];
+  };
+
+  const int runs = Runs ? (n + Kc - 1) / Kc : 1;
+  for (int run = 0; run < runs; ++run) {
+    // entries k0 .. k0 + kn - 1 of each fragment (F = 1 with Runs)
+    const int k0 = Runs ? run * Kc : 0, kn = Runs ? min(Kc, n - k0) : n;
+    // consecutive threads, consecutive columns of a row
+    for (int i = t; i < fv * kn * cv; i += kSegThreads) {
+      const int e = i % cv, r = i / cv;
+      cp_async(sv + r * Ce + e, p.v + (b0 * n + k0 + r) * p.c + e0 + e);
+    }
+    cp_async_commit();
+    stage_index(p.seg, p.w, b0 * n + k0, fv * kn, p.size, sseg, sw);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    if (Scan) {
+      // a thread an output scans its fragment's staged index in
+      // ascending k
+      for (int i = t; i < fv * sn * cv; i += kSegThreads) {
+        const int e = i % cv, s = s0 + (i / cv) % sn, f = i / (cv * sn);
+        const int* row = sseg + f * kn;
+        const T* w = p.w ? sw + f * kn : nullptr;
+        T acc = Runs && run > 0 ? out(f, s, e) : T(0);
+        for (int q = 0; q < kn; ++q) {
+          if (row[q] != s) continue;
+          const T x = sv[(f * kn + q) * Ce + e];
+          acc = add_(acc, w ? mul_(w[q], x) : x);
+        }
+        out(f, s, e) = acc;
+      }
+    } else {
+      walk_sums(
+          sseg, p.w ? sw : nullptr, kn, fv, s0, sn, cv, t, kSegThreads,
+          Runs && run > 0,
+          [&](int f, int q, int e) { return sv[(f * kn + q) * Ce + e]; },
+          out);
+    }
+    if (Runs && run + 1 < runs) __syncthreads();
+  }
 }
 
 // lane j of a row: elements j, j + lanes, ... ascending from 0
@@ -276,6 +753,179 @@ int moment_fock(const T* f, const T* v1, const T* m1, int d1, const T* v2,
   });
 }
 
+// whether 16-byte copies reach every row of n elements from p: p 16-byte
+// aligned and the rows whole chunks
+template <typename T>
+bool vec_ok(const T* p, long long n) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (n * static_cast<long long>(sizeof(T))) % 16 == 0;
+}
+
+// The card's SMs and its largest shared memory a block may opt into,
+// queried once per device
+cudaError_t card_of(int device, int* sms, int* smem_max) {
+  static int sms_of[64] = {}, smem_of[64] = {};
+  const int slot = device & 63;
+  int v = __atomic_load_n(&sms_of[slot], __ATOMIC_ACQUIRE);
+  if (v == 0) {
+    int s = 0, m = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&m, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+    if (err != cudaSuccess) return err;
+    __atomic_store_n(&smem_of[slot], m, __ATOMIC_RELEASE);
+    __atomic_store_n(&sms_of[slot], s, __ATOMIC_RELEASE);
+    v = s;
+  }
+  *sms = v;
+  *smem_max = __atomic_load_n(&smem_of[slot], __ATOMIC_ACQUIRE);
+  return cudaSuccess;
+}
+
+// A kernel's dynamic shared memory raised to the card's opt-in limit,
+// once per device (the attribute is the context's), where a launch needs
+// more than the default 48 KB
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
+                       unsigned long long* done) {
+  int sms = 0, smem_max = 0;
+  cudaError_t err = card_of(device, &sms, &smem_max);
+  if (err != cudaSuccess) return err;
+  if (bytes <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
+  if (bytes > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (__atomic_load_n(done, __ATOMIC_ACQUIRE) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_max);
+  if (err == cudaSuccess) __atomic_fetch_or(done, bit, __ATOMIC_RELEASE);
+  return err;
+}
+
+inline long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// moment_rows' schedule at (batch, n, d) (the bits do not depend on it):
+// - tiles of l: L = 16 up to 16 AOs, else 32;
+// - bands: as many rows as a block's chains (kRowThreads / De) and two
+//   staged tiles (kStageBytes) allow; where the batch gives fewer than two
+//   blocks an SM, cut further, down to bands of kMinBand rows, and (with
+//   an index) to at most kMaxCluster bands, a fragment's bands one
+//   cluster; where the batch fills the card, a block takes all of its
+//   fragment's bands in turn (no cluster);
+// - a fragment in one band and a large batch: as many fragments a block
+//   as give two blocks an SM, within the same limits;
+// - stages: as many tiles in flight as kStageBytes holds, 2 to kMaxStages
+//   where a block has more than one tile;
+// - with an index, where a fragment's c and index would not fit the
+//   card's shared memory (smem_max; many thousand AOs): no cluster, and
+//   a block holds as many bands at a time as fit.
+template <typename T, int L>
+void rows_plan(Rows<T>& p, int sms, int smem_max) {
+  using S = RowsSmem<T, L>;
+  const int n = p.n;
+  const long long target = 2ll * sms;
+  p.De = p.d < kRowThreads ? p.d : kRowThreads;
+  p.groups = static_cast<int>(ceil_div(p.d, p.De));
+  const int nt = static_cast<int>(ceil_div(n, L));
+  const long long per_row =
+      static_cast<long long>(nt > 1 ? 2 : 1) * S::LD * sizeof(T) *
+      (1 + p.De);
+  long long rcap = kStageBytes / per_row;
+  if (rcap > kRowThreads / p.De) rcap = kRowThreads / p.De;
+  if (rcap < 1) rcap = 1;
+  long long nb = ceil_div(n, rcap);
+  const bool idle = p.batch * nb < target;
+  if (idle) {
+    long long spread = ceil_div(target, p.batch);
+    const long long thin = ceil_div(n, p.seg ? kMinBand : kMinBandPlain);
+    if (spread > thin) spread = thin;
+    if (p.seg && spread > kMaxCluster) spread = kMaxCluster;
+    if (spread > nb) nb = spread;
+  }
+  p.R = static_cast<int>(ceil_div(n, nb));
+  p.nb = static_cast<int>(ceil_div(n, p.R));
+  p.F = 1;
+  if (p.nb == 1) {
+    long long fit = rcap / n, want = ceil_div(p.batch, target);
+    p.F = static_cast<int>(fit < want ? (fit < 1 ? 1 : fit) : want);
+  }
+  long long stages = kStageBytes / static_cast<long long>(S::tile(p));
+  if (stages > kMaxStages) stages = kMaxStages;
+  if (stages < 2) stages = 2;
+  // the tiles a block stages: its bands' (nbl of them in a cluster)
+  auto set_stages = [&] {
+    const long long items = static_cast<long long>(p.nbl) * nt;
+    p.stages = static_cast<int>(items < stages ? items : stages);
+  };
+  p.C = p.seg && idle ? (p.nb < kMaxCluster ? p.nb : kMaxCluster) : 1;
+  p.nbl = p.seg ? static_cast<int>(ceil_div(p.nb, p.C)) : 1;
+  set_stages();
+  if (!p.seg || S::bytes(p) <= static_cast<size_t>(smem_max)) return;
+  p.C = 1;
+  p.nbl = p.nb;
+  set_stages();
+  // a band's c, weights and index
+  const long long band = static_cast<long long>(p.F) * p.R *
+                         (p.De * sizeof(T) + sizeof(T) + sizeof(int));
+  const long long room =
+      smem_max - p.stages * static_cast<long long>(S::tile(p));
+  const long long fit = room / band;
+  p.nbl = static_cast<int>(fit < 1 ? 1 : fit < p.nb ? fit : p.nb);
+}
+
+// one launch of moment_rows_kernel<T, L, W> (a cluster of p.C blocks
+// with W = Cluster), its shared memory allowed once per device
+template <typename T, int L, Sums W>
+cudaError_t launch_rows_as(const Rows<T>& p, long long blocks, int device,
+                           cudaStream_t stream) {
+  static unsigned long long done = 0;
+  const size_t smem = RowsSmem<T, L>::bytes(p);
+  cudaError_t err =
+      allow_smem(moment_rows_kernel<T, L, W>, smem, device, &done);
+  if (err != cudaSuccess) return err;
+  if constexpr (W != Sums::Cluster) {
+    moment_rows_kernel<T, L, W><<<static_cast<unsigned>(blocks),
+                                  kRowThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+    cfg.blockDim = dim3(kRowThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, moment_rows_kernel<T, L, W>, p);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+  }
+}
+
+template <typename T, int L>
+cudaError_t launch_rows(Rows<T> p, int device, cudaStream_t stream) {
+  int sms = 0, smem_max = 0;
+  cudaError_t err = card_of(device, &sms, &smem_max);
+  if (err != cudaSuccess) return err;
+  rows_plan<T, L>(p, sms, smem_max);
+  p.vec_a = vec_ok(p.a, p.n);
+  p.vec_m = vec_ok(p.m, p.n);
+  const long long blocks = ceil_div(p.batch, p.F) * p.groups *
+                           (p.seg ? p.C : p.nb);
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  if (!p.seg) return launch_rows_as<T, L, Sums::None>(p, blocks, device,
+                                                      stream);
+  if (p.C == 1) return launch_rows_as<T, L, Sums::Block>(p, blocks, device,
+                                                         stream);
+  return launch_rows_as<T, L, Sums::Cluster>(p, blocks, device, stream);
+}
+
 template <typename T>
 int moment_rows(const T* a, const T* m, int d, const long long* seg,
                 const T* w, int size, T* out, int batch, int n, int device,
@@ -283,16 +933,62 @@ int moment_rows(const T* a, const T* m, int d, const long long* seg,
   if (batch <= 0 || n <= 0) return 0;
   if (d < 1 || (seg && size < 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long total =
-      static_cast<long long>(batch) * (seg ? size : n) * d;
-  if (total == 0) return 0;
-  if (too_many(total)) return static_cast<int>(cudaErrorInvalidValue);
+  if (seg && size == 0) return 0;
+  Rows<T> p = {};
+  p.a = a;
+  p.m = m;
+  p.seg = seg;
+  p.w = seg ? w : nullptr;
+  p.out = out;
+  p.batch = batch;
+  p.n = n;
+  p.d = d;
+  p.size = seg ? size : 0;
+  const auto st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    moment_rows_kernel<T><<<blocks_of(total), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        a, m, d, seg, w, size, out, total, n);
-    return cudaGetLastError();
+    return n <= 16 ? launch_rows<T, 16>(p, device, st)
+                   : launch_rows<T, 32>(p, device, st);
   });
+}
+
+// segment_sum's schedule (the bits do not depend on it): column bands of
+// at most 64 whose staged values fit kStageBytes; segment bands where a
+// fragment would give a lane group more than two segments; as many
+// fragments a block as give two blocks an SM where a fragment gives its
+// groups fewer than two segments each; a fragment's entries in runs of
+// as many as fit the card's shared memory (smem_max) where all would not
+// (then one fragment a block, lane groups)
+template <typename T>
+void segments_plan(Segments<T>& p, int sms, int smem_max) {
+  const long long target = 2ll * sms;
+  long long ce = kStageBytes / (static_cast<long long>(p.n > 0 ? p.n : 1) *
+                                sizeof(T));
+  if (ce > 64) ce = 64;
+  if (ce < 1) ce = 1;
+  p.bands_c = static_cast<int>(ceil_div(p.c, ce));
+  p.Ce = static_cast<int>(ceil_div(p.c, p.bands_c));
+  // an entry's staged value band, weight and index
+  const long long entry =
+      p.Ce * sizeof(T) + (p.w ? sizeof(T) : 0) + sizeof(int);
+  const long long held = smem_max / entry;
+  p.Kc = p.n <= held ? (p.n > 1 ? p.n : 1) : static_cast<int>(held);
+  const bool runs = p.Kc < p.n;
+  // segments a block sums at once: Ce threads or a group of
+  // walk_lanes(Ce) lanes each
+  p.scan = !runs && p.Ce <= kScanCols && p.batch >= target;
+  const int at_once = kSegThreads / (p.scan ? p.Ce : walk_lanes(p.Ce));
+  p.Sb = p.size < 2 * at_once ? p.size : 2 * at_once;
+  p.bands_s = static_cast<int>(ceil_div(p.size, p.Sb));
+  p.F = 1;
+  if (!runs && p.bands_c == 1 && p.bands_s == 1) {
+    long long fit = 2 * at_once / p.size;
+    const long long by_smem =
+        kStageBytes / (static_cast<long long>(p.n) * (p.Ce + 1) * sizeof(T) +
+                       p.n * static_cast<long long>(sizeof(int)) + 1);
+    if (fit > by_smem) fit = by_smem;
+    const long long want = ceil_div(p.batch, target);
+    p.F = static_cast<int>(fit < want ? (fit < 1 ? 1 : fit) : want);
+  }
 }
 
 template <typename T>
@@ -300,12 +996,34 @@ int segment_sum(const T* v, const long long* seg, const T* w, int size,
                 T* out, int batch, int n, int c, int device, void* stream) {
   if (batch <= 0 || size <= 0 || c <= 0) return 0;
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(batch) * size * c;
-  if (too_many(total)) return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned long long done[3] = {};
+  Segments<T> p = {};
+  p.v = v;
+  p.seg = seg;
+  p.w = w;
+  p.out = out;
+  p.batch = batch;
+  p.n = n;
+  p.c = c;
+  p.size = size;
   return on_device(device, [&] {
-    segment_sum_kernel<T><<<blocks_of(total), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        v, seg, w, size, out, total, n, c);
+    int sms = 0, smem_max = 0;
+    cudaError_t err = card_of(device, &sms, &smem_max);
+    if (err != cudaSuccess) return err;
+    segments_plan(p, sms, smem_max);
+    const long long blocks =
+        ceil_div(p.batch, p.F) * p.bands_c * p.bands_s;
+    if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+    const size_t smem = Segments<T>::bytes_of(p);
+    // the ways apart, each with its own registers
+    const int way = p.Kc < p.n ? 2 : p.scan ? 1 : 0;
+    auto kernel = way == 2   ? segment_sum_kernel<T, false, true>
+                  : way == 1 ? segment_sum_kernel<T, true, false>
+                             : segment_sum_kernel<T, false, false>;
+    err = allow_smem(kernel, smem, device, &done[way]);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), kSegThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(p);
     return cudaGetLastError();
   });
 }

@@ -24,9 +24,10 @@ On the CPU:
   uncounted, a backward pass's launch reaches the capture of its stream;
   the ctypes declarations against `csrc/fragment_reduce.cu`.
 The `gpu` cases hold the kernel to the plain versions on the card, bit
-for bit, at the main path's shapes, and a fragment's bits alone and in its
-batch (`python3 -m pytest --noconftest tests/test_torch_c17_gfn2.py -m
-gpu`).
+for bit, at the main path's shapes (241 AOs and an unsorted index among
+them) and at fragments too long for a block's shared memory, and a
+fragment's bits alone and in its batch (`python3 -m pytest --noconftest
+tests/test_torch_c17_gfn2.py -m gpu`).
 """
 
 import ctypes
@@ -613,8 +614,19 @@ def cuda():
 
 
 #: (B, n) of the main path: the dimer slice, the w20 MBE(4) chunk, GFN2
-#: hexamers, the dodecamers; and one fragment
-GPU_SHAPES = [(512, 16), (5985, 32), (64, 48), (16, 96), (1, 16)]
+#: hexamers, the dodecamers; one fragment; the 73-atom FD Hessian's
+#: single fragment (241 AOs, odd rows: element-wise staging, a cluster of
+#: bands) and the largest product size
+GPU_SHAPES = [(512, 16), (5985, 32), (64, 48), (16, 96), (1, 16), (1, 241),
+              (16, 128)]
+
+
+def _unsorted(idx, seed=0):
+    """idx with each fragment's entries in a seeded random order: segments
+    that are not runs."""
+    rng = np.random.default_rng(seed)
+    perm = np.argsort(rng.random(tuple(idx.shape)), axis=1)
+    return torch.gather(idx, 1, torch.tensor(perm, device=idx.device))
 
 
 def _card_case(shape, d, dtype, device, seed=0):
@@ -634,13 +646,24 @@ def _card_case(shape, d, dtype, device, seed=0):
 def test_kernel_is_the_plain_versions_bit_for_bit(cuda, shape, d, dtype):
     f, a, m, v, idx, w = _card_case(shape, d, dtype, cuda)
     size = int(idx.max()) + 1
+    mixed = _unsorted(idx, seed=d)
     pairs = [
         (fr.moment_fock(f, v, m, v[..., :1], m[:, :1]),
          fr.moment_fock_reference(f, v, m, v[..., :1], m[:, :1])),
         (fr.moment_rows(a, m), fr.moment_rows_reference(a, m)),
         (fr.moment_rows(a, m, idx, size, w),
          fr.moment_rows_reference(a, m, idx, size, w)),
+        # the shell populations' form: one plane, a 0/1 mask
+        (fr.moment_rows(a, m[:, :1], idx, size, w),
+         fr.moment_rows_reference(a, m[:, :1], idx, size, w)),
+        (fr.moment_rows(a, m, mixed, size),
+         fr.moment_rows_reference(a, m, mixed, size)),
         (fr.segment_sum(v, idx, size), fr.segment_sum_reference(v, idx,
+                                                                 size)),
+        (fr.segment_sum(v, mixed, size, w),
+         fr.segment_sum_reference(v, mixed, size, w)),
+        # take2's backward: a row of n values an entry
+        (fr.segment_sum(a, idx, size), fr.segment_sum_reference(a, idx,
                                                                  size)),
         (fr.fragment_sum(m, (1, 2, 3)),
          fr.fragment_sum_reference(m, (1, 2, 3))),
@@ -656,17 +679,54 @@ def test_kernel_bits_do_not_depend_on_the_batch(cuda, shape):
     f, a, m, v, idx, w = _card_case(shape, 6, torch.float64, cuda, seed=1)
     size = int(idx.max()) + 1
 
-    def ops(f, a, m, v, idx, w):
-        return (fr.moment_fock(f, v, m), fr.moment_rows(a, m, idx, size, w),
-                fr.segment_sum(v, idx, size), fr.fragment_sum(m, (1, 2, 3)))
+    mixed = _unsorted(idx, seed=1)
 
-    whole = ops(f, a, m, v, idx, w)
+    def ops(f, a, m, v, idx, w, mixed):
+        return (fr.moment_fock(f, v, m), fr.moment_rows(a, m, idx, size, w),
+                fr.moment_rows(a, m), fr.moment_rows(a, m[:, :1], mixed,
+                                                     size, w),
+                fr.segment_sum(v, idx, size), fr.segment_sum(a, mixed, size),
+                fr.fragment_sum(m, (1, 2, 3)))
+
+    whole = ops(f, a, m, v, idx, w, mixed)
     bsz = shape[0]
     for rows in ([0], [bsz - 1, 0]):
         sel = torch.tensor(rows, device=cuda)
-        part = ops(*(t.index_select(0, sel) for t in (f, a, m, v, idx, w)))
+        part = ops(*(t.index_select(0, sel)
+                     for t in (f, a, m, v, idx, w, mixed)))
         for p, q in zip(part, whole):
             assert torch.equal(p, q.index_select(0, sel))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fragments_past_shared_memory_are_the_plain_versions(cuda, dtype):
+    """Fragments whose c, index or values one block's shared memory cannot
+    hold, which the kernels sum in runs of entries: moment_rows at 6000
+    AOs with d = 6 (sorted with weights, unsorted without), segment_sum
+    over 40000 entries alone and over 24000 a fragment in a batch that
+    fills the card; bit for bit the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=cuda)
+
+    n = 6000
+    a, m = rand(1, n, n), rand(1, 6, n, n)
+    idx = _segments(1, n, n // 3, 5, cuda)
+    w = (rand(1, n) > -1.0).to(dtype)
+    mixed = _unsorted(idx, seed=5)
+    assert torch.equal(fr.moment_rows(a, m, idx, n // 3, w),
+                       fr.moment_rows_reference(a, m, idx, n // 3, w))
+    assert torch.equal(fr.moment_rows(a, m, mixed, n // 3),
+                       fr.moment_rows_reference(a, m, mixed, n // 3))
+    del a, m
+    for bsz, n in ((1, 40000), (300, 24000)):
+        v = rand(bsz, n)
+        idx = _segments(bsz, n, n // 3, 6, cuda)
+        w = (rand(bsz, n) > -1.0).to(dtype)
+        assert torch.equal(fr.segment_sum(v, idx, n // 3, w),
+                           fr.segment_sum_reference(v, idx, n // 3, w))
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the Anderson window kernel and the fragment product
-kernel at the main path's shapes, on a card.
+"""Device times of the Anderson window kernel, the fragment product
+kernel and the fragment sum kernel at the main path's shapes, on a card.
 
 Each kernel is timed two ways: its launches replayed from one CUDA graph
 (`graph_ms`: the kernel's own time, no host time between launches) and
@@ -11,21 +11,28 @@ The product kernel is timed beside torch.matmul (cuBLAS's batched
 product), graph-replayed too, with its bound (`chip_smoke.gemm_bound`,
 here `gemm_bound`): the product, the sandwich x f x + s against torch's
 `x @ f @ x + s`, and the matvec (B, n, n) by (B, n) against
-torch.matmul's.
+torch.matmul's. The fragment sums (`csrc/fragment_reduce.cu`, section
+"reduce") are timed graph-replayed in every form of
+`chip_smoke.reduce_forms` at `chip_smoke.REDUCE_SHAPES`, on
+`chip_smoke._reduce_case`'s operands, beside the torch expression each
+replaced and `chip_smoke.reduce_bound`.
 
 With an older checkout first on PYTHONPATH (unpacked with `git archive`
 into the gitignored `_archive/`), it times that checkout's kernels; the
 product kernel where the checkout has one.
 
-Usage: python3 tools/kernel_times_torch.py [--reps N] [--json-out F]
-It prints a line per shape and one JSON line.
+Usage: python3 tools/kernel_times_torch.py [--reps N] [--sections
+window,gemm,reduce] [--json-out F]
+It prints a line per shape (per form in "reduce") and one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 
@@ -40,6 +47,10 @@ WINDOW_LIMITS = {torch.float64: (1e-12, 1e3), torch.float32: (1e-4, 2.0)}
 #: (B, n) of the products on the main path (chip_smoke.GEMM_SHAPES)
 GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
                (128, 64))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# after an older checkout on PYTHONPATH, so that its package comes first
+if ROOT not in sys.path:
+    sys.path.append(ROOT)
 #: the card's peak rates (chip_smoke.PEAK_FLOPS, PEAK_BYTES)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -118,14 +129,57 @@ def window_state(rng, bsz: int, nx: int, dtype, it: int = 11):
             torch.tensor(it, dtype=torch.int64, device="cuda"))
 
 
+def chip_smoke():
+    """This tree's chip_smoke.py as a module (an older checkout first on
+    PYTHONPATH holds a chip_smoke.py of its own)."""
+    if "chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules["chip_smoke"] = module
+    return sys.modules["chip_smoke"]
+
+
+def reduce_times(reps: int) -> list:
+    """Every form of chip_smoke.reduce_forms at chip_smoke.REDUCE_SHAPES,
+    float64 and float32: the kernel's and torch's graph-replayed ms and
+    the bound."""
+    cs = chip_smoke()
+    fr = importlib.import_module("metalquicha_tpu_torch.ops.fragment_reduce")
+    out = []
+    rng = np.random.default_rng(17)
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for bsz, n in cs.REDUCE_SHAPES:
+            c = cs._reduce_case(rng, bsz, n, dtype)
+            c["f1"] = c["f"][:, None]
+            for entry, forms in cs.reduce_forms(fr, n).items():
+                for label, kernel, _plain, library, kw in forms:
+                    rec = {"dtype": tag, "shape": [bsz, n], "entry": entry,
+                           "form": label,
+                           "ms": graph_ms(lambda: kernel(c), reps),
+                           "torch_ms": graph_ms(lambda: library(c), reps),
+                           "bound_ms": cs.reduce_bound(entry, bsz, n, dtype,
+                                                       **kw)[0]}
+                    out.append(rec)
+                    print(f"sums {tag} {bsz}x{n} {entry} {label}: "
+                          f"ms={rec['ms']:.4f} torch ms="
+                          f"{rec['torch_ms']:.4f} bound ms="
+                          f"{rec['bound_ms']:.6f}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--sections", default="window,gemm,reduce")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
         return 1
+    sections = set(args.sections.split(","))
     from metalquicha_tpu_torch.ops import anderson_window as aw
 
     aw.build()
@@ -140,9 +194,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     result = {"card": card, "source": aw.__file__, "window": [],
-              "gemm": []}
+              "gemm": [], "reduce": []}
     rng = np.random.default_rng(14)
     for dtype in (torch.float64, torch.float32):
+        if "window" not in sections:
+            break
         tag = "f64" if dtype == torch.float64 else "f32"
         reg, c_lim = WINDOW_LIMITS[dtype]
         kw = dict(beta=0.4, reg=reg, c_lim=c_lim, scf_tol=1e-6)
@@ -157,8 +213,10 @@ def main(argv=None) -> int:
                    "graph_ms": graph_ms(step, args.reps)}
             result["window"].append(rec)
             print(f"window {tag} {bsz}x{nx}: {rec}", flush=True)
-        if fm is None:
-            continue
+    for dtype in (torch.float64, torch.float32):
+        if fm is None or "gemm" not in sections:
+            break
+        tag = "f64" if dtype == torch.float64 else "f32"
         for bsz, n in GEMM_SHAPES:
             a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
                                     dtype=dtype, device="cuda")
@@ -179,6 +237,10 @@ def main(argv=None) -> int:
                 rec[f"{name}_eager_ms"] = eager_ms(fn, args.reps)
             result["gemm"].append(rec)
             print(f"products {tag} {bsz}x{n}: {rec}", flush=True)
+    if "reduce" in sections:
+        importlib.import_module(
+            "metalquicha_tpu_torch.ops.fragment_reduce").build()
+        result["reduce"] = reduce_times(args.reps)
     line = json.dumps(result)
     print(line, flush=True)
     if args.json_out:
