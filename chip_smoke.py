@@ -70,7 +70,12 @@ Phases (each raises on failure; nothing is caught):
              its batch bit for bit equal; the product and the sandwich,
              the plain version and torch.matmul (library_ms) timed
              graph-replayed beside the bound (`gemm_bound`), the matvec
-             beside torch.matmul's;
+             beside torch.matmul's; the Coulomb matvec on its own kernel
+             (`matvec_phase`) at the shell counts (512, 12), (5985, 24),
+             (64, 36) and at (16, 96), (3, 128), plain and transposed,
+             against its plain version and torch.matmul, alone and in
+             its batch and on an offset operand bit for bit, timed
+             beside torch.matmul and `matvec_bound`;
 1e. sums:   the batch-invariant fragment sums (csrc/fragment_reduce.cu,
              built with the others): GFN2's moment contraction into the
              Fock matrix (`moment_fock`, d = 3 and 6 at once), the moment
@@ -88,7 +93,11 @@ Phases (each raises on failure; nothing is caught):
              entry) and float32 (1e-5), the bits the plain version's
              (checked); a fragment alone and in its batch bit for bit
              equal; every form's kernel, plain version and torch timed
-             graph-replayed beside the bound (`reduce_bound`);
+             graph-replayed beside the bound (`reduce_bound`); then
+             `fragment_sum` alone at ROW_SUM_CASES (rows of 3 to 348486
+             elements, a lane group to a cluster of 8 blocks a row) bit
+             for bit its plain version, alone and in the batch, a row of
+             -0.0 summed to +0.0;
 2. sp2:      `sp2_density` (ops/sp2.py: batched matrix products, not a
              hand-written kernel, as in the JAX package) against the T = 0
              density built from torch.linalg.eigh on seeded, gapped
@@ -1362,6 +1371,11 @@ GEMM_RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5),
              (190 * 36, 5, 1, 5))
 # (B, nat) of D3's pair contraction (`pair_bilinear`) on the main path
 PAIR_SHAPES = ((41, 73), (190, 6))
+# (B, n) of the Coulomb matvec's own check: gamma at the shell count of the
+# dimer slice (12 shells), of the w20 MBE(4) chunk (24) and of GFN1 water
+# hexamers (36), and the sizes whose rows its kernel cuts into bands
+# (the dodecamers' 96 AOs, the largest, 128)
+MATVEC_SHAPES = ((512, 12), (5985, 24), (64, 36), (16, 96), (3, 128))
 
 
 def gemm_bound(bsz: int, n: int, dtype, sandwich: bool = False):
@@ -1380,7 +1394,7 @@ def gemm_bound(bsz: int, n: int, dtype, sandwich: bool = False):
 def matvec_bound(bsz: int, n: int, dtype):
     """(bound_ms, bound_by) of a batch of (n, n) matvecs: M and x read
     and y written once at the memory rate, or 2 n^2 operations a fragment
-    at the vector rate (the direct kernel: FMA, no tensor cores)."""
+    at the vector rate (FMA, no tensor cores)."""
     nbytes = bsz * (n * n + 2 * n) * torch.finfo(dtype).bits // 8
     return _bound({"operations": 2 * bsz * n * n / PEAK_VECTOR[dtype],
                    "bytes": nbytes / PEAK_BYTES})
@@ -1461,7 +1475,10 @@ def gemm_phase(fm):
                       f"fragment products ({bsz}, {n}): a fragment's bits "
                       f"depend on its batch")
             # graph-replayed: each call's own device time (the wrapper's
-            # host time, longer than these kernels, left out); in turns
+            # host time, longer than these kernels, left out); in turns;
+            # the matvec's x contiguous, as the engine's charges (b[:, 0]
+            # would time the wrapper's copy too)
+            v = b[:, 0].contiguous()
             times = {}
             for name, fn in (
                     ("library", lambda: torch.matmul(a, b.mT)),
@@ -1472,8 +1489,8 @@ def gemm_phase(fm):
                     ("sw_library", lambda: a @ b @ a + s),
                     ("sw_kernel", lambda: fm.sandwich(a, b, s)),
                     ("sw_kernel2", lambda: fm.sandwich(a, b, s)),
-                    ("mv_library", lambda: torch.matmul(a, b[:, 0, :, None])),
-                    ("mv_kernel", lambda: fm.fragment_matvec(a, b[:, 0]))):
+                    ("mv_library", lambda: torch.matmul(a, v[..., None])),
+                    ("mv_kernel", lambda: fm.fragment_matvec(a, v))):
                 times[name] = graph_ms(fn, 3 if name == "plain" else 20)
             ms = min(times["kernel"], times["kernel2"])
             sw_ms = min(times["sw_kernel"], times["sw_kernel2"])
@@ -1520,6 +1537,12 @@ def gemm_bits_check(fm):
                           + list(GEMM_RECT))
             for e, ta, tb in [("bmm", ta, tb) for ta in (False, True)
                               for tb in (False, True)]}
+    # the matvec, both forms, at its own shapes and on offset operands
+    want |= {bits.key_of(e, d, (b, n, n, n), ta, False)
+             for d in ("f64", "f32") for ta in (False, True)
+             for e, shapes in (("matvec", MATVEC_SHAPES),
+                               ("matvec_offset", ((512, 12), (16, 96))))
+             for b, n in shapes}
     check(want <= set(fixture["cases"]), f"the fingerprint fixture lacks "
           f"{sorted(want - set(fixture['cases']))}")
     t0 = time.perf_counter()
@@ -1575,6 +1598,76 @@ def layout_check(fm):
                   f"changed the bits")
     print("fragment products: offset and odd-n operands bit for bit the "
           "same products on aligned ones", flush=True)
+
+
+def matvec_phase(fm):
+    """The Coulomb matvec on its kernel at MATVEC_SHAPES, both forms (the
+    transposed one is the Coulomb term's backward), float64 and float32:
+    against its plain version (`matvec_reference`, the kernel's order) and
+    torch.matmul within GEMM_TOL; a fragment's bits alone and in its batch
+    equal; an operand with a storage offset bit for bit the aligned one;
+    the kernel, the plain version and torch.matmul (library_ms) timed
+    graph-replayed beside `matvec_bound`. Returns the kernels line's
+    entry, the (512, 12) float64 plain form."""
+    rng = np.random.default_rng(19)
+    entry = None
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for bsz, n in MATVEC_SHAPES:
+            m = torch.tensor(rng.standard_normal((bsz, n, n)), dtype=dtype,
+                             device=DEVICE)
+            x = torch.tensor(rng.standard_normal((bsz, n)), dtype=dtype,
+                             device=DEVICE)
+            flat = torch.tensor(rng.standard_normal(bsz * n * n + 1),
+                                dtype=dtype, device=DEVICE)
+            line = []
+            for trans in (False, True):
+                form = "transposed" if trans else "plain"
+                n0 = fm.launches
+                got = fm.fragment_matvec(m, x, trans)
+                torch.cuda.synchronize()
+                check(fm.launches == n0 + 1, "the matvec did not count its "
+                      "launch")
+                ref = ((m.mT if trans else m) @ x[..., None])[..., 0]
+                err = max(_rel_err(got, ref), _rel_err(
+                    got, fm.matvec_reference(m, x, trans)))
+                what = f"matvec {form} {tag} ({bsz}, {n})"
+                check(err <= GEMM_TOL[dtype], f"{what}: max err {err:.3e} > "
+                      f"{GEMM_TOL[dtype]:.0e}")
+                for rows in ([0], [bsz - 1, 0], [bsz // 2]):
+                    idx = torch.tensor(rows, device=DEVICE)
+                    part = fm.fragment_matvec(m.index_select(0, idx),
+                                              x.index_select(0, idx), trans)
+                    check(torch.equal(part, got.index_select(0, idx)),
+                          f"{what}: a fragment's bits depend on its batch")
+                off = flat[1:].view(bsz, n, n)
+                check(torch.equal(fm.fragment_matvec(off, x, trans),
+                                  fm.fragment_matvec(off.clone(), x, trans)),
+                      f"{what}: an operand with a storage offset changed "
+                      f"the bits")
+                ms = min(graph_ms(lambda: fm.fragment_matvec(m, x, trans),
+                                  20),
+                         graph_ms(lambda: fm.fragment_matvec(m, x, trans),
+                                  20))
+                plain_ms = graph_ms(
+                    lambda: fm.matvec_reference(m, x, trans), 3)
+                mt = m.mT if trans else m
+                library_ms = graph_ms(lambda: torch.matmul(mt, x[..., None]),
+                                      20)
+                bound_ms, bound_by = matvec_bound(bsz, n, dtype)
+                line.append(f"{form}: ms={ms:.4f} plain version ms="
+                            f"{plain_ms:.4f} torch.matmul ms="
+                            f"{library_ms:.4f} ({100 * bound_ms / ms:.2f}% "
+                            f"of the bound)")
+                if entry is None:
+                    entry = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": library_ms}
+            print(f"matvec {tag} (B, n)=({bsz}, {n}): bit for bit alone and "
+                  f"in its batch, offset operands the same bits; bound ms="
+                  f"{bound_ms:.6f} ({bound_by}); " + "; ".join(line),
+                  flush=True)
+    return entry
 
 
 def rect_phase(fm, rng, dtype):
@@ -1670,7 +1763,7 @@ REDUCE_REPLACES = {
 
 def reduce_bound(entry: str, bsz: int, n: int, dtype, d: int = 6,
                  size: int = 0, length: int = 0, index: bool = True,
-                 weights: bool = False):
+                 weights: bool = False, rows: int = 1):
     """(bound_ms, bound_by) of one launch of a fragment sum entry: every
     input read once and every output written once at the memory rate, or
     its multiplies and adds at the vector rate (no tensor cores), the
@@ -1678,8 +1771,9 @@ def reduce_bound(entry: str, bsz: int, n: int, dtype, d: int = 6,
     operations; moment_rows: a, m (d n^2), the int64 index and the weights
     where the form has them in, (size, d) out, 2 d n^2 operations;
     segment_sum: (n, d) values, the index and the weights where the form
-    has them in, (size, d) out; fragment_sum: `length` elements a row in,
-    one out."""
+    has them in, (size, d) out; fragment_sum: `rows` rows a fragment (the
+    tensor's elements over `length`), each `length` elements in and one
+    out."""
     item = torch.finfo(dtype).bits // 8
     read = (n if weights else 0), (8 * n if index else 0)
     if entry == "moment_fock":
@@ -1691,7 +1785,7 @@ def reduce_bound(entry: str, bsz: int, n: int, dtype, d: int = 6,
     elif entry == "segment_sum":
         elems, ops, extra = n * d + read[0] + size * d, n * d, read[1]
     else:
-        elems, ops, extra = length + 1, length, 0
+        elems, ops, extra = rows * (length + 1), rows * length, 0
     return _bound({"operations": bsz * ops / PEAK_VECTOR[dtype],
                    "bytes": bsz * (elems * item + extra) / PEAK_BYTES})
 
@@ -1772,9 +1866,11 @@ def reduce_forms(fr, n: int) -> dict:
             f"{x} dims {dims}",
             lambda c, x=x, dims=dims: fr.fragment_sum(c[x], dims),
             lambda c, x=x, dims=dims: fr.fragment_sum_reference(c[x], dims),
-            lambda c, x=x, dims=dims: c[x].sum(dims), {"length": length})
-            for x, dims, length in (("P", -1, n), ("P", (1, 2), n * n),
-                                    ("Q", (1, 2, 3), 6 * n * n))],
+            lambda c, x=x, dims=dims: c[x].sum(dims),
+            {"length": length, "rows": rows})
+            for x, dims, length, rows in (("P", -1, n, n),
+                                          ("P", (1, 2), n * n, 1),
+                                          ("Q", (1, 2, 3), 6 * n * n, 1))],
     }
 
 
@@ -1810,6 +1906,44 @@ def reduce_long_fragments(fr) -> None:
     print("fragment sums past a block's shared memory: moment_rows (1, "
           "6000) d=6 and segment_sum (1, 40000) bit for bit the plain "
           "versions: True", flush=True)
+
+
+#: (rows, length) of fragment_sum's own check: rows of up to 4, 8 and 16
+#: elements (2 to 8 rows a warp), 32 and one past the warp's longest row
+#: (4096, 4097) with rows that fill the card (four rows a lane group),
+#: GFN2's (6, n, n) at 96 AOs (55296) and at 241 AOs (348486) with rows
+#: that take a cluster of 8, 4, 2 blocks a row or a block
+ROW_SUM_CASES = ((5000, 3), (3000, 8), (40000, 11), (40000, 16),
+                 (70000, 32), (300, 4096), (37, 4097), (16, 55296),
+                 (100, 55296), (300, 55296), (1, 348486), (37, 348486))
+
+
+def reduce_row_sums_check(fr) -> None:
+    """fragment_sum at ROW_SUM_CASES, float64 and float32 (seeded on the
+    card): bit for bit `fragment_sum_reference`, a row's bits the same
+    alone and in its batch (checked), and a row of -0.0 (exact sum -0.0)
+    whose lanes' +0 make it +0.0 in the kernel's order."""
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    for dtype in (torch.float64, torch.float32):
+        for rows, length in ROW_SUM_CASES:
+            x = torch.randn((rows, length), generator=gen, dtype=dtype,
+                            device=DEVICE)
+            x[rows // 2] = -0.0
+            got = fr.fragment_sum(x)
+            what = f"fragment_sum ({rows}, {length}) {dtype}"
+            check(torch.equal(got, fr.fragment_sum_reference(x)),
+                  f"{what}: not bit for bit the plain version")
+            check(got[rows // 2].item() == 0.0
+                  and not torch.signbit(got[rows // 2]).item(),
+                  f"{what}: a row of -0.0 did not sum to +0.0")
+            for sel in ([0], [rows - 1, 0], [rows // 2, min(1, rows - 1)]):
+                sel = torch.tensor(sel, device=DEVICE)
+                check(torch.equal(fr.fragment_sum(x.index_select(0, sel)),
+                                  got.index_select(0, sel)),
+                      f"{what}: a row's bits depend on its batch")
+    print(f"fragment_sum at (rows, length) = {ROW_SUM_CASES}, f64 and f32: "
+          f"bit for bit the plain version, alone and in the batch, a row of "
+          f"-0.0 summed to +0.0: True", flush=True)
 
 
 def reduce_phase(fr):
@@ -1875,6 +2009,7 @@ def reduce_phase(fr):
                             "bound_by": bound_by, "library_ms": library_ms,
                             "bitwise_plain": True}
     reduce_long_fragments(fr)
+    reduce_row_sums_check(fr)
     return entries
 
 
@@ -3506,6 +3641,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     gemm_entry = gemm_phase(fm)
+    matvec_entry = matvec_phase(fm)
     print(f"phase fragment products: {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -3615,6 +3751,11 @@ def main() -> int:
                for k, n in sorted(fm.launches_by_kind.items())}
     print(f"main path: fragment product launches={fm.launches} {gemms}; by "
           f"kind {by_kind}", flush=True)
+    matvecs = sum(n for k, n in fm.launches_by_kind.items()
+                  if k[0] == "matvec")
+    check(matvecs > 0, "the main path launched no matvec kernel")
+    check(fm.launches > matvecs,
+          "the main path launched no fragment product kernel")
     sums_by_kind = dict(sorted(fr.launches_by_kind.items()))
     print(f"main path: fragment sum launches={fr.launches} {sums}; by "
           f"entry {sums_by_kind}", flush=True)
@@ -3685,11 +3826,21 @@ def main() -> int:
         "route": "cuda",
         "source": "metalquicha_tpu_torch/csrc/fragment_gemm.cu",
         "replaces": "metalquicha_tpu/methods/xtb/engine.py:443",
-        "launches": fm.launches,
-        # the main path's launches by kind: the direct kernel, or the size
-        # class (16, 32, 64 staged whole; 128 with k in tiles)
+        # the products and the sandwich; the matvec, on a kernel of its
+        # own in the same source, is the next entry
+        "launches": fm.launches - matvecs,
+        # the main path's launches by kind (the matvec's among them): the
+        # direct kernel, or the size class (16, 32, 64 staged whole; 128
+        # with k in tiles)
         "launches_by_kind": by_kind,
         **gemm_entry,
+    }, {
+        "name": "fragment_matvec",
+        "route": "cuda",
+        "source": "metalquicha_tpu_torch/csrc/fragment_gemm.cu",
+        "replaces": "metalquicha_tpu/methods/xtb/engine.py:463",
+        "launches": matvecs,
+        **matvec_entry,
     }] + [{
         "name": entry,
         "route": "cuda",

@@ -32,9 +32,11 @@
 //   which would keep 10 bits of the mantissa);
 // - S is added to the rounded product, as torch's `a @ b + s` rounds; the
 //   sandwich's X F is rounded to T in shared memory first.
-// Where every size is 8 or less (D3's (1, R) by (R, R) per atom pair),
-// and for the matvec, a thread per output element by FMA in ascending k
-// from global memory (the direct kernel).
+// - the matvec: each output by FMA in ascending k from 0 (`__fma_rn`,
+//   `__fmaf_rn`), in both forms.
+// Where every size is 8 or less (D3's (1, R) by (R, R) per atom pair), a
+// thread per output element by FMA in ascending k from global memory (the
+// direct kernel).
 //
 // What bounds it. At the main path's shapes ((512, 16) to (5985, 32) and
 // (128, 64)) a product is 2 n^3 operations over 3 n^2 elements moved:
@@ -85,6 +87,48 @@
 //    k block's fragments ahead in registers gained nothing).
 // 5. Stores of 16 bytes (double2, float4) where n and the output's base
 //    allow them, scalar otherwise.
+//
+// The matvec (the Coulomb potential v = gamma q at the shell count, once
+// or twice an SCC iteration; its transposed form in every gradient). Its
+// first version ran on the direct kernel: a thread an output row reading
+// its row of M from global memory (32 rows k elements apart a warp's
+// load, uncoalesced), B x rows threads (384 at (3, 128), on 2 of 132 SMs),
+// each a chain of k FMAs behind its loads: 5.0x torch.matmul's time at
+// (3, 128). What bounds it: the bytes of M (B n^2 elements, 2 operations
+// each) where the batch fills the card; where it does not, the chain
+// itself, k dependent FMAs each waiting on the last (the floor at (3,
+// 128) and (16, 96) that no schedule with these bits cuts), after one
+// round trip for the operands. It has a kernel of its own
+// (`matvec_kernel`, 128 threads a block, a thread a chain):
+// - units (`mv_plan`): whole fragments, as many a unit as leave two units
+//   an SM (several a block at n <= 32); where the batch leaves SMs idle
+//   (fewer fragments than two an SM: (3, 128), (16, 96), (128, 64), (64,
+//   36)), a fragment's rows in bands of at least kMvMinBand, so a small
+//   batch spreads over the card;
+// - staged units: the unit's rows of op(M) (plain: rows of M, contiguous
+//   across whole fragments; transposed: a band of columns of each stored
+//   row) and its fragments' x are copied into shared memory by 16-byte
+//   cp.async.cg where the base and the stored row length allow it (an
+//   element a copy otherwise: odd n, offset views), a power-of-two count
+//   of lanes a row; blocks walk the units with the grid's stride (the
+//   grid what the card holds at once), the next unit's copies issued
+//   into the other of two stages before this unit's chains run. Plain
+//   rows are padded to an odd number of 16-byte chunks, so a thread's
+//   16-byte reads of its row and its neighbours' fall on distinct banks;
+//   the transposed band is read by column, consecutive threads on
+//   consecutive columns;
+// - in place: whole fragments in the transposed form, and in the plain
+//   form where a row is short (kMvInPlaceRow32 / 64 bytes), read M and x
+//   where they lie, a thread an output of the batch: consecutive threads
+//   read consecutive columns of M's row q in the transposed form
+//   (coalesced; staging them was measured slower where the batch fills
+//   the card), a plain row of up to 96 (f32) or 64 (f64) bytes is a few
+//   sectors a thread, read 16 bytes at a time where aligned;
+// - the chain reads its operands into registers kMvBatch columns at a
+//   time, the next batch before this batch's FMAs, so the reads run
+//   ahead of the dependent FMAs.
+// A fragment's outputs are the same chains whatever the unit, so its bits
+// do not depend on the batch.
 // The kernel launches on the caller's stream, allocates nothing, never
 // synchronizes, and the C entry points return cudaGetLastError() after
 // the launch.
@@ -109,6 +153,22 @@ constexpr int kStaticSmem = 48 * 1024;
 constexpr long long kMaxUnits = (1ll << 31) / 8;
 // the bits of a launch's flags
 constexpr int kTransA = 1, kTransB = 2, kVecA = 4, kVecB = 8, kVecC = 16;
+// the matvec: a block's most chains (threads), fewest threads, the
+// columns of op(M) a group of copies stages, the fewest rows of a band
+// where a small batch is cut into bands, and the most shared memory a
+// block stages (no opt-in)
+constexpr int kMvThreads = 128;
+constexpr int kMvTileK = 32;
+constexpr int kMvMinBand = 8;
+// columns of op(M) a thread reads into registers at a time
+constexpr int kMvBatch = 8;
+constexpr int kMvStage = 24 * 1024;
+// whole fragments in the plain form are read in place where a row of M
+// is at most this many bytes (f32, f64), staged above (measured on the
+// card: in place won at 96 bytes a row in f32, staging at 128 bytes in
+// both)
+constexpr int kMvInPlaceRow32 = 96;
+constexpr int kMvInPlaceRow64 = 64;
 
 // The work of one unit, by element type and size class N (the bits do
 // not depend on these; the values are the fastest of those measured on
@@ -775,9 +835,9 @@ __global__ void __launch_bounds__(kTiledThreads)
 }
 
 // C = op(A) op(B) with a thread per output element, FMA in ascending k
-// from global memory: the matvec (n = 1) and the products whose sizes are
-// all kTiny or less (D3's (1, R) by (R, R) per atom pair: a block per
-// fragment would leave most of its threads idle there)
+// from global memory: the products whose sizes are all kTiny or less
+// (D3's (1, R) by (R, R) per atom pair: a block per fragment would leave
+// most of its threads idle there)
 template <typename T>
 __global__ void direct_kernel(const T* __restrict__ a,
                               const T* __restrict__ b, T* __restrict__ c,
@@ -799,6 +859,232 @@ __global__ void direct_kernel(const T* __restrict__ a,
     acc = fma_(av, bv, acc);
   }
   c[idx] = acc;
+}
+
+// Issue the copies of a stored (nr, nc) block at g (row stride gs) into s
+// (rows of ld elements, 16-byte aligned): 16 bytes a copy where vec (g
+// 16-byte aligned, gs a whole number of chunks), the ragged end of a row
+// an element a copy; else an element a copy. A power-of-two count of
+// lanes a row (no index division). Nothing else is written.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* s, int ld, const T* g,
+                                           long long gs, int nr, int nc,
+                                           bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  const int per = vec ? (nc + E - 1) / E : nc;  // copies a row
+  const int shift = per <= 1 ? 0 : row_shift(per);
+  const int lanes = 1 << shift;
+  const int lane = threadIdx.x & (lanes - 1);
+  for (int r = threadIdx.x >> shift; r < nr; r += blockDim.x >> shift) {
+    const T* src = g + r * gs;
+    T* dst = s + r * ld;
+    for (int u = lane; u < per; u += lanes) {
+      if (!vec) {
+        cp_async(dst + u, src + u);
+      } else if ((u + 1) * E <= nc) {
+        cp_async16(dst + u * E, src + u * E);
+      } else {
+        for (int c = u * E; c < nc; ++c) cp_async(dst + c, src + c);
+      }
+    }
+  }
+}
+
+// 16 bytes of a staged row: op(M)[i, q .. q + E) or x[q .. q + E)
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<double> {
+  double v[2];
+  __device__ __forceinline__ explicit Vec16(const double* p) {
+    const double2 t = *reinterpret_cast<const double2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  }
+};
+template <>
+struct Vec16<float> {
+  float v[4];
+  __device__ __forceinline__ explicit Vec16(const float* p) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  }
+};
+
+// The matvec y = op(M) x (design in the header, "The matvec"). A unit is
+// F whole fragments (R = rows), or one fragment's band of R rows of
+// op(M); blocks walk the units with the grid's stride, each unit's rows of
+// op(M) (plain: rows of M; transposed: columns of M, read from M's stored
+// rows) and its fragments' x staged into one of two stages while the
+// block computes the unit before it; a thread a chain runs acc =
+// fma(op(M)[i, q], x[q], acc) for q ascending from acc = 0.
+struct MvPlan {
+  int batch, rows, cols;
+  int trans;
+  int in_place;      // whole fragments read in place (`mv_plan`)
+  int vec_m, vec_x;  // 16-byte copies reach every staged row of M, of x
+  int F;             // fragments a unit (R == rows where F > 1)
+  int R;             // rows of op(M) a unit computes for each fragment
+  int bands;         // units a group of fragments: ceil(rows / R)
+  int units;         // ceil(batch / F) x bands; in place, kMvThreads
+                     // outputs a unit
+  int ld;            // staged row of M: plain op(M)'s rows, else M's rows
+  int ldx;           // elements a fragment's staged x
+  int stage;         // elements a stage: F (ldx + R ld), or ldx + cols ld
+};
+
+// The operands of columns j .. j + kMvBatch of a chain into registers:
+// op(M)[i, q] at a[q * step] (plain: step 1, read 16 bytes at a time),
+// x[q] at x[q]; columns past n are left alone
+template <typename T, bool Trans>
+__device__ __forceinline__ void mv_load(const T* a, int step, const T* x,
+                                        int j, int n, T (&m)[kMvBatch],
+                                        T (&v)[kMvBatch]) {
+  constexpr int E = Trans ? 1 : 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < kMvBatch; u += E) {
+    if (j + u < n) {
+      if (Trans) {
+        m[u] = a[(j + u) * step];
+        v[u] = x[j + u];
+      } else {
+        const Vec16<T> mm(a + j + u), vv(x + j + u);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          m[u + e] = mm.v[e];
+          v[u + e] = vv.v[e];
+        }
+      }
+    }
+  }
+}
+
+// acc = fma(op(M)[i, q], x[q], acc) for q = 0 .. n - 1 (n <= KT) in
+// ascending order, the next batch's operands read before this batch's
+// FMAs
+template <typename T, int KT, bool Trans>
+__device__ __forceinline__ void mv_chain(const T* a, int step, const T* x,
+                                         int n, T& acc) {
+  T m0[kMvBatch], v0[kMvBatch], m1[kMvBatch], v1[kMvBatch];
+  mv_load<T, Trans>(a, step, x, 0, n, m0, v0);
+#pragma unroll
+  for (int j = 0; j < KT; j += 2 * kMvBatch) {
+    if (j + kMvBatch < KT && j + kMvBatch < n)
+      mv_load<T, Trans>(a, step, x, j + kMvBatch, n, m1, v1);
+#pragma unroll
+    for (int u = 0; u < kMvBatch; ++u)
+      if (j + u < n) acc = fma_(m0[u], v0[u], acc);
+    if (j + 2 * kMvBatch < KT && j + 2 * kMvBatch < n)
+      mv_load<T, Trans>(a, step, x, j + 2 * kMvBatch, n, m0, v0);
+#pragma unroll
+    for (int u = 0; u < kMvBatch; ++u)
+      if (j + kMvBatch + u < n) acc = fma_(m1[u], v1[u], acc);
+  }
+}
+
+// Issue the copies of unit u (its fragments' x, then its op(M) rows) into
+// stage s: one group of copies
+template <typename T>
+__device__ __forceinline__ void mv_issue(const T* __restrict__ mat,
+                                         const T* __restrict__ x,
+                                         const MvPlan& p, int u, T* s) {
+  const int group = u / p.bands;
+  const long long f0 = static_cast<long long>(group) * p.F;
+  const int nf = static_cast<int>(p.batch - f0 < p.F ? p.batch - f0 : p.F);
+  const int r0 = (u - group * p.bands) * p.R;
+  const int nr = p.rows - r0 < p.R ? p.rows - r0 : p.R;
+  T* ms = s + p.F * p.ldx;
+  stage_rows(s, p.ldx, x + f0 * p.cols, p.cols, nf, p.cols, p.vec_x != 0);
+  if (!p.trans) {
+    // nf x nr consecutive stored rows (F > 1 only with whole fragments)
+    stage_rows(ms, p.ld, mat + (f0 * p.rows + r0) * p.cols, p.cols,
+               nf * nr, p.cols, p.vec_m != 0);
+  } else {
+    // a band of one fragment (F = 1): R columns of each stored row
+    stage_rows(ms, p.ld, mat + f0 * p.cols * p.rows + r0, p.rows, p.cols, nr,
+               p.vec_m != 0);
+  }
+}
+
+// KT: the columns of op(M) a step of the chain takes (16, or kMvTileK
+// where cols > 16)
+template <typename T, int KT>
+__global__ void __launch_bounds__(kMvThreads)
+    matvec_kernel(const T* __restrict__ mat, const T* __restrict__ x,
+                  T* __restrict__ y, MvPlan p) {
+  extern __shared__ __align__(16) unsigned char mv_smem[];
+  const int tid = threadIdx.x;
+  if (p.in_place) {
+    // whole fragments, M and x read where they lie, a thread an output of
+    // the batch (units of kMvThreads outputs): in the transposed form
+    // consecutive threads read consecutive columns of M's row q
+    const long long outs = static_cast<long long>(p.batch) * p.rows;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      const long long g = static_cast<long long>(u) * kMvThreads + tid;
+      if (g >= outs) continue;
+      const long long f = g / p.rows;
+      const int r = static_cast<int>(g - f * p.rows);
+      const T* a = p.trans ? mat + f * p.cols * p.rows + r
+                           : mat + (f * p.rows + r) * p.cols;
+      const T* xf = x + f * p.cols;
+      T acc = T(0);
+      if (p.trans) {
+        // a plain loop (measured faster here than the batched reads)
+        for (int q = 0; q < p.cols; ++q)
+          acc = fma_(a[static_cast<long long>(q) * p.rows], xf[q], acc);
+      } else {
+        for (int q0 = 0; q0 < p.cols; q0 += KT) {
+          const int nq = p.cols - q0 < KT ? p.cols - q0 : KT;
+          if (p.vec_m && p.vec_x)
+            mv_chain<T, KT, false>(a + q0, 1, xf + q0, nq, acc);
+          else
+            mv_chain<T, KT, true>(a + q0, 1, xf + q0, nq, acc);
+        }
+      }
+      y[g] = acc;
+    }
+    return;
+  }
+  T* stage[2] = {reinterpret_cast<T*>(mv_smem),
+                 reinterpret_cast<T*>(mv_smem) + p.stage};
+  int u = blockIdx.x;
+  mv_issue(mat, x, p, u, stage[0]);
+  cp_async_commit();
+  for (int k = 0; u < p.units; ++k, u += gridDim.x) {
+    // the next unit's copies into the other stage, then this unit's wait
+    if (u + static_cast<int>(gridDim.x) < p.units)
+      mv_issue(mat, x, p, u + gridDim.x, stage[(k + 1) & 1]);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // every thread's copies of unit u have landed
+    const int group = u / p.bands;
+    const long long f0 = static_cast<long long>(group) * p.F;
+    const int nf = static_cast<int>(
+        p.batch - f0 < p.F ? p.batch - f0 : p.F);
+    const int r0 = (u - group * p.bands) * p.R;
+    const int nr = p.rows - r0 < p.R ? p.rows - r0 : p.R;
+    if (tid < nf * nr) {
+      const int fl = tid / nr, r = tid - fl * nr;
+      const T* xv = stage[k & 1] + fl * p.ldx;
+      const T* ms = stage[k & 1] + p.F * p.ldx;
+      T acc = T(0);
+      for (int q0 = 0; q0 < p.cols; q0 += KT) {
+        const int nq = p.cols - q0 < KT ? p.cols - q0 : KT;
+        if (!p.trans) {
+          mv_chain<T, KT, false>(ms + (fl * nr + r) * p.ld + q0, 1, xv + q0,
+                                 nq, acc);
+        } else {
+          mv_chain<T, KT, true>(ms + q0 * p.ld + r, p.ld, xv + q0, nq,
+                                acc);
+        }
+      }
+      y[(f0 + fl) * p.rows + r0 + r] = acc;
+    }
+    __syncthreads();  // the stage is read before a later unit refills it
+  }
 }
 
 // Runs launch() on `device` and leaves the calling thread's current device
@@ -959,13 +1245,134 @@ int direct(const T* a, const T* b, T* c, int batch, int m, int n, int k,
   });
 }
 
+inline int ceil_div(long long a, long long b) {
+  return static_cast<int>((a + b - 1) / b);
+}
+
+// a staged row of n elements: whole 16-byte chunks, an odd number of them
+// (so 16-byte reads of consecutive rows by consecutive threads fall on
+// distinct banks)
+inline int odd_chunks(int n, int e) {
+  const int ld = ceil_div(n, e) * e;
+  return (ld / e) % 2 == 0 ? ld + e : ld;
+}
+
+// The staged layout of a plan whose F and R are set; a stage's elements
+template <typename T>
+int mv_layout(MvPlan& p) {
+  constexpr int E = 16 / sizeof(T);
+  p.bands = ceil_div(p.rows, p.R);
+  p.units = ceil_div(p.batch, p.F) * p.bands;
+  p.ldx = odd_chunks(p.cols, E);
+  if (p.in_place) {
+    p.units = ceil_div(static_cast<long long>(p.batch) * p.rows, kMvThreads);
+    p.ld = p.stage = 0;
+  } else if (!p.trans) {
+    p.ld = odd_chunks(p.cols, E);
+    p.stage = p.F * (p.ldx + p.R * p.ld);
+  } else {
+    // M's stored rows, a band of R columns each (F = 1: staged in the
+    // transposed form only where the rows are cut into bands)
+    p.ld = ceil_div(p.R, E) * E;
+    p.stage = p.ldx + p.cols * p.ld;
+  }
+  p.stage = ceil_div(p.stage, E) * E;  // the second stage 16-byte aligned
+  return p.stage;
+}
+
+// The matvec's plan at (batch, rows, cols) on a card of `sms` SMs (the
+// bits do not depend on it): whole fragments, as many a unit as leave two
+// units an SM, up to kMvThreads chains; where the batch leaves SMs idle
+// (fewer fragments than two an SM), a fragment's rows in bands of at least
+// kMvMinBand (a multiple of 8); fewer chains where a stage would pass
+// kMvStage bytes.
+template <typename T>
+void mv_plan(MvPlan& p, int sms) {
+  int f = kMvThreads / p.rows;
+  if (f > p.batch / (2 * sms)) f = p.batch / (2 * sms);
+  p.F = f > 1 ? f : 1;
+  p.R = p.rows;
+  if (p.F == 1) {
+    int bands = ceil_div(2ll * sms, p.batch);
+    const int most = ceil_div(p.rows, kMvMinBand);
+    if (bands > most) bands = most;
+    if (bands < 1) bands = 1;
+    p.R = ceil_div(ceil_div(p.rows, bands), 8) * 8;
+    if (p.R > kMvThreads) p.R = kMvThreads;
+    if (p.R > p.rows) p.R = p.rows;
+  }
+  // whole fragments read in place: units of kMvThreads outputs
+  p.in_place = p.R == p.rows &&
+               (p.trans || p.cols * static_cast<int>(sizeof(T)) <=
+                               (sizeof(T) == 8 ? kMvInPlaceRow64
+                                               : kMvInPlaceRow32));
+  while (mv_layout<T>(p) * static_cast<int>(sizeof(T)) > kMvStage &&
+         (p.F > 1 || p.R > 8)) {
+    if (p.F > 1) {
+      --p.F;
+    } else {
+      p.R = (p.R - 1) / 8 * 8;  // the next multiple of 8 down
+    }
+  }
+}
+
+// The card's SM count and shared memory an SM, queried once per device
+cudaError_t mv_card(int device, int* sms, int* smem_sm) {
+  static int sms_of[64] = {}, smem_of[64] = {};
+  const int slot = device & 63;
+  int v = __atomic_load_n(&sms_of[slot], __ATOMIC_ACQUIRE);
+  if (v == 0) {
+    int s = 0, m = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(
+        &m, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    if (err != cudaSuccess) return err;
+    __atomic_store_n(&smem_of[slot], m, __ATOMIC_RELEASE);
+    __atomic_store_n(&sms_of[slot], s, __ATOMIC_RELEASE);
+    v = s;
+  }
+  *sms = v;
+  *smem_sm = __atomic_load_n(&smem_of[slot], __ATOMIC_ACQUIRE);
+  return cudaSuccess;
+}
+
 template <typename T>
 int matvec(const T* mat, const T* x, T* y, int batch, int rows, int cols,
            int trans, int device, void* stream) {
   if (batch <= 0 || rows <= 0) return 0;
-  if (cols < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return direct<T>(mat, x, y, batch, rows, 1, cols, trans, 0, device,
-                   stream);
+  if (cols < 0 || rows > kMaxN || cols > kMaxN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(device, [&] {
+    int sms = 0, smem_sm = 0;
+    cudaError_t err = mv_card(device, &sms, &smem_sm);
+    if (err != cudaSuccess) return err;
+    MvPlan p = {};
+    p.batch = batch;
+    p.rows = rows;
+    p.cols = cols;
+    p.trans = trans != 0;
+    mv_plan<T>(p, sms);
+    p.vec_m = vec_ok(mat, trans ? rows : cols);
+    p.vec_x = vec_ok(x, cols);
+    const size_t smem = 2 * static_cast<size_t>(p.stage) * sizeof(T);
+    // blocks an SM holds at this block size and shared memory (1 KB of
+    // it the system's a block)
+    int per_sm = 2048 / kMvThreads;
+    const int by_smem = static_cast<int>(smem_sm / (smem + 1024));
+    if (per_sm > by_smem) per_sm = by_smem;
+    if (per_sm < 1) per_sm = 1;
+    const int grid = p.units < per_sm * sms ? p.units : per_sm * sms;
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (cols <= 16) {
+      matvec_kernel<T, 16><<<grid, kMvThreads, smem, st>>>(mat, x, y, p);
+    } else {
+      matvec_kernel<T, kMvTileK><<<grid, kMvThreads, smem, st>>>(mat, x, y,
+                                                                 p);
+    }
+    return cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -1048,7 +1455,7 @@ int mqc_fragment_sandwich_f64(const double* x, const double* f,
 }
 
 // mat: (batch, rows, cols), or (batch, cols, rows) with trans; x: (batch,
-// cols); y: (batch, rows)
+// cols); y: (batch, rows). rows, cols <= 128.
 int mqc_fragment_matvec_f32(const float* mat, const float* x, float* y,
                             int batch, int rows, int cols, int trans,
                             int device, void* stream) {

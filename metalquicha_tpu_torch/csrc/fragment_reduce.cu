@@ -33,9 +33,41 @@
 // FMA contraction), so the plain versions in elementwise torch ops
 // (`ops/fragment_reduce.py`, *_reference) reproduce the kernel's bits.
 //
-// moment_fock: one thread an output; fragment_sum: a warp or a block a
-// row.
+// moment_fock: one thread an output.
 //
+// fragment_sum, redesigned for the H100 with the same bits (every sum of
+// the energy on a card, and the backward of `broadcast`). Its first
+// version ran a warp a row up to kWarpRowMax elements and a block a row
+// above. What bounds it: the bytes (every element read once) where the
+// rows fill the card; where they do not, a long row's 256 lane chains
+// (each len / 256 dependent adds) and how fast one SM streams the row:
+// at (16, 96) GFN2's (6, n, n) sums ran 16 blocks, each streaming 442 KB
+// through one SM; at (1, 241) one SM streamed 2.8 MB. Now:
+// - long rows where the rows leave SMs idle (fewer than two blocks an SM)
+//   and a row is long (kSumClusterLen64 / 32 elements: below, a block a
+//   row was measured faster, its chains short against a cluster's fixed
+//   cost): a row's 256 chains spread over a thread block cluster of K
+//   blocks (K up to kMaxSumCluster where the card holds such a cluster,
+//   queried once per device, else 8; each block at least kSumMinBytes of
+//   the row), each chain keeping its elements and their order. A block's
+//   lanes (its first warps) add from shared memory while its other warps
+//   stage the block's slice of the next tiles (kSumStages tiles of
+//   kSumTile elements, 16-byte cp.async.cg where the row's base allows
+//   it), one barrier a tile; the lanes read kSumBatch elements into
+//   registers ahead of their adds. Block 0 of the cluster gathers the 256
+//   partial sums through distributed shared memory after cluster.sync()
+//   and halves them in the same pairs. The floor that stays: a chain's
+//   len / 256 dependent adds (1361 at (1, 241)); a shorter one needs
+//   another lane count, which would change the bits.
+// - other long rows: a block a row, as the first version.
+// - short rows (up to kGroupRowMax elements): a row of up to 16 elements
+//   takes a group of W lanes (the next power of two, at least 4), so a
+//   warp sums 32 / W rows; the tree's levels that pair a lane with one
+//   past the row add their +0 as the 32-lane tree does. Where the rows
+//   fill the card, a group takes four rows, their loads issued together.
+//   Rows of kGroupRowMax to kWarpRowMax elements: a warp a row, as the
+//   first version.
+
 // moment_rows and segment_sum, redesigned for the H100 with the same
 // bits. What bounds them: a fragment's chains are few and serial (at
 // (16, 96) with d = 3, 16 x 96 x 3 chains of 96 dependent adds) and the
@@ -90,8 +122,26 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
-// fragment_sum: rows up to this length take a warp, longer a block
+// fragment_sum: rows up to this length are summed by 32 lanes (a warp,
+// or a group of lanes of one), longer by 256 (a block, or a cluster of up
+// to kMaxSumCluster blocks); the long rows' staged tiles: elements a tile,
+// tiles in flight
 constexpr long long kWarpRowMax = 4096;
+// rows up to this length: lane groups, several rows a group (a warp a row
+// above)
+constexpr long long kGroupRowMax = 4 * kWarp;
+constexpr int kSumTile = 2048;
+constexpr int kSumStages = 4;
+constexpr int kMaxSumCluster = 16;
+// the shortest row a cluster takes (f64, f32: 128 and 512 elements a
+// lane; below, a block a row was measured faster, its chains shorter than
+// a cluster's fixed cost, the sooner so in f32, whose adds are quicker),
+// and the fewest bytes of a row a block of a cluster streams
+constexpr long long kSumClusterLen64 = 128 * 256;
+constexpr long long kSumClusterLen32 = 512 * 256;
+constexpr long long kSumMinBytes = 48 * 1024;
+// a lane's staged elements read into registers at a time
+constexpr int kSumBatch = 16;
 // threads a block of moment_rows and of segment_sum
 constexpr int kRowThreads = 256;
 constexpr int kSegThreads = 256;
@@ -670,8 +720,70 @@ __device__ __forceinline__ T strided_sum(const T* __restrict__ x,
   return acc;
 }
 
-// a warp per row (rows up to kWarpRowMax long): 32 lanes, then halved
-// with shuffles, lane t + h into lane t
+// fragment_sum over rows up to kGroupRowMax long: the 32 lanes of a row
+// are a group of W lanes (W = 32 above 16 elements; else the next power of
+// two of the length, at least 4, so a warp sums 32 / W rows), each group
+// RPG rows (RPG = 4 where the rows fill the card, for more bytes in
+// flight), their loads issued together; lane j sums elements j, j + 32,
+// ... ascending from +0 (for len <= W one element, lanes past the row
+// +0).
+// The tree's levels h = 16 .. W pair a lane with one past the row, which
+// holds +0: each is the add of +0 it is; then the levels below W by
+// shuffles of width W, lane t + h into lane t.
+template <typename T, int W, int RPG>
+__global__ void __launch_bounds__(kThreads)
+    row_sum_group_kernel(const T* __restrict__ x, T* __restrict__ out,
+                        long long rows, long long len) {
+  const long long row0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / W *
+      RPG;
+  const int j = threadIdx.x % W;
+  bool live[RPG];
+  const T* xr[RPG];
+  T v[RPG];
+#pragma unroll
+  for (int r = 0; r < RPG; ++r) {
+    live[r] = row0 + r < rows;
+    xr[r] = x + (live[r] ? row0 + r : 0) * len;
+    v[r] = T(0);
+  }
+  if (W < kWarp) {
+    // len <= W: at most one element a lane
+    if (j < len) {
+#pragma unroll
+      for (int r = 0; r < RPG; ++r)
+        if (live[r]) v[r] = add_(v[r], xr[r][j]);
+    }
+  } else {
+    // up to four elements a lane (len <= kGroupRowMax): each step's loads
+    // of every row together
+    for (int i = j; i < len; i += kWarp) {
+      T e[RPG];
+#pragma unroll
+      for (int r = 0; r < RPG; ++r) e[r] = live[r] ? xr[r][i] : T(0);
+#pragma unroll
+      for (int r = 0; r < RPG; ++r)
+        if (live[r]) v[r] = add_(v[r], e[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPG; ++r) {
+#pragma unroll
+    for (int h = kWarp / 2; h >= W; h /= 2) v[r] = add_(v[r], T(0));
+#pragma unroll
+    for (int h = W / 2; h > 0; h /= 2)
+      v[r] = add_(v[r], __shfl_down_sync(0xffffffffu, v[r], h, W));
+  }
+  if (j == 0) {
+#pragma unroll
+    for (int r = 0; r < RPG; ++r)
+      if (live[r]) out[row0 + r] = v[r];
+  }
+}
+
+// fragment_sum over rows of kGroupRowMax to kWarpRowMax elements: a warp
+// a row, 32 lanes, then halved with shuffles, lane t + h into lane t (the
+// first version's kernel; the lane groups above measured slower here)
 template <typename T>
 __global__ void row_sum_warp_kernel(const T* __restrict__ x,
                                     T* __restrict__ out, long long rows,
@@ -687,16 +799,12 @@ __global__ void row_sum_warp_kernel(const T* __restrict__ x,
   if (lane == 0) out[row] = v;
 }
 
-// a block of kThreads lanes per row (longer rows), halved through shared
-// memory down to a warp, then with shuffles: the same pairing, t + h into t
+// the 256 lanes' sums of a row in part[] (kThreads of them) halved
+// pairwise, t + h into t, through shared memory down to a warp, then
+// with shuffles; the row's sum to *out
 template <typename T>
-__global__ void row_sum_block_kernel(const T* __restrict__ x,
-                                     T* __restrict__ out, long long len) {
-  __shared__ T part[kThreads];
-  const long long row = blockIdx.x;
+__device__ __forceinline__ void halve_lanes(T* part, T* out) {
   const int t = threadIdx.x;
-  part[t] = strided_sum(x + row * len, len, t, kThreads);
-  __syncthreads();
   for (int h = kThreads / 2; h >= kWarp; h /= 2) {
     if (t < h) part[t] = add_(part[t], part[t + h]);
     __syncthreads();
@@ -705,8 +813,140 @@ __global__ void row_sum_block_kernel(const T* __restrict__ x,
     T v = part[t];
     for (int h = kWarp / 2; h > 0; h /= 2)
       v = add_(v, __shfl_down_sync(0xffffffffu, v, h));
-    if (t == 0) out[row] = v;
+    if (t == 0) *out = v;
   }
+}
+
+// fragment_sum over rows longer than kWarpRowMax where the rows fill the
+// card: a block of kThreads lanes a row, each lane's elements read from
+// global memory as they come (the first version's kernel)
+template <typename T>
+__global__ void row_sum_block_kernel(const T* __restrict__ x,
+                                     T* __restrict__ out, long long len) {
+  __shared__ T part[kThreads];
+  const long long row = blockIdx.x;
+  const int t = threadIdx.x;
+  part[t] = strided_sum(x + row * len, len, t, kThreads);
+  __syncthreads();
+  halve_lanes(part, out + row);
+}
+
+// fragment_sum over rows longer than kWarpRowMax where the rows leave SMs
+// idle: a row's 256 lanes (kThreads) spread over a cluster of K blocks,
+// block k holding lanes k cb .. k cb + cb - 1 (cb = 256 / K). Lane c sums
+// elements c, c + 256, ... ascending from +0: the block's slice of every
+// 256-element stripe is staged into shared memory by all of its threads
+// (16-byte cp.async.cg where the row's base allows it), kSumStages tiles
+// of kSumTile elements in flight, and a thread a lane adds its elements
+// from the staged tiles in order (a whole tile unrolled, so the reads run
+// ahead of the adds). Then block 0 of the cluster gathers the 256 lanes'
+// sums through distributed shared memory and halves them as one block
+// does.
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+    row_sum_cluster_kernel(const T* __restrict__ x, T* __restrict__ out,
+                           long long len, int vec) {
+  extern __shared__ __align__(16) unsigned char sum_smem[];
+  constexpr int E = 16 / sizeof(T);
+  constexpr int cb = kThreads / K;  // lanes a block
+  constexpr int S = kSumTile / cb;  // stripes a tile
+  constexpr int per = cb / E;       // 16-byte chunks a stripe's slice
+  T* ring = reinterpret_cast<T*>(sum_smem);  // kSumStages tiles
+  T* part = ring + kSumStages * kSumTile;    // the block's lane sums
+  const long long row = blockIdx.x / K;
+  const int k = static_cast<int>(blockIdx.x % K);
+  const int c0 = k * cb;
+  const long long tiles = (len + S * kThreads - 1) / (S * kThreads);
+  const T* xr = x + row * len;
+  const int tid = threadIdx.x;
+  // the lanes' threads (whole warps) add; the others stage
+  constexpr int cw = cb < kWarp ? kWarp : cb;
+  constexpr int np = kThreads - cw;
+  const int pt = tid - cw;
+  // the copies of tile t into its stage: chunks of E elements (one
+  // element a copy at the row's end, or everywhere without vec)
+  auto issue = [&](long long t) {
+    T* dst = ring + (t % kSumStages) * kSumTile;
+    const long long first = t * S * kThreads + c0;
+    if (vec) {
+      for (int i = pt; i < S * per; i += np) {
+        const int sl = i / per, cc = (i % per) * E;
+        const long long e = first + static_cast<long long>(sl) * kThreads +
+                            cc;
+        T* d = dst + sl * cb + cc;
+        if (e + E <= len) {
+          cp_async16(d, xr + e);
+        } else {
+          for (int u = 0; u < E && e + u < len; ++u)
+            cp_async(d + u, xr + e + u);
+        }
+      }
+    } else {
+      for (int i = pt; i < S * cb; i += np) {
+        const int sl = i / cb, cc = i % cb;
+        const long long e = first + static_cast<long long>(sl) * kThreads +
+                            cc;
+        if (e < len) cp_async(dst + sl * cb + cc, xr + e);
+      }
+    }
+  };
+  if (pt >= 0) {
+    for (int t = 0; t < kSumStages - 1; ++t) {
+      if (t < tiles) issue(t);
+      cp_async_commit();
+    }
+    cp_async_wait<kSumStages - 2>();  // tile 0 has landed
+  }
+  __syncthreads();
+  T acc = T(0);
+  // each step: the lanes add tile t while the stagers issue tile t +
+  // kSumStages - 1 (into the stage tile t - 1 held) and wait for tile t + 1
+  for (long long t = 0; t < tiles; ++t) {
+    if (pt >= 0) {
+      if (t + kSumStages - 1 < tiles) issue(t + kSumStages - 1);
+      cp_async_commit();
+      cp_async_wait<kSumStages - 2>();
+    } else if (tid < cb) {
+      const T* tile = ring + (t % kSumStages) * kSumTile + tid;
+      // this lane's elements in the tile: stripes while the element is in
+      // the row (all S but in the last tile)
+      const long long e0 = t * S * kThreads + c0 + tid;
+      const long long left = (len - e0 + kThreads - 1) / kThreads;
+      const int ns = left < S ? static_cast<int>(left) : S;
+      // in batches of kSumBatch, each read into registers before the
+      // previous batch's adds, so the reads run ahead of the chain
+      T v0[kSumBatch], v1[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u)
+        if (u < ns) v0[u] = tile[u * cb];
+#pragma unroll
+      for (int b = 0; b < S; b += 2 * kSumBatch) {
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (b + kSumBatch + u < ns) v1[u] = tile[(b + kSumBatch + u) * cb];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (b + u < ns) acc = add_(acc, v0[u]);
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (b + 2 * kSumBatch + u < ns)
+            v0[u] = tile[(b + 2 * kSumBatch + u) * cb];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (b + kSumBatch + u < ns) acc = add_(acc, v1[u]);
+      }
+    }
+    // tile t + 1 is in place, and tile t's stage read before it refills
+    __syncthreads();
+  }
+  if (tid < cb) part[tid] = acc;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  T* all = ring;  // free now: block 0 gathers the 256 lanes into it
+  if (k == 0) all[tid] = *cluster.map_shared_rank(part + tid % cb, tid / cb);
+  cluster.sync();  // every member's part is read before it exits
+  if (k != 0) return;
+  halve_lanes(all, out + row);
 }
 
 // Runs launch() on `device` and leaves the calling thread's current device
@@ -1028,26 +1268,156 @@ int segment_sum(const T* v, const long long* seg, const T* w, int size,
   });
 }
 
+// one launch of row_sum_group_kernel<T, W, RPG> over `rows` rows
+template <typename T, int W, int RPG>
+cudaError_t launch_row_group(const T* x, T* out, long long rows,
+                             long long len, cudaStream_t stream) {
+  const long long rows_a_block = kThreads / W * RPG;
+  const long long blocks = ceil_div(rows, rows_a_block);
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  row_sum_group_kernel<T, W, RPG><<<static_cast<unsigned>(blocks), kThreads,
+                                    0, stream>>>(x, out, rows, len);
+  return cudaGetLastError();
+}
+
+template <typename T, int W>
+cudaError_t launch_row_group(const T* x, T* out, long long rows,
+                             long long len, int sms, cudaStream_t stream) {
+  // four rows a group where there are at least four warps' worth of
+  // groups for each of 32 warps an SM
+  if (rows * W >= 4ll * kWarp * kWarp * sms)
+    return launch_row_group<T, W, 4>(x, out, rows, len, stream);
+  return launch_row_group<T, W, 1>(x, out, rows, len, stream);
+}
+
+// the launch configuration of row_sum_cluster_kernel<T, K> over `rows`
+// rows: a cluster of K blocks a row
+template <typename T, int K>
+cudaLaunchConfig_t row_cluster_cfg(long long rows, cudaStream_t stream,
+                                   cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * K));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (kSumStages * kSumTile + kThreads) * sizeof(T);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// row_sum_cluster_kernel<T, K>'s shared memory raised and, above the
+// portable cluster size, clusters of K allowed, once per device
+template <typename T, int K>
+cudaError_t allow_row_cluster(int device) {
+  static unsigned long long done = 0, wide = 0;
+  const size_t smem = (kSumStages * kSumTile + kThreads) * sizeof(T);
+  cudaError_t err =
+      allow_smem(row_sum_cluster_kernel<T, K>, smem, device, &done);
+  if (err != cudaSuccess || K <= 8) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (__atomic_load_n(&wide, __ATOMIC_ACQUIRE) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(row_sum_cluster_kernel<T, K>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err == cudaSuccess) __atomic_fetch_or(&wide, bit, __ATOMIC_RELEASE);
+  return err;
+}
+
+// the largest cluster a row takes on this card: kMaxSumCluster where the
+// card can hold one such cluster of row_sum_cluster_kernel<T, K>, else
+// the portable 8; queried once per device
+template <typename T>
+cudaError_t row_cluster_cap(int device, int* cap) {
+  static int cap_of[64] = {};
+  int* held = cap_of + (device & 63);
+  int v = __atomic_load_n(held, __ATOMIC_ACQUIRE);
+  if (v == 0) {
+    cudaError_t err = allow_row_cluster<T, kMaxSumCluster>(device);
+    int clusters = 0;
+    if (err == cudaSuccess) {
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg =
+          row_cluster_cfg<T, kMaxSumCluster>(1, nullptr, attr);
+      err = cudaOccupancyMaxActiveClusters(
+          &clusters, row_sum_cluster_kernel<T, kMaxSumCluster>, &cfg);
+    }
+    if (err != cudaSuccess) cudaGetLastError();  // a refusal: keep 8
+    v = err == cudaSuccess && clusters > 0 ? kMaxSumCluster : 8;
+    __atomic_store_n(held, v, __ATOMIC_RELEASE);
+  }
+  *cap = v;
+  return cudaSuccess;
+}
+
+// one launch of row_sum_cluster_kernel<T, K>: a cluster of K blocks a row
+template <typename T, int K>
+cudaError_t launch_row_cluster(const T* x, T* out, long long rows,
+                               long long len, int vec, int device,
+                               cudaStream_t stream) {
+  cudaError_t err = allow_row_cluster<T, K>(device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = row_cluster_cfg<T, K>(rows, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, row_sum_cluster_kernel<T, K>, x, out, len,
+                           vec);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 template <typename T>
 int fragment_sum(const T* x, T* out, long long rows, long long len,
                  int device, void* stream) {
   if (rows <= 0) return 0;
   if (len < 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (len <= kWarpRowMax) {
-    const long long threads = rows * kWarp;
-    if (too_many(threads)) return static_cast<int>(cudaErrorInvalidValue);
-    return on_device(device, [&] {
-      row_sum_warp_kernel<T><<<blocks_of(threads), kThreads, 0, st>>>(
-          x, out, rows, len);
-      return cudaGetLastError();
-    });
-  }
-  if (rows > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   return on_device(device, [&] {
-    row_sum_block_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0,
-                              st>>>(x, out, len);
-    return cudaGetLastError();
+    int sms = 0, smem_max = 0;
+    cudaError_t err = card_of(device, &sms, &smem_max);
+    if (err != cudaSuccess) return err;
+    if (len <= kWarpRowMax) {
+      if (len > kGroupRowMax) {
+        const long long threads = rows * kWarp;
+        if (too_many(threads)) return cudaErrorInvalidValue;
+        row_sum_warp_kernel<T><<<blocks_of(threads), kThreads, 0, st>>>(
+            x, out, rows, len);
+        return cudaGetLastError();
+      }
+      if (len > 16) return launch_row_group<T, 32>(x, out, rows, len, sms, st);
+      if (len > 8) return launch_row_group<T, 16>(x, out, rows, len, sms, st);
+      if (len > 4) return launch_row_group<T, 8>(x, out, rows, len, sms, st);
+      return launch_row_group<T, 4>(x, out, rows, len, sms, st);
+    }
+    // a cluster of K blocks a row where the rows leave SMs idle (fewer
+    // than two blocks an SM) and the row is long enough (kSumMinBytes a
+    // block), K a power of two up to kMaxSumCluster; else a block a row
+    int cap = 0;
+    err = row_cluster_cap<T>(device, &cap);
+    if (err != cudaSuccess) return err;
+    const long long bytes = len * static_cast<long long>(sizeof(T));
+    const long long least =
+        sizeof(T) == 8 ? kSumClusterLen64 : kSumClusterLen32;
+    int K = 1;
+    while (len >= least && K < cap && rows * K * 2 <= 2ll * sms &&
+           bytes >= 2ll * K * kSumMinBytes)
+      K *= 2;
+    if (rows * K > 0x7fffffffll) return cudaErrorInvalidValue;
+    if (K == 1) {
+      row_sum_block_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0,
+                                st>>>(x, out, len);
+      return cudaGetLastError();
+    }
+    const int vec = vec_ok(x, len) ? 1 : 0;
+    if (K == 2) return launch_row_cluster<T, 2>(x, out, rows, len, vec,
+                                                device, st);
+    if (K == 4) return launch_row_cluster<T, 4>(x, out, rows, len, vec,
+                                                device, st);
+    if (K == 8) return launch_row_cluster<T, 8>(x, out, rows, len, vec,
+                                                device, st);
+    return launch_row_cluster<T, 16>(x, out, rows, len, vec, device, st);
   });
 }
 

@@ -10,10 +10,14 @@ with nvcc at first use into `metalquicha_tpu_torch/_build/` and bound with
 ctypes, `ops/kernel_build.py`) reduces every output element in one fixed
 order that depends on the sizes only: f64 on the FP64 tensor cores in
 ascending blocks of 4 in k, f32 by FFMA in ascending k; where every size
-is 8 or less, and for the matvec, FMA in ascending k, a thread an
-element. Above, persistent blocks walk units of work (a fragment, or a
-band of rows of one at 64 and above), staged by 16-byte copies (f32
-through a two-stage ring), k streamed in tiles above 64 (up to MAX_N);
+is 8 or less, FMA in ascending k, a thread an element; the matvec by
+FMA in ascending k, a thread an output, on a kernel of its own (a band
+of a fragment's rows staged in shared memory where the batch is small;
+whole fragments staged, or read in place in the transposed form and
+where a row is short). Above, persistent blocks walk units of work (a
+fragment, or a band of rows of one at 64 and above), staged by 16-byte
+copies (f32 through a two-stage ring), k streamed in tiles above 64 (up
+to MAX_N);
 the kernel reads each operand's alignment itself (a view with a storage
 offset, or rows of odd length in f64, are copied element by element into
 the same layout, with the same bits), so the wrapper passes every
@@ -108,11 +112,11 @@ def add_launches(by_kind: dict) -> None:
 
 def kind_of(entry: str, *sizes: int) -> tuple:
     """A launch's kind, (entry, class): class 0 for the direct kernel (a
-    product whose sizes are all 8 or less, and the matvec: a thread an
-    output), else the size class of the tiles the kernel stages (16, 32,
-    64, or 128 with k in tiles, by the largest size)."""
+    product whose sizes are all 8 or less: a thread an output), else the
+    size class by the largest size (16, 32, 64, or 128: the product's k
+    in tiles; the matvec's staged rows)."""
     top = max(sizes)
-    if entry == "matvec" or (entry == "bmm" and top <= 8):
+    if entry == "bmm" and top <= 8:
         return entry, 0
     return entry, (16 if top <= 16 else 32 if top <= 32 else
                    64 if top <= 64 else 128)

@@ -23,9 +23,11 @@ alone, each product and sum rounded on its own:
 - `segment_sum(values, idx, size, weights)`: out[b, s] = sum over k
   ascending with idx[b, k] == s of weights[b, k] values[b, k]
   (scatter_add in a fixed order);
-- `fragment_sum(x, dim)`: x.sum(dim), each output by 32 lanes (a warp;
-  256, a block, for more than WARP_ROW_MAX elements), lane j summing
-  elements j, j + lanes, ... ascending, then the lanes halved pairwise;
+- `fragment_sum(x, dim)`: x.sum(dim), each output by 32 lanes (a warp,
+  or a group of lanes of one for rows of up to 16 elements; 256 for more
+  than WARP_ROW_MAX elements, a block or a cluster of blocks), lane j
+  summing elements j, j + lanes, ... ascending, then the lanes halved
+  pairwise;
 - `take(x, idx)` and `take2(m, idx)`: the engine's gathers, whose
   backward passes (torch's accumulate into the gathered rows) are segment
   sums here;

@@ -619,6 +619,16 @@ def cuda():
 #: bands) and the largest product size
 GPU_SHAPES = [(512, 16), (5985, 32), (64, 48), (16, 96), (1, 16), (1, 241),
               (16, 128)]
+#: fragment_sum's long rows: one past the warp's longest, GFN2's (6, n, n)
+#: at 96 AOs, (6, n, n) at 241 AOs (the FD Hessian's fragment); as many
+#: rows as the shape's batch, up to 300 (a block a row) or 40 at the
+#: longest, so the rows take a cluster of 8, 4 or 2 blocks, or one
+LONG_ROWS = (4097, 55296, 348486)
+
+
+def _long_rows(bsz, dtype, device, seed=0):
+    return [_rand((min(bsz, 300 if n < 100000 else 40), n), dtype,
+                  seed + n, device) for n in LONG_ROWS]
 
 
 def _unsorted(idx, seed=0):
@@ -669,6 +679,8 @@ def test_kernel_is_the_plain_versions_bit_for_bit(cuda, shape, d, dtype):
          fr.fragment_sum_reference(m, (1, 2, 3))),
         (fr.fragment_sum(a), fr.fragment_sum_reference(a)),
     ]
+    pairs += [(fr.fragment_sum(x), fr.fragment_sum_reference(x))
+              for x in _long_rows(shape[0], dtype, cuda)]
     for got, want in pairs:
         assert torch.equal(got, want)
 
@@ -696,6 +708,13 @@ def test_kernel_bits_do_not_depend_on_the_batch(cuda, shape):
                      for t in (f, a, m, v, idx, w, mixed)))
         for p, q in zip(part, whole):
             assert torch.equal(p, q.index_select(0, sel))
+    # long rows: a row alone, and the last and first, as in the batch
+    for x in _long_rows(bsz, torch.float64, cuda, seed=1):
+        got = fr.fragment_sum(x)
+        for rows in ([0], [x.shape[0] - 1, 0]):
+            sel = torch.tensor(rows, device=cuda)
+            assert torch.equal(fr.fragment_sum(x.index_select(0, sel)),
+                               got.index_select(0, sel))
 
 
 @pytest.mark.gpu

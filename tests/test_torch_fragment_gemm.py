@@ -542,18 +542,20 @@ def test_wrapper_passes_operands_as_they_lie(recorded, n, dtype):
 
 def test_launch_kinds():
     """Counts by kind: the direct kernel for products whose sizes are all 8
-    or less and for the matvec, else the size class of the staged tiles
-    (the sandwich has no direct form)."""
+    or less, else the size class of the staged tiles (the sandwich and the
+    matvec, on a kernel of its own, have no direct form)."""
     assert fm.kind_of("bmm", 1, 5, 5) == ("bmm", 0)
     assert fm.kind_of("bmm", 8, 8, 9) == ("bmm", 16)
     assert fm.kind_of("bmm", 20, 20, 20) == ("bmm", 32)
     assert fm.kind_of("bmm", 64, 3, 40) == ("bmm", 64)
     assert fm.kind_of("bmm", 65, 3, 40) == ("bmm", 128)
     assert fm.kind_of("sandwich", 6) == ("sandwich", 16)
-    assert fm.kind_of("matvec", 64, 64) == ("matvec", 0)
+    assert fm.kind_of("matvec", 64, 64) == ("matvec", 64)
+    assert fm.kind_of("matvec", 3, 3) == ("matvec", 16)
     assert [fm.kind_name(fm.kind_of(*k)) for k in (
-        ("bmm", 1, 5, 5), ("sandwich", 40), ("bmm", 97))] == [
-        "bmm direct", "sandwich 64", "bmm 128"]
+        ("bmm", 1, 5, 5), ("sandwich", 40), ("bmm", 97),
+        ("matvec", 12, 12))] == [
+        "bmm direct", "sandwich 64", "bmm 128", "matvec 16"]
 
 
 def _source_constant(name):
@@ -636,8 +638,9 @@ def test_bit_fingerprint_covers_the_gemm_phase():
     """The fixture holds a fingerprint for every shape, dtype and entry
     `chip_smoke.py`'s gemm phase names (the product with each transpose,
     the sandwich, the matvec and its transpose at GEMM_SHAPES; the product
-    with each transpose at GEMM_RECT), and the tool's recipe remakes the
-    inputs it hashed, shape and bytes."""
+    with each transpose at GEMM_RECT; the matvec and its transpose at
+    MATVEC_SHAPES, at n = 11 and 97, and on offset operands), and the
+    tool's recipe remakes the inputs it hashed, shape and bytes."""
     import chip_smoke
 
     bits = _bits_tool()
@@ -655,6 +658,14 @@ def test_bit_fingerprint_covers_the_gemm_phase():
                      bits.key_of("matvec", dtype, shape, True, False)}
         want |= {bits.key_of("bmm", dtype, tuple(shape), ta, tb)
                  for shape in chip_smoke.GEMM_RECT for ta, tb in TRANS}
+        # the matvec's own shapes, odd n (staged an element a copy) and
+        # offset operands, both forms
+        want |= {bits.key_of(entry, dtype, (bsz, n, n, n), ta, False)
+                 for entry, shapes in (
+                     ("matvec", chip_smoke.MATVEC_SHAPES
+                      + ((64, 11), (8, 97))),
+                     ("matvec_offset", ((512, 12), (16, 96))))
+                 for bsz, n in shapes for ta in (False, True)}
     cases = bits.cases()
     assert want <= set(fixture["cases"]) == {c[0] for c in cases}
     for key, entry, dtype, shape, ta, tb in cases:
@@ -697,9 +708,11 @@ def cuda():
 #: (B, n) of the main path: the dimer slice, the w20 MBE(4) chunk, the
 #: largest fragments the kernel takes, one fragment, an odd batch, and
 #: sizes of 8 (the products on the direct kernel, the sandwich not); above
-#: 64, k in tiles (the dodecamers' 96, the largest, and one past 64)
+#: 64, k in tiles (the dodecamers' 96, the largest, and one past 64); the
+#: Coulomb matvec's shells of the dimer slice and of GFN2 hexamers (its
+#: rows cut into bands at (3, 128), (16, 96) and (64, 36))
 GPU_SHAPES = [(512, 16), (5985, 32), (128, 64), (1, 16), (7, 64), (20, 8),
-              (16, 96), (3, 128), (5, 65)]
+              (16, 96), (3, 128), (5, 65), (512, 12), (64, 36)]
 
 
 def _card_mats(shape, dtype, device, n=3, seed=0):

@@ -91,6 +91,12 @@ def _device_ms(fn, reps: int = 20, name: str | None = None) -> float:
     return us / reps / 1e3
 
 
+def _share(bound: float, device_ms: float):
+    """bound / device_ms, or None where the profiler showed no device
+    time (then time with CUDA events: `ms`)."""
+    return bound / device_ms if device_ms else None
+
+
 def _baseline(source: str, out_dir: str):
     """The earlier kernel source built with the port's flags: a launch
     function (eps, nelec, nuhf, kt, mask) -> (f, entropy)."""
@@ -177,7 +183,7 @@ def fills(cs, ff, kt, base, out) -> None:
         rec["device_ms"] = _device_ms(this, name="fermi")
         rec["share"] = bound / rec["ms"]
         rec["share_80"] = bound80 / rec["ms"]
-        rec["device_share"] = bound / rec["device_ms"]
+        rec["device_share"] = _share(bound, rec["device_ms"])
         _emit(rec, out)
 
 
@@ -209,7 +215,7 @@ def densities(cs, ff, kt, out) -> None:
                    "two_device_ms": _device_ms(two),
                    "bound_ms": bound, "bound_by": by}
             rec["share"] = bound / rec["ms"]
-            rec["device_share"] = bound / rec["device_ms"]
+            rec["device_share"] = _share(bound, rec["device_ms"])
             _emit(rec, out)
 
 

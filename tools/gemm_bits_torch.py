@@ -4,21 +4,27 @@
 Every entry of `ops/fragment_gemm.py` that `chip_smoke.py`'s gemm phase
 names (the product with each transpose, the sandwich x f x + s, the
 matvec and its transpose at the square shapes; the product with each
-transpose at the rectangular ones), in float64 and float32, on inputs made
-from a seed with numpy (`inputs`: one generator per case, seeded with
-SEED and the case's entry, shape, transposes and dtype; standard normal
-values drawn in float64 and cast). Each output's bytes are hashed
-(SHA-256), and so are the inputs'.
+transpose at the rectangular ones; the matvec and its transpose at the
+shapes of MATVEC, and on operands with a storage offset at those of
+MATVEC_OFFSET), in float64 and float32, on inputs made from a seed with
+numpy (`inputs`: one generator per case, seeded with SEED and the case's
+entry, shape, transposes and dtype; standard normal values drawn in
+float64 and cast). Each output's bytes are hashed (SHA-256), and so are
+the inputs'.
 
 `--write F` records the fingerprints of whatever kernel comes first on
 the path: with an older checkout first on PYTHONPATH (unpacked with `git
 archive` into the gitignored `_archive/`), that checkout's kernel. The
 fixture `tests/data/fragment_gemm_bits.json` holds the fingerprints of the
-kernel's first version (commit df9980a); `--check` (and `chip_smoke.py`'s
-gemm phase) recomputes every case with the kernel of this tree and
-compares: the kernel may be redesigned, its bits may not move.
+kernel's first version (commit df9980a), and the matvec cases of
+MATVEC and MATVEC_OFFSET those of the matvec's first kernel (the direct
+kernel, as at commit d37ed60; `added` in the file); `--add F` writes the
+fixture with the cases it lacks added from the kernel first on the path.
+`--check` (and `chip_smoke.py`'s gemm phase) recomputes every case with
+the kernel of this tree and compares: the kernel may be redesigned, its
+bits may not move.
 
-Usage: python3 tools/gemm_bits_torch.py [--write F | --check]
+Usage: python3 tools/gemm_bits_torch.py [--write F | --add F | --check]
            [--fixture F]
 """
 
@@ -43,16 +49,23 @@ SEED = 16
 SQUARE = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
           (128, 64))
 RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (190 * 36, 5, 1, 5))
+#: (B, n) of the matvec alone: chip_smoke.MATVEC_SHAPES, and shapes whose
+#: operands its kernel stages an element a copy (n = 11 and 97)
+MATVEC = ((512, 12), (5985, 24), (64, 36), (16, 96), (3, 128), (64, 11),
+          (8, 97))
+#: (B, n) of the matvec on operands with a storage offset of one element
+MATVEC_OFFSET = ((512, 12), (16, 96))
 TRANS = ((False, False), (True, False), (False, True), (True, True))
 DTYPES = ("f64", "f32")
-ENTRIES = ("bmm", "sandwich", "matvec")
+ENTRIES = ("bmm", "sandwich", "matvec", "matvec_offset")
 RECIPE = ("numpy.random.default_rng([SEED, entry index in ENTRIES, B, m, "
           "k, n, trans_a, trans_b, bits of the dtype]).standard_normal(shape)"
           " per input in the order listed, drawn in float64 and cast to the "
           "case's dtype; bmm: a stored (B, k, m) if trans_a else (B, m, k), "
           "b stored (B, n, k) if trans_b else (B, k, n); sandwich: x, f, s "
           "(B, n, n); matvec: mat (B, n, n) (trans_a: its transpose is "
-          "applied), x (B, n)")
+          "applied), x (B, n); matvec_offset: mat (B n n + 1,) and x (B n "
+          "+ 1,), passed as the views [1:] shaped (B, n, n) and (B, n)")
 
 
 def cases():
@@ -68,6 +81,11 @@ def cases():
                 out.append(("sandwich", dtype, shape, False, False))
                 out.append(("matvec", dtype, shape, False, False))
                 out.append(("matvec", dtype, shape, True, False))
+        for entry, sizes in (("matvec", MATVEC),
+                             ("matvec_offset", MATVEC_OFFSET)):
+            for bsz, n in sizes:
+                for ta in (False, True):
+                    out.append((entry, dtype, (bsz, n, n, n), ta, False))
     return [(key_of(*c), *c) for c in out]
 
 
@@ -83,6 +101,8 @@ def input_shapes(entry, shape, ta, tb):
                 (bsz, *((n, k) if tb else (k, n)))]
     if entry == "sandwich":
         return [(bsz, n, n)] * 3
+    if entry == "matvec_offset":
+        return [(bsz * n * n + 1,), (bsz * n + 1,)]
     return [(bsz, n, n), (bsz, n)]
 
 
@@ -100,25 +120,31 @@ def digest(arr) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
-def run(fm, entry, args, ta, tb):
+def run(fm, entry, args, ta, tb, shape):
     """The case's output on the card, through the wrapper's entry."""
     if entry == "bmm":
         return fm.fragment_bmm(args[0], args[1], ta, tb)
     if entry == "sandwich":
         return fm.sandwich(*args)
+    if entry == "matvec_offset":
+        bsz, n = shape[0], shape[-1]
+        return fm.fragment_matvec(args[0][1:].view(bsz, n, n),
+                                  args[1][1:].view(bsz, n), ta)
     return fm.fragment_matvec(args[0], args[1], ta)
 
 
-def fingerprints(fm):
+def fingerprints(fm, keys=None):
     """{key: {"inputs": [sha...], "output": sha}} of the kernel in module
-    fm, every case."""
+    fm, every case (or those of `keys`)."""
     import torch
 
     out = {}
     for key, entry, dtype, shape, ta, tb in cases():
+        if keys is not None and key not in keys:
+            continue
         arrays = inputs(entry, dtype, shape, ta, tb)
         args = [torch.from_numpy(a).cuda() for a in arrays]
-        got = run(fm, entry, args, ta, tb)
+        got = run(fm, entry, args, ta, tb, shape)
         out[key] = {"inputs": [digest(a) for a in arrays],
                     "output": digest(got.cpu().numpy())}
     return out
@@ -143,6 +169,10 @@ def main(argv=None) -> int:
     ap.add_argument("--write", default=None,
                     help="record the fingerprints of the kernel first on "
                          "the path into this file")
+    ap.add_argument("--add", default=None,
+                    help="write the fixture with the cases it lacks "
+                         "added, from the kernel first on the path, into "
+                         "this file")
     ap.add_argument("--check", action="store_true",
                     help="compare this tree's kernel with the fixture")
     ap.add_argument("--fixture", default=FIXTURE)
@@ -170,6 +200,19 @@ def main(argv=None) -> int:
             fh.write("\n")
         print(f"gemm_bits: {len(doc['cases'])} cases written to "
               f"{args.write}", flush=True)
+    if args.add:
+        doc = load_fixture(args.fixture)
+        lack = {c[0] for c in cases()} - set(doc["cases"])
+        doc["cases"].update(fingerprints(fm, lack))
+        doc["recipe"] = RECIPE
+        doc.setdefault("added", []).append({
+            "module": os.path.relpath(fm.__file__, ROOT), "card": card,
+            "keys": sorted(lack)})
+        with open(args.add, "w") as fh:
+            json.dump(doc, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        print(f"gemm_bits: {len(lack)} cases added into {args.add}",
+              flush=True)
     if args.check:
         bad = compare(fm, load_fixture(args.fixture))
         print(json.dumps({"gemm_bits": {"cases": len(cases()),

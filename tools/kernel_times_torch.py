@@ -10,19 +10,25 @@ wrapper's host time is longer than the kernel, that is what it reads).
 The product kernel is timed beside torch.matmul (cuBLAS's batched
 product), graph-replayed too, with its bound (`chip_smoke.gemm_bound`,
 here `gemm_bound`): the product, the sandwich x f x + s against torch's
-`x @ f @ x + s`, and the matvec (B, n, n) by (B, n) against
-torch.matmul's. The fragment sums (`csrc/fragment_reduce.cu`, section
+`x @ f @ x + s`, and the matvec (B, n, n) by (B, n) and its transposed
+form against torch.matmul's, at those shapes and at
+`chip_smoke.MATVEC_SHAPES` (the Coulomb matvec's shell counts, and the
+sizes its kernel cuts into bands), beside `chip_smoke.matvec_bound`. The
+fragment sums (`csrc/fragment_reduce.cu`, section
 "reduce") are timed graph-replayed in every form of
 `chip_smoke.reduce_forms` at `chip_smoke.REDUCE_SHAPES`, on
 `chip_smoke._reduce_case`'s operands, beside the torch expression each
-replaced and `chip_smoke.reduce_bound`.
+replaced and `chip_smoke.reduce_bound`; section "rows" times
+`fragment_sum` alone over (rows, length) tensors at
+`chip_smoke.ROW_SUM_CASES` (lane groups, four rows a group, clusters of
+2 to 16 blocks a row, a block a row) beside torch's sum.
 
 With an older checkout first on PYTHONPATH (unpacked with `git archive`
 into the gitignored `_archive/`), it times that checkout's kernels; the
 product kernel where the checkout has one.
 
 Usage: python3 tools/kernel_times_torch.py [--reps N] [--sections
-window,gemm,reduce] [--json-out F]
+window,gemm,reduce,rows] [--json-out F]
 It prints a line per shape (per form in "reduce") and one JSON line.
 """
 
@@ -170,6 +176,56 @@ def reduce_times(reps: int) -> list:
     return out
 
 
+def matvec_times(fm, rng, dtype, reps: int) -> list:
+    """The matvec in both forms at chip_smoke.MATVEC_SHAPES: the kernel's
+    and torch.matmul's graph-replayed ms and the bound."""
+    cs = chip_smoke()
+    tag = "f64" if dtype == torch.float64 else "f32"
+    out = []
+    for bsz, n in cs.MATVEC_SHAPES:
+        m = torch.tensor(rng.standard_normal((bsz, n, n)), dtype=dtype,
+                         device="cuda")
+        x = torch.tensor(rng.standard_normal((bsz, n)), dtype=dtype,
+                         device="cuda")
+        rec = {"dtype": tag, "shape": [bsz, n],
+               "bound_ms": cs.matvec_bound(bsz, n, dtype)[0]}
+        for form, trans in (("plain", False), ("transposed", True)):
+            mt = m.mT if trans else m
+            rec[f"{form}_ms"] = graph_ms(
+                lambda: fm.fragment_matvec(m, x, trans), reps)
+            rec[f"{form}_torch_ms"] = graph_ms(
+                lambda: torch.matmul(mt, x[..., None]), reps)
+        out.append(rec)
+        print(f"matvec {tag} {bsz}x{n}: {rec}", flush=True)
+    return out
+
+
+def row_times(reps: int) -> list:
+    """fragment_sum over (rows, length) tensors at
+    chip_smoke.ROW_SUM_CASES, float64 and float32: the kernel's and torch's
+    sum's graph-replayed ms and the bound (every element read once)."""
+    cs = chip_smoke()
+    fr = importlib.import_module("metalquicha_tpu_torch.ops.fragment_reduce")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for rows, length in cs.ROW_SUM_CASES:
+            x = torch.randn((rows, length), generator=gen, dtype=dtype,
+                            device="cuda")
+            rec = {"dtype": tag, "shape": [rows, length],
+                   "ms": graph_ms(lambda: fr.fragment_sum(x), reps),
+                   "torch_ms": graph_ms(lambda: x.sum(-1), reps),
+                   "bound_ms": cs.reduce_bound("fragment_sum", 1, 0, dtype,
+                                               length=length,
+                                               rows=rows)[0]}
+            out.append(rec)
+            print(f"rows {tag} {rows}x{length}: ms={rec['ms']:.4f} torch "
+                  f"ms={rec['torch_ms']:.4f} bound ms={rec['bound_ms']:.6f}",
+                  flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=50)
@@ -194,7 +250,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     result = {"card": card, "source": aw.__file__, "window": [],
-              "gemm": [], "reduce": []}
+              "gemm": [], "matvec": [], "reduce": []}
     rng = np.random.default_rng(14)
     for dtype in (torch.float64, torch.float32):
         if "window" not in sections:
@@ -221,7 +277,7 @@ def main(argv=None) -> int:
             a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
                                     dtype=dtype, device="cuda")
                        for _ in range(3))
-            v = b[:, 0]
+            v = b[:, 0].contiguous()  # as the engine's charges: no copy
             bits = torch.finfo(dtype).bits
             rec = {"dtype": tag, "shape": [bsz, n],
                    "bound_ms": gemm_bound(bsz, n, bits)[0],
@@ -232,15 +288,22 @@ def main(argv=None) -> int:
                     ("sandwich", lambda: fm.sandwich(a, b, s)),
                     ("torch_sandwich", lambda: a @ b @ a + s),
                     ("matvec", lambda: fm.fragment_matvec(a, v)),
-                    ("torch_matvec", lambda: torch.matmul(a, v[..., None]))):
+                    ("torch_matvec", lambda: torch.matmul(a, v[..., None])),
+                    ("matvec_t", lambda: fm.fragment_matvec(a, v, True)),
+                    ("torch_matvec_t",
+                     lambda: torch.matmul(a.mT, v[..., None]))):
                 rec[f"{name}_graph_ms"] = graph_ms(fn, args.reps)
                 rec[f"{name}_eager_ms"] = eager_ms(fn, args.reps)
             result["gemm"].append(rec)
             print(f"products {tag} {bsz}x{n}: {rec}", flush=True)
-    if "reduce" in sections:
+        result["matvec"] += matvec_times(fm, rng, dtype, args.reps)
+    if "reduce" in sections or "rows" in sections:
         importlib.import_module(
             "metalquicha_tpu_torch.ops.fragment_reduce").build()
+    if "reduce" in sections:
         result["reduce"] = reduce_times(args.reps)
+    if "rows" in sections:
+        result["rows"] = row_times(args.reps)
     line = json.dumps(result)
     print(line, flush=True)
     if args.json_out:

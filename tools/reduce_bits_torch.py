@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""A bit fingerprint of the fragment sums `moment_rows` and `segment_sum`.
+"""A bit fingerprint of the fragment sums `moment_rows`, `segment_sum` and
+`fragment_sum`.
 
 The plain versions in the kernel's order (`ops/fragment_reduce.py`
 `moment_rows_reference`, `segment_sum_reference`), which the kernel
@@ -11,17 +12,24 @@ index; segment_sum of one value with a mask (the atomic charges), of 3 and
 6, of n (take2's backward over an (n, n) table), and with an unsorted
 index. At (B, n) = SHAPES in float64 and float32, on inputs made from a
 seed with numpy (RECIPE). Each output's bytes are hashed (SHA-256), and so
-are the inputs'.
+are the inputs'. Under "row_sums": `row_sum_reference` (fragment_sum's
+order: 32 lanes up to 4096 elements, 256 above, then halved pairwise) of
+ROW_COUNT rows of each length in ROW_LENGTHS, float64 and float32, values
+spread over 17 decades so another order rounds otherwise, the middle row
+all -0.0 (its exact sum -0.0; the lanes' +0 make it +0.0) (ROW_RECIPE).
 
 `--write F` records the fingerprints of the plain versions first on the
 path (on the CPU): the fixture `tests/data/fragment_reduce_bits.json` was
 written from the commit before the kernel's redesign (a35780e, unpacked
 with `git archive` into the gitignored `_archive/` and put first on
-PYTHONPATH). `--check` recomputes every case and compares: with `--device
-cuda`, through the ops on a card, so the kernel's bits against the plain
-versions' of that commit.
+PYTHONPATH); its "row_sums" from the commit before fragment_sum's
+redesign (d37ed60) by `--add F`, which writes the fixture with the row
+sums it lacks added from the plain version first on the path. `--check`
+recomputes every case and compares: with `--device cuda`, through the ops
+on a card, so the kernel's bits against the plain versions' of those
+commits.
 
-Usage: python3 tools/reduce_bits_torch.py [--write F | --check]
+Usage: python3 tools/reduce_bits_torch.py [--write F | --add F | --check]
            [--device cpu|cuda] [--fixture F]
 """
 
@@ -68,6 +76,16 @@ RECIPE = ("per (B, n) and dtype, rng = numpy.random.default_rng([SEED, B, "
           "(int64); mixed = take_along_axis(idx, argsort(rng.random((B, n)), "
           "axis=1), axis=1); mask = (rng.random((B, n)) < 0.9) in the dtype; "
           "size = max(1, n // 3)")
+#: fragment_sum's rows: a few shells, a warp's row, the dodecamers' 96
+#: AOs, the warp's longest row and one past it (256 lanes), GFN2's (6, n,
+#: n) at 96 AOs
+ROW_LENGTHS = (11, 16, 32, 96, 4096, 4097, 55296)
+ROW_COUNT = 3
+ROW_RECIPE = ("per length and dtype, rng = numpy.random.default_rng([SEED, "
+              "1, length, bits of the dtype]); x = rng.standard_normal("
+              "(ROW_COUNT, length)) * 10.0 ** rng.integers(-8, 9, "
+              "(ROW_COUNT, length)), drawn in float64 and cast; then x[1] "
+              "= -0.0")
 
 
 def cases():
@@ -96,6 +114,45 @@ def inputs(dtype, shape) -> dict:
         idx, np.argsort(rng.random((bsz, n)), axis=1), axis=1).astype(
             np.int64)
     out["mask"] = (rng.random((bsz, n)) < 0.9).astype(np_dtype)
+    return out
+
+
+def row_key(dtype, length) -> str:
+    return f"row_sum/{dtype}/{length}"
+
+
+def row_cases():
+    """Every row sum case as (key, dtype, length)."""
+    return [(row_key(dtype, length), dtype, length)
+            for dtype in DTYPES for length in ROW_LENGTHS]
+
+
+def row_inputs(dtype, length):
+    """The rows of a row sum case as a numpy array (ROW_RECIPE)."""
+    bits = 64 if dtype == "f64" else 32
+    rng = np.random.default_rng([SEED, 1, length, bits])
+    x = rng.standard_normal((ROW_COUNT, length)) * 10.0 ** rng.integers(
+        -8, 9, (ROW_COUNT, length))
+    x = x.astype(np.float64 if dtype == "f64" else np.float32)
+    x[1] = -0.0
+    return x
+
+
+def row_fingerprints(fr, device="cpu", plain=True, keys=None) -> dict:
+    """{"inputs": {key: sha}, "cases": {key: sha of the sums}} of module
+    fr's `row_sum_reference` (or `fragment_sum`, on a card the kernel),
+    every row sum case (or those of `keys`)."""
+    import torch
+
+    out = {"inputs": {}, "cases": {}}
+    for key, dtype, length in row_cases():
+        if keys is not None and key not in keys:
+            continue
+        x = row_inputs(dtype, length)
+        t = torch.from_numpy(x).to(device)
+        got = fr.row_sum_reference(t) if plain else fr.fragment_sum(t)
+        out["inputs"][key] = digest(x)
+        out["cases"][key] = digest(got.cpu().contiguous().numpy())
     return out
 
 
@@ -148,6 +205,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--write", default=None,
                     help="record the plain versions' fingerprints here")
+    ap.add_argument("--add", default=None,
+                    help="write the fixture with the row sums it lacks "
+                         "added from the plain version first on the path "
+                         "into this file")
     ap.add_argument("--check", action="store_true",
                     help="compare with the fixture")
     ap.add_argument("--device", default="cpu",
@@ -162,12 +223,30 @@ def main(argv=None) -> int:
     if args.write:
         doc = {"seed": SEED, "recipe": RECIPE, "inputs_order": list(INPUTS),
                "module": os.path.relpath(fr.__file__, ROOT),
-               **fingerprints(fr)}
+               **fingerprints(fr),
+               "row_sums": {"recipe": ROW_RECIPE,
+                            "module": os.path.relpath(fr.__file__, ROOT),
+                            **row_fingerprints(fr)}}
         with open(args.write, "w") as fh:
             json.dump(doc, fh, indent=1, sort_keys=True)
             fh.write("\n")
         print(f"reduce_bits: {len(doc['cases'])} cases of {fr.__file__} "
               f"written to {args.write}", flush=True)
+    if args.add:
+        doc = load_fixture(args.fixture)
+        rows = doc.setdefault("row_sums", {"recipe": ROW_RECIPE,
+                                           "module": os.path.relpath(
+                                               fr.__file__, ROOT),
+                                           "inputs": {}, "cases": {}})
+        lack = {c[0] for c in row_cases()} - set(rows["cases"])
+        new = row_fingerprints(fr, keys=lack)
+        rows["inputs"].update(new["inputs"])
+        rows["cases"].update(new["cases"])
+        with open(args.add, "w") as fh:
+            json.dump(doc, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        print(f"reduce_bits: {len(lack)} row sums of {fr.__file__} added "
+              f"into {args.add}", flush=True)
     if args.check:
         if args.device != "cpu" and not torch.cuda.is_available():
             print("reduce_bits: CUDA is not available", file=sys.stderr)
@@ -178,8 +257,14 @@ def main(argv=None) -> int:
                      if got["cases"][k] != want["cases"].get(k))
         bad += sorted(k for k in got["inputs"]
                       if got["inputs"][k] != want["inputs"].get(k))
+        rows = row_fingerprints(fr, args.device, plain=args.device == "cpu")
+        want_rows = want.get("row_sums", {"inputs": {}, "cases": {}})
+        bad += sorted(k for k in rows["cases"]
+                      if rows["cases"][k] != want_rows["cases"].get(k)
+                      or rows["inputs"][k] != want_rows["inputs"].get(k))
         print(json.dumps({"reduce_bits": {"device": args.device,
-                                          "cases": len(got["cases"]),
+                                          "cases": len(got["cases"])
+                                          + len(rows["cases"]),
                                           "differ": bad}}), flush=True)
         return 1 if bad else 0
     return 0
