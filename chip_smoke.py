@@ -64,10 +64,14 @@ Phases (each raises on failure; nothing is caught):
              the rectangular products of D3's C6 contraction ((1, 5) by
              (5, 5) per atom pair of a 73-atom Hessian chunk and of the
              w20 dimers, and its backward's (5, 1) by (1, 5)) with every
-             transpose, and the contraction itself (`pair_bilinear`)
-             against the einsums it replaced; float64 (1e-13 of the
-             largest entry) and float32 (1e-5); a fragment alone and in
-             its batch bit for bit equal; the product and the sandwich,
+             transpose, and the contraction itself (`pair_bilinear`, one
+             launch of its own kernel) bit for bit its plain version
+             (`pair_bilinear_reference`) and against the einsums it
+             replaced, its backward (dw, dgrids) bit for bit alone and
+             in its batch, timed beside the einsums and `pair_bound`;
+             float64 (1e-13 of the largest entry) and float32 (1e-5); a
+             fragment alone and in its batch bit for bit equal; the
+             product and the sandwich,
              the plain version and torch.matmul (library_ms) timed
              graph-replayed beside the bound (`gemm_bound`), the matvec
              beside torch.matmul's; the Coulomb matvec on its own kernel
@@ -78,7 +82,10 @@ Phases (each raises on failure; nothing is caught):
              beside torch.matmul and `matvec_bound`;
 1e. sums:   the batch-invariant fragment sums (csrc/fragment_reduce.cu,
              built with the others): GFN2's moment contraction into the
-             Fock matrix (`moment_fock`, d = 3 and 6 at once), the moment
+             Fock matrix (`moment_fock`, d = 3 and 6 at once, d = 3
+             alone, and its contraction without the symmetrisation,
+             `moment_contract`, at d = 6 as moment_rows' backward runs
+             it), the moment
              row sums (`moment_rows`: d = 3 and 6 into atoms, unsegmented
              as its backward runs it, d = 1 with a mask as the shell
              populations, an index in no sorted order), the segment sums
@@ -1363,10 +1370,11 @@ GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
 # first version took sizes up to 64)
 GEMM_WIDE = ((16, 96), (3, 128))
 GEMM_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
-# rectangular products (B, m, k, n) on the main path: D3's C6 contraction,
-# a (1, R) by (R, R) product per atom pair, for a 73-atom Hessian chunk
-# (41 x 73 x 73 pairs) and the w20 MBE(2) dimers (190 x 6 x 6), and the
-# (R, 1) by (1, R) form of its backward pass
+# rectangular products (B, m, k, n): a (1, R) by (R, R) product per atom
+# pair, as D3's C6 backward runs it (its forward is the pair kernel), for
+# a 73-atom Hessian chunk (41 x 73 x 73 pairs) and the w20 MBE(2) dimers
+# (190 x 6 x 6), and the (R, 1) by (1, R) form of a product's backward
+# (the fingerprinted cases of the kernel's first version)
 GEMM_RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5),
              (190 * 36, 5, 1, 5))
 # (B, nat) of D3's pair contraction (`pair_bilinear`) on the main path
@@ -1425,12 +1433,13 @@ def gemm_phase(fm):
     GEMM_TOL; a fragment's bits the same alone and in its batch; times of
     the kernel, the plain version and torch.matmul (library_ms: cuBLAS's
     batched product, which the engine ran before) beside the bound.
-    Returns the kernels line's entry (the (512, 16) float64 product, the
-    sandwich's numbers beside it)."""
+    Returns the kernels line's entries: the (512, 16) float64 product, the
+    sandwich's numbers beside it, and `rect_phase`'s of the pair
+    contraction (float64)."""
     gemm_bits_check(fm)
     layout_check(fm)
     rng = np.random.default_rng(15)
-    entry = None
+    entry = pair_entry = None
     for dtype in (torch.float64, torch.float32):
         for bsz, n in GEMM_SHAPES + GEMM_WIDE:
             a, b, s = (torch.tensor(rng.standard_normal((bsz, n, n)),
@@ -1516,8 +1525,9 @@ def gemm_phase(fm):
                          "sandwich_ms": sw_ms,
                          "sandwich_library_ms": times["sw_library"],
                          "sandwich_bound_ms": sw_bound}
-        rect_phase(fm, rng, dtype)
-    return entry
+        pair = rect_phase(fm, rng, dtype)
+        pair_entry = pair_entry or pair
+    return entry, pair_entry
 
 
 def gemm_bits_check(fm):
@@ -1526,7 +1536,9 @@ def gemm_bits_check(fm):
     `tests/data/fragment_gemm_bits.json`, written on the card from that
     commit by `tools/gemm_bits_torch.py --write`): every entry, transpose,
     shape and dtype the fixture holds, which covers GEMM_SHAPES and
-    GEMM_RECT in both dtypes."""
+    GEMM_RECT in both dtypes; the pair contraction bit for bit its card
+    output at commit 759462b (the direct kernel, torch's multiply and
+    sum) at PAIR_SHAPES and the fixture's other pair shapes."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import gemm_bits_torch as bits
 
@@ -1543,6 +1555,9 @@ def gemm_bits_check(fm):
              for e, shapes in (("matvec", MATVEC_SHAPES),
                                ("matvec_offset", ((512, 12), (16, 96))))
              for b, n in shapes}
+    # the pair contraction at its main-path shapes
+    want |= {bits.key_of("pair", d, shape) for d in ("f64", "f32")
+             for shape in PAIR_SHAPES}
     check(want <= set(fixture["cases"]), f"the fingerprint fixture lacks "
           f"{sorted(want - set(fixture['cases']))}")
     t0 = time.perf_counter()
@@ -1673,9 +1688,13 @@ def matvec_phase(fm):
 def rect_phase(fm, rng, dtype):
     """The product kernel's rectangular forms on the main path (GEMM_RECT,
     every transpose) against both plain versions, and D3's pair
-    contraction (`pair_bilinear`, PAIR_SHAPES) against the einsums it
-    replaced and the kernel's order: errors within GEMM_TOL, a fragment's
-    bits the same alone and in its batch; times beside torch's."""
+    contraction (`pair_bilinear`, PAIR_SHAPES) on its own kernel: one
+    launch a call, bit for bit its plain version
+    (`pair_bilinear_reference`), within GEMM_TOL of the einsums it
+    replaced, its bits and its backward's (dw, dgrids) the same for a
+    fragment alone and in its batch; times beside torch's and
+    `pair_bound`. Returns the kernels line's entry for `pair_bilinear`
+    (its first shape)."""
     tag = "f64" if dtype == torch.float64 else "f32"
     tol = GEMM_TOL[dtype]
     for bsz, m, k, n in GEMM_RECT:
@@ -1711,24 +1730,43 @@ def rect_phase(fm, rng, dtype):
               f" every transpose: max err={err:.3e} product ms="
               f"{times['kernel']:.4f} torch.matmul ms="
               f"{times['library']:.4f}", flush=True)
+    entry = None
+    pair_kind = fm.kind_of("pair_bilinear", 5)
     for bsz, nat in PAIR_SHAPES:
         w = torch.tensor(rng.random((bsz, nat, 5)), dtype=dtype,
                          device=DEVICE)
         w = w / w.sum(-1, keepdim=True)
         grids = torch.tensor(rng.random((bsz, nat, nat, 5, 5)) * 40.0,
                              dtype=dtype, device=DEVICE)
+        before = dict(fm.launches_by_kind)
         got = fm.pair_bilinear(w, grids)
+        torch.cuda.synchronize()
+        made = {k: n - before.get(k, 0)
+                for k, n in fm.launches_by_kind.items()
+                if n != before.get(k, 0)}
+        check(made == {pair_kind: 1}, f"pair_bilinear ({bsz}, {nat}): "
+              f"launched {made}, not one pair kernel")
 
         def einsums():
             v = torch.einsum("bia,bijac->bijc", w, grids)
             return torch.einsum("bijc,bjc->bij", v, w)
 
-        rows = w[:, :, None, None, :].expand(-1, -1, nat, 1, -1)
-        plain = (fm.fragment_bmm_reference(rows, grids)[..., 0, :]
-                 * w[:, None, :, :]).sum(-1)
+        plain = fm.pair_bilinear_reference(w, grids)
+        check(torch.equal(got, plain), f"pair_bilinear {tag} ({bsz}, "
+              f"{nat}): not bit for bit its plain version")
         err = max(_rel_err(got, einsums()), _rel_err(got, plain))
         check(err <= tol, f"pair_bilinear {tag} ({bsz}, {nat}): max err "
               f"{err:.3e} > {tol:.0e}")
+        # the backward: dw (CN's gradient) and dgrids (the theta fits')
+        dc = torch.tensor(rng.standard_normal((bsz, nat, nat)),
+                          dtype=dtype, device=DEVICE)
+
+        def grads(w, grids, dc):
+            w, grids = (t.detach().requires_grad_() for t in (w, grids))
+            return torch.autograd.grad(fm.pair_bilinear(w, grids),
+                                       (w, grids), dc)
+
+        whole = grads(w, grids, dc)
         for idx in ([0], [bsz - 1, 0]):
             idx = torch.tensor(idx, device=DEVICE)
             part = fm.pair_bilinear(w.index_select(0, idx),
@@ -1736,12 +1774,27 @@ def rect_phase(fm, rng, dtype):
             check(torch.equal(part, got.index_select(0, idx)),
                   f"pair_bilinear ({bsz}, {nat}): a fragment's bits depend "
                   f"on its batch")
-        ms = graph_ms(lambda: fm.pair_bilinear(w, grids), 20)
+            back = grads(*(t.index_select(0, idx) for t in (w, grids, dc)))
+            check(all(torch.equal(p, q.index_select(0, idx))
+                      for p, q in zip(back, whole)),
+                  f"pair_bilinear ({bsz}, {nat}): a fragment's gradient "
+                  f"depends on its batch")
+        ms = min(graph_ms(lambda: fm.pair_bilinear(w, grids), 20),
+                 graph_ms(lambda: fm.pair_bilinear(w, grids), 20))
         lib = graph_ms(einsums, 20)
+        plain_ms = graph_ms(lambda: fm.pair_bilinear_reference(w, grids), 3)
         bound_ms, bound_by = pair_bound(bsz, nat, dtype)
-        print(f"pair_bilinear {tag} (B, nat)=({bsz}, {nat}): max err="
-              f"{err:.3e} ms={ms:.4f} torch.einsum ms={lib:.4f} bound ms="
-              f"{bound_ms:.6f} ({bound_by})", flush=True)
+        print(f"pair_bilinear {tag} (B, nat)=({bsz}, {nat}): one launch, "
+              f"bit for bit its plain version, its gradient alone and in "
+              f"its batch: True; max err={err:.3e} ms={ms:.4f} plain ms="
+              f"{plain_ms:.4f} torch.einsum ms={lib:.4f} bound ms="
+              f"{bound_ms:.6f} ({bound_by}, {100 * bound_ms / ms:.2f}% of "
+              f"it)", flush=True)
+        if entry is None:
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib}
+    return entry
 
 
 #: (B, n) of the fragment sums' check: the dimer slice (16 AOs), the w20
@@ -1763,12 +1816,14 @@ REDUCE_REPLACES = {
 
 def reduce_bound(entry: str, bsz: int, n: int, dtype, d: int = 6,
                  size: int = 0, length: int = 0, index: bool = True,
-                 weights: bool = False, rows: int = 1):
+                 weights: bool = False, rows: int = 1, sym: bool = True):
     """(bound_ms, bound_by) of one launch of a fragment sum entry: every
     input read once and every output written once at the memory rate, or
     its multiplies and adds at the vector rate (no tensor cores), the
-    larger. moment_fock: f, v (n, 3 + 6), D, Q in, F out, (2 x 9 + 3) n^2
-    operations; moment_rows: a, m (d n^2), the int64 index and the weights
+    larger. moment_fock over d planes in all (9: D and Q): v (n, d), the
+    planes (d n^2) and, with `sym`, f in, F out, (2 d + 3) n^2
+    operations; without `sym` (moment_contract) (d + 1) n^2 + d n elements
+    and 2 d n^2 operations; moment_rows: a, m (d n^2), the int64 index and the weights
     where the form has them in, (size, d) out, 2 d n^2 operations;
     segment_sum: (n, d) values, the index and the weights where the form
     has them in, (size, d) out; fragment_sum: `rows` rows a fragment (the
@@ -1777,8 +1832,8 @@ def reduce_bound(entry: str, bsz: int, n: int, dtype, d: int = 6,
     item = torch.finfo(dtype).bits // 8
     read = (n if weights else 0), (8 * n if index else 0)
     if entry == "moment_fock":
-        elems, ops = 11 * n * n + 9 * n, 21 * n * n
-        extra = 0
+        elems = (d + (2 if sym else 1)) * n * n + d * n
+        ops, extra = (2 * d + (3 if sym else 0)) * n * n, 0
     elif entry == "moment_rows":
         elems, ops = (1 + d) * n * n + read[0] + size * d, 2 * d * n * n
         extra = read[1]
@@ -1839,10 +1894,22 @@ def reduce_forms(fr, n: int) -> dict:
 
     nat = max(1, n // 3)
     return {
-        "moment_fock": [(
-            "D+Q", lambda c: fr.moment_fock(*(c[k] for k in fock)),
-            lambda c: fr.moment_fock_reference(*(c[k] for k in fock)),
-            lambda c: fr._torch_moment_fock(*(c[k] for k in fock)), {})],
+        "moment_fock": [
+            ("D+Q", lambda c: fr.moment_fock(*(c[k] for k in fock)),
+             lambda c: fr.moment_fock_reference(*(c[k] for k in fock)),
+             lambda c: fr._torch_moment_fock(*(c[k] for k in fock)),
+             {"d": 9}),
+            # the dipoles alone
+            ("D", lambda c: fr.moment_fock(*(c[k] for k in fock[:3])),
+             lambda c: fr.moment_fock_reference(*(c[k] for k in fock[:3])),
+             lambda c: fr._torch_moment_fock(*(c[k] for k in fock[:3])),
+             {"d": 3}),
+            # moment_rows' backward: the contraction alone
+            # (`moment_contract`, the Function it calls)
+            ("contract d=6", lambda c: fr._Contract.apply(c["vQ"], c["Q"]),
+             lambda c: fr.moment_contract_reference(c["vQ"], c["Q"]),
+             lambda c: torch.einsum("bkd,bdkl->bkl", c["vQ"], c["Q"]),
+             {"d": 6, "sym": False})],
         "moment_rows": [
             ("d=3 atoms", *rows("D"), {"d": 3, "size": nat}),
             ("d=6 atoms", *rows("Q"), {"d": 6, "size": nat}),
@@ -3640,7 +3707,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    gemm_entry = gemm_phase(fm)
+    gemm_entry, pair_entry = gemm_phase(fm)
     matvec_entry = matvec_phase(fm)
     print(f"phase fragment products: {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -3753,8 +3820,10 @@ def main() -> int:
           f"kind {by_kind}", flush=True)
     matvecs = sum(n for k, n in fm.launches_by_kind.items()
                   if k[0] == "matvec")
+    pairs = fm.launches_by_kind[fm.kind_of("pair_bilinear", 5)]
     check(matvecs > 0, "the main path launched no matvec kernel")
-    check(fm.launches > matvecs,
+    check(pairs > 0, "the main path launched no pair contraction kernel")
+    check(fm.launches > matvecs + pairs,
           "the main path launched no fragment product kernel")
     sums_by_kind = dict(sorted(fr.launches_by_kind.items()))
     print(f"main path: fragment sum launches={fr.launches} {sums}; by "
@@ -3826,9 +3895,10 @@ def main() -> int:
         "route": "cuda",
         "source": "metalquicha_tpu_torch/csrc/fragment_gemm.cu",
         "replaces": "metalquicha_tpu/methods/xtb/engine.py:443",
-        # the products and the sandwich; the matvec, on a kernel of its
-        # own in the same source, is the next entry
-        "launches": fm.launches - matvecs,
+        # the products and the sandwich; the matvec and the pair
+        # contraction, on kernels of their own in the same source, are the
+        # next entries
+        "launches": fm.launches - matvecs - pairs,
         # the main path's launches by kind (the matvec's among them): the
         # direct kernel, or the size class (16, 32, 64 staged whole; 128
         # with k in tiles)
@@ -3841,6 +3911,13 @@ def main() -> int:
         "replaces": "metalquicha_tpu/methods/xtb/engine.py:463",
         "launches": matvecs,
         **matvec_entry,
+    }, {
+        "name": "pair_bilinear",
+        "route": "cuda",
+        "source": "metalquicha_tpu_torch/csrc/fragment_gemm.cu",
+        "replaces": "metalquicha_tpu/methods/xtb/dispersion_d3.py:255",
+        "launches": pairs,
+        **pair_entry,
     }] + [{
         "name": entry,
         "route": "cuda",

@@ -34,9 +34,12 @@
 //   sandwich's X F is rounded to T in shared memory first.
 // - the matvec: each output by FMA in ascending k from 0 (`__fma_rn`,
 //   `__fmaf_rn`), in both forms.
-// Where every size is 8 or less (D3's (1, R) by (R, R) per atom pair), a
+// Where every size is 8 or less (the products of D3's C6 backward), a
 // thread per output element by FMA in ascending k from global memory (the
 // direct kernel).
+// - pair_bilinear: c[b, i, j] = sum_c (sum_a w[b, i, a] G[b, i, j, a, c])
+//   w[b, j, c], D3's C6 from each pair's (5, 5) reference grid, on a
+//   kernel of its own (`pair_bilinear_kernel`, design below).
 //
 // What bounds it. At the main path's shapes ((512, 16) to (5985, 32) and
 // (128, 64)) a product is 2 n^3 operations over 3 n^2 elements moved:
@@ -129,6 +132,27 @@
 //   ahead of the dependent FMAs.
 // A fragment's outputs are the same chains whatever the unit, so its bits
 // do not depend on the batch.
+//
+// The pair contraction (`pair_bilinear`, D3's C6 twice a functional; its
+// backward runs on the direct kernel and the fragment sums). Its first
+// form was four launches: w expanded and copied to (B, nat, nat, 1, R),
+// the direct kernel (a thread an output reading its (R, R) grid 25
+// elements apart from its neighbours', uncoalesced) writing v (B, nat,
+// nat, R) to memory, torch's multiply by w[j] and torch's sum over R
+// (29% of the bound at (41, 73)). What bounds it: the grids' bytes, read
+// once (43.7 MB at (41, 73), 0.013 ms); where the batch is small, one
+// launch. Now one launch: a block takes 128 consecutive pairs of the
+// flattened batch (measured against 64 and 32), whose grids are one
+// contiguous run,
+// staged by 16-byte cp.async.cg (an element a copy where the base is not
+// 16-byte aligned, and at the array's end); a thread a pair reads its
+// rows w[i] and w[j] through the read-only cache while the grids land (a
+// run of pairs crosses fragments, so w is not staged: its few KB stay in
+// L1), then forms v[c] by FMA over a ascending from +0, the products v[c]
+// w[j, c] rounded, and their sum in the association of torch's sum over
+// a short row (`pair_sum`), and stores c coalesced. Nothing of size (B,
+// nat, nat, R) reaches memory. The bits are those of the four launches
+// (the fingerprints of their card output).
 // The kernel launches on the caller's stream, allocates nothing, never
 // synchronizes, and the C entry points return cudaGetLastError() after
 // the launch.
@@ -146,6 +170,10 @@ constexpr int kMaxN = 128;
 constexpr int kStagedN = 64;
 // products with every size up to this take the direct kernel
 constexpr int kTiny = 8;
+// the reference grids of a pair of the pair contraction (D3's MAX_REFS),
+// and the pairs (threads) a block of its kernel takes
+constexpr int kPairR = 5;
+constexpr int kPairThreads = 128;
 // rows of op(A) a unit computes at class 64 (`Cfg`)
 constexpr int kBand64 = 32;
 constexpr int kStaticSmem = 48 * 1024;
@@ -248,6 +276,19 @@ __device__ __forceinline__ double fma_(double a, double b, double c) {
 }
 __device__ __forceinline__ float fma_(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
+}
+// a product and a sum rounded each on its own (no FMA contraction)
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
 }
 
 // lanes a row of `n` items: the next power of two, 2 to 32 (shifts and
@@ -1419,6 +1460,104 @@ int sandwich(const T* x, const T* f, const T* s, T* c, int batch, int n,
   });
 }
 
+// D3's pair contraction (design in the header, "The pair contraction"): a
+// block of P threads takes P consecutive pairs p = (b nat + i) nat + j of
+// the flattened batch; their (R, R) grids, one contiguous run of P R^2
+// elements (25 KB in f64), are staged into shared memory by 16-byte
+// cp.async.cg (an element a copy where the base is not 16-byte aligned,
+// and at the array's end); a thread a pair reads its w[b, i] and w[b, j]
+// through the read-only cache while the grids land, then runs
+//   v[c] = fma(w_i[a], grids[a, c], v[c]) for a ascending from +0,
+//   q[c] = v[c] w_j[c] (rounded),
+//   c = `pair_sum` of q,
+// and stores c coalesced.
+
+// sum_c q[c] in the association of torch's reduction over a short row on
+// a card: lane t of H = 2^floor(log2 R) lanes holds (+0 + q[t]) + (+0 +
+// q[t + H]) (the second where t + H < R), then the lanes are halved
+// pairwise, lane t + h into lane t for h = H / 2, ..., 1
+template <typename T, int R>
+__device__ __forceinline__ T pair_sum(const T (&q)[R]) {
+  constexpr int H = R >= 8 ? 8 : R >= 4 ? 4 : R >= 2 ? 2 : 1;
+  T lane[H];
+#pragma unroll
+  for (int t = 0; t < H; ++t) {
+    lane[t] = add_rn(T(0), q[t]);
+    if (t + H < R)
+      lane[t] = add_rn(lane[t], add_rn(T(0), q[t + H < R ? t + H : t]));
+  }
+#pragma unroll
+  for (int h = H / 2; h > 0; h /= 2) {
+#pragma unroll
+    for (int t = 0; t < h; ++t) lane[t] = add_rn(lane[t], lane[t + h]);
+  }
+  return lane[0];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPairThreads)
+    pair_bilinear_kernel(const T* __restrict__ w,
+                         const T* __restrict__ grids, T* __restrict__ out,
+                         long long pairs, int nat, int vec) {
+  constexpr int P = kPairThreads, R = kPairR, RR = R * R;
+  constexpr int E = 16 / sizeof(T);
+  __shared__ __align__(16) T sg[P * RR];
+  const long long p0 = static_cast<long long>(blockIdx.x) * P;
+  const int np = static_cast<int>(
+      pairs - p0 < P ? pairs - p0 : static_cast<long long>(P));
+  const int len = np * RR;
+  const T* src = grids + p0 * RR;
+  const int t = threadIdx.x;
+  const int chunks = vec ? len / E : 0;
+  for (int q = t; q < chunks; q += P) cp_async16(sg + q * E, src + q * E);
+  for (int e = chunks * E + t; e < len; e += P) cp_async(sg + e, src + e);
+  cp_async_commit();
+  // the pair's weights, while the grids land
+  const bool live = t < np;
+  const long long p = p0 + (live ? t : 0);
+  const long long bi = p / nat;  // b nat + i
+  const int j = static_cast<int>(p - bi * nat);
+  const int i = static_cast<int>(bi % nat);
+  const T* wi = w + bi * R;
+  const T* wj = w + (bi - i + j) * R;
+  T a[R], b[R], v[R], q[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    a[u] = __ldg(wi + u);
+    b[u] = __ldg(wj + u);
+    v[u] = T(0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!live) return;
+  const T* g = sg + t * RR;
+#pragma unroll
+  for (int x = 0; x < R; ++x) {
+#pragma unroll
+    for (int c = 0; c < R; ++c) v[c] = fma_(a[x], g[x * R + c], v[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < R; ++c) q[c] = mul_rn(v[c], b[c]);
+  out[p] = pair_sum<T, R>(q);
+}
+
+template <typename T>
+int pair_bilinear(const T* w, const T* grids, T* out, int batch, int nat,
+                  int r, int device, void* stream) {
+  if (batch <= 0 || nat <= 0) return 0;
+  if (r != kPairR) return static_cast<int>(cudaErrorInvalidValue);
+  const long long pairs = static_cast<long long>(batch) * nat * nat;
+  const long long blocks = (pairs + kPairThreads - 1) / kPairThreads;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = reinterpret_cast<uintptr_t>(grids) % 16 == 0 ? 1 : 0;
+  return on_device(device, [&] {
+    pair_bilinear_kernel<T><<<static_cast<unsigned>(blocks), kPairThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        w, grids, out, pairs, nat, vec);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -1466,6 +1605,20 @@ int mqc_fragment_matvec_f64(const double* mat, const double* x, double* y,
                             int batch, int rows, int cols, int trans,
                             int device, void* stream) {
   return matvec<double>(mat, x, y, batch, rows, cols, trans, device, stream);
+}
+
+// w: (batch, nat, r), grids: (batch, nat, nat, r, r), c: (batch, nat,
+// nat); r = 5
+int mqc_pair_bilinear_f32(const float* w, const float* grids, float* c,
+                          int batch, int nat, int r, int device,
+                          void* stream) {
+  return pair_bilinear<float>(w, grids, c, batch, nat, r, device, stream);
+}
+
+int mqc_pair_bilinear_f64(const double* w, const double* grids, double* c,
+                          int batch, int nat, int r, int device,
+                          void* stream) {
+  return pair_bilinear<double>(w, grids, c, batch, nat, r, device, stream);
 }
 
 const char* mqc_cuda_error_string(int code) {

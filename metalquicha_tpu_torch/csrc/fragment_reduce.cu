@@ -33,8 +33,45 @@
 // FMA contraction), so the plain versions in elementwise torch ops
 // (`ops/fragment_reduce.py`, *_reference) reproduce the kernel's bits.
 //
-// moment_fock: one thread an output.
-//
+// moment_fock, redesigned for the H100 with the same bits (GFN2's Fock
+// matrix once an SCC iteration and in the functional). What bounds it:
+// the bytes, the 9 planes of D and Q read once (553 MB at (5985, 32),
+// 0.165 ms at the memory rate); its (2 d + 3) n^2 operations are far
+// under the vector rate. The first version ran a thread an output that
+// computed both g[k, l] and g[l, k]: every element of D and Q was read
+// twice, the second read (row l, column k) transposed, so a warp's loads
+// touched 32 rows n elements apart, and every g was computed twice (36%
+// of the bound at (64, 48)). Now:
+// - a unit is (fragment, tile pair I <= J) of TS x TS tiles (TS = 16, 8
+//   where n fits one such tile: four fragments a block), a thread an
+//   element of tile (I, J) and its mirror in tile (J, I): each element of
+//   D and Q is loaded once, by one thread, consecutive threads on
+//   consecutive l in both tiles (coalesced), and each g is one chain;
+// - every load a thread makes (its elements of all nine planes, and f)
+//   is issued before it waits on any, so a block makes one round trip to
+//   memory (a first design that staged v and synchronized before the
+//   planes' loads and read f after the chains made three, and ran slower
+//   than the first version where the batch fills the card); into
+//   registers, not a shared-memory ring: no element is read twice, so
+//   staging would buy no reuse;
+// - v's rows of the tiles I and J are staged in shared memory while the
+//   loads are in flight;
+// - the nine planes' values take a thread's registers (about 100 in f64:
+//   two 256-thread blocks an SM); where a cap of three blocks an SM, and
+//   only that, holds the grid in one wave (GFN2 hexamers (64, 48) and
+//   dodecamers (16, 96): 384 and 336 blocks), the registers are capped
+//   (the occupancy of both forms queried once per device); where the
+//   batch fills the card the cap ran slower;
+// - the g of both tiles are exchanged through shared memory (rows padded
+//   by one element), and out[I, J] and out[J, I] are stored coalesced; a
+//   diagonal tile exchanges within itself.
+// The chains are the first version's: g = sum_d v1[k, d] m1[d, k, l] from
+// +0 in ascending d, the same for v2, m2, then added; out = f - 0.5 (g[k,
+// l] + g[l, k]); an addition commutes, so out[l, k] takes the same pair.
+// Without `sym` (moment_contract, the contraction of moment_rows'
+// backward) there is no transpose to share: it keeps the first version's
+// thread an output, coalesced, which measured faster than the tiles.
+
 // fragment_sum, redesigned for the H100 with the same bits (every sum of
 // the energy on a card, and the backward of `broadcast`). Its first
 // version ran a warp a row up to kWarpRowMax elements and a block a row
@@ -142,6 +179,16 @@ constexpr long long kSumClusterLen32 = 512 * 256;
 constexpr long long kSumMinBytes = 48 * 1024;
 // a lane's staged elements read into registers at a time
 constexpr int kSumBatch = 16;
+// moment_fock: threads a block, the side of a tile (kFockSmallTile where
+// n fits one tile of it: several fragments a block), the planes whose
+// loads a thread issues at once (D's 3 and Q's 6)
+constexpr int kFockThreads = 256;
+constexpr int kFockTile = 16;
+constexpr int kFockSmallTile = 8;
+constexpr int kFockBatch = 9;
+// moment_fock: the blocks an SM holds where the registers are capped to
+// hold a grid in one wave (`launch_fock`)
+constexpr int kFockWaveBlocks = 3;
 // threads a block of moment_rows and of segment_sum
 constexpr int kRowThreads = 256;
 constexpr int kSegThreads = 256;
@@ -185,8 +232,154 @@ __device__ __forceinline__ float mul_(float a, float b) {
   return __fmul_rn(a, b);
 }
 
-// sum_d v[k, d] m[d, k, l] over d ascending, for one fragment's v (n, dv)
-// and m (dv, n, n)
+// One launch of moment_fock: a unit is (fragment, tile pair I <= J) of TS
+// x TS tiles of the (n, n) output, nt tiles a side, `pairs` = nt (nt + 1)
+// / 2 units a fragment; kFockThreads / TS^2 units a block.
+template <typename T>
+struct Fock {
+  const T* f;
+  const T* v1;
+  const T* m1;
+  const T* v2;
+  const T* m2;
+  T* out;
+  long long units;
+  int n, d1, d2, nt, pairs;
+};
+
+// Shared memory of a block of moment_fock_kernel<T, TS>: for each of its
+// units, v's rows of the tiles I and J (2 TS (d1 + d2)), then the g of
+// tiles (I, J) and (J, I), rows padded by one element (2 TS (TS + 1))
+template <typename T, int TS>
+size_t fock_smem(const Fock<T>& p) {
+  constexpr int U = kFockThreads / (TS * TS);
+  return static_cast<size_t>(U) * 2 * TS * (p.d1 + p.d2 + TS + 1) *
+         sizeof(T);
+}
+
+// A thread holds element (k, l) = (I TS + ty, J TS + tx) of tile (I, J)
+// and, off the diagonal, (k2, l2) = (J TS + ty, I TS + tx) of tile (J, I):
+// g = sum_d v1[k, d] m1[d, k, l] (+ sum_d v2[k, d] m2[d, k, l]), each sum
+// from +0 in ascending d, then the two added. Every load the thread makes
+// is issued before it waits on any (the planes of m1 then m2, up to
+// kFockBatch of them, of both its elements, and f): every element of m1
+// and m2 is read once, consecutive threads on consecutive l. Then v's
+// rows are staged, the chains run, the g of both tiles are exchanged
+// through shared memory and out[k, l] = f[k, l] - 0.5 (g[k, l] + g[l,
+// k]) is stored for both elements.
+template <typename T, int TS>
+__device__ __forceinline__ void fock_tiles(const Fock<T>& p) {
+  constexpr int TT = TS * TS, U = kFockThreads / TT, LD = TS + 1;
+  constexpr int B = kFockBatch;
+  extern __shared__ __align__(16) unsigned char fock_smem_[];
+  const int n = p.n, d1 = p.d1, ds = p.d1 + p.d2;
+  const int slot = threadIdx.x / TT, r = threadIdx.x % TT;
+  const int ty = r / TS, tx = r % TS;
+  const long long u = static_cast<long long>(blockIdx.x) * U + slot;
+  const bool unit = u < p.units;
+  const long long b = unit ? u / p.pairs : 0;
+  int q = unit ? static_cast<int>(u - b * p.pairs) : 0, I = 0;
+  while (q >= p.nt - I) {
+    q -= p.nt - I;
+    ++I;
+  }
+  const int J = I + q;
+  const bool diag = I == J;
+  const long long nn = static_cast<long long>(n) * n;
+  const int k = I * TS + ty, l = J * TS + tx;
+  const int k2 = J * TS + ty, l2 = I * TS + tx;
+  const bool live = unit && k < n && l < n;
+  const bool live2 = unit && !diag && k2 < n && l2 < n;
+  // offsets in a fragment's (n, n) plane, and of the fragment's planes
+  const long long ok = static_cast<long long>(k) * n + l;
+  const long long ok2 = static_cast<long long>(k2) * n + l2;
+  const T* m1 = p.m1 + b * d1 * nn;
+  const T* m2 = p.d2 > 0 ? p.m2 + b * p.d2 * nn : m1;
+  T x[B], y[B];
+  // planes d0 .. d0 + B - 1 of both elements (m1's planes, then m2's)
+  auto load = [&](int d0) {
+#pragma unroll
+    for (int e = 0; e < B; ++e) {
+      const int dd = d0 + e;
+      const T* plane = dd < d1 ? m1 + dd * nn : m2 + (dd - d1) * nn;
+      x[e] = live && dd < ds ? __ldg(plane + ok) : T(0);
+      y[e] = live2 && dd < ds ? __ldg(plane + ok2) : T(0);
+    }
+  };
+  load(0);
+  const T fk = live ? __ldg(p.f + b * nn + ok) : T(0);
+  const T fk2 = live2 ? __ldg(p.f + b * nn + ok2) : T(0);
+
+  // v's rows of tiles I and J: sv[h][row][d], d over v1's then v2's
+  T* sv = reinterpret_cast<T*>(fock_smem_) +
+          static_cast<long long>(slot) * 2 * TS * (ds + LD);
+  for (int e = r; e < 2 * TS * ds; e += TT) {
+    const int row = e / ds, dd = e - row * ds;
+    const int kk = row < TS ? I * TS + row : J * TS + row - TS;
+    T vv = T(0);
+    if (unit && kk < n)
+      vv = dd < d1 ? p.v1[(b * n + kk) * d1 + dd]
+                   : p.v2[(b * n + kk) * p.d2 + dd - d1];
+    sv[e] = vv;
+  }
+  __syncthreads();
+
+  const T* vk = sv + ty * ds;
+  const T* vk2 = sv + (TS + ty) * ds;
+  T a1 = T(0), a2 = T(0), c1 = T(0), c2 = T(0);
+  for (int d0 = 0;;) {
+#pragma unroll
+    for (int e = 0; e < B; ++e) {
+      const int dd = d0 + e;
+      if (dd < d1) {
+        a1 = add_(a1, mul_(vk[dd], x[e]));
+        c1 = add_(c1, mul_(vk2[dd], y[e]));
+      } else if (dd < ds) {
+        a2 = add_(a2, mul_(vk[dd], x[e]));
+        c2 = add_(c2, mul_(vk2[dd], y[e]));
+      }
+    }
+    d0 += B;
+    if (d0 >= ds) break;
+    load(d0);
+  }
+  const T g = p.d2 > 0 ? add_(a1, a2) : a1;
+  const T g2 = p.d2 > 0 ? add_(c1, c2) : c1;
+  // g of tile (I, J) at sx[ty][tx], of tile (J, I) at sx[TS + ty][tx]
+  T* sx = sv + 2 * TS * ds;
+  sx[ty * LD + tx] = g;
+  sx[(TS + ty) * LD + tx] = g2;
+  __syncthreads();
+  if (live) {
+    // g[l, k]: tile (I, I) at (tx, ty) on the diagonal, else tile (J, I)
+    const T gt = sx[((diag ? 0 : TS) + tx) * LD + ty];
+    p.out[b * nn + ok] = sub_(fk, mul_(T(0.5), add_(g, gt)));
+  }
+  if (live2) {
+    // g[l2, k2]: tile (I, J) at (tx, ty)
+    const T gt2 = sx[tx * LD + ty];
+    p.out[b * nn + ok2] = sub_(fk2, mul_(T(0.5), add_(g2, gt2)));
+  }
+}
+
+// `fock_tiles`, its registers left to the compiler, and capped so that
+// an SM holds kFockWaveBlocks blocks (`launch_fock`)
+template <typename T, int TS>
+__global__ void __launch_bounds__(kFockThreads)
+    moment_fock_kernel(const Fock<T> p) {
+  fock_tiles<T, TS>(p);
+}
+
+template <typename T, int TS>
+__global__ void __launch_bounds__(kFockThreads, kFockWaveBlocks)
+    moment_fock_wave_kernel(const Fock<T> p) {
+  fock_tiles<T, TS>(p);
+}
+
+// moment_fock without `sym` (moment_contract): a thread an output, g =
+// sum_d v1[k, d] m1[d, k, l] (+ the same of v2, m2) as above, consecutive
+// threads on consecutive l (coalesced; no transpose to share, so the
+// first version's schedule, measured faster than the tiles here)
 template <typename T>
 __device__ __forceinline__ T contract(const T* __restrict__ v,
                                       const T* __restrict__ m, int dv,
@@ -199,13 +392,12 @@ __device__ __forceinline__ T contract(const T* __restrict__ v,
 }
 
 template <typename T>
-__global__ void moment_fock_kernel(const T* __restrict__ f,
-                                   const T* __restrict__ v1,
-                                   const T* __restrict__ m1, int d1,
-                                   const T* __restrict__ v2,
-                                   const T* __restrict__ m2, int d2,
-                                   T* __restrict__ out, long long total,
-                                   int n, int sym) {
+__global__ void moment_contract_kernel(const T* __restrict__ v1,
+                                       const T* __restrict__ m1, int d1,
+                                       const T* __restrict__ v2,
+                                       const T* __restrict__ m2, int d2,
+                                       T* __restrict__ out, long long total,
+                                       int n) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -213,19 +405,10 @@ __global__ void moment_fock_kernel(const T* __restrict__ f,
   const long long b = idx / nn;
   const int r = static_cast<int>(idx - b * nn);
   const int k = r / n, l = r - (r / n) * n;
-  const T* v1f = v1 + b * n * d1;
-  const T* m1f = m1 + b * d1 * nn;
-  const T* v2f = d2 > 0 ? v2 + b * n * d2 : nullptr;
-  const T* m2f = d2 > 0 ? m2 + b * d2 * nn : nullptr;
-  T g = contract(v1f, m1f, d1, n, k, l);
-  if (d2 > 0) g = add_(g, contract(v2f, m2f, d2, n, k, l));
-  if (!sym) {
-    out[idx] = g;
-    return;
-  }
-  T gt = contract(v1f, m1f, d1, n, l, k);
-  if (d2 > 0) gt = add_(gt, contract(v2f, m2f, d2, n, l, k));
-  out[idx] = sub_(f[idx], mul_(T(0.5), add_(g, gt)));
+  T g = contract(v1 + b * n * d1, m1 + b * d1 * nn, d1, n, k, l);
+  if (d2 > 0)
+    g = add_(g, contract(v2 + b * n * d2, m2 + b * d2 * nn, d2, n, k, l));
+  out[idx] = g;
 }
 
 __device__ __forceinline__ void cp_async(double* dst, const double* src) {
@@ -976,23 +1159,6 @@ inline unsigned blocks_of(long long threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
-template <typename T>
-int moment_fock(const T* f, const T* v1, const T* m1, int d1, const T* v2,
-                const T* m2, int d2, T* out, int batch, int n, int sym,
-                int device, void* stream) {
-  if (batch <= 0 || n <= 0) return 0;
-  if (d1 < 1 || d2 < 0 || (d2 > 0 && (!v2 || !m2)) || (sym && !f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(batch) * n * n;
-  if (too_many(total)) return static_cast<int>(cudaErrorInvalidValue);
-  return on_device(device, [&] {
-    moment_fock_kernel<T><<<blocks_of(total), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        f, v1, m1, d1, v2, m2, d2, out, total, n, sym);
-    return cudaGetLastError();
-  });
-}
-
 // whether 16-byte copies reach every row of n elements from p: p 16-byte
 // aligned and the rows whole chunks
 template <typename T>
@@ -1045,6 +1211,115 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
 }
 
 inline long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// moment_fock_kernel<T, TS>, or with Wave moment_fock_wave_kernel<T, TS>
+template <typename T, int TS, bool Wave>
+auto fock_kernel() {
+  if constexpr (Wave) {
+    return moment_fock_wave_kernel<T, TS>;
+  } else {
+    return moment_fock_kernel<T, TS>;
+  }
+}
+
+// blocks of fock_kernel<T, TS, Wave> an SM holds (its registers bind it),
+// queried once per device; its shared memory allowed first where it needs
+// more than the default
+template <typename T, int TS, bool Wave>
+cudaError_t fock_resident(size_t smem, int device, int* per_sm) {
+  static unsigned long long done = 0;
+  static int held[64] = {};
+  cudaError_t err =
+      allow_smem(fock_kernel<T, TS, Wave>(), smem, device, &done);
+  if (err != cudaSuccess) return err;
+  int* h = held + (device & 63);
+  int v = __atomic_load_n(h, __ATOMIC_ACQUIRE);
+  if (v == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &v, fock_kernel<T, TS, Wave>(), kFockThreads, smem);
+    if (err != cudaSuccess) return err;
+    v = v < 1 ? 1 : v;
+    __atomic_store_n(h, v, __ATOMIC_RELEASE);
+  }
+  *per_sm = v;
+  return cudaSuccess;
+}
+
+template <typename T, int TS, bool Wave>
+cudaError_t launch_fock_as(const Fock<T>& p, long long blocks, size_t smem,
+                           cudaStream_t stream) {
+  const auto kernel = fock_kernel<T, TS, Wave>();
+  kernel<<<static_cast<unsigned>(blocks), kFockThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// moment_fock's schedule (the bits do not depend on it): with `sym`, tiles
+// of kFockSmallTile where n fits one (several fragments a block), else of
+// kFockTile, the registers a thread may take capped (kFockWaveBlocks
+// blocks an SM) where that and only that holds the grid in one wave (GFN2
+// hexamers and dodecamers; where the batch fills the card the cap was
+// measured slower); without `sym`, a thread an output
+template <typename T>
+cudaError_t launch_fock(Fock<T> p, int sym, int device,
+                        cudaStream_t stream) {
+  if (!sym) {
+    const long long total = p.units * p.n * p.n;
+    if (too_many(total)) return cudaErrorInvalidValue;
+    moment_contract_kernel<T><<<blocks_of(total), kThreads, 0, stream>>>(
+        p.v1, p.m1, p.d1, p.v2, p.m2, p.d2, p.out, total, p.n);
+    return cudaGetLastError();
+  }
+  const int ts = p.n <= kFockSmallTile ? kFockSmallTile : kFockTile;
+  p.nt = static_cast<int>(ceil_div(p.n, ts));
+  p.pairs = p.nt * (p.nt + 1) / 2;
+  p.units *= p.pairs;
+  const long long blocks = ceil_div(p.units, kFockThreads / (ts * ts));
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0, smem_max = 0;
+  if (ts == kFockSmallTile) {
+    const size_t smem = fock_smem<T, kFockSmallTile>(p);
+    cudaError_t err =
+        fock_resident<T, kFockSmallTile, false>(smem, device, &per_sm);
+    if (err != cudaSuccess) return err;
+    return launch_fock_as<T, kFockSmallTile, false>(p, blocks, smem, stream);
+  }
+  const size_t smem = fock_smem<T, kFockTile>(p);
+  cudaError_t err = card_of(device, &sms, &smem_max);
+  if (err != cudaSuccess) return err;
+  err = fock_resident<T, kFockTile, false>(smem, device, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (blocks > static_cast<long long>(per_sm) * sms) {
+    int capped = 0;
+    err = fock_resident<T, kFockTile, true>(smem, device, &capped);
+    if (err != cudaSuccess) return err;
+    if (blocks <= static_cast<long long>(capped) * sms)
+      return launch_fock_as<T, kFockTile, true>(p, blocks, smem, stream);
+  }
+  return launch_fock_as<T, kFockTile, false>(p, blocks, smem, stream);
+}
+
+template <typename T>
+int moment_fock(const T* f, const T* v1, const T* m1, int d1, const T* v2,
+                const T* m2, int d2, T* out, int batch, int n, int sym,
+                int device, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (d1 < 1 || d2 < 0 || (d2 > 0 && (!v2 || !m2)) || (sym && !f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Fock<T> p = {};
+  p.f = f;
+  p.v1 = v1;
+  p.m1 = m1;
+  p.v2 = d2 > 0 ? v2 : nullptr;
+  p.m2 = d2 > 0 ? m2 : nullptr;
+  p.out = out;
+  p.units = batch;
+  p.n = n;
+  p.d1 = d1;
+  p.d2 = d2;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return on_device(device,
+                   [&] { return launch_fock<T>(p, sym, device, st); });
+}
 
 // moment_rows' schedule at (batch, n, d) (the bits do not depend on it):
 // - tiles of l: L = 16 up to 16 AOs, else 32;

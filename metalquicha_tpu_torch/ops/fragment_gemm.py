@@ -29,21 +29,25 @@ as it is stored with its flag flipped.
   STAGED_N; two products and an add above);
 - `fragment_matvec(m, x, trans)`: op(m) @ x;
 - `pair_bilinear(w, grids)`: c[b, i, j] = w[b, i] . grids[b, i, j] .
-  w[b, j], D3's C6 contraction (a (1, R) by (R, R) product per atom pair
-  on the kernel, then a sum over R).
+  w[b, j], D3's C6 contraction, on a kernel of its own: one launch from
+  the weights and the gathered (R, R) grids to C6.
 
 Operands are (..., n, n) batches with the same leading shape, every size
 up to MAX_N. Each op is a `torch.autograd.Function` on a card whose
 backward calls the same kernel (so the backward is batch-invariant too,
-and itself differentiable: `param_fit.py` runs a double backward).
+and itself differentiable: `param_fit.py` runs a double backward);
+`pair_bilinear`'s backward is built of the products, `fragment_sum`,
+`broadcast` (`ops/fragment_reduce.py`) and elementwise products.
 
 Dispatch is by the tensors' device: a CUDA tensor goes to the kernel (or
 raises), a CPU tensor to the plain torch version, which is the torch
 expression the engine ran before the kernel (`torch.matmul`,
 `torch.einsum`), so every CPU result keeps its bits; any other device
 raises. `fragment_bmm_reference` and `matvec_reference` are the
-kernel's order in elementwise torch ops, for the tests; nothing on the
-main path calls them.
+kernel's order in elementwise torch ops, for the tests;
+`pair_bilinear_reference` is the pair kernel's arithmetic in elementwise
+torch ops, bit for bit (its FMAs emulated exactly, `fma_reference`);
+nothing on the main path calls them.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import threading
 import torch
 
 from . import replay_counts
+from .fragment_reduce import broadcast, fragment_sum
 from .kernel_build import KernelLibrary
 
 #: kernel launches so far by kind (`kind_of`), every entry; `launches` is
@@ -65,11 +70,15 @@ launches_by_kind = collections.Counter()
 #: (fragments above 64 AOs on the exact route)
 MAX_N = 128
 STAGED_N = 64
+#: the reference grids of a pair that `pair_bilinear` takes on a card
+#: (D3's MAX_REFS)
+PAIR_R = 5
 
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
 _BMM = [_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _int, _ptr]
 _SANDWICH = [_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr]
 _MATVEC = [_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr]
+_PAIR = [_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr]
 _LIB = KernelLibrary("fragment_gemm", {
     "mqc_fragment_bmm_f32": _BMM,
     "mqc_fragment_bmm_f64": _BMM,
@@ -77,6 +86,8 @@ _LIB = KernelLibrary("fragment_gemm", {
     "mqc_fragment_sandwich_f64": _SANDWICH,
     "mqc_fragment_matvec_f32": _MATVEC,
     "mqc_fragment_matvec_f64": _MATVEC,
+    "mqc_pair_bilinear_f32": _PAIR,
+    "mqc_pair_bilinear_f64": _PAIR,
 })
 _count_lock = threading.Lock()
 
@@ -112,19 +123,23 @@ def add_launches(by_kind: dict) -> None:
 
 def kind_of(entry: str, *sizes: int) -> tuple:
     """A launch's kind, (entry, class): class 0 for the direct kernel (a
-    product whose sizes are all 8 or less: a thread an output), else the
-    size class by the largest size (16, 32, 64, or 128: the product's k
-    in tiles; the matvec's staged rows)."""
+    product whose sizes are all 8 or less: a thread an output) and for
+    the pair kernel (`pair_bilinear`, a kind of its own), else the size
+    class by the largest size (16, 32, 64, or 128: the product's k in
+    tiles; the matvec's staged rows)."""
     top = max(sizes)
-    if entry == "bmm" and top <= 8:
+    if (entry == "bmm" and top <= 8) or entry == "pair_bilinear":
         return entry, 0
     return entry, (16 if top <= 16 else 32 if top <= 32 else
                    64 if top <= 64 else 128)
 
 
 def kind_name(kind: tuple) -> str:
-    """"<entry> <size class>" or "<entry> direct", for printing."""
+    """"<entry> <size class>", "<entry> direct" or "pair_bilinear", for
+    printing."""
     entry, cls = kind
+    if entry == "pair_bilinear":
+        return entry
     return f"{entry} {cls or 'direct'}"
 
 
@@ -157,6 +172,84 @@ def matvec_reference(m, x, trans=False):
     for q in range(m.shape[-1]):
         acc = acc + m[..., q] * x[..., q, None]
     return acc
+
+
+#: Veltkamp's splitting constant 2^ceil(p / 2) + 1 of each dtype
+_SPLIT = {torch.float64: 134217729.0, torch.float32: 4097.0}
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+
+def _two_sum(a, b):
+    """s = a + b rounded and e with s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """p = a b rounded and e with p + e = a b exactly (Dekker, with
+    Veltkamp's split)."""
+    p = a * b
+    ca, cb = _SPLIT[a.dtype] * a, _SPLIT[b.dtype] * b
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _add_odd(a, b):
+    """a + b rounded to odd: the sum rounded toward zero, its last bit set
+    where the sum is not exact."""
+    s, e = _two_sum(a, b)
+    even = (s.view(_BITS[s.dtype]) & 1) == 0
+    inf = torch.full_like(s, float("inf"))
+    toward = torch.nextafter(s, torch.where(e > 0, inf, -inf))
+    return torch.where((e != 0) & even, toward, s)
+
+
+def fma_reference(a, b, c):
+    """a b + c rounded once to the nearest (`__fma_rn`, `__fmaf_rn`), in
+    elementwise torch ops of the operands' dtype: the exact product as two
+    numbers, the sum of three rounded to odd and then to the nearest
+    (Boldo and Melquiond's emulated FMA; exact for finite operands whose
+    products do not underflow). A product of zero adds as the signed zero
+    it is."""
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    return torch.where(uh == 0, c + uh, th + _add_odd(tl, ul))
+
+
+def pair_sum_reference(p):
+    """The sum over the last dim (R products) in the pair kernel's
+    association, torch's own for a short row on a card: lane t of H =
+    2^floor(log2 R) lanes holds (+0 + p[t]) + (+0 + p[t + H]) (the second
+    where t + H < R), then the lanes are halved pairwise, lane t + h into
+    lane t for h = H / 2, ..., 1."""
+    size = p.shape[-1]
+    lanes_n = 1 << (size.bit_length() - 1)
+    lanes = []
+    for t in range(lanes_n):
+        lane = 0.0 + p[..., t]
+        if t + lanes_n < size:
+            lane = lane + (0.0 + p[..., t + lanes_n])
+        lanes.append(lane)
+    h = lanes_n // 2
+    while h:
+        lanes = [lanes[t] + lanes[t + h] for t in range(h)]
+        h //= 2
+    return lanes[0]
+
+
+def pair_bilinear_reference(w, grids):
+    """`pair_bilinear` in the kernel's arithmetic: v[b, i, j, c] =
+    fma(w[b, i, a], grids[b, i, j, a, c], v) for a ascending from +0, the
+    products v w[b, j, c] rounded, then summed over c as
+    `pair_sum_reference` does."""
+    v = torch.zeros(grids.shape[:-2] + grids.shape[-1:], dtype=grids.dtype,
+                    device=grids.device)
+    for a in range(grids.shape[-2]):
+        v = fma_reference(w[:, :, None, a, None], grids[..., a, :], v)
+    return pair_sum_reference(v * w[:, None, :, :])
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +314,21 @@ def _launch_sandwich(x, f, shift):
         _flat(c).shape[0], x.shape[-1], index, stream)
     _LIB.check(err, "fragment sandwich kernel")
     _count(stream, kind=kind_of("sandwich", x.shape[-1]))
+    return c
+
+
+def _launch_pair(w, grids):
+    """c (B, nat, nat) from w (B, nat, R) and grids (B, nat, nat, R, R)
+    on the card: one launch."""
+    bsz, nat, r = w.shape
+    w, grids = w.contiguous(), grids.contiguous()
+    c = torch.empty(bsz, nat, nat, dtype=w.dtype, device=w.device)
+    index, stream = _stream(w)
+    err = _fn("mqc_pair_bilinear", w.dtype)(
+        w.data_ptr(), grids.data_ptr(), c.data_ptr(), bsz, nat, r, index,
+        stream)
+    _LIB.check(err, "pair contraction kernel")
+    _count(stream, kind=kind_of("pair_bilinear", r))
     return c
 
 
@@ -307,6 +415,43 @@ class _Matvec(torch.autograd.Function):
         return dm, dx, None
 
 
+def _expand(x, shape):
+    """x expanded to `shape`, its backward a fragment sum on a card
+    (`broadcast`)."""
+    return broadcast(x, shape).expand(shape)
+
+
+class _PairBilinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, grids):
+        ctx.save_for_backward(w, grids)
+        return _launch_pair(w, grids)
+
+    @staticmethod
+    def backward(ctx, dc):
+        w, grids = ctx.saved_tensors
+        bsz, nat, r = w.shape
+        pairs = (bsz, nat, nat, r)
+        dw = dgrids = None
+        # c[i, j] = sum_a,c w[i, a] G[i, j, a, c] w[j, c]
+        if ctx.needs_input_grad[0]:
+            # dw[i, a] = sum_j dc[i, j] (G[i, j] w[j])[a]
+            #          + sum_j dc[j, i] (w[j] G[j, i])[a]
+            dcp = _expand(dc[..., None], pairs)
+            right = fragment_bmm(grids, _expand(
+                w[:, None, :, :, None], (*pairs, 1)))[..., 0]
+            left = fragment_bmm(_expand(
+                w[:, :, None, None, :], (bsz, nat, nat, 1, r)), grids)[
+                    ..., 0, :]
+            dw = fragment_sum(dcp * right, 2) + fragment_sum(dcp * left, 1)
+        if ctx.needs_input_grad[1]:
+            full = grids.shape
+            dgrids = (_expand(dc[..., None, None], full)
+                      * _expand(w[:, :, None, :, None], full)
+                      * _expand(w[:, None, :, None, :], full))
+        return dw, dgrids
+
+
 # ---------------------------------------------------------------------------
 # The ops
 # ---------------------------------------------------------------------------
@@ -376,15 +521,22 @@ def fragment_matvec(m, x, trans: bool = False):
 def pair_bilinear(w, grids):
     """c[b, i, j] = sum over a, c of w[b, i, a] grids[b, i, j, a, c]
     w[b, j, c] for (B, nat, R) weights and (B, nat, nat, R, R) grids
-    (D3's C6 from its reference grids). On a card the inner contraction
-    is a (1, R) by (R, R) product per atom pair on the kernel and the
-    outer a sum over R, whose order depends on R alone (torch.einsum there
-    is a batched cuBLAS product, whose order follows the batch count); on
-    the CPU the two einsums."""
+    (D3's C6 from its reference grids). On a card one launch of the pair
+    kernel, each pair's arithmetic fixed by R alone
+    (`pair_bilinear_reference`; torch.einsum there is a batched cuBLAS
+    product, whose order follows the batch count); on the CPU the two
+    einsums."""
     if _device(w, grids) == "cpu":
         v = torch.einsum("bia,bijac->bijc", w, grids)
         return torch.einsum("bijc,bjc->bij", v, w)
-    nat = w.shape[1]
-    rows = w[:, :, None, None, :].expand(-1, -1, nat, 1, -1)
-    v = fragment_bmm(rows, grids)[..., 0, :]
-    return (v * w[:, None, :, :]).sum(-1)
+    if w.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fragment products take float32/float64, not "
+                        f"{w.dtype}")
+    bsz, nat, r = w.shape if w.dim() == 3 else (0, 0, 0)
+    if (grids.dtype != w.dtype or r != PAIR_R
+            or grids.shape != (bsz, nat, nat, r, r)):
+        raise ValueError(f"pair_bilinear: w (B, nat, R) and grids (B, nat, "
+                         f"nat, R, R) of one dtype, R = PAIR_R = {PAIR_R}, "
+                         f"got {tuple(w.shape)} {tuple(grids.shape)} "
+                         f"{grids.dtype}")
+    return _PairBilinear.apply(w, grids)

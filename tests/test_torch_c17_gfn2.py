@@ -25,8 +25,9 @@ On the CPU:
   the ctypes declarations against `csrc/fragment_reduce.cu`.
 The `gpu` cases hold the kernel to the plain versions on the card, bit
 for bit, at the main path's shapes (241 AOs and an unsorted index among
-them) and at fragments too long for a block's shared memory, and a
-fragment's bits alone and in its batch (`python3 -m pytest --noconftest
+them), moment_fock in its three forms at FOCK_SHAPES, and at fragments
+too long for a block's shared memory, and a fragment's bits alone and in
+its batch (`python3 -m pytest --noconftest
 tests/test_torch_c17_gfn2.py -m gpu`).
 """
 
@@ -683,6 +684,40 @@ def test_kernel_is_the_plain_versions_bit_for_bit(cuda, shape, d, dtype):
               for x in _long_rows(shape[0], dtype, cuda)]
     for got, want in pairs:
         assert torch.equal(got, want)
+
+
+#: (B, n) of moment_fock's own check: the dodecamers (96 AOs), GFN2
+#: hexamers (48), one fragment of odd n (tiles past its edge)
+FOCK_SHAPES = [(16, 96), (64, 48), (1, 97)]
+
+
+def _fock_forms(f, v, m):
+    """moment_fock with the dipoles and quadrupoles, with the dipoles
+    alone, and its contraction without the symmetrisation (the Function
+    moment_rows' backward calls), each beside its plain version."""
+    d, q = (v[..., :3], m[:, :3]), (v[..., 3:], m[:, 3:])
+    return [
+        (fr.moment_fock(f, *d, *q), fr.moment_fock_reference(f, *d, *q)),
+        (fr.moment_fock(f, *d), fr.moment_fock_reference(f, *d)),
+        (fr._Contract.apply(v, m), fr.moment_contract_reference(v, m))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", FOCK_SHAPES)
+def test_moment_fock_bit_for_bit_alone_and_in_a_batch(cuda, shape, dtype):
+    """moment_fock in every form bit for bit its plain version, and a
+    fragment's bits the same alone and in its batch."""
+    f, _a, m, v, _idx, _w = _card_case(shape, 6, dtype, cuda, seed=3)
+    whole = _fock_forms(f, v, m)
+    for got, want in whole:
+        assert torch.equal(got, want)
+    bsz = shape[0]
+    for rows in ([0], [bsz - 1, 0]):
+        sel = torch.tensor(rows, device=cuda)
+        part = _fock_forms(*(t.index_select(0, sel) for t in (f, v, m)))
+        for (p, _), (q, _) in zip(part, whole):
+            assert torch.equal(p, q.index_select(0, sel))
 
 
 @pytest.mark.gpu

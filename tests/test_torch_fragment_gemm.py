@@ -8,8 +8,13 @@ On the CPU:
   `_general_eigh` on seeded inputs (float64 1e-13, float32 1e-5,
   relative to the largest entry);
 - `pair_bilinear` (D3's C6 contraction) on the CPU: the two einsums bit
-  for bit, and the card's formulation (a (1, R) by (R, R) product per
-  pair, then a sum over R) within tolerance;
+  for bit, and the pair kernel's arithmetic (`pair_bilinear_reference`,
+  its FMAs emulated exactly by `fma_reference`) within tolerance of them
+  and of the JAX package's `c6_coefficients`; that plain version bit for
+  bit the fingerprint of the contraction's card output before its kernel
+  (commit 759462b; the fixture's pair cases); its Function's gradients
+  (gradcheck and gradgradcheck in w and the grids); on a card one launch
+  of its kernel with the operands as the C entry takes them;
 - the autograd Functions with the launchers monkeypatched to the plain
   versions: gradcheck and gradgradcheck in float64;
 - the engine sends every product of a GFN1 SCC iteration (the Fock
@@ -39,8 +44,8 @@ On the CPU:
   remakes the inputs it hashed.
 The `gpu` cases hold the kernel to both plain versions on the card at the
 main path's shapes, square and rectangular (D3's (1, R) by (R, R) and its
-backward's forms), and check that a fragment's bits do not depend on its
-batch (`python3 -m pytest --noconftest tests/test_torch_fragment_gemm.py
+backward's forms), the pair kernel bit for bit to its plain version, and
+check that a fragment's bits do not depend on its batch (`python3 -m pytest --noconftest tests/test_torch_fragment_gemm.py
 -m gpu`).
 """
 
@@ -82,6 +87,16 @@ def _rel(a, b):
 
 def _op(t, trans):
     return t.transpose(-1, -2) if trans else t
+
+
+def _bits_tool():
+    tools = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import gemm_bits_torch
+
+    return gemm_bits_torch
 
 
 def _operands(bsz, m, k, n, trans, dtype=torch.float64, seed=0, lead=()):
@@ -131,23 +146,106 @@ def _pair_inputs(bsz, nat, dtype=torch.float64, seed=3, device="cpu"):
             torch.tensor(grids, dtype=dtype, device=device))
 
 
-def _pair_kernel_order(w, grids):
-    """The card's formulation of `pair_bilinear` in plain ops."""
-    nat = w.shape[1]
-    rows = w[:, :, None, None, :].expand(-1, -1, nat, 1, -1)
-    v = fm.fragment_bmm_reference(rows, grids)[..., 0, :]
-    return (v * w[:, None, :, :]).sum(-1)
-
-
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_pair_bilinear_plain_versions(dtype):
-    """On the CPU the two einsums D3 ran before, bit for bit; the card's
-    formulation agrees within tolerance."""
+    """On the CPU the two einsums D3 ran before, bit for bit; the pair
+    kernel's arithmetic agrees within tolerance."""
     w, grids = _pair_inputs(3, 7, dtype)
     v = torch.einsum("bia,bijac->bijc", w, grids)
     want = torch.einsum("bijc,bjc->bij", v, w)
     assert torch.equal(fm.pair_bilinear(w, grids), want)
-    assert _rel(_pair_kernel_order(w, grids), want) <= TOL[dtype]
+    assert _rel(fm.pair_bilinear_reference(w, grids), want) <= TOL[dtype]
+
+
+def test_fma_reference_rounds_once():
+    """`fma_reference` is a b + c rounded once: against the exact value
+    (fractions) on seeded operands, cancellation and signed zeros among
+    them, float64 and float32."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(11)
+    n = 3000
+    for dtype, npd in ((torch.float64, np.float64),
+                       (torch.float32, np.float32)):
+        a = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n)
+             ).astype(npd)
+        b = rng.standard_normal(n).astype(npd)
+        c = (rng.standard_normal(n) * 10.0 ** rng.integers(-12, 4, n)
+             ).astype(npd)
+        # a third nearly cancels, a few are exact zeros of either sign
+        k = n // 3
+        c[:k] = (-(a[:k].astype(np.float64) * b[:k]) * (
+            1.0 + rng.standard_normal(k) * 1e-6)).astype(npd)
+        a[k:k + 4] = 0.0
+        c[k:k + 4] = (-0.0, 0.0, -0.0, 0.0)
+        b[k:k + 4] = (-1.0, -1.0, 1.0, 1.0)
+        got = fm.fma_reference(*(torch.from_numpy(x) for x in (a, b, c)))
+        for i in range(n):
+            exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(
+                float(c[i]))
+            lo = npd(float(exact))
+            # the nearest of the dtype, ties to even
+            cands = sorted({np.nextafter(lo, npd(-np.inf)), lo,
+                            np.nextafter(lo, npd(np.inf))},
+                           key=lambda q: (abs(Fraction(float(q)) - exact),
+                                          int(q.view(np.uint64 if npd is
+                                                     np.float64 else
+                                                     np.uint32)) & 1))
+            want = cands[0]
+            if exact == 0:
+                # a b + c of zeros keeps -0 only where both are -0
+                want = npd(float(a[i]) * float(b[i]) + float(c[i]))
+            assert got[i].item() == float(want), (i, a[i], b[i], c[i])
+            assert bool(torch.signbit(got[i])) == bool(np.signbit(want)), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nat", [6, 23])
+def test_pair_bilinear_matches_jax_c6(nat, dtype):
+    """The pair kernel's arithmetic (`pair_bilinear_reference`) and the
+    CPU's einsums against the JAX package's `c6_coefficients` without the
+    geometric-mean atoms (sqrtc6=None: the pair contraction alone), on
+    seeded weights from its `ref_weights` and a seeded table of 4
+    elements (float64 1e-12, float32 1e-5, relative to the largest
+    entry)."""
+    # imported here: the file's `gpu` cases run where jax is not installed
+    from metalquicha_tpu.methods.xtb import dispersion_d3 as jd3
+
+    rng = np.random.default_rng(nat)
+    npd = _jax_np(dtype)
+    r, nz = 5, 4
+    cn = rng.uniform(0.0, 4.0, nat).astype(npd)
+    ref_cn = rng.uniform(0.0, 4.0, (nat, r)).astype(npd)
+    zidx = rng.integers(0, nz, nat)
+    table = (rng.random((nz, nz, r, r)) * 40.0).astype(npd)
+    want = np.asarray(jd3.c6_coefficients(cn, ref_cn, zidx, table))
+    w = torch.tensor(np.asarray(jd3.ref_weights(cn, ref_cn)))[None]
+    grids = torch.tensor(table[zidx[:, None], zidx[None, :]])[None]
+    assert w.dtype == grids.dtype == dtype
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    want = torch.tensor(want)[None]
+    assert _rel(fm.pair_bilinear_reference(w, grids), want) <= tol
+    assert _rel(fm.pair_bilinear(w, grids), want) <= tol
+
+
+def _pair_cases():
+    return [c for c in _bits_tool().cases() if c[1] == "pair"]
+
+
+@pytest.mark.parametrize("key, entry, dtype, shape, ta, tb", _pair_cases(),
+                         ids=[c[0] for c in _pair_cases()])
+def test_pair_bilinear_reference_matches_the_card_fingerprint(
+        key, entry, dtype, shape, ta, tb):
+    """`pair_bilinear_reference` on the CPU is bit for bit the pair
+    contraction's card output before its kernel (commit 759462b: the
+    direct kernel's FMAs, torch's multiply and torch's sum over R), as the
+    fixture's pair cases hold it, at every recorded shape and dtype."""
+    bits = _bits_tool()
+    arrays = bits.inputs(entry, dtype, shape, ta, tb)
+    got = fm.pair_bilinear_reference(*(torch.from_numpy(a) for a in arrays))
+    assert got.shape == shape + shape[1:]
+    assert bits.digest(got.numpy()) == (
+        bits.load_fixture()["cases"][key]["output"])
 
 
 def _jax_np(dtype):
@@ -206,6 +304,7 @@ def test_plain_versions_match_jax_ortho_and_general_eigh(dtype):
 def plain_launchers(monkeypatch):
     """The Functions' launches sent to the plain versions on the CPU."""
     monkeypatch.setattr(fm, "_launch_bmm", fm.fragment_bmm_reference)
+    monkeypatch.setattr(fm, "_launch_pair", fm.pair_bilinear_reference)
     monkeypatch.setattr(
         fm, "_launch_sandwich", lambda x, f, s: fm.fragment_bmm_reference(
             fm.fragment_bmm_reference(x, f), x) + s)
@@ -242,6 +341,49 @@ def test_matvec_gradients(plain_launchers, trans):
 
     assert torch.autograd.gradcheck(fn, (m, x))
     assert torch.autograd.gradgradcheck(fn, (m, x))
+
+
+@pytest.mark.parametrize("needs", ["w", "grids", "both"])
+def test_pair_bilinear_gradients(plain_launchers, needs):
+    """The pair contraction's Function in w and in the grids, its backward
+    built of the products, `fragment_sum`, `broadcast` and elementwise
+    products (on the CPU their torch forms)."""
+    w, grids = _pair_inputs(2, 3, seed=8)
+    w.requires_grad_(needs in ("w", "both"))
+    grids.requires_grad_(needs in ("grids", "both"))
+    assert torch.autograd.gradcheck(fm._PairBilinear.apply, (w, grids))
+    assert torch.autograd.gradgradcheck(fm._PairBilinear.apply, (w, grids))
+
+
+def test_pair_bilinear_on_a_card_is_one_launch(monkeypatch):
+    """On a card the op is the Function, whose forward is one launch of
+    the pair kernel (never the einsums): the wrapper hands the C entry w,
+    the grids as they lie contiguous, the output and (B, nat, R), and
+    counts one launch of its own kind."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(fm, "_device", lambda *t: "cuda")
+    monkeypatch.setattr(fm, "_fn", lambda name, dtype: entry)
+    monkeypatch.setattr(fm, "_stream", lambda t: (0, 5))
+    monkeypatch.setattr(torch, "einsum", None)
+    w, grids = _pair_inputs(3, 4)
+    before = dict(fm.launches_by_kind)
+    out = fm.pair_bilinear(w, grids)
+    assert out.shape == (3, 4, 4) and len(calls) == 1
+    args = calls[0]
+    assert args[:2] == (w.data_ptr(), grids.data_ptr())
+    assert args[2] == out.data_ptr() and args[3:] == (3, 4, 5, 0, 5)
+    kind = fm.kind_of("pair_bilinear", 5)
+    assert fm.launches_by_kind[kind] == before.get(kind, 0) + 1
+    assert fm.kind_name(kind) == "pair_bilinear"
+    with pytest.raises(ValueError, match="PAIR_R"):
+        fm.pair_bilinear(w[:1, :2], grids[:1, :3, :3])
+    with pytest.raises(ValueError, match="PAIR_R"):
+        fm.pair_bilinear(w[..., :4], grids[..., :4, :4])
 
 
 @pytest.fixture
@@ -552,10 +694,12 @@ def test_launch_kinds():
     assert fm.kind_of("sandwich", 6) == ("sandwich", 16)
     assert fm.kind_of("matvec", 64, 64) == ("matvec", 64)
     assert fm.kind_of("matvec", 3, 3) == ("matvec", 16)
+    assert fm.kind_of("pair_bilinear", 5) == ("pair_bilinear", 0)
     assert [fm.kind_name(fm.kind_of(*k)) for k in (
         ("bmm", 1, 5, 5), ("sandwich", 40), ("bmm", 97),
-        ("matvec", 12, 12))] == [
-        "bmm direct", "sandwich 64", "bmm 128", "matvec 16"]
+        ("matvec", 12, 12), ("pair_bilinear", 5))] == [
+        "bmm direct", "sandwich 64", "bmm 128", "matvec 16",
+        "pair_bilinear"]
 
 
 def _source_constant(name):
@@ -624,23 +768,14 @@ def test_work_unit_walk_covers_every_band_once():
             assert len(rows) == batch * m and set(rows.values()) == {1}
 
 
-def _bits_tool():
-    tools = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "tools")
-    if tools not in sys.path:
-        sys.path.insert(0, tools)
-    import gemm_bits_torch
-
-    return gemm_bits_torch
-
-
 def test_bit_fingerprint_covers_the_gemm_phase():
     """The fixture holds a fingerprint for every shape, dtype and entry
     `chip_smoke.py`'s gemm phase names (the product with each transpose,
     the sandwich, the matvec and its transpose at GEMM_SHAPES; the product
     with each transpose at GEMM_RECT; the matvec and its transpose at
-    MATVEC_SHAPES, at n = 11 and 97, and on offset operands), and the
-    tool's recipe remakes the inputs it hashed, shape and bytes."""
+    MATVEC_SHAPES, at n = 11 and 97, and on offset operands; the pair
+    contraction at PAIR_SHAPES), and the tool's recipe remakes the inputs
+    it hashed, shape and bytes."""
     import chip_smoke
 
     bits = _bits_tool()
@@ -666,6 +801,8 @@ def test_bit_fingerprint_covers_the_gemm_phase():
                       + ((64, 11), (8, 97))),
                      ("matvec_offset", ((512, 12), (16, 96))))
                  for bsz, n in shapes for ta in (False, True)}
+        want |= {bits.key_of("pair", dtype, shape)
+                 for shape in chip_smoke.PAIR_SHAPES}
     cases = bits.cases()
     assert want <= set(fixture["cases"]) == {c[0] for c in cases}
     for key, entry, dtype, shape, ta, tb in cases:
@@ -685,7 +822,8 @@ def test_entry_points_match_the_source():
     declared = set(re.findall(r"^int (mqc_\w+)\(", src, re.M))
     assert declared == set(fm._LIB.entry_points) == {
         f"mqc_fragment_{k}_{t}" for k in ("bmm", "sandwich", "matvec")
-        for t in ("f32", "f64")}
+        for t in ("f32", "f64")} | {
+        f"mqc_pair_bilinear_{t}" for t in ("f32", "f64")}
     kinds = {"double": "c_double", "int": "c_int"}
     for name, argtypes in fm._LIB.entry_points.items():
         params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
@@ -775,17 +913,23 @@ def test_rectangular_products_on_the_card(cuda, bmkn, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_pair_bilinear_on_the_card(cuda, dtype):
-    """D3's C6 contraction on the kernel against the einsums and the
-    kernel's order, its bits the same for a fragment alone."""
+    """D3's C6 contraction on its kernel, one launch: bit for bit its plain
+    version (`pair_bilinear_reference`), within tolerance of the einsums,
+    its bits the same for a fragment alone; grids at an offset of one
+    element (staged an element a copy) the same bits."""
     w, grids = _pair_inputs(12, 23, dtype, device=cuda)
     before = fm.launches
     got = fm.pair_bilinear(w, grids)
     assert fm.launches == before + 1
+    assert torch.equal(got, fm.pair_bilinear_reference(w, grids))
     want = torch.einsum("bijc,bjc->bij",
                         torch.einsum("bia,bijac->bijc", w, grids), w)
     assert _rel(got, want) <= TOL[dtype]
-    assert _rel(got, _pair_kernel_order(w, grids)) <= TOL[dtype]
     assert torch.equal(fm.pair_bilinear(w[-1:], grids[-1:]), got[-1:])
+    flat = torch.empty(grids.numel() + 1, dtype=dtype, device=cuda)
+    off = flat[1:].view(grids.shape)
+    off.copy_(grids)
+    assert torch.equal(fm.pair_bilinear(w, off), got)
 
 
 @pytest.mark.gpu

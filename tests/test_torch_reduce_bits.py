@@ -1,11 +1,15 @@
-"""The bits of the fragment sums `moment_rows`, `segment_sum` and
-`fragment_sum` pinned by a fingerprint
+"""The bits of the fragment sums `moment_fock`, `moment_rows`,
+`segment_sum` and `fragment_sum` pinned by a fingerprint
 (`tests/data/fragment_reduce_bits.json`, `tools/reduce_bits_torch.py`).
 
 The fixture holds SHA-256 fingerprints of the plain versions in the
 kernel's order (`ops/fragment_reduce.py` `moment_rows_reference`,
 `segment_sum_reference`) as the commit before the kernel's redesign
-computed them on the CPU, in every form the main path calls: moment_rows
+computed them on the CPU, and of `moment_fock_reference` and
+`moment_contract_reference` as the commit before moment_fock's redesign
+(759462b) computed them, in every form the main path calls: moment_fock
+with the dipoles and quadrupoles, with the dipoles alone, and without the
+symmetrisation at d = 6 (moment_rows' backward); moment_rows
 with one plane and a mask, d = 3 and 6 into segments, without an index and
 with an unsorted index; segment_sum of 1 (masked), 3, 6 and n values an
 entry and with an unsorted index; at (B, n) = (4, 16), (2, 48), (1, 97) in

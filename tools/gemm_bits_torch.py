@@ -6,11 +6,13 @@ names (the product with each transpose, the sandwich x f x + s, the
 matvec and its transpose at the square shapes; the product with each
 transpose at the rectangular ones; the matvec and its transpose at the
 shapes of MATVEC, and on operands with a storage offset at those of
-MATVEC_OFFSET), in float64 and float32, on inputs made from a seed with
-numpy (`inputs`: one generator per case, seeded with SEED and the case's
+MATVEC_OFFSET; D3's pair contraction `pair_bilinear` at the shapes of
+PAIR), in float64 and float32, on inputs made from a seed with numpy
+(`inputs`: one generator per case, seeded with SEED and the case's
 entry, shape, transposes and dtype; standard normal values drawn in
-float64 and cast). Each output's bytes are hashed (SHA-256), and so are
-the inputs'.
+float64 and cast; the pair contraction's weights and grids as
+`chip_smoke.py`'s rect phase draws them). Each output's bytes are hashed
+(SHA-256), and so are the inputs'.
 
 `--write F` records the fingerprints of whatever kernel comes first on
 the path: with an older checkout first on PYTHONPATH (unpacked with `git
@@ -18,8 +20,11 @@ archive` into the gitignored `_archive/`), that checkout's kernel. The
 fixture `tests/data/fragment_gemm_bits.json` holds the fingerprints of the
 kernel's first version (commit df9980a), and the matvec cases of
 MATVEC and MATVEC_OFFSET those of the matvec's first kernel (the direct
-kernel, as at commit d37ed60; `added` in the file); `--add F` writes the
-fixture with the cases it lacks added from the kernel first on the path.
+kernel, as at commit d37ed60; `added` in the file), and the pair cases
+those of the pair contraction as commit 759462b ran it on a card (the
+direct kernel's products, torch's multiply and torch's sum over R;
+`added`); `--add F` writes the fixture with the cases it lacks added from
+the kernel first on the path.
 `--check` (and `chip_smoke.py`'s gemm phase) recomputes every case with
 the kernel of this tree and compares: the kernel may be redesigned, its
 bits may not move.
@@ -55,9 +60,14 @@ MATVEC = ((512, 12), (5985, 24), (64, 36), (16, 96), (3, 128), (64, 11),
           (8, 97))
 #: (B, n) of the matvec on operands with a storage offset of one element
 MATVEC_OFFSET = ((512, 12), (16, 96))
+#: (B, nat) of `pair_bilinear` (D3's C6 from its R = 5 reference grids):
+#: chip_smoke.PAIR_SHAPES (a 73-atom Hessian chunk, the w20 MBE(2)
+#: dimers), an odd batch and width, a few atoms, one atom
+PAIR = ((190, 6), (41, 73), (12, 23), (3, 7), (1, 1))
+PAIR_R = 5
 TRANS = ((False, False), (True, False), (False, True), (True, True))
 DTYPES = ("f64", "f32")
-ENTRIES = ("bmm", "sandwich", "matvec", "matvec_offset")
+ENTRIES = ("bmm", "sandwich", "matvec", "matvec_offset", "pair")
 RECIPE = ("numpy.random.default_rng([SEED, entry index in ENTRIES, B, m, "
           "k, n, trans_a, trans_b, bits of the dtype]).standard_normal(shape)"
           " per input in the order listed, drawn in float64 and cast to the "
@@ -65,7 +75,10 @@ RECIPE = ("numpy.random.default_rng([SEED, entry index in ENTRIES, B, m, "
           "b stored (B, n, k) if trans_b else (B, k, n); sandwich: x, f, s "
           "(B, n, n); matvec: mat (B, n, n) (trans_a: its transpose is "
           "applied), x (B, n); matvec_offset: mat (B n n + 1,) and x (B n "
-          "+ 1,), passed as the views [1:] shaped (B, n, n) and (B, n)")
+          "+ 1,), passed as the views [1:] shaped (B, n, n) and (B, n); "
+          "pair (shape (B, nat), no flags): w = rng.random((B, nat, 5)), "
+          "w = w / w.sum(-1, keepdims=True), grids = rng.random((B, nat, "
+          "nat, 5, 5)) * 40.0, in float64, then cast")
 
 
 def cases():
@@ -86,15 +99,23 @@ def cases():
             for bsz, n in sizes:
                 for ta in (False, True):
                     out.append((entry, dtype, (bsz, n, n, n), ta, False))
+        out += [("pair", dtype, shape, False, False) for shape in PAIR]
     return [(key_of(*c), *c) for c in out]
 
 
-def key_of(entry, dtype, shape, ta, tb) -> str:
-    flags = ("T" if ta else "N") + ("T" if tb else "N")
-    return f"{entry}/{dtype}/{'x'.join(map(str, shape))}/{flags}"
+def key_of(entry, dtype, shape, ta=False, tb=False) -> str:
+    """entry/dtype/shape/flags; the pair contraction's without flags
+    (pair/dtype/BxNAT)."""
+    key = f"{entry}/{dtype}/{'x'.join(map(str, shape))}"
+    if entry == "pair":
+        return key
+    return key + "/" + ("T" if ta else "N") + ("T" if tb else "N")
 
 
 def input_shapes(entry, shape, ta, tb):
+    if entry == "pair":
+        bsz, nat = shape
+        return [(bsz, nat, PAIR_R), (bsz, nat, nat, PAIR_R, PAIR_R)]
     bsz, m, k, n = shape
     if entry == "bmm":
         return [(bsz, *((k, m) if ta else (m, k))),
@@ -112,6 +133,12 @@ def inputs(entry, dtype, shape, ta, tb):
     rng = np.random.default_rng(
         [SEED, ENTRIES.index(entry), *shape, int(ta), int(tb), bits])
     np_dtype = np.float64 if dtype == "f64" else np.float32
+    if entry == "pair":
+        w_shape, grid_shape = input_shapes(entry, shape, ta, tb)
+        w = rng.random(w_shape)
+        w = w / w.sum(-1, keepdims=True)
+        grids = rng.random(grid_shape) * 40.0
+        return [w.astype(np_dtype), grids.astype(np_dtype)]
     return [rng.standard_normal(s).astype(np_dtype)
             for s in input_shapes(entry, shape, ta, tb)]
 
@@ -126,6 +153,8 @@ def run(fm, entry, args, ta, tb, shape):
         return fm.fragment_bmm(args[0], args[1], ta, tb)
     if entry == "sandwich":
         return fm.sandwich(*args)
+    if entry == "pair":
+        return fm.pair_bilinear(*args)
     if entry == "matvec_offset":
         bsz, n = shape[0], shape[-1]
         return fm.fragment_matvec(args[0][1:].view(bsz, n, n),

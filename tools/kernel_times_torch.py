@@ -21,14 +21,20 @@ fragment sums (`csrc/fragment_reduce.cu`, section
 replaced and `chip_smoke.reduce_bound`; section "rows" times
 `fragment_sum` alone over (rows, length) tensors at
 `chip_smoke.ROW_SUM_CASES` (lane groups, four rows a group, clusters of
-2 to 16 blocks a row, a block a row) beside torch's sum.
+2 to 16 blocks a row, a block a row) beside torch's sum. Section "fock"
+times moment_fock alone, in its three forms of `chip_smoke.reduce_forms`
+(the dipoles and quadrupoles, the dipoles alone, the contraction without
+the symmetrisation at d = 6: `moment_contract`) at
+`chip_smoke.REDUCE_SHAPES`; section "pair" D3's pair contraction
+(`pair_bilinear`) at `chip_smoke.PAIR_SHAPES` beside the two einsums it
+replaced and `chip_smoke.pair_bound`.
 
 With an older checkout first on PYTHONPATH (unpacked with `git archive`
 into the gitignored `_archive/`), it times that checkout's kernels; the
 product kernel where the checkout has one.
 
 Usage: python3 tools/kernel_times_torch.py [--reps N] [--sections
-window,gemm,reduce,rows] [--json-out F]
+window,gemm,reduce,rows,fock,pair] [--json-out F]
 It prints a line per shape (per form in "reduce") and one JSON line.
 """
 
@@ -147,10 +153,10 @@ def chip_smoke():
     return sys.modules["chip_smoke"]
 
 
-def reduce_times(reps: int) -> list:
-    """Every form of chip_smoke.reduce_forms at chip_smoke.REDUCE_SHAPES,
-    float64 and float32: the kernel's and torch's graph-replayed ms and
-    the bound."""
+def reduce_times(reps: int, entries=None) -> list:
+    """Every form of chip_smoke.reduce_forms at chip_smoke.REDUCE_SHAPES
+    (of `entries` only, where given), float64 and float32: the kernel's
+    and torch's graph-replayed ms and the bound."""
     cs = chip_smoke()
     fr = importlib.import_module("metalquicha_tpu_torch.ops.fragment_reduce")
     out = []
@@ -161,6 +167,8 @@ def reduce_times(reps: int) -> list:
             c = cs._reduce_case(rng, bsz, n, dtype)
             c["f1"] = c["f"][:, None]
             for entry, forms in cs.reduce_forms(fr, n).items():
+                if entries is not None and entry not in entries:
+                    continue
                 for label, kernel, _plain, library, kw in forms:
                     rec = {"dtype": tag, "shape": [bsz, n], "entry": entry,
                            "form": label,
@@ -173,6 +181,37 @@ def reduce_times(reps: int) -> list:
                           f"ms={rec['ms']:.4f} torch ms="
                           f"{rec['torch_ms']:.4f} bound ms="
                           f"{rec['bound_ms']:.6f}", flush=True)
+    return out
+
+
+def pair_times(fm, reps: int) -> list:
+    """`pair_bilinear` at chip_smoke.PAIR_SHAPES, float64 and float32 (its
+    weights and grids drawn as chip_smoke's rect phase draws them): its
+    and the two einsums' graph-replayed ms and the bound."""
+    cs = chip_smoke()
+    rng = np.random.default_rng(20)
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for bsz, nat in cs.PAIR_SHAPES:
+            w = torch.tensor(rng.random((bsz, nat, 5)), dtype=dtype,
+                             device="cuda")
+            w = w / w.sum(-1, keepdim=True)
+            grids = torch.tensor(rng.random((bsz, nat, nat, 5, 5)) * 40.0,
+                                 dtype=dtype, device="cuda")
+
+            def einsums():
+                v = torch.einsum("bia,bijac->bijc", w, grids)
+                return torch.einsum("bijc,bjc->bij", v, w)
+
+            rec = {"dtype": tag, "shape": [bsz, nat],
+                   "ms": graph_ms(lambda: fm.pair_bilinear(w, grids), reps),
+                   "torch_ms": graph_ms(einsums, reps),
+                   "bound_ms": cs.pair_bound(bsz, nat, dtype)[0]}
+            out.append(rec)
+            print(f"pair {tag} {bsz}x{nat}: ms={rec['ms']:.4f} torch ms="
+                  f"{rec['torch_ms']:.4f} bound ms={rec['bound_ms']:.6f}",
+                  flush=True)
     return out
 
 
@@ -297,11 +336,15 @@ def main(argv=None) -> int:
             result["gemm"].append(rec)
             print(f"products {tag} {bsz}x{n}: {rec}", flush=True)
         result["matvec"] += matvec_times(fm, rng, dtype, args.reps)
-    if "reduce" in sections or "rows" in sections:
+    if sections & {"reduce", "rows", "fock"}:
         importlib.import_module(
             "metalquicha_tpu_torch.ops.fragment_reduce").build()
     if "reduce" in sections:
         result["reduce"] = reduce_times(args.reps)
+    if "fock" in sections:
+        result["fock"] = reduce_times(args.reps, ("moment_fock",))
+    if "pair" in sections and fm is not None:
+        result["pair"] = pair_times(fm, args.reps)
     if "rows" in sections:
         result["rows"] = row_times(args.reps)
     line = json.dumps(result)

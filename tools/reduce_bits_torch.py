@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""A bit fingerprint of the fragment sums `moment_rows`, `segment_sum` and
-`fragment_sum`.
+"""A bit fingerprint of the fragment sums `moment_fock`, `moment_rows`,
+`segment_sum` and `fragment_sum`.
 
 The plain versions in the kernel's order (`ops/fragment_reduce.py`
+`moment_fock_reference`, `moment_contract_reference`,
 `moment_rows_reference`, `segment_sum_reference`), which the kernel
 (`csrc/fragment_reduce.cu`) equals bit for bit on a card, in every form the
-main path calls them in: moment_rows with one plane and a 0/1 mask (the
+main path calls them in: moment_fock with the dipole and quadrupole
+potentials (GFN2's Fock matrix) and with the dipoles alone, and its
+contraction without the symmetrisation (`moment_contract`, d = 6: the
+backward of moment_rows); moment_rows with one plane and a 0/1 mask (the
 shell populations), with d = 3 and 6 into segments (GFN2's atomic
 moments), without an index (the backward's rows), and with an unsorted
 index; segment_sum of one value with a mask (the atomic charges), of 3 and
@@ -23,8 +27,10 @@ path (on the CPU): the fixture `tests/data/fragment_reduce_bits.json` was
 written from the commit before the kernel's redesign (a35780e, unpacked
 with `git archive` into the gitignored `_archive/` and put first on
 PYTHONPATH); its "row_sums" from the commit before fragment_sum's
-redesign (d37ed60) by `--add F`, which writes the fixture with the row
-sums it lacks added from the plain version first on the path. `--check`
+redesign (d37ed60) by `--add F`, which writes the fixture with the cases
+and row sums it lacks added from the plain versions first on the path;
+the moment_fock and moment_contract cases so from the commit before their
+kernel's redesign (759462b). `--check`
 recomputes every case and compares: with `--device cuda`, through the ops
 on a card, so the kernel's bits against the plain versions' of those
 commits.
@@ -53,8 +59,13 @@ SHAPES = ((4, 16), (2, 48), (1, 97))
 DTYPES = ("f64", "f32")
 #: form -> (entry, operand, index, weights): moment_rows of a with m's
 #: first d planes ("m1", "m3", "m6"), segment_sum of v's first c columns
-#: ("v1" a (B, n) vector, "v3", "v6") or of a itself ("a": c = n)
+#: ("v1" a (B, n) vector, "v3", "v6") or of a itself ("a": c = n);
+#: moment_fock of f = a with v1 = v[..., :3], m1 = m[:, :3] and, "dq", v2
+#: = v, m2 = m ("d": without); moment_contract of v and m (d = 6)
 FORMS = {
+    "fock_dq": ("moment_fock", "dq", None, None),
+    "fock_d": ("moment_fock", "d", None, None),
+    "contract_d6": ("moment_contract", "m6", None, None),
     "rows_d1_mask": ("moment_rows", "m1", "idx", "mask"),
     "rows_d3": ("moment_rows", "m3", "idx", None),
     "rows_d6": ("moment_rows", "m6", "idx", None),
@@ -167,6 +178,16 @@ def run(fr, form, arrays, device="cpu", plain=True):
 
     t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     entry, operand, index, weights = FORMS[form]
+    if entry == "moment_fock":
+        args = (t["a"], t["v"][..., :3], t["m"][:, :3])
+        if operand == "dq":
+            args += (t["v"], t["m"])
+        fn = fr.moment_fock_reference if plain else fr.moment_fock
+        return fn(*args)
+    if entry == "moment_contract":
+        # the op is the Function moment_rows' backward calls
+        fn = fr.moment_contract_reference if plain else fr._Contract.apply
+        return fn(t["v"], t["m"])
     size = max(1, arrays["a"].shape[-1] // 3)
     idx = None if index is None else t[index]
     w = None if weights is None else t[weights]
@@ -180,9 +201,10 @@ def run(fr, form, arrays, device="cpu", plain=True):
     return fn(vals, idx, size, w)
 
 
-def fingerprints(fr, device="cpu", plain=True) -> dict:
+def fingerprints(fr, device="cpu", plain=True, keys=None) -> dict:
     """{"inputs": {dtype/BxN: [sha of each of INPUTS]}, "cases": {key: sha
-    of the output}} of module fr's plain versions (or ops)."""
+    of the output}} of module fr's plain versions (or ops), every case (or
+    those of `keys`)."""
     out = {"inputs": {}, "cases": {}}
     for dtype in DTYPES:
         for shape in SHAPES:
@@ -190,6 +212,8 @@ def fingerprints(fr, device="cpu", plain=True) -> dict:
             out["inputs"][f"{dtype}/{'x'.join(map(str, shape))}"] = [
                 digest(arrays[k]) for k in INPUTS]
             for form in FORMS:
+                if keys is not None and key_of(form, dtype, shape) not in keys:
+                    continue
                 got = run(fr, form, arrays, device, plain)
                 out["cases"][key_of(form, dtype, shape)] = digest(
                     got.cpu().contiguous().numpy())
@@ -206,9 +230,9 @@ def main(argv=None) -> int:
     ap.add_argument("--write", default=None,
                     help="record the plain versions' fingerprints here")
     ap.add_argument("--add", default=None,
-                    help="write the fixture with the row sums it lacks "
-                         "added from the plain version first on the path "
-                         "into this file")
+                    help="write the fixture with the cases and row sums "
+                         "it lacks added from the plain versions first on "
+                         "the path into this file")
     ap.add_argument("--check", action="store_true",
                     help="compare with the fixture")
     ap.add_argument("--device", default="cpu",
@@ -234,6 +258,14 @@ def main(argv=None) -> int:
               f"written to {args.write}", flush=True)
     if args.add:
         doc = load_fixture(args.fixture)
+        lack = {c[0] for c in cases()} - set(doc["cases"])
+        doc["cases"].update(fingerprints(fr, keys=lack)["cases"])
+        if lack:
+            doc.setdefault("added", []).append({
+                "module": os.path.relpath(fr.__file__, ROOT),
+                "keys": sorted(lack)})
+        print(f"reduce_bits: {len(lack)} cases of {fr.__file__} added",
+              flush=True)
         rows = doc.setdefault("row_sums", {"recipe": ROW_RECIPE,
                                            "module": os.path.relpath(
                                                fr.__file__, ROOT),
