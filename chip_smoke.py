@@ -58,13 +58,16 @@ Phases (each raises on failure; nothing is caught):
              same products on aligned operands; against its plain versions (the
              kernel's order in elementwise ops) and torch.matmul at (B, n)
              = (512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
-             (128, 64), and above 64 (k in tiles) at (16, 96) and (3,
-             128): the product with every transpose, the sandwich
+             (128, 64), above 64 (k in tiles) at (16, 96) and (3, 128),
+             above 128 (rows and columns in bands) at (41, 241) and (64,
+             256): the product with every transpose, the sandwich
              x f x + s and the matvec with and without its transpose;
              the rectangular products of D3's C6 contraction ((1, 5) by
              (5, 5) per atom pair of a 73-atom Hessian chunk and of the
-             w20 dimers, and its backward's (5, 1) by (1, 5)) with every
-             transpose, and the contraction itself (`pair_bilinear`, one
+             w20 dimers, and its backward's (5, 1) by (1, 5)) and of
+             CPCM's (nat, points) by (points, nat) at the w20 dimers and
+             monomers and its backward's (points, nat) by (nat, nat) with
+             every transpose, and the contraction itself (`pair_bilinear`, one
              launch of its own kernel) bit for bit its plain version
              (`pair_bilinear_reference`) and against the einsums it
              replaced, its backward (dw, dgrids) bit for bit alone and
@@ -76,7 +79,8 @@ Phases (each raises on failure; nothing is caught):
              graph-replayed beside the bound (`gemm_bound`), the matvec
              beside torch.matmul's; the Coulomb matvec on its own kernel
              (`matvec_phase`) at the shell counts (512, 12), (5985, 24),
-             (64, 36) and at (16, 96), (3, 128), plain and transposed,
+             (64, 36) and at (16, 96), (3, 128), (41, 192), plain and
+             transposed,
              against its plain version and torch.matmul, alone and in
              its batch and on an offset operand bit for bit, timed
              beside torch.matmul and `matvec_bound`;
@@ -161,13 +165,14 @@ Phases (each raises on failure; nothing is caught):
              |g|, max |dg| and total in float64 and in float32 + polish,
              from one batch and from a two-slot cut must be equal bit for
              bit; so must, three times in this process, the w20 MBE(2)
-             gradient in GFN2 and with ALPB (|g|, max |dg|, total) and the
+             gradient in GFN2 and with ALPB (|g|, max |dg|, total), the
              16 dodecamers (96 AOs, one batch against two of 8: energies
-             and gradients), each repeat's totals, |g| and sums bit for bit
-             the first's; printed, not held, the cuts still open (CPCM's
-             w20 MBE(2) energies, the dodecamers in float32 on SP2, 8
-             jittered 73-atom peptides at 228 AOs); one line
-             `{"c17": ...}`;
+             and gradients) in float64 and in float32 on SP2's route, 8
+             jittered 73-atom peptides (241 AOs, one batch against two of
+             4), the w20 MBE(2) dimers in GFN2 through the refine route
+             (190 against two of 95) and CPCM's w20 MBE(2) energies, each
+             repeat's totals, |g| and sums bit for bit the first's; one
+             line `{"c17": ...}`;
 3. slice:    the bench dimer batch (B = 512, seed 0) through
              XtbCalculator.energies/gradients with use_pallas_eigh in
              float64 (the exact route, as the JAX package's: no Jacobi
@@ -1366,24 +1371,33 @@ def wide_window_check(aw, rng, dtype, kw):
 GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
                (128, 64))
 # above 64 (k streamed in tiles): the call_graph phase's dodecamers (nao 72
-# padded to 96) and the largest the kernel takes (no fingerprint: the
-# first version took sizes up to 64)
-GEMM_WIDE = ((16, 96), (3, 128))
+# padded to 96) and 128 (no fingerprint: the first version took sizes up
+# to 64); above 128 (rows and columns in bands): the 73-atom peptide (228
+# AOs padded to 241) as the FD Hessian's chunks run it, and SP2's (64,
+# 256) (fingerprinted from the card's output of the kernel that first
+# took them)
+GEMM_WIDE = ((16, 96), (3, 128), (41, 241), (64, 256))
+GEMM_FINGERPRINTED_WIDE = ((41, 241), (64, 256))
 GEMM_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 # rectangular products (B, m, k, n): a (1, R) by (R, R) product per atom
 # pair, as D3's C6 backward runs it (its forward is the pair kernel), for
 # a 73-atom Hessian chunk (41 x 73 x 73 pairs) and the w20 MBE(2) dimers
 # (190 x 6 x 6), and the (R, 1) by (1, R) form of a product's backward
-# (the fingerprinted cases of the kernel's first version)
+# (the fingerprinted cases of the kernel's first version); CPCM's B^T
+# A^-1 B, (nat, points) by (points, nat), at the w20 MBE(2) dimers and
+# monomers (110 points an atom), and its backward's (points, nat) by
+# (nat, nat) (k and m of any length: the tiled class)
 GEMM_RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5),
-             (190 * 36, 5, 1, 5))
+             (190 * 36, 5, 1, 5), (190, 6, 660, 6), (20, 3, 330, 3),
+             (190, 660, 6, 6))
 # (B, nat) of D3's pair contraction (`pair_bilinear`) on the main path
 PAIR_SHAPES = ((41, 73), (190, 6))
 # (B, n) of the Coulomb matvec's own check: gamma at the shell count of the
 # dimer slice (12 shells), of the w20 MBE(4) chunk (24) and of GFN1 water
 # hexamers (36), and the sizes whose rows its kernel cuts into bands
-# (the dodecamers' 96 AOs, the largest, 128)
-MATVEC_SHAPES = ((512, 12), (5985, 24), (64, 36), (16, 96), (3, 128))
+# (the dodecamers' 96 AOs, 128, and the 73-atom peptide's 192 shells)
+MATVEC_SHAPES = ((512, 12), (5985, 24), (64, 36), (16, 96), (3, 128),
+                 (41, 192))
 
 
 def gemm_bound(bsz: int, n: int, dtype, sandwich: bool = False):
@@ -1538,15 +1552,17 @@ def gemm_bits_check(fm):
     shape and dtype the fixture holds, which covers GEMM_SHAPES and
     GEMM_RECT in both dtypes; the pair contraction bit for bit its card
     output at commit 759462b (the direct kernel, torch's multiply and
-    sum) at PAIR_SHAPES and the fixture's other pair shapes."""
+    sum) at PAIR_SHAPES and the fixture's other pair shapes; above 128
+    (GEMM_FINGERPRINTED_WIDE, the matvec at (41, 192), CPCM's forms in
+    GEMM_RECT) the card's output of the kernel that first took them."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import gemm_bits_torch as bits
 
     fixture = bits.load_fixture()
     want = {bits.key_of(e, d, shape, ta, tb)
             for d in ("f64", "f32")
-            for shape in ([(b, n, n, n) for b, n in GEMM_SHAPES]
-                          + list(GEMM_RECT))
+            for shape in ([(b, n, n, n) for b, n in GEMM_SHAPES
+                           + GEMM_FINGERPRINTED_WIDE] + list(GEMM_RECT))
             for e, ta, tb in [("bmm", ta, tb) for ta in (False, True)
                               for tb in (False, True)]}
     # the matvec, both forms, at its own shapes and on offset operands
@@ -1707,7 +1723,10 @@ def rect_phase(fm, rng, dtype):
             b = torch.tensor(rng.standard_normal(
                 (bsz, *((n, k) if tb else (k, n)))), dtype=dtype,
                 device=DEVICE)
-            got = fm.fragment_bmm(a, b, ta, tb)
+            # a backward's form past MAX_N (CPCM's (points, nat) by (nat,
+            # nat)) as the op's autograd Function launches it
+            bmm = fm.fragment_bmm if fm.takes(m, n) else fm._launch_bmm
+            got = bmm(a, b, ta, tb)
             check(tuple(got.shape) == (bsz, m, n),
                   f"fragment product shape {tuple(got.shape)}")
             ref = torch.matmul(a.mT if ta else a, b.mT if tb else b)
@@ -1715,14 +1734,14 @@ def rect_phase(fm, rng, dtype):
                 got, fm.fragment_bmm_reference(a, b, ta, tb)))
             for rows in ([0], [bsz - 1, 0]):
                 idx = torch.tensor(rows, device=DEVICE)
-                part = fm.fragment_bmm(a.index_select(0, idx),
-                                       b.index_select(0, idx), ta, tb)
+                part = bmm(a.index_select(0, idx), b.index_select(0, idx),
+                           ta, tb)
                 check(torch.equal(part, got.index_select(0, idx)),
                       f"fragment products ({bsz}, {m}, {k}, {n}): a "
                       f"fragment's bits depend on its batch")
             if not (ta or tb):
-                times["kernel"] = graph_ms(
-                    lambda: fm.fragment_bmm(a, b), 20)
+                times["kernel"] = graph_ms(lambda: bmm(a, b, False, False),
+                                           20)
                 times["library"] = graph_ms(lambda: torch.matmul(a, b), 20)
         check(err <= tol, f"fragment products {tag} ({bsz}, {m}, {k}, {n}): "
               f"max err {err:.3e} > {tol:.0e}")
@@ -2214,19 +2233,20 @@ def c17_check():
     """ROADMAP C17: the rigid trimer MBE(2) gradient and total, and the
     w20 MBE(2) |g|, max |dg| and total in float64 and in float32 + the f64
     polish, from one batch and from a two-slot cut, equal bit for bit: the
-    window solve, every GFN1 product up to 128 AOs and D3's C6 contraction
+    window solve, every GFN1 product up to 256 AOs and D3's C6 contraction
     (`ops/fragment_gemm.py`) no longer depend on the batch. Beyond GFN1,
-    C17_REPEATS times: the w20 MBE(2) gradient in GFN2 and in GFN1 with
-    ALPB (|g|, max |dg|, total) and the call_graph phase's 16 dodecamers
-    (nao 72, padded to 96) as one batch against two of 8 (energy and
-    gradient), float64, every delta exactly 0 with GFN2's moment
-    contractions, the energies' sums and the segment sums on
+    C17_REPEATS times (`beyond_deltas`): the w20 MBE(2) gradient in GFN2
+    and in GFN1 with ALPB (|g|, max |dg|, total); as one batch against two
+    halves (max |dE|, max |dg|) the call_graph phase's 16 dodecamers (nao
+    72, padded to 96) in float64 and in float32 on SP2's route, 8 jittered
+    73-atom peptides (228 AOs, padded to 241) and the w20 MBE(2) dimers in
+    GFN2 through the refine route (190 against two of 95); the w20 MBE(2)
+    energies with CPCM against the two-slot cut: every delta exactly 0
+    with the products on `ops/fragment_gemm.py` and the sums on
     `ops/fragment_reduce.py`, and each repeat's values (totals, |g|, sums)
-    the first's bit for bit. Printed beside them, not held, what ROADMAP
-    C17 lists as open (`open_deltas`: CPCM, SP2 in float32, the 73-atom
-    peptide)."""
+    the first's bit for bit."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from c17_probe_torch import beyond_deltas, cut_deltas, open_deltas
+    from c17_probe_torch import beyond_deltas, cut_deltas
 
     deltas = cut_deltas(torch.device(DEVICE))
     print(f"c17 cut deltas: {deltas}", flush=True)
@@ -2246,11 +2266,7 @@ def c17_check():
             check(not differ, f"C17: repeat {rep} of one process differs "
                   f"from the first: {differ}")
         repeats.append(got)
-    still_open = open_deltas(torch.device(DEVICE))
-    print(f"c17 cut deltas still open (measured, not held): {still_open}",
-          flush=True)
-    return dict(deltas, beyond=repeats[0], repeats=len(repeats),
-                open=still_open)
+    return dict(deltas, beyond=repeats[0], repeats=len(repeats))
 
 
 def slice_phase(jac, golden):
@@ -3825,6 +3841,9 @@ def main() -> int:
     check(pairs > 0, "the main path launched no pair contraction kernel")
     check(fm.launches > matvecs + pairs,
           "the main path launched no fragment product kernel")
+    check(fm.launches_by_kind[("bmm", 256)] > 0,
+          "the main path launched no product past 128 (the peptide's, "
+          "CPCM's)")
     sums_by_kind = dict(sorted(fr.launches_by_kind.items()))
     print(f"main path: fragment sum launches={fr.launches} {sums}; by "
           f"entry {sums_by_kind}", flush=True)
@@ -3901,7 +3920,7 @@ def main() -> int:
         "launches": fm.launches - matvecs - pairs,
         # the main path's launches by kind (the matvec's among them): the
         # direct kernel, or the size class (16, 32, 64 staged whole; 128
-        # with k in tiles)
+        # with k in tiles; 256 past 128, in bands of rows and columns)
         "launches_by_kind": by_kind,
         **gemm_entry,
     }, {

@@ -14,13 +14,15 @@
 // place in the batch.
 //
 // Entries (f32 and f64; each operand one fragment after the other, a
-// fragment's matrix contiguous; sizes up to 128):
+// fragment's matrix contiguous):
 // - bmm: C = op(A) op(B), op(A) (m, k), op(B) (k, n), where op
-//   transposes a matrix stored the other way round;
+//   transposes a matrix stored the other way round; any sizes (the
+//   wrapper takes m and n up to 256 and k of any length; the backward
+//   pass of such a product has the long k as its m or n);
 // - sandwich: C = (X F) X + S for (n, n) X, F, S, n <= 64, in one launch,
 //   X F kept in shared memory (above 64 the wrapper runs two products and
 //   an add, with the same roundings);
-// - matvec: y = op(M) x for op(M) (rows, cols).
+// - matvec: y = op(M) x for op(M) (rows, cols), rows, cols <= 256.
 //
 // Arithmetic (the same bits as the first version of this kernel, which
 // took sizes up to 64):
@@ -67,8 +69,9 @@
 //    SMs instead of 128 blocks, op(B) read again from L2 (bands of 16
 //    rows made the f64 product L2-bound). A band reduces each element
 //    exactly as the whole tile does. The sandwich's unit stays a whole
-//    fragment (a band of (X F) X needs all of X F). Above 64 (up to 128,
-//    the fragments above 64 AOs): (fragment, band of 32 rows), k streamed
+//    fragment (a band of (X F) X needs all of X F). Above 64 (the
+//    fragments above 64 AOs, up to 256, SP2's products, CPCM's long k):
+//    (fragment, band of 32 rows, band of up to 128 columns), k streamed
 //    through the ring in tiles of 32, the outputs kept in registers.
 // 3. Staging by 16-byte cp.async.cg wherever the operand's base address
 //    and stored row length allow it (checked in the C entry, per
@@ -163,8 +166,9 @@
 namespace {
 
 constexpr int kWarp = 32;
-// the largest size a product takes (the sandwich: kStagedN)
-constexpr int kMaxN = 128;
+// the largest rows and columns the matvec takes (a product takes any
+// size in its tiled class; the sandwich up to kStagedN)
+constexpr int kMaxN = 256;
 // the largest size whose operands are staged whole (size classes 16, 32,
 // 64); above, the tiled kernel streams k
 constexpr int kStagedN = 64;
@@ -743,12 +747,18 @@ __global__ void __launch_bounds__(Cfg<T, N>::kSandwichThreads,
       });
 }
 
-// Sizes 65 to 128 (fragments above 64 AOs on the exact route): units
-// (fragment, band of kTiledBand rows of op(A)); k streamed through the
-// ring in tiles of kTileK in ascending order, the unit's outputs held in
-// registers from tile to tile (f64: each warp's 2 x 2 groups of tiles;
-// f32: a 4 x 4 tile a thread), so each element takes the same blocks of 4
-// (f64) or the same chain of FFMAs (f32) as one pass over k would.
+// Sizes above 64 (fragments above 64 AOs on the exact route, SP2's
+// products, CPCM's (nat, points) by (points, nat) contraction, and the
+// backward passes of such products, whose long k becomes their m or n):
+// units (fragment, band of kTiledBand rows of op(A), band of up to kTiledN
+// columns of op(B)), so op(B)'s staged tile stays k-tile x kTiledN whatever
+// n is; k streamed through the ring in tiles of kTileK in ascending order,
+// at any length, the unit's outputs held in registers from tile to tile
+// (f64: each warp's 2 x 2 groups of tiles; f32: a 4 x 4 tile a thread), so
+// each element takes the same blocks of 4 (f64) or the same chain of FFMAs
+// (f32) as one pass over k would. A column band reduces each element as
+// the whole row does: up to kTiledN columns (one band) the units are those
+// of the class's first version (sizes up to 128), and so are the bits.
 constexpr int kTiledN = 128, kTiledBand = 32, kTileK = 32;
 constexpr int kTiledThreads = 256;
 
@@ -756,8 +766,8 @@ template <typename T>
 struct Tiled {
   static constexpr bool kF64 = sizeof(T) == 8;
   static constexpr int kPad = kF64 ? 4 : 0;
-  // op(A)'s tile (band x k, stored either way) and op(B)'s (k x n, or n
-  // x k as stored transposed)
+  // op(A)'s tile (band x k, stored either way) and op(B)'s (k x band of
+  // columns, or the band x k as stored transposed)
   static constexpr int kLdA = kTileK + kPad;
   static constexpr int kA = kTiledBand * kLdA;
   static constexpr int kLdB = kTiledN + kPad, kLdBt = kTileK + kPad;
@@ -779,23 +789,29 @@ __global__ void __launch_bounds__(kTiledThreads)
   T* buf = reinterpret_cast<T*>(smem);
   const bool ta = flags & kTransA, tb = flags & kTransB;
   const bool va = flags & kVecA, vb = flags & kVecB, vc = flags & kVecC;
-  const int bands = (m + kTiledBand - 1) / kTiledBand;
+  const int rbands = (m + kTiledBand - 1) / kTiledBand;
+  const int cbands = (n + kTiledN - 1) / kTiledN;
   const int tiles = (k + kTileK - 1) / kTileK;
+  const int bands = rbands * cbands;
   const int units = batch * bands;
   if (static_cast<int>(blockIdx.x) >= units) return;
   // item i of this block: k tile i % tiles of its (i / tiles)-th unit
   const int items = ((units - 1 - blockIdx.x) / gridDim.x + 1) * tiles;
   struct Item {
     long long f;
-    int r0, mr, k0, kk, tile;
+    int r0, mr, c0, nc, k0, kk, tile;
   };
   auto item = [&](int i) {
     Item it;
     const int unit = blockIdx.x + (i / tiles) * gridDim.x;
     it.tile = i % tiles;
     it.f = unit / bands;
-    it.r0 = (unit - static_cast<int>(it.f) * bands) * kTiledBand;
+    const int band = unit - static_cast<int>(it.f) * bands;
+    const int rb = band / cbands;
+    it.r0 = rb * kTiledBand;
     it.mr = min(kTiledBand, m - it.r0);
+    it.c0 = (band - rb * cbands) * kTiledN;
+    it.nc = min(kTiledN, n - it.c0);
     it.k0 = it.tile * kTileK;
     it.kk = min(kTileK, k - it.k0);
     return it;
@@ -813,10 +829,13 @@ __global__ void __launch_bounds__(kTiledThreads)
             it.mr, it.kk, va);
     }
     if (tb) {
-      stage(as + C::kA, C::kLdBt, bf + it.k0, k, n, it.kk, vb);
+      stage(as + C::kA, C::kLdBt,
+            bf + static_cast<long long>(it.c0) * k + it.k0, k, it.nc, it.kk,
+            vb);
     } else {
-      stage(as + C::kA, C::kLdB, bf + static_cast<long long>(it.k0) * n, n,
-            it.kk, n, vb);
+      stage(as + C::kA, C::kLdB,
+            bf + static_cast<long long>(it.k0) * n + it.c0, n, it.kk, it.nc,
+            vb);
     }
   };
   const int warp = threadIdx.x / kWarp;
@@ -835,11 +854,11 @@ __global__ void __launch_bounds__(kTiledThreads)
     const Item it = item(i);
     const T* as = buf + st * C::kStage;
     const bool last = it.tile == tiles - 1;
-    T* cf = c + (it.f * m + it.r0) * n;
+    T* cf = c + (it.f * m + it.r0) * n + it.c0;
     if constexpr (C::kF64) {
       const Op<T> oa{as, C::kLdA, ta};
       const Op<T> ob{as + C::kA, tb ? C::kLdBt : C::kLdB, tb};
-      const int ti_n = (it.mr + 7) / 8, tj_n = (n + 7) / 8;
+      const int ti_n = (it.mr + 7) / 8, tj_n = (it.nc + 7) / 8;
       const int groups = ((ti_n + 1) / 2) * ((tj_n + 1) / 2);
 #pragma unroll
       for (int q = 0; q < C::kGroups; ++q) {
@@ -849,7 +868,8 @@ __global__ void __launch_bounds__(kTiledThreads)
         grp.accumulate(oa, ob, (it.kk + 3) & ~3, d[q]);
         if (!last) continue;
         grp.drain(d[q], [&](int r, int j, T v0, T v1) {
-          if (r < it.mr && j < n) store(cf + r * n, j, n, v0, v1, vc);
+          if (r < it.mr && j < it.nc)
+            store(cf + static_cast<long long>(r) * n, j, it.nc, v0, v1, vc);
         });
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -858,13 +878,15 @@ __global__ void __launch_bounds__(kTiledThreads)
         }
       }
     } else {
-      if (i0 < it.mr && j0 < n) {
+      if (i0 < it.mr && j0 < it.nc) {
         accumulate_f32_op<4>(as, C::kLdA, ta, as + C::kA,
                              tb ? C::kLdBt : C::kLdB, tb, it.kk, i0, j0, acc);
         if (last) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            if (i0 + r < it.mr) store(cf + (i0 + r) * n, j0, n, acc[r], vc);
+            if (i0 + r < it.mr)
+              store(cf + static_cast<long long>(i0 + r) * n, j0, it.nc,
+                    acc[r], vc);
 #pragma unroll
             for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
           }
@@ -1226,8 +1248,9 @@ cudaError_t launch_tiled(const T* a, const T* b, T* c, int batch, int m,
   err = resident(bmm_tiled_kernel<T>, kTiledThreads, smem, device, slots_of,
                  &slots);
   if (err != cudaSuccess) return err;
-  const long long units =
-      static_cast<long long>(batch) * ((m + kTiledBand - 1) / kTiledBand);
+  const long long units = static_cast<long long>(batch) *
+                          ((m + kTiledBand - 1) / kTiledBand) *
+                          ((n + kTiledN - 1) / kTiledN);
   if (units * ((k + kTileK - 1) / kTileK) > kMaxUnits)
     return cudaErrorInvalidValue;
   bmm_tiled_kernel<T><<<grid_of(static_cast<int>(units), slots),
@@ -1256,11 +1279,11 @@ cudaError_t launch_sandwich(const T* x, const T* f, const T* s, T* c,
   return cudaGetLastError();
 }
 
-// the size class: 16, 32 or 64 (operands staged whole), 128 (k streamed
-// in tiles), 0 (too large)
+// the size class of a product's largest size: 16, 32 or 64 (operands
+// staged whole), else 0 (the tiled kernel: k streamed in tiles, rows and
+// columns in bands, any length)
 inline int size_class(int n) {
-  return n <= 16 ? 16 : n <= 32 ? 32 : n <= kStagedN ? 64
-                                       : n <= kMaxN ? 128 : 0;
+  return n <= 16 ? 16 : n <= 32 ? 32 : n <= kStagedN ? 64 : 0;
 }
 
 // whether 16-byte copies reach every stored row of an operand at p with
@@ -1420,8 +1443,8 @@ template <typename T>
 int bmm(const T* a, const T* b, T* c, int batch, int m, int n,
         int k, int trans_a, int trans_b, int device, void* stream) {
   if (batch <= 0 || m <= 0 || n <= 0) return 0;
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int cls = size_class(m > n ? (m > k ? m : k) : (n > k ? n : k));
-  if (k < 1 || cls == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m <= kTiny && n <= kTiny && k <= kTiny)
     return direct<T>(a, b, c, batch, m, n, k, trans_a, trans_b, device,
                      stream);
@@ -1446,8 +1469,7 @@ int sandwich(const T* x, const T* f, const T* s, T* c, int batch, int n,
              int device, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const int cls = size_class(n);
-  if (cls == 0 || n > kStagedN)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (cls == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int flags = (vec_ok(x, n) ? kVecA : 0) | (vec_ok(f, n) ? kVecB : 0) |
                     (vec_ok(c, n) && vec_ok(s, n) ? kVecC : 0);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -1563,8 +1585,9 @@ int pair_bilinear(const T* w, const T* grids, T* out, int batch, int nat,
 extern "C" {
 
 // a: (batch, m, k), or (batch, k, m) with trans_a; b: (batch, k, n), or
-// (batch, n, k) with trans_b; c: (batch, m, n). m, n, k <= 128. Any
-// element-aligned base address (a view with a storage offset).
+// (batch, n, k) with trans_b; c: (batch, m, n). Any sizes (above 64 in
+// the tiled class). Any element-aligned base address (a view with a
+// storage offset).
 int mqc_fragment_bmm_f32(const float* a, const float* b, float* c,
                          int batch, int m, int n, int k, int trans_a,
                          int trans_b, int device, void* stream) {
@@ -1594,7 +1617,7 @@ int mqc_fragment_sandwich_f64(const double* x, const double* f,
 }
 
 // mat: (batch, rows, cols), or (batch, cols, rows) with trans; x: (batch,
-// cols); y: (batch, rows). rows, cols <= 128.
+// cols); y: (batch, rows). rows, cols <= 256.
 int mqc_fragment_matvec_f32(const float* mat, const float* x, float* y,
                             int batch, int rows, int cols, int trans,
                             int device, void* stream) {

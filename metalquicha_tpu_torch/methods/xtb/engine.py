@@ -37,7 +37,7 @@ from ...ops.anderson_window import anderson_window
 from ...ops.batched_eigh import EighStatus, eigh_folded
 from ...ops.batched_eigh import eigh as batched_eigh
 from ...ops.fermi_fill import DENSITY_MAX_N, fermi_density, fermi_occupations
-from ...ops.fragment_gemm import MAX_N as GEMM_MAX_N
+from ...ops.fragment_gemm import takes as _small
 from ...ops.fragment_gemm import (
     fragment_bmm,
     fragment_matvec,
@@ -174,28 +174,24 @@ def _eye(n, like):
 _take, _take2 = take, take2
 
 
-def _small(*tensors) -> bool:
-    """Whether the batch-invariant product kernel takes these (..., r, c)
-    operands: every size up to its GEMM_MAX_N. The shape decides: above it
-    a product goes to torch.matmul, as the JAX package leaves every product
-    to XLA."""
-    return all(max(t.shape[-2:]) <= GEMM_MAX_N for t in tensors)
-
-
 def _mm(a, b, trans_a=False, trans_b=False):
     """op(a) @ op(b) of (B, r, c) batches (op: the transpose where asked):
-    `fragment_bmm` up to GEMM_MAX_N, whose bits for a fragment do not
-    depend on its batch on a card (torch.matmul on the CPU)."""
-    if _small(a, b):
+    `fragment_bmm` where the output's m and n are up to the op's MAX_N (k
+    any length), whose bits for a fragment do not depend on its batch on a
+    card (torch.matmul on the CPU). The shape decides (`_small`): above it
+    torch.matmul, as the JAX package leaves every product to XLA."""
+    m = a.shape[-1] if trans_a else a.shape[-2]
+    n = b.shape[-2] if trans_b else b.shape[-1]
+    if _small(m, n):
         return fragment_bmm(a, b, trans_a, trans_b)
     return torch.matmul(a.transpose(-1, -2) if trans_a else a,
                         b.transpose(-1, -2) if trans_b else b)
 
 
 def _sandwich(x, f, shift):
-    """x @ f @ x + shift: `sandwich`, one launch on a card, up to
-    GEMM_MAX_N."""
-    if _small(x):
+    """x @ f @ x + shift: `sandwich` up to the op's MAX_N (one launch on a
+    card up to its STAGED_N, two products and an add above)."""
+    if _small(x.shape[-1], x.shape[-1]):
         return sandwich(x, f, shift)
     return x @ f @ x + shift
 
@@ -482,7 +478,7 @@ def _atom_charges(q_sh, batch):
 
 
 def _matvec(m, x):
-    if _small(m):
+    if _small(*m.shape[-2:]):
         return fragment_matvec(m, x)
     return (m @ x[..., None])[..., 0]
 
@@ -732,7 +728,7 @@ def _scc_density(eps, C, batch, kt, settings: EngineSettings):
     The Fermi filling up to DENSITY_MAX_N AOs is `fermi_density`: the
     fill and the product in one kernel launch on a card. Above it, and
     for the aufbau filling, the fill and a product (`_mm`: the
-    batch-invariant kernel up to GEMM_MAX_N, torch.matmul above, where the
+    batch-invariant kernel up to the op's MAX_N, torch.matmul above, where the
     JAX package leaves it to XLA; chosen by shape, not a fallback)."""
     if not settings.fixed_occupations and C.shape[-1] <= DENSITY_MAX_N:
         return fermi_density(eps, C, batch.nelec, batch.nuhf, kt,
@@ -790,10 +786,10 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings,
         if use_sp2:
             def make_density(F):
                 Po = sp2_density(
-                    Xs @ F @ Xs + inp["shift_out"], batch.nelec, batch.nuhf,
-                    batch.ao_mask, closed_shell=closed_shell,
+                    _sandwich(Xs, F, inp["shift_out"]), batch.nelec,
+                    batch.nuhf, batch.ao_mask, closed_shell=closed_shell,
                 )
-                return Xs @ Po @ Xs
+                return _mm(_mm(Xs, Po), Xs)
         elif fast_inloop:
             def make_density(F):
                 eps, Cp = jacobi_eigh(_sandwich(Xs, F, inp["shift_out"]))
@@ -973,7 +969,7 @@ def _aes_fixed_point(H0, S, coords, gamma, batch, kt, settings, gamma_at, mp,
                 settings.fixed_occupations,
             )
             f = f.detach()
-            P = (C * f[:, None, :]) @ C.transpose(-1, -2)
+            P = _mm(C * f[:, None, :], C, trans_b=True)
         return _aes_pack(*_aes_moments_of_P(P, S, batch, mp))
 
     return fixed_point

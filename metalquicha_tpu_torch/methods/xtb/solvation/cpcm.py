@@ -29,6 +29,7 @@ import torch
 
 from ....constants import ANGSTROM_TO_BOHR
 from ....ops.batched_eigh import solve as batched_solve
+from ..engine import _mm
 from .born import (
     PARAM_SETS,
     _const,
@@ -127,6 +128,8 @@ class CpcmSolvation:
         # stage's status (read after the call); torch.linalg.solve_ex on
         # the CPU
         AinvB = batched_solve(A, Bm)
-        gamma = -f[:, None, None] * (Bm.transpose(-1, -2) @ AinvB)
+        # B^T A^-1 B: (nat, points) by (points, nat) on the batch-invariant
+        # product kernel (k, the points, of any length)
+        gamma = -f[:, None, None] * _mm(Bm, AinvB, trans_a=True)
         gamma = 0.5 * (gamma + gamma.transpose(-1, -2))
         return gamma * (atom_mask[:, :, None] * atom_mask[:, None, :])

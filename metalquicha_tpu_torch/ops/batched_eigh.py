@@ -38,6 +38,15 @@ kernels):
   eigenpairs differ from torch's in the last bits (held to 1e-12 in
   float64 by chip_smoke.py).
 
+A matrix's eigenpairs do not depend on its batch (ROADMAP C17;
+`tools/c17_probe_torch.py --eigh` measured XsyevBatched on an H100): in
+any batch of 2 or more its bits are the same up to BATCHED_MAX_N_F64 in
+float64 and at every size in float32, so a batch of 1 above SINGLE_MAX_N
+(whose call takes another route) is solved as the matrix twice; above
+BATCHED_MAX_N_F64 in float64 every matrix is solved by a call of its own
+(`one_at_a_time`: the same (1, n, n) call in every cut, 12x the batched
+call's time at (41, 241)).
+
 Dispatch is by the tensor's device: a CUDA tensor goes to the binding (or
 raises), a CPU tensor to `torch.linalg.eigh`, the plain version.
 """
@@ -56,6 +65,17 @@ from .kernel_build import KernelLibrary
 
 #: binding calls so far (a caller may reset it to 0)
 launches = 0
+#: XsyevBatched's eigenpairs, measured on an H100 against the batch count
+#: (`tools/c17_probe_torch.py --eigh`): the same bits for a matrix in any
+#: batch of 2 or more up to this size in float64 (every size in float32),
+#: other bits above it; above it in float64 each matrix is solved by a call
+#: of its own, a (1, n, n) call, the same call whatever the batch
+#: (`one_at_a_time`)
+BATCHED_MAX_N_F64 = 128
+#: up to this size a batch of 1 gives a matrix the bits of any batch;
+#: above, the call for one matrix is made for two (the matrix twice), as a
+#: batch of 2 or more runs it
+SINGLE_MAX_N = 32
 
 _ptr, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = KernelLibrary("batched_eigh", {
@@ -130,7 +150,8 @@ def _shared_workspace(like: torch.Tensor) -> torch.Tensor:
     if _LIB.lib is None:
         build()
     dcode = int(like.dtype == torch.float64)
-    n, bsz, index = like.shape[-1], like.shape[0], like.device.index
+    n, index = like.shape[-1], like.device.index
+    bsz = max(_call_batch(like.dtype, n, like.shape[0]), like.shape[0])
     key = (threading.get_ident(), index, dcode, n, bsz)
     work = _shared.get(key)
     if work is None:
@@ -363,7 +384,29 @@ def workspace_bytes(dtype, n: int, device, batch: int = 1024) -> float:
                             index) / batch
 
 
-def _launch(a: torch.Tensor, status: EighStatus):
+def one_at_a_time(dtype, n: int) -> bool:
+    """Whether the binding solves (n, n) matrices of `dtype` one call a
+    matrix: float64 above BATCHED_MAX_N_F64, where XsyevBatched's
+    eigenpairs depend on the batch count (ROADMAP C17)."""
+    return dtype == torch.float64 and n > BATCHED_MAX_N_F64
+
+
+def _call_batch(dtype, n: int, bsz: int) -> int:
+    """The matrices of each XsyevBatched call for a batch of bsz: 1 where
+    `one_at_a_time`, else the batch, a batch of 1 made 2 above
+    SINGLE_MAX_N."""
+    if one_at_a_time(dtype, n):
+        return 1
+    return 2 if bsz == 1 and n > SINGLE_MAX_N else bsz
+
+
+def _launch(a: torch.Tensor, status: EighStatus, single=None):
+    """XsyevBatched on the batch, or (`single`; by default
+    `one_at_a_time`) on each matrix alone, a (1, n, n) call each: the
+    same call whatever the batch, so a matrix's eigenpairs do not depend
+    on it; a batch of 1 above SINGLE_MAX_N solved as a batch of 2 (the
+    matrix twice), whose bits are a batch's. Either way one launch
+    counted."""
     if a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"batched eigh takes float32/float64, not {a.dtype}")
     if status.shape != (a.dtype, *a.shape) or status.work is None or (
@@ -374,17 +417,26 @@ def _launch(a: torch.Tensor, status: EighStatus):
     index = a.device.index
     # torch's layout: the lower triangle of a column-major copy (A^T
     # row-major), overwritten in place by the eigenvectors in columns
-    vt = a.transpose(-1, -2).contiguous()
-    w = a.new_empty((bsz, n))
-    info = torch.empty((bsz,), dtype=torch.int32, device=a.device)
+    if single is None:
+        single = one_at_a_time(a.dtype, n)
+    rows = 2 if not single and _call_batch(a.dtype, n, bsz) == 2 else bsz
+    vt = a.transpose(-1, -2).expand(rows, n, n).contiguous()
+    w = a.new_empty((rows, n))
+    info = torch.empty((rows,), dtype=torch.int32, device=a.device)
     work = status.work
     stream = torch._C._cuda_getCurrentRawStream(index)
-    err = _LIB.lib.mqc_eigh(dcode, vt.data_ptr(), w.data_ptr(),
-                            work.data_ptr(), work.numel(), info.data_ptr(),
-                            status.worst.data_ptr(), n, bsz, index, stream)
-    _LIB.check(err, "batched eigh")
+    # a matrix's offset in vt and w, and the matrices a call takes
+    calls = ([(i * n * n * vt.element_size(), i * n * w.element_size(), i, 1)
+              for i in range(bsz)] if single else [(0, 0, 0, rows)])
+    for off_v, off_w, i, count in calls:
+        err = _LIB.lib.mqc_eigh(
+            dcode, vt.data_ptr() + off_v, w.data_ptr() + off_w,
+            work.data_ptr(), work.numel(),
+            info.data_ptr() + i * info.element_size(),
+            status.worst.data_ptr(), n, count, index, stream)
+        _LIB.check(err, "batched eigh")
     _count(stream)
-    return w, vt.transpose(-1, -2)
+    return w[:bsz], vt[:bsz].transpose(-1, -2)
 
 
 def eigh(a: torch.Tensor, status: EighStatus | None = None):

@@ -16,8 +16,8 @@ of a fragment's rows staged in shared memory where the batch is small;
 whole fragments staged, or read in place in the transposed form and
 where a row is short). Above, persistent blocks walk units of work (a
 fragment, or a band of rows of one at 64 and above), staged by 16-byte
-copies (f32 through a two-stage ring), k streamed in tiles above 64 (up
-to MAX_N);
+copies (f32 through a two-stage ring), above 64 rows and columns in bands
+(of up to 128 columns) and k streamed in tiles at any length;
 the kernel reads each operand's alignment itself (a view with a storage
 offset, or rows of odd length in f64, are copied element by element into
 the same layout, with the same bits), so the wrapper passes every
@@ -32,8 +32,10 @@ as it is stored with its flag flipped.
   w[b, j], D3's C6 contraction, on a kernel of its own: one launch from
   the weights and the gathered (R, R) grids to C6.
 
-Operands are (..., n, n) batches with the same leading shape, every size
-up to MAX_N. Each op is a `torch.autograd.Function` on a card whose
+Operands are batches with the same leading shape: a product's m and n up
+to MAX_N and k of any length, the sandwich's and the matvec's sizes up to
+MAX_N (above, the engine keeps torch.matmul, as the JAX package leaves
+every product to XLA). Each op is a `torch.autograd.Function` on a card whose
 backward calls the same kernel (so the backward is batch-invariant too,
 and itself differentiable: `param_fit.py` runs a double backward);
 `pair_bilinear`'s backward is built of the products, `fragment_sum`,
@@ -65,10 +67,12 @@ from .kernel_build import KernelLibrary
 #: kernel launches so far by kind (`kind_of`), every entry; `launches` is
 #: their sum (a caller may clear it)
 launches_by_kind = collections.Counter()
-#: the largest size a product takes: staged whole in shared memory up to
-#: STAGED_N (the range of the fused density), k streamed in tiles above
-#: (fragments above 64 AOs on the exact route)
-MAX_N = 128
+#: the largest m and n a product takes on a card (k any length), and the
+#: largest size of the sandwich and the matvec: staged whole in shared
+#: memory up to STAGED_N (the range of the fused density), above in bands
+#: of rows and columns with k streamed in tiles (fragments above 64 AOs:
+#: the 73-atom peptide's 241, SP2's products, CPCM's points)
+MAX_N = 256
 STAGED_N = 64
 #: the reference grids of a pair that `pair_bilinear` takes on a card
 #: (D3's MAX_REFS)
@@ -125,13 +129,15 @@ def kind_of(entry: str, *sizes: int) -> tuple:
     """A launch's kind, (entry, class): class 0 for the direct kernel (a
     product whose sizes are all 8 or less: a thread an output) and for
     the pair kernel (`pair_bilinear`, a kind of its own), else the size
-    class by the largest size (16, 32, 64, or 128: the product's k in
-    tiles; the matvec's staged rows)."""
+    class by the largest size (16, 32, 64; 128: the product's k in tiles,
+    one band of columns; 256: past 128, the product's columns in two
+    bands or a k or backward m of any length; the matvec's staged
+    rows)."""
     top = max(sizes)
     if (entry == "bmm" and top <= 8) or entry == "pair_bilinear":
         return entry, 0
     return entry, (16 if top <= 16 else 32 if top <= 32 else
-                   64 if top <= 64 else 128)
+                   64 if top <= 64 else 128 if top <= 128 else 256)
 
 
 def kind_name(kind: tuple) -> str:
@@ -466,9 +472,15 @@ def _device(*tensors) -> str:
     return dev.type
 
 
+def takes(m: int, n: int) -> bool:
+    """Whether the op takes an (m, n) output on a card (a product's k any
+    length): m and n up to MAX_N."""
+    return max(m, n) <= MAX_N
+
+
 def _check(*tensors) -> None:
     """What the kernel takes: float32/float64 of one dtype, the same
-    leading shape, every size up to MAX_N."""
+    leading shape."""
     dtype, lead = tensors[0].dtype, tensors[0].shape[:-2]
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fragment products take float32/float64, not "
@@ -478,20 +490,26 @@ def _check(*tensors) -> None:
             raise ValueError(
                 f"fragment products: operands of one dtype and one leading "
                 f"shape, got {[tuple(u.shape) for u in tensors]}")
-        if max(t.shape[-2:]) > MAX_N:
-            raise ValueError(f"fragment products take sizes up to MAX_N = "
-                             f"{MAX_N}, got {tuple(t.shape)}")
+
+
+def _check_sizes(m: int, n: int, shapes) -> None:
+    if not takes(m, n):
+        raise ValueError(f"fragment products take m and n up to MAX_N = "
+                         f"{MAX_N}, got {[tuple(s) for s in shapes]}")
 
 
 def fragment_bmm(a, b, trans_a: bool = False, trans_b: bool = False):
     """op(a) @ op(b) for (..., m, k) and (..., k, n) batches (op: the
-    transpose where asked)."""
+    transpose where asked); on a card m and n up to MAX_N, k any
+    length."""
     if _device(a, b) == "cpu":
         return torch.matmul(_op(a, trans_a), _op(b, trans_b))
     _check(a, b)
     if _op(a, trans_a).shape[-1] != _op(b, trans_b).shape[-2]:
         raise ValueError(f"fragment_bmm: {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not chain")
+    _check_sizes(_op(a, trans_a).shape[-2], _op(b, trans_b).shape[-1],
+                 (a.shape, b.shape))
     return _Bmm.apply(a, b, trans_a, trans_b)
 
 
@@ -503,6 +521,7 @@ def sandwich(x, f, shift):
     if not (x.shape == f.shape == shift.shape
             and x.shape[-1] == x.shape[-2]):
         raise ValueError("sandwich: x, f and shift are square, one shape")
+    _check_sizes(x.shape[-1], x.shape[-1], (x.shape,))
     return _Sandwich.apply(x, f, shift)
 
 
@@ -511,6 +530,7 @@ def fragment_matvec(m, x, trans: bool = False):
     if _device(m, x) == "cpu":
         return (_op(m, trans) @ x[..., None])[..., 0]
     _check(m)
+    _check_sizes(*m.shape[-2:], (m.shape,))
     if (x.dtype != m.dtype or x.shape[:-1] != m.shape[:-2]
             or x.shape[-1] != _op(m, trans).shape[-1]):
         raise ValueError(f"fragment_matvec: {tuple(m.shape)} and "

@@ -1,7 +1,12 @@
 """SP2 density-matrix purification: a diagonalization-free in-loop SCC solver.
 
 Counterpart of metalquicha_tpu's `ops/sp2.py` (plain matrix products there,
-no hand-written kernel, and so here: batched `torch.matmul`). Inside the
+no hand-written kernel). Here the products, the traces and the Gershgorin
+row sums run on the batch-invariant ops (`fragment_bmm`,
+`ops/fragment_gemm.py`, up to its MAX_N, torch.matmul above as XLA's
+there; `fragment_sum`, `ops/fragment_reduce.py`): on a card each
+fragment's projector is the same bits whatever its batch; on the CPU each
+op is the torch expression it replaced. Inside the
 non-differentiated SCC fixed-point loop (engine.scf_solve) eigenpairs are
 never needed, only the density matrix that generates the shell
 populations. The second-order spectral projection (SP2) recursion of
@@ -32,6 +37,8 @@ import threading
 import torch
 
 from . import replay_counts
+from .fragment_gemm import fragment_bmm, takes
+from .fragment_reduce import fragment_sum
 
 #: `sp2_density` calls so far (a caller may reset it to 0): shows that a run
 #: went through this route
@@ -73,7 +80,8 @@ def sp2_projector(Fo, nocc, ao_mask, iters: int = 48):
     # padding at +100 Ha would otherwise stretch the [0,1] map ~50x and
     # stall convergence, which is gap/(emax-emin)-limited).
     diag = torch.diagonal(Fo, dim1=-2, dim2=-1)
-    offsum = Fo.abs().sum(-1) - diag.abs()
+    # the row sums as (B N) rows of N: their bits fixed by N alone
+    offsum = fragment_sum(Fo.abs(), -1) - diag.abs()
     big = 1e30
     real = ao_mask > 0
     lo = torch.where(real, diag - offsum, big).amin(-1)
@@ -84,10 +92,11 @@ def sp2_projector(Fo, nocc, ao_mask, iters: int = 48):
     X = (hi[..., None, None] * eye - Fo) / width[..., None, None]
     X = torch.where(pair > 0, X, 0.0)
 
+    square = fragment_bmm if takes(n, n) else torch.matmul
     for _ in range(iters):
-        X2 = X @ X
-        tr2 = torch.diagonal(X2, dim1=-2, dim2=-1).sum(-1)
-        tr = torch.diagonal(X, dim1=-2, dim2=-1).sum(-1)
+        X2 = square(X, X)
+        tr2 = fragment_sum(torch.diagonal(X2, dim1=-2, dim2=-1))
+        tr = fragment_sum(torch.diagonal(X, dim1=-2, dim2=-1))
         # branch-free Niklasson criterion: pick whichever recursion moves
         # the trace toward nocc
         take_sq = (tr2 - nocc).abs() < (2.0 * tr - tr2 - nocc).abs()

@@ -185,6 +185,59 @@ def test_failed_call_raises_and_is_not_counted(monkeypatch):
         be._launch(a[:1], status)
 
 
+def test_call_batches_by_dtype_and_size():
+    """Where XsyevBatched's eigenpairs depend on the batch count (measured
+    on an H100: float64 above 128) each matrix is a call of its own; a
+    batch of 1 above 32 is solved as a batch of 2; else the batch is one
+    call."""
+    f64, f32 = torch.float64, torch.float32
+    assert be.BATCHED_MAX_N_F64 == 128 and be.SINGLE_MAX_N == 32
+    assert [be._call_batch(f64, n, 8) for n in (16, 128, 129, 241)] == [
+        8, 8, 1, 1]
+    assert [be._call_batch(f64, n, 1) for n in (32, 33, 128, 241)] == [
+        1, 2, 2, 1]
+    assert [be._call_batch(f32, n, b) for n, b in (
+        (241, 8), (241, 1), (256, 64), (16, 1))] == [8, 2, 64, 1]
+    assert be.one_at_a_time(f64, 129) and not be.one_at_a_time(f32, 256)
+
+
+@pytest.mark.parametrize("dtype, bsz, n, want", [
+    (torch.float64, 3, 160, [(0, 1), (1, 1), (2, 1)]),
+    (torch.float64, 1, 96, [(0, 2)]),
+    (torch.float64, 4, 96, [(0, 4)]),
+    (torch.float32, 3, 160, [(0, 3)]),
+    (torch.float32, 1, 16, [(0, 1)])])
+def test_launch_calls_by_the_rule(monkeypatch, dtype, bsz, n, want):
+    """The calls `_launch` makes: one a matrix (each at its own offset of
+    the column-major copy, the eigenvalues and the infos), the batch, or a
+    single matrix as two; one launch counted either way, the results cut
+    to the batch."""
+    calls = []
+
+    def mqc_eigh(dcode, vt, w, work, nbytes, info, worst, n_, count, *_):
+        calls.append((vt, w, info, count))
+        return 0
+
+    lib = types.SimpleNamespace(mqc_eigh=mqc_eigh)
+    monkeypatch.setattr(be._LIB, "lib", lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 7, raising=False)
+    a = _symmetric((bsz, n, n), dtype)
+    status = be.EighStatus(a)
+    status.work = torch.empty((64,), dtype=torch.uint8)
+    before = be.launches
+    w, v = be._launch(a, status)
+    assert be.launches == before + 1
+    assert w.shape == (bsz, n) and v.shape == (bsz, n, n)
+    item = a.element_size()
+    base_v, base_w, base_i = calls[0][:3]
+    got = [((vt - base_v) // (n * n * item), count)
+           for vt, _, _, count in calls]
+    assert got == want
+    for (vt, wp, info, _), (i, _) in zip(calls, want):
+        assert wp - base_w == i * n * item and info - base_i == i * 4
+
+
 def test_entry_points_match_the_source():
     """Every `int mqc_...` entry point of csrc/batched_eigh.cu is declared,
     with as many arguments as the C signature has."""
@@ -305,6 +358,22 @@ def test_binding_matches_torch_on_the_card(cuda, shape, dtype):
         sign = torch.sign((v * v_t).sum(-2, keepdim=True))
         assert float((w - w_t).abs().max()) <= 1e-12
         assert float((v * sign - v_t).abs().max()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [16, 48, 96, 128, 160, 241])
+def test_a_matrix_gets_its_bits_in_any_batch(cuda, n, dtype):
+    """A matrix's eigenpairs through the binding are the same bits alone,
+    in its batch and in either half of it, at sizes on both sides of the
+    rule's bounds (ROADMAP C17)."""
+    a = _symmetric((6, n, n), dtype, seed=n).to(cuda)
+    w, v = be.eigh(a)
+    for rows in ([0], [5], [0, 1, 2], [3, 4, 5], [4, 1]):
+        idx = torch.tensor(rows, device=cuda)
+        wp, vp = be.eigh(a.index_select(0, idx).contiguous())
+        assert torch.equal(wp, w.index_select(0, idx))
+        assert torch.equal(vp, v.index_select(0, idx))
 
 
 def test_cpu_solve_is_torchs_and_raises_on_a_singular_system():

@@ -383,6 +383,51 @@ def test_gfn2_dimer_through_the_plain_versions_matches_live_jax(plain_route):
     assert dict(fr.launches_by_kind) == before
 
 
+def test_gfn2_refine_on_the_kernels_plain_versions(monkeypatch):
+    """GFN2's refine route (diff_scf_iters = 2, whose recorded density is
+    the product op's `_mm`) with every product and sum on the Functions a
+    card runs, their launches sent to the plain versions, against the
+    CPU's torch expressions: energies 1e-10 Ha, gradients 1e-9 Ha/Bohr;
+    the density's products among the launches."""
+    from metalquicha_tpu_torch.ops import fragment_gemm as fm
+    from metalquicha_tpu_torch.workloads import bench_dimers
+
+    settings = tsp("gfn2", max_scf_iter=64, scf_tol=1e-11)
+    calc = tcalc.XtbCalculator(settings, variant="gfn2", device="cpu")
+    frag = calc.make_batch(bench_dimers(2, seed=7))
+
+    def run():
+        coords = frag.coords.clone().requires_grad_()
+        e, _ = tcalc.single_point_energy(coords, frag, settings,
+                                         diff_scf_iters=2)
+        (g,) = torch.autograd.grad(e.sum(), coords)
+        return e.detach(), g
+
+    e_ref, g_ref = run()
+    shapes = []
+
+    def bmm(a, b, ta=False, tb=False):
+        shapes.append((ta, tb))
+        return fm.fragment_bmm_reference(a, b, ta, tb)
+
+    monkeypatch.setattr(fm, "_device", lambda *t: "cuda")
+    monkeypatch.setattr(fm, "_launch_bmm", bmm)
+    monkeypatch.setattr(fm, "_launch_sandwich", lambda x, f, s: bmm(
+        bmm(x, f), x) + s)
+    monkeypatch.setattr(fm, "_launch_matvec", fm.matvec_reference)
+    monkeypatch.setattr(fm, "_launch_pair", fm.pair_bilinear_reference)
+    monkeypatch.setattr(fr, "_device", lambda *t: "cuda")
+    monkeypatch.setattr(fr, "_launch_fock", _plain_fock)
+    monkeypatch.setattr(fr, "_launch_rows", fr.moment_rows_reference)
+    monkeypatch.setattr(fr, "_launch_segment", fr.segment_sum_reference)
+    monkeypatch.setattr(fr, "_launch_sum", fr.row_sum_reference)
+    e, g = run()
+    assert float((e - e_ref).abs().max()) <= 1e-10
+    assert float((g - g_ref).abs().max()) <= 1e-9
+    # C diag(f) C^T of each of the two recorded steps, and its backward
+    assert shapes.count((False, True)) >= 2
+
+
 # ---------------------------------------------------------------------------
 # the engine's sums through the ops
 # ---------------------------------------------------------------------------

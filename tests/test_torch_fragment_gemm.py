@@ -19,10 +19,14 @@ On the CPU:
   versions: gradcheck and gradgradcheck in float64;
 - the engine sends every product of a GFN1 SCC iteration (the Fock
   transforms, the Coulomb matvec), of its orthogonalizers and of the
-  functional through the op, a fragment of 72 AOs too (the kernel's
-  k-tiled sizes up to MAX_N = 128); above MAX_N, and for GFN2's
-  multipole products, it does not; above 64 the sandwich is two product
-  launches and an add;
+  functional through the op, fragments of 72 and 144 AOs too (the
+  kernel's tiled class up to MAX_N = 256, k of any length), GFN2's refine
+  density and CPCM's (nat, points) by (points, nat); above MAX_N, and for
+  GFN2's multipole products, it does not; above 64 the sandwich is two
+  product launches and an add; on a card m or n above MAX_N raises;
+- the plain versions above 128 (the peptide's 241, two bands of columns,
+  CPCM's k of 660 points and its backward's m) against torch.matmul, and
+  against the JAX package's `_general_eigh` at n = 160;
 - the dispatch: a CPU tensor never builds the kernel, another device
   raises, a CUDA tensor goes to the launch, a failed launch raises
   uncounted; a launch from another thread on a captured stream (a
@@ -33,10 +37,10 @@ On the CPU:
   its own address, never copied; a transposed view as it is stored, its
   flag flipped), at n = 11, 16, 20, 32 and 64;
 - a plain-Python model of the kernel's persistent walk over (fragment,
-  band) units and its ring (two stages in f32, one in f64), with the
-  band heights and the stages read from
-  the source: every unit once, every row of every fragment once, for
-  every grid of 1 to 2 x 132 blocks;
+  row band, column band) units and its ring (two stages in f32, one in
+  f64), with the band heights and widths read from the source: every unit
+  once, every output element of every fragment once, for every grid of 1
+  to 2 x 132 blocks;
 - the bit fingerprint of the kernel's first version (commit df9980a;
   `tests/data/
   fragment_gemm_bits.json`, `tools/gemm_bits_torch.py`) covers every
@@ -44,9 +48,10 @@ On the CPU:
   remakes the inputs it hashed.
 The `gpu` cases hold the kernel to both plain versions on the card at the
 main path's shapes, square and rectangular (D3's (1, R) by (R, R) and its
-backward's forms), the pair kernel bit for bit to its plain version, and
-check that a fragment's bits do not depend on its batch (`python3 -m pytest --noconftest tests/test_torch_fragment_gemm.py
--m gpu`).
+backward's forms, CPCM's), up to 256 in two bands of columns, the pair
+kernel bit for bit to its plain version, and check that a fragment's bits
+do not depend on its batch, SP2's density's too (`python3 -m pytest
+--noconftest tests/test_torch_fragment_gemm.py -m gpu`).
 """
 
 import collections
@@ -108,8 +113,14 @@ def _operands(bsz, m, k, n, trans, dtype=torch.float64, seed=0, lead=()):
 
 
 #: (m, k, n) of the products: a square, D3's (1, R) by (R, R) and the two
-#: products of its backward pass, one of each size class
-RECT = [(11, 11, 11), (1, 5, 5), (5, 1, 5), (30, 7, 19), (64, 3, 40)]
+#: products of its backward pass, one of each size class; above 128 (the
+#: tiled class in bands of rows and columns, k in tiles at any length):
+#: the peptide's 241, n = 129 in two bands of columns, CPCM's (nat,
+#: points) by (points, nat) at the w20 dimers and its backward's (points,
+#: nat) by (nat, nat), a long k beside both bands of columns
+RECT = [(11, 11, 11), (1, 5, 5), (5, 1, 5), (30, 7, 19), (64, 3, 40),
+        (241, 241, 241), (256, 40, 129), (6, 660, 6), (660, 6, 6),
+        (131, 660, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -120,6 +131,26 @@ def test_reference_matches_matmul(mkn, trans, dtype):
     want = torch.matmul(_op(a, trans[0]), _op(b, trans[1]))
     assert _rel(fm.fragment_bmm_reference(a, b, *trans), want) <= TOL[dtype]
     assert torch.equal(fm.fragment_bmm(a, b, *trans), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [192, 241, 256])
+def test_sandwich_and_matvec_plain_versions_above_128(n, dtype):
+    """The sandwich and the matvec at the sizes above 128 that the kernel
+    now takes (the peptide's 192 shells and 241 AOs, SP2's 256): the ops
+    on the CPU the torch expressions bit for bit, the kernel's order
+    within tolerance of them."""
+    x, f, s = _mats((2, n, n), dtype, seed=n, n=3)
+    want = x @ f @ x + s
+    assert torch.equal(fm.sandwich(x, f, s), want)
+    kernel_order = fm.fragment_bmm_reference(
+        fm.fragment_bmm_reference(x, f), x) + s
+    assert _rel(kernel_order, want) <= TOL[dtype]
+    v = f[:, :, 0]
+    for trans in (False, True):
+        ref = (_op(x, trans) @ v[..., None])[..., 0]
+        assert torch.equal(fm.fragment_matvec(x, v, trans), ref)
+        assert _rel(fm.matvec_reference(x, v, trans), ref) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -252,19 +283,21 @@ def _jax_np(dtype):
     return np.float64 if dtype == torch.float64 else np.float32
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_plain_versions_match_jax_ortho_and_general_eigh(dtype):
+def _against_jax_general_eigh(dtype, bsz, n, seed, scale, columns=True):
     """The orthogonalizer and the generalized eigenproblem built from the
     kernel's order (`fragment_bmm_reference`) against the JAX package's
-    `_ortho_factors` and `_general_eigh` under vmap."""
+    `_ortho_factors` and `_general_eigh` under vmap, on a seeded batch
+    (S's off-diagonal part scaled by `scale`). The eigenvectors column by
+    column up to sign where `columns`, else through C diag(eps) C^T, which
+    holds every product's error but neither eigensolver's gauge nor its
+    own eigenvector error (eps |A| / gap, 1e-13 and more at n = 160)."""
     # imported here: the file's `gpu` cases run where jax is not installed
     import jax
 
     from metalquicha_tpu.methods.xtb import engine as je
 
-    rng = np.random.default_rng(7)
-    bsz, n = 4, 12
-    a = rng.standard_normal((bsz, n, n)) * 0.05
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((bsz, n, n)) * scale
     S = np.eye(n) + a + a.transpose(0, 2, 1)
     F = rng.standard_normal((bsz, n, n))
     F = F + F.transpose(0, 2, 1) + np.diag(np.arange(n, dtype=float) * 2.0)
@@ -289,15 +322,36 @@ def test_plain_versions_match_jax_ortho_and_general_eigh(dtype):
     assert _rel(eps, torch.tensor(np.asarray(eps_j))) <= TOL[dtype]
     # eigenvectors up to each column's sign, in float64 (in float32 they
     # carry the eigh's own error, eps |A| / gap, about 1e-5 here)
-    if dtype == torch.float64:
-        c_j = torch.tensor(np.asarray(c_j))
+    c_j = torch.tensor(np.asarray(c_j))
+    if dtype == torch.float64 and columns:
         sign = torch.sign((c * c_j).sum(-2, keepdim=True))
         assert _rel(c * sign, c_j) <= TOL[dtype]
+    elif not columns:
+        eps_j = torch.tensor(np.asarray(eps_j))
+        assert _rel(
+            fm.fragment_bmm_reference(c * eps[:, None, :], c, trans_b=True),
+            c_j * eps_j[:, None, :] @ c_j.transpose(-1, -2)) <= TOL[dtype]
     # and the port's own engine functions on the plain route
     xs_p, proj_p = te._ortho_factors(St)
     assert _rel(xs_p, xs) <= TOL[dtype]
     eps_p, _ = te._general_eigh(Ft, (xs_p, proj_p))
     assert _rel(eps_p, eps) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plain_versions_match_jax_ortho_and_general_eigh(dtype):
+    """The orthogonalizer and the generalized eigenproblem built from the
+    kernel's order (`fragment_bmm_reference`) against the JAX package's
+    `_ortho_factors` and `_general_eigh` under vmap."""
+    _against_jax_general_eigh(dtype, 4, 12, seed=7, scale=0.05)
+
+
+def test_plain_versions_match_jax_general_eigh_above_128():
+    """The same at n = 160, a size the kernel takes in two bands of
+    columns with k in five tiles (float64 1e-13), the eigenvectors through
+    C diag(eps) C^T."""
+    _against_jax_general_eigh(torch.float64, 2, 160, seed=160, scale=0.01,
+                              columns=False)
 
 
 @pytest.fixture
@@ -456,9 +510,21 @@ def _water_ring(k):
 
 
 def test_large_fragments_and_gfn2_multipoles_stay_on_matmul(counted):
+    """A 24-water ring (144 AOs and shells, above 128) takes the op's
+    products as the smaller ones do (the kernel's tiled class up to MAX_N
+    = 256, rows and columns in bands); a 44-water ring (264 AOs and
+    shells, above MAX_N) stays on torch.matmul, as the JAX package leaves
+    every product to XLA; GFN2's moment products are not the op's."""
     calc = tcalc.XtbCalculator(tsp("gfn1"), device="cpu")
     frag = calc.make_batch(_water_ring(24))
+    assert 128 < frag.ao_mask.shape[1] <= fm.MAX_N
+    assert 128 < frag.sh_mask.shape[1] <= fm.MAX_N
+    # the Fock transform, C = Xs Cp, the density and the Coulomb matvec
+    assert _per_iteration(counted, frag, tsp("gfn1")) == {
+        "sandwich": 1, "fragment_bmm": 2, "fragment_matvec": 1}
+    frag = calc.make_batch(_water_ring(44))
     assert frag.ao_mask.shape[1] > fm.MAX_N
+    assert frag.sh_mask.shape[1] > fm.MAX_N
     assert _per_iteration(counted, frag, tsp("gfn1")) == {}
     gfn2 = tsp("gfn2")
     calc2 = tcalc.XtbCalculator(gfn2, variant="gfn2", device="cpu")
@@ -466,6 +532,74 @@ def test_large_fragments_and_gfn2_multipoles_stay_on_matmul(counted):
     per = _per_iteration(counted, frag2, gfn2)
     # the Fock transform and C only: the moments' products stay einsums
     assert per["sandwich"] == 1 and per["fragment_bmm"] == 1
+
+
+def test_engine_takes_the_op_by_the_output_shape(counted):
+    """`_mm`, `_sandwich` and `_matvec` go to the op where the output's m
+    and n are up to MAX_N, whatever k (CPCM's points), and to torch above
+    it, with torch's bits on the CPU either way."""
+    a, b = _operands(2, 6, 660, 6, (True, False))
+    want = torch.matmul(a.transpose(-1, -2), b)
+    assert torch.equal(te._mm(a, b, trans_a=True), want)
+    assert counted == {"fragment_bmm": 1}
+    counted.clear()
+    n = fm.MAX_N + 1
+    x, f, s = _mats((1, n, n), n=3)
+    assert torch.equal(te._mm(x, f, trans_b=True), x @ f.mT)
+    assert torch.equal(te._mm(x[:, :5], f), x[:, :5] @ f)
+    assert torch.equal(te._sandwich(x, f, s), x @ f @ x + s)
+    assert torch.equal(te._matvec(x, s[:, 0]), (x @ s[:, 0, :, None])[..., 0])
+    assert counted == {}
+    n = fm.MAX_N
+    x, f, s = (t[:, :n, :n] for t in (x, f, s))
+    te._mm(x, f)
+    te._sandwich(x, f, s)
+    te._matvec(x, s[:, 0])
+    assert counted == {"fragment_bmm": 1, "sandwich": 1,
+                       "fragment_matvec": 1}
+
+
+def test_gfn2_refine_density_goes_through_the_op(counted):
+    """GFN2's differentiable refinement (`scf_refine_multipole`, the route
+    of diff_scf_iters and of a polish warm start) builds its density with
+    `_mm`, as GFN1's `scf_refine` does: two products in the
+    orthogonalizer, then a step's transform, C and density (and its
+    Coulomb matvec)."""
+    gfn2 = tsp("gfn2")
+    calc = tcalc.XtbCalculator(gfn2, variant="gfn2", device="cpu")
+    frag = calc.make_batch([WATER, H3O])
+    with torch.no_grad():
+        z, _ = tcalc._converge_charges(frag.coords, frag, KT, gfn2)
+    S, H0, gamma, mp = tcalc._scc_operands(frag.coords, frag, gfn2)
+    counted.clear()
+    for n_iter, products in ((1, 4), (2, 6)):
+        counted.clear()
+        te.scf_refine_multipole(H0, S, frag.coords, gamma, frag, KT, gfn2,
+                                None, mp, z, n_iter)
+        assert counted == {"fragment_bmm": products, "sandwich": n_iter,
+                           "fragment_matvec": n_iter}
+
+
+def test_cpcm_product_goes_through_the_op(counted):
+    """CPCM's B^T A^-1 B, (nat, points) by (points, nat), is the op's
+    product (trans_a, k the points), torch's bits on the CPU."""
+    from metalquicha_tpu_torch.methods.xtb.solvation.cpcm import (
+        CpcmSolvation,
+    )
+
+    calc = tcalc.XtbCalculator(tsp("gfn1", max_scf_iter=2), device="cpu",
+                               solvation=CpcmSolvation(78.4))
+    frag = calc.make_batch([WATER, H3O])
+    seen = []
+    real = te.fragment_bmm
+    te.fragment_bmm = lambda a, b, ta=False, tb=False: (
+        seen.append((tuple(a.shape), ta, tb)) or real(a, b, ta, tb))
+    try:
+        calc.energies(frag, graph=False)
+    finally:
+        te.fragment_bmm = real
+    npts = frag.atom_mask.shape[1] * 110
+    assert ((2, npts, frag.atom_mask.shape[1]), True, False) in seen
 
 
 def test_fragments_above_64_aos_go_through_the_op(counted):
@@ -605,12 +739,31 @@ def test_launches_of_another_thread_reach_the_capture_of_their_stream():
 
 
 def test_sizes_above_the_kernel_raise_on_a_card(monkeypatch):
+    """On a card an output's m or n above MAX_N (256) raises, for the
+    product, the sandwich and the matvec; a product's k of any length
+    (CPCM's points) goes to the kernel."""
     monkeypatch.setattr(fm, "_device", lambda *t: "cuda")
     a = torch.zeros(2, fm.MAX_N + 1, fm.MAX_N + 1)
     with pytest.raises(ValueError, match="MAX_N"):
         fm.fragment_bmm(a, a)
+    with pytest.raises(ValueError, match="MAX_N"):
+        fm.fragment_bmm(a[:, :4], a[:, :4, :4], True, False)
+    with pytest.raises(ValueError, match="MAX_N"):
+        fm.sandwich(a, a, a)
+    with pytest.raises(ValueError, match="MAX_N"):
+        fm.fragment_matvec(a[:, :, :4], a[:, 0, :4])
     with pytest.raises(TypeError, match="float32/float64"):
         fm.fragment_bmm(a.to(torch.int32), a.to(torch.int32))
+
+    class Stub:
+        @staticmethod
+        def apply(*args):
+            return "kernel"
+
+    monkeypatch.setattr(fm, "_Bmm", Stub)
+    long_k = torch.zeros(2, 660, fm.MAX_N)
+    assert fm.fragment_bmm(long_k, long_k, True, False) == "kernel"
+    assert fm.fragment_bmm(long_k[:, :, :6].mT, long_k[:, :, :6]) == "kernel"
 
 
 class _Recorder:
@@ -691,6 +844,11 @@ def test_launch_kinds():
     assert fm.kind_of("bmm", 20, 20, 20) == ("bmm", 32)
     assert fm.kind_of("bmm", 64, 3, 40) == ("bmm", 64)
     assert fm.kind_of("bmm", 65, 3, 40) == ("bmm", 128)
+    # past 128: the peptide's 241, CPCM's k and its backward's m
+    assert fm.kind_of("bmm", 241, 241, 241) == ("bmm", 256)
+    assert fm.kind_of("bmm", 6, 6, 660) == ("bmm", 256)
+    assert fm.kind_of("bmm", 660, 6, 6) == ("bmm", 256)
+    assert fm.kind_of("matvec", 192, 192) == ("matvec", 256)
     assert fm.kind_of("sandwich", 6) == ("sandwich", 16)
     assert fm.kind_of("matvec", 64, 64) == ("matvec", 64)
     assert fm.kind_of("matvec", 3, 3) == ("matvec", 16)
@@ -735,23 +893,32 @@ def _walk(units, grid, tiles=1, stages=2):
 
 def test_work_unit_walk_covers_every_band_once():
     """A plain-Python model of the persistent walk: for every grid of 1 to
-    2 x 132 blocks, every (fragment, band) unit is computed exactly once
-    (above 64, each of its k tiles once and in ascending order), from the
-    stage it was issued to, and the bands of a fragment cover its rows
-    exactly once, at the band heights of the source and of the whole tile
-    (classes 16 and 32); with a ring of one stage (f64) and of two (f32,
-    and the sizes above 64)."""
+    2 x 132 blocks, every (fragment, row band, column band) unit is
+    computed exactly once (above 64, each of its k tiles once and in
+    ascending order), from the stage it was issued to, and the bands of a
+    fragment cover its rows and columns exactly once, at the band heights
+    and widths of the source and of the whole tile (classes 16 and 32);
+    with a ring of one stage (f64) and of two (f32, and the sizes above
+    64): among them the peptide's 241, n = 256 in two bands of columns,
+    CPCM's k of 660 points and its backward's m of 660."""
     band64 = _source_constant("kBand64")
     tiled_band = _source_constant("kTiledBand")
     tile_k = _source_constant("kTileK")
-    assert (band64, tiled_band, tile_k) == (32, 32, 32)
-    for (band, batch, m, k), stages in itertools.product((
-            (band64, 128, 64, 64), (band64, 3, 37, 9), (16, 190, 16, 16),
-            (32, 5, 20, 20), (tiled_band, 16, 96, 96),
-            (tiled_band, 3, 128, 70)), (1, 2)):
-        bands = -(-m // band)
-        tiles = -(-k // tile_k) if max(m, k) > 64 else 1
-        units = batch * bands
+    tiled_n = _source_constant("kTiledN")
+    assert (band64, tiled_band, tile_k, tiled_n) == (32, 32, 32, 128)
+    for (band, batch, m, k, n), stages in itertools.product((
+            (band64, 128, 64, 64, 64), (band64, 3, 37, 9, 37),
+            (16, 190, 16, 16, 16), (32, 5, 20, 20, 20),
+            (tiled_band, 16, 96, 96, 96), (tiled_band, 3, 128, 70, 128),
+            (tiled_band, 3, 241, 241, 241), (tiled_band, 2, 256, 40, 256),
+            (tiled_band, 5, 6, 660, 6), (tiled_band, 2, 660, 6, 6),
+            (tiled_band, 1, 131, 660, 129)), (1, 2)):
+        tiled = max(m, n, k) > 64
+        rbands = -(-m // band)
+        width = tiled_n if tiled else n
+        cbands = -(-n // width)
+        tiles = -(-k // tile_k) if tiled else 1
+        units = batch * rbands * cbands
         for grid in range(1, 2 * 132 + 1):
             walked = _walk(units, min(grid, units), tiles, stages)
             assert sorted(walked) == [(u, t) for u in range(units)
@@ -760,19 +927,23 @@ def test_work_unit_walk_covers_every_band_once():
             for u, t in walked:
                 order[u].append(t)
             assert all(ts == list(range(tiles)) for ts in order.values())
-            rows = collections.Counter()
-            for u in order:
-                f, r0 = divmod(u, bands)
-                rows.update((f, r) for r in range(r0 * band,
-                                                  min(m, r0 * band + band)))
-            assert len(rows) == batch * m and set(rows.values()) == {1}
+        # every grid walks every unit once: the units cover each output
+        # element of each fragment once
+        cells = np.zeros((batch, m, n), dtype=np.int64)
+        for u in range(units):
+            f, rest = divmod(u, rbands * cbands)
+            rb, cb = divmod(rest, cbands)
+            cells[f, rb * band:rb * band + band,
+                  cb * width:cb * width + width] += 1
+        assert (cells == 1).all()
 
 
 def test_bit_fingerprint_covers_the_gemm_phase():
     """The fixture holds a fingerprint for every shape, dtype and entry
     `chip_smoke.py`'s gemm phase names (the product with each transpose,
-    the sandwich, the matvec and its transpose at GEMM_SHAPES; the product
-    with each transpose at GEMM_RECT; the matvec and its transpose at
+    the sandwich, the matvec and its transpose at GEMM_SHAPES and, above
+    128, at GEMM_FINGERPRINTED_WIDE; the product with each transpose at
+    GEMM_RECT, CPCM's forms among them; the matvec and its transpose at
     MATVEC_SHAPES, at n = 11 and 97, and on offset operands; the pair
     contraction at PAIR_SHAPES), and the tool's recipe remakes the inputs
     it hashed, shape and bytes."""
@@ -784,7 +955,8 @@ def test_bit_fingerprint_covers_the_gemm_phase():
     assert "H100" in fixture["card"]
     want = set()
     for dtype in ("f64", "f32"):
-        for bsz, n in chip_smoke.GEMM_SHAPES:
+        for bsz, n in (chip_smoke.GEMM_SHAPES
+                       + chip_smoke.GEMM_FINGERPRINTED_WIDE):
             shape = (bsz, n, n, n)
             want |= {bits.key_of("bmm", dtype, shape, ta, tb)
                      for ta, tb in TRANS}
@@ -844,13 +1016,16 @@ def cuda():
 
 
 #: (B, n) of the main path: the dimer slice, the w20 MBE(4) chunk, the
-#: largest fragments the kernel takes, one fragment, an odd batch, and
-#: sizes of 8 (the products on the direct kernel, the sandwich not); above
-#: 64, k in tiles (the dodecamers' 96, the largest, and one past 64); the
-#: Coulomb matvec's shells of the dimer slice and of GFN2 hexamers (its
-#: rows cut into bands at (3, 128), (16, 96) and (64, 36))
+#: largest fragments the kernel stages whole, one fragment, an odd batch,
+#: and sizes of 8 (the products on the direct kernel, the sandwich not);
+#: above 64, k in tiles (the dodecamers' 96, 128, and one past 64); above
+#: 128, two bands of columns (the peptide's 241 AOs, SP2's 256, the
+#: peptide's 192 shells); the Coulomb matvec's shells of the dimer slice
+#: and of GFN2 hexamers (its rows cut into bands at (3, 128), (16, 96) and
+#: (64, 36))
 GPU_SHAPES = [(512, 16), (5985, 32), (128, 64), (1, 16), (7, 64), (20, 8),
-              (16, 96), (3, 128), (5, 65), (512, 12), (64, 36)]
+              (16, 96), (3, 128), (5, 65), (512, 12), (64, 36), (41, 241),
+              (64, 256), (8, 192), (3, 129)]
 
 
 def _card_mats(shape, dtype, device, n=3, seed=0):
@@ -885,10 +1060,14 @@ def test_kernel_matches_plain_versions(cuda, shape, dtype):
 #: (B, m, k, n) of rectangular products on the main path: D3's (1, R) by
 #: (R, R) per atom pair of a 73-atom Hessian chunk (41 x 73 x 73) and of
 #: the w20 MBE(2) dimers (190 x 6 x 6), the forms of its backward pass,
-#: and one of each size class
+#: one of each size class; CPCM's (nat, points) by (points, nat) at the
+#: w20 dimers and monomers and its backward's (points, nat) by (nat, nat);
+#: a long k beside two bands of columns, and two bands of rows beside one
+#: of columns
 GPU_RECT = [(41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (6840, 5, 1, 5),
             (300, 30, 7, 19), (33, 64, 3, 40), (9, 100, 70, 128),
-            (7, 65, 3, 40)]
+            (7, 65, 3, 40), (190, 6, 660, 6), (20, 3, 330, 3),
+            (190, 660, 6, 6), (5, 131, 660, 256), (3, 241, 40, 200)]
 
 
 @pytest.mark.gpu
@@ -896,17 +1075,20 @@ GPU_RECT = [(41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (6840, 5, 1, 5),
 @pytest.mark.parametrize("bmkn", GPU_RECT)
 def test_rectangular_products_on_the_card(cuda, bmkn, dtype):
     bsz, m, k, n = bmkn
+    # a backward's form past MAX_N (CPCM's (points, nat) by (nat, nat)) as
+    # the op's autograd Function launches it
+    bmm = fm.fragment_bmm if fm.takes(m, n) else fm._launch_bmm
     for trans in TRANS:
         a, b = (t.to(cuda) for t in _operands(bsz, m, k, n, trans, dtype))
-        got = fm.fragment_bmm(a, b, *trans)
+        got = bmm(a, b, *trans)
         assert got.shape == (bsz, m, n)
         assert _rel(got, fm.fragment_bmm_reference(a, b, *trans)) <= TOL[dtype]
         ref = torch.matmul(_op(a, trans[0]), _op(b, trans[1]))
         assert _rel(got, ref) <= TOL[dtype]
         for rows in ([0], [bsz - 1, 0]):
             idx = torch.tensor(rows, device=cuda)
-            part = fm.fragment_bmm(a.index_select(0, idx),
-                                   b.index_select(0, idx), *trans)
+            part = bmm(a.index_select(0, idx), b.index_select(0, idx),
+                       *trans)
             assert torch.equal(part, got.index_select(0, idx))
 
 
@@ -954,7 +1136,8 @@ def test_kernel_bits_do_not_depend_on_the_batch(cuda, shape, dtype):
 @pytest.mark.gpu
 def test_gradients_on_the_card(cuda):
     """The Functions' backward passes on the card against torch's own
-    gradients of the plain expression (float64, 1e-12)."""
+    gradients of the plain expression (float64, 1e-12); CPCM's product,
+    whose backward's products have the points as m."""
     x, f, s = (t.requires_grad_() for t in _card_mats((64, 16, 16),
                                                         torch.float64, cuda))
     out = fm.sandwich(x, f, s)
@@ -963,3 +1146,40 @@ def test_gradients_on_the_card(cuda):
     want = torch.autograd.grad((ref_out * ref_out).sum(), (x, f, s))
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-12
+    a, b = (t.to(cuda).requires_grad_() for t in _operands(
+        19, 6, 660, 6, (True, False)))
+    out = fm.fragment_bmm(a, b, True, False)
+    got = torch.autograd.grad((out * out).sum(), (a, b))
+    ref_out = a.mT @ b
+    want = torch.autograd.grad((ref_out * ref_out).sum(), (a, b))
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz, n", [(16, 96), (8, 241)])
+def test_sp2_density_bits_do_not_depend_on_the_batch(cuda, bsz, n):
+    """SP2's density on the card (float32, its products and sums on the
+    batch-invariant kernels): a fragment's bits alone, and in its batch in
+    another order, equal; one launch of the product per iteration."""
+    from metalquicha_tpu_torch.ops import sp2
+
+    rng = np.random.default_rng(n)
+    q, _ = np.linalg.qr(rng.standard_normal((bsz, n, n)))
+    lam = np.sort(rng.uniform(-2.0, 1.0, (bsz, n)), -1)
+    half = n // 4
+    lam[:, half:] += 0.5  # a gap above the occupied states
+    fo = torch.tensor((q * lam[:, None, :]) @ q.transpose(0, 2, 1),
+                      dtype=torch.float32, device=cuda)
+    nelec = torch.full((bsz,), 2.0 * half, device=cuda)
+    nuhf = torch.zeros(bsz, device=cuda)
+    mask = torch.ones(bsz, n, device=cuda)
+    before = fm.launches
+    whole = sp2.sp2_density(fo, nelec, nuhf, mask, closed_shell=True)
+    torch.cuda.synchronize()
+    assert fm.launches == before + 48
+    for rows in ([0], [bsz - 1, 0], [bsz - 1, bsz // 2, 0]):
+        idx = torch.tensor(rows, device=cuda)
+        part = sp2.sp2_density(*(t.index_select(0, idx) for t in (
+            fo, nelec, nuhf, mask)), closed_shell=True)
+        assert torch.equal(part, whole.index_select(0, idx))

@@ -10,6 +10,8 @@ charges to 1e-8 in float64 and 1e-4 in float32 (two solvers, each with
 float32 noise at the 1e-5 level).
 """
 
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,6 +75,102 @@ def test_sp2_projector_matches_jax_and_eigh():
         assert np.abs(p[b] - _eigh_projector(blocks[b], nocc)).max() <= TOL
         assert abs(np.trace(p[b]) - nocc) <= TOL
         assert np.abs(p[b] @ p[b] - p[b]).max() <= TOL  # idempotent
+
+
+def test_sp2_projector_on_the_ops_plain_versions_matches_jax(monkeypatch):
+    """The projector with its products and sums in the kernels' order (the
+    ops' plain versions, `fragment_bmm_reference` and
+    `fragment_sum_reference`, which a card's kernels hold to) against the
+    JAX package's `sp2_projector` at a seeded (2, 144) batch, 120 real
+    states and 24 padded (the tiled product class, two bands of columns),
+    float64."""
+    from metalquicha_tpu_torch.ops import fragment_gemm as fm
+    from metalquicha_tpu_torch.ops import fragment_reduce as fr
+
+    monkeypatch.setattr(sp2, "fragment_bmm", fm.fragment_bmm_reference)
+    monkeypatch.setattr(sp2, "fragment_sum", fr.fragment_sum_reference)
+    noccs = [40, 33]
+    a, blocks, mask = _padded_batch(144, 120, 24, noccs)
+    p = sp2.sp2_projector(
+        torch.tensor(a), torch.tensor(noccs, dtype=torch.float64),
+        torch.tensor(mask),
+    ).numpy()
+    for b, nocc in enumerate(noccs):
+        ref = np.asarray(jax_sp2.sp2_projector(
+            jnp.asarray(a[b]), jnp.asarray(float(nocc)), jnp.asarray(mask[b])
+        ))
+        assert np.abs(p[b] - ref).max() <= TOL
+        assert np.abs(
+            p[b, :120, :120] - _eigh_projector(blocks[b], nocc)).max() <= TOL
+
+
+def test_sp2_products_and_sums_go_through_the_ops(monkeypatch):
+    """SP2's route on the batch-invariant ops: in the engine the
+    transformed Fock matrix is `sandwich`'s and the back-transform two
+    `fragment_bmm` products; in the projector each iteration's square is
+    `fragment_bmm` and its two traces and the Gershgorin row sums (as (B
+    N) rows of N) `fragment_sum`. On the CPU each op is the torch
+    expression it replaced: the projector's bits are those of torch's
+    `X @ X`, diagonal sums and row sums."""
+    calls = collections.Counter()
+    for mod, name in ((engine, "sandwich"), (engine, "fragment_bmm"),
+                      (sp2, "fragment_bmm"), (sp2, "fragment_sum")):
+        real = getattr(mod, name)
+
+        def count(*args, _real=real, _key=(mod.__name__, name), **kw):
+            if _key[1] == "fragment_sum":
+                calls[_key + (tuple(args[0].shape),)] += 1
+            else:
+                calls[_key] += 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(mod, name, count)
+    noccs, iters = [9, 5], 6
+    a, _, mask = _padded_batch(7, 24, 0, noccs)
+    args = (torch.tensor(a), torch.tensor(noccs, dtype=torch.float64),
+            torch.tensor(mask))
+    got = sp2.sp2_projector(*args, iters=iters)
+    sp2_mod = sp2.__name__
+    assert calls == {(sp2_mod, "fragment_bmm"): iters,
+                     (sp2_mod, "fragment_sum", (2, 24, 24)): 1,
+                     (sp2_mod, "fragment_sum", (2, 24)): 2 * iters}
+    # the torch expressions the ops replaced, bit for bit
+    Fo, nocc, m = args
+    pair = m[..., :, None] * m[..., None, :]
+    Fo = Fo * pair
+    diag = torch.diagonal(Fo, dim1=-2, dim2=-1)
+    offsum = Fo.abs().sum(-1) - diag.abs()
+    real = m > 0
+    lo = torch.where(real, diag - offsum, 1e30).amin(-1)
+    hi = torch.where(real, diag + offsum, -1e30).amax(-1)
+    width = torch.clamp(hi - lo, min=1e-6)
+    X = (hi[..., None, None] * torch.eye(24, dtype=Fo.dtype) - Fo) / (
+        width[..., None, None])
+    X = torch.where(pair > 0, X, 0.0)
+    for _ in range(iters):
+        X2 = X @ X
+        tr2 = torch.diagonal(X2, dim1=-2, dim2=-1).sum(-1)
+        tr = torch.diagonal(X, dim1=-2, dim2=-1).sum(-1)
+        take_sq = (tr2 - nocc).abs() < (2.0 * tr - tr2 - nocc).abs()
+        X = torch.where(take_sq[..., None, None], X2, 2.0 * X - X2)
+    assert torch.equal(got, X)
+
+    # the engine's SP2 density: one sandwich, two products a call
+    frag = port_from_jax(jax_fragment_data([WATER, WATER], pad_to=(4, 8, 11)),
+                         torch.float32)
+    base = settings_from_params("gfn1", max_scf_iter=3, scf_tol=0.0,
+                                use_pallas_eigh=True)
+    monkeypatch.setattr(engine, "PALLAS_EIGH_MAX_N", 2)
+    kt = base.electronic_temp * KB_HARTREE
+    calls.clear()
+    n0 = sp2.calls
+    _converge_charges(frag.coords, frag, kt, base)
+    made = sp2.calls - n0
+    assert made > 0
+    eng = engine.__name__
+    assert calls[(eng, "sandwich")] == made
+    # the orthogonalizer's two, then two a density
+    assert calls[(eng, "fragment_bmm")] == 2 + 2 * made
 
 
 def test_sp2_projector_respects_padding():

@@ -18,15 +18,18 @@ the engine's products (`--products`): the batch-invariant kernel
 D3's C6 contraction), or torch.matmul and torch.einsum in their place
 (library, what the port ran before it).
 
-Beyond GFN1 (`beyond_deltas`, float64, the kernel routes): the w20
-MBE(2) gradient in GFN2 and in GFN1 with ALPB (one batch against the
-two-slot cut), and a bucket above 64 AOs, `chip_smoke.py`'s 16 water
-dodecamers (nao 72, padded to 96; seed 40), as one batch against two of 8.
-And what is still open (`open_deltas`, measured, not held): the w20 MBE(2)
-energies with CPCM (one batch against the two-slot cut), the 16
-dodecamers in float32 on SP2's route (one batch against two of 8), and 8
-jittered copies of the 73-atom peptide of validation/inputs/no_frag.json
-(228 AOs: products above the kernel's 128) as one batch against two of 4.
+Beyond GFN1 (`beyond_deltas`, the kernel routes): the w20 MBE(2)
+gradient in GFN2 and in GFN1 with ALPB (float64, one batch against the
+two-slot cut); as one batch against its two halves `chip_smoke.py`'s 16
+water dodecamers (nao 72, padded to 96; seed 40) in float64 and in
+float32 on SP2's route, 8 jittered copies of the 73-atom peptide of
+validation/inputs/no_frag.json (228 AOs: products, the matvec and the
+eigh above 128) and the w20 MBE(2) dimers in GFN2 through the refine
+route (diff_scf_iters = 2); and the w20 MBE(2) energies with CPCM (one
+batch against the two-slot cut). Nothing is left open up to 256 AOs
+(ROADMAP C17). `--eigh` measures the in-loop
+eigh's batched call against a batch of 41 and a matrix alone, per size,
+and times the batched and the one-a-matrix calls (`eigh_deltas`).
 
 `--reductions` runs these per route of the sums of `ops/fragment_reduce.py`
 (ROADMAP C17 beyond GFN1), each step putting one more of its entries on
@@ -40,16 +43,17 @@ card).
 `--locate` names, per products and reductions route, the first value that
 depends on the batch, for each of LOCATE_CASES: the w20 MBE(2) dimers'
 float64 gradients (GFN1, GFN2) as one batch of 190 and as its first 95,
-its 20 monomers with ALPB and their first 10, and the 16 dodecamers and
-their first 8, launch by launch, every call of the traced functions
-(`TRACED`), the kernels' backward passes and the gradient the gathers
-`_take` / `_take2` pass back to their input, compared on the shared
-fragments in call order.
+its 20 monomers with ALPB and their first 10, the 16 dodecamers and
+their first 8 (float64, and float32 on SP2's route), the 8 peptides and
+their first 4, and the dimers' CPCM energies, launch by launch, every
+call of the traced functions (`TRACED`), the kernels' backward passes
+and the gradient the gathers `_take` / `_take2` pass back to their
+input, compared on the shared fragments in call order.
 
 Usage: python3 tools/c17_probe_torch.py [--device cuda]
            [--solves kernel,library,looped,rowwise]
            [--products kernel,library] [--reductions none,fock,rows,all]
-           [--beyond] [--open] [--locate] [--json-out F]
+           [--beyond] [--locate] [--eigh] [--json-out F]
 It prints a line per route and one JSON line.
 """
 
@@ -144,32 +148,90 @@ def dodecamers():
 
 
 def _calculator(case, device):
-    """The float64 calculator of a case: w20_gfn1, w20_gfn2, w20_alpb
-    (GFN1, water) or dodecamers (GFN1, scf_tol 1e-9 as the call_graph
-    phase's)."""
+    """The calculator of a case: w20_gfn1, w20_gfn2, w20_gfn2_refine (its
+    gradients through diff_scf_iters = 2, `refined_gradients`), w20_alpb
+    (GFN1, water), cpcm (GFN1, water; energies), dodecamers (GFN1,
+    scf_tol 1e-9 as the call_graph phase's), peptide (GFN1's defaults), in
+    float64; sp2_f32 (the dodecamers in float32 on the fast in-loop route,
+    SP2 above 64 AOs, scf_tol 2e-5)."""
     from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
     from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
     from metalquicha_tpu_torch.methods.xtb.solvation.born import (
         BornSolvation,
     )
+    from metalquicha_tpu_torch.methods.xtb.solvation.cpcm import (
+        CpcmSolvation,
+    )
 
-    variant = "gfn2" if case == "w20_gfn2" else "gfn1"
+    variant = "gfn2" if case.startswith("w20_gfn2") else "gfn1"
+    dtype = torch.float64
     if case == "dodecamers":
         base = settings_from_params(variant, scf_tol=1e-9, max_scf_iter=64)
+    elif case == "sp2_f32":
+        base = settings_from_params(variant, use_pallas_eigh=True,
+                                    scf_tol=2e-5, max_scf_iter=64)
+        dtype = torch.float32
+    elif case == "peptide":
+        base = settings_from_params(variant)
     else:
         base = settings_from_params(variant, max_scf_iter=32)
-    solvation = BornSolvation(78.4, alpb=True) if case == "w20_alpb" else None
-    return XtbCalculator(base, variant=variant, dtype=torch.float64,
-                         device=device, solvation=solvation)
+    solvation = {"w20_alpb": lambda: BornSolvation(78.4, alpb=True),
+                 "cpcm": lambda: CpcmSolvation(78.4)}.get(case)
+    return XtbCalculator(base, variant=variant, dtype=dtype, device=device,
+                         solvation=solvation and solvation())
+
+
+def _case_fragments(case):
+    """The fragments of a case (`_calculator`)."""
+    from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
+
+    if case in ("dodecamers", "sp2_f32"):
+        return dodecamers()
+    if case == "peptide":
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+        import memory_probe_torch
+
+        return memory_probe_torch.fragments("peptide", 8)
+    if case in ("w20_alpb",):
+        return w20_mbe2_fragments()[:20]
+    return w20_mbe2_fragments()[20:]
+
+
+def refined_gradients(calc, frag):
+    """(energies, gradients) of a batch through `single_point_energy` with
+    diff_scf_iters = 2: the refine route (GFN2's `_aes_fixed_point`
+    recorded by autograd, its density the product op's)."""
+    from metalquicha_tpu_torch.methods.xtb.calculator import (
+        single_point_energy,
+    )
+
+    coords = frag.coords.detach().clone().requires_grad_()
+    e, _ = single_point_energy(coords, frag, calc.settings,
+                               calc.solvation, diff_scf_iters=2)
+    (g,) = torch.autograd.grad(e.sum(), coords)
+    return e.detach(), g
+
+
+def _sums(out, case, e, g=None):
+    """What the one batch gave, to hold repeats of one process to each
+    other: the energies' sum and the gradients' absolute sum."""
+    out[f"{case}_energy_sum"] = float(e.sum())
+    if g is not None:
+        out[f"{case}_gradient_sum"] = float(g.abs().sum())
 
 
 def beyond_deltas(device, values=False):
-    """C17's deltas beyond GFN1, float64: the w20 MBE(2) gradient in GFN2
-    and with ALPB (one batch against the two-slot cut: |g|, max |dg|,
-    total), and the 16 dodecamers as one batch against two of 8 (max |dE|,
-    max |dg|). With `values`, also what the one batch gave (the totals and
-    |g|, the dodecamers' energies and gradients summed), to hold repeats
-    of one process to each other."""
+    """C17's deltas beyond GFN1: the w20 MBE(2) gradient in GFN2 and with
+    ALPB (float64, one batch against the two-slot cut: |g|, max |dg|,
+    total); and each as one batch against two halves (max |dE|, max |dg|):
+    the 16 dodecamers in float64 and in float32 on SP2's route (`sp2_f32`),
+    8 jittered 73-atom peptides (228 AOs, padded to 241), the w20 MBE(2)
+    dimers in GFN2 through the refine route (diff_scf_iters = 2,
+    `w20_gfn2_refine`, 190 against two of 95); and the w20 MBE(2)
+    energies with CPCM (one batch against the two-slot cut: max |dE|,
+    total). With `values`, also what the one batch gave (the totals and
+    |g|, the energies' and gradients' sums), to hold repeats of one
+    process to each other."""
     from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
     from metalquicha_tpu_torch.workloads import (
         w20_mbe2_assemble,
@@ -191,82 +253,52 @@ def beyond_deltas(device, values=False):
             for a, b in zip(g1, g2))
         if values:
             out[f"{case}_total"], out[f"{case}_gnorm"] = t1, n1
-    calc = _calculator("dodecamers", device)
-    clusters = dodecamers()
-    half = len(clusters) // 2
-    e1, g1, _ = calc.gradients(calc.make_batch(clusters))
-    parts = [calc.gradients(calc.make_batch(p))
-             for p in (clusters[:half], clusters[half:])]
-    e2 = torch.cat([p[0] for p in parts])
-    g2 = torch.cat([p[1] for p in parts])
-    out["dodecamers_d_energy"] = float((e1 - e2).abs().max())
-    out["dodecamers_max_dg"] = float((g1 - g2).abs().max())
-    if values:
-        out["dodecamers_energy_sum"] = float(e1.sum())
-        out["dodecamers_gradient_sum"] = float(g1.abs().sum())
-    return out
-
-
-def _halves(calc, frags, grad):
-    """(energies, gradients or None) of `frags` as one batch and as its
-    two halves."""
-    half = len(frags) // 2
-    runs = []
-    for parts in ([frags], [frags[:half], frags[half:]]):
-        outs = [calc.gradients(calc.make_batch(p)) if grad
-                else calc.energies(calc.make_batch(p)) for p in parts]
-        runs.append((torch.cat([o[0] for o in outs]),
-                     torch.cat([o[1] for o in outs]) if grad else None))
-    return runs
-
-
-def open_deltas(device):
-    """What C17 leaves open, measured (not held): the w20 MBE(2) energies
-    with CPCM (max |dE|, total), the 16 dodecamers in float32 on SP2's
-    route (max |dE|, max |dg|), 8 jittered 73-atom peptides (228 AOs)
-    (max |dE|, max |dg|), each one batch against a cut in two."""
-    from metalquicha_tpu_torch.methods.xtb.calculator import XtbCalculator
-    from metalquicha_tpu_torch.methods.xtb.engine import settings_from_params
-    from metalquicha_tpu_torch.methods.xtb.solvation.cpcm import (
-        CpcmSolvation,
-    )
-    from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
-    from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
-
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import memory_probe_torch
-
-    out = {}
-    calc = XtbCalculator(settings_from_params("gfn1", max_scf_iter=32),
-                         dtype=torch.float64, device=device,
-                         solvation=CpcmSolvation(78.4))
-    frags = w20_mbe2_fragments()
+    for case in ("dodecamers", "sp2_f32", "peptide", "w20_gfn2_refine"):
+        calc = _calculator(case, device)
+        run = refined_gradients if case == "w20_gfn2_refine" else None
+        (e1, g1), (e2, g2) = _halves(calc, _case_fragments(case), True, run)
+        tag = "dodecamers_d_energy" if case == "dodecamers" else (
+            f"{case}_max_de")
+        out[tag] = float((e1 - e2).abs().max())
+        out[f"{case}_max_dg"] = float((g1 - g2).abs().max())
+        if values:
+            _sums(out, case, e1, g1)
+    calc = _calculator("cpcm", device)
     e1 = FragmentExecutor(calc).run(frags, what="energy")[0]
     e2 = SerialCut.make(calc).run(frags, what="energy")[0]
     e1, e2 = np.asarray(e1), np.asarray(e2)
     out["cpcm_max_de"] = float(np.abs(e1 - e2).max())
     out["cpcm_d_energy_sum"] = abs(float(e1.sum()) - float(e2.sum()))
-    calc = XtbCalculator(
-        settings_from_params("gfn1", use_pallas_eigh=True, scf_tol=2e-5,
-                             max_scf_iter=64),
-        dtype=torch.float32, device=device)
-    (e1, g1), (e2, g2) = _halves(calc, dodecamers(), True)
-    out["sp2_f32_max_de"] = float((e1 - e2).abs().max())
-    out["sp2_f32_max_dg"] = float((g1 - g2).abs().max())
-    calc = XtbCalculator(settings_from_params("gfn1"), dtype=torch.float64,
-                         device=device)
-    (e1, g1), (e2, g2) = _halves(
-        calc, memory_probe_torch.fragments("peptide", 8), True)
-    out["peptide_max_de"] = float((e1 - e2).abs().max())
-    out["peptide_max_dg"] = float((g1 - g2).abs().max())
+    if values:
+        out["cpcm_energy_sum"] = float(e1.sum())
     return out
 
 
-#: where --locate looks: (case, whole batch, the first part of it)
-LOCATE_CASES = ("w20_gfn1", "w20_gfn2", "w20_alpb", "dodecamers")
+def _halves(calc, frags, grad, run=None):
+    """(energies, gradients or None) of `frags` as one batch and as its
+    two halves; `run(calc, batch)` in place of `calc.gradients` where
+    given."""
+    half = len(frags) // 2
+    runs = []
+    for parts in ([frags], [frags[:half], frags[half:]]):
+        outs = []
+        for p in parts:
+            batch = calc.make_batch(p)
+            outs.append(run(calc, batch) if run is not None
+                        else calc.gradients(batch) if grad
+                        else calc.energies(batch))
+        runs.append((torch.cat([o[0] for o in outs]),
+                     torch.cat([o[1] for o in outs]) if grad else None))
+    return runs
+
+
+#: where --locate looks (`_calculator`, `_case_fragments`): the whole
+#: batch against each half
+LOCATE_CASES = ("w20_gfn1", "w20_gfn2", "w20_alpb", "dodecamers", "peptide",
+                "sp2_f32", "cpcm")
 #: the modules that call the ops of `ops/fragment_reduce.py`
 REDUCE_USERS = ("engine", "gfn2", "calculator", "dispersion_d3", "xbond",
-                "born")
+                "born", "sp2")
 
 
 #: (module, function) pairs whose outputs `first_difference` compares; an
@@ -277,7 +309,8 @@ TRACED = (
     ("engine", "eigh_folded"), ("engine", "batched_eigh"),
     ("engine", "eigh_safe"), ("engine", "fragment_bmm"),
     ("engine", "sandwich"), ("engine", "fragment_matvec"),
-    ("engine", "fermi_density"),
+    ("engine", "fermi_density"), ("engine", "sp2_density"),
+    ("sp2", "fragment_bmm"), ("cpcm", "batched_solve"), ("cpcm", "_mm"),
     ("engine", "fermi_occupations"), ("engine", "anderson_window"),
     ("engine", "_fock"), ("engine", "_shell_populations"),
     ("engine", "_ortho_factors"), ("engine", "_general_eigh"),
@@ -363,13 +396,13 @@ def _modules() -> dict:
     from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
     from metalquicha_tpu_torch.methods.xtb import dispersion_d3, engine, gfn2
     from metalquicha_tpu_torch.methods.xtb import xbond
-    from metalquicha_tpu_torch.methods.xtb.solvation import born
-    from metalquicha_tpu_torch.ops import fragment_gemm
+    from metalquicha_tpu_torch.methods.xtb.solvation import born, cpcm
+    from metalquicha_tpu_torch.ops import fragment_gemm, sp2
 
     mods = {"engine": engine, "dispersion_d3": dispersion_d3,
             "fragment_gemm": fragment_gemm, "calculator": tcalc,
             "gfn2": gfn2, "xbond": xbond, "born": born,
-            "Born": born.BornSolvation}
+            "Born": born.BornSolvation, "sp2": sp2, "cpcm": cpcm}
     try:
         from metalquicha_tpu_torch.ops import fragment_reduce
     except ImportError:
@@ -415,28 +448,24 @@ def _hook_nodes(roots, trace) -> list:
 
 
 def first_difference(device, case="w20_gfn1", nodes=False):
-    """The first traced value (in call order) of a case's float64
-    gradients that differs between its fragments as one batch (the w20
-    MBE(2) dimers: 190; with ALPB its 20 monomers; the dodecamers: 16) and
-    the first half alone, then the second half alone (`half`: which), or
-    None where the gradients agree bit for bit. With `nodes`, the
-    gradient every node of the functional's autograd graph passes back is
-    compared too, in the order the backward pass runs them (where no
-    traced function differs before the gradient itself)."""
-    from metalquicha_tpu_torch.workloads import w20_mbe2_fragments
-
+    """The first traced value (in call order) of a case's gradients (CPCM:
+    energies) that differs between its fragments as one batch (the w20
+    MBE(2) dimers: 190; with ALPB its 20 monomers; the dodecamers: 16; the
+    peptides: 8) and the first half alone, then the second half alone
+    (`half`: which), or None where the results agree bit for bit. With
+    `nodes`, the gradient every node of the functional's autograd graph
+    passes back is compared too, in the order the backward pass runs them
+    (where no traced function differs before the gradient itself)."""
     from metalquicha_tpu_torch.parallel.executor import FragmentExecutor
 
     mods = _modules()
     calc = _calculator(case, device)
-    frags = (dodecamers() if case == "dodecamers"
-             else w20_mbe2_fragments()[:20] if case == "w20_alpb"
-             else w20_mbe2_fragments()[20:])
+    frags = _case_fragments(case)
     half = len(frags) // 2
-    # padded as the executor pads the bucket (the dodecamers as the
-    # call_graph phase builds them)
+    # padded as the executor pads the bucket (the dodecamers and peptides
+    # as one make_batch builds them)
     pad_to = None
-    if case != "dodecamers":
+    if case not in ("dodecamers", "sp2_f32", "peptide"):
         ex = FragmentExecutor(calc)
         ((atoms, members),) = ex._buckets(frags).items()
         pad_to = ex._pad_shapes_for(atoms, members)
@@ -490,8 +519,11 @@ def first_difference(device, case="w20_gfn1", nodes=False):
         torch.autograd.grad = grad
         try:
             frag = calc.make_batch(batch, pad_to=pad_to)
-            e, g, _ = calc.gradients(frag, graph=False)
-            trace.add("gradients", (e, g))
+            if case == "cpcm":
+                trace.add("energies", calc.energies(frag, graph=False)[0])
+            else:
+                e, g, _ = calc.gradients(frag, graph=False)
+                trace.add("gradients", (e, g))
         finally:
             torch.autograd.grad = real_grad
             for h in handles:
@@ -508,6 +540,74 @@ def first_difference(device, case="w20_gfn1", nodes=False):
         except _Found as found:
             return dict(found.args[0], half=which)
     return None
+
+
+#: (n) of the in-loop eigh's batch check (`eigh_deltas`), and the batch
+#: counts each is cut into
+EIGH_SIZES = (16, 32, 33, 48, 64, 72, 96, 128, 160, 192, 228, 241, 256)
+EIGH_BATCHES = (2, 3, 4, 8, 16, 41)
+#: (B, n) at which the batched call and the one-a-matrix calls are timed:
+#: the dodecamers' bucket, the 8 peptides' halves and the FD Hessian's
+#: chunk of 41, bench.py's SP2 shape
+EIGH_TIMED = ((16, 96), (4, 228), (8, 228), (41, 241), (64, 256))
+
+
+def eigh_deltas(device):
+    """How far the binding's XsyevBatched gives a matrix eigenpairs that
+    depend on its batch, per n of EIGH_SIZES, float64 and float32, on
+    seeded symmetric matrices (the largest |dw| and |dV|; 0: the same
+    bits): the first B of a batch of 41 solved as a batch of B
+    (EIGH_BATCHES) against the batch of 41 (`batched`), and each matrix
+    alone, a (1, n, n) call, against it (`single`); and the graph-replayed
+    ms of the batched call and of B one-a-matrix calls at EIGH_TIMED."""
+    from chip_smoke import graph_ms
+
+    from metalquicha_tpu_torch.ops import batched_eigh as be
+
+    out = {"sizes": {}, "times": {}}
+    top = max(EIGH_BATCHES)
+
+    def solve(m, single):
+        status = be.EighStatus(m)
+        got = be._launch(m, status, single)
+        status.check()
+        return got
+
+    def delta(got, ref):
+        return (float((got[0] - ref[0]).abs().max()),
+                float((got[1] - ref[1]).abs().max()))
+
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        rng = np.random.default_rng(23)
+        for n in EIGH_SIZES:
+            x = rng.standard_normal((top, n, n))
+            a = torch.tensor(x + x.transpose(0, 2, 1), dtype=dtype,
+                             device=device)
+            w0, v0 = solve(a, False)
+            rec = {}
+            for name, got in (
+                    ("batched", [solve(a[:b].contiguous(), False) + (b,)
+                                 for b in EIGH_BATCHES]),
+                    ("single", [solve(a[:4], True) + (4,)])):
+                dw, dv = zip(*(delta((w, v), (w0[:b], v0[:b]))
+                               for w, v, b in got))
+                rec[name] = {"max_dw": max(dw), "max_dv": max(dv)}
+            out["sizes"][f"{tag}/{n}"] = rec
+            print(f"c17 eigh {tag} n={n}: against the batch of {top}: "
+                  f"{rec}", flush=True)
+        for bsz, n in EIGH_TIMED:
+            x = rng.standard_normal((bsz, n, n))
+            a = torch.tensor(x + x.transpose(0, 2, 1), dtype=dtype,
+                             device=device)
+            status = be.EighStatus(a)
+            rec = {f"{name}_ms": graph_ms(
+                lambda single=single: be._launch(a, status, single), 5)
+                for name, single in (("batched", False), ("single", True))}
+            status.check()
+            out["times"][f"{tag}/{bsz}x{n}"] = rec
+            print(f"c17 eigh {tag} ({bsz}, {n}): {rec}", flush=True)
+    return out
 
 
 def looped_solve(G, rhs):
@@ -545,7 +645,7 @@ def _library_products():
         v = torch.einsum("bia,bijac->bijc", w, grids)
         return torch.einsum("bijc,bjc->bij", v, w)
 
-    return {("engine", "fragment_bmm"): bmm,
+    return {("engine", "fragment_bmm"): bmm, ("sp2", "fragment_bmm"): bmm,
             ("engine", "sandwich"): lambda x, f, shift: x @ f @ x + shift,
             ("engine", "fragment_matvec"):
                 lambda m, x: (m @ x[..., None])[..., 0],
@@ -559,6 +659,7 @@ def _products(name):
     if name == "library":
         return _library_products()
     return {("engine", "fragment_bmm"): fm.fragment_bmm,
+            ("sp2", "fragment_bmm"): fm.fragment_bmm,
             ("engine", "sandwich"): fm.sandwich,
             ("engine", "fragment_matvec"): fm.fragment_matvec,
             ("dispersion_d3", "pair_bilinear"): fm.pair_bilinear}
@@ -613,7 +714,7 @@ def _route_reductions(step) -> list:
 
 
 def _beyond_and_locate(args, device, tag, result) -> None:
-    """--beyond, --open and --locate on the routes in place, into
+    """--beyond and --locate on the routes in place, into
     `result` under keys tagged `tag`."""
     from metalquicha_tpu_torch.methods.xtb import scc_graph
 
@@ -622,11 +723,6 @@ def _beyond_and_locate(args, device, tag, result) -> None:
         result[f"beyond_{tag}"] = beyond_deltas(device)
         print(f"c17 cut deltas beyond GFN1, route {tag}: "
               f"{result[f'beyond_{tag}']}", flush=True)
-    if args.open:
-        scc_graph.clear()
-        result[f"open_{tag}"] = open_deltas(device)
-        print(f"c17 cut deltas still open, route {tag}: "
-              f"{result[f'open_{tag}']}", flush=True)
     if args.locate:
         for case in LOCATE_CASES:
             key = (f"first_{tag}" if case == "w20_gfn1"
@@ -657,23 +753,26 @@ def main(argv=None) -> int:
     ap.add_argument("--reductions", default="all",
                     help="comma-separated steps of the sums of "
                          "ops/fragment_reduce.py on the kernel (none, fock, "
-                         "rows, all) for --beyond, --open and --locate")
+                         "rows, all) for --beyond and --locate")
     ap.add_argument("--beyond", action="store_true",
                     help="also the deltas beyond GFN1 (GFN2, ALPB, the "
-                         "dodecamers above 64 AOs), per products and "
-                         "reductions route")
-    ap.add_argument("--open", action="store_true",
-                    help="also the deltas C17 leaves open (CPCM, SP2 in "
-                         "float32, the 73-atom peptide), measured")
+                         "dodecamers above 64 AOs in float64 and on SP2, "
+                         "the 73-atom peptides, GFN2's refine route, "
+                         "CPCM), per products and reductions route")
     ap.add_argument("--locate", action="store_true",
                     help="name the first value that depends on the batch, "
                          "per products and reductions route and case")
+    ap.add_argument("--eigh", action="store_true",
+                    help="also whether the in-loop eigh's batched call "
+                         "gives a matrix its one-a-matrix eigenpairs, per "
+                         "size, and both calls' times")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     from metalquicha_tpu_torch.logging_ import global_logger
     from metalquicha_tpu_torch.methods.xtb import calculator as tcalc
     from metalquicha_tpu_torch.methods.xtb import dispersion_d3, engine
     from metalquicha_tpu_torch.methods.xtb import scc_graph
+    from metalquicha_tpu_torch.ops import sp2
 
     global_logger.set_level("warning")
     device = tcalc.check_device(args.device)
@@ -681,8 +780,10 @@ def main(argv=None) -> int:
     result = {"device": str(device)}
     if device.type == "cuda":
         result["card"] = torch.cuda.get_device_name(device)
+    if args.eigh:
+        result["eigh"] = eigh_deltas(device)
     windows, real = _windows(), engine.anderson_window
-    mods = {"engine": engine, "dispersion_d3": dispersion_d3}
+    mods = {"engine": engine, "dispersion_d3": dispersion_d3, "sp2": sp2}
     real_products = _products("kernel")
     for products in args.products.split(","):
         for (mod, name), fn in _products(products).items():
@@ -700,7 +801,7 @@ def main(argv=None) -> int:
                     scc_graph.clear()
                 print(f"c17 cut deltas, solve {name}, products {products}: "
                       f"{result[key]}", flush=True)
-            for step in args.reductions.split(","):
+            for step in filter(None, args.reductions.split(",")):
                 tag = products + ("" if step == "all" else f"_{step}")
                 saved = _route_reductions(step)
                 try:

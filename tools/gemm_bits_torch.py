@@ -23,8 +23,10 @@ MATVEC and MATVEC_OFFSET those of the matvec's first kernel (the direct
 kernel, as at commit d37ed60; `added` in the file), and the pair cases
 those of the pair contraction as commit 759462b ran it on a card (the
 direct kernel's products, torch's multiply and torch's sum over R;
-`added`); `--add F` writes the fixture with the cases it lacks added from
-the kernel first on the path.
+`added`), and the cases above 128 (SQUARE's (41, 241) and (64, 256), the
+matvec at (41, 192), CPCM's RECT) those of the kernel that first took
+them (`added`); `--add F` writes the fixture with the cases it lacks added
+from the kernel first on the path.
 `--check` (and `chip_smoke.py`'s gemm phase) recomputes every case with
 the kernel of this tree and compares: the kernel may be redesigned, its
 bits may not move.
@@ -50,14 +52,20 @@ if ROOT not in sys.path:
 FIXTURE = os.path.join(ROOT, "tests", "data", "fragment_gemm_bits.json")
 
 SEED = 16
-#: (B, n) and (B, m, k, n) of chip_smoke.py's GEMM_SHAPES and GEMM_RECT
+#: (B, n) and (B, m, k, n) of chip_smoke.py's GEMM_SHAPES and GEMM_RECT,
+#: and of its GEMM_WIDE above 128 (the peptide's 241, SP2's 256; CPCM's
+#: (nat, points) by (points, nat) at the w20 dimers and monomers and its
+#: backward's (points, nat) by (nat, nat)), recorded from the card's
+#: output of the kernel that first took them (`added`)
 SQUARE = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
-          (128, 64))
-RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (190 * 36, 5, 1, 5))
-#: (B, n) of the matvec alone: chip_smoke.MATVEC_SHAPES, and shapes whose
-#: operands its kernel stages an element a copy (n = 11 and 97)
+          (128, 64), (41, 241), (64, 256))
+RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (190 * 36, 5, 1, 5),
+        (190, 6, 660, 6), (20, 3, 330, 3), (190, 660, 6, 6))
+#: (B, n) of the matvec alone: chip_smoke.MATVEC_SHAPES (the peptide's
+#: 192 shells among them), and shapes whose operands its kernel stages an
+#: element a copy (n = 11 and 97)
 MATVEC = ((512, 12), (5985, 24), (64, 36), (16, 96), (3, 128), (64, 11),
-          (8, 97))
+          (8, 97), (41, 192))
 #: (B, n) of the matvec on operands with a storage offset of one element
 MATVEC_OFFSET = ((512, 12), (16, 96))
 #: (B, nat) of `pair_bilinear` (D3's C6 from its R = 5 reference grids):
@@ -150,6 +158,11 @@ def digest(arr) -> str:
 def run(fm, entry, args, ta, tb, shape):
     """The case's output on the card, through the wrapper's entry."""
     if entry == "bmm":
+        _, m, _, n = shape
+        if hasattr(fm, "takes") and not fm.takes(m, n):
+            # a backward's form (CPCM's (points, nat) by (nat, nat)):
+            # launched as the op's autograd Function launches it
+            return fm._launch_bmm(args[0], args[1], ta, tb)
         return fm.fragment_bmm(args[0], args[1], ta, tb)
     if entry == "sandwich":
         return fm.sandwich(*args)

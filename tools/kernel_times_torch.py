@@ -27,14 +27,22 @@ times moment_fock alone, in its three forms of `chip_smoke.reduce_forms`
 the symmetrisation at d = 6: `moment_contract`) at
 `chip_smoke.REDUCE_SHAPES`; section "pair" D3's pair contraction
 (`pair_bilinear`) at `chip_smoke.PAIR_SHAPES` beside the two einsums it
-replaced and `chip_smoke.pair_bound`.
+replaced and `chip_smoke.pair_bound`. Section "wide" times the shapes
+above 128 (`WIDE`: the products and the sandwich at the peptide's 241 and
+SP2's 256, the matvec at the peptide's 192 shells, CPCM's (nat, points)
+by (points, nat)) through
+the engine's dispatch (`_mm`, `_sandwich`, `_matvec`: the kernel in a tree
+whose op takes the sizes, torch.matmul in one whose op does not) beside
+torch.matmul and the bound; section "sp2" SP2's density (`sp2_density`,
+48 iterations, closed shell) at `SP2` in float32 on the ops of the tree
+(or on its torch.matmul), beside its FLOP bound.
 
 With an older checkout first on PYTHONPATH (unpacked with `git archive`
 into the gitignored `_archive/`), it times that checkout's kernels; the
 product kernel where the checkout has one.
 
 Usage: python3 tools/kernel_times_torch.py [--reps N] [--sections
-window,gemm,reduce,rows,fock,pair] [--json-out F]
+window,gemm,reduce,rows,fock,pair,wide,sp2] [--json-out F]
 It prints a line per shape (per form in "reduce") and one JSON line.
 """
 
@@ -59,6 +67,16 @@ WINDOW_LIMITS = {torch.float64: (1e-12, 1e3), torch.float32: (1e-4, 2.0)}
 #: (B, n) of the products on the main path (chip_smoke.GEMM_SHAPES)
 GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
                (128, 64))
+#: (B, m, k, n) above 128, each with the engine's entry that runs it: the
+#: peptide's 241 AOs (8 jittered copies' half batch of 4, and the FD
+#: Hessian's chunk of 41), SP2's (64, 256), the peptide's 192 shells, CPCM's
+#: (nat, points) by (points, nat) at the w20 dimers (trans_a)
+WIDE = (("mm", 41, 241, 241, 241), ("mm", 64, 256, 256, 256),
+        ("sandwich", 41, 241, 241, 241), ("sandwich", 64, 256, 256, 256),
+        ("matvec", 41, 192, 192, 1), ("mm_ta", 190, 6, 660, 6))
+#: (B, n, real states) of SP2's density: the dodecamers' bucket and
+#: bench.py's (64, 256)
+SP2 = ((16, 96, 72), (64, 256, 240))
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # after an older checkout on PYTHONPATH, so that its package comes first
 if ROOT not in sys.path:
@@ -239,6 +257,82 @@ def matvec_times(fm, rng, dtype, reps: int) -> list:
     return out
 
 
+def _flop_bound(flop: float, nbytes: float, dtype) -> float:
+    """The larger of the operations at the peak rate and the bytes at the
+    memory rate, in ms."""
+    return max(flop / PEAK_FLOPS, nbytes * torch.finfo(dtype).bits / 8
+               / PEAK_BYTES) * 1e3
+
+
+def wide_times(reps: int) -> list:
+    """The cases of WIDE, float64 and float32, through the engine's
+    dispatch of the tree first on the path, beside torch.matmul: graph-
+    replayed ms and the bound (the operands read and the result written
+    once, or 2 m k n operations a product, at the peak rates)."""
+    te = importlib.import_module("metalquicha_tpu_torch.methods.xtb.engine")
+    rng = np.random.default_rng(21)
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for entry, bsz, m, k, n in WIDE:
+            def draw(*shape):
+                return torch.tensor(rng.standard_normal((bsz, *shape)),
+                                    dtype=dtype, device="cuda")
+
+            if entry == "matvec":
+                a, x = draw(m, k), draw(k)
+                route = (lambda: te._matvec(a, x))
+                library = (lambda: torch.matmul(a, x[..., None]))
+                flop, nbytes = 2 * bsz * m * k, bsz * (m * k + m + k)
+            elif entry == "sandwich":
+                a, f, sh = draw(m, m), draw(m, m), draw(m, m)
+                route = (lambda: te._sandwich(a, f, sh))
+                library = (lambda: a @ f @ a + sh)
+                flop, nbytes = 4 * bsz * m ** 3, 4 * bsz * m * m
+            else:
+                ta = entry == "mm_ta"
+                a, b = draw(*((k, m) if ta else (m, k))), draw(k, n)
+                route = (lambda: te._mm(a, b, trans_a=ta))
+                library = (lambda: torch.matmul(a.mT if ta else a, b))
+                flop = 2 * bsz * m * k * n
+                nbytes = bsz * (m * k + k * n + m * n)
+            rec = {"dtype": tag, "entry": entry, "shape": [bsz, m, k, n],
+                   "route_ms": graph_ms(route, reps),
+                   "torch_ms": graph_ms(library, reps),
+                   "bound_ms": _flop_bound(flop, nbytes, dtype)}
+            out.append(rec)
+            print(f"wide {tag} {entry} {bsz}x{m}x{k}x{n}: route ms="
+                  f"{rec['route_ms']:.4f} torch ms={rec['torch_ms']:.4f} "
+                  f"bound ms={rec['bound_ms']:.6f}", flush=True)
+    return out
+
+
+def sp2_times(reps: int) -> list:
+    """SP2's density at SP2, float32, closed shell, 48 iterations
+    (`chip_smoke.sp2_inputs`' matrices): graph-replayed ms beside the
+    bound of its products (2 n^3 operations an iteration)."""
+    cs = chip_smoke()
+    sp2 = importlib.import_module("metalquicha_tpu_torch.ops.sp2")
+    rng = np.random.default_rng(22)
+    out = []
+    for bsz, n, n_real in SP2:
+        a_np, mask_np, nocc = cs.sp2_inputs(rng, bsz, n, n_real)
+        a = torch.tensor(a_np, dtype=torch.float32, device="cuda")
+        mask = torch.tensor(mask_np, dtype=torch.float32, device="cuda")
+        nelec = torch.full((bsz,), 2.0 * nocc, device="cuda")
+        nuhf = torch.zeros(bsz, device="cuda")
+        rec = {"dtype": "f32", "shape": [bsz, n],
+               "ms": graph_ms(lambda: sp2.sp2_density(
+                   a, nelec, nuhf, mask, closed_shell=True), max(reps // 10,
+                                                                 2)),
+               "bound_ms": _flop_bound(48 * 2 * bsz * n ** 3,
+                                       2 * bsz * n * n, torch.float32)}
+        out.append(rec)
+        print(f"sp2 f32 {bsz}x{n}: ms={rec['ms']:.4f} bound ms="
+              f"{rec['bound_ms']:.6f}", flush=True)
+    return out
+
+
 def row_times(reps: int) -> list:
     """fragment_sum over (rows, length) tensors at
     chip_smoke.ROW_SUM_CASES, float64 and float32: the kernel's and torch's
@@ -347,6 +441,10 @@ def main(argv=None) -> int:
         result["pair"] = pair_times(fm, args.reps)
     if "rows" in sections:
         result["rows"] = row_times(args.reps)
+    if "wide" in sections:
+        result["wide"] = wide_times(args.reps)
+    if "sp2" in sections:
+        result["sp2"] = sp2_times(args.reps)
     line = json.dumps(result)
     print(line, flush=True)
     if args.json_out:
