@@ -58,16 +58,19 @@ Phases (each raises on failure; nothing is caught):
              same products on aligned operands; against its plain versions (the
              kernel's order in elementwise ops) and torch.matmul at (B, n)
              = (512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
-             (128, 64), above 64 (k in tiles) at (16, 96) and (3, 128),
-             above 128 (rows and columns in bands) at (41, 241) and (64,
-             256): the product with every transpose, the sandwich
+             (128, 64), above 64 (the tiled class, units cut to the
+             batch and the shape) at (16, 96) and (3, 128) (small
+             batches), (41, 241) and (64, 256) (wide squares), each
+             fingerprinted: the product with every transpose, the sandwich
              x f x + s and the matvec with and without its transpose;
              the rectangular products of D3's C6 contraction ((1, 5) by
              (5, 5) per atom pair of a 73-atom Hessian chunk and of the
              w20 dimers, and its backward's (5, 1) by (1, 5)) and of
              CPCM's (nat, points) by (points, nat) at the w20 dimers and
              monomers and its backward's (points, nat) by (nat, nat) with
-             every transpose, and the contraction itself (`pair_bilinear`, one
+             every transpose (CPCM's forward and backward timed beside
+             torch.matmul and `rect_bound`), and the contraction itself
+             (`pair_bilinear`, one
              launch of its own kernel) bit for bit its plain version
              (`pair_bilinear_reference`) and against the einsums it
              replaced, its backward (dw, dgrids) bit for bit alone and
@@ -1370,14 +1373,14 @@ def wide_window_check(aw, rng, dtype, kw):
 # and energy chunks, the largest fragments it takes
 GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
                (128, 64))
-# above 64 (k streamed in tiles): the call_graph phase's dodecamers (nao 72
-# padded to 96) and 128 (no fingerprint: the first version took sizes up
-# to 64); above 128 (rows and columns in bands): the 73-atom peptide (228
-# AOs padded to 241) as the FD Hessian's chunks run it, and SP2's (64,
-# 256) (fingerprinted from the card's output of the kernel that first
-# took them)
+# above 64 (the tiled class): the call_graph phase's dodecamers (nao 72
+# padded to 96) and 128, small batches in 32 x 32 units; the 73-atom
+# peptide (228 AOs padded to 241) as the FD Hessian's chunks run it, and
+# SP2's (64, 256), in 64 x 64 units (each fingerprinted from the card's
+# output of the tiled kernel before its redesign, or of the kernel that
+# first took it)
 GEMM_WIDE = ((16, 96), (3, 128), (41, 241), (64, 256))
-GEMM_FINGERPRINTED_WIDE = ((41, 241), (64, 256))
+GEMM_FINGERPRINTED_WIDE = GEMM_WIDE
 GEMM_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 # rectangular products (B, m, k, n): a (1, R) by (R, R) product per atom
 # pair, as D3's C6 backward runs it (its forward is the pair kernel), for
@@ -1410,6 +1413,15 @@ def gemm_bound(bsz: int, n: int, dtype, sandwich: bool = False):
     flop = bsz * (k * 2 * n**3 + (n * n if sandwich else 0))
     nbytes = bsz * (k + 2) * n * n * torch.finfo(dtype).bits // 8
     return _bound({"operations": flop / PEAK_FLOPS[dtype],
+                   "bytes": nbytes / PEAK_BYTES})
+
+
+def rect_bound(bsz: int, m: int, k: int, n: int, dtype):
+    """(bound_ms, bound_by) of a batch of (m, k) by (k, n) products: 2 m k
+    n operations a product at PEAK_FLOPS, or the operands read and the
+    result written once at the memory rate."""
+    nbytes = bsz * (m * k + k * n + m * n) * torch.finfo(dtype).bits // 8
+    return _bound({"operations": 2 * bsz * m * k * n / PEAK_FLOPS[dtype],
                    "bytes": nbytes / PEAK_BYTES})
 
 
@@ -1745,10 +1757,12 @@ def rect_phase(fm, rng, dtype):
                 times["library"] = graph_ms(lambda: torch.matmul(a, b), 20)
         check(err <= tol, f"fragment products {tag} ({bsz}, {m}, {k}, {n}): "
               f"max err {err:.3e} > {tol:.0e}")
+        bound_ms, bound_by = rect_bound(bsz, m, k, n, dtype)
         print(f"fragment products {tag} (B, m, k, n)=({bsz}, {m}, {k}, {n}),"
               f" every transpose: max err={err:.3e} product ms="
               f"{times['kernel']:.4f} torch.matmul ms="
-              f"{times['library']:.4f}", flush=True)
+              f"{times['library']:.4f} bound ms={bound_ms:.6f} ({bound_by}, "
+              f"{100 * bound_ms / times['kernel']:.2f}% of it)", flush=True)
     entry = None
     pair_kind = fm.kind_of("pair_bilinear", 5)
     for bsz, nat in PAIR_SHAPES:

@@ -69,10 +69,8 @@
 //    SMs instead of 128 blocks, op(B) read again from L2 (bands of 16
 //    rows made the f64 product L2-bound). A band reduces each element
 //    exactly as the whole tile does. The sandwich's unit stays a whole
-//    fragment (a band of (X F) X needs all of X F). Above 64 (the
-//    fragments above 64 AOs, up to 256, SP2's products, CPCM's long k):
-//    (fragment, band of 32 rows, band of up to 128 columns), k streamed
-//    through the ring in tiles of 32, the outputs kept in registers.
+//    fragment (a band of (X F) X needs all of X F). Above 64: the tiled
+//    class below.
 // 3. Staging by 16-byte cp.async.cg wherever the operand's base address
 //    and stored row length allow it (checked in the C entry, per
 //    operand), a power-of-two count of lanes a row (no index division).
@@ -93,6 +91,64 @@
 //    k block's fragments ahead in registers gained nothing).
 // 5. Stores of 16 bytes (double2, float4) where n and the output's base
 //    allow them, scalar otherwise.
+//
+// The tiled class (any size above 64: fragments above 64 AOs, up to 256,
+// SP2's products, CPCM's (nat, points) by (points, nat) and its backward's
+// (points, nat) by (nat, nat)). What bounds it: the wide squares ((41,
+// 241), (64, 256)) are 2 n^3 operations over 3 n^2 elements, 30 a byte in
+// f64, above the ridge: the FP64 tensor rate (0.017 ms at (41, 241)); a
+// small batch ((3, 128): 48 units of 32 x 32 at most) fills a third of the
+// SMs, and a unit's k tiles are a chain; CPCM's (6, 660) by (660, 6) is 12
+// MB across the batch, but a fragment's 165 blocks of 4 are one chain of
+// dependent mmas behind its staging, so its time is the same at 19
+// fragments as at 190; its backward's (660, 6) by (6, 6) is bytes. The
+// first version's schedule (a unit of 32 rows by 128 columns whatever the
+// shape, two barriers a k tile, a warp's 2 x 2 groups of tiles one after
+// the other through a runtime transpose branch, f64 odd rows copied an
+// element a copy) ran 2.4-5.2x cuBLAS's time in f64; this one 0.8-2.3x
+// (0.0865 ms at (41, 241), 20% of the bound; 0.0981 at (64, 256), 33%;
+// CPCM's product 0.013, its backward 0.010, cuBLAS's 0.012-0.013). The
+// design (each choice measured on the card against its alternatives in
+// one process tree; the times below `tools/tiled_variants_torch.py`'s, the
+// alternative a constant of this source set otherwise; H100 80GB HBM3 at
+// 700 W):
+// 1. A plan by shape and batch (`tiled_shape`, units below), so that a
+//    small batch still spreads over the card and a narrow operand stages
+//    no padding: CPCM's backward in 64 x 8 units, 3.0x faster than the
+//    first version's 32 x 128; 16 x 16 small units (kSmallBand = 16) were
+//    faster at (3, 128) (0.0078 ms against 0.0089) and slower at (16, 96)
+//    (0.0090 against 0.0079).
+// 2. A ring of stages (two for wide units, three otherwise) with one
+//    barrier a k tile: the copies of the tile S - 1 ahead issued right
+//    after the barrier that frees its stage (three stages for f64 wide
+//    units leave two blocks an SM where two leave three: (41, 241) 0.108
+//    ms against 0.087).
+// 3. f64: a warp's 4 x 4 (wide) or 2 x 2 (small) tiles with every
+//    accumulator live, pairs of 8 x 8 tiles one m16n8k4 (the same sums as
+//    m8n8k4: every fingerprint equal; faster at 241-256 than m8n8k4 in an
+//    edited copy of this source; m16n8k8 kept the bits too on the timed
+//    cases and was no faster), the fragments' addresses compile-time
+//    offsets of one base a lane (one instantiation a layout, no transpose
+//    branch).
+// 4. f64 rows that are not 16-byte aligned (odd n: the peptide's 241; a
+//    view with a storage offset) staged in 16-byte pieces all the same,
+//    each stored row shifted by the parity of its address, which the
+//    fragment loads add back (an element a copy, as the first version
+//    did, was slower at 241 than at 240): staged rows of kBulkRow elements
+//    or more by the tensor memory accelerator's bulk copies, a row's
+//    aligned pairs a copy on the stage's mbarrier and an odd end element
+//    by cp.async (`stage_bulk`; none, kBulkRow = 1024: (41, 241) with
+//    op(A) stored (k, m) 0.095 ms against 0.076), shorter ones by 16-byte
+//    cp.async (`stage_pairs`; bulk copies of short rows, kBulkRow = 8,
+//    were slower: CPCM's (7, 660) 0.051 against 0.018, (16, 97) 0.0137
+//    against 0.0119).
+// 5. More threads than the tiles need where the unit is narrow
+//    (kTiledMinThreads): staging, not the chain, set CPCM's time (one warp
+//    staging, kTiledMinThreads = 32: 0.024 ms at (190, 6, 660, 6) against
+//    0.013 with four).
+// f32 keeps a thread's TM x 4 tile (8 x 8 tiles, in an edited copy of this
+// source, lost at 256); its odd rows are still copied an element a copy (a
+// shifted row cannot be read by float4).
 //
 // The matvec (the Coulomb potential v = gamma q at the shell count, once
 // or twice an SCC iteration; its transposed form in every gradient). Its
@@ -750,48 +806,240 @@ __global__ void __launch_bounds__(Cfg<T, N>::kSandwichThreads,
 // Sizes above 64 (fragments above 64 AOs on the exact route, SP2's
 // products, CPCM's (nat, points) by (points, nat) contraction, and the
 // backward passes of such products, whose long k becomes their m or n):
-// units (fragment, band of kTiledBand rows of op(A), band of up to kTiledN
-// columns of op(B)), so op(B)'s staged tile stays k-tile x kTiledN whatever
-// n is; k streamed through the ring in tiles of kTileK in ascending order,
-// at any length, the unit's outputs held in registers from tile to tile
-// (f64: each warp's 2 x 2 groups of tiles; f32: a 4 x 4 tile a thread), so
-// each element takes the same blocks of 4 (f64) or the same chain of FFMAs
-// (f32) as one pass over k would. A column band reduces each element as
-// the whole row does: up to kTiledN columns (one band) the units are those
-// of the class's first version (sizes up to 128), and so are the bits.
-constexpr int kTiledN = 128, kTiledBand = 32, kTileK = 32;
-constexpr int kTiledThreads = 256;
+// the tiled kernel (design in the header, "The tiled class"). A unit is
+// (fragment, band of BM rows of op(A), band of BN columns of op(B)); k is
+// streamed through a ring of kTiledStages stages in tiles of BK in
+// ascending order, at any length, the unit's outputs held in registers
+// from tile to tile, so each element takes the same blocks of 4 (f64) or
+// the same chain of FFMAs (f32) as one pass over k would. The unit's shape
+// follows the plan (`tiled_shape`):
+// - wide: 64 x 64, k tiles of 32, where the batch gives at least
+//   kWideUnitsPerSm such units an SM (the peptide's 241, SP2's 256);
+// - small: 32 x 32, k tiles of 32, where it does not ((3, 128), (16,
+//   96)), and where m and n are 32 or less;
+// - tall: 64 x 8, k tiles of 32, where n is 8 or less and m is not (CPCM's
+//   backward, (points, nat) by (nat, nat));
+// - skinny: 8 x 8, k tiles of 128, where m and n are 8 or less (CPCM's
+//   (nat, points) by (points, nat)): a fragment a block, one warp's chain
+//   of mmas (f32: four threads' chains of FFMAs) with one barrier a 128 k,
+//   kTiledMinThreads threads staging its long k.
+constexpr int kTileK = 32, kSkinnyTileK = 128;
+constexpr int kWideBand = 64, kSmallBand = 32, kTallBand = 64;
+constexpr int kSkinnyN = 8;
+constexpr int kWideUnitsPerSm = 2;
+constexpr int kTiledStages = 3, kWideStages = 2;
+// the fewest threads a block of the tiled kernel (those past a unit's
+// tiles only stage)
+constexpr int kTiledMinThreads = 128;
+// f64 rows that are not 16-byte aligned go by bulk copies where a staged
+// row is this many elements or more (`stage_bulk`), by 16-byte cp.async
+// below (`stage_pairs`); bytes at the start of the kernel's shared memory
+// for the stages' barriers
+constexpr int kBulkRow = 64, kTiledBars = 64;
+enum TiledShape { kWide = 0, kSmall = 1, kTall = 2, kSkinny = 3 };
 
-template <typename T>
-struct Tiled {
+// a unit's tile and its threads, by element type and shape:
+// - f64: a warp a WM x WN group of 8 x 8 tiles, all its accumulators live
+//   together (wide 4 x 4, small 2 x 2, tall 2 x 1, skinny 1 x 1);
+// - f32: a thread a TM x 4 tile read by float4 (TM = 8 at a band of 64
+//   rows: rows i0 .. i0 + 3 and i0 + BM / 2 .. + 3, so a phase of 8 lanes
+//   reads distinct banks);
+// - at least kTiledMinThreads threads a block, those past the tiles'
+//   warps or threads only staging;
+// - staged rows: f64 padded by 4 (a fragment load of 8 rows x 4 columns on
+//   distinct banks in either layout), f32 at least 16 long, its 16-byte
+//   chunks swizzled (`sidx`).
+template <typename T, int Shape>
+struct TileCfg {
   static constexpr bool kF64 = sizeof(T) == 8;
-  static constexpr int kPad = kF64 ? 4 : 0;
-  // op(A)'s tile (band x k, stored either way) and op(B)'s (k x band of
-  // columns, or the band x k as stored transposed)
-  static constexpr int kLdA = kTileK + kPad;
-  static constexpr int kA = kTiledBand * kLdA;
-  static constexpr int kLdB = kTiledN + kPad, kLdBt = kTileK + kPad;
-  static constexpr int kB =
-      kTileK * kLdB > kTiledN * kLdBt ? kTileK * kLdB : kTiledN * kLdBt;
+  static constexpr int BM = Shape == kWide ? kWideBand
+                            : Shape == kSmall ? kSmallBand
+                            : Shape == kTall  ? kTallBand
+                                              : kSkinnyN;
+  static constexpr int BN = Shape == kWide ? kWideBand
+                            : Shape == kSmall ? kSmallBand
+                                              : kSkinnyN;
+  static constexpr int BK = Shape == kSkinny ? kSkinnyTileK : kTileK;
+  static constexpr int WM = Shape == kWide ? 4 : Shape == kSkinny ? 1 : 2;
+  static constexpr int WN = Shape == kWide ? 4 : Shape == kSmall ? 2 : 1;
+  static constexpr int kWarpsN = BN / (8 * WN);
+  static constexpr int TM = BM >= 64 ? 8 : 4;
+  static constexpr int kComputing = kF64 ? 32 * (BM / (8 * WM)) * kWarpsN
+                                         : (BM / TM) * (BN / 4);
+  static constexpr int kThreads =
+      kComputing < kTiledMinThreads ? kTiledMinThreads : kComputing;
+  static constexpr int kStages = Shape == kWide ? kWideStages : kTiledStages;
+  static constexpr int ld(int len) {
+    return kF64 ? len + 4 : (len < 16 ? 16 : len);
+  }
+  // op(A)'s tile stored (m, k) or (k, m), op(B)'s stored (k, n) or (n, k)
+  static constexpr int kLdAN = ld(BK), kLdAT = ld(BM);
+  static constexpr int kLdBN = ld(BN), kLdBT = ld(BK);
+  static constexpr int kA = BM * kLdAN > BK * kLdAT ? BM * kLdAN : BK * kLdAT;
+  static constexpr int kB = BK * kLdBN > BN * kLdBT ? BK * kLdBN : BN * kLdBT;
   static constexpr int kStage = kA + kB;
-  // f64 2 x 2 groups a warp: (32 / 16) x (128 / 16) over 8 warps
-  static constexpr int kGroups =
-      (kTiledBand / 16) * (kTiledN / 16) / (kTiledThreads / kWarp);
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kTiledThreads)
-    bmm_tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                     T* __restrict__ c, int batch, int m, int n, int k,
-                     int flags) {
-  using C = Tiled<T>;
+// d += a b on the FP64 tensor cores, a warp's 8 x 8 tile over 4 k
+__device__ __forceinline__ void mma884(double& d0, double& d1, double a,
+                                       double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+// d += a b on the FP64 tensor cores, a warp's 16 x 8 tile over 4 k: rows
+// g (a0; d0, d1) and g + 8 (a1; d2, d3), each output summed as m8n8k4
+// sums it (the fingerprints equal)
+__device__ __forceinline__ void mma1684(double& d0, double& d1, double& d2,
+                                        double& d3, double a0, double a1,
+                                        double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// the parity of an f64 element's address in 16-byte chunks
+__device__ __forceinline__ int odd_of(const double* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 3) & 1);
+}
+
+// Issue the copies of a stored (rows, cols) f64 block at g (row stride gs)
+// whose rows are not all 16-byte aligned (odd n, a view with a storage
+// offset) into s (rows of ld elements, ld even and at least the padded row
+// plus one), and zero its padding up to the next multiples of 8: row i's
+// element j at s[i ld + odd_of(g + i gs) + j], so that every pair whose
+// source is 16-byte aligned lands 16-byte aligned. A padded row of pc
+// elements is pc / 2 copies, a lane each: the pairs from element 0 where
+// the row starts 16-byte aligned; else the pairs from element 1, and the
+// first lane the row's first and last elements, an element a copy.
+__device__ __forceinline__ void stage_pairs(double* s, int ld,
+                                            const double* g, long long gs,
+                                            int rows, int cols) {
+  const int pr = (rows + 7) & ~7, pc = (cols + 7) & ~7;
+  const int shift = row_shift(pc / 2);
+  const int lane = threadIdx.x & ((1 << shift) - 1);
+  for (int i = threadIdx.x >> shift; i < pr; i += blockDim.x >> shift) {
+    const double* gi = g + i * gs;
+    const int off = odd_of(gi);
+    double* si = s + i * ld + off;
+    const int live = i < rows ? cols : 0;  // elements to copy
+    // element e of the row: copied, or zero past the block
+    auto one = [&](int e) {
+      if (e < live) {
+        cp_async(si + e, gi + e);
+      } else {
+        si[e] = 0.0;
+      }
+    };
+    for (int q = lane; q < pc / 2; q += 1 << shift) {
+      if (off && q == 0) {
+        one(0);
+        one(pc - 1);
+        continue;
+      }
+      const int j = 2 * q - off;  // si + j and gi + j are 16-byte aligned
+      if (j + 1 < live) {
+        cp_async16(si + j, gi + j);
+      } else {
+        one(j);
+        one(j + 1);
+      }
+    }
+  }
+}
+
+// The tensor memory accelerator's bulk copies (f64 rows that are not
+// 16-byte aligned, long ones): a stage's copies complete on its mbarrier,
+// which its readers wait on
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b));
+}
+// the initialized barriers visible to the async proxy
+__device__ __forceinline__ void bar_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(b)
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  const unsigned d = smem_addr(dst), b = smem_addr(bar);
+  const unsigned long long g = __cvta_generic_to_global(src);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(d),
+      "l"(g), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// The same layout by bulk copies, for long rows (kBulkRow elements or
+// more): the lanes of one warp, a row a lane, its element j at s[i ld +
+// odd_of(g + i gs) + j]; the row's 16-byte aligned pairs one bulk copy
+// (its bytes expected on the stage's barrier before it is issued), an odd
+// element at either end a cp.async in the item's group, so nothing outside
+// the block's rows is read. Nothing else is written: the reader masks k
+// past the block in a partial tile, and rows and columns past it give only
+// outputs that are not stored.
+__device__ __forceinline__ void stage_bulk(double* s, int ld, const double* g,
+                                           long long gs, int rows, int cols,
+                                           uint64_t* bar) {
+  for (int i = threadIdx.x % kWarp; i < rows; i += kWarp) {
+    const double* gi = g + i * gs;
+    const int off = odd_of(gi);
+    double* si = s + i * ld + off;  // element j at si[j]
+    const int pairs = (cols - off) / 2;
+    if (off) cp_async(si, gi);
+    if ((cols - off) & 1) cp_async(si + cols - 1, gi + cols - 1);
+    if (pairs > 0) {
+      const unsigned bytes = static_cast<unsigned>(pairs) * 16;
+      bar_expect(bar, bytes);
+      bulk_copy(si + off, gi + off, bytes, bar);
+    }
+  }
+}
+
+template <typename T, int Shape, bool TA, bool TB>
+__global__ void __launch_bounds__(TileCfg<T, Shape>::kThreads)
+    tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                 T* __restrict__ c, int batch, int m, int n, int k,
+                 int flags) {
+  using C = TileCfg<T, Shape>;
+  constexpr int BM = C::BM, BN = C::BN, BK = C::BK, S = C::kStages;
+  constexpr int kLdA = TA ? C::kLdAT : C::kLdAN;
+  constexpr int kLdB = TB ? C::kLdBT : C::kLdBN;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* buf = reinterpret_cast<T*>(smem);
-  const bool ta = flags & kTransA, tb = flags & kTransB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  T* buf = reinterpret_cast<T*>(smem + kTiledBars);
   const bool va = flags & kVecA, vb = flags & kVecB, vc = flags & kVecC;
-  const int rbands = (m + kTiledBand - 1) / kTiledBand;
-  const int cbands = (n + kTiledN - 1) / kTiledN;
-  const int tiles = (k + kTileK - 1) / kTileK;
+  const int rbands = (m + BM - 1) / BM, cbands = (n + BN - 1) / BN;
+  const int tiles = (k + BK - 1) / BK;
   const int bands = rbands * cbands;
   const int units = batch * bands;
   if (static_cast<int>(blockIdx.x) >= units) return;
@@ -799,101 +1047,235 @@ __global__ void __launch_bounds__(kTiledThreads)
   const int items = ((units - 1 - blockIdx.x) / gridDim.x + 1) * tiles;
   struct Item {
     long long f;
-    int r0, mr, c0, nc, k0, kk, tile;
+    int r0, mr, c0, nc, kk, tile;
   };
   auto item = [&](int i) {
     Item it;
     const int unit = blockIdx.x + (i / tiles) * gridDim.x;
-    it.tile = i % tiles;
+    it.tile = i - (i / tiles) * tiles;
     it.f = unit / bands;
     const int band = unit - static_cast<int>(it.f) * bands;
     const int rb = band / cbands;
-    it.r0 = rb * kTiledBand;
-    it.mr = min(kTiledBand, m - it.r0);
-    it.c0 = (band - rb * cbands) * kTiledN;
-    it.nc = min(kTiledN, n - it.c0);
-    it.k0 = it.tile * kTileK;
-    it.kk = min(kTileK, k - it.k0);
+    it.r0 = rb * BM;
+    it.mr = min(BM, m - it.r0);
+    it.c0 = (band - rb * cbands) * BN;
+    it.nc = min(BN, n - it.c0);
+    it.kk = min(BK, k - it.tile * BK);
     return it;
   };
+  // the stored tiles of an item: op(A)'s at ga (rows of gsa), op(B)'s at
+  // gb (rows of gsb)
+  auto tiles_of = [&](const Item& it, const T*& ga, long long& gsa,
+                      const T*& gb, long long& gsb) {
+    const long long k0 = static_cast<long long>(it.tile) * BK;
+    const T* af = a + it.f * m * k;
+    const T* bf = b + it.f * k * n;
+    ga = TA ? af + k0 * m + it.r0 : af + it.r0 * static_cast<long long>(k) + k0;
+    gsa = TA ? m : k;
+    gb = TB ? bf + it.c0 * static_cast<long long>(k) + k0 : bf + k0 * n + it.c0;
+    gsb = TB ? k : n;
+  };
+  // f64 operands whose rows are not all 16-byte aligned (odd n, offset
+  // views) go into rows shifted by their parity: long staged rows by bulk
+  // copies (`stage_bulk`), short ones by 16-byte cp.async (`stage_pairs`);
+  // the others, and f32's, as `stage` copies them
+  const bool bulk_a = C::kF64 && !va && (TA ? BM : BK) >= kBulkRow;
+  const bool bulk_b = C::kF64 && !vb && (TB ? BK : BN) >= kBulkRow;
   auto issue = [&](int st, int i) {
     const Item it = item(i);
     T* as = buf + st * C::kStage;
-    const T* af = a + it.f * m * k;
-    const T* bf = b + it.f * k * n;
-    if (ta) {
-      stage(as, C::kLdA, af + static_cast<long long>(it.k0) * m + it.r0, m,
-            it.kk, it.mr, va);
-    } else {
-      stage(as, C::kLdA, af + static_cast<long long>(it.r0) * k + it.k0, k,
-            it.mr, it.kk, va);
+    const T *ga, *gb;
+    long long gsa, gsb;
+    tiles_of(it, ga, gsa, gb, gsb);
+    const int ra = TA ? it.kk : it.mr, ca = TA ? it.mr : it.kk;
+    const int rb = TB ? it.nc : it.kk, cb = TB ? it.kk : it.nc;
+    if constexpr (C::kF64) {
+      // warp 0: a bulk copy a row, then lane 0's arrival
+      if ((bulk_a || bulk_b) && threadIdx.x < kWarp) {
+        if (bulk_a) stage_bulk(as, kLdA, ga, gsa, ra, ca, bars + st);
+        if (bulk_b) stage_bulk(as + C::kA, kLdB, gb, gsb, rb, cb, bars + st);
+        __syncwarp();
+        if (threadIdx.x == 0) bar_arrive(bars + st);
+      }
+      if (!va && !bulk_a) stage_pairs(as, kLdA, ga, gsa, ra, ca);
+      if (!vb && !bulk_b) stage_pairs(as + C::kA, kLdB, gb, gsb, rb, cb);
     }
-    if (tb) {
-      stage(as + C::kA, C::kLdBt,
-            bf + static_cast<long long>(it.c0) * k + it.k0, k, it.nc, it.kk,
-            vb);
-    } else {
-      stage(as + C::kA, C::kLdB,
-            bf + static_cast<long long>(it.k0) * n + it.c0, n, it.kk, it.nc,
-            vb);
-    }
+    if (!C::kF64 || va) stage(as, kLdA, ga, gsa, ra, ca, va);
+    if (!C::kF64 || vb) stage(as + C::kA, kLdB, gb, gsb, rb, cb, vb);
   };
+  // f64: the warp's first tile (rows wr.., columns wc.. of the unit) and
+  // its lane's place in an 8 x 8 tile; f32: the thread's first row and
+  // column
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
   const int warp = threadIdx.x / kWarp;
-  // the f32 thread's 4 x 4 outputs
-  const int i0 = (threadIdx.x / (kTiledN / 4)) * 4;
-  const int j0 = (threadIdx.x % (kTiledN / 4)) * 4;
-  double d[C::kGroups][2][2][2] = {};
-  float acc[4][4] = {};
-  issue(0, 0);
-  cp_async_commit();
-  for (int i = 0, st = 0; i < items; ++i, st ^= 1) {
-    if (i + 1 < items) issue(st ^ 1, i + 1);
-    cp_async_commit();  // (an empty group past the last item)
-    cp_async_wait<1>();
+  const int wr = (warp / C::kWarpsN) * C::WM * 8;
+  const int wc = (warp % C::kWarpsN) * C::WN * 8;
+  constexpr int TM = C::TM;
+  const int i0 = (threadIdx.x / (BN / 4)) * 4;
+  const int j0 = (threadIdx.x % (BN / 4)) * 4;
+  double d[C::WM][C::WN][2] = {};
+  float acc[TM][4] = {};
+  // every thread's cp.async copies one group an item; the bulk copies
+  // complete on the stage's barrier, which every thread waits on
+  if (bulk_a || bulk_b) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < S; ++s) bar_init(bars + s);
+      bar_fence();
+    }
     __syncthreads();
+  }
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < items) issue(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0, st = 0; i < items; ++i, st = st == S - 1 ? 0 : st + 1) {
+    // item i's copies have landed, and every thread is done with item
+    // i - 1, whose stage the copies of item i + S - 1 then refill
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (i + S - 1 < items) issue(st == 0 ? S - 1 : st - 1, i + S - 1);
+    cp_async_commit();
+    if (bulk_a || bulk_b) bar_wait(bars + st, (i / S) & 1);
     const Item it = item(i);
     const T* as = buf + st * C::kStage;
+    const T* bs = as + C::kA;
     const bool last = it.tile == tiles - 1;
     T* cf = c + (it.f * m + it.r0) * n + it.c0;
     if constexpr (C::kF64) {
-      const Op<T> oa{as, C::kLdA, ta};
-      const Op<T> ob{as + C::kA, tb ? C::kLdBt : C::kLdB, tb};
-      const int ti_n = (it.mr + 7) / 8, tj_n = (it.nc + 7) / 8;
-      const int groups = ((ti_n + 1) / 2) * ((tj_n + 1) / 2);
+      if (threadIdx.x >= C::kComputing) continue;
+      bool row_ok[C::WM], col_ok[C::WN];
 #pragma unroll
-      for (int q = 0; q < C::kGroups; ++q) {
-        const int group = warp + q * (kTiledThreads / kWarp);
-        if (group >= groups) continue;
-        const Group<2> grp(group, ti_n, tj_n);
-        grp.accumulate(oa, ob, (it.kk + 3) & ~3, d[q]);
-        if (!last) continue;
-        grp.drain(d[q], [&](int r, int j, T v0, T v1) {
-          if (r < it.mr && j < it.nc)
-            store(cf + static_cast<long long>(r) * n, j, it.nc, v0, v1, vc);
-        });
+      for (int u = 0; u < C::WM; ++u) row_ok[u] = wr + u * 8 < it.mr;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+      for (int v = 0; v < C::WN; ++v) col_ok[v] = wc + v * 8 < it.nc;
+      // op(A)[wr + 8u + g][4s + t] and op(B)[4s + t][wc + 8v + g], each
+      // stored row shifted by its parity (`stage_pairs`, `stage_bulk`):
+      // the same for every u, v and s of the lane
+      const T *ga, *gb;
+      long long gsa, gsb;
+      tiles_of(it, ga, gsa, gb, gsb);
+      const int ra = TA ? t : wr + g, rb = TB ? wc + g : t;
+      const double* pa =
+          (TA ? as + t * kLdA + wr + g : as + (wr + g) * kLdA + t) +
+          odd_of(ga + ra * gsa);
+      const double* pb =
+          (TB ? bs + (wc + g) * kLdB + t : bs + t * kLdB + wc + g) +
+          odd_of(gb + rb * gsb);
+      // k past the block (the end of a partial tile) read as the zeros
+      // that padding adds: a bulk-staged tile has no padding, so every
+      // partial tile takes the masked steps
+      auto step = [&](int s, bool masked) {
+        const bool in = !masked || s * 4 + t < it.kk;
+        double av[C::WM], bv[C::WN];
 #pragma unroll
-          for (int v = 0; v < 2; ++v) d[q][u][v][0] = d[q][u][v][1] = 0.0;
+        for (int u = 0; u < C::WM; ++u)
+          av[u] = !in ? 0.0
+                : TA ? pa[s * 4 * kLdA + u * 8]
+                     : pa[u * 8 * kLdA + s * 4];
+#pragma unroll
+        for (int v = 0; v < C::WN; ++v)
+          bv[v] = !in ? 0.0
+                : TB ? pb[v * 8 * kLdB + s * 4]
+                     : pb[s * 4 * kLdB + v * 8];
+        // pairs of 8 x 8 tiles one m16n8k4 (the second's rows may be
+        // padding: computed, never stored)
+#pragma unroll
+        for (int u = 0; u < C::WM; u += C::WM % 2 == 0 ? 2 : 1) {
+#pragma unroll
+          for (int v = 0; v < C::WN; ++v) {
+            if (!(row_ok[u] && col_ok[v])) continue;
+            if constexpr (C::WM % 2 == 0) {
+              mma1684(d[u][v][0], d[u][v][1], d[u + 1][v][0],
+                      d[u + 1][v][1], av[u], av[u + 1], bv[v]);
+            } else {
+              mma884(d[u][v][0], d[u][v][1], av[u], bv[v]);
+            }
+          }
+        }
+      };
+      if (it.kk == BK) {
+#pragma unroll
+        for (int s = 0; s < BK / 4; ++s) step(s, false);
+      } else {
+        for (int s = 0; s < (it.kk + 3) / 4; ++s) step(s, true);
+      }
+      if (!last) continue;
+#pragma unroll
+      for (int u = 0; u < C::WM; ++u) {
+#pragma unroll
+        for (int v = 0; v < C::WN; ++v) {
+          const int r = wr + u * 8 + g, j = wc + v * 8 + 2 * t;
+          if (row_ok[u] && col_ok[v] && r < it.mr && j < it.nc)
+            store(cf + static_cast<long long>(r) * n, j, it.nc, d[u][v][0],
+                  d[u][v][1], vc);
+          d[u][v][0] = d[u][v][1] = 0.0;
         }
       }
     } else {
-      if (i0 < it.mr && j0 < it.nc) {
-        accumulate_f32_op<4>(as, C::kLdA, ta, as + C::kA,
-                             tb ? C::kLdBt : C::kLdB, tb, it.kk, i0, j0, acc);
-        if (last) {
+      if (threadIdx.x >= C::kComputing || i0 >= it.mr || j0 >= it.nc)
+        continue;
+      // the thread's row r: i0 + r (r < 4), i0 + BM / 2 + r - 4 (TM = 8)
+      auto row = [&](int r) { return i0 + (r >> 2) * (BM / 2) + (r & 3); };
+      auto block = [&](int k0, int kq) {
+        // av[r][q] = op(A)[row(r)][k0 + q], bv[q][c] = op(B)[k0 + q][j0 + c]
+        float av[TM][4], bv[4][4];
+        if constexpr (TA) {
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            if (i0 + r < it.mr)
-              store(cf + static_cast<long long>(i0 + r) * n, j0, it.nc,
-                    acc[r], vc);
+          for (int q = 0; q < 4; ++q) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+            for (int h = 0; h < TM / 4; ++h) {
+              const float4 v = lds4(as, k0 + q, i0 + h * (BM / 2), kLdA);
+              av[4 * h][q] = v.x, av[4 * h + 1][q] = v.y;
+              av[4 * h + 2][q] = v.z, av[4 * h + 3][q] = v.w;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+            const float4 v = lds4(as, row(r), k0, kLdA);
+            av[r][0] = v.x, av[r][1] = v.y, av[r][2] = v.z, av[r][3] = v.w;
           }
         }
+        if constexpr (TB) {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const float4 v = lds4(bs, j0 + cc, k0, kLdB);
+            bv[0][cc] = v.x, bv[1][cc] = v.y, bv[2][cc] = v.z, bv[3][cc] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 v = lds4(bs, k0 + q, j0, kLdB);
+            bv[q][0] = v.x, bv[q][1] = v.y, bv[q][2] = v.z, bv[q][3] = v.w;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q >= kq) break;
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              acc[r][cc] = fma_(av[r][q], bv[q][cc], acc[r][cc]);
+          }
+        }
+      };
+      if (it.kk == BK) {
+#pragma unroll 2
+        for (int k0 = 0; k0 < BK; k0 += 4) block(k0, 4);
+      } else {
+        for (int k0 = 0; k0 < it.kk; k0 += 4) block(k0, it.kk - k0);
+      }
+      if (!last) continue;
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        if (row(r) < it.mr)
+          store(cf + static_cast<long long>(row(r)) * n, j0, it.nc, acc[r],
+                vc);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
       }
     }
-    __syncthreads();  // the stage is read before a later item refills it
   }
 }
 
@@ -1235,28 +1617,87 @@ cudaError_t launch_bmm(const T* a, const T* b, T* c, int batch, int m,
   return cudaGetLastError();
 }
 
+template <typename T, int Shape, bool TA, bool TB>
+cudaError_t launch_tiled_as(const T* a, const T* b, T* c, int batch, int m,
+                            int n, int k, int flags, int device,
+                            cudaStream_t stream) {
+  using C = TileCfg<T, Shape>;
+  static unsigned long long done = 0;
+  static int slots_of[64] = {};
+  const auto kernel = tiled_kernel<T, Shape, TA, TB>;
+  const size_t smem = kTiledBars + C::kStages * C::kStage * sizeof(T);
+  cudaError_t err = allow_smem(kernel, smem, device, &done);
+  if (err != cudaSuccess) return err;
+  int slots = 0;
+  err = resident(kernel, C::kThreads, smem, device, slots_of, &slots);
+  if (err != cudaSuccess) return err;
+  const long long units = static_cast<long long>(batch) *
+                          ((m + C::BM - 1) / C::BM) *
+                          ((n + C::BN - 1) / C::BN);
+  if (units * ((k + C::BK - 1) / C::BK) > kMaxUnits)
+    return cudaErrorInvalidValue;
+  kernel<<<grid_of(static_cast<int>(units), slots), C::kThreads, smem,
+           stream>>>(a, b, c, batch, m, n, k, flags);
+  return cudaGetLastError();
+}
+
+template <typename T, int Shape>
+cudaError_t launch_tiled_shape(const T* a, const T* b, T* c, int batch,
+                               int m, int n, int k, int flags, int device,
+                               cudaStream_t stream) {
+  const bool ta = flags & kTransA, tb = flags & kTransB;
+  if (ta && tb)
+    return launch_tiled_as<T, Shape, true, true>(a, b, c, batch, m, n, k,
+                                                 flags, device, stream);
+  if (ta)
+    return launch_tiled_as<T, Shape, true, false>(a, b, c, batch, m, n, k,
+                                                  flags, device, stream);
+  if (tb)
+    return launch_tiled_as<T, Shape, false, true>(a, b, c, batch, m, n, k,
+                                                  flags, device, stream);
+  return launch_tiled_as<T, Shape, false, false>(a, b, c, batch, m, n, k,
+                                                 flags, device, stream);
+}
+
+cudaError_t mv_card(int device, int* sms, int* smem_sm);
+
+// The tiled class's unit shape at (batch, m, n) on a card of `sms` SMs
+// (the bits do not depend on it): skinny where m and n are kSkinnyN or
+// less, tall where n is and m is not, small where m and n are kSmallBand
+// or less or where the batch gives fewer than kWideUnitsPerSm wide units
+// an SM, else wide.
+inline int tiled_shape(int batch, int m, int n, int sms) {
+  if (m <= kSkinnyN && n <= kSkinnyN) return kSkinny;
+  if (n <= kSkinnyN) return kTall;
+  if (m <= kSmallBand && n <= kSmallBand) return kSmall;
+  const long long wide = static_cast<long long>(batch) *
+                         ((m + kWideBand - 1) / kWideBand) *
+                         ((n + kWideBand - 1) / kWideBand);
+  return wide >= static_cast<long long>(kWideUnitsPerSm) * sms ? kWide
+                                                               : kSmall;
+}
+
 template <typename T>
 cudaError_t launch_tiled(const T* a, const T* b, T* c, int batch, int m,
                          int n, int k, int flags, int device,
                          cudaStream_t stream) {
-  static unsigned long long done = 0;
-  static int slots_of[64] = {};
-  const size_t smem = 2 * Tiled<T>::kStage * sizeof(T);
-  cudaError_t err = allow_smem(bmm_tiled_kernel<T>, smem, device, &done);
+  int sms = 0, smem_sm = 0;
+  const cudaError_t err = mv_card(device, &sms, &smem_sm);
   if (err != cudaSuccess) return err;
-  int slots = 0;
-  err = resident(bmm_tiled_kernel<T>, kTiledThreads, smem, device, slots_of,
-                 &slots);
-  if (err != cudaSuccess) return err;
-  const long long units = static_cast<long long>(batch) *
-                          ((m + kTiledBand - 1) / kTiledBand) *
-                          ((n + kTiledN - 1) / kTiledN);
-  if (units * ((k + kTileK - 1) / kTileK) > kMaxUnits)
-    return cudaErrorInvalidValue;
-  bmm_tiled_kernel<T><<<grid_of(static_cast<int>(units), slots),
-                        kTiledThreads, smem, stream>>>(a, b, c, batch, m, n,
-                                                       k, flags);
-  return cudaGetLastError();
+  switch (tiled_shape(batch, m, n, sms)) {
+    case kWide:
+      return launch_tiled_shape<T, kWide>(a, b, c, batch, m, n, k, flags,
+                                          device, stream);
+    case kSmall:
+      return launch_tiled_shape<T, kSmall>(a, b, c, batch, m, n, k, flags,
+                                           device, stream);
+    case kTall:
+      return launch_tiled_shape<T, kTall>(a, b, c, batch, m, n, k, flags,
+                                          device, stream);
+    default:
+      return launch_tiled_shape<T, kSkinny>(a, b, c, batch, m, n, k, flags,
+                                            device, stream);
+  }
 }
 
 template <typename T, int N>

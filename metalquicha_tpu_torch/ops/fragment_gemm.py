@@ -15,12 +15,14 @@ FMA in ascending k, a thread an output, on a kernel of its own (a band
 of a fragment's rows staged in shared memory where the batch is small;
 whole fragments staged, or read in place in the transposed form and
 where a row is short). Above, persistent blocks walk units of work (a
-fragment, or a band of rows of one at 64 and above), staged by 16-byte
-copies (f32 through a two-stage ring), above 64 rows and columns in bands
-(of up to 128 columns) and k streamed in tiles at any length;
+fragment, or a band of rows of one at 64), staged by 16-byte copies (f32
+through a two-stage ring); above 64 (the tiled class) units of rows and
+columns cut to the batch and the shape, k streamed in tiles at any length
+through a ring of stages;
 the kernel reads each operand's alignment itself (a view with a storage
 offset, or rows of odd length in f64, are copied element by element into
-the same layout, with the same bits), so the wrapper passes every
+the same layout, or in the tiled class in 16-byte pieces into rows shifted
+by their parity, with the same bits), so the wrapper passes every
 operand as it lies: a contiguous view with its offset, a transposed view
 as it is stored with its flag flipped.
 

@@ -38,9 +38,11 @@ On the CPU:
   flag flipped), at n = 11, 16, 20, 32 and 64;
 - a plain-Python model of the kernel's persistent walk over (fragment,
   row band, column band) units and its ring (two stages in f32, one in
-  f64), with the band heights and widths read from the source: every unit
-  once, every output element of every fragment once, for every grid of 1
-  to 2 x 132 blocks;
+  f64 up to 64; above, the tiled class's plan by shape and batch and its
+  ring of two or three stages), with the band heights and widths read from the
+  source: every unit once, its k tiles in ascending order, every output
+  element of every fragment once, for every grid of 1 to 2 x 132 blocks;
+  the plan's choice at the main path's shapes and at its boundaries;
 - the bit fingerprint of the kernel's first version (commit df9980a;
   `tests/data/
   fragment_gemm_bits.json`, `tools/gemm_bits_torch.py`) covers every
@@ -866,11 +868,11 @@ def _source_constant(name):
     return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
 
 
-def _walk(units, grid, tiles=1, stages=2):
+def _walk(units, grid, tiles=1, stages=2, tiled=False):
     """The kernel's walk for every block of a grid (its `ring` of one or
-    two stages, and the tiled kernel's loop over items): (unit, k tile) in
-    each block's order; the item a stage holds is computed from it before
-    a later item refills it."""
+    two stages, and the tiled kernel's ring of `stages` over items):
+    (unit, k tile) in each block's order; the item a stage holds is
+    computed from it before a later item refills it."""
     out = []
     for block in range(grid):
         if block >= units:
@@ -878,6 +880,21 @@ def _walk(units, grid, tiles=1, stages=2):
         mine = (units - 1 - block) // grid + 1
         items = mine * tiles
         held = {}
+        if tiled:
+            # the tiled kernel: items 0 .. stages - 2 issued ahead; at item
+            # i (after the barrier that ends item i - 1) item i + stages -
+            # 1 refills the stage item i - 1 was computed from
+            for i in range(min(stages - 1, items)):
+                held[i % stages] = i
+            for i in range(items):
+                nxt = i + stages - 1
+                if nxt < items:
+                    assert nxt % stages == (i - 1) % stages
+                    assert (nxt % stages) not in held  # computed, released
+                    held[nxt % stages] = nxt
+                assert held.pop(i % stages) == i
+                out.append((block + (i // tiles) * grid, i % tiles))
+            continue
         for i in range(items):
             stage = i % stages
             if i == 0 or stages == 1:
@@ -891,6 +908,76 @@ def _walk(units, grid, tiles=1, stages=2):
     return out
 
 
+#: the tiled class's plan (`tiled_shape` in the source): its constants
+TILED_CONSTANTS = ("kTileK", "kSkinnyTileK", "kWideBand", "kSmallBand",
+                   "kTallBand", "kSkinnyN", "kWideUnitsPerSm",
+                   "kTiledStages", "kWideStages")
+SMS = 132
+
+
+def _tiled_plan(batch, m, k, n, sms=SMS):
+    """A model of the tiled class's plan (`tiled_shape` and `TileCfg`):
+    (shape, rows a unit, columns a unit, k a tile, stages of the ring), the
+    constants read from the source."""
+    c = {name: _source_constant(name) for name in TILED_CONSTANTS}
+    stages = c["kTiledStages"]
+    if m <= c["kSkinnyN"] and n <= c["kSkinnyN"]:
+        return ("skinny", c["kSkinnyN"], c["kSkinnyN"], c["kSkinnyTileK"],
+                stages)
+    if n <= c["kSkinnyN"]:
+        return "tall", c["kTallBand"], c["kSkinnyN"], c["kTileK"], stages
+    small = ("small", c["kSmallBand"], c["kSmallBand"], c["kTileK"], stages)
+    if m <= c["kSmallBand"] and n <= c["kSmallBand"]:
+        return small
+    wide = batch * -(-m // c["kWideBand"]) * -(-n // c["kWideBand"])
+    if wide >= c["kWideUnitsPerSm"] * sms:
+        return ("wide", c["kWideBand"], c["kWideBand"], c["kTileK"],
+                c["kWideStages"])
+    return small
+
+
+def test_tiled_plan_constants_match_the_source():
+    """The plan's constants as the source states them, and its rule
+    (`tiled_shape`) in the order the model takes it."""
+    assert [_source_constant(n) for n in TILED_CONSTANTS] == [
+        32, 128, 64, 32, 64, 8, 2, 3, 2]
+    src = fm._LIB.source.read_text()
+    rule = re.search(r"inline int tiled_shape\(.*?\n\}", src, re.S).group(0)
+    assert re.findall(r"\b(kSkinny|kTall|kSmall|kWide)\b", rule) == [
+        "kSkinny", "kTall", "kSmall", "kWide", "kSmall"]
+
+
+#: (B, m, k, n) of the plan's cases: the small batches, the wide squares,
+#: CPCM's forward and backward at the w20 dimers and monomers, one
+#: fragment of 131 by 129 over 660 points, and each boundary: 66 and 65
+#: fragments at 97 (wide and small), m and n of 8 beside 9, m of 33
+PLAN_CASES = [
+    ((3, 128, 128, 128), "small", 48), ((16, 96, 96, 96), "small", 144),
+    ((41, 241, 241, 241), "wide", 656), ((64, 256, 256, 256), "wide", 1024),
+    ((190, 6, 660, 6), "skinny", 190), ((190, 660, 6, 6), "tall", 2090),
+    ((20, 3, 330, 3), "skinny", 20), ((1, 131, 660, 129), "small", 25),
+    ((66, 97, 97, 97), "wide", 264), ((65, 97, 97, 97), "small", 1040),
+    ((3, 8, 129, 8), "skinny", 3), ((2, 9, 130, 8), "tall", 2),
+    ((5, 33, 97, 31), "small", 10), ((4, 7, 300, 9), "small", 4)]
+
+
+@pytest.mark.parametrize("bmkn, shape, units", PLAN_CASES)
+def test_tiled_plan_by_shape_and_batch(bmkn, shape, units):
+    """The plan's unit at the main path's shapes and at its boundaries:
+    a small batch keeps at least about two units an SM where its shape
+    allows ((3, 128) and (16, 96) in 32 x 32 units), wide squares take 64
+    x 64 units, CPCM's forward a warp a fragment with k tiles of 128, its
+    backward 64 x 8 units (no 128-wide band for 6 columns)."""
+    bsz, m, k, n = bmkn
+    got, bm, bn, bk, _ = _tiled_plan(bsz, m, k, n)
+    assert got == shape
+    assert bsz * -(-m // bm) * -(-n // bn) == units
+    if shape == "skinny":
+        assert bk == 128 and k > 64
+    if shape == "tall":
+        assert bn == 8 and bm * bn < 128 * 32
+
+
 def test_work_unit_walk_covers_every_band_once():
     """A plain-Python model of the persistent walk: for every grid of 1 to
     2 x 132 blocks, every (fragment, row band, column band) unit is
@@ -898,29 +985,35 @@ def test_work_unit_walk_covers_every_band_once():
     ascending order), from the stage it was issued to, and the bands of a
     fragment cover its rows and columns exactly once, at the band heights
     and widths of the source and of the whole tile (classes 16 and 32);
-    with a ring of one stage (f64) and of two (f32, and the sizes above
-    64): among them the peptide's 241, n = 256 in two bands of columns,
-    CPCM's k of 660 points and its backward's m of 660."""
+    with a ring of one stage (f64) and of two (f32) up to 64, and above 64
+    the tiled class's plan (`_tiled_plan`: units cut to the batch and the
+    shape) and its ring (kWideStages for wide units, kTiledStages for the
+    others): among them the small batches,
+    the peptide's 241, n = 256, CPCM's k of 660 points and its backward's m
+    of 660, and each of the plan's boundaries."""
     band64 = _source_constant("kBand64")
-    tiled_band = _source_constant("kTiledBand")
-    tile_k = _source_constant("kTileK")
-    tiled_n = _source_constant("kTiledN")
-    assert (band64, tiled_band, tile_k, tiled_n) == (32, 32, 32, 128)
-    for (band, batch, m, k, n), stages in itertools.product((
-            (band64, 128, 64, 64, 64), (band64, 3, 37, 9, 37),
-            (16, 190, 16, 16, 16), (32, 5, 20, 20, 20),
-            (tiled_band, 16, 96, 96, 96), (tiled_band, 3, 128, 70, 128),
-            (tiled_band, 3, 241, 241, 241), (tiled_band, 2, 256, 40, 256),
-            (tiled_band, 5, 6, 660, 6), (tiled_band, 2, 660, 6, 6),
-            (tiled_band, 1, 131, 660, 129)), (1, 2)):
-        tiled = max(m, n, k) > 64
+    assert band64 == 32
+    cases = [((band64, 128, 64, 64, 64), s) for s in (1, 2)]
+    cases += [((band64, 3, 37, 9, 37), s) for s in (1, 2)]
+    cases += [((16, 190, 16, 16, 16), s) for s in (1, 2)]
+    cases += [((32, 5, 20, 20, 20), s) for s in (1, 2)]
+    cases += [((None, *shape), None) for shape in (
+        (16, 96, 96, 96), (3, 128, 70, 128), (3, 241, 241, 241),
+        (2, 256, 40, 256), (5, 6, 660, 6), (2, 660, 6, 6),
+        (1, 131, 660, 129), (66, 97, 97, 97), (3, 8, 129, 8),
+        (2, 9, 130, 8), (5, 33, 97, 31))]
+    for (band, batch, m, k, n), stages in cases:
+        tiled = band is None
+        if tiled:
+            _, band, width, tile_k, stages = _tiled_plan(batch, m, k, n)
+            tiles = -(-k // tile_k)
+        else:
+            width, tiles = n, 1
         rbands = -(-m // band)
-        width = tiled_n if tiled else n
         cbands = -(-n // width)
-        tiles = -(-k // tile_k) if tiled else 1
         units = batch * rbands * cbands
         for grid in range(1, 2 * 132 + 1):
-            walked = _walk(units, min(grid, units), tiles, stages)
+            walked = _walk(units, min(grid, units), tiles, stages, tiled)
             assert sorted(walked) == [(u, t) for u in range(units)
                                       for t in range(tiles)]
             order = collections.defaultdict(list)
@@ -1018,14 +1111,17 @@ def cuda():
 #: (B, n) of the main path: the dimer slice, the w20 MBE(4) chunk, the
 #: largest fragments the kernel stages whole, one fragment, an odd batch,
 #: and sizes of 8 (the products on the direct kernel, the sandwich not);
-#: above 64, k in tiles (the dodecamers' 96, 128, and one past 64); above
-#: 128, two bands of columns (the peptide's 241 AOs, SP2's 256, the
-#: peptide's 192 shells); the Coulomb matvec's shells of the dimer slice
+#: above 64, k in tiles (the dodecamers' 96, 128, and one past 64: the
+#: tiled class's small units); above 128, several bands of columns (the
+#: peptide's 241 AOs, SP2's 256: wide units; the peptide's 192 shells);
+#: the boundary of the wide units at n = 97 (66 fragments wide, 65 small);
+#: wide units whose last k tile ends 3 short of its 32 (n = 125, odd rows
+#: staged by bulk copies); the Coulomb matvec's shells of the dimer slice
 #: and of GFN2 hexamers (its rows cut into bands at (3, 128), (16, 96) and
 #: (64, 36))
 GPU_SHAPES = [(512, 16), (5985, 32), (128, 64), (1, 16), (7, 64), (20, 8),
               (16, 96), (3, 128), (5, 65), (512, 12), (64, 36), (41, 241),
-              (64, 256), (8, 192), (3, 129)]
+              (64, 256), (8, 192), (3, 129), (66, 97), (65, 97), (66, 125)]
 
 
 def _card_mats(shape, dtype, device, n=3, seed=0):
@@ -1063,11 +1159,17 @@ def test_kernel_matches_plain_versions(cuda, shape, dtype):
 #: one of each size class; CPCM's (nat, points) by (points, nat) at the
 #: w20 dimers and monomers and its backward's (points, nat) by (nat, nat);
 #: a long k beside two bands of columns, and two bands of rows beside one
-#: of columns
+#: of columns; the tiled class's plan boundaries: m and n of 8 with k one
+#: past a skinny tile, m of 9 beside n of 8 (tall), m of 33 and m of 7
+#: beside n of 9 (small), one fragment of 131 by 129 over 660; last k
+#: tiles that end 1-3 short of their length, with odd rows staged by bulk
+#: copies: wide units over k = 94, a skinny unit over k = 127
 GPU_RECT = [(41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (6840, 5, 1, 5),
             (300, 30, 7, 19), (33, 64, 3, 40), (9, 100, 70, 128),
             (7, 65, 3, 40), (190, 6, 660, 6), (20, 3, 330, 3),
-            (190, 660, 6, 6), (5, 131, 660, 256), (3, 241, 40, 200)]
+            (190, 660, 6, 6), (5, 131, 660, 256), (3, 241, 40, 200),
+            (3, 8, 129, 8), (2, 9, 130, 8), (5, 33, 97, 31), (4, 7, 300, 9),
+            (1, 131, 660, 129), (66, 97, 94, 97), (3, 8, 127, 8)]
 
 
 @pytest.mark.gpu
@@ -1154,6 +1256,45 @@ def test_gradients_on_the_card(cuda):
     want = torch.autograd.grad((ref_out * ref_out).sum(), (a, b))
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-12
+
+
+#: (B, m, k, n) of products whose k, or whose backward's k, leaves a last
+#: tile 1-3 short of its length, odd rows staged by bulk copies: wide
+#: squares (k = m = n of 125 and 127 over tiles of 32; the backward's
+#: op(A)^T dC is the same shape, transposed), wide units over k = 94, a
+#: skinny unit over k = 127 (tiles of 128)
+PARTIAL_TILES = [(66, 125, 125, 125), (66, 127, 127, 127), (66, 97, 94, 97),
+                 (3, 8, 127, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bmkn", PARTIAL_TILES)
+def test_partial_k_tile_gradients_on_the_card(cuda, bmkn):
+    """The product and its gradients with every transpose where the last
+    k tile is partial within its last block of 4: within GEMM's f64
+    tolerance of torch's own (the padding past k read as zeros), and each
+    fragment's bits the same alone as in its batch."""
+    bsz, m, k, n = bmkn
+    rng = np.random.default_rng(k)
+    dc = torch.tensor(rng.standard_normal((bsz, m, n)), device=cuda)
+    idx = torch.tensor([bsz - 1, 0], device=cuda)
+    for trans in TRANS:
+        a, b = (t.to(cuda).requires_grad_() for t in _operands(
+            bsz, m, k, n, trans))
+        out = fm.fragment_bmm(a, b, *trans)
+        got = torch.autograd.grad(out, (a, b), dc)
+        ref = torch.matmul(_op(a, trans[0]), _op(b, trans[1]))
+        want = torch.autograd.grad(ref, (a, b), dc)
+        assert _rel(out, ref) <= TOL[torch.float64]
+        for g, w in zip(got, want):
+            assert _rel(g, w) <= TOL[torch.float64]
+        a1, b1 = (t.detach().index_select(0, idx).requires_grad_()
+                  for t in (a, b))
+        out1 = fm.fragment_bmm(a1, b1, *trans)
+        got1 = torch.autograd.grad(out1, (a1, b1), dc.index_select(0, idx))
+        assert torch.equal(out1, out.index_select(0, idx))
+        for g1, g in zip(got1, got):
+            assert torch.equal(g1, g.index_select(0, idx))
 
 
 @pytest.mark.gpu

@@ -25,8 +25,13 @@ those of the pair contraction as commit 759462b ran it on a card (the
 direct kernel's products, torch's multiply and torch's sum over R;
 `added`), and the cases above 128 (SQUARE's (41, 241) and (64, 256), the
 matvec at (41, 192), CPCM's RECT) those of the kernel that first took
-them (`added`); `--add F` writes the fixture with the cases it lacks added
-from the kernel first on the path.
+them (`added`), and the small batches and plan boundaries of the tiled
+class (SQUARE's (16, 96), (3, 128), (66, 97); the last four of RECT)
+those of the tiled kernel before its redesign (commit 70a0267, `added`),
+as are the partial last k tiles (SQUARE's (66, 125), RECT's (66, 97, 94,
+97) and (3, 8, 127, 8); `added` again);
+`--add F` writes the fixture with the cases it lacks added from the
+kernel first on the path.
 `--check` (and `chip_smoke.py`'s gemm phase) recomputes every case with
 the kernel of this tree and compares: the kernel may be redesigned, its
 bits may not move.
@@ -56,11 +61,22 @@ SEED = 16
 #: and of its GEMM_WIDE above 128 (the peptide's 241, SP2's 256; CPCM's
 #: (nat, points) by (points, nat) at the w20 dimers and monomers and its
 #: backward's (points, nat) by (nat, nat)), recorded from the card's
-#: output of the kernel that first took them (`added`)
+#: output of the kernel that first took them (`added`); the small batches
+#: above 64 (the dodecamers' (16, 96), (3, 128)) and a case at each
+#: boundary of the tiled class's plan (wide units from 66 fragments at n =
+#: 97, m and n of 8 with k one past a skinny tile, m of 9 beside n of 8,
+#: m of 33, one fragment of 131 by 129 over 660) and last k tiles that
+#: end 1-3 short of their length beside odd rows (wide units over k = 125
+#: and 94 in tiles of 32, a skinny unit over k = 127 in tiles of 128),
+#: recorded from the card's output of the tiled kernel before its redesign
+#: (commit 70a0267, `added`)
 SQUARE = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
-          (128, 64), (41, 241), (64, 256))
+          (128, 64), (41, 241), (64, 256), (16, 96), (3, 128), (66, 97),
+          (66, 125))
 RECT = ((41 * 73 * 73, 1, 5, 5), (190 * 36, 1, 5, 5), (190 * 36, 5, 1, 5),
-        (190, 6, 660, 6), (20, 3, 330, 3), (190, 660, 6, 6))
+        (190, 6, 660, 6), (20, 3, 330, 3), (190, 660, 6, 6),
+        (3, 8, 129, 8), (2, 9, 130, 8), (5, 33, 97, 31), (1, 131, 660, 129),
+        (66, 97, 94, 97), (3, 8, 127, 8))
 #: (B, n) of the matvec alone: chip_smoke.MATVEC_SHAPES (the peptide's
 #: 192 shells among them), and shapes whose operands its kernel stages an
 #: element a copy (n = 11 and 97)

@@ -28,9 +28,10 @@ the symmetrisation at d = 6: `moment_contract`) at
 `chip_smoke.REDUCE_SHAPES`; section "pair" D3's pair contraction
 (`pair_bilinear`) at `chip_smoke.PAIR_SHAPES` beside the two einsums it
 replaced and `chip_smoke.pair_bound`. Section "wide" times the shapes
-above 128 (`WIDE`: the products and the sandwich at the peptide's 241 and
+above 64 (`WIDE`: the products and the sandwich at the peptide's 241 and
 SP2's 256, the matvec at the peptide's 192 shells, CPCM's (nat, points)
-by (points, nat)) through
+by (points, nat) and its backward's form (launched as the op's backward
+launches it), the small batches (16, 96) and (3, 128)) through
 the engine's dispatch (`_mm`, `_sandwich`, `_matvec`: the kernel in a tree
 whose op takes the sizes, torch.matmul in one whose op does not) beside
 torch.matmul and the bound; section "sp2" SP2's density (`sp2_density`,
@@ -67,13 +68,18 @@ WINDOW_LIMITS = {torch.float64: (1e-12, 1e3), torch.float32: (1e-4, 2.0)}
 #: (B, n) of the products on the main path (chip_smoke.GEMM_SHAPES)
 GEMM_SHAPES = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
                (128, 64))
-#: (B, m, k, n) above 128, each with the engine's entry that runs it: the
+#: (B, m, k, n) above 64, each with the engine's entry that runs it: the
 #: peptide's 241 AOs (8 jittered copies' half batch of 4, and the FD
 #: Hessian's chunk of 41), SP2's (64, 256), the peptide's 192 shells, CPCM's
-#: (nat, points) by (points, nat) at the w20 dimers (trans_a)
+#: (nat, points) by (points, nat) at the w20 dimers (trans_a) and its
+#: backward's (points, nat) by (nat, nat) (`mm_bwd`: the op's backward
+#: launches it, past MAX_N in m), the small batches of the tiled class (the
+#: dodecamers' (16, 96), (3, 128)) and the sandwich at (16, 96)
 WIDE = (("mm", 41, 241, 241, 241), ("mm", 64, 256, 256, 256),
         ("sandwich", 41, 241, 241, 241), ("sandwich", 64, 256, 256, 256),
-        ("matvec", 41, 192, 192, 1), ("mm_ta", 190, 6, 660, 6))
+        ("matvec", 41, 192, 192, 1), ("mm_ta", 190, 6, 660, 6),
+        ("mm_bwd", 190, 660, 6, 6), ("mm", 3, 128, 128, 128),
+        ("mm", 16, 96, 96, 96), ("sandwich", 16, 96, 96, 96))
 #: (B, n, real states) of SP2's density: the dodecamers' bucket and
 #: bench.py's (64, 256)
 SP2 = ((16, 96, 72), (64, 256, 240))
@@ -293,6 +299,10 @@ def wide_times(reps: int) -> list:
                 ta = entry == "mm_ta"
                 a, b = draw(*((k, m) if ta else (m, k))), draw(k, n)
                 route = (lambda: te._mm(a, b, trans_a=ta))
+                if entry == "mm_bwd":
+                    fm = importlib.import_module(
+                        "metalquicha_tpu_torch.ops.fragment_gemm")
+                    route = (lambda: fm._launch_bmm(a, b, False, False))
                 library = (lambda: torch.matmul(a.mT if ta else a, b))
                 flop = 2 * bsz * m * k * n
                 nbytes = bsz * (m * k + k * n + m * n)
