@@ -12,7 +12,12 @@ Phases (each raises on failure; nothing is caught):
              share of it;
 1b. fermi:   the Fermi kernels (csrc/fermi_fill.cu, built beside the
              Jacobi kernel before phase 1, one nvcc each, started
-             together). The fill (`fermi_occupations`) against its plain
+             together), first bit for bit their fingerprint
+             (tests/data/fermi_bits.json, tools/fermi_bits_torch.py
+             --check: f, entropy, steps and P of the kernels at commit
+             bb294ac, at batches on both sides of each of the fused
+             kernel's launch thresholds). The
+             fill (`fermi_occupations`) against its plain
              torch version at the main path's row shapes, (B, nao) =
              (512, 16) (the dimer slice), (190, 16) and (20, 11) (the w20
              MBE(2) buckets), (2581, 32) and (5985, 32) (the w20 MBE(4)
@@ -24,14 +29,18 @@ Phases (each raises on failure; nothing is caught):
              float32 (1e-5 and 1e-4); seeded unsorted levels with padded
              AOs, nuhf 0, 1 and 2 mixed and near-degenerate pairs at 300 K;
              the bisection steps the kernel took and the plain version
-             needs; times both at all but the last two, in turns, beside
-             the kernel's bound (`fermi_bound` on the plain version's
-             steps, and the 80-step count). The fused fill and density
-             (`fermi_density`) against `fermi_density_reference` at (512,
-             16), (190, 16), (20, 11), (2581, 32), (5985, 32) and (128, 64)
-             (max |dP| <= 1e-12 in float64, 1e-5 in float32), timed beside
-             the fill and the product it replaces, the plain version and
-             its bound (`fermi_density_bound`);
+             needs, and on the plain trace (`fermi_trace`) those that
+             evaluated a row sum and those of runs of clamped steps; times
+             both at all but the last two, in turns, beside the kernel's
+             bound (`fermi_bound` on the plain trace, a skipped step
+             charged as the scalar step it is, and the 80-step count). The
+             fused fill and density (`fermi_density`) against
+             `fermi_density_reference` at (512, 16), (190, 16), (20, 11),
+             (2581, 32), (5985, 32) and (128, 64) (max |dP| <= 1e-12 in
+             float64, 1e-5 in float32), graph-replayed beside the fill and
+             the product it replaces, the plain version and its bounds
+             (`fermi_density_bound`, and the bytes alone); the main path's
+             fused launches counted by class of nao (16, 32, 64);
 1c. window:  the Anderson window kernel (csrc/anderson_window.cu, built
              with the others; a warp per fragment up to nx = 32, a block
              above) against its plain versions, the torch
@@ -417,6 +426,10 @@ DENSITY_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # operations per evaluation of CUDA's exp and log (a range reduction and a
 # polynomial): an estimate, not a count of the compiled code
 EXP_OPS = {torch.float64: 20, torch.float32: 8}
+# operations of a bisection step taken without a row sum (a run of clamped
+# steps): the mid's add and product, two subtractions and two tests on the
+# nearest levels, the decision's select and the stop's test
+SCALAR_STEP_OPS = 8
 # SP2: (B, N, real states), the first the shape bench.py times, and the
 # tolerance of tests/test_sp2.py's class per dtype
 SP2_SHAPES = ((64, 256, 240), (128, 96, 81))
@@ -442,25 +455,30 @@ def jacobi_bound(bsz: int, n: int, dtype):
                                         else "bytes")
 
 
-def _fill_ops(nao: int, dtype, steps=None, bsz=None, entropy=True):
+def _fill_ops(nao: int, dtype, steps=None, bsz=None, entropy=True,
+              full=None):
     """Operations of the Fermi fill at the vector rate: per filled row,
-    one fill of nao values per bisection step and one more for f, each a
-    subtraction, a division, a two-sided clamp, an exp, an add, a
-    reciprocal and the sum's add (7 operations and EXP_OPS), the min and
-    the max, and the entropy of the last fill (a clamp, two logs, 1 - f,
-    two products, an add, a sign, the window's two tests and the sum's
-    add: 10 operations and two EXP_OPS). steps: int (B, 2) steps each
-    channel's bisection takes to its fixed point, 0 for a channel not
-    filled (a closed shell's beta); None for the 80-step count, both
-    channels of bsz fragments at 80 steps."""
+    one fill of nao values per bisection step that evaluates a row sum and
+    one more for f, each a subtraction, a division, a two-sided clamp, an
+    exp, an add, a reciprocal and the sum's add (7 operations and
+    EXP_OPS), SCALAR_STEP_OPS per step taken without one (a run of clamped
+    steps), the min and the max, and the entropy of the last fill (a
+    clamp, two logs, 1 - f, two products, an add, a sign, the window's two
+    tests and the sum's add: 10 operations and two EXP_OPS). steps: int
+    (B, 2) steps each channel's bisection takes to its fixed point, 0 for
+    a channel not filled (a closed shell's beta), and full those of them
+    that evaluate a row sum (`fermi_trace`; None: every one); steps None
+    for the 80-step count, both channels of bsz fragments at 80 steps."""
     e = EXP_OPS[dtype]
     tail = 2 + ((10 + 2 * e) if entropy else 0)
     if steps is None:
-        rows, fills = 2 * bsz, 2 * bsz * 81
+        rows, fills, scalar = 2 * bsz, 2 * bsz * 81, 0
     else:
+        evaluated = steps if full is None else full
         rows = int((steps > 0).sum())
-        fills = int(steps.sum()) + rows
-    return nao * (fills * (7 + e) + rows * tail)
+        fills = int(evaluated.sum()) + rows
+        scalar = int((steps - evaluated).sum())
+    return nao * (fills * (7 + e) + rows * tail) + scalar * SCALAR_STEP_OPS
 
 
 def _bound(times: dict):
@@ -469,31 +487,37 @@ def _bound(times: dict):
     return 1e3 * times[by], by
 
 
-def fermi_bound(bsz: int, nao: int, dtype, steps=None):
+def fermi_bound(bsz: int, nao: int, dtype, steps=None, full=None):
     """(bound_ms, bound_by) of the Fermi fill of bsz fragments: the fill's
     operations (`_fill_ops`: the rows filled and the steps these inputs
-    need, counted on the plain version; steps=None gives the 80-step count)
-    at the vector rate, or eps, the mask, nelec and nuhf read once and f
-    and the entropy written once at the memory rate, whichever is
-    larger."""
-    ops = _fill_ops(nao, dtype, steps, bsz)
+    need, with and without a row sum, counted on the plain version;
+    steps=None gives the 80-step count) at the vector rate, or eps, the
+    mask, nelec and nuhf read once and f and the entropy written once at
+    the memory rate, whichever is larger."""
+    ops = _fill_ops(nao, dtype, steps, bsz, full=full)
     nbytes = bsz * (3 * nao + 3) * torch.finfo(dtype).bits // 8
     return _bound({"operations": ops / PEAK_VECTOR[dtype],
                    "bytes": nbytes / PEAK_BYTES})
 
 
-def fermi_density_bound(bsz: int, nao: int, dtype, steps):
-    """(bound_ms, bound_by) of the fused fill and density: the fill's
-    operations (no entropy) at the vector rate, P = C diag(f) C^T at 2
-    nao^3 FLOP per fragment at PEAK_FLOPS (FP64 on the tensor cores, FP32
-    outside them), or eps, the mask, nelec, nuhf and C read once and P
-    written once at the memory rate: the largest of the three."""
-    ops = _fill_ops(nao, dtype, steps, entropy=False)
-    flop = 2 * bsz * nao**3
+def fermi_density_bytes_ms(bsz: int, nao: int, dtype) -> float:
+    """eps, the mask, nelec, nuhf and C read once and P written once, at
+    the memory rate: ms."""
     nbytes = bsz * (2 * nao + 2 + 2 * nao * nao) * torch.finfo(dtype).bits // 8
+    return 1e3 * nbytes / PEAK_BYTES
+
+
+def fermi_density_bound(bsz: int, nao: int, dtype, steps=None, full=None):
+    """(bound_ms, bound_by) of the fused fill and density: the fill's
+    operations (no entropy; `_fill_ops`, steps=None the 80-step count) at
+    the vector rate, P = C diag(f) C^T at 2 nao^3 FLOP per fragment at
+    PEAK_FLOPS (FP64 on the tensor cores, FP32 outside them), or the
+    bytes (`fermi_density_bytes_ms`): the largest of the three."""
+    ops = _fill_ops(nao, dtype, steps, bsz, entropy=False, full=full)
+    flop = 2 * bsz * nao**3
     return _bound({"operations": max(ops / PEAK_VECTOR[dtype],
                                      flop / PEAK_FLOPS[dtype]),
-                   "bytes": nbytes / PEAK_BYTES})
+                   "bytes": fermi_density_bytes_ms(bsz, nao, dtype) / 1e3})
 
 
 def check(ok: bool, msg: str) -> None:
@@ -675,26 +699,76 @@ def fermi_inputs(rng, bsz: int, nao: int, dtype):
             for x in (eps, nelec, nuhf, mask)]
 
 
+def fermi_trace(ff, eps, nelec, nuhf, kt, mask):
+    """(steps, full): int (B, 2) steps each channel's bisection takes on
+    the plain arithmetic as the kernel takes them (`_bisect_skipping`),
+    and those of them that evaluate a row sum (the rest: runs of clamped
+    steps); 0 for a closed shell's beta channel, which is not filled."""
+    e2, n_ch, mask2 = ff._channels(eps, nelec, nuhf, mask)
+    e2 = torch.where(mask2 > 0.5, e2, 1.0e3)
+    _, _, steps, full = ff._bisect_skipping(e2, n_ch, kt, mask2)
+    bsz = eps.shape[0]
+    closed = nuhf == 0
+
+    def channels(x):
+        return torch.stack([x[:bsz], torch.where(closed, 0, x[bsz:])], -1)
+
+    return channels(steps), channels(full)
+
+
+def fermi_bits_check(ff):
+    """The Fermi kernels bit for bit the fingerprint of their versions
+    before the fused kernel's redesign and the runs of clamped steps
+    (commit bb294ac; `tests/data/fermi_bits.json`, written on the card
+    from that commit by `tools/fermi_bits_torch.py --write`): the fill's f,
+    entropy and steps at FERMI_SHAPES and the fused kernel's P at
+    DENSITY_SHAPES (and odd sizes at its classes' edges, and batches on
+    both sides of its launch thresholds), f64 and f32, 300 K and 5000 K, on
+    mixed, gapless and margin inputs."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import fermi_bits_torch as bits
+
+    fixture = bits.load_fixture()
+    want = {bits.key_of(entry, family, d, kelvin, shape)
+            for entry, shapes in (("fill", FERMI_SHAPES),
+                                  ("density", DENSITY_SHAPES))
+            for family in bits.FAMILIES for d in bits.DTYPES
+            for kelvin in bits.KELVIN for shape in shapes}
+    check(want <= set(fixture["cases"]), f"the Fermi fingerprint lacks "
+          f"{sorted(want - set(fixture['cases']))}")
+    t0 = time.perf_counter()
+    differ = bits.compare(ff, fixture)
+    check(not differ, f"the Fermi kernels' bits moved from the fingerprint:"
+                      f" {differ}")
+    print(f"fermi: {len(fixture['cases'])} cases bit for bit the fingerprint"
+          f" of {fixture['module']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
 def fermi_phase(ff, rng):
-    """The Fermi kernels against their plain versions. The fill
+    """The Fermi kernels against their plain versions. First their bits
+    against the fingerprint (`fermi_bits_check`). The fill
     (`fermi_occupations`): max |df| and max |d entropy| at every shape, the
     bisection steps the kernel took and the plain version needs (min and
-    max over the rows filled), both timed at FERMI_TIMED beside the bound
-    (`fermi_bound` on the plain version's steps, and the 80-step count). The
+    max over the rows filled) and, on the plain trace, those taken without
+    a row sum (runs of clamped steps), both timed at FERMI_TIMED beside the
+    bound (`fermi_bound` on the plain trace, and the 80-step count). The
     fused fill and density (`fermi_density`): max |dP| against
     `fermi_density_reference` at DENSITY_SHAPES, timed beside the fill and
-    the product it replaces in the SCC, the plain version and its bound.
+    the product it replaces in the SCC, the plain version and its bounds.
     Returns the JSON entry's numbers: times at the slice's (512, 16) in
     float64, the largest float64 differences over every shape."""
     from metalquicha_tpu_torch.constants import KB_HARTREE
 
+    fermi_bits_check(ff)
     kt = 300.0 * KB_HARTREE
     worst = worst_p = 0.0
     entry = {}
     print("fermi bound: the fill's operations over the rows filled and the "
-          "steps each needs on the plain version (a closed shell once); "
-          "the 80-step bound, 81 fills of both channels, printed beside it "
-          "as bound_80", flush=True)
+          "steps each needs on the plain version (a closed shell once), a "
+          "step of a run of clamped ones as the scalar step it is; the "
+          "80-step bound, 81 fills of both channels, printed beside it as "
+          "bound_80", flush=True)
     for dtype in (torch.float64, torch.float32):
         tol_f, tol_s = FERMI_TOL[dtype]
         taken = []
@@ -712,7 +786,7 @@ def fermi_phase(ff, rng):
             f_k, s_k, steps_k = ff.fermi_occupations_steps(eps, nelec, nuhf,
                                                            kt, mask)
             f_p, s_p = plain()
-            steps_p = ff.fermi_steps_reference(eps, nelec, nuhf, kt, mask)
+            steps_p, full_p = fermi_trace(ff, eps, nelec, nuhf, kt, mask)
             torch.cuda.synchronize()
             d_f = float((f_k - f_p).abs().max())
             d_s = float((s_k - s_p).abs().max())
@@ -726,19 +800,24 @@ def fermi_phase(ff, rng):
                     f" max|ds|={d_s:.2e} |sum f - nelec|={n_el:.2e} "
                     f"fractional rows={frac} steps kernel "
                     f"{int(filled_k.min())}-{int(filled_k.max())} plain "
-                    f"{int(filled_p.min())}-{int(filled_p.max())}")
+                    f"{int(filled_p.min())}-{int(filled_p.max())}, full "
+                    f"{int(full_p.sum())} skipped "
+                    f"{int((steps_p - full_p).sum())}")
             if (bsz, nao) in FERMI_TIMED:
                 t_p = cuda_ms(plain, 3)
                 t_k = cuda_ms(kernel, 50)
                 t_k2 = cuda_ms(kernel, 50)
                 t_p2 = cuda_ms(plain, 3)
                 t_k, t_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
-                bound, bound_by = fermi_bound(bsz, nao, dtype, steps_p)
+                bound, bound_by = fermi_bound(bsz, nao, dtype, steps_p,
+                                              full_p)
                 bound80, _ = fermi_bound(bsz, nao, dtype)
                 line += (f" | ms: kernel={t_k:.4f} plain={t_p:.4f} "
                          f"bound={bound:.5f} ({bound_by}) "
                          f"share={bound / t_k:.4f} bound_80={bound80:.5f} "
                          f"share_80={bound80 / t_k:.4f} library=none")
+                check(bound <= t_k, f"fermi fill faster than its bound at "
+                                    f"B={bsz} nao={nao} {dtype}")
                 if dtype == torch.float64 and (bsz, nao) == (512, 16):
                     entry = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
                              "bound_by": bound_by, "library_ms": None}
@@ -781,23 +860,31 @@ def fermi_phase(ff, rng):
             p_p = plain()
             torch.cuda.synchronize()
             d_p = float((p_k - p_p).abs().max())
-            steps_p = ff.fermi_steps_reference(eps, nelec, nuhf, kt, mask)
+            steps_p, full_p = fermi_trace(ff, eps, nelec, nuhf, kt, mask)
             t_p = cuda_ms(plain, 3)
-            t_k = cuda_ms(fused, 50)
-            t_two = cuda_ms(fill_and_product, 50)
-            t_k2 = cuda_ms(fused, 50)
+            t_k = graph_ms(fused, 50)
+            t_two = graph_ms(fill_and_product, 50)
+            t_k2 = graph_ms(fused, 50)
             t_p2 = cuda_ms(plain, 3)
             t_k, t_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
-            bound, bound_by = fermi_density_bound(bsz, nao, dtype, steps_p)
-            print(f"fermi density {str(dtype)[6:]} B={bsz} nao={nao}: "
-                  f"max|dP|={d_p:.2e} (tol {tol:.0e}) | ms: kernel={t_k:.4f}"
-                  f" fill+product={t_two:.4f} plain={t_p:.4f} "
-                  f"bound={bound:.5f} ({bound_by}) share={bound / t_k:.4f} "
+            bound, bound_by = fermi_density_bound(bsz, nao, dtype, steps_p,
+                                                  full_p)
+            bound80, _ = fermi_density_bound(bsz, nao, dtype)
+            print(f"fermi density {str(dtype)[6:]} B={bsz} nao={nao} (class "
+                  f"{ff.density_class(nao)}): max|dP|={d_p:.2e} (tol "
+                  f"{tol:.0e}) steps full {int(full_p.sum())} skipped "
+                  f"{int((steps_p - full_p).sum())} | ms (graph-replayed): "
+                  f"kernel={t_k:.4f} fill+product={t_two:.4f} "
+                  f"plain={t_p:.4f} bound={bound:.5f} ({bound_by}) "
+                  f"share={bound / t_k:.4f} bound_80={bound80:.5f} "
+                  f"bytes={fermi_density_bytes_ms(bsz, nao, dtype):.5f} "
                   f"library=none", flush=True)
             check(d_p <= tol, f"fused density vs plain {d_p:.3e} > {tol:.0e}"
                               f" at B={bsz} nao={nao} {dtype}")
             check(bool(torch.isfinite(p_k).all()),
                   f"fused density: non-finite output at B={bsz} nao={nao}")
+            check(bound <= t_k, f"fused density faster than its bound at "
+                                f"B={bsz} nao={nao} {dtype}")
             if dtype == torch.float64:
                 worst_p = max(worst_p, d_p)
                 if (bsz, nao) == (512, 16):
@@ -3768,6 +3855,7 @@ def main() -> int:
 
     jac.launches = 0
     ff.launches = ff.density_launches = 0
+    ff.density_by_class.clear()
     aw.launches = 0
     fm.launches_by_kind.clear()
     fr.launches_by_kind.clear()
@@ -3865,8 +3953,11 @@ def main() -> int:
         check(fr.launches_by_kind[name] > 0,
               f"the main path launched no {name} kernel")
     print(f"main path: call stages (captured, hits)={stages}", flush=True)
+    density_classes = dict(sorted(ff.density_by_class.items()))
     print(f"main path: fused fill and density launches (among the fermi "
-          f"launches)={ff.density_launches} {density}", flush=True)
+          f"launches)={ff.density_launches} {density}; by class of nao "
+          f"(16: a warp a fragment, 32, 64: a block) {density_classes}",
+          flush=True)
     print(f"main path: SCC graphs captured={scc_graph.stats['captures']} "
           f"{captures}, cache hits={scc_graph.stats['hits']} {hits}, "
           f"evictions={scc_graph.stats['evictions']}, "
@@ -3910,6 +4001,7 @@ def main() -> int:
         # product at metalquicha_tpu/methods/xtb/engine.py:787-793): its
         # launches are among `launches`
         "density_launches": ff.density_launches,
+        "density_launches_by_class": density_classes,
         "density_max_abs_err": fermi_entry["density_max_abs_err"],
         "density_ms": fermi_entry["density_ms"],
         "density_fill_product_ms": fermi_entry["density_fill_product_ms"],

@@ -24,6 +24,7 @@ where it uses them, as the JAX package stops their gradients.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 
@@ -38,11 +39,18 @@ launches = 0
 launches_by_stream: dict = {}
 #: of `launches`, those of the fused fill and density (`fermi_density`)
 density_launches = 0
+#: the same by class of nao (`density_class`): 16, 32 and 64
+density_by_class: collections.Counter = collections.Counter()
 #: the largest nao `fermi_density` takes (its C tile in shared memory)
 DENSITY_MAX_N = 64
 #: bisection steps of the JAX function (the kernel stops earlier once a
-#: step leaves the bracket unchanged: every later step would repeat it)
+#: step leaves the bracket unchanged: every later step would repeat it,
+#: and takes runs of steps whose exponents are all clamped without a row
+#: sum: `_bisect_skipping`)
 STEPS = 80
+#: a run of clamped steps starts only from a step whose bracket is at
+#: least this many clamp margins wide (the kernel's kRunWidth)
+RUN_WIDTH = 32
 
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
 _FILL = [_ptr, _ptr, _ptr, _ptr, ctypes.c_double, _ptr, _ptr, _ptr, _int,
@@ -92,6 +100,87 @@ def _bisect(e, n_el, kt, ao_mask, trace=False):
     if trace:
         return lo, hi, lo_stop, hi_stop, steps
     return lo, hi
+
+
+def clamp_margins(kt, dtype, device="cpu"):
+    """(hi, lo): the least m > 0 of `dtype` with m / kt >= 60, and with
+    -m / kt <= -60, by the division `_bisect` makes on `device`, stepped
+    an ulp at a time from 60 kt (the kernel's `Margins` tests 32 ulps at
+    once); NaN where kt is not positive and finite or none is found
+    within 64 ulps. A level d = e - mid above mid has its exponent clamped
+    to 60 where d >= hi, to -60 where d <= -lo."""
+    def full(value):
+        return torch.full((1,), value, dtype=dtype, device=device)
+
+    inf, zero = full(float("inf")), full(0.0)
+    if not 0.0 < kt < float("inf"):
+        return full(float("nan")), full(float("nan"))
+    out = []
+    for sign in (1.0, -1.0):
+        def past(m):
+            return bool(sign * ((sign * m) / kt) >= 60.0)
+
+        m = full(60.0) * full(kt)
+        n = 0
+        while n < 64 and not past(m):
+            m, n = torch.nextafter(m, inf), n + 1
+        while n < 64 and past(torch.nextafter(m, zero)):
+            m, n = torch.nextafter(m, zero), n + 1
+        out.append(m if past(m) else full(float("nan")))
+    return out[0], out[1]
+
+
+def _bisect_skipping(e, n_el, kt, ao_mask, run_width=RUN_WIDTH):
+    """`_bisect`'s steps as the kernel takes them: a step where every
+    level's exponent was clamped (`clamp_margins`), taken from a bracket
+    at least `run_width` margins wide, is followed by the run of steps
+    whose mid leaves the lowest level clamped to 60 (eh) and the highest
+    clamped to -60 (el) on their sides, each given that step's decision
+    without a row sum; every other step evaluates. Returns (lo,
+    hi, steps, full) at the first step that left (lo, hi) unchanged (the
+    80th at most): `full` counts the steps that evaluated a row sum. Plain
+    version of the kernel's control flow, for tests: bit for bit
+    `_bisect(trace=True)`'s stop state and steps."""
+    big = 1.0e3
+    m_hi, m_lo = clamp_margins(kt, e.dtype, e.device)
+    rows = e.shape[0]
+    lo = e.min(-1).values - 10.0
+    hi = torch.where(ao_mask > 0.5, e, -big).max(-1).values + 10.0
+    steps = torch.zeros(rows, dtype=torch.int32, device=e.device)
+    full = torch.zeros_like(steps)
+    done = torch.zeros(rows, dtype=torch.bool, device=e.device)
+    run = torch.zeros_like(done)
+    run_many = torch.zeros_like(done)
+    eh = torch.full_like(lo, float("inf"))
+    el = torch.full_like(lo, -float("inf"))
+    for _ in range(STEPS):
+        mid = 0.5 * (lo + hi)
+        wide = hi - lo >= run_width * m_hi
+        skip = run & (eh - mid >= m_hi) & (el - mid <= -m_lo)
+        d = e - mid[:, None]
+        x = torch.clamp(d / kt, -60.0, 60.0)
+        many_eval = (1.0 / (1.0 + torch.exp(x))).sum(-1) > n_el
+        too_many = torch.where(skip, run_many, many_eval)
+        new_lo = torch.where(too_many, lo, mid)
+        new_hi = torch.where(too_many, mid, hi)
+        active = ~done
+        steps = steps + active.to(torch.int32)
+        full = full + (active & ~skip).to(torch.int32)
+        # NaN never compares equal: a NaN row runs every step
+        stop = (new_lo == lo) & (new_hi == hi)
+        lo = torch.where(active, new_lo, lo)
+        hi = torch.where(active, new_hi, hi)
+        done = done | (active & stop)
+        high = d >= m_hi
+        start = (active & ~skip & ~done & wide
+                 & (high | (d <= -m_lo)).all(-1))
+        eh = torch.where(start, torch.where(high, e, float("inf")).min(
+            -1).values, eh)
+        el = torch.where(start, torch.where(high, -float("inf"), e).max(
+            -1).values, el)
+        run_many = torch.where(start, many_eval, run_many)
+        run = (skip | start) & ~done
+    return lo, hi, steps, full
 
 
 def _fermi_fill(eps, n_el, kt, ao_mask):
@@ -152,25 +241,39 @@ def build() -> ctypes.CDLL:
     return _LIB.load()
 
 
-def _count(stream: int, n: int = 1, density: bool = False) -> None:
-    """Count n launches on `stream` (under capture, hand them to the
-    capture's tally: each replay counts them)."""
+def density_class(nao: int) -> int:
+    """The fused kernel's class of nao: 16 (a warp a fragment), 32 (f64
+    from 16 fragments a multiprocessor a warp a fragment, else a block of
+    two warps) or 64 (a block of eight warps up to 3 fragments a
+    multiprocessor, else of two)."""
+    return 16 if nao <= 16 else (32 if nao <= 32 else 64)
+
+
+def _count(stream: int, n: int = 1, density: bool = False,
+           nao_class: int = 0) -> None:
+    """Count n launches on `stream`, fused ones of class `nao_class` where
+    `density` (under capture, hand them to the capture's tally: each
+    replay counts them)."""
     global launches, density_launches
-    if replay_counts.record(_count, density):
+    if replay_counts.record(_count, density, nao_class):
         return
     with _count_lock:
         launches += n
         density_launches += n * density
+        if density and nao_class:
+            density_by_class[nao_class] += n
         launches_by_stream[stream] = launches_by_stream.get(stream, 0) + n
 
 
-def add_launches(n: int, density: int = 0) -> None:
+def add_launches(n: int, density: int = 0, by_class=None) -> None:
     """Add launches made in another process (a mesh slot's worker) to the
-    counts: n in all, `density` of them fused."""
+    counts: n in all, `density` of them fused, `by_class` those by class
+    of nao."""
     global launches, density_launches
     with _count_lock:
         launches += n
         density_launches += density
+        density_by_class.update(by_class or {})
 
 
 def _fn(name: str):
@@ -236,7 +339,7 @@ def _launch_density(eps, C, nelec, nuhf, kt, ao_mask):
              nuhf.data_ptr(), float(kt), C.data_ptr(), P.data_ptr(), bsz,
              nao, index, stream)
     _LIB.check(err, "Fermi density kernel")
-    _count(stream, density=True)
+    _count(stream, density=True, nao_class=density_class(nao))
     return P
 
 

@@ -288,7 +288,8 @@ class SlotWorker:
         self.modules, self.build_dir = stats["modules"], stats["build_dir"]
         jacobi_eigh.add_launches(stats["launches"])
         fermi_fill.add_launches(stats["fermi_launches"],
-                                stats["density_launches"])
+                                stats["density_launches"],
+                                stats.get("density_by_class"))
         sp2.add_calls(stats["sp2_calls"])
         anderson_window.add_launches(stats["window_launches"])
         fragment_gemm.add_launches(stats["gemm_by_kind"])
@@ -480,6 +481,7 @@ class _Slot:
             self.configure(config)
         n0, s0 = jacobi_eigh.launches, sp2.calls
         m0, d0 = fermi_fill.launches, fermi_fill.density_launches
+        c0 = collections.Counter(fermi_fill.density_by_class)
         w0 = anderson_window.launches
         k0 = collections.Counter(fragment_gemm.launches_by_kind)
         r0 = collections.Counter(fragment_reduce.launches_by_kind)
@@ -508,6 +510,8 @@ class _Slot:
         return parts, dict(self.stats(), launches=jacobi_eigh.launches - n0,
                            fermi_launches=fermi_fill.launches - m0,
                            density_launches=fermi_fill.density_launches - d0,
+                           density_by_class=dict(
+                               fermi_fill.density_by_class - c0),
                            window_launches=anderson_window.launches - w0,
                            gemm_by_kind=dict(
                                fragment_gemm.launches_by_kind - k0),

@@ -109,7 +109,8 @@ def _port_sources():
     yield os.path.join(REPO, "bench_torch.py")
     for tool in ("run_validation_torch", "fit_gfn1_torch",
                  "fit_gfn2_w1_torch", "fit_solvation_torch", "h100_accuracy",
-                 "c17_probe_torch", "gemm_bits_torch", "kernel_times_torch"):
+                 "c17_probe_torch", "gemm_bits_torch", "kernel_times_torch",
+                 "fermi_bits_torch", "fermi_variants_torch"):
         yield os.path.join(REPO, "tools", tool + ".py")
     for root, _dirs, files in os.walk(PKG):
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))

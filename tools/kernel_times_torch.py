@@ -36,14 +36,22 @@ the engine's dispatch (`_mm`, `_sandwich`, `_matvec`: the kernel in a tree
 whose op takes the sizes, torch.matmul in one whose op does not) beside
 torch.matmul and the bound; section "sp2" SP2's density (`sp2_density`,
 48 iterations, closed shell) at `SP2` in float32 on the ops of the tree
-(or on its torch.matmul), beside its FLOP bound.
+(or on its torch.matmul), beside its FLOP bound. Section "fermi" times
+the Fermi kernels on `chip_smoke.fermi_inputs`' batches at 300 K, f64
+and f32: the fill (`fermi_occupations`) at `chip_smoke.FERMI_TIMED`, and
+the fused fill and density (`fermi_density`) at `FERMI_DENSITY` (the
+main path's shapes and other batch sizes of each class) beside the fill
+and torch's product it replaced and, in a tree
+with the plain skipping bisection, the bounds (`chip_smoke.fermi_bound`,
+`fermi_density_bound` on its steps) and the steps taken with and without
+a row sum.
 
 With an older checkout first on PYTHONPATH (unpacked with `git archive`
 into the gitignored `_archive/`), it times that checkout's kernels; the
 product kernel where the checkout has one.
 
 Usage: python3 tools/kernel_times_torch.py [--reps N] [--sections
-window,gemm,reduce,rows,fock,pair,wide,sp2] [--json-out F]
+window,gemm,reduce,rows,fock,pair,wide,sp2,fermi] [--json-out F]
 It prints a line per shape (per form in "reduce") and one JSON line.
 """
 
@@ -83,6 +91,13 @@ WIDE = (("mm", 41, 241, 241, 241), ("mm", 64, 256, 256, 256),
 #: (B, n, real states) of SP2's density: the dodecamers' bucket and
 #: bench.py's (64, 256)
 SP2 = ((16, 96, 72), (64, 256, 240))
+#: (B, nao) of the fused fill and density: chip_smoke.DENSITY_SHAPES, then
+#: GFN2's chunk of 1767 dimers and a batch past it at 16, batches on both
+#: sides of the rows of 32 a half-warp (1024, 1584) and the hexamers'
+#: (64, 48)
+FERMI_DENSITY = ((512, 16), (190, 16), (20, 11), (2581, 32), (5985, 32),
+                 (128, 64), (1767, 16), (4096, 16), (1024, 32), (1584, 32),
+                 (64, 48))
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # after an older checkout on PYTHONPATH, so that its package comes first
 if ROOT not in sys.path:
@@ -343,6 +358,62 @@ def sp2_times(reps: int) -> list:
     return out
 
 
+def fermi_times(reps: int) -> list:
+    """The Fermi kernels of the tree first on the path at 300 K, float64
+    and float32, graph-replayed ms: the fill at chip_smoke.FERMI_TIMED,
+    the fused fill and density at FERMI_DENSITY beside the fill and
+    torch's product (`fill_matmul_ms`);
+    bounds and steps where the tree has the plain skipping bisection."""
+    cs = chip_smoke()
+    ff = importlib.import_module("metalquicha_tpu_torch.ops.fermi_fill")
+    ff.build()
+    from metalquicha_tpu_torch.constants import KB_HARTREE
+
+    kt = 300.0 * KB_HARTREE
+    rng = np.random.default_rng(23)
+    traced = hasattr(ff, "_bisect_skipping")
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for bsz, nao in cs.FERMI_TIMED:
+            eps, nelec, nuhf, mask = cs.fermi_inputs(rng, bsz, nao, dtype)
+            rec = {"entry": "fill", "dtype": tag, "shape": [bsz, nao],
+                   "ms": graph_ms(lambda: ff.fermi_occupations(
+                       eps, nelec, nuhf, kt, mask), reps)}
+            if traced:
+                steps, full = cs.fermi_trace(ff, eps, nelec, nuhf, kt, mask)
+                rec.update(steps=int(steps.sum()), full=int(full.sum()),
+                           bound_ms=cs.fermi_bound(bsz, nao, dtype, steps,
+                                                   full)[0])
+            out.append(rec)
+            print(f"fermi fill {tag} {bsz}x{nao}: {rec}", flush=True)
+        for bsz, nao in FERMI_DENSITY:
+            eps, nelec, nuhf, mask = cs.fermi_inputs(rng, bsz, nao, dtype)
+            c = torch.tensor(rng.standard_normal((bsz, nao, nao))
+                             / np.sqrt(nao), dtype=dtype, device="cuda")
+
+            def fill_matmul():
+                f, _ = ff.fermi_occupations(eps, nelec, nuhf, kt, mask)
+                return (c * f[:, None, :]) @ c.transpose(-1, -2)
+
+            def fused():
+                return ff.fermi_density(eps, c, nelec, nuhf, kt, mask)
+
+            rec = {"entry": "density", "dtype": tag, "shape": [bsz, nao],
+                   "fill_matmul_ms": graph_ms(fill_matmul, reps),
+                   "ms": graph_ms(fused, reps)}
+            if traced:
+                steps, full = cs.fermi_trace(ff, eps, nelec, nuhf, kt, mask)
+                rec.update(steps=int(steps.sum()), full=int(full.sum()),
+                           bound_ms=cs.fermi_density_bound(
+                               bsz, nao, dtype, steps, full)[0],
+                           bytes_ms=cs.fermi_density_bytes_ms(bsz, nao,
+                                                              dtype))
+            out.append(rec)
+            print(f"fermi density {tag} {bsz}x{nao}: {rec}", flush=True)
+    return out
+
+
 def row_times(reps: int) -> list:
     """fragment_sum over (rows, length) tensors at
     chip_smoke.ROW_SUM_CASES, float64 and float32: the kernel's and torch's
@@ -455,6 +526,8 @@ def main(argv=None) -> int:
         result["wide"] = wide_times(args.reps)
     if "sp2" in sections:
         result["sp2"] = sp2_times(args.reps)
+    if "fermi" in sections:
+        result["fermi"] = fermi_times(args.reps)
     line = json.dumps(result)
     print(line, flush=True)
     if args.json_out:
